@@ -1,0 +1,57 @@
+// Shared helpers of the port's CUDA kernels: element conversion to and
+// from fp32, and warp/block reductions. Element type codes used by every
+// C entry point: 0 = float32, 1 = bfloat16.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace pt {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum of v over the block; blockDim.x must be a multiple of 32. Every
+// thread gets the total.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float partial[32];
+  __shared__ float total;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) partial[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    float w = lane < nw ? partial[lane] : 0.f;
+    w = warp_sum(w);
+    if (lane == 0) total = w;
+  }
+  __syncthreads();
+  return total;
+}
+
+}  // namespace pt

@@ -1,0 +1,354 @@
+"""Llama-family decoder-only transformer, inference paths (counterpart of
+``paddle_tpu/models/llama.py``).
+
+Weights keep the JAX package's ``[in, out]`` layout and names
+(``qkv_proj``, ``o_proj``, ``gate_up_proj``, ``down_proj``,
+``embed_tokens``, ``lm_head``), so carrying weights across is a copy
+(``paddle_tpu_torch.convert``). Activations run in ``cfg.dtype``; norm
+weights and statistics stay fp32.
+
+Ported here: ``forward`` (logits, no loss) and the paged-KV serving trio
+``alloc_paged_caches`` / ``prefill_paged`` / ``decode_step_paged``. The
+page pools are updated IN PLACE (``index_put_``) where JAX returns new
+arrays; the methods still return the pools so callers read the same.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import dtype_of, generator as make_generator, resolve_device
+from ..nn import RMSNorm
+from ..nn.initializer import Normal
+from ..ops import rope as rope_ops
+from ..ops.attention import paged_decode_attention, sdpa_plain
+
+Pool = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclass
+class LlamaConfig:
+    """The inference fields of ``paddle_tpu.models.llama.LlamaConfig``
+    with the same defaults and presets (whose fields a keyword may
+    override, e.g. ``llama3_8b(num_hidden_layers=2)``); the training and
+    quantized-serving fields arrive with their slices."""
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    initializer_range: float = 0.02
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.hidden_size % self.num_attention_heads:
+            raise ValueError("hidden_size must be divisible by "
+                             "num_attention_heads")
+        if self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError("num_attention_heads must be a multiple of "
+                             "num_key_value_heads")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @staticmethod
+    def llama3_8b(**kw) -> "LlamaConfig":
+        defaults = dict(vocab_size=128256, hidden_size=4096,
+                        intermediate_size=14336, num_hidden_layers=32,
+                        num_attention_heads=32, num_key_value_heads=8,
+                        max_position_embeddings=8192, rope_theta=500000.0)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def llama3_70b(**kw) -> "LlamaConfig":
+        defaults = dict(vocab_size=128256, hidden_size=8192,
+                        intermediate_size=28672, num_hidden_layers=80,
+                        num_attention_heads=64, num_key_value_heads=8,
+                        max_position_embeddings=8192, rope_theta=500000.0)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+    @staticmethod
+    def tiny(**kw) -> "LlamaConfig":
+        defaults = dict(vocab_size=512, hidden_size=128, intermediate_size=384,
+                        num_hidden_layers=2, num_attention_heads=4,
+                        num_key_value_heads=2, max_position_embeddings=256)
+        defaults.update(kw)
+        return LlamaConfig(**defaults)
+
+
+def parameter_shapes(cfg: LlamaConfig):
+    """{state_dict name: (shape, is_norm)} of ``LlamaForCausalLM(cfg)`` —
+    the names and ``[in, out]`` shapes of the JAX model's state_dict.
+    Norm weights are fp32 whatever ``cfg.dtype`` is."""
+    d, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+    out = {}
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = ((d, v), False)
+    out["model.embed_tokens"] = ((v, d), False)
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        out[p + "input_layernorm.weight"] = ((d,), True)
+        out[p + "self_attn.qkv_proj"] = ((d, (n_h + 2 * n_kv) * hd), False)
+        out[p + "self_attn.o_proj"] = ((n_h * hd, d), False)
+        out[p + "post_attention_layernorm.weight"] = ((d,), True)
+        out[p + "mlp.gate_up_proj"] = ((d, 2 * m), False)
+        out[p + "mlp.down_proj"] = ((m, d), False)
+    out["model.norm.weight"] = ((d,), True)
+    return out
+
+
+class _Init:
+    """Where, in what type and from which generator a model's parameters
+    are drawn: one object threaded through every constructor."""
+
+    def __init__(self, cfg: LlamaConfig, device, dtype, generator):
+        self.device = resolve_device(device)
+        self.dtype = dtype_of(dtype if dtype is not None else cfg.dtype)
+        self.generator = (generator if generator is not None
+                          else make_generator(0, self.device))
+        self.normal = Normal(0.0, cfg.initializer_range)
+
+    def weight(self, *shape) -> nn.Parameter:
+        return nn.Parameter(self.normal(shape, self.dtype, self.device,
+                                        self.generator))
+
+
+def _kv_scatter_pages(kv: Pool, phys: torch.Tensor, k_tiles: torch.Tensor,
+                      v_tiles: torch.Tensor) -> Pool:
+    """Full-page write (prefill): ``phys`` [P] physical page ids, tiles
+    [n_kv, P, page, hd]. In place."""
+    kp, vp = kv
+    kp[:, phys] = k_tiles.to(kp.dtype)
+    vp[:, phys] = v_tiles.to(vp.dtype)
+    return kv
+
+
+def _kv_scatter_tokens(kv: Pool, phys: torch.Tensor, off: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor) -> Pool:
+    """Token-slot write (decode): ``phys``/``off`` [b] physical page and
+    in-page offset per token; ``k_new``/``v_new`` [n_kv, b, hd]. In
+    place."""
+    kp, vp = kv
+    kp[:, phys, off] = k_new.to(kp.dtype)
+    vp[:, phys, off] = v_new.to(vp.dtype)
+    return kv
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        self.cfg = cfg
+        d, hd = cfg.hidden_size, cfg.head_dim
+        n_h, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+        self.qkv_proj = init.weight(d, (n_h + 2 * n_kv) * hd)
+        self.o_proj = init.weight(n_h * hd, d)
+
+    def _qkv_rope(self, x, cos, sin, position_ids=None):
+        """Fused QKV projection + head split + rotary embedding. q, k and
+        v are views of the one projection output; the RoPE kernel reads
+        q and k through their strides."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                         cfg.head_dim)
+        qkv = torch.matmul(x, self.qkv_proj.to(x.dtype))
+        q, k, v = torch.split(qkv, [n_h * hd, n_kv * hd, n_kv * hd], dim=-1)
+        q = q.view(b, s, n_h, hd)
+        k = k.view(b, s, n_kv, hd)
+        v = v.view(b, s, n_kv, hd)
+        q, k = rope_ops.apply_rotary_pos_emb(q, k, cos, sin, position_ids)
+        return q, k, v
+
+    def _out(self, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        b, s = attn.shape[:2]
+        return torch.matmul(attn.reshape(b, s, -1).to(x.dtype),
+                            self.o_proj.to(x.dtype))
+
+    def forward(self, x, cos, sin):
+        q, k, v = self._qkv_rope(x, cos, sin)
+        return self._out(sdpa_plain(q, k, v, causal=True), x)
+
+    def prefill_paged(self, x, cos, sin, kv: Pool, tables: torch.Tensor):
+        """Prompt pass writing K/V into head-major page pools
+        [H_kv, num_pages, page_size, hd] through ``tables``
+        [b, max_pages]. The prompt is padded up to a page multiple inside
+        the pool; padded slots lie beyond seq_len and are overwritten by
+        decode before anything attends to them."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
+        page = kv[0].shape[2]
+        q, k, v = self._qkv_rope(x, cos, sin)
+        out = self._out(sdpa_plain(q, k, v, causal=True), x)
+        np_ = -(-s // page)
+        pad = np_ * page - s
+
+        def tiles(new):
+            padded = F.pad(new, (0, 0, 0, 0, 0, pad))
+            return padded.reshape(b, np_, page, n_kv, hd).permute(
+                3, 0, 1, 2, 4).reshape(n_kv, b * np_, page, hd)
+        kv = _kv_scatter_pages(kv, tables[:, :np_].reshape(-1).long(),
+                               tiles(k), tiles(v))
+        return out, kv
+
+    def decode_paged(self, x, cos, sin, pos: torch.Tensor, kv: Pool,
+                     tables: torch.Tensor):
+        """One-token step over the page pools: writes the new K/V into the
+        slot for position ``pos`` [b] and attends positions 0..pos through
+        the paged decode kernel (its plain version on the CPU)."""
+        b = x.shape[0]
+        page = kv[0].shape[2]
+        q, k, v = self._qkv_rope(x, cos, sin, pos.view(b, 1))
+        b_idx = torch.arange(b, device=x.device)
+        # clamped as a JAX gather clamps: an idle slot whose request ended
+        # at max_len sits one position past its last page
+        lp = (pos // page).clamp_max(tables.shape[1] - 1)
+        phys = tables[b_idx, lp].long()
+        off = pos % page
+        kv = _kv_scatter_tokens(kv, phys, off, k[:, 0].transpose(0, 1),
+                                v[:, 0].transpose(0, 1))
+        out = paged_decode_attention(q[:, 0].contiguous(), kv[0], kv[1],
+                                     tables, pos)
+        return self._out(out.reshape(b, 1, -1), x), kv
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        d, m = cfg.hidden_size, cfg.intermediate_size
+        self.gate_up_proj = init.weight(d, 2 * m)
+        self.down_proj = init.weight(m, d)
+
+    def forward(self, x):
+        gu = torch.matmul(x, self.gate_up_proj.to(x.dtype))
+        g, u = gu.chunk(2, dim=-1)
+        return torch.matmul(F.silu(g) * u, self.down_proj.to(x.dtype))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig, init: _Init):
+        super().__init__()
+        self.cfg = cfg
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
+                                       device=init.device, dtype="float32")
+        self.self_attn = LlamaAttention(cfg, init)
+        self.post_attention_layernorm = RMSNorm(
+            cfg.hidden_size, cfg.rms_norm_eps, device=init.device,
+            dtype="float32")
+        self.mlp = LlamaMLP(cfg, init)
+
+    def forward(self, x, cos, sin):
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None,
+                 init: Optional[_Init] = None):
+        super().__init__()
+        init = init or _Init(cfg, device, dtype, generator)
+        self.cfg = cfg
+        self.embed_tokens = init.weight(cfg.vocab_size, cfg.hidden_size)
+        self.layers = nn.ModuleList([LlamaDecoderLayer(cfg, init)
+                                     for _ in range(cfg.num_hidden_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
+                            device=init.device, dtype="float32")
+        cos, sin = rope_ops.rope_freqs(cfg.head_dim,
+                                       cfg.max_position_embeddings,
+                                       cfg.rope_theta, device=init.device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        x = F.embedding(input_ids, self.embed_tokens)
+        for layer in self.layers:
+            x = layer(x, self.rope_cos, self.rope_sin)
+        return self.norm(x)
+
+    # -- paged-KV (vLLM-style) inference paths ------------------------------
+
+    def alloc_paged_caches(self, batch: int, max_len: int,
+                           page_size: int = 128
+                           ) -> Tuple[List[Pool], torch.Tensor]:
+        """Per-layer head-major page pools (zeros) + a block table that
+        gives each sequence its pages contiguously."""
+        cfg = self.cfg
+        pages_per_seq = -(-max_len // page_size)
+        num_pages = batch * pages_per_seq
+        shape = (cfg.num_key_value_heads, num_pages, page_size,
+                 cfg.head_dim)
+        dev, dt = self.embed_tokens.device, self.embed_tokens.dtype
+        pools = [(torch.zeros(shape, dtype=dt, device=dev),
+                  torch.zeros(shape, dtype=dt, device=dev))
+                 for _ in range(cfg.num_hidden_layers)]
+        tables = torch.arange(num_pages, dtype=torch.int32,
+                              device=dev).reshape(batch, pages_per_seq)
+        return pools, tables
+
+    def prefill_paged(self, input_ids, pools: List[Pool], tables):
+        x = F.embedding(input_ids, self.embed_tokens)
+        for layer, kv in zip(self.layers, pools):
+            a, _ = layer.self_attn.prefill_paged(
+                layer.input_layernorm(x), self.rope_cos, self.rope_sin, kv,
+                tables)
+            h = x + a
+            x = h + layer.mlp(layer.post_attention_layernorm(h))
+        return self.norm(x), pools
+
+    def decode_step_paged(self, token_ids, pos, pools: List[Pool], tables):
+        """token_ids [b], pos [b] int64 → (hidden [b, 1, d], pools)."""
+        x = F.embedding(token_ids[:, None], self.embed_tokens)
+        for layer, kv in zip(self.layers, pools):
+            a, _ = layer.self_attn.decode_paged(
+                layer.input_layernorm(x), self.rope_cos, self.rope_sin, pos,
+                kv, tables)
+            h = x + a
+            x = h + layer.mlp(layer.post_attention_layernorm(h))
+        return self.norm(x), pools
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama with its vocabulary head. ``device`` defaults to the CUDA
+    card (raising where there is none); ``dtype`` to ``cfg.dtype``;
+    parameters are drawn from ``generator`` (a generator seeded with 0 on
+    ``device`` when None)."""
+
+    def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        init = _Init(cfg, device, dtype, generator)
+        self.cfg = cfg
+        if not cfg.tie_word_embeddings:
+            self.lm_head = init.weight(cfg.hidden_size, cfg.vocab_size)
+        else:
+            self.lm_head = None
+        self.model = LlamaModel(cfg, init=init)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        w = (self.model.embed_tokens.t() if self.cfg.tie_word_embeddings
+             else self.lm_head)
+        return torch.matmul(hidden, w.to(hidden.dtype))
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids [b, s] → logits [b, s, vocab] (causal LM head)."""
+        return self.logits(self.model(input_ids))
+
+
+__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
+           "LlamaModel", "LlamaForCausalLM", "parameter_shapes"]

@@ -1,0 +1,170 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``.cu`` file under ``paddle_tpu_torch/csrc/`` is compiled with
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` into one shared
+library with a plain C interface, loaded with ``ctypes``. The sources
+are compiled to objects in parallel (one ``nvcc`` per file, all started
+together), then linked by one ``nvcc -shared`` call. The library lives
+under ``build/torch_kernels/`` at the repository root and its file name
+carries a hash of the sources and flags, so an edited source is rebuilt
+at its first use and an unchanged one is loaded as it is.
+
+Nothing here runs at import: the first kernel launch builds and loads.
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` raises when that is not 0.
+
+Each wrapper counts its launches in :data:`LAUNCHES`, adding one where
+it launches its kernel and nowhere else, so a run can show which kernels
+its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
+
+LAUNCHES: Dict[str, int] = {"rms_norm": 0, "fused_rope": 0,
+                            "paged_decode": 0}
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_LOG: Dict[str, object] = {}
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libpaddle_tpu_torch_kernels-{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library of their hash exists; returns
+    its path. Raises with nvcc's output when a compile fails."""
+    out = library_path()
+    if out.exists():
+        BUILD_LOG.update(seconds=0.0, cached=True, path=str(out))
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    stage = BUILD_DIR / f"stage-{os.getpid()}-{time.time_ns()}"
+    stage.mkdir()
+    t0 = time.perf_counter()
+    try:
+        procs = []
+        for src in sources():
+            obj = stage / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = {}, []
+        for src, _, p in procs:
+            text, _ = p.communicate()
+            logs[src.name] = text
+            if p.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                               + "\n".join(logs[n] for n in failed))
+        tmp = stage / out.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-Xcompiler", "-fPIC", "-o",
+             str(tmp),
+             *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(stage, ignore_errors=True)
+    BUILD_LOG.update(seconds=time.perf_counter() - t0, cached=False,
+                     path=str(out), ptxas=logs)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _LIB
+    if _LIB is None:
+        _LIB = _declare(ctypes.CDLL(str(build())))
+    return _LIB
+
+
+def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    so.pt_rms_norm_fwd.argtypes = [P, P, P, P, I, I, F, I, I, I, P]
+    so.pt_fused_rope.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
+                                 LL, LL, LL, LL, LL, LL, I, I, P]
+    so.pt_paged_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I,
+                                   F, I, P]
+    for fn in (so.pt_rms_norm_fwd, so.pt_fused_rope, so.pt_paged_decode):
+        fn.restype = ctypes.c_int
+    return so
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def dtype_code(dtype) -> int:
+    """The C side's element type code: 0 float32, 1 bfloat16."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def stream_ptr(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+__all__ = ["build", "lib", "check", "LAUNCHES", "count_launch",
+           "reset_launches", "BUILD_DIR", "CSRC", "dtype_code", "stream_ptr"]

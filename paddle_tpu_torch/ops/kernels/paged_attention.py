@@ -1,0 +1,77 @@
+"""Launch wrapper of the paged decode attention kernel
+(``csrc/paged_attention.cu``).
+
+Replaces ``paddle_tpu/ops/pallas/paged_attention.py`` ``_decode_kernel``
+for native (float) pools. The plain version is
+``ops.attention.paged_decode_plain``; ``ops.attention.
+paged_decode_attention`` chooses between the two by the tensor's device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:47"
+GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (64, 128, 256)
+
+
+def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, block_tables: torch.Tensor,
+                 seq_lens: torch.Tensor,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """One decode step of attention over head-major page pools.
+
+    q [B, H, D]; k/v_pages [H_kv, num_pages, page_size, D] of q's dtype;
+    block_tables [B, max_pages] int32 (entries < 0 read page 0);
+    seq_lens [B] int64 — row b attends positions 0..seq_lens[b]
+    inclusive. All on one CUDA device and contiguous. Returns [B, H, D]."""
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode kernel needs CUDA tensors, got "
+                         f"{q.device}")
+    if q.dim() != 3 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError("q must be [B, H, D] and the pools "
+                         "[H_kv, num_pages, page_size, D], both alike")
+    B, H, D = q.shape
+    H_kv, num_pages, page_size, Dk = k_pages.shape
+    if Dk != D or H % H_kv or H // H_kv not in GROUPS or D not in HEAD_DIMS:
+        raise ValueError(f"unsupported shapes: H={H}, H_kv={H_kv}, D={D} "
+                         f"(group in {GROUPS}, D in {HEAD_DIMS})")
+    for t in (k_pages, v_pages, block_tables, seq_lens):
+        if t.device != q.device:
+            raise ValueError("all inputs must be on one device")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError("pools must have q's dtype (int8 pools are not "
+                         "supported by this kernel)")
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B:
+        raise ValueError(f"block_tables must be int32 [{B}, max_pages]")
+    if seq_lens.dtype != torch.int64 or seq_lens.shape != (B,):
+        raise ValueError(f"seq_lens must be int64 [{B}]")
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages,
+                                            block_tables, seq_lens)):
+        raise ValueError("paged_decode kernel needs contiguous inputs")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_decode kernel needs 16-byte aligned pools")
+    code = _build.dtype_code(q.dtype)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    err = _build.lib().pt_paged_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        B, H, H_kv, D, num_pages, page_size, block_tables.shape[1], scale,
+        code, _build.stream_ptr(q.device))
+    _build.check(err, "paged_decode")
+    _build.count_launch("paged_decode")
+    return out
+
+
+__all__ = ["paged_decode", "SOURCE", "REPLACES"]
