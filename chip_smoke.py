@@ -10,9 +10,16 @@ Phases, in order; any failure exits non-zero before the result line:
   2. build the CUDA kernels from ``paddle_tpu_torch/csrc`` and print the
      build seconds;
   3. per kernel: run it and its plain PyTorch version on the serving
-     path's shapes in bf16 and fp32, print the errors against the stated
-     tolerance, and time kernel, plain version and library call (CUDA
-     events, L2 flushed before every launch, median of 25 after warm-up);
+     and training paths' shapes, print the errors against the stated
+     tolerance (the flash kernels also per row, and a planted wrong tile
+     must fail that check), and time kernel, plain version and library
+     call (CUDA events, L2 flushed before every launch, median of 25
+     after warm-up; 10 for the plain flash versions at the training
+     shape). Training kernels: the RMSNorm backward at 8192 x 4096;
+     flash forward, dq and dk/dv at b=2, s=4096, 32 heads over 8 KV
+     heads, d=128, bf16, causal; flash also in fp32 at s=1024, with
+     segment ids (fully masked rows included), with dropout p=0.1 and at
+     a ragged s=1000;
   4. engine equality: Llama-3-8B widths at 2 layers, fp32, seeded random
      weights: greedy tokens of the engine on the card equal those of a
      step-by-step plain-version path on the CPU;
@@ -21,7 +28,22 @@ Phases, in order; any failure exits non-zero before the result line:
      tokens, 64 new tokens, every 4th sampled) through
      ContinuousBatchingEngine(max_batch=8, page_size=128, max_len=2048,
      decode_block=8, async_depth=2). Kernel launch counts are reset just
-     before and read just after; every kernel must have launched.
+     before and read just after; every serving kernel must have launched;
+  6. training equality: Llama-3-8B's attention layout (hidden 4096, 32
+     heads, 8 KV heads of 128) at 2 layers with the MLP cut to 1024 and
+     the vocabulary to 4096, the same seeded weights and batch (segment
+     ids included) on the card (kernels) and on the CPU (plain versions):
+     in fp32, first-step gradients and 3 AdamW steps' losses agree; in
+     bf16 (the flash kernels' tensor-core route), the first step's loss
+     and gradients agree;
+  7. the training run: Llama-3-8B widths at 4 layers, bf16, naive loss
+     head, AdamW(1e-4, weight_decay=0.01) with global-norm clip 1.0,
+     batch 2 x 4096 tokens from a numpy seed, the same batch every step:
+     2 warm-up and 8 timed steps through Trainer.fit, launch counts reset
+     just before and read just after; tokens/s, step time, MFU, peak
+     memory, the device idle share of one step, and launches per step.
+     Every training kernel must launch and the loss must be finite and
+     fall.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -31,6 +53,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import sys
@@ -40,13 +63,29 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": (1e-5, 1e-5),
        # bf16: the kernel and the plain version both compute in fp32 and
        # round once to bf16 (step 2**-8 relative); a different summation
        # order or FMA contraction before that rounding may land one bf16
        # step apart
        "bfloat16": (2e-2, 2e-2)}
-RESULTS: dict = {}
+# The bf16 flash kernels are held per row as well: a row is one head's
+# d values of one query (out, dq) or key (dk, dv), and its error is
+# |got - want|_2 / (|want|_2 + 1e-3 * the tensor's mean row norm). The
+# elementwise bf16 limit above is as large as a typical flash value at
+# s = 4096 (about 1/sqrt(context)), so alone it could pass a kernel that
+# reads one K/V or Q tile in place of another; phase 3 plants such tiles
+# and fails unless this check rejects them. Sound kernels read at most
+# 8.1e-3 and planted tiles 0.35 or more (H100 80GB HBM3, 700 W). fp32
+# needs no row check: its elementwise limit is far below any wrong
+# tile's change.
+ROW_TOL = 2e-2
+SERVING_KERNELS = ("rms_norm", "fused_rope", "paged_decode")
+TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
+                    "flash_bwd_dq", "flash_bwd_dkv")
+RESULTS: dict = {"kernel_cases": []}
+FAILED_CASES: list = []
 
 
 def log(*a):
@@ -82,6 +121,24 @@ def compare(torch, got, want, dtype_name):
     return max_abs, max_rel, ok
 
 
+def row_err(torch, got, want) -> float:
+    """The largest per-row relative L2 error of ``got`` (see ROW_TOL)."""
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    wn = w.norm(dim=-1)
+    return float(((g - w).norm(dim=-1) / (wn + 1e-3 * wn.mean())).max())
+
+
+def flash_compare(torch, pairs, dtype_name):
+    """compare() over (got, want) pairs, combined, and the row check:
+    (max_abs, max_rel, ok, row error, elementwise ok, row ok)."""
+    errs = [compare(torch, g, w, dtype_name) for g, w in pairs]
+    row = max(row_err(torch, g, w) for g, w in pairs)
+    elem_ok = all(e[2] for e in errs)
+    row_ok = dtype_name != "bfloat16" or row <= ROW_TOL
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            elem_ok and row_ok, row, elem_ok, row_ok)
+
+
 def sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -112,7 +169,7 @@ class DeviceSpan:
         return self.s.elapsed_time(self.e)
 
 
-def profile_step(torch, dev, step):
+def profile_step(torch, dev, step, top=8):
     """Device busy time of one call of ``step`` by kernel name, from
     torch.profiler (CUPTI); None where it reports no device time."""
     if dev.type != "cuda":
@@ -138,12 +195,41 @@ def profile_step(torch, dev, step):
             "kernels": len(rows),
             "launches": sum(r[2] for r in rows),
             "top": [{"name": k[:90], "ms": ms, "count": n}
-                    for k, ms, n in rows[:8]]}
+                    for k, ms, n in rows[:top]]}   # top=None: every kernel
 
 
-def bound(bytes_, ops):
-    tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(bytes_, ops, ops_per_s=FP32_OPS_PER_S):
+    tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def us(ms):
+    return "-" if ms is None else f"{ms * 1e3:.1f} us"
+
+
+def record(kernel, case, dt, err, kms=None, pms=None, lms=None,
+           bnd=(None, None)):
+    """One checked case; the times are None for a case checked only.
+    ``err`` is compare()'s triple, or flash_compare()'s six-tuple."""
+    max_abs, max_rel, ok = err[:3]
+    row = dict(kernel=kernel, case=case, dtype=dt, max_abs_err=max_abs,
+               max_rel_err=max_rel, tol=TOL[dt], ok=ok, ms=kms,
+               plain_ms=pms, library_ms=lms, bound_ms=bnd[0],
+               bound_by=bnd[1])
+    rows = ""
+    if len(err) > 3:
+        tol = ROW_TOL if dt == "bfloat16" else None
+        row.update(row_err=err[3], row_tol=tol)
+        rows = f" row_err={err[3]:.3e} row_tol={tol}"
+    RESULTS["kernel_cases"].append(row)
+    timing = ("not timed" if kms is None else
+              f"kernel {us(kms)}, plain {us(pms)}, library {us(lms)}, "
+              f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+    log(f"kernel {kernel} [{case} {dt}] max_abs_err={max_abs:.3e} "
+        f"max_rel_err={max_rel:.3e} tol(atol,rtol)={TOL[dt]}{rows} "
+        f"{'ok' if ok else 'FAIL'} | {timing}")
+    if not ok:
+        FAILED_CASES.append(f"{kernel}/{case}/{dt}")
 
 
 def phase_kernels(torch, pt):
@@ -159,28 +245,6 @@ def phase_kernels(torch, pt):
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     D, H, HKV, HD = 4096, 32, 8, 128
     cos, sin = rope_ops.rope_freqs(HD, 8192, 500000.0, device=dev)
-    cases, failed = [], []
-
-    def us(ms):
-        return "-" if ms is None else f"{ms * 1e3:.1f} us"
-
-    def record(kernel, case, dt, err, kms=None, pms=None, lms=None,
-               bnd=(None, None)):
-        """One checked case; the times are None for a case checked only."""
-        max_abs, max_rel, ok = err
-        row = dict(kernel=kernel, case=case, dtype=dt, max_abs_err=max_abs,
-                   max_rel_err=max_rel, tol=TOL[dt], ok=ok, ms=kms,
-                   plain_ms=pms, library_ms=lms, bound_ms=bnd[0],
-                   bound_by=bnd[1])
-        cases.append(row)
-        timing = ("not timed" if kms is None else
-                  f"kernel {us(kms)}, plain {us(pms)}, library {us(lms)}, "
-                  f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
-        log(f"kernel {kernel} [{case} {dt}] max_abs_err={max_abs:.3e} "
-            f"max_rel_err={max_rel:.3e} tol(atol,rtol)={TOL[dt]} "
-            f"{'ok' if ok else 'FAIL'} | {timing}")
-        if not ok:
-            failed.append(f"{kernel}/{case}/{dt}")
 
     # -- RMSNorm: prefill 1024 tokens and decode B=8, fp32 weight ----------
     for case, R in (("prefill_1024", 1024), ("decode_b8", 8)):
@@ -282,11 +346,208 @@ def phase_kernels(torch, pt):
                    bound(nbytes, 4 * B * H * ctx * HD))
     del flush
     torch.cuda.synchronize()
-    RESULTS["kernel_cases"] = cases
-    if failed:
-        raise SystemExit(f"kernels disagree with their plain versions: "
-                         f"{failed}")
-    return cases
+
+
+def phase_train_kernels(torch, pt):
+    """Phase 3, training kernels: the RMSNorm backward, the RoPE
+    backward's table and the three flash kernels against their plain
+    versions at the training path's shapes. Runs with autograd on, for
+    the library backward calls."""
+    from paddle_tpu_torch.ops import attention as attn_ops
+    from paddle_tpu_torch.ops import norm as norm_ops
+    from paddle_tpu_torch.ops import rope as rope_ops
+    from paddle_tpu_torch.ops.kernels import (flash_attention, fused_norm,
+                                              fused_rope)
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    H, HKV, HD = 32, 8, 128
+
+    # -- RMSNorm backward: 2 x 4096 tokens at hidden 4096, fp32 weight -----
+    R, D, eps = 8192, 4096, 1e-5
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        x = torch.randn((R, D), generator=g, device=dev).to(dt)
+        dy = torch.randn((R, D), generator=g, device=dev).to(dt)
+        w = 1 + 0.1 * torch.randn((D,), generator=g, device=dev)
+        _, rstd = fused_norm.rms_norm_fwd(x, w, eps, return_rstd=True)
+        dx, dw = fused_norm.rms_norm_bwd(x, w, rstd, dy)
+        wdx, wdw = norm_ops._rms_norm_bwd_plain(x, w, rstd, dy)
+        ex = compare(torch, dx, wdx, name)
+        # dw sums 8192 rows in fp32 in another order: the rounding error
+        # scales with the summands, not with the (often cancelling)
+        # result, so dw is held to 1e-5 of its largest magnitude
+        diff = (dw - wdw).abs()
+        scale = float(wdw.abs().max())
+        ew = (float(diff.max()), float(diff.max()) / scale,
+              bool((diff <= 1e-5 * scale).all()))
+        err = (max(ex[0], ew[0]), max(ex[1], ew[1]), ex[2] and ew[2])
+        xr = x.detach().clone().requires_grad_()
+        wr = w.to(dt).requires_grad_()
+        yr = F.rms_norm(xr, (D,), wr, eps)
+        e = x.element_size()
+        record("rms_norm_bwd", "train_8192", name, err,
+               timed_ms(torch, lambda: fused_norm.rms_norm_bwd(
+                   x, w, rstd, dy), flush),
+               timed_ms(torch, lambda: norm_ops._rms_norm_bwd_plain(
+                   x, w, rstd, dy), flush),
+               timed_ms(torch, lambda: torch.autograd.grad(
+                   yr, (xr, wr), dy, retain_graph=True), flush),
+               bound(3 * R * D * e + R * 4 + 2 * D * 4, 9 * R * D))
+        del x, dy, dx, wdx, xr, yr
+
+    # -- RoPE backward: the forward kernel with the negated sine table ------
+    cos, sin = rope_ops.rope_freqs(HD, 8192, 500000.0, device=dev)
+    gq = torch.randn((2, 4096, H, HD), generator=g, device=dev).to(
+        torch.bfloat16)
+    gk = torch.randn((2, 4096, HKV, HD), generator=g, device=dev).to(
+        torch.bfloat16)
+    got = fused_rope.fused_rope(gq, gk, cos, -sin)
+    want = rope_ops._rope_plain(gq, gk, cos, -sin)
+    ea, eb = (compare(torch, a, b, "bfloat16") for a, b in zip(got, want))
+    record("fused_rope", "train_bwd_4096", "bfloat16",
+           (max(ea[0], eb[0]), max(ea[1], eb[1]), ea[2] and eb[2]))
+    del gq, gk, got, want
+
+    # -- flash attention -----------------------------------------------------
+    def flash_case(case, b, s, dt, seg=False, dropout_p=0.0, timed=False):
+        name = str(dt).split(".")[-1]
+        q = torch.randn((b, s, H, HD), generator=g, device=dev).to(dt)
+        k = torch.randn((b, s, HKV, HD), generator=g, device=dev).to(dt)
+        # v a strided view, as the split of the fused qkv projection
+        vbuf = torch.randn((b, s, 2 * HKV, HD), generator=g,
+                           device=dev).to(dt)
+        v = vbuf[:, :, HKV:]
+        dout = torch.randn((b, s, H, HD), generator=g, device=dev).to(dt)
+        q_seg = kv_seg = None
+        if seg:
+            q_seg = (torch.arange(s, device=dev) // 300).to(torch.int32)
+            q_seg = q_seg.expand(b, s).contiguous()
+            kv_seg = q_seg.clone()
+            q_seg[:, -40:] = 99                 # no key has id 99
+        args = (True, HD ** -0.5, q_seg, kv_seg, dropout_p, 2024)
+        out, lse = flash_attention.flash_fwd(q, k, v, *args)
+        want_out, want_lse = attn_ops._flash_fwd_plain(q, k, v, *args)
+        delta = (want_out.float() * dout.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        dq = flash_attention.flash_bwd_dq(q, k, v, dout, want_lse, delta,
+                                          *args)
+        dk, dv = flash_attention.flash_bwd_dkv(q, k, v, dout, want_lse,
+                                               delta, *args)
+        wdq, wdk, wdv = attn_ops._flash_bwd_plain(q, k, v, dout, want_lse,
+                                                  delta, *args)
+        e = q.element_size()
+        peak = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+        pairs = b * H * s * (s + 1) // 2            # causal (q, k) pairs
+        qb, kvb = b * s * H * HD * e, b * s * HKV * HD * e
+        rowb = b * H * s * 4                         # lse or delta
+        t = {}
+        if timed:
+            qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                          for x in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True,
+                                                     enable_gqa=True)
+            dot = dout.transpose(1, 2)
+            plain_reps = 10 if s > 2048 else 25
+            t["flash_fwd"] = (
+                timed_ms(torch, lambda: flash_attention.flash_fwd(
+                    q, k, v, *args), flush),
+                timed_ms(torch, lambda: attn_ops._flash_fwd_plain(
+                    q, k, v, *args), flush, reps=plain_reps),
+                timed_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), flush))
+            lib_bwd = timed_ms(torch, lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dot, retain_graph=True), flush)
+            plain_bwd = timed_ms(torch, lambda: attn_ops._flash_bwd_plain(
+                q, k, v, dout, want_lse, delta, *args), flush,
+                reps=plain_reps)
+            t["flash_bwd_dq"] = (
+                timed_ms(torch, lambda: flash_attention.flash_bwd_dq(
+                    q, k, v, dout, want_lse, delta, *args), flush),
+                plain_bwd, lib_bwd)
+            t["flash_bwd_dkv"] = (
+                timed_ms(torch, lambda: flash_attention.flash_bwd_dkv(
+                    q, k, v, dout, want_lse, delta, *args), flush),
+                plain_bwd, lib_bwd)
+            del lib_out, qt, kt, vt
+        bounds = {"flash_fwd": bound(qb + 2 * kvb + qb + rowb,
+                                     4 * HD * pairs, peak),
+                  "flash_bwd_dq": bound(3 * qb + 2 * kvb + 2 * rowb,
+                                        6 * HD * pairs, peak),
+                  "flash_bwd_dkv": bound(2 * qb + 4 * kvb + 2 * rowb,
+                                         8 * HD * pairs, peak)}
+        eo = flash_compare(torch, [(out, want_out)], name)
+        el = compare(torch, lse, want_lse, "float32")
+        errs = {"flash_fwd": (max(eo[0], el[0]), max(eo[1], el[1]),
+                              eo[2] and el[2], eo[3]),
+                "flash_bwd_dq": flash_compare(torch, [(dq, wdq)], name),
+                "flash_bwd_dkv": flash_compare(
+                    torch, [(dk, wdk), (dv, wdv)], name)}
+        for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            kms, pms, lms = t.get(kern, (None, None, None))
+            record(kern, case, name, errs[kern], kms, pms, lms,
+                   bounds[kern] if timed else (None, None))
+        if timed and dt == torch.bfloat16:
+            planted_tile(torch, flash_attention, args, q, k, v, dout,
+                         want_lse, delta,
+                         {"flash_fwd": [(want_out,)],
+                          "flash_bwd_dq": [(wdq,)],
+                          "flash_bwd_dkv": [(wdk,), (wdv,)]})
+        torch.cuda.synchronize()
+
+    flash_case("train_4096", 2, 4096, torch.bfloat16, timed=True)
+    torch.cuda.empty_cache()
+    flash_case("s1024", 2, 1024, torch.float32, timed=True)
+    flash_case("segments_1024", 2, 1024, torch.bfloat16, seg=True)
+    flash_case("dropout_1024", 2, 1024, torch.bfloat16, dropout_p=0.1)
+    flash_case("ragged_1000", 2, 1000, torch.bfloat16)
+    del flush
+    torch.cuda.empty_cache()
+
+
+def planted_tile(torch, fa, args, q, k, v, dout, lse, delta, wants):
+    """Run each flash kernel as if it read one tile in place of another
+    (tile A's rows of one KV head, or of one query head with its dout,
+    lse and delta, copied over tile B, once in the middle of the
+    sequence and once at its end) and hold it against the plain versions
+    of the true inputs: the row check must reject every one. A failure
+    means the check cannot see a wrong tile."""
+    s = q.shape[1]
+    res = {}
+    for where, b0 in (("mid", s // 2), ("late", s - 128)):
+        A, B = slice(b0 - 64, b0), slice(b0, b0 + 64)
+
+        def plant(t, seq_dim=1):
+            t = t.clone()
+            if seq_dim == 1:                   # [b, s, heads, d]
+                t[:, B, 0] = t[:, A, 0]
+            else:                              # lse / delta [b, h, s]
+                t[:, 0, B] = t[:, 0, A]
+            return t
+        k2, v2 = plant(k), plant(v)
+        got = {"flash_fwd": [fa.flash_fwd(q, k2, v2, *args)[0]],
+               "flash_bwd_dq": [fa.flash_bwd_dq(q, k2, v2, dout, lse, delta,
+                                                *args)],
+               "flash_bwd_dkv": list(fa.flash_bwd_dkv(
+                   plant(q), k, v, plant(dout), plant(lse, 2),
+                   plant(delta, 2), *args))}
+        for kern, outs in got.items():
+            e = flash_compare(torch, [(g, w[0]) for g, w in
+                                      zip(outs, wants[kern])], "bfloat16")
+            res[f"{kern}/{where}"] = {
+                "row_err": e[3], "row_caught": not e[5],
+                "elementwise_caught": not e[4], "max_abs_err": e[0]}
+            log(f"planted wrong tile ({where}) in {kern}: max_abs_err="
+                f"{e[0]:.3e} (elementwise check "
+                f"{'rejects' if not e[4] else 'passes'} it), row_err="
+                f"{e[3]:.3e} vs row_tol {ROW_TOL} (row check "
+                f"{'rejects' if not e[5] else 'MISSES'} it)")
+            if e[5]:
+                FAILED_CASES.append(f"{kern}/planted_tile_{where}_missed")
+    RESULTS["planted_tile"] = res
 
 
 def plain_greedy(torch, model, prompt, n_new, page_size):
@@ -443,12 +704,193 @@ def phase_serving(torch, pt, dev, make_cfg):
         "launches_per_call": per, "decode_step": step_info}
     del eng, pools, model
     empty_cache(torch, dev)
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
     if missing:
         raise SystemExit(f"kernels not launched on the main path: {missing}")
     if not (tok_ok and logits_ok):
         raise SystemExit("serving output malformed "
                          f"(tokens ok {tok_ok}, logits finite {logits_ok})")
+    return launches
+
+
+def kernel_category(name: str) -> str:
+    """A profiler kernel name → the layer it belongs to, for the training
+    step's breakdown."""
+    if "flash_" in name:
+        return "flash " + name.split("flash_")[1].split("<")[0]
+    if "rms_norm" in name or "rope_kernel" in name:
+        return "rms_norm / rope kernels"
+    if name.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in name:
+        return "GEMM (cuBLAS)"
+    if "SoftMax" in name:
+        return "log_softmax (loss head)"
+    if "embedding" in name or "index" in name:
+        return "embedding / index"
+    return "elementwise and reductions (optimizer, clip, casts, MLP)"
+
+
+def train_batch(torch, vocab, b, s, dev, seed, split=None):
+    """Token ids, next-token labels and (with ``split``) segment ids
+    packing two documents into row 0, the label at the seam ignored."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(0, vocab, (b, s + 1))
+    labels = ids[:, 1:].copy()
+    batch = {"input_ids": ids[:, :-1], "labels": labels}
+    if split is not None:
+        seg = np.zeros((b, s), np.int32)
+        seg[0, split:] = 1
+        labels[0, split - 1] = -100
+        batch["segment_ids"] = seg
+    return {k: torch.tensor(v, device=dev) for k, v in batch.items()}
+
+
+# phase 6 in bf16: the card's cuBLAS GEMMs and the CPU's round their
+# bf16 outputs differently, so the first step is held per tensor by the
+# relative Frobenius error ||card - cpu|| / ||cpu||, which reads
+# 8.3e-3 to 1.54e-2 on every tensor (H100 80GB HBM3, 700 W). This is
+# the coarse end-to-end check; phase 3's per-row check is the sharp one.
+BF16_GRAD_TOL = 3e-2
+BF16_LOSS_RTOL = 1e-2
+
+
+def phase_train_equality(torch, pt, dev, make_cfg, dtype="float32"):
+    """Phase 6: the training step on the card (kernels) against the same
+    step on the CPU (plain versions). fp32: first-step gradients and 3
+    AdamW steps' losses. bf16 (the dtype of the training run, whose
+    flash kernels take the tensor-core route): the first step's loss and
+    gradients."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    # Llama-3-8B's attention layout; MLP 14336 -> 1024 and vocabulary
+    # 128256 -> 4096 so that the CPU steps through it in seconds
+    cfg = make_cfg(num_hidden_layers=2, dtype=dtype, loss_impl="naive",
+                   intermediate_size=1024, vocab_size=4096)
+    fp32 = dtype == "float32"
+    t0 = time.perf_counter()
+    card = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(9, dev))
+    cpu = copy.deepcopy(card).to("cpu")
+    side = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        d = next(model.parameters()).device
+        batch = train_batch(torch, cfg.vocab_size, 2, 256, d, 9, split=100)
+        loss = model(**batch)[0]
+        loss.backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in
+                 model.named_parameters()}
+        losses = [float(loss.detach())]
+        if fp32:
+            model.zero_grad(set_to_none=True)
+            trainer = Trainer(model, AdamW(
+                learning_rate=1e-4, parameters=model, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0)))
+            losses = [float(trainer.train_step(batch)) for _ in range(3)]
+        side[name] = (grads, losses)
+    (gc, lc), (gp, lp) = side["card"], side["cpu"]
+    if fp32:
+        # per tensor: max |card - cpu| over the tensor's largest |cpu|
+        grad_err = {n: float((gc[n] - gp[n]).abs().max()
+                             / gp[n].abs().max().clamp_min(1e-30))
+                    for n in gp}
+        measure, grad_tol, loss_rtol = "max|diff|/max|cpu|", 1e-4, 1e-4
+    else:
+        grad_err = {n: float((gc[n] - gp[n]).norm()
+                             / gp[n].norm().clamp_min(1e-30)) for n in gp}
+        measure, grad_tol = "||diff||/||cpu||", BF16_GRAD_TOL
+        loss_rtol = BF16_LOSS_RTOL
+    worst = max(grad_err, key=grad_err.get)
+    loss_ok = bool(np.allclose(lc, lp, rtol=loss_rtol, atol=0.0))
+    grad_ok = grad_err[worst] <= grad_tol
+    log(f"training equality (llama3_8b attention layout, 2 layers, MLP "
+        f"1024, vocab 4096, {dtype}, 2 x 256 tokens with segments): losses "
+        f"card {lc} cpu {lp} (rtol {loss_rtol}: "
+        f"{'ok' if loss_ok else 'FAIL'}); first-step gradients: worst "
+        f"{measure} {grad_err[worst]:.2e} at {worst} (tol {grad_tol}: "
+        f"{'ok' if grad_ok else 'FAIL'}); {time.perf_counter() - t0:.1f} s")
+    RESULTS.setdefault("train_equality", {})[dtype] = {
+        "losses_card": lc, "losses_cpu": lp, "grad_err": grad_err,
+        "grad_measure": measure}
+    del card, cpu
+    empty_cache(torch, dev)
+    if not (loss_ok and grad_ok):
+        raise SystemExit(f"{dtype} training on the card differs from the "
+                         f"plain path")
+
+
+def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
+    """Phase 7: train 4 layers at Llama-3-8B widths on the card (batch
+    b x s tokens)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16", loss_impl="naive")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(10, dev))
+    trainer = Trainer(model, AdamW(learning_rate=1e-4, parameters=model,
+                                   weight_decay=0.01,
+                                   grad_clip=ClipGradByGlobalNorm(1.0)))
+    sync(torch, dev)
+    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
+    log(f"training model: llama3_8b widths, {cfg.num_hidden_layers} layers, "
+        f"bf16, {model.num_params() / 1e9:.3f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s; card {trainer.card}, peak "
+        f"{trainer.peak_flops}")
+    warm = trainer.fit(iter([batch] * 2), 2, log_every=1)
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    hist = trainer.fit(iter([batch] * 8), 8, log_every=1)
+    sync(torch, dev)
+    launches = dict(_build.LAUNCHES)
+    peak_mem = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else None)
+    losses = [m.loss for m in warm + hist]
+    times = [m.step_time_s for m in hist]
+    tps = len(hist) * b * s / sum(times)
+    fpt = model.flops_per_token(s)
+    mfu = tps * fpt / trainer.peak_flops if trainer.peak_flops else None
+    per_step = {k: v / len(hist) for k, v in launches.items()}
+    prof = profile_step(torch, dev, lambda: float(trainer.train_step(batch)),
+                        top=None)
+    info = {"layers": cfg.num_hidden_layers, "params": model.num_params(),
+            "batch": [b, s], "losses": losses, "step_times_s": times,
+            "median_step_s": statistics.median(times),
+            "tokens_per_s": tps, "flops_per_token": fpt,
+            "mfu_palm": mfu, "peak_memory_bytes": peak_mem,
+            "launches": launches, "launches_per_step": per_step,
+            "profile_step": prof, "card": trainer.card}
+    RESULTS["training"] = info
+    log(f"training: {len(hist)} timed steps of {b} x {s} tokens: "
+        f"{tps:.1f} tokens/s, median step {info['median_step_s']:.4f} s, "
+        f"MFU (PaLM, vs {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, "
+        f"{trainer.card}) {mfu}, peak memory {peak_mem} bytes")
+    log(f"training losses: {losses}")
+    log(f"training launches per step: {per_step}")
+    if prof is not None:
+        by = {}
+        for row in prof["top"]:
+            key = kernel_category(row["name"])
+            ms, n = by.get(key, (0.0, 0))
+            by[key] = (ms + row["ms"], n + row["count"])
+        prof["by_category"] = by
+        log(f"training step profile: device busy {prof['device_busy_ms']:.1f}"
+            f" ms of {prof['wall_ms_under_profiler']:.1f} ms (idle share "
+            f"{prof['device_idle_share']:.4f}), {prof['launches']} launches;"
+            f" by category (ms, launches): {by}")
+    else:
+        log("training step profile: no device time reported")
+    del trainer, model, batch
+    empty_cache(torch, dev)
+    missing = [k for k in TRAINING_KERNELS if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the training path: "
+                         f"{missing}")
+    if not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"training loss not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"training loss did not fall: {losses}")
     return launches
 
 
@@ -460,8 +902,9 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import paddle_tpu_torch as pt
-    from paddle_tpu_torch.ops.kernels import (_build, fused_norm,
-                                              fused_rope, paged_attention)
+    from paddle_tpu_torch.ops.kernels import (_build, flash_attention,
+                                              fused_norm, fused_rope,
+                                              paged_attention)
     t_start = time.perf_counter()
     # 1. the card
     card = pt.device_info()
@@ -473,27 +916,53 @@ def main() -> int:
     path = _build.library_path()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s -> {path}")
     RESULTS["build"] = {k: v for k, v in _build.BUILD_LOG.items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
-        cases = phase_kernels(torch, pt)
+        phase_kernels(torch, pt)
+    phase_train_kernels(torch, pt)
+    if FAILED_CASES:
+        raise SystemExit(f"kernels disagree with their plain versions: "
+                         f"{FAILED_CASES}")
     from paddle_tpu_torch.models import LlamaConfig
     dev = torch.device("cuda")
     phase_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
-    launches = phase_serving(torch, pt, dev, LlamaConfig.llama3_8b)
+    serve_launches = phase_serving(torch, pt, dev, LlamaConfig.llama3_8b)
+    for dtype in ("float32", "bfloat16"):
+        phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, dtype)
+    train_launches = phase_train(torch, pt, dev, LlamaConfig.llama3_8b)
+    cases = RESULTS["kernel_cases"]
 
     def main_case(kernel, case):
         return next(c for c in cases if c["kernel"] == kernel
                     and c["case"] == case and c["dtype"] == "bfloat16")
     kernels = []
-    for name, mod, key, case in (
-            ("rms_norm", fused_norm, "rms_norm", "prefill_1024"),
-            ("fused_rope", fused_rope, "fused_rope", "prefill_1024"),
-            ("paged_decode", paged_attention, "paged_decode", "ctx1024")):
-        c = main_case(key, case)
+    for name, source, replaces, case in (
+            ("rms_norm", fused_norm.SOURCE, fused_norm.REPLACES,
+             "prefill_1024"),
+            ("rms_norm_bwd", fused_norm.SOURCE, fused_norm.REPLACES_BWD,
+             "train_8192"),
+            ("fused_rope", fused_rope.SOURCE, fused_rope.REPLACES,
+             "prefill_1024"),
+            ("flash_fwd", flash_attention.SOURCE,
+             flash_attention.REPLACES["flash_fwd"], "train_4096"),
+            ("flash_bwd_dq", flash_attention.SOURCE,
+             flash_attention.REPLACES["flash_bwd_dq"], "train_4096"),
+            ("flash_bwd_dkv", flash_attention.SOURCE,
+             flash_attention.REPLACES["flash_bwd_dkv"], "train_4096"),
+            ("paged_decode", paged_attention.SOURCE,
+             paged_attention.REPLACES, "ctx1024")):
+        c = main_case(name, case)
         kernels.append({
-            "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES, "launches": launches[key],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # launches on the main paths: the serving run plus the timed
+            # training steps, and each path's own count
+            "launches": serve_launches[name] + train_launches[name],
+            "launches_by_path": {"serving": serve_launches[name],
+                                 "training": train_launches[name]},
             "max_abs_err": max(x["max_abs_err"] for x in cases
-                               if x["kernel"] == key),
+                               if x["kernel"] == name),
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

@@ -1,4 +1,4 @@
-// RMSNorm forward for Hopper.
+// RMSNorm forward and backward for Hopper.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/fused_norm.py
 // `_fwd_kernel` (called from `_rms_fwd`): per row of x [R, D],
@@ -110,7 +110,160 @@ cudaError_t launch(const void* x, const void* w, void* y, float* rstd, int R,
   return cudaGetLastError();
 }
 
+// RMSNorm backward.
+//
+// Replaces the TPU kernel paddle_tpu/ops/pallas/fused_norm.py
+// `_bwd_kernel` (called from `_rms_bwd_rule`): per row, with the rstd
+// saved by the forward,
+//   xhat = x * rstd,  wdy = dy * w,  c = mean(wdy * xhat),
+//   dx   = (wdy - xhat * c) * rstd                       (x's type),
+// and per block of rows the fp32 partial sum of dy * xhat over its rows,
+// written to dw_part[block, D]. The caller sums the partials over blocks
+// (one deterministic reduction outside the kernel, as the JAX wrapper
+// does), so no atomics are needed.
+//
+// Bound: bytes. x and dy are read once, dx written once; about nine
+// operations per element, far below the card's ratio of operations to
+// bandwidth. Design: ROWS rows per block, so the partials stay small
+// ([ceil(R / ROWS), D] fp32) while there are still hundreds of blocks;
+// each thread owns fixed columns, so its share of the dw partial lives in
+// shared memory that no other thread touches; the row's dot product is a
+// block reduction; the second pass reads x and dy again, from L1/L2.
+
+template <typename TX, typename TW, bool VEC8>
+__global__ void rms_norm_bwd_kernel(const TX* __restrict__ x,
+                                    const TW* __restrict__ w,
+                                    const float* __restrict__ rstd,
+                                    const TX* __restrict__ dy,
+                                    TX* __restrict__ dx,
+                                    float* __restrict__ dw_part, int R, int D,
+                                    int rows_per_block) {
+  extern __shared__ float dw_s[];  // [D], each column owned by one thread
+  const int step = VEC8 ? blockDim.x * 8 : blockDim.x;
+  const int first = VEC8 ? threadIdx.x * 8 : threadIdx.x;
+  for (int i = first; i < D; i += step) {
+    if (VEC8) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dw_s[i + e] = 0.f;
+    } else {
+      dw_s[i] = 0.f;
+    }
+  }
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(R, r0 + rows_per_block);
+  const float inv_d = 1.f / static_cast<float>(D);
+  for (int row = r0; row < r1; ++row) {
+    const TX* xr = x + static_cast<size_t>(row) * D;
+    const TX* dyr = dy + static_cast<size_t>(row) * D;
+    TX* dxr = dx + static_cast<size_t>(row) * D;
+    const float rs = rstd[row];
+    float part = 0.f;
+    if (VEC8) {
+      for (int i = first; i < D; i += step) {
+        float xv[8], dv[8], wv[8];
+        load8(xr + i, xv);
+        load8(dyr + i, dv);
+        load8(w + i, wv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part += (dv[e] * wv[e]) * (xv[e] * rs);
+      }
+    } else {
+      for (int i = first; i < D; i += step) {
+        const float xh = pt::to_f(xr[i]) * rs;
+        part += (pt::to_f(dyr[i]) * pt::to_f(w[i])) * xh;
+      }
+    }
+    const float c = pt::block_sum(part) * inv_d;
+    if (VEC8) {
+      for (int i = first; i < D; i += step) {
+        float xv[8], dv[8], wv[8], o[8];
+        load8(xr + i, xv);
+        load8(dyr + i, dv);
+        load8(w + i, wv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float xh = xv[e] * rs;
+          o[e] = (dv[e] * wv[e] - xh * c) * rs;
+          dw_s[i + e] += dv[e] * xh;
+        }
+        store8(dxr + i, o);
+      }
+    } else {
+      for (int i = first; i < D; i += step) {
+        const float xh = pt::to_f(xr[i]) * rs;
+        const float dv = pt::to_f(dyr[i]);
+        dxr[i] = pt::from_f<TX>((dv * pt::to_f(w[i]) - xh * c) * rs);
+        dw_s[i] += dv * xh;
+      }
+    }
+  }
+  float* out = dw_part + static_cast<size_t>(blockIdx.x) * D;
+  for (int i = first; i < D; i += step) {
+    if (VEC8) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) out[i + e] = dw_s[i + e];
+    } else {
+      out[i] = dw_s[i];
+    }
+  }
+}
+
+template <typename TX, typename TW>
+cudaError_t launch_bwd(const void* x, const void* w, const float* rstd,
+                       const void* dy, void* dx, float* dw_part, int R, int D,
+                       int rows_per_block, bool vec8, cudaStream_t stream) {
+  const int work = vec8 ? D / 8 : D;
+  int threads = ((work + 31) / 32) * 32;
+  threads = threads < 32 ? 32 : (threads > 256 ? 256 : threads);
+  const int blocks = (R + rows_per_block - 1) / rows_per_block;
+  const size_t smem = static_cast<size_t>(D) * sizeof(float);
+  const TX* xp = static_cast<const TX*>(x);
+  const TW* wp = static_cast<const TW*>(w);
+  const TX* dyp = static_cast<const TX*>(dy);
+  TX* dxp = static_cast<TX*>(dx);
+  if (vec8) {
+    auto k = rms_norm_bwd_kernel<TX, TW, true>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    k<<<blocks, threads, smem, stream>>>(xp, wp, rstd, dyp, dxp, dw_part, R,
+                                         D, rows_per_block);
+  } else {
+    auto k = rms_norm_bwd_kernel<TX, TW, false>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+    k<<<blocks, threads, smem, stream>>>(xp, wp, rstd, dyp, dxp, dw_part, R,
+                                         D, rows_per_block);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int pt_rms_norm_bwd(const void* x, const void* w,
+                               const void* rstd, const void* dy, void* dx,
+                               void* dw_part, int R, int D,
+                               int rows_per_block, int x_dtype, int w_dtype,
+                               int vec8, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(rstd);
+  float* p = static_cast<float*>(dw_part);
+  const bool v = vec8 != 0;
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch_bwd<float, float>(x, w, r, dy, dx, p, R, D, rows_per_block,
+                                    v, s);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch_bwd<float, __nv_bfloat16>(x, w, r, dy, dx, p, R, D,
+                                            rows_per_block, v, s);
+  if (x_dtype == 1 && w_dtype == 0)
+    return launch_bwd<__nv_bfloat16, float>(x, w, r, dy, dx, p, R, D,
+                                            rows_per_block, v, s);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, w, r, dy, dx, p, R, D,
+                                                    rows_per_block, v, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 extern "C" int pt_rms_norm_fwd(const void* x, const void* w, void* y,
                                void* rstd, int R, int D, float eps,

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.hash32 import M32, mul32
+
 
 @dataclasses.dataclass
 class GenerationConfig:
@@ -52,24 +54,13 @@ def mask_logits_rowwise(logits: torch.Tensor, temperature: torch.Tensor,
     return torch.where(x < cutoff, neg, x)
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32), in int64 steps that
-    never overflow."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
 def _mix32(x: torch.Tensor) -> torch.Tensor:
     """A 32-bit integer finalizer (xorshift-multiply) on int64 tensors
     holding values in [0, 2**32)."""
     x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
+    x = mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
+    x = mul32(x, 0x846CA68B)
     return x ^ (x >> 16)
 
 
@@ -83,9 +74,9 @@ def row_uniforms(seed: int, rseed: torch.Tensor, token_index: torch.Tensor,
     keys folded from the same three counters): the streams are
     replay-exact in the same way but are NOT the JAX package's streams."""
     dev = rseed.device
-    row = _mix32(torch.full_like(rseed, int(seed) & _M32, dtype=torch.int64))
-    row = _mix32(row ^ (rseed.long() & _M32))
-    row = _mix32(row ^ (token_index.long() & _M32))
+    row = _mix32(torch.full_like(rseed, int(seed) & M32, dtype=torch.int64))
+    row = _mix32(row ^ (rseed.long() & M32))
+    row = _mix32(row ^ (token_index.long() & M32))
     col = torch.arange(vocab, dtype=torch.int64, device=dev)
     return _unit_open(_mix32(_mix32(col[None, :] ^ row[:, None])
                              ^ 0x9E3779B9))

@@ -1,4 +1,4 @@
-"""Llama-family decoder-only transformer, inference paths (counterpart of
+"""Llama-family decoder-only transformer (counterpart of
 ``paddle_tpu/models/llama.py``).
 
 Weights keep the JAX package's ``[in, out]`` layout and names
@@ -7,10 +7,13 @@ Weights keep the JAX package's ``[in, out]`` layout and names
 (``paddle_tpu_torch.convert``). Activations run in ``cfg.dtype``; norm
 weights and statistics stay fp32.
 
-Ported here: ``forward`` (logits, no loss) and the paged-KV serving trio
-``alloc_paged_caches`` / ``prefill_paged`` / ``decode_step_paged``. The
-page pools are updated IN PLACE (``index_put_``) where JAX returns new
-arrays; the methods still return the pools so callers read the same.
+Ported here: ``forward`` (logits, or the loss through the naive head
+with ``labels``; attention through the flash kernels), the size
+accounting ``num_params`` / ``flops_per_token``, and the paged-KV
+serving trio ``alloc_paged_caches`` / ``prefill_paged`` /
+``decode_step_paged``. The page pools are updated IN PLACE
+(``index_put_``) where JAX returns new arrays; the methods still return
+the pools so callers read the same.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from torch import nn
 
 from ..device import dtype_of, generator as make_generator, resolve_device
 from ..nn import RMSNorm
+from ..nn import functional as ptF
 from ..nn.initializer import Normal
 from ..ops import rope as rope_ops
 from ..ops.attention import paged_decode_attention, sdpa_plain
@@ -33,10 +37,15 @@ Pool = Tuple[torch.Tensor, torch.Tensor]
 
 @dataclass
 class LlamaConfig:
-    """The inference fields of ``paddle_tpu.models.llama.LlamaConfig``
-    with the same defaults and presets (whose fields a keyword may
-    override, e.g. ``llama3_8b(num_hidden_layers=2)``); the training and
-    quantized-serving fields arrive with their slices."""
+    """The inference and training fields of
+    ``paddle_tpu.models.llama.LlamaConfig`` with the same defaults, checks
+    and presets (whose fields a keyword may override, e.g.
+    ``llama3_8b(num_hidden_layers=2)``); the quantized-serving fields
+    arrive with their slice. Of the training fields, ``recompute`` other
+    than "none", ``sequence_parallel`` and ``loss_impl="fused"`` (the
+    default) are accepted but raise NotImplementedError where they would
+    act, and ``sp_mode`` other than "ring" is refused: their machinery
+    comes with later slices."""
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -48,9 +57,31 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     tie_word_embeddings: bool = False
+    use_flash_attention: bool = True
     dtype: str = "float32"
+    # activation checkpointing: "none" | "selective" | "full"
+    recompute: str = "none"
+    # shard activations along the sequence over a "sep" mesh axis
+    sequence_parallel: bool = False
+    sp_mode: str = "ring"
+    # training loss head: "fused" (blockwise lm_head + CE, logits never
+    # materialised) or "naive" (logits, then causal_lm_loss)
+    loss_impl: str = "fused"
 
     def __post_init__(self):
+        if self.recompute not in ("none", "selective", "full"):
+            raise ValueError(f"recompute must be 'none'|'selective'|'full', "
+                             f"got {self.recompute!r}")
+        if self.sp_mode not in ("ring", "ulysses"):
+            raise ValueError(f"sp_mode must be 'ring'|'ulysses', "
+                             f"got {self.sp_mode!r}")
+        if self.sp_mode != "ring":
+            raise NotImplementedError(
+                f"sp_mode={self.sp_mode!r} selects a sequence-parallel "
+                f"attention, which arrives with the torch.distributed slice")
+        if self.loss_impl not in ("fused", "naive"):
+            raise ValueError(f"loss_impl must be 'fused'|'naive', "
+                             f"got {self.loss_impl!r}")
         if self.hidden_size % self.num_attention_heads:
             raise ValueError("hidden_size must be divisible by "
                              "num_attention_heads")
@@ -128,6 +159,25 @@ class _Init:
                                         self.generator))
 
 
+def _token_mean(nll: torch.Tensor, labels: torch.Tensor,
+                ignore_index: int = -100) -> torch.Tensor:
+    """Token-weighted mean over per-token nll (ignored rows already 0):
+    sum(nll) / max(count of counted labels, 1). The reduction the naive
+    head's cross entropy applies, kept as one function for the fused
+    vocab-CE head to share (as in ``paddle_tpu``)."""
+    cnt = (labels != ignore_index).sum().float()
+    return nll.sum() / cnt.clamp_min(1.0)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int = -100) -> torch.Tensor:
+    """Token-weighted mean cross entropy of the causal-LM head over fp32
+    logits (the dense path of ``paddle_tpu``'s ``causal_lm_loss``; the
+    port has no tensor-parallel mesh)."""
+    return ptF.cross_entropy(logits.float(), labels,
+                             ignore_index=ignore_index)
+
+
 def _kv_scatter_pages(kv: Pool, phys: torch.Tensor, k_tiles: torch.Tensor,
                       v_tiles: torch.Tensor) -> Pool:
     """Full-page write (prefill): ``phys`` [P] physical page ids, tiles
@@ -158,10 +208,11 @@ class LlamaAttention(nn.Module):
         self.qkv_proj = init.weight(d, (n_h + 2 * n_kv) * hd)
         self.o_proj = init.weight(n_h * hd, d)
 
-    def _qkv_rope(self, x, cos, sin, position_ids=None):
+    def _qkv_rope(self, x, cos, sin, position_ids=None, neg_sin=None):
         """Fused QKV projection + head split + rotary embedding. q, k and
         v are views of the one projection output; the RoPE kernel reads
-        q and k through their strides."""
+        q and k through their strides. ``neg_sin`` is the backward's
+        table (the model's buffer)."""
         cfg = self.cfg
         b, s, _ = x.shape
         n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
@@ -171,7 +222,8 @@ class LlamaAttention(nn.Module):
         q = q.view(b, s, n_h, hd)
         k = k.view(b, s, n_kv, hd)
         v = v.view(b, s, n_kv, hd)
-        q, k = rope_ops.apply_rotary_pos_emb(q, k, cos, sin, position_ids)
+        q, k = rope_ops.apply_rotary_pos_emb(q, k, cos, sin, position_ids,
+                                             neg_sin)
         return q, k, v
 
     def _out(self, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -179,9 +231,19 @@ class LlamaAttention(nn.Module):
         return torch.matmul(attn.reshape(b, s, -1).to(x.dtype),
                             self.o_proj.to(x.dtype))
 
-    def forward(self, x, cos, sin):
-        q, k, v = self._qkv_rope(x, cos, sin)
-        return self._out(sdpa_plain(q, k, v, causal=True), x)
+    def forward(self, x, cos, sin, position_ids=None, segment_ids=None,
+                neg_sin=None):
+        """Causal self-attention: the flash kernels (forward and
+        backward) when ``cfg.use_flash_attention``, else ``sdpa_plain``,
+        as the JAX model chooses between flash and ``_sdpa_xla``."""
+        q, k, v = self._qkv_rope(x, cos, sin, position_ids, neg_sin)
+        if self.cfg.use_flash_attention:
+            out = ptF.scaled_dot_product_attention(
+                q, k, v, is_causal=True, training=self.training,
+                segment_ids=segment_ids)
+        else:
+            out = sdpa_plain(q, k, v, causal=True, segment_ids=segment_ids)
+        return self._out(out, x)
 
     def prefill_paged(self, x, cos, sin, kv: Pool, tables: torch.Tensor):
         """Prompt pass writing K/V into head-major page pools
@@ -252,8 +314,10 @@ class LlamaDecoderLayer(nn.Module):
             dtype="float32")
         self.mlp = LlamaMLP(cfg, init)
 
-    def forward(self, x, cos, sin):
-        h = x + self.self_attn(self.input_layernorm(x), cos, sin)
+    def forward(self, x, cos, sin, position_ids=None, segment_ids=None,
+                neg_sin=None):
+        h = x + self.self_attn(self.input_layernorm(x), cos, sin,
+                               position_ids, segment_ids, neg_sin)
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -274,11 +338,29 @@ class LlamaModel(nn.Module):
                                        cfg.rope_theta, device=init.device)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
+        # the RoPE backward's table, kept so no step allocates it
+        self.register_buffer("rope_neg_sin", -sin, persistent=False)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """input_ids [b, s] → final hidden states [b, s, hidden].
+        ``position_ids`` [b, s] (default 0..s-1) index the RoPE tables;
+        ``segment_ids`` [b, s] restrict attention to equal ids (packed
+        sequences)."""
+        cfg = self.cfg
+        if cfg.sequence_parallel:
+            raise NotImplementedError(
+                "sequence_parallel needs a 'sep' device mesh, which "
+                "arrives with the torch.distributed slice")
+        if cfg.recompute != "none" and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"recompute={cfg.recompute!r} arrives with the next "
+                f"training slice; pass recompute='none'")
         x = F.embedding(input_ids, self.embed_tokens)
         for layer in self.layers:
-            x = layer(x, self.rope_cos, self.rope_sin)
+            x = layer(x, self.rope_cos, self.rope_sin, position_ids,
+                      segment_ids, self.rope_neg_sin)
         return self.norm(x)
 
     # -- paged-KV (vLLM-style) inference paths ------------------------------
@@ -345,10 +427,52 @@ class LlamaForCausalLM(nn.Module):
              else self.lm_head)
         return torch.matmul(hidden, w.to(hidden.dtype))
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """input_ids [b, s] → logits [b, s, vocab] (causal LM head)."""
-        return self.logits(self.model(input_ids))
+    def forward(self, input_ids: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                return_logits: Optional[bool] = None):
+        """input_ids [b, s] → logits [b, s, vocab] without ``labels``.
+        With ``labels`` [b, s] (-100 = ignored): ``(loss, logits)``, or
+        the scalar loss alone when ``return_logits`` is False. The loss
+        is the naive head (materialised logits, then
+        :func:`causal_lm_loss`); ``cfg.loss_impl="fused"`` raises until
+        the fused vocab-CE kernels are ported."""
+        if labels is not None and self.cfg.loss_impl == "fused":
+            raise NotImplementedError(
+                "loss_impl='fused' needs the fused vocab-CE kernels; pass "
+                "loss_impl='naive'; the fused vocab-CE head is the next "
+                "slice")
+        hidden = self.model(input_ids, position_ids, segment_ids)
+        logits = self.logits(hidden)
+        if labels is None:
+            return logits
+        loss = causal_lm_loss(logits, labels)
+        if return_logits is False:
+            return loss
+        return loss, logits
+
+    # -- size accounting (MFU calculator input) ------------------------------
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def flops_per_token(self, seq_len: int, causal: bool = False) -> float:
+        """Model forward+backward FLOPs per token by the PaLM appendix-B
+        convention: 6 * N_matmul + 12 * L * H * seq_len, with the
+        embedding table left out of N unless it is tied (then it is the
+        head's matmul). ``causal=True`` counts only the attention a
+        causal kernel executes (average context (s + 1) / 2)."""
+        cfg = self.cfg
+        n = self.num_params()
+        if not cfg.tie_word_embeddings:
+            n -= cfg.vocab_size * cfg.hidden_size     # gather-only table
+        attn = 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
+        if causal:
+            attn *= (seq_len + 1) / (2 * seq_len)
+        return 6 * n + attn
 
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM", "parameter_shapes"]
+           "LlamaModel", "LlamaForCausalLM", "parameter_shapes",
+           "causal_lm_loss"]

@@ -36,7 +36,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"rms_norm": 0, "fused_rope": 0,
+LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rms_norm_bwd": 0,
+                            "fused_rope": 0, "flash_fwd": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "paged_decode": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -135,14 +137,22 @@ def lib() -> ctypes.CDLL:
 
 
 def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
-    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-        ctypes.c_longlong
+    P, I, F, LL, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong, ctypes.c_uint
     so.pt_rms_norm_fwd.argtypes = [P, P, P, P, I, I, F, I, I, I, P]
+    so.pt_rms_norm_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
     so.pt_fused_rope.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
                                  LL, LL, LL, LL, LL, LL, I, I, P]
     so.pt_paged_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I,
                                    F, I, P]
-    for fn in (so.pt_rms_norm_fwd, so.pt_fused_rope, so.pt_paged_decode):
+    flash = [P] * 13 + [I] * 6 + [LL] * 9 + [F, I, I, U, U, F, F, I, I, P]
+    fns = [so.pt_rms_norm_fwd, so.pt_rms_norm_bwd, so.pt_fused_rope,
+           so.pt_paged_decode]
+    for name in ("pt_flash_fwd", "pt_flash_bwd_dq", "pt_flash_bwd_dkv"):
+        fn = getattr(so, name)
+        fn.argtypes = flash
+        fns.append(fn)
+    for fn in fns:
         fn.restype = ctypes.c_int
     return so
 

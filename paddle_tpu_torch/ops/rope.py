@@ -3,7 +3,8 @@
 The neox/Llama rotate-half form on [b, s, heads, d] tensors. Both the
 contiguous-position form (prefill) and the ``position_ids`` form (decode)
 go through the hand-written CUDA kernel on a CUDA tensor; a CPU tensor
-takes the plain version, which is also the kernel's oracle.
+takes the plain version, which is also the kernel's oracle. Under
+autograd the backward is the same rotation with the sine negated.
 """
 
 from __future__ import annotations
@@ -52,17 +53,50 @@ def _rope_plain(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     return rot(q), rot(k)
 
 
-def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
-                         sin: torch.Tensor,
-                         position_ids: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q [b, s, h, d], k [b, s, hk, d]; cos/sin the fp32 [max_seq, d]
-    tables; ``position_ids`` [b, s] or None for 0..s-1."""
+def _rope(q, k, cos, sin, position_ids):
+    """The forward rotation: the kernel on CUDA, the plain version on the
+    CPU. ``position_ids`` is int64 [b, s] or None."""
     if q.device.type == "cpu":
         return _rope_plain(q, k, cos, sin, position_ids)
+    return fused_rope(q, k, cos, sin, position_ids)
+
+
+class _Rope(torch.autograd.Function):
+    """RoPE of (q, k) with the transposed rotation as its backward: the
+    same kernel with the sine table negated, R(theta)^T = R(-theta), as
+    ``paddle_tpu.ops.rope._rope_bwd`` does. The tables are constants and
+    get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin, neg_sin, position_ids):
+        ctx.save_for_backward(cos, neg_sin, position_ids)
+        return _rope(q, k, cos, sin, position_ids)
+
+    @staticmethod
+    def backward(ctx, gq, gk):
+        cos, neg_sin, position_ids = ctx.saved_tensors
+        dq, dk = _rope(gq.contiguous(), gk.contiguous(), cos, neg_sin,
+                       position_ids)
+        return dq, dk, None, None, None, None
+
+
+def apply_rotary_pos_emb(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor,
+                         position_ids: Optional[torch.Tensor] = None,
+                         neg_sin: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q [b, s, h, d], k [b, s, hk, d]; cos/sin the fp32 [max_seq, d]
+    tables; ``position_ids`` [b, s] or None for 0..s-1. ``neg_sin`` is
+    ``-sin``, the backward's table: a model keeps it as a buffer, and it
+    is made here (one allocation a call) when None and a gradient is
+    recorded."""
     if position_ids is not None:
         position_ids = position_ids.to(torch.int64).contiguous()
-    return fused_rope(q, k, cos, sin, position_ids)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        return _Rope.apply(q, k, cos, sin,
+                           -sin if neg_sin is None else neg_sin,
+                           position_ids)
+    return _rope(q, k, cos, sin, position_ids)
 
 
 __all__ = ["rope_freqs", "apply_rotary_pos_emb"]

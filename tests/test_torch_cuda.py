@@ -1,13 +1,17 @@
-"""The port's CUDA kernels and serving engine on the card, held against
-their plain PyTorch versions. Every test needs a CUDA device and skips
-without one. The file imports neither JAX nor the JAX package, so it runs
-where they are not installed, without the suite's conftest:
+"""The port's CUDA kernels, serving engine and training step on the
+card, held against their plain PyTorch versions. Every test needs a CUDA
+device and skips without one. The file imports neither JAX nor the JAX
+package, so it runs where they are not installed, without the suite's
+conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda
 
 Tolerances: fp32 1e-5 (the same fp32 arithmetic in another summation
 order); bf16 2e-2 (both sides compute in fp32 and round once to bf16,
-whose step is 2**-8 relative, so they may land one step apart).
+whose step is 2**-8 relative, so they may land one step apart). The bf16
+flash kernels are also held per row (one head's d values) within 2e-2
+of the row's norm, as ``chip_smoke.py`` holds them: the elementwise bf16
+limit is as large as a typical attention output.
 """
 
 import numpy as np
@@ -17,12 +21,14 @@ import torch
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops import norm as norm_ops
 from paddle_tpu_torch.ops import rope as rope_ops
-from paddle_tpu_torch.ops.kernels import (_build, fused_norm, fused_rope,
-                                          paged_attention)
+from paddle_tpu_torch.ops.kernels import (_build, flash_attention, fused_norm,
+                                          fused_rope, paged_attention)
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ROW_TOL = 2e-2     # bf16 flash, per row
 DTYPES = ["float32", "bfloat16"]
+SERVING_KERNELS = ("rms_norm", "fused_rope", "paged_decode")
 
 
 @pytest.fixture
@@ -36,6 +42,18 @@ def dev():
 
 def _close(got, want, dtype):
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _rows_close(got, want, dtype):
+    """bf16: each row's |got - want|_2 within ROW_TOL of |want|_2 (plus
+    1e-3 of the mean row norm, for rows that are 0). fp32's elementwise
+    1e-5 is already far tighter."""
+    if dtype != "bfloat16":
+        return
+    g, w = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    wn = w.norm(dim=-1)
+    err = float(((g - w).norm(dim=-1) / (wn + 1e-3 * wn.mean())).max())
+    assert err <= ROW_TOL, (err, ROW_TOL)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -101,10 +119,156 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, H, H_kv, D, page):
            attn_ops.paged_decode_plain(*args), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("R,D", [(70, 4096), (5, 256), (3, 100)])
+def test_rms_norm_bwd_kernel_matches_plain(dev, dtype, R, D):
+    """Vector and scalar paths, several row blocks, fp32 and x-typed
+    weights; dx in x's dtype, dw summed from the per-block partials."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(R + D)
+    x = torch.randn((R, D), generator=g, device=dev).to(dt)
+    dy = torch.randn((R, D), generator=g, device=dev).to(dt)
+    for wdt in (torch.float32, dt):
+        w = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).to(wdt)
+        _, rstd = fused_norm.rms_norm_fwd(x, w, 1e-5, return_rstd=True)
+        dx, dw = fused_norm.rms_norm_bwd(x, w, rstd, dy)
+        want_dx, want_dw = norm_ops._rms_norm_bwd_plain(x, w, rstd, dy)
+        _close(dx, want_dx, dtype)
+        assert dw.dtype == wdt
+        torch.testing.assert_close(dw.float(), want_dw.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# (b, sq, sk, h, hk, d, causal, segments, dropout_p)
+FLASH_CASES = {
+    "causal_d128": (2, 256, 256, 4, 2, 128, True, False, 0.0),
+    "full_d64": (1, 192, 192, 4, 4, 64, False, False, 0.0),
+    "ragged_sq_lt_sk": (1, 100, 157, 8, 2, 64, True, False, 0.0),
+    "segments": (2, 200, 200, 4, 1, 128, False, True, 0.0),
+    "dropout_d32": (2, 128, 128, 4, 2, 32, True, False, 0.1),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(dev, dtype, case):
+    """flash_fwd (out, lse), flash_bwd_dq and flash_bwd_dkv against the
+    plain versions: GQA, ragged lengths, sq < sk, segment ids with fully
+    masked rows, dropout, head dims 32/64/128; v a strided view."""
+    b, sq, sk, h, hk, d, causal, seg, p = FLASH_CASES[case]
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(sq * 7 + d)
+    q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dt)
+    kv = torch.randn((b, sk, 2 * hk, d), generator=g, device=dev).to(dt)
+    k, v = kv[:, :, :hk], kv[:, :, hk:]
+    dout = torch.randn((b, sq, h, d), generator=g, device=dev).to(dt)
+    q_seg = kv_seg = None
+    if seg:
+        q_seg = (torch.arange(sq, device=dev) // 70).to(torch.int32)
+        q_seg = q_seg.expand(b, sq).contiguous()
+        kv_seg = q_seg.clone()
+        q_seg[:, -10:] = 9                      # no key has id 9
+    args = (causal, d ** -0.5, q_seg, kv_seg, p, 77)
+    out, lse = flash_attention.flash_fwd(q, k, v, *args)
+    want_out, want_lse = attn_ops._flash_fwd_plain(q, k, v, *args)
+    _close(out, want_out, dtype)
+    _rows_close(out, want_out, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    delta = (want_out.float() * dout.float()).sum(-1).transpose(
+        1, 2).contiguous()
+    dq = flash_attention.flash_bwd_dq(q, k, v, dout, want_lse, delta, *args)
+    dk, dv = flash_attention.flash_bwd_dkv(q, k, v, dout, want_lse, delta,
+                                           *args)
+    wdq, wdk, wdv = attn_ops._flash_bwd_plain(q, k, v, dout, want_lse, delta,
+                                              *args)
+    for got, want in ((dq, wdq), (dk, wdk), (dv, wdv)):
+        _close(got, want, dtype)
+        _rows_close(got, want, dtype)
+
+
+def test_cuda_routes_carry_gradients(dev):
+    """On the card, rms_norm, RoPE and flash attention return tensors with
+    a grad_fn, and their backward launches the backward kernels."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, 16, 128), generator=g, device=dev,
+                    requires_grad=True)
+    w = torch.ones((128,), device=dev, requires_grad=True)
+    cos, sin = rope_ops.rope_freqs(32, 64, device=dev)
+    _build.reset_launches()
+    y = norm_ops.rms_norm(x, w, 1e-5)
+    q, k = rope_ops.apply_rotary_pos_emb(y.view(2, 16, 4, 32),
+                                         y.view(2, 16, 4, 32), cos, sin)
+    out = attn_ops.flash_attention(q, k, k, causal=True)
+    assert all(t.grad_fn is not None for t in (y, q, k, out))
+    out.sum().backward()
+    assert x.grad is not None and w.grad is not None
+    counts = dict(_build.LAUNCHES)
+    assert counts["rms_norm"] == 1 and counts["rms_norm_bwd"] == 1, counts
+    assert counts["fused_rope"] == 2, counts           # forward + backward
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts[name] == 1, counts
+
+
+def test_training_on_card_matches_cpu(dev):
+    """Three AdamW steps of the same seeded tiny Llama (fp32, segment ids
+    in the batch) on the card (kernels) and on the CPU (plain versions):
+    losses within 1e-4."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    cfg = LlamaConfig.tiny(loss_impl="naive")
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, cfg.vocab_size, (2, 65))
+    seg = np.zeros((2, 64), np.int32)
+    seg[0, 30:] = 1
+    losses = []
+    for device in ("cpu", dev):
+        m = LlamaForCausalLM(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        m = m.to(device)
+        tr = Trainer(m, AdamW(learning_rate=1e-3, parameters=m,
+                              grad_clip=ClipGradByGlobalNorm(1.0)))
+        batch = {"input_ids": torch.tensor(ids[:, :-1], device=device),
+                 "labels": torch.tensor(ids[:, 1:], device=device),
+                 "segment_ids": torch.tensor(seg, device=device)}
+        losses.append([float(tr.train_step(batch)) for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_training_step_on_card_matches_cpu(dev):
+    """One bf16 forward and backward of the same seeded tiny Llama on the
+    card (the flash kernels' tensor-core route) and on the CPU (plain
+    versions): the loss within 1e-2 and every gradient within 3e-2 in
+    relative Frobenius norm (the two sides' GEMMs round bf16 apart)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(loss_impl="naive", dtype="bfloat16")
+    rs = np.random.RandomState(2)
+    ids = rs.randint(0, cfg.vocab_size, (2, 129))
+    seg = np.zeros((2, 128), np.int32)
+    seg[0, 50:] = 1
+    side = []
+    for device in ("cpu", dev):
+        m = LlamaForCausalLM(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        m = m.to(device)
+        loss = m(input_ids=torch.tensor(ids[:, :-1], device=device),
+                 labels=torch.tensor(ids[:, 1:], device=device),
+                 segment_ids=torch.tensor(seg, device=device))[0]
+        loss.backward()
+        side.append((float(loss.detach()),
+                     {n: p.grad.float().cpu() for n, p in
+                      m.named_parameters()}))
+    (lp, gp), (lc, gc) = side
+    np.testing.assert_allclose(lc, lp, rtol=1e-2)
+    for n in gp:
+        err = float((gc[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+        assert err <= 3e-2, (n, err)
+
+
 def test_engine_on_card_matches_cpu(dev):
     """The same seeded model served on the card (kernels) and on the CPU
     (plain versions): greedy and sampled streams agree token for token,
-    and every kernel launched on the card."""
+    and every kernel of the serving path launched on the card."""
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             GenerationConfig)
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -131,6 +295,7 @@ def test_engine_on_card_matches_cpu(dev):
     want = serve(cpu)
     _build.reset_launches()
     got = serve(card)
-    assert all(n > 0 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+    assert all(_build.LAUNCHES[k] > 0 for k in SERVING_KERNELS), \
+        _build.LAUNCHES
     for a, w in zip(got, want):
         np.testing.assert_array_equal(a, w)
