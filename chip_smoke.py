@@ -14,12 +14,16 @@ Phases, in order; any failure exits non-zero before the result line:
      tolerance (the flash kernels also per row, and a planted wrong tile
      must fail that check), and time kernel, plain version and library
      call (CUDA events, L2 flushed before every launch, median of 25
-     after warm-up; 10 for the plain flash versions at the training
-     shape). Training kernels: the RMSNorm backward at 8192 x 4096;
-     flash forward, dq and dk/dv at b=2, s=4096, 32 heads over 8 KV
-     heads, d=128, bf16, causal; flash also in fp32 at s=1024, with
-     segment ids (fully masked rows included), with dropout p=0.1 and at
-     a ragged s=1000;
+     after warm-up; 10 for slow plain versions). Training kernels: the
+     RMSNorm backward at 8192 x 4096; flash forward, dq and dk/dv at b=2,
+     s=4096, 32 heads over 8 KV heads, d=128, bf16, causal; flash also in
+     fp32 at s=1024, with segment ids (fully masked rows included), with
+     dropout p=0.1 and at a ragged s=1000; the fused vocab-CE kernels
+     (forward, dlog, dh, dW) at 8192 tokens x hidden 4096 x vocabulary
+     128256 in bf16 (lse/tgt to 1e-4, dlog, dh and dW per row or column,
+     and two planted wrong vocabulary blocks that every check must
+     reject), and in fp32 at 2048 x 1024 x 20000 with ignored rows and a
+     tied, transposed W through the autograd Function;
   4. engine equality: Llama-3-8B widths at 2 layers, fp32, seeded random
      weights: greedy tokens of the engine on the card equal those of a
      step-by-step plain-version path on the CPU;
@@ -31,19 +35,24 @@ Phases, in order; any failure exits non-zero before the result line:
      before and read just after; every serving kernel must have launched;
   6. training equality: Llama-3-8B's attention layout (hidden 4096, 32
      heads, 8 KV heads of 128) at 2 layers with the MLP cut to 1024 and
-     the vocabulary to 4096, the same seeded weights and batch (segment
-     ids included) on the card (kernels) and on the CPU (plain versions):
-     in fp32, first-step gradients and 3 AdamW steps' losses agree; in
-     bf16 (the flash kernels' tensor-core route), the first step's loss
-     and gradients agree;
-  7. the training run: Llama-3-8B widths at 4 layers, bf16, naive loss
-     head, AdamW(1e-4, weight_decay=0.01) with global-norm clip 1.0,
-     batch 2 x 4096 tokens from a numpy seed, the same batch every step:
-     2 warm-up and 8 timed steps through Trainer.fit, launch counts reset
-     just before and read just after; tokens/s, step time, MFU, peak
-     memory, the device idle share of one step, and launches per step.
-     Every training kernel must launch and the loss must be finite and
-     fall.
+     the vocabulary to 4096, the default (fused) loss head, the same
+     seeded weights and batch (segment ids included) on the card
+     (kernels) and on the CPU (plain versions): in fp32, first-step
+     gradients and 3 AdamW steps' losses agree; in bf16 (the flash
+     kernels' tensor-core route), the first step's loss and gradients
+     agree; in fp32 with recompute "full" and "selective", the card's
+     first-step gradients equal those without recompute within 1e-6;
+  7. the training run: Llama-3-8B widths at 4 layers, bf16, the default
+     configuration (fused vocab-CE head), AdamW(1e-4, weight_decay=0.01)
+     with global-norm clip 1.0, batch 2 x 4096 tokens from a numpy seed,
+     the same batch every step: 2 warm-up and 8 timed steps through
+     Trainer.fit, launch counts reset just before and read just after;
+     tokens/s, step time, MFU, peak memory, the device idle share of one
+     step, and launches per step. Every training kernel must launch and
+     the loss must be finite and fall. Then 2 + 4 steps each of the
+     naive head and of recompute "full" and "selective" on the same
+     batch (step time, peak memory); the default run's peak memory must
+     lie below the naive head's.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -81,9 +90,18 @@ TOL = {"float32": (1e-5, 1e-5),
 # needs no row check: its elementwise limit is far below any wrong
 # tile's change.
 ROW_TOL = 2e-2
+# The vocab-CE kernels' lse and tgt are fp32 sums of exact products on
+# both sides (bf16 or fp32 inputs), apart only in summation order: held
+# to CE_FP32_TOL absolute, which sound kernels meet with margin and a
+# planted wrong vocabulary block breaks by more than 10x (phase 3 prints
+# both readings and fails otherwise). bf16 dh is held per row (one
+# token's H values) and dW and dlog per column or row as the flash
+# tensors are, with ROW_TOL.
+CE_FP32_TOL = 1e-4
+CE_KERNELS = ("vocab_ce_fwd", "vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw")
 SERVING_KERNELS = ("rms_norm", "fused_rope", "paged_decode")
 TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
-                    "flash_bwd_dq", "flash_bwd_dkv")
+                    "flash_bwd_dq", "flash_bwd_dkv") + CE_KERNELS
 RESULTS: dict = {"kernel_cases": []}
 FAILED_CASES: list = []
 
@@ -208,12 +226,14 @@ def us(ms):
 
 
 def record(kernel, case, dt, err, kms=None, pms=None, lms=None,
-           bnd=(None, None)):
+           bnd=(None, None), tol=None):
     """One checked case; the times are None for a case checked only.
-    ``err`` is compare()'s triple, or flash_compare()'s six-tuple."""
+    ``err`` is compare()'s triple, or flash_compare()'s six-tuple;
+    ``tol`` overrides the printed elementwise tolerance TOL[dt]."""
     max_abs, max_rel, ok = err[:3]
+    tol = TOL[dt] if tol is None else tol
     row = dict(kernel=kernel, case=case, dtype=dt, max_abs_err=max_abs,
-               max_rel_err=max_rel, tol=TOL[dt], ok=ok, ms=kms,
+               max_rel_err=max_rel, tol=tol, ok=ok, ms=kms,
                plain_ms=pms, library_ms=lms, bound_ms=bnd[0],
                bound_by=bnd[1])
     rows = ""
@@ -226,7 +246,7 @@ def record(kernel, case, dt, err, kms=None, pms=None, lms=None,
               f"kernel {us(kms)}, plain {us(pms)}, library {us(lms)}, "
               f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
     log(f"kernel {kernel} [{case} {dt}] max_abs_err={max_abs:.3e} "
-        f"max_rel_err={max_rel:.3e} tol(atol,rtol)={TOL[dt]}{rows} "
+        f"max_rel_err={max_rel:.3e} tol(atol,rtol)={tol}{rows} "
         f"{'ok' if ok else 'FAIL'} | {timing}")
     if not ok:
         FAILED_CASES.append(f"{kernel}/{case}/{dt}")
@@ -508,6 +528,220 @@ def phase_train_kernels(torch, pt):
     torch.cuda.empty_cache()
 
 
+def ce_compare(torch, pairs, atol):
+    """compare() of fp32 results held to ``atol`` alone: (max_abs,
+    max_rel, ok) over the (got, want) pairs."""
+    diffs = [((g.float() - w.float()).abs(), w.float()) for g, w in pairs]
+    max_abs = max(float(d.max()) for d, _ in diffs)
+    max_rel = max(float((d / w.abs().clamp_min(1e-6)).max())
+                  for d, w in diffs)
+    ok = max_abs <= atol and all(bool(torch.isfinite(g).all())
+                                 for g, _ in pairs)
+    return max_abs, max_rel, ok
+
+
+def phase_ce_kernels(torch, pt):
+    """Phase 3, the fused vocab-CE kernels. At the training shape (2 x
+    4096 tokens, hidden 4096, vocabulary 128256, bf16): the forward, the
+    dlog of one chunk, and dh and dW of the whole backward against the
+    plain versions, timed per launch beside the plain version and the
+    PyTorch yardstick, and with planted wrong vocabulary blocks. In fp32
+    at 2048 x 1024 over a vocabulary of 20000 (not a multiple of the
+    tile, three backward chunks) with ignored rows and a tied,
+    transposed W, through the autograd Function. Runs with autograd
+    on."""
+    from paddle_tpu_torch.ops import vocab_ce
+    from paddle_tpu_torch.ops.kernels import fused_vocab_ce as kce
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5678)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    N, H, V, C = 8192, 4096, 128256, kce.CHUNK
+    bf, i32, e = torch.bfloat16, torch.int32, 2
+    h = torch.randn((N, H), generator=g, device=dev).to(bf)
+    w = (0.02 * torch.randn((H, V), generator=g, device=dev)).to(bf)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev).to(i32)
+    labels[::97] = -1                                   # ignored rows
+    # the blocks that the planted copies overwrite hold some rows' labels
+    plants = {"mid": 500, "late": V // 128 - 2}
+    for i, j in enumerate(plants.values()):
+        labels[1 + 16 * i:9 + 16 * i] = (j + 1) * 128 + 13 * torch.arange(
+            8, device=dev, dtype=i32)
+    g_lse = torch.randn((N,), generator=g, device=dev)
+    g_tgt = torch.randn((N,), generator=g, device=dev)
+    hf, lab = h.float(), labels.long()[:, None]
+
+    lse, tgt = kce.vocab_ce_fwd(h, w, labels)
+    want_lse, want_tgt = vocab_ce._fwd_plain(h, w, labels)
+    record("vocab_ce_fwd", "train_8192", "bfloat16",
+           ce_compare(torch, [(lse, want_lse), (tgt, want_tgt)],
+                      CE_FP32_TOL),
+           timed_ms(torch, lambda: kce.vocab_ce_fwd(h, w, labels), flush,
+                    reps=10),
+           timed_ms(torch, lambda: vocab_ce._fwd_plain(h, w, labels), flush,
+                    reps=10),
+           timed_ms(torch, lambda: torch.logsumexp(
+               torch.matmul(h, w).float(), -1), flush, reps=10),
+           bound(N * H * e + H * V * e + 3 * N * 4, 2 * N * H * V,
+                 BF16_OPS_PER_S), tol=CE_FP32_TOL)
+    del lse, tgt
+
+    dlog = torch.empty((N, C), dtype=bf, device=dev)
+    kce.vocab_ce_dlog(h, w, labels, want_lse, g_lse, g_tgt, 0, C, dlog)
+    want_dlog = vocab_ce._dlog_plain(hf, w, lab, want_lse, g_lse, g_tgt, 0,
+                                     C)[0].to(bf)
+    record("vocab_ce_dlog", "train_chunk_8192", "bfloat16",
+           flash_compare(torch, [(dlog, want_dlog)], "bfloat16"),
+           timed_ms(torch, lambda: kce.vocab_ce_dlog(
+               h, w, labels, want_lse, g_lse, g_tgt, 0, C, dlog), flush),
+           timed_ms(torch, lambda: vocab_ce._dlog_plain(
+               hf, w, lab, want_lse, g_lse, g_tgt, 0, C)[0].to(bf), flush,
+                    reps=10),
+           None,
+           bound(N * H * e + H * C * e + 4 * N * 4 + N * C * e,
+                 2 * N * H * C, BF16_OPS_PER_S))
+    del want_dlog
+
+    dh, dw = kce.vocab_ce_bwd(h, w, labels, want_lse, g_lse, g_tgt)
+    want_dh, want_dw = vocab_ce._bwd_plain(h, w, labels, want_lse, g_lse,
+                                           g_tgt, C)
+    # per launch at a middle chunk: dh adds to the fp32 sums of the
+    # earlier chunks; the yardsticks are the chunk's product in one
+    # torch.matmul, the plain versions the plain backward's steps
+    acc = torch.empty((N, H), dtype=torch.float32, device=dev)
+    out_dh, out_dw = torch.empty_like(h), torch.empty_like(w)
+    wc = w[:, :C]
+    record("vocab_ce_dh", "train_8192", "bfloat16",
+           flash_compare(torch, [(dh, want_dh)], "bfloat16"),
+           timed_ms(torch, lambda: kce.vocab_ce_dh(
+               dlog, w, 0, C, out_dh, acc, first=False, last=False), flush),
+           timed_ms(torch, lambda: dlog.float() @ wc.float().t(), flush,
+                    reps=10),
+           timed_ms(torch, lambda: torch.matmul(dlog, wc.t()), flush),
+           bound(N * C * e + H * C * e + 2 * N * H * 4, 2 * N * H * C,
+                 BF16_OPS_PER_S))
+    record("vocab_ce_dw", "train_8192", "bfloat16",
+           flash_compare(torch, [(dw.t(), want_dw.t())], "bfloat16"),
+           timed_ms(torch, lambda: kce.vocab_ce_dw(h, dlog, 0, C, out_dw),
+                    flush),
+           timed_ms(torch, lambda: (hf.t() @ dlog.float()).to(bf), flush,
+                    reps=10),
+           timed_ms(torch, lambda: torch.matmul(h.t(), dlog), flush),
+           bound(N * H * e + N * C * e + H * C * e, 2 * N * H * C,
+                 BF16_OPS_PER_S))
+    del acc, out_dh, out_dw, dh, dw
+
+    # the whole head: forward + backward of the kernels, of the plain
+    # versions, and of the naive head through autograd (logits, fp32 CE)
+    hr, wr = h.detach().requires_grad_(), w.detach().requires_grad_()
+    naive = F.cross_entropy(torch.matmul(hr, wr).float(), labels.long(),
+                            ignore_index=-1)
+    head = {
+        "kernels_bwd_ms": timed_ms(torch, lambda: kce.vocab_ce_bwd(
+            h, w, labels, want_lse, g_lse, g_tgt), flush, reps=5),
+        "plain_bwd_ms": timed_ms(torch, lambda: vocab_ce._bwd_plain(
+            h, w, labels, want_lse, g_lse, g_tgt, C), flush, reps=3,
+                                 warmup=1),
+        "naive_autograd_bwd_ms": timed_ms(torch, lambda: torch.autograd.grad(
+            naive, (hr, wr), retain_graph=True), flush, reps=10),
+        "launches_per_bwd": -(-V // C) * 3,
+        "bound_bwd_ms": bound(2 * N * H * e + 2 * H * V * e + 4 * N * 4,
+                              6 * N * H * V, BF16_OPS_PER_S)[0]}
+    RESULTS["vocab_ce_head"] = head
+    log(f"vocab-CE backward at {N} x {H} x {V} bf16: {head}")
+    del naive, hr, wr
+    torch.cuda.empty_cache()
+    planted_vocab_block(torch, kce, vocab_ce, h, w, labels, g_lse, g_tgt,
+                        want_lse, want_tgt, want_dh, want_dw, plants)
+    del h, w, dlog, want_dh, want_dw
+    torch.cuda.empty_cache()
+
+    # fp32, tied: W is the transposed view of an embedding [V, H]
+    N2, H2, V2 = 2048, 1024, 20000
+    hx = torch.randn((N2, H2), generator=g, device=dev)
+    emb = 0.05 * torch.randn((V2, H2), generator=g, device=dev)
+    lab2 = torch.randint(0, V2, (N2,), generator=g, device=dev).to(i32)
+    lab2[::5] = -1
+    lab2[1] = V2 - 1                                # in the padded tile
+    gl2 = torch.randn((N2,), generator=g, device=dev)
+    gt2 = torch.randn((N2,), generator=g, device=dev)
+    hr, er = hx.clone().requires_grad_(), emb.clone().requires_grad_()
+    lse2, tgt2 = vocab_ce.lse_and_target(hr, er.t(), lab2)
+    torch.autograd.backward((lse2, tgt2), (gl2, gt2))
+    wl2, wt2 = vocab_ce._fwd_plain(hx, emb.t(), lab2)
+    wdh2, wdw2 = vocab_ce._bwd_plain(hx, emb.t(), lab2, wl2, gl2, gt2)
+    case = "tied_fp32_v20000"
+    ef = [compare(torch, a, b, "float32") for a, b in
+          ((lse2, wl2), (tgt2, wt2))]
+    record("vocab_ce_fwd", case, "float32",
+           (max(x[0] for x in ef), max(x[1] for x in ef),
+            all(x[2] for x in ef)))
+    record("vocab_ce_dh", case, "float32",
+           compare(torch, hr.grad, wdh2, "float32"))
+    record("vocab_ce_dw", case, "float32",
+           compare(torch, er.grad, wdw2.t(), "float32"))
+    if bool((tgt2[::5] != 0).any()):
+        FAILED_CASES.append("vocab_ce_fwd/ignored_rows_tgt_not_0")
+    del flush
+    torch.cuda.empty_cache()
+
+
+def planted_vocab_block(torch, kce, vocab_ce, h, w, labels, g_lse, g_tgt,
+                        want_lse, want_tgt, want_dh, want_dw, plants):
+    """Run the CE kernels as if they read vocabulary block j's W in place
+    of block j + 1's (both 128 columns; block j + 1 holds 8 rows'
+    labels) and hold them against the plain versions of the true W: the
+    forward's lse/tgt reading must be at least 10x CE_FP32_TOL, and the
+    row checks of the chunk's dlog, of dh and of dW must reject it. A
+    failure means the check cannot see a wrong block."""
+    N, V, C = h.shape[0], w.shape[1], kce.CHUNK
+    hf, lab = h.float(), labels.long()[:, None]
+    res = {}
+    for where, j in plants.items():
+        w2 = w.clone()
+        w2[:, (j + 1) * 128:(j + 2) * 128] = w[:, j * 128:(j + 1) * 128]
+        lse2, tgt2 = kce.vocab_ce_fwd(h, w2, labels)
+        e_lse = ce_compare(torch, [(lse2, want_lse)], CE_FP32_TOL)
+        e_tgt = ce_compare(torch, [(tgt2, want_tgt)], CE_FP32_TOL)
+        reading = max(e_lse[0], e_tgt[0])
+        c0 = (j + 1) * 128 // C * C
+        cw = min(C, V - c0)
+        dlog = torch.empty((N, C), dtype=h.dtype, device=h.device)
+        kce.vocab_ce_dlog(h, w2, labels, want_lse, g_lse, g_tgt, c0, cw,
+                          dlog)
+        want_dlog = vocab_ce._dlog_plain(hf, w, lab, want_lse, g_lse, g_tgt,
+                                         c0, cw)[0].to(h.dtype)
+        dh2, dw2 = kce.vocab_ce_bwd(h, w2, labels, want_lse, g_lse, g_tgt)
+        checks = {
+            "vocab_ce_dlog": flash_compare(
+                torch, [(dlog[:, :cw], want_dlog)], "bfloat16"),
+            "vocab_ce_dh": flash_compare(torch, [(dh2, want_dh)],
+                                         "bfloat16"),
+            "vocab_ce_dw": flash_compare(torch, [(dw2.t(), want_dw.t())],
+                                         "bfloat16")}
+        caught = reading >= 10 * CE_FP32_TOL
+        res[f"vocab_ce_fwd/{where}"] = {
+            "lse_max_abs": e_lse[0], "tgt_max_abs": e_tgt[0],
+            "caught_10x": caught}
+        log(f"planted wrong vocabulary block ({where}, block {j} read as "
+            f"{j + 1}) in vocab_ce_fwd: lse max_abs_err={e_lse[0]:.3e}, "
+            f"tgt max_abs_err={e_tgt[0]:.3e} vs tol {CE_FP32_TOL} "
+            f"({'rejected by 10x or more' if caught else 'NOT 10x above'})")
+        if not caught:
+            FAILED_CASES.append(f"vocab_ce_fwd/planted_block_{where}_missed")
+        for kern, e in checks.items():
+            res[f"{kern}/{where}"] = {"row_err": e[3], "row_caught": not e[5],
+                                      "max_abs_err": e[0]}
+            log(f"planted wrong vocabulary block ({where}) in {kern}: "
+                f"row_err={e[3]:.3e} vs row_tol {ROW_TOL} (row check "
+                f"{'rejects' if not e[5] else 'MISSES'} it)")
+            if e[5]:
+                FAILED_CASES.append(f"{kern}/planted_block_{where}_missed")
+        del w2, dlog, dh2, dw2
+    RESULTS["planted_vocab_block"] = res
+
+
 def planted_tile(torch, fa, args, q, k, v, dout, lse, delta, wants):
     """Run each flash kernel as if it read one tile in place of another
     (tile A's rows of one KV head, or of one query head with its dout,
@@ -718,6 +952,8 @@ def kernel_category(name: str) -> str:
     step's breakdown."""
     if "flash_" in name:
         return "flash " + name.split("flash_")[1].split("<")[0]
+    if "vocab_ce" in name:
+        return "fused vocab-CE head kernels"
     if "rms_norm" in name or "rope_kernel" in name:
         return "rms_norm / rope kernels"
     if name.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in name:
@@ -763,9 +999,10 @@ def phase_train_equality(torch, pt, dev, make_cfg, dtype="float32"):
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
     from paddle_tpu_torch.trainer import Trainer
     # Llama-3-8B's attention layout; MLP 14336 -> 1024 and vocabulary
-    # 128256 -> 4096 so that the CPU steps through it in seconds
-    cfg = make_cfg(num_hidden_layers=2, dtype=dtype, loss_impl="naive",
-                   intermediate_size=1024, vocab_size=4096)
+    # 128256 -> 4096 so that the CPU steps through it in seconds; the
+    # default (fused) loss head
+    cfg = make_cfg(num_hidden_layers=2, dtype=dtype, intermediate_size=1024,
+                   vocab_size=4096)
     fp32 = dtype == "float32"
     t0 = time.perf_counter()
     card = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(9, dev))
@@ -774,7 +1011,7 @@ def phase_train_equality(torch, pt, dev, make_cfg, dtype="float32"):
     for name, model in (("card", card), ("cpu", cpu)):
         d = next(model.parameters()).device
         batch = train_batch(torch, cfg.vocab_size, 2, 256, d, 9, split=100)
-        loss = model(**batch)[0]
+        loss = model(**batch, return_logits=False)
         loss.backward()
         grads = {n: p.grad.detach().float().cpu() for n, p in
                  model.named_parameters()}
@@ -815,59 +1052,135 @@ def phase_train_equality(torch, pt, dev, make_cfg, dtype="float32"):
     if not (loss_ok and grad_ok):
         raise SystemExit(f"{dtype} training on the card differs from the "
                          f"plain path")
+    return gc
 
 
-def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
-    """Phase 7: train 4 layers at Llama-3-8B widths on the card (batch
-    b x s tokens)."""
+def phase_recompute_equality(torch, pt, dev, make_cfg, ref):
+    """Phase 6, recompute: the fp32 first-step gradients of the phase-6
+    model and batch on the card with recompute="full" and "selective",
+    against those of the recompute="none" run (``ref``): within 1e-6 of
+    each tensor's largest value, and whether they are equal bit for
+    bit."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    out = {}
+    for rc in ("full", "selective"):
+        cfg = make_cfg(num_hidden_layers=2, dtype="float32",
+                       intermediate_size=1024, vocab_size=4096, recompute=rc)
+        model = LlamaForCausalLM(cfg, device=dev,
+                                 generator=pt.generator(9, dev))
+        batch = train_batch(torch, cfg.vocab_size, 2, 256, dev, 9, split=100)
+        model(**batch, return_logits=False).backward()
+        grads = {n: p.grad.detach().float().cpu() for n, p in
+                 model.named_parameters()}
+        err = {n: float((grads[n] - ref[n]).abs().max()
+                        / ref[n].abs().max().clamp_min(1e-30)) for n in ref}
+        worst = max(err, key=err.get)
+        equal = all(torch.equal(grads[n], ref[n]) for n in ref)
+        out[rc] = {"worst": worst, "err": err[worst], "bit_equal": equal,
+                   "ok": err[worst] <= 1e-6}
+        log(f"recompute={rc!r} (fp32, phase-6 model): first-step gradients "
+            f"vs recompute='none': worst max|diff|/max|none| "
+            f"{err[worst]:.2e} at {worst} (tol 1e-6: "
+            f"{'ok' if out[rc]['ok'] else 'FAIL'}); equal bit for bit: "
+            f"{equal}")
+        del model
+        empty_cache(torch, dev)
+    RESULTS["recompute_equality"] = out
+    if not all(v["ok"] for v in out.values()):
+        raise SystemExit("gradients under recompute differ from those "
+                         "without it")
+
+
+def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False):
+    """Build Llama(cfg) and its trainer (AdamW(1e-4, weight_decay=0.01),
+    global-norm clip 1.0, seed 10) on ``dev``, take ``warm_steps`` and
+    then ``steps`` timed steps of ``batch`` through Trainer.fit, with the
+    launch counts reset just before the timed steps and read just after.
+    Returns the run's numbers."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
     from paddle_tpu_torch.trainer import Trainer
-    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16", loss_impl="naive")
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(10, dev))
     trainer = Trainer(model, AdamW(learning_rate=1e-4, parameters=model,
                                    weight_decay=0.01,
                                    grad_clip=ClipGradByGlobalNorm(1.0)))
     sync(torch, dev)
-    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
-    log(f"training model: llama3_8b widths, {cfg.num_hidden_layers} layers, "
-        f"bf16, {model.num_params() / 1e9:.3f} B parameters, built in "
-        f"{time.perf_counter() - t0:.1f} s; card {trainer.card}, peak "
-        f"{trainer.peak_flops}")
-    warm = trainer.fit(iter([batch] * 2), 2, log_every=1)
+    built_s = time.perf_counter() - t0
+    warm = trainer.fit(iter([batch] * warm_steps), warm_steps, log_every=1)
     sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
-    hist = trainer.fit(iter([batch] * 8), 8, log_every=1)
+    hist = trainer.fit(iter([batch] * steps), steps, log_every=1)
     sync(torch, dev)
     launches = dict(_build.LAUNCHES)
     peak_mem = (torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else None)
-    losses = [m.loss for m in warm + hist]
+    # the step's peak falls in the optimizer update (fp32 temporaries of
+    # the largest parameters), where no activation is alive; one more
+    # forward and backward alone shows the activations' footprint
+    fwd_bwd_peak = None
+    if dev.type == "cuda":
+        model.zero_grad(set_to_none=True)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model(**batch, return_logits=False).backward()
+        sync(torch, dev)
+        fwd_bwd_peak = torch.cuda.max_memory_allocated(dev)
+        model.zero_grad(set_to_none=True)
+    b, s = batch["input_ids"].shape
     times = [m.step_time_s for m in hist]
     tps = len(hist) * b * s / sum(times)
     fpt = model.flops_per_token(s)
-    mfu = tps * fpt / trainer.peak_flops if trainer.peak_flops else None
-    per_step = {k: v / len(hist) for k, v in launches.items()}
-    prof = profile_step(torch, dev, lambda: float(trainer.train_step(batch)),
-                        top=None)
-    info = {"layers": cfg.num_hidden_layers, "params": model.num_params(),
-            "batch": [b, s], "losses": losses, "step_times_s": times,
-            "median_step_s": statistics.median(times),
-            "tokens_per_s": tps, "flops_per_token": fpt,
-            "mfu_palm": mfu, "peak_memory_bytes": peak_mem,
-            "launches": launches, "launches_per_step": per_step,
-            "profile_step": prof, "card": trainer.card}
+    info = {"loss_impl": cfg.loss_impl, "recompute": cfg.recompute,
+            "layers": cfg.num_hidden_layers, "params": model.num_params(),
+            "batch": [b, s], "built_s": built_s,
+            "losses": [m.loss for m in warm + hist], "step_times_s": times,
+            "median_step_s": statistics.median(times), "tokens_per_s": tps,
+            "flops_per_token": fpt,
+            "mfu_palm": (tps * fpt / trainer.peak_flops
+                         if trainer.peak_flops else None),
+            "peak_memory_bytes": peak_mem,
+            "fwd_bwd_peak_memory_bytes": fwd_bwd_peak, "launches": launches,
+            "launches_per_step": {k: v / len(hist)
+                                  for k, v in launches.items()},
+            "card": trainer.card}
+    if profile:
+        info["profile_step"] = profile_step(
+            torch, dev, lambda: float(trainer.train_step(batch)), top=None)
+    del trainer, model
+    empty_cache(torch, dev)
+    return info
+
+
+def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
+    """Phase 7: train 4 layers at Llama-3-8B widths on the card (batch
+    b x s tokens) in the default configuration (fused vocab-CE head, no
+    recompute): 2 warm-up and 8 timed steps, every training kernel
+    counted. Then, on the same batch, 2 + 4 steps each of the naive head
+    and of recompute "full" and "selective", for their step time and
+    peak memory; the default run's peak must lie below the naive
+    head's."""
+    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
+    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
+    info = train_run(torch, pt, dev, cfg, batch, 2, 8, profile=True)
+    launches, losses = info["launches"], info["losses"]
     RESULTS["training"] = info
-    log(f"training: {len(hist)} timed steps of {b} x {s} tokens: "
-        f"{tps:.1f} tokens/s, median step {info['median_step_s']:.4f} s, "
-        f"MFU (PaLM, vs {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, "
-        f"{trainer.card}) {mfu}, peak memory {peak_mem} bytes")
+    log(f"training model: llama3_8b widths, {cfg.num_hidden_layers} layers, "
+        f"bf16, default head ({cfg.loss_impl}), {info['params'] / 1e9:.3f} "
+        f"B parameters, built in {info['built_s']:.1f} s; card "
+        f"{info['card']}")
+    log(f"training: 8 timed steps of {b} x {s} tokens: "
+        f"{info['tokens_per_s']:.1f} tokens/s, median step "
+        f"{info['median_step_s']:.4f} s, MFU (PaLM, vs "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {info['card']}) "
+        f"{info['mfu_palm']}, peak memory {info['peak_memory_bytes']} "
+        f"bytes (forward + backward alone "
+        f"{info['fwd_bwd_peak_memory_bytes']})")
     log(f"training losses: {losses}")
-    log(f"training launches per step: {per_step}")
+    log(f"training launches per step: {info['launches_per_step']}")
+    prof = info["profile_step"]
     if prof is not None:
         by = {}
         for row in prof["top"]:
@@ -881,16 +1194,35 @@ def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
             f" by category (ms, launches): {by}")
     else:
         log("training step profile: no device time reported")
-    del trainer, model, batch
-    empty_cache(torch, dev)
+    variants = {}
+    for name, kw in (("naive_head", dict(loss_impl="naive")),
+                     ("recompute_full", dict(recompute="full")),
+                     ("recompute_selective", dict(recompute="selective"))):
+        v = train_run(torch, pt, dev, make_cfg(num_hidden_layers=4,
+                                               dtype="bfloat16", **kw),
+                      batch, 2, 4)
+        variants[name] = v
+        log(f"training variant {name}: 4 timed steps: "
+            f"{v['tokens_per_s']:.1f} tokens/s, median step "
+            f"{v['median_step_s']:.4f} s, MFU {v['mfu_palm']}, peak memory "
+            f"{v['peak_memory_bytes']} bytes (forward + backward alone "
+            f"{v['fwd_bwd_peak_memory_bytes']}), losses {v['losses']}")
+    RESULTS["training_variants"] = variants
     missing = [k for k in TRAINING_KERNELS if launches[k] <= 0]
     if missing:
         raise SystemExit(f"kernels not launched on the training path: "
                          f"{missing}")
-    if not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"training loss not finite: {losses}")
+    for name, run in [("default", info)] + list(variants.items()):
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"training loss not finite ({name}): "
+                             f"{run['losses']}")
     if not losses[-1] < losses[0]:
         raise SystemExit(f"training loss did not fall: {losses}")
+    naive_peak = variants["naive_head"]["peak_memory_bytes"]
+    if dev.type == "cuda" and not info["peak_memory_bytes"] < naive_peak:
+        raise SystemExit(f"the fused head's peak memory "
+                         f"{info['peak_memory_bytes']} is not below the "
+                         f"naive head's {naive_peak}")
     return launches
 
 
@@ -904,6 +1236,7 @@ def main() -> int:
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops.kernels import (_build, flash_attention,
                                               fused_norm, fused_rope,
+                                              fused_vocab_ce,
                                               paged_attention)
     t_start = time.perf_counter()
     # 1. the card
@@ -921,6 +1254,7 @@ def main() -> int:
     with torch.inference_mode():
         phase_kernels(torch, pt)
     phase_train_kernels(torch, pt)
+    phase_ce_kernels(torch, pt)
     if FAILED_CASES:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{FAILED_CASES}")
@@ -928,8 +1262,10 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
     serve_launches = phase_serving(torch, pt, dev, LlamaConfig.llama3_8b)
-    for dtype in ("float32", "bfloat16"):
-        phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, dtype)
+    ref = phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b,
+                               "float32")
+    phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, "bfloat16")
+    phase_recompute_equality(torch, pt, dev, LlamaConfig.llama3_8b, ref)
     train_launches = phase_train(torch, pt, dev, LlamaConfig.llama3_8b)
     cases = RESULTS["kernel_cases"]
 
@@ -951,7 +1287,10 @@ def main() -> int:
             ("flash_bwd_dkv", flash_attention.SOURCE,
              flash_attention.REPLACES["flash_bwd_dkv"], "train_4096"),
             ("paged_decode", paged_attention.SOURCE,
-             paged_attention.REPLACES, "ctx1024")):
+             paged_attention.REPLACES, "ctx1024"),
+            *((name, fused_vocab_ce.SOURCE, fused_vocab_ce.REPLACES[name],
+               "train_chunk_8192" if name == "vocab_ce_dlog"
+               else "train_8192") for name in CE_KERNELS)):
         c = main_case(name, case)
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -7,17 +7,19 @@ Weights keep the JAX package's ``[in, out]`` layout and names
 (``paddle_tpu_torch.convert``). Activations run in ``cfg.dtype``; norm
 weights and statistics stay fp32.
 
-Ported here: ``forward`` (logits, or the loss through the naive head
-with ``labels``; attention through the flash kernels), the size
-accounting ``num_params`` / ``flops_per_token``, and the paged-KV
-serving trio ``alloc_paged_caches`` / ``prefill_paged`` /
-``decode_step_paged``. The page pools are updated IN PLACE
-(``index_put_``) where JAX returns new arrays; the methods still return
-the pools so callers read the same.
+Ported here: ``forward`` (logits, or with ``labels`` the loss through
+the fused vocab-CE head by default or the naive head; attention through
+the flash kernels; each layer under activation recompute when
+``cfg.recompute`` asks), the size accounting ``num_params`` /
+``flops_per_token``, and the paged-KV serving trio
+``alloc_paged_caches`` / ``prefill_paged`` / ``decode_step_paged``. The
+page pools are updated IN PLACE (``index_put_``) where JAX returns new
+arrays; the methods still return the pools so callers read the same.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -26,11 +28,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import dtype_of, generator as make_generator, resolve_device
+from ..distributed.recompute import recompute as run_recomputed
 from ..nn import RMSNorm
 from ..nn import functional as ptF
 from ..nn.initializer import Normal
 from ..ops import rope as rope_ops
 from ..ops.attention import paged_decode_attention, sdpa_plain
+from ..ops.vocab_ce import fused_linear_cross_entropy
 
 Pool = Tuple[torch.Tensor, torch.Tensor]
 
@@ -41,11 +45,10 @@ class LlamaConfig:
     ``paddle_tpu.models.llama.LlamaConfig`` with the same defaults, checks
     and presets (whose fields a keyword may override, e.g.
     ``llama3_8b(num_hidden_layers=2)``); the quantized-serving fields
-    arrive with their slice. Of the training fields, ``recompute`` other
-    than "none", ``sequence_parallel`` and ``loss_impl="fused"`` (the
-    default) are accepted but raise NotImplementedError where they would
-    act, and ``sp_mode`` other than "ring" is refused: their machinery
-    comes with later slices."""
+    arrive with their slice. Of the training fields,
+    ``sequence_parallel`` is accepted but raises NotImplementedError
+    where it would act, and ``sp_mode`` other than "ring" is refused:
+    their machinery comes with the torch.distributed slice."""
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -167,6 +170,27 @@ def _token_mean(nll: torch.Tensor, labels: torch.Tensor,
     vocab-CE head to share (as in ``paddle_tpu``)."""
     cnt = (labels != ignore_index).sum().float()
     return nll.sum() / cnt.clamp_min(1.0)
+
+
+def fused_loss_enabled(cfg) -> bool:
+    """The fused loss head is the default; ``cfg.loss_impl='naive'`` or
+    the environment variable ``PT_NAIVE_LOSS_HEAD`` (set and non-empty)
+    select the materialised-logits head, as in ``paddle_tpu``."""
+    return (cfg.loss_impl == "fused"
+            and not os.environ.get("PT_NAIVE_LOSS_HEAD"))
+
+
+def fused_causal_lm_loss(hidden: torch.Tensor, w: torch.Tensor,
+                         labels: torch.Tensor,
+                         ignore_index: int = -100) -> torch.Tensor:
+    """Token-weighted mean CE(hidden @ w, labels) with the [b, s, vocab]
+    logits never materialised: the fused vocab-CE head
+    (``ops.vocab_ce``), the dense path of ``paddle_tpu``'s function (the
+    port has no tensor-parallel mesh)."""
+    nll = fused_linear_cross_entropy(hidden, w, labels,
+                                     ignore_index=ignore_index,
+                                     reduction="none")
+    return _token_mean(nll, labels, ignore_index)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -347,20 +371,24 @@ class LlamaModel(nn.Module):
         """input_ids [b, s] → final hidden states [b, s, hidden].
         ``position_ids`` [b, s] (default 0..s-1) index the RoPE tables;
         ``segment_ids`` [b, s] restrict attention to equal ids (packed
-        sequences)."""
+        sequences). With ``cfg.recompute`` "full" (nothing kept) or
+        "selective" (the projections' products kept) and a gradient
+        recorded, each layer runs under activation recompute, as the JAX
+        model wraps it in ``jax.checkpoint``."""
         cfg = self.cfg
         if cfg.sequence_parallel:
             raise NotImplementedError(
                 "sequence_parallel needs a 'sep' device mesh, which "
                 "arrives with the torch.distributed slice")
-        if cfg.recompute != "none" and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"recompute={cfg.recompute!r} arrives with the next "
-                f"training slice; pass recompute='none'")
+        remat = cfg.recompute != "none" and torch.is_grad_enabled()
+        policy = ("dots_with_no_batch_dims_saveable"
+                  if cfg.recompute == "selective" else "full")
         x = F.embedding(input_ids, self.embed_tokens)
         for layer in self.layers:
-            x = layer(x, self.rope_cos, self.rope_sin, position_ids,
-                      segment_ids, self.rope_neg_sin)
+            args = (x, self.rope_cos, self.rope_sin, position_ids,
+                    segment_ids, self.rope_neg_sin)
+            x = (run_recomputed(layer, *args, policy=policy) if remat
+                 else layer(*args))
         return self.norm(x)
 
     # -- paged-KV (vLLM-style) inference paths ------------------------------
@@ -435,22 +463,26 @@ class LlamaForCausalLM(nn.Module):
         """input_ids [b, s] → logits [b, s, vocab] without ``labels``.
         With ``labels`` [b, s] (-100 = ignored): ``(loss, logits)``, or
         the scalar loss alone when ``return_logits`` is False. The loss
-        is the naive head (materialised logits, then
-        :func:`causal_lm_loss`); ``cfg.loss_impl="fused"`` raises until
-        the fused vocab-CE kernels are ported."""
-        if labels is not None and self.cfg.loss_impl == "fused":
-            raise NotImplementedError(
-                "loss_impl='fused' needs the fused vocab-CE kernels; pass "
-                "loss_impl='naive'; the fused vocab-CE head is the next "
-                "slice")
+        runs the fused vocab-CE head by default (:func:`fused_loss_enabled`):
+        blockwise from the hidden states, the logits never materialised.
+        Its returned logits are then computed only for the caller: where
+        jit would drop them unread, eager PyTorch computes them, so a
+        training loop asks for the loss alone (``Trainer`` does). The
+        naive head materialises the logits for :func:`causal_lm_loss`."""
         hidden = self.model(input_ids, position_ids, segment_ids)
-        logits = self.logits(hidden)
         if labels is None:
-            return logits
-        loss = causal_lm_loss(logits, labels)
+            return self.logits(hidden)
+        logits = None
+        if fused_loss_enabled(self.cfg):
+            w = (self.model.embed_tokens.t() if self.cfg.tie_word_embeddings
+                 else self.lm_head)
+            loss = fused_causal_lm_loss(hidden, w.to(hidden.dtype), labels)
+        else:
+            logits = self.logits(hidden)
+            loss = causal_lm_loss(logits, labels)
         if return_logits is False:
             return loss
-        return loss, logits
+        return loss, (logits if logits is not None else self.logits(hidden))
 
     # -- size accounting (MFU calculator input) ------------------------------
 
@@ -475,4 +507,4 @@ class LlamaForCausalLM(nn.Module):
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "parameter_shapes",
-           "causal_lm_loss"]
+           "causal_lm_loss", "fused_causal_lm_loss", "fused_loss_enabled"]

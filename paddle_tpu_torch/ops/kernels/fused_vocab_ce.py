@@ -1,0 +1,243 @@
+"""Launch wrappers of the fused vocabulary-projection + cross-entropy
+kernels (``csrc/fused_vocab_ce.cu``).
+
+Replace ``paddle_tpu/ops/pallas/fused_vocab_ce.py`` ``_fwd_kernel``,
+``_bwd_dh_kernel`` and ``_bwd_dw_kernel``, whose shared logits
+recompute ``_dlog_block`` becomes a kernel of its own (``vocab_ce_dlog``)
+that writes dlog once per vocabulary chunk for both products. The plain
+versions are ``ops.vocab_ce._fwd_plain`` / ``_bwd_plain``;
+``ops.vocab_ce.lse_and_target`` chooses between kernels and plain
+versions by the tensors' device.
+
+h is [N, H] and W [H, V], contiguous, one element type (float32 or
+bfloat16); labels [N] int32 (a label outside [0, V) has target 0).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+SOURCE = "paddle_tpu_torch/csrc/fused_vocab_ce.cu"
+REPLACES = {"vocab_ce_fwd": "paddle_tpu/ops/pallas/fused_vocab_ce.py:179",
+            "vocab_ce_dlog": "paddle_tpu/ops/pallas/fused_vocab_ce.py:249",
+            "vocab_ce_dh": "paddle_tpu/ops/pallas/fused_vocab_ce.py:265",
+            "vocab_ce_dw": "paddle_tpu/ops/pallas/fused_vocab_ce.py:287"}
+# vocabulary columns per backward chunk: the dlog workspace is [N, CHUNK]
+# in the element type (128 MB at N = 8192 in bf16, against 2.1 GB of
+# bf16 logits), and the backward launches dlog, dh and dW once a chunk
+CHUNK = 8192
+
+
+def _cuda(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} kernel needs CUDA tensors, got "
+                             f"{t.device}")
+
+
+def _check_hw(h: torch.Tensor, w: torch.Tensor) -> int:
+    """Shapes, types, device and layout of h [N, H] and W [H, V]; returns
+    the element type code."""
+    _cuda("vocab_ce", h, w)
+    if h.dim() != 2 or w.dim() != 2 or w.shape[0] != h.shape[1]:
+        raise ValueError(f"h must be [N, H] and w [H, V], got "
+                         f"{tuple(h.shape)} and {tuple(w.shape)}")
+    if w.dtype != h.dtype or w.device != h.device:
+        raise ValueError("h and w must share dtype and device")
+    if not (h.is_contiguous() and w.is_contiguous()):
+        raise ValueError("vocab_ce kernels need contiguous h and w")
+    return _build.dtype_code(h.dtype)
+
+
+def _check_rows(n: int, device, **rows: torch.Tensor) -> None:
+    for name, (t, dt) in rows.items():
+        if (t.dtype != dt or t.shape != (n,) or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{name} must be contiguous {dt} [{n}] on "
+                             f"{device}")
+
+
+def _check_chunk(c0: int, cw: int, C: int, V: int) -> None:
+    """Columns c0 .. c0 + cw - 1 lie in the vocabulary and fit a
+    workspace of C columns."""
+    if not (0 <= c0 and 0 < cw <= C and c0 + cw <= V):
+        raise ValueError(f"chunk [{c0}, {c0 + cw}) does not fit V={V} and "
+                         f"C={C}")
+
+
+def _vec(code: int, *extents: int, tensors=()) -> int:
+    """1 when the bf16 operand tiles can be copied 16 bytes at a time:
+    every contiguous extent and leading dimension a multiple of 8
+    elements, every base 16-byte aligned."""
+    return int(code == 1 and all(e % 8 == 0 for e in extents)
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def vocab_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lse, tgt)`` fp32 [N]: log-sum-exp over the vocabulary of
+    h . W and the logit at each row's label. The kernel leaves per-split
+    (m, s, t) partials; they are merged here (O(N x splits))."""
+    code = _check_hw(h, w)
+    N, H = h.shape
+    V = w.shape[1]
+    _check_rows(N, h.device, labels=(labels, torch.int32))
+    if N == 0:
+        z = torch.zeros((0,), dtype=torch.float32, device=h.device)
+        return z, z.clone()
+    lib = _build.lib()
+    splits = lib.pt_vocab_ce_splits(N, V, code)
+    if splits < 1:
+        _build.check(-splits, "vocab_ce_fwd")
+    part = torch.empty((3, N, splits), dtype=torch.float32, device=h.device)
+    err = lib.pt_vocab_ce_fwd(
+        h.data_ptr(), w.data_ptr(), labels.data_ptr(), part.data_ptr(), N, H,
+        V, splits, code, _vec(code, H, V, tensors=(h, w)),
+        _build.stream_ptr(h.device))
+    _build.check(err, "vocab_ce_fwd")
+    _build.count_launch("vocab_ce_fwd")
+    m, s, t = part
+    top = m.max(1).values
+    total = (s * torch.exp(m - top[:, None])).sum(1)
+    lse = top + torch.log(torch.where(total == 0.0, 1.0, total))
+    return lse, t.sum(1)
+
+
+def vocab_ce_dlog(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                  lse: torch.Tensor, g_lse: torch.Tensor,
+                  g_tgt: torch.Tensor, c0: int, cw: int,
+                  dlog: torch.Tensor) -> torch.Tensor:
+    """Fill ``dlog[:, :cw]`` (a [N, C] workspace in h's dtype) with the
+    logits cotangent of vocabulary columns c0 .. c0 + cw - 1:
+    g_lse * exp(h . W - lse) + g_tgt * onehot(label), rounded to h's
+    dtype. Returns ``dlog``."""
+    code = _check_hw(h, w)
+    N, H = h.shape
+    V = w.shape[1]
+    f32 = torch.float32
+    _check_rows(N, h.device, labels=(labels, torch.int32), lse=(lse, f32),
+                g_lse=(g_lse, f32), g_tgt=(g_tgt, f32))
+    C = dlog.shape[1] if dlog.dim() == 2 else -1
+    if (dlog.shape != (N, C) or dlog.dtype != h.dtype
+            or not dlog.is_contiguous() or dlog.device != h.device):
+        raise ValueError(f"dlog must be a contiguous {h.dtype} [{N}, C] "
+                         f"workspace on {h.device}")
+    _check_chunk(c0, cw, C, V)
+    err = _build.lib().pt_vocab_ce_dlog(
+        h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+        g_lse.data_ptr(), g_tgt.data_ptr(), dlog.data_ptr(), N, H, V, c0, C,
+        cw, code, _vec(code, H, V, cw, c0, tensors=(h, w)),
+        _build.stream_ptr(h.device))
+    _build.check(err, "vocab_ce_dlog")
+    _build.count_launch("vocab_ce_dlog")
+    return dlog
+
+
+def vocab_ce_dh(dlog: torch.Tensor, w: torch.Tensor, c0: int, cw: int,
+                out: torch.Tensor, acc: Optional[torch.Tensor] = None,
+                first: bool = True, last: bool = True) -> torch.Tensor:
+    """dh of one chunk: ``dlog[:, :cw] . W[:, c0 .. c0 + cw)^T`` added to
+    the fp32 sums ``acc`` [N, H] of the earlier chunks (none when
+    ``first``); written to ``acc``, or, for the ``last`` chunk, to
+    ``out`` [N, H] in W's dtype. ``acc`` may be ``out`` when that is
+    fp32. Returns ``out``."""
+    _cuda("vocab_ce_dh", dlog, w, out)
+    if w.dim() != 2 or dlog.dim() != 2 or not w.is_contiguous():
+        raise ValueError("w must be a contiguous [H, V] and dlog [N, C]")
+    H, V = w.shape
+    N, C = dlog.shape
+    code = _build.dtype_code(w.dtype)
+    for name, t in (("dlog", dlog), ("out", out)):
+        if t.dtype != w.dtype or not t.is_contiguous() \
+                or t.device != w.device:
+            raise ValueError(f"{name} must be contiguous {w.dtype} on "
+                             f"{w.device}")
+    if out.shape != (N, H):
+        raise ValueError(f"out must be [{N}, {H}], got {tuple(out.shape)}")
+    if not (first and last) and (
+            acc is None or acc.dtype != torch.float32 or acc.shape != (N, H)
+            or not acc.is_contiguous() or acc.device != w.device):
+        raise ValueError(f"a chunk that is not both first and last needs "
+                         f"a contiguous fp32 [{N}, {H}] acc on {w.device}")
+    _check_chunk(c0, cw, C, V)
+    err = _build.lib().pt_vocab_ce_dh(
+        dlog.data_ptr(), w.data_ptr(),
+        acc.data_ptr() if acc is not None else None, out.data_ptr(), N, H, V,
+        c0, C, cw, int(first), int(last), code,
+        _vec(code, V, C, cw, c0, tensors=(dlog, w)),
+        _build.stream_ptr(w.device))
+    _build.check(err, "vocab_ce_dh")
+    _build.count_launch("vocab_ce_dh")
+    return out
+
+
+def vocab_ce_dw(h: torch.Tensor, dlog: torch.Tensor, c0: int, cw: int,
+                out: torch.Tensor) -> torch.Tensor:
+    """Write ``out[:, c0 .. c0 + cw) = h^T . dlog[:, :cw]`` (fp32 sums,
+    out [H, V] in h's dtype). Returns ``out``."""
+    _cuda("vocab_ce_dw", h, dlog, out)
+    if h.dim() != 2 or dlog.dim() != 2 or out.dim() != 2:
+        raise ValueError("h must be [N, H], dlog [N, C] and out [H, V]")
+    N, H = h.shape
+    C = dlog.shape[1]
+    V = out.shape[1]
+    code = _build.dtype_code(h.dtype)
+    for name, t in (("h", h), ("dlog", dlog), ("out", out)):
+        if t.dtype != h.dtype or not t.is_contiguous() \
+                or t.device != h.device:
+            raise ValueError(f"{name} must be contiguous {h.dtype} on "
+                             f"{h.device}")
+    if dlog.shape[0] != N or out.shape[0] != H:
+        raise ValueError(f"dlog must be [{N}, C] and out [{H}, V]")
+    _check_chunk(c0, cw, C, V)
+    err = _build.lib().pt_vocab_ce_dw(
+        h.data_ptr(), dlog.data_ptr(), out.data_ptr(), N, H, V, c0, C, cw,
+        code, _vec(code, H, C, cw, tensors=(h, dlog)),
+        _build.stream_ptr(h.device))
+    _build.check(err, "vocab_ce_dw")
+    _build.count_launch("vocab_ce_dw")
+    return out
+
+
+def vocab_ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                 lse: torch.Tensor, g_lse: torch.Tensor, g_tgt: torch.Tensor,
+                 want_dh: bool = True, want_dw: bool = True
+                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """``(dh, dW)`` of ``(lse, tgt)`` for the cotangents g_lse, g_tgt
+    (fp32 [N]): per vocabulary chunk of :data:`CHUNK` columns, the dlog
+    kernel, then the dh and dW kernels on its workspace. dh [N, H] in h's
+    dtype (fp32 sums across chunks), dW [H, V] in W's dtype; either is
+    None when not wanted."""
+    _check_hw(h, w)
+    N, H = h.shape
+    V = w.shape[1]
+    if not (want_dh or want_dw):
+        return None, None
+    dh = torch.empty_like(h) if want_dh else None
+    dw = torch.empty_like(w) if want_dw else None
+    if N == 0:
+        return (dh, dw.zero_() if dw is not None else None)
+    C = min(CHUNK, V)
+    dlog = torch.empty((N, C), dtype=h.dtype, device=h.device)
+    chunks = range(0, V, C)
+    acc = None
+    if want_dh and len(chunks) > 1:
+        acc = dh if h.dtype == torch.float32 else torch.empty(
+            (N, H), dtype=torch.float32, device=h.device)
+    for c0 in chunks:
+        cw = min(C, V - c0)
+        vocab_ce_dlog(h, w, labels, lse, g_lse, g_tgt, c0, cw, dlog)
+        if want_dh:
+            vocab_ce_dh(dlog, w, c0, cw, dh, acc, first=c0 == 0,
+                        last=c0 + C >= V)
+        if want_dw:
+            vocab_ce_dw(h, dlog, c0, cw, dw)
+    return dh, dw
+
+
+__all__ = ["vocab_ce_fwd", "vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw",
+           "vocab_ce_bwd", "SOURCE", "REPLACES", "CHUNK"]

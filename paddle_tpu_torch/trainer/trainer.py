@@ -20,6 +20,7 @@ resume, the anomaly and preemption guards, ``steps_per_dispatch > 1``
 
 from __future__ import annotations
 
+import inspect
 import math
 import time
 from dataclasses import dataclass
@@ -66,7 +67,8 @@ def _later(what: str) -> NotImplementedError:
 class Trainer:
     """One-card trainer over an ``nn.Module`` whose forward takes the
     batch's keys (``input_ids``, ``labels``, ...) and returns the loss,
-    or ``(loss, ...)``.
+    or ``(loss, ...)``; a forward that takes ``return_logits`` is called
+    with ``return_logits=False``, for the loss alone.
 
     ``accumulate_steps`` > 1: each batch tensor carries a leading
     microbatch dimension [A, ...]; the gradients of the A microbatches
@@ -85,6 +87,8 @@ class Trainer:
                 "Trainer(seed=...) keys random streams that no ported "
                 "training step draws yet; leave seed=0")
         self.model = model
+        self._loss_only = "return_logits" in inspect.signature(
+            model.forward).parameters
         self.optimizer = optimizer
         self.params: Dict[str, torch.Tensor] = {
             n: p for n, p in model.named_parameters() if p.requires_grad}
@@ -102,6 +106,11 @@ class Trainer:
         return float(np.float32(self.optimizer.get_lr()))
 
     def _loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        # the loss alone from a model that can return it so: what the JAX
+        # trainer's jit gets by dropping the unread logits, which eager
+        # PyTorch would otherwise compute (a [b, s, vocab] product)
+        if self._loss_only:
+            return self.model(**batch, return_logits=False)
         out = self.model(**batch)
         return out[0] if isinstance(out, tuple) else out
 

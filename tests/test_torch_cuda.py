@@ -11,7 +11,10 @@ order); bf16 2e-2 (both sides compute in fp32 and round once to bf16,
 whose step is 2**-8 relative, so they may land one step apart). The bf16
 flash kernels are also held per row (one head's d values) within 2e-2
 of the row's norm, as ``chip_smoke.py`` holds them: the elementwise bf16
-limit is as large as a typical attention output.
+limit is as large as a typical attention output. The vocab-CE kernels'
+lse and tgt are fp32 sums of exact products on both sides and are held
+to 1e-4 in bf16; their bf16 dh is held per row (one token's H values)
+and dW per column (one vocabulary entry's H values) in the same way.
 """
 
 import numpy as np
@@ -21,8 +24,10 @@ import torch
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops import norm as norm_ops
 from paddle_tpu_torch.ops import rope as rope_ops
+from paddle_tpu_torch.ops import vocab_ce
 from paddle_tpu_torch.ops.kernels import (_build, flash_attention, fused_norm,
-                                          fused_rope, paged_attention)
+                                          fused_rope, fused_vocab_ce,
+                                          paged_attention)
 
 pytestmark = pytest.mark.cuda
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -299,3 +304,161 @@ def test_engine_on_card_matches_cpu(dev):
         _build.LAUNCHES
     for a, w in zip(got, want):
         np.testing.assert_array_equal(a, w)
+
+
+# (N, H, V, tied, backward chunk): V not a multiple of the 128-column
+# tile, rows not a multiple of the row tile, several backward chunks
+# (first, middle and last summed into dh), a V that is not a multiple of
+# 8 (element-wise operand loads) and a tied head's transposed W
+CE_CASES = {
+    "padded_v_one_chunk": (70, 256, 1000, False, 8192),
+    "four_chunks": (130, 128, 1000, False, 256),
+    "odd_v": (40, 64, 1001, False, 512),
+    "tied_two_chunks": (64, 128, 512, True, 256),
+}
+
+
+def _ce_inputs(dev, dt, n, hd, v, tied):
+    g = torch.Generator(device=dev).manual_seed(n * 31 + v)
+    h = torch.randn((n, hd), generator=g, device=dev).to(dt)
+    w = 0.3 * torch.randn((v, hd) if tied else (hd, v), generator=g,
+                          device=dev)
+    w = (w.t() if tied else w).to(dt)
+    labels = torch.randint(0, v, (n,), generator=g, device=dev).to(
+        torch.int32)
+    labels[::7] = -1                         # ignored rows
+    labels[1] = v - 1                        # in the padded last tile
+    g_lse = torch.randn((n,), generator=g, device=dev)
+    g_tgt = torch.randn((n,), generator=g, device=dev)
+    return h, w, labels, g_lse, g_tgt
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(CE_CASES))
+def test_vocab_ce_kernels_match_plain(dev, dtype, case, monkeypatch):
+    """vocab_ce_fwd (lse, tgt) and vocab_ce_bwd (the dlog, dh and dW
+    kernels over the chunks) against the plain versions."""
+    n, hd, v, tied, chunk = CE_CASES[case]
+    monkeypatch.setattr(fused_vocab_ce, "CHUNK", chunk)
+    dt = getattr(torch, dtype)
+    h, w, labels, g_lse, g_tgt = _ce_inputs(dev, dt, n, hd, v, tied)
+    wc = w.contiguous()
+    lse, tgt = fused_vocab_ce.vocab_ce_fwd(h, wc, labels)
+    want_lse, want_tgt = vocab_ce._fwd_plain(h, w, labels)
+    tol = 1e-5 if dtype == "float32" else 1e-4
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    torch.testing.assert_close(tgt, want_tgt, rtol=tol, atol=tol)
+    assert not tgt[::7].any()
+    _build.reset_launches()
+    dh, dw = fused_vocab_ce.vocab_ce_bwd(h, wc, labels, want_lse, g_lse,
+                                         g_tgt)
+    chunks = -(-v // min(chunk, v))
+    for name in ("vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw"):
+        assert _build.LAUNCHES[name] == chunks, _build.LAUNCHES
+    want_dh, want_dw = vocab_ce._bwd_plain(h, w, labels, want_lse, g_lse,
+                                           g_tgt)
+    assert dh.dtype == dw.dtype == dt
+    _close(dh, want_dh, dtype)
+    _close(dw, want_dw, dtype)
+    _rows_close(dh, want_dh, dtype)
+    _rows_close(dw.t(), want_dw.t(), dtype)
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_fused_head_gradients_reach_head_and_hidden(dev, tied):
+    """The fused head of a tiny Llama on the card: its autograd Function
+    launches the forward kernel once and the backward kernels once a
+    chunk, and the loss and every gradient (lm_head, or the tied
+    embedding) equal the same model's on the CPU within 1e-4."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(tie_word_embeddings=tied)
+    rs = np.random.RandomState(3)
+    ids = rs.randint(0, cfg.vocab_size, (2, 33))
+    labels = ids[:, 1:].copy()
+    labels[0, :4] = -100
+    side = []
+    for device in ("cpu", dev):
+        m = LlamaForCausalLM(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        m = m.to(device)
+        _build.reset_launches()
+        loss = m(torch.tensor(ids[:, :-1], device=device),
+                 labels=torch.tensor(labels, device=device),
+                 return_logits=False)
+        loss.backward()
+        side.append((float(loss.detach()), {
+            n: p.grad.float().cpu() for n, p in m.named_parameters()}))
+    counts = dict(_build.LAUNCHES)
+    assert counts["vocab_ce_fwd"] == 1, counts
+    for name in ("vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw"):
+        assert counts[name] == 1, counts           # vocab 512: one chunk
+    (lp, gp), (lc, gc) = side
+    np.testing.assert_allclose(lc, lp, rtol=1e-4)
+    head = "model.embed_tokens" if tied else "lm_head"
+    assert gc[head].abs().max() > 0
+    for n in gp:
+        torch.testing.assert_close(gc[n], gp[n], rtol=1e-4, atol=1e-4)
+
+
+def test_default_head_training_on_card_matches_cpu(dev):
+    """The default configuration (fused head): three AdamW steps of a
+    seeded tiny Llama in fp32, and one bf16 forward and backward, on the
+    card and on the CPU (losses 1e-4 and, bf16, 1e-2; bf16 gradients 3e-2
+    in relative Frobenius norm)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    rs = np.random.RandomState(4)
+    ids = rs.randint(0, 512, (2, 129))
+    seg = np.zeros((2, 128), np.int32)
+    seg[0, 50:] = 1
+    for dtype in ("float32", "bfloat16"):
+        cfg = LlamaConfig.tiny(dtype=dtype)
+        assert cfg.loss_impl == "fused"
+        side = []
+        for device in ("cpu", dev):
+            m = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+            m = m.to(device)
+            batch = {"input_ids": torch.tensor(ids[:, :-1], device=device),
+                     "labels": torch.tensor(ids[:, 1:], device=device),
+                     "segment_ids": torch.tensor(seg, device=device)}
+            if dtype == "float32":
+                tr = Trainer(m, AdamW(learning_rate=1e-3, parameters=m,
+                                      grad_clip=ClipGradByGlobalNorm(1.0)))
+                side.append([float(tr.train_step(batch)) for _ in range(3)])
+                continue
+            loss = m(**batch, return_logits=False)
+            loss.backward()
+            side.append((float(loss.detach()), {
+                n: p.grad.float().cpu() for n, p in m.named_parameters()}))
+        if dtype == "float32":
+            np.testing.assert_allclose(side[1], side[0], rtol=1e-4,
+                                       atol=1e-4)
+            continue
+        (lp, gp), (lc, gc) = side
+        np.testing.assert_allclose(lc, lp, rtol=1e-2)
+        for n in gp:
+            err = float((gc[n] - gp[n]).norm()
+                        / gp[n].norm().clamp_min(1e-30))
+            assert err <= 3e-2, (n, err)
+
+
+@pytest.mark.parametrize("recompute", ["full", "selective"])
+def test_recompute_on_card_gives_the_same_gradients(dev, recompute):
+    """fp32 gradients of a tiny Llama with activation recompute equal
+    those without it on the card, within 1e-6 of each tensor's largest
+    value (the kernels are deterministic, so they are expected equal)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    rs = np.random.RandomState(5)
+    ids = torch.tensor(rs.randint(0, 512, (2, 65)), device=dev)
+    grads = []
+    for rc in ("none", recompute):
+        m = LlamaForCausalLM(LlamaConfig.tiny(recompute=rc), device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+        m = m.to(dev)
+        m(ids[:, :-1], labels=ids[:, 1:], return_logits=False).backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+    for n, g in grads[0].items():
+        assert float((grads[1][n] - g).abs().max()) <= \
+            1e-6 * float(g.abs().max()), n

@@ -20,6 +20,7 @@ import torch
 from paddle_tpu.models.llama import LlamaConfig as JaxConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
 from paddle_tpu.models.llama import _token_mean as jax_token_mean
+from paddle_tpu.models.llama import fused_loss_enabled as jax_fused_enabled
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu.ops.pallas.fused_norm import rms_norm_pallas
@@ -29,8 +30,11 @@ from paddle_tpu.optimizer import clip as jclip
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu.trainer import Trainer as JaxTrainer
 from paddle_tpu_torch.convert import state_dict_from_jax
+from paddle_tpu_torch.distributed.recompute import (recompute,
+                                                    recompute_wrapper,
+                                                    resolve_policy)
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
-                                           _token_mean)
+                                           _token_mean, fused_loss_enabled)
 from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.ops import attention as attn_ops
 from paddle_tpu_torch.ops import norm as norm_ops
@@ -437,17 +441,20 @@ def test_trainer_four_steps_match_jax_trainer(tiny_pair):
 
 
 def test_training_fields_raise_until_ported():
+    """What stays refused: sequence parallelism, a non-ring sp_mode, the
+    trainer runtime's arguments of fit, optimizer-state offload and a
+    Trainer seed; the default head and recompute now train."""
     cfg = LlamaConfig.tiny(num_hidden_layers=1)
     m = LlamaForCausalLM(cfg, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        m(ids, labels=ids)
-    for kw in (dict(recompute="full"), dict(sequence_parallel=True)):
-        mk = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
-                                               loss_impl="naive", **kw),
-                              device="cpu")
-        with pytest.raises(NotImplementedError):
-            mk(ids, labels=ids)
+    assert torch.isfinite(m(ids, labels=ids, return_logits=False))
+    mk = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
+                                           sequence_parallel=True),
+                          device="cpu")
+    with pytest.raises(NotImplementedError):
+        mk(ids, labels=ids)
+    with pytest.raises(ValueError):
+        LlamaConfig.tiny(recompute="offload")
     with pytest.raises(ValueError):
         LlamaConfig.tiny(loss_impl="blockwise")
     with pytest.raises(NotImplementedError):
@@ -522,3 +529,168 @@ def test_fit_reports_metrics_and_no_mfu_off_the_card():
     assert [h.step for h in hist] == [2, 4] and seen == hist
     assert all(h.tokens_per_sec > 0 and np.isnan(h.mfu) for h in hist)
     assert hist[-1].loss < hist[0].loss
+
+
+# -- the default configuration: fused vocab-CE head, recompute -------------
+
+def _jax_pair(seed=6, **kw):
+    """A JAX tiny Llama with the default (fused) head, ``kw`` applied to
+    its config, and the port's twin with the same weights."""
+    import paddle_tpu as pt
+    pt.seed(seed)
+    jm = JaxLlama(JaxConfig.tiny(**kw))
+    cfg = LlamaConfig.tiny(**kw)
+    tm = LlamaForCausalLM(cfg, device="cpu")
+    tm.load_state_dict(state_dict_from_jax(
+        {k: np.asarray(v) for k, v in jm.state_dict().items()}, cfg,
+        device="cpu"))
+    return jm, tm
+
+
+def _jax_loss_and_grads(jm, batch):
+    params = dict(jm.raw_parameters())
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss_of(p):
+        return jm.functional_call(p, return_logits=False, **jb)
+    loss, grads = jax.value_and_grad(loss_of)(params)
+    return loss, {k: np.asarray(v) for k, v in grads.items()}
+
+
+def _torch_loss_and_grads(tm, batch):
+    tm.zero_grad(set_to_none=True)
+    loss = tm(**{k: _t(v) for k, v in batch.items()}, return_logits=False)
+    loss.backward()
+    return loss.detach(), {n: p.grad.clone() for n, p in
+                           tm.named_parameters()}
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_default_head_loss_and_grads_match_jax(tied):
+    """The tiny Llama's default (fused) head: loss and every gradient,
+    the untied lm_head or the tied embedding (gather plus transposed dW)
+    included, against the JAX model's fused head within 1e-4."""
+    jm, tm = _jax_pair(tie_word_embeddings=tied)
+    assert tm.cfg.loss_impl == "fused" and fused_loss_enabled(tm.cfg)
+    batch = _train_batch(tm.cfg, seed=7)
+    jl, jg = _jax_loss_and_grads(jm, batch)
+    tl, tg = _torch_loss_and_grads(tm, batch)
+    _close(tl, jl, 1e-4)
+    assert set(tg) == set(jg)
+    for name in jg:
+        _close(tg[name], jg[name], 1e-4)
+
+
+def test_trainer_four_steps_default_head_match_jax_trainer():
+    """Four Trainer steps with the default (fused) head against four of
+    ``paddle_tpu.trainer.Trainer`` with loss_impl="fused": every loss and
+    every final parameter within 1e-4."""
+    jm, tm = _jax_pair(seed=8)
+    ours = Trainer(tm, AdamW(learning_rate=1e-3, parameters=tm,
+                             weight_decay=0.01,
+                             grad_clip=clip.ClipGradByGlobalNorm(1.0)))
+    theirs = JaxTrainer(jm, JaxAdamW(learning_rate=1e-3, parameters=jm,
+                                     weight_decay=0.01,
+                                     grad_clip=jclip.ClipGradByGlobalNorm(
+                                         1.0)), donate=False)
+    for step in range(4):
+        batch = _train_batch(tm.cfg, seed=10 + step)
+        tl = ours.train_step({k: _t(v) for k, v in batch.items()})
+        jl = theirs.train_step({k: jnp.asarray(v) for k, v in batch.items()})
+        _close(tl, jl, 1e-4)
+    final = tm.state_dict()
+    for name, val in theirs.params.items():
+        _close(final[name], val, 1e-4)
+
+
+@pytest.mark.parametrize("recompute", ["selective", "full"])
+def test_recompute_matches_none_and_jax(recompute):
+    """Gradients with activation recompute equal those without it within
+    1e-6 (they are equal bit for bit on the CPU), and equal the JAX
+    model's under the same recompute within 1e-4."""
+    jm, tm = _jax_pair(seed=9, recompute=recompute)
+    batch = _train_batch(tm.cfg, seed=11)
+    tl, tg = _torch_loss_and_grads(tm, batch)
+    tm.cfg.recompute = "none"
+    try:
+        nl, ng = _torch_loss_and_grads(tm, batch)
+    finally:
+        tm.cfg.recompute = recompute
+    _close(tl, nl, 1e-6)
+    for name in ng:
+        _close(tg[name], ng[name], 1e-6)
+    jl, jg = _jax_loss_and_grads(jm, batch)
+    _close(tl, jl, 1e-4)
+    for name in jg:
+        _close(tg[name], jg[name], 1e-4)
+
+
+@pytest.mark.parametrize("policy", ["full", "nothing_saveable",
+                                    "dots_saveable", "checkpoint_dots",
+                                    "dots_with_no_batch_dims_saveable",
+                                    "everything_saveable"])
+def test_recompute_policies_give_the_plain_gradients(policy):
+    """Every policy name of the JAX package's table: the value and the
+    gradients of a function with 2-D and batched products, run under
+    ``recompute`` and ``recompute_wrapper``, equal the plain call's."""
+    rs = np.random.RandomState(19)
+    w1, w2, x = (_t(rs.randn(*s).astype(np.float32)).requires_grad_()
+                 for s in ((8, 16), (3, 16, 16), (3, 5, 8)))
+
+    def f(x, scale=1.0):
+        y = torch.tanh(torch.matmul(x, w1))          # aten.mm
+        return (torch.bmm(y, w2).sin() * scale).sum()   # aten.bmm
+
+    def grads(fn):
+        out = fn(x, scale=0.5)
+        return [out.detach()] + list(torch.autograd.grad(out, (x, w1, w2)))
+    want = grads(f)
+    for got in (grads(lambda *a, **k: recompute(f, *a, policy=policy, **k)),
+                grads(recompute_wrapper(f, policy=policy))):
+        for g, w in zip(got, want):
+            _close(g, w, 1e-6)
+
+
+def test_recompute_refuses_an_unknown_policy():
+    with pytest.raises(ValueError, match="unknown recompute policy"):
+        resolve_policy("offload_dots")
+    assert resolve_policy(None) is None
+    assert resolve_policy("full") is None
+
+
+def test_trainer_asks_for_the_loss_alone():
+    """With the fused head no step computes the [b, s, vocab] logits:
+    Trainer calls forward with return_logits=False (the eager
+    counterpart of jit dropping the unread logits)."""
+    cfg = LlamaConfig.tiny(num_hidden_layers=1)
+    m = LlamaForCausalLM(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+
+    def no_logits(hidden):
+        raise AssertionError("the training step computed the logits")
+    m.logits = no_logits
+    tr = Trainer(m, AdamW(learning_rate=1e-3, parameters=m))
+    ids = np.random.RandomState(20).randint(0, cfg.vocab_size, (2, 17))
+    loss = tr.train_step({"input_ids": _t(ids[:, :-1]),
+                          "labels": _t(ids[:, 1:])})
+    assert torch.isfinite(loss)
+
+
+def test_forward_return_logits_and_the_naive_switch(monkeypatch):
+    """return_logits None gives (loss, logits) and False the loss alone,
+    the same loss; PT_NAIVE_LOSS_HEAD selects the naive head in both
+    packages, and the two heads agree within 1e-5."""
+    cfg = LlamaConfig.tiny(num_hidden_layers=1)
+    m = LlamaForCausalLM(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(1))
+    ids = _t(np.random.RandomState(21).randint(0, cfg.vocab_size, (2, 9)))
+    with torch.no_grad():
+        loss, logits = m(ids, labels=ids)
+        alone = m(ids, labels=ids, return_logits=False)
+        want_logits = m.logits(m.model(ids))
+        assert torch.equal(loss, alone) and torch.equal(logits, want_logits)
+        monkeypatch.setenv("PT_NAIVE_LOSS_HEAD", "1")
+        assert not fused_loss_enabled(cfg)
+        assert not jax_fused_enabled(JaxConfig.tiny())
+        naive = m(ids, labels=ids, return_logits=False)
+    _close(naive, loss)
