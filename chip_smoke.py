@@ -24,15 +24,34 @@ Phases, in order; any failure exits non-zero before the result line:
      and two planted wrong vocabulary blocks that every check must
      reject), and in fp32 at 2048 x 1024 x 20000 with ignored rows and a
      tied, transposed W through the autograd Function;
+     Quantized serving: the int8 matrix product at the five projections
+     of a Llama-3-8B decode step (m = 8, bf16), at gate_up with m = 1024
+     and in fp32 at m = 5, n = 384, k = 256, held per 128 columns of each
+     output row in bf16 (a weight with one 64-wide k-block swapped and a
+     scale vector with one block of channels shifted must fail that
+     check), beside one torch.matmul with the bf16 weight; the int8
+     paged decode at B = 8, context 1024, page 128 (bf16 and fp32 q, and
+     a ragged case with a page never written), per row, where a page
+     read with another page's K or V scale must fail;
   4. engine equality: Llama-3-8B widths at 2 layers, fp32, seeded random
      weights: greedy tokens of the engine on the card equal those of a
      step-by-step plain-version path on the CPU;
+  4b. quantized engine equality: the same widths and depth with int8
+     weights and int8 KV, the same seeded weights on the card and on the
+     CPU: teacher-forced per-step logits within QUANT_LOGIT_TOL, the
+     pools' codes equal but for differences of 1 at no more than
+     QUANT_CODE_FRAC of them; the two engines' greedy agreement reported;
   5. the serving run: Llama-3-8B widths, all 32 layers, bf16, seeded
      random weights built on the card; 16 requests (prompts 128-1536
      tokens, 64 new tokens, every 4th sampled) through
      ContinuousBatchingEngine(max_batch=8, page_size=128, max_len=2048,
      decode_block=8, async_depth=2). Kernel launch counts are reset just
      before and read just after; every serving kernel must have launched;
+  5b. the quantized serving run: the same model quantized on the card
+     (int8 weights and KV, the native model then freed) through the same
+     run, side by side with phase 5: tokens/s, TTFT, ITL, one decode
+     step, launches, model and KV-pool bytes, peak memory, and the greedy
+     agreement with phase 5's streams (reported only);
   6. training equality: Llama-3-8B's attention layout (hidden 4096, 32
      heads, 8 KV heads of 128) at 2 layers with the MLP cut to 1024 and
      the vocabulary to 4096, the default (fused) loss head, the same
@@ -100,6 +119,8 @@ ROW_TOL = 2e-2
 CE_FP32_TOL = 1e-4
 CE_KERNELS = ("vocab_ce_fwd", "vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw")
 SERVING_KERNELS = ("rms_norm", "fused_rope", "paged_decode")
+QUANT_SERVING_KERNELS = ("rms_norm", "fused_rope", "int8_matmul",
+                         "paged_decode_int8")
 TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
                     "flash_bwd_dq", "flash_bwd_dkv") + CE_KERNELS
 RESULTS: dict = {"kernel_cases": []}
@@ -366,6 +387,198 @@ def phase_kernels(torch, pt):
                    bound(nbytes, 4 * B * H * ctx * HD))
     del flush
     torch.cuda.synchronize()
+
+
+def seg_err(torch, got, want) -> float:
+    """row_err() over 128-wide segments of each output row: a row of the
+    int8 product is n columns (up to 128256), where one wrong block of
+    64 would hide, so each token's output is held 128 columns at a time,
+    the length of a flash row."""
+    return row_err(torch, got.float().reshape(-1, 128),
+                   want.float().reshape(-1, 128))
+
+
+def int8_compare(torch, got, want, dtype_name):
+    """flash_compare()'s six-tuple for the int8 product: elementwise, and
+    for bf16 the 128-column segment check (seg_err) against ROW_TOL."""
+    e = compare(torch, got, want, dtype_name)
+    seg = seg_err(torch, got, want)
+    row_ok = dtype_name != "bfloat16" or seg <= ROW_TOL
+    return e[0], e[1], e[2] and row_ok, seg, e[2], row_ok
+
+
+def quant_pages(torch, g, dev, hkv, num_pages, page, hd):
+    """Int8 page pools as the model writes them: float pages of varied
+    magnitudes (a factor from 0.25 to 4 a page), one absmax scale a
+    page, round-half-to-even codes. Returns (codes, scales)."""
+    f = torch.randn((hkv, num_pages, page, hd), generator=g, device=dev)
+    f *= 0.25 * 16 ** torch.rand((1, num_pages, 1, 1), generator=g,
+                                 device=dev)
+    s = f.abs().amax(dim=(0, 2, 3)) / 127.0
+    codes = torch.round(f / s[None, :, None, None]).clamp_(-127, 127)
+    return codes.to(torch.int8), s
+
+
+def phase_quant_kernels(torch, pt):
+    """Phase 3, the quantized-serving kernels. int8_matmul at the five
+    projections of a Llama-3-8B decode step (m = 8, bf16), at gate_up with
+    m = 1024 (a prefill) and in fp32 at a small ragged shape (m = 5,
+    n = 384, k = 256), with planted faults at qkv and at the prefill; the
+    int8 paged decode at B = 8, context 1024, page 128 (bf16 and fp32 q,
+    and a ragged case), with planted page scales."""
+    from paddle_tpu_torch.nn.quantized_linear import weight_quantize
+    from paddle_tpu_torch.ops import attention as attn_ops
+    from paddle_tpu_torch.ops import quant as quant_ops
+    from paddle_tpu_torch.ops.kernels import int8_matmul as kmm
+    from paddle_tpu_torch.ops.kernels import paged_attention
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(2468)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    planted = {}
+
+    def mm_case(case, m, n, k, dt, timed=True, plant=False):
+        name = str(dt).split(".")[-1]
+        wq, scale = weight_quantize(0.02 * torch.randn(
+            (k, n), generator=g, device=dev))
+        x = torch.randn((m, k), generator=g, device=dev).to(dt)
+        got = kmm.int8_matmul(x, wq, scale)
+        want = quant_ops.weight_only_plain(x, wq, scale)
+        err = int8_compare(torch, got, want, name)
+        t = (None, None, None)
+        bnd = (None, None)
+        if timed:
+            # the yardstick: one torch.matmul with the bf16 weight of the
+            # same [k, n] shape, as the native model runs (twice the
+            # weight bytes of the int8 product)
+            wbf = (wq.float() * scale[:, None]).t().contiguous().to(dt)
+            t = (timed_ms(torch, lambda: kmm.int8_matmul(x, wq, scale),
+                          flush),
+                 timed_ms(torch, lambda: quant_ops.weight_only_plain(
+                     x, wq, scale), flush, reps=10),
+                 timed_ms(torch, lambda: torch.matmul(x, wbf), flush))
+            e = x.element_size()
+            bnd = bound(m * k * e + n * k + 4 * n + m * n * e, 2 * m * n * k,
+                        BF16_OPS_PER_S if dt == torch.bfloat16
+                        else FP32_OPS_PER_S)
+            del wbf
+        record("int8_matmul", case, name, err, *t, bnd)
+        if plant:
+            # (a) the weight's 64-wide k-block 7 swapped with block 8;
+            # (b) the scales of channels 1024..1087 taken from the next
+            # 64 channels
+            w2 = wq.clone()
+            w2[:, 448:512], w2[:, 512:576] = wq[:, 512:576], wq[:, 448:512]
+            s2 = scale.clone()
+            s2[1024:1088] = scale[1088:1152]
+            for what, args in (("k_block_swapped", (x, w2, scale)),
+                               ("scale_block_shifted", (x, wq, s2))):
+                e = int8_compare(torch, kmm.int8_matmul(*args), want,
+                                 name)
+                planted[f"{case}/{what}"] = {"seg_err": e[3],
+                                             "row_caught": not e[5],
+                                             "max_abs_err": e[0]}
+                log(f"planted fault in int8_matmul [{case}] ({what}): "
+                    f"max_abs_err={e[0]:.3e}, row_err={e[3]:.3e} vs row_tol "
+                    f"{ROW_TOL} (row check "
+                    f"{'rejects' if not e[5] else 'MISSES'} it)")
+                if e[5]:
+                    FAILED_CASES.append(f"int8_matmul/{case}/{what}_missed")
+        torch.cuda.synchronize()
+
+    for proj, (n, k) in (("qkv", (6144, 4096)), ("o", (4096, 4096)),
+                         ("gate_up", (28672, 4096)),
+                         ("down", (4096, 14336)),
+                         ("lm_head", (128256, 4096))):
+        mm_case(f"decode_{proj}", 8, n, k, torch.bfloat16,
+                plant=proj == "qkv")
+    mm_case("prefill_gate_up_1024", 1024, 28672, 4096, torch.bfloat16,
+            plant=True)
+    mm_case("ragged_5x384x256", 5, 384, 256, torch.float32, timed=False)
+    torch.cuda.empty_cache()
+
+    # -- int8 paged decode: B=8, page 128, context 1024 ---------------------
+    B, H, HKV, HD, page, ctx = 8, 32, 8, 128, 128, 1024
+    mp = 2048 // page
+    num_pages = B * mp + 1
+    kp, ks = quant_pages(torch, g, dev, HKV, num_pages, page, HD)
+    vp, vs = quant_pages(torch, g, dev, HKV, num_pages, page, HD)
+    for case in ("ctx1024", "ragged"):
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            q = torch.randn((B, H, HD), generator=g, device=dev).to(dt)
+            perm = torch.randperm(num_pages - 1, generator=g,
+                                  device=dev)[:B * mp] + 1
+            tables = perm.view(B, mp).to(torch.int32).contiguous()
+            if case == "ctx1024":
+                lens = torch.full((B,), ctx - 1, dtype=torch.int64,
+                                  device=dev)
+            else:
+                lens = torch.randint(0, 2048, (B,), generator=g,
+                                     device=dev)
+                lens[0], lens[1] = 0, page - 1
+                used = (lens // page + 1)[:, None]
+                col = torch.arange(mp, device=dev)[None, :]
+                tables = torch.where(col < used, tables,
+                                     torch.full_like(tables, -1))
+                ks[tables[2, 0]] = 0.0          # a page never written
+            sc = dict(k_scales=ks, v_scales=vs)
+            got = paged_attention.paged_decode(q, kp, vp, tables, lens,
+                                               **sc)
+            want = attn_ops.paged_decode_plain(q, kp, vp, tables, lens,
+                                               **sc)
+            err = flash_compare(torch, [(got, want)], name)
+            if case != "ctx1024" or dt != torch.bfloat16:
+                record("paged_decode_int8", case, name, err)
+                continue
+            # library yardstick: SDPA over K/V dequantized and gathered
+            # beforehand (not timed; the port never calls SDPA)
+            safe = tables.long()[:, :ctx // page]
+
+            def deq(pages, s):
+                x = pages[:, safe].float() * s[safe][None, :, :, None, None]
+                x = x.reshape(HKV, B, ctx, HD).transpose(0, 1)
+                return x.repeat_interleave(H // HKV, 1).to(dt).contiguous()
+            kg, vg = deq(kp, ks), deq(vp, vs)
+            q4 = q[:, :, None, :]
+            e = q.element_size()
+            nbytes = (2 * B * H * HD * e + 2 * B * HKV * ctx * HD
+                      + 2 * B * (ctx // page) * 4 + tables.numel() * 4
+                      + B * 8)
+            record("paged_decode_int8", case, name, err,
+                   timed_ms(torch, lambda: paged_attention.paged_decode(
+                       q, kp, vp, tables, lens, **sc), flush),
+                   timed_ms(torch, lambda: attn_ops.paged_decode_plain(
+                       q, kp, vp, tables, lens, **sc), flush),
+                   timed_ms(torch, lambda: F.scaled_dot_product_attention(
+                       q4, kg, vg), flush),
+                   bound(nbytes, 4 * B * H * ctx * HD))
+            del kg, vg
+            # planted: one page of row 0 read with the scale of the page
+            # of row 0 whose scale differs most from its own
+            row0 = tables[0, :ctx // page].long()
+            p0 = row0[3]
+            other = row0[(ks[row0] / ks[p0]).log().abs().argmax()]
+            for what, kw in (("k_scale", "k_scales"),
+                             ("v_scale", "v_scales")):
+                bad = dict(sc)
+                bad[kw] = sc[kw].clone()
+                bad[kw][p0] = sc[kw][other]
+                e2 = flash_compare(torch, [(paged_attention.paged_decode(
+                    q, kp, vp, tables, lens, **bad), want)], name)
+                planted[f"paged_decode_int8/{what}"] = {
+                    "row_err": e2[3], "row_caught": not e2[5],
+                    "max_abs_err": e2[0]}
+                log(f"planted page scale in paged_decode_int8 ({what} of "
+                    f"page {int(p0)} from page {int(other)}): max_abs_err="
+                    f"{e2[0]:.3e}, row_err={e2[3]:.3e} vs row_tol {ROW_TOL} "
+                    f"(row check {'rejects' if not e2[5] else 'MISSES'} it)")
+                if e2[5]:
+                    FAILED_CASES.append(f"paged_decode_int8/{what}_missed")
+    RESULTS["planted_quant"] = planted
+    del flush, kp, vp
+    torch.cuda.empty_cache()
 
 
 def phase_train_kernels(torch, pt):
@@ -842,17 +1055,143 @@ def phase_engine_equality(torch, pt, dev, make_cfg):
                          f"{RESULTS['engine_equality']}")
 
 
-def phase_serving(torch, pt, dev, make_cfg):
+# Phase 4b holds the card's int8 model (kernels) to the CPU's (plain
+# versions), both fp32 over the same int8 weights. The two compute K/V in
+# other summation orders (1e-6 apart), so a code whose value lies within
+# that of a rounding boundary lands on the other side: those codes differ
+# by exactly 1, at about 1e-4 of the written elements when each
+# projection's output is perturbed by 2e-6 relative on the CPU (4096
+# wide, 32 heads over 8 KV heads of 128, 2 layers). Each moves one K or V
+# element by one quantization step (1/127 of its page's largest value);
+# together they moved the logits by 9.4e-4 of their largest magnitude in
+# that rehearsal. A wrong page, block or scale moves them by 1e-1 or
+# more. The second layer's K/V come from attention over the first
+# layer's codes, so the codes that differ there move its page scales
+# (a page's absmax / 127) by up to about 1e-4 (1.34e-4 on the card,
+# H100 80GB HBM3, 700 W); a scale from a wrong page is off by 1e-2 or
+# more.
+QUANT_LOGIT_TOL = 5e-3     # max |card - cpu| / max |cpu| over all steps
+QUANT_CODE_FRAC = 1e-3     # codes that may differ (by 1) / codes written
+QUANT_SCALE_RTOL = 1e-3    # page scales, relative
+
+
+def phase_quant_engine_equality(torch, pt, dev, make_cfg):
+    """Phase 4b: Llama-3-8B widths at 2 layers, fp32 activations, int8
+    weights and int8 KV, the same seeded weights on the card and on the
+    CPU. Hard limits: teacher-forced per-step logits (a 130-token
+    prefill, then 8 decode steps of a fixed history) within
+    QUANT_LOGIT_TOL, and the pools' codes equal but for differences of 1
+    at no more than QUANT_CODE_FRAC of the written elements, scales
+    within QUANT_SCALE_RTOL. Reported only: the greedy-token agreement of
+    the two engines (random weights have near-ties)."""
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             GenerationConfig)
     from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.ops.kernels import _build
-    cfg = make_cfg(dtype="bfloat16")
+    from paddle_tpu_torch.quantization import quantize_model
+    cfg = make_cfg(num_hidden_layers=2, dtype="float32")
     t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(8, dev))
-    sync(torch, dev)
-    log(f"serving model: llama3_8b widths, {cfg.num_hidden_layers} layers, "
-        f"bf16, built in {time.perf_counter() - t0:.1f} s")
+    native = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(7, dev))
+    card = quantize_model(native, kv_dtype="int8")
+    del native
+    cpu = copy.deepcopy(card).to("cpu")
+    hist = np.random.RandomState(11).randint(0, cfg.vocab_size, (139,))
+    L = 130
+    side = {}
+    with torch.inference_mode():
+        for name, model in (("card", card), ("cpu", cpu)):
+            d = model.lm_head.device
+            core = model.model
+            pools, tables = core.alloc_paged_caches(1, 256, 128)
+            h, _ = core.prefill_paged(torch.tensor(hist[None, :L], device=d),
+                                      pools, tables)
+            logits = [model.logits(h[0, -1])]
+            for i in range(L, len(hist)):
+                h, _ = core.decode_step_paged(
+                    torch.tensor(hist[i:i + 1], device=d),
+                    torch.tensor([i], device=d), pools, tables)
+                logits.append(model.logits(h[0, 0]))
+            side[name] = (torch.stack(logits).float().cpu(),
+                          [[t.cpu() for t in p] for p in pools])
+    (lc, pc), (lp, pp) = side["card"], side["cpu"]
+    logit_err = float((lc - lp).abs().max() / lp.abs().max())
+    written = differ = worst = 0
+    scale_err = 0.0
+    for layer_c, layer_p in zip(pc, pp):
+        for codes_c, codes_p, s_c, s_p in ((layer_c[0], layer_p[0],
+                                            layer_c[2], layer_p[2]),
+                                           (layer_c[1], layer_p[1],
+                                            layer_c[3], layer_p[3])):
+            used = s_p > 0
+            dc = (codes_c.int() - codes_p.int()).abs()[:, used]
+            written += dc.numel()
+            differ += int((dc > 0).sum())
+            worst = max(worst, int(dc.max()))
+            scale_err = max(scale_err, float(
+                ((s_c - s_p).abs() / s_p.clamp_min(1e-30))[used].max()))
+            if bool((s_c[~used] != 0).any()):
+                worst = max(worst, 127)          # a page written on one side
+    frac = differ / max(written, 1)
+    logits_ok = logit_err <= QUANT_LOGIT_TOL and bool(
+        torch.isfinite(lc).all())
+    codes_ok = worst <= 1 and frac <= QUANT_CODE_FRAC
+    scales_ok = scale_err <= QUANT_SCALE_RTOL
+    # the engines, on the card and on the CPU: greedy agreement, reported
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in (37, 130)]
+    n_new = 8
+    streams = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        eng = ContinuousBatchingEngine(
+            model, max_batch=2, page_size=128, max_len=512,
+            generation_config=GenerationConfig(max_new_tokens=n_new),
+            decode_block=4, async_depth=2)
+        rids = [eng.submit(p) for p in prompts]
+        out = eng.run()
+        if not (eng.kv_quant and eng.kv_quant_ticks > 0):
+            raise SystemExit("the quantized engine did not decode over "
+                             "int8 pools")
+        streams[name] = [out[r].tolist() for r in rids]
+    agree = float(np.mean([np.mean(np.equal(a, b)) for a, b in
+                           zip(streams["card"], streams["cpu"])]))
+    res = {"logit_err": logit_err, "logit_tol": QUANT_LOGIT_TOL,
+           "max_abs_logit": float(lp.abs().max()),
+           "codes_written": written, "codes_differ": differ,
+           "codes_differ_frac": frac, "codes_max_diff": worst,
+           "code_frac_tol": QUANT_CODE_FRAC, "scale_rel_err": scale_err,
+           "scale_rtol": QUANT_SCALE_RTOL, "greedy_agreement": agree,
+           "streams": streams}
+    RESULTS["quant_engine_equality"] = res
+    log(f"quantized engine equality (llama3_8b widths, 2 layers, fp32, int8 "
+        f"weights and KV): teacher-forced logits max|card-cpu|/max|cpu| "
+        f"{logit_err:.3e} (tol {QUANT_LOGIT_TOL}: "
+        f"{'ok' if logits_ok else 'FAIL'}); KV codes differing {differ} of "
+        f"{written} written ({frac:.2e}, tol {QUANT_CODE_FRAC}, largest "
+        f"difference {worst}: {'ok' if codes_ok else 'FAIL'}); page scales "
+        f"rel err {scale_err:.2e} (tol {QUANT_SCALE_RTOL}: "
+        f"{'ok' if scales_ok else 'FAIL'}); engines' greedy agreement "
+        f"{agree:.3f} (reported only); {time.perf_counter() - t0:.1f} s")
+    del card, cpu
+    empty_cache(torch, dev)
+    if not (logits_ok and codes_ok and scales_ok):
+        raise SystemExit("the quantized model on the card differs from the "
+                         "plain path")
+
+
+def serve_run(torch, dev, model, label, kernels):
+    """The serving run of phases 5 and 5b over ``model``: a warm-up
+    engine, then 16 requests (prompts 128-1536 tokens from numpy seed 8,
+    64 new tokens, every 4th sampled) through ContinuousBatchingEngine
+    (max_batch=8, page_size=128, max_len=2048, decode_block=8,
+    async_depth=2), launch counts reset just before and read just after;
+    then per-call launch counts and one decode step at B=8, context 1024
+    (device span, host enqueue, profile). Fails unless every kernel of
+    ``kernels`` launched, every token is in the vocabulary and the
+    logits are finite. Returns the run's numbers and the streams."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.ops.kernels import _build
+    cfg = model.cfg
     sampled = GenerationConfig(do_sample=True, temperature=0.8, top_k=40,
                                top_p=0.95)
     kw = dict(max_batch=8, page_size=128, max_len=2048, decode_block=8,
@@ -871,6 +1210,8 @@ def phase_serving(torch, pt, dev, make_cfg):
     prompts = [rs.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in lens]
     n_new = 64
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     t0 = time.perf_counter()
     rids = [eng.submit(p, max_new_tokens=n_new,
@@ -880,19 +1221,35 @@ def phase_serving(torch, pt, dev, make_cfg):
     sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
     lat = eng.latency_stats()
     n_tok = sum(len(out[r]) for r in rids)
     logits_ok = bool(torch.isfinite(eng._state["logits"].float()).all())
     tok_ok = all(len(out[r]) == n_new and int(out[r].min()) >= 0
                  and int(out[r].max()) < cfg.vocab_size for r in rids)
     tps = n_tok / wall
-    log(f"serving: {len(rids)} requests, prompt tokens {int(lens.sum())}, "
+    pool_bytes = sum(t.numel() * t.element_size() for p in eng.pools
+                     for t in p)
+    model_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    log(f"{label}: {len(rids)} requests, prompt tokens {int(lens.sum())}, "
         f"generated {n_tok} in {wall:.3f} s = {tps:.1f} tokens/s; TTFT "
         f"p50 {lat['ttft_p50_s']*1e3:.1f} ms p99 "
         f"{lat['ttft_p99_s']*1e3:.1f} ms; ITL p50 "
-        f"{lat.get('itl_p50_s', float('nan'))*1e3:.2f} ms; "
+        f"{lat.get('itl_p50_s', float('nan'))*1e3:.2f} ms p99 "
+        f"{lat.get('itl_p99_s', float('nan'))*1e3:.2f} ms; model bytes "
+        f"{model_bytes}, KV-pool bytes {pool_bytes}, peak memory {peak}; "
         f"stats {eng.stats()}")
-    log(f"serving launches: {launches}")
+    log(f"{label} launches: {launches}")
+    info = {"requests": len(rids), "prompt_tokens": int(lens.sum()),
+            "generated_tokens": n_tok, "wall_s": wall, "tokens_per_s": tps,
+            "latency": lat, "stats": eng.stats(), "launches": launches,
+            "model_bytes": model_bytes, "kv_pool_bytes": pool_bytes,
+            "peak_memory_bytes": peak,
+            "kv_quant_ticks": eng.kv_quant_ticks}
+    streams = [out[r] for r in rids]
+    del eng
     # per-call launch counts and one decode step's time, measured after
     # the counted run
     core = model.model
@@ -928,23 +1285,69 @@ def phase_serving(torch, pt, dev, make_cfg):
                  "device_span_ms": statistics.median(dev_ms),
                  "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S
                  * 1e3, "profile": prof}
-    log(f"launches per prefill {per['prefill']}, per decode step "
+    log(f"{label}: launches per prefill {per['prefill']}, per decode step "
         f"{per['decode_step']}; one decode step at B=8 ctx 1024: "
         f"{step_info}")
-    RESULTS["serving"] = {
-        "requests": len(rids), "prompt_tokens": int(lens.sum()),
-        "generated_tokens": n_tok, "wall_s": wall, "tokens_per_s": tps,
-        "latency": lat, "stats": eng.stats(), "launches": launches,
-        "launches_per_call": per, "decode_step": step_info}
-    del eng, pools, model
+    info.update(launches_per_call=per, decode_step=step_info)
+    RESULTS[label] = info
+    del pools
     empty_cache(torch, dev)
-    missing = [k for k in SERVING_KERNELS if launches[k] <= 0]
+    missing = [k for k in kernels if launches[k] <= 0]
     if missing:
-        raise SystemExit(f"kernels not launched on the main path: {missing}")
+        raise SystemExit(f"kernels not launched on the {label} path: "
+                         f"{missing}")
     if not (tok_ok and logits_ok):
-        raise SystemExit("serving output malformed "
+        raise SystemExit(f"{label} output malformed "
                          f"(tokens ok {tok_ok}, logits finite {logits_ok})")
-    return launches
+    return info, streams
+
+
+def phase_serving(torch, pt, dev, make_cfg):
+    """Phase 5, the serving run of the seeded bf16 model at Llama-3-8B
+    widths (all 32 layers, built on the card), then phase 5b: the same
+    model quantized on the card (``quantize_model(model,
+    kv_dtype="int8")``, the native model then freed) through the same
+    run. Returns both runs' launch counts."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    cfg = make_cfg(dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(8, dev))
+    sync(torch, dev)
+    log(f"serving model: llama3_8b widths, {cfg.num_hidden_layers} layers, "
+        f"bf16, built in {time.perf_counter() - t0:.1f} s")
+    native, native_streams = serve_run(torch, dev, model, "serving",
+                                       SERVING_KERNELS)
+    t0 = time.perf_counter()
+    qmodel = quantize_model(model, kv_dtype="int8")
+    del model
+    empty_cache(torch, dev)
+    sync(torch, dev)
+    log(f"quantized serving model: quantize_model(kv_dtype='int8') on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    quant, quant_streams = serve_run(torch, dev, qmodel,
+                                     "quantized_serving",
+                                     QUANT_SERVING_KERNELS)
+    # greedy requests only (every 4th samples): the share of positions
+    # where the quantized stream equals the native one (reported only:
+    # random weights have near-ties)
+    greedy = [i for i in range(len(native_streams)) if i % 4 != 3]
+    agree = float(np.mean([np.mean(np.equal(native_streams[i],
+                                            quant_streams[i]))
+                           for i in greedy]))
+    quant["greedy_agreement_with_native"] = agree
+    log(f"quantized vs native serving: {quant['tokens_per_s']:.1f} vs "
+        f"{native['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+        f"{quant['latency']['ttft_p50_s'] * 1e3:.1f} vs "
+        f"{native['latency']['ttft_p50_s'] * 1e3:.1f} ms; ITL p50 "
+        f"{quant['latency']['itl_p50_s'] * 1e3:.2f} vs "
+        f"{native['latency']['itl_p50_s'] * 1e3:.2f} ms; model bytes "
+        f"{quant['model_bytes']} vs {native['model_bytes']}; KV-pool bytes "
+        f"{quant['kv_pool_bytes']} vs {native['kv_pool_bytes']}; greedy "
+        f"agreement with the native streams {agree:.3f}")
+    del qmodel
+    empty_cache(torch, dev)
+    return native["launches"], quant["launches"]
 
 
 def kernel_category(name: str) -> str:
@@ -1236,7 +1639,7 @@ def main() -> int:
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops.kernels import (_build, flash_attention,
                                               fused_norm, fused_rope,
-                                              fused_vocab_ce,
+                                              fused_vocab_ce, int8_matmul,
                                               paged_attention)
     t_start = time.perf_counter()
     # 1. the card
@@ -1253,6 +1656,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
         phase_kernels(torch, pt)
+        phase_quant_kernels(torch, pt)
     phase_train_kernels(torch, pt)
     phase_ce_kernels(torch, pt)
     if FAILED_CASES:
@@ -1261,7 +1665,9 @@ def main() -> int:
     from paddle_tpu_torch.models import LlamaConfig
     dev = torch.device("cuda")
     phase_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
-    serve_launches = phase_serving(torch, pt, dev, LlamaConfig.llama3_8b)
+    phase_quant_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    serve_launches, quant_launches = phase_serving(torch, pt, dev,
+                                                   LlamaConfig.llama3_8b)
     ref = phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b,
                                "float32")
     phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, "bfloat16")
@@ -1290,16 +1696,23 @@ def main() -> int:
              paged_attention.REPLACES, "ctx1024"),
             *((name, fused_vocab_ce.SOURCE, fused_vocab_ce.REPLACES[name],
                "train_chunk_8192" if name == "vocab_ce_dlog"
-               else "train_8192") for name in CE_KERNELS)):
+               else "train_8192") for name in CE_KERNELS),
+            ("int8_matmul", int8_matmul.SOURCE, int8_matmul.REPLACES,
+             "decode_gate_up"),
+            ("paged_decode_int8", paged_attention.SOURCE,
+             paged_attention.REPLACES, "ctx1024")):
         c = main_case(name, case)
+        by_path = {"serving": serve_launches[name],
+                   "training": train_launches[name],
+                   "quantized_serving": quant_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # launches on the main paths: the serving run plus the timed
-            # training steps, and each path's own count
-            "launches": serve_launches[name] + train_launches[name],
-            "launches_by_path": {"serving": serve_launches[name],
-                                 "training": train_launches[name]},
+            # launches on the main paths: the serving run, the timed
+            # training steps and the quantized serving run, and each
+            # path's own count
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases
                                if x["kernel"] == name),
             "ms": c["ms"], "plain_ms": c["plain_ms"],

@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels: element conversion to and
-// from fp32, and warp/block reductions. Element type codes used by every
-// C entry point: 0 = float32, 1 = bfloat16.
+// from fp32, warp/block reductions and 16-byte asynchronous copies into
+// shared memory. Element type codes used by every C entry point:
+// 0 = float32, 1 = bfloat16.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,6 +12,9 @@ namespace pt {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(signed char x) {  // int8, exact
+  return static_cast<float>(x);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -52,6 +56,23 @@ __device__ __forceinline__ float block_sum(float v) {
   }
   __syncthreads();
   return total;
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; with
+// `valid` false no byte is read and the 16 bytes become 0
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace pt

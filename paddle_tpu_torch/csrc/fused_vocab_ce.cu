@@ -53,20 +53,9 @@ constexpr int NT = 256;  // threads per block
 constexpr float NEG_INF = -1e30f;
 using bf = __nv_bfloat16;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes become 0
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using pt::cp_async16;
+using pt::cp_async_commit;
+using pt::cp_async_wait;
 
 // rows r0.. (stride ld) by contiguous columns c0.. of a [RL, CL] matrix
 // into dst[ROWS][LD], 0 outside it: 16-byte copies when `vec` (the caller

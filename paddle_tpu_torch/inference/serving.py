@@ -23,13 +23,24 @@
   active mask, budgets, token counts, sampling knobs) lives on the
   device as tensors updated in place, in stream order.
 
-Not ported yet, each listed in ROADMAP.md: speculative decoding, the
-prefix cache, admission policies, chunked prefill, KV-page handoff, int8
-pools, the metrics/tracing/sentry hooks and the dense/paged crossover
-(the port always decodes through the paged kernel).
+- A quantized model (``quantization.quantize_model``, int8 weights and
+  ``kv_dtype="int8"`` pools) runs unchanged: its pools are 4-tuples with
+  per-page scales, ``kv_quant`` says so and ``kv_quant_ticks`` counts
+  the decode blocks dispatched over them. Idle slots' K/V land on the
+  garbage page and grow only its scale.
 
-The engine is exact: greedy outputs equal per-request greedy decoding
-whatever the batching, preemption or pipelining.
+Not ported yet, each listed in ROADMAP.md: speculative decoding, the
+prefix cache, admission policies, chunked prefill, KV-page handoff
+(int8 with any of those four as well), the metrics/tracing/sentry hooks
+and the dense/paged crossover (the port always decodes through the
+paged kernel).
+
+The engine is exact over native pools: greedy outputs equal per-request
+greedy decoding whatever the batching, preemption or pipelining. Over
+int8 pools a page claimed during decode keeps the scale its previous
+owner left (as in the JAX package), so a request's codes, and at a
+near-tie its tokens, can depend on which pages it was given (ROADMAP.md,
+D4).
 """
 
 from __future__ import annotations
@@ -114,6 +125,8 @@ class ContinuousBatchingEngine:
         self.pools, _ = self.core.alloc_paged_caches(
             1, total * page_size, page_size)
         self._total_pages = total - 1
+        self.kv_quant = len(self.pools[0]) == 4
+        self.kv_quant_ticks = 0             # decode blocks on int8 pools
         self._free: List[int] = list(range(total - 1, 0, -1))
         self.tables = np.zeros((max_batch, self.pages_per_seq), np.int32)
         self._tables_dev: Optional[torch.Tensor] = None
@@ -462,6 +475,8 @@ class ContinuousBatchingEngine:
             self._tables_dirty = False
         toks, kept = self._decode_block(K, any_sample)
         self.decode_blocks += 1
+        if self.kv_quant:
+            self.kv_quant_ticks += 1
         blk = self._start_drain(toks, kept, parts, K)
         for s, req in parts:
             steps = min(K, req.max_new_tokens - int(self._proj_gen[s]))

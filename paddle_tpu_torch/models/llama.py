@@ -15,6 +15,13 @@ the flash kernels; each layer under activation recompute when
 ``alloc_paged_caches`` / ``prefill_paged`` / ``decode_step_paged``. The
 page pools are updated IN PLACE (``index_put_``) where JAX returns new
 arrays; the methods still return the pools so callers read the same.
+
+Quantized serving (``cfg.weight_dtype="int8"``, ``cfg.kv_dtype="int8"``):
+every projection and the untied ``lm_head`` is an int8 ``[n, k]`` weight
+with an fp32 ``<name>_scale`` ``[n]`` and goes through the int8 matrix
+product kernel (:func:`_proj`); int8 page pools carry one fp32 scale per
+page and K/V side, and decode reads them through the int8 paged kernel.
+Such a model serves only: ``forward(labels=...)`` raises.
 """
 
 from __future__ import annotations
@@ -34,9 +41,12 @@ from ..nn import functional as ptF
 from ..nn.initializer import Normal
 from ..ops import rope as rope_ops
 from ..ops.attention import paged_decode_attention, sdpa_plain
+from ..ops.quant import quantized_matmul
 from ..ops.vocab_ce import fused_linear_cross_entropy
 
-Pool = Tuple[torch.Tensor, torch.Tensor]
+# one layer's page pools: (kp, vp) native, or (kp, vp, kscale, vscale)
+# int8 with one fp32 scale per physical page
+Pool = Tuple[torch.Tensor, ...]
 
 
 @dataclass
@@ -44,8 +54,7 @@ class LlamaConfig:
     """The inference and training fields of
     ``paddle_tpu.models.llama.LlamaConfig`` with the same defaults, checks
     and presets (whose fields a keyword may override, e.g.
-    ``llama3_8b(num_hidden_layers=2)``); the quantized-serving fields
-    arrive with their slice. Of the training fields,
+    ``llama3_8b(num_hidden_layers=2)``). Of the training fields,
     ``sequence_parallel`` is accepted but raises NotImplementedError
     where it would act, and ``sp_mode`` other than "ring" is refused:
     their machinery comes with the torch.distributed slice."""
@@ -70,6 +79,11 @@ class LlamaConfig:
     # training loss head: "fused" (blockwise lm_head + CE, logits never
     # materialised) or "naive" (logits, then causal_lm_loss)
     loss_impl: str = "fused"
+    # serving quantization: "int8" weights (projections and lm_head as
+    # int8 [n, k] + fp32 scale [n]; serving only) and "int8" KV pages
+    # (one fp32 scale per page and K/V side)
+    weight_dtype: str = "native"
+    kv_dtype: str = "native"
 
     def __post_init__(self):
         if self.recompute not in ("none", "selective", "full"):
@@ -85,6 +99,12 @@ class LlamaConfig:
         if self.loss_impl not in ("fused", "naive"):
             raise ValueError(f"loss_impl must be 'fused'|'naive', "
                              f"got {self.loss_impl!r}")
+        if self.weight_dtype not in ("native", "int8"):
+            raise ValueError(f"weight_dtype must be 'native'|'int8', "
+                             f"got {self.weight_dtype!r}")
+        if self.kv_dtype not in ("native", "int8"):
+            raise ValueError(f"kv_dtype must be 'native'|'int8', "
+                             f"got {self.kv_dtype!r}")
         if self.hidden_size % self.num_attention_heads:
             raise ValueError("hidden_size must be divisible by "
                              "num_attention_heads")
@@ -124,42 +144,92 @@ class LlamaConfig:
 
 
 def parameter_shapes(cfg: LlamaConfig):
-    """{state_dict name: (shape, is_norm)} of ``LlamaForCausalLM(cfg)`` —
-    the names and ``[in, out]`` shapes of the JAX model's state_dict.
-    Norm weights are fp32 whatever ``cfg.dtype`` is."""
+    """{state_dict name: (shape, kind)} of ``LlamaForCausalLM(cfg)`` — the
+    names and shapes of the JAX model's state_dict. ``kind`` is "float"
+    (``cfg.dtype``), "norm" (fp32 whatever ``cfg.dtype`` is), or, for a
+    ``weight_dtype="int8"`` config, "int8" (a projection, transposed to
+    ``[out, in]``) and "scale" (its fp32 ``<name>_scale`` ``[out]``).
+    Native projections keep the ``[in, out]`` layout."""
     d, m, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                      cfg.head_dim)
+    int8 = cfg.weight_dtype == "int8"
     out = {}
+
+    def proj(name, k, n):
+        if int8:
+            out[name] = ((n, k), "int8")
+            out[name + "_scale"] = ((n,), "scale")
+        else:
+            out[name] = ((k, n), "float")
     if not cfg.tie_word_embeddings:
-        out["lm_head"] = ((d, v), False)
-    out["model.embed_tokens"] = ((v, d), False)
+        proj("lm_head", d, v)
+    out["model.embed_tokens"] = ((v, d), "float")
     for i in range(cfg.num_hidden_layers):
         p = f"model.layers.{i}."
-        out[p + "input_layernorm.weight"] = ((d,), True)
-        out[p + "self_attn.qkv_proj"] = ((d, (n_h + 2 * n_kv) * hd), False)
-        out[p + "self_attn.o_proj"] = ((n_h * hd, d), False)
-        out[p + "post_attention_layernorm.weight"] = ((d,), True)
-        out[p + "mlp.gate_up_proj"] = ((d, 2 * m), False)
-        out[p + "mlp.down_proj"] = ((m, d), False)
-    out["model.norm.weight"] = ((d,), True)
+        out[p + "input_layernorm.weight"] = ((d,), "norm")
+        proj(p + "self_attn.qkv_proj", d, (n_h + 2 * n_kv) * hd)
+        proj(p + "self_attn.o_proj", n_h * hd, d)
+        out[p + "post_attention_layernorm.weight"] = ((d,), "norm")
+        proj(p + "mlp.gate_up_proj", d, 2 * m)
+        proj(p + "mlp.down_proj", m, d)
+    out["model.norm.weight"] = ((d,), "norm")
     return out
 
 
 class _Init:
     """Where, in what type and from which generator a model's parameters
-    are drawn: one object threaded through every constructor."""
+    are drawn: one object threaded through every constructor. With
+    ``draw=False`` float weights are left uninitialised (``torch.empty``)
+    for a caller that loads a state dict next."""
 
-    def __init__(self, cfg: LlamaConfig, device, dtype, generator):
+    def __init__(self, cfg: LlamaConfig, device, dtype, generator,
+                 draw: bool = True):
         self.device = resolve_device(device)
         self.dtype = dtype_of(dtype if dtype is not None else cfg.dtype)
-        self.generator = (generator if generator is not None
+        self.int8 = cfg.weight_dtype == "int8"
+        self.draw = draw
+        self.generator = (generator if generator is not None or not draw
                           else make_generator(0, self.device))
         self.normal = Normal(0.0, cfg.initializer_range)
 
     def weight(self, *shape) -> nn.Parameter:
+        if not self.draw:
+            return nn.Parameter(torch.empty(shape, dtype=self.dtype,
+                                            device=self.device))
         return nn.Parameter(self.normal(shape, self.dtype, self.device,
                                         self.generator))
+
+    def proj(self, module: nn.Module, name: str, k: int, n: int) -> None:
+        """Register the projection ``name`` of a [k] -> [n] map on
+        ``module`` in the layout ``cfg.weight_dtype`` asks for, as the JAX
+        model's ``_make_proj``: native, a float [k, n] weight; int8, an
+        int8 [n, k] weight at 0 and an fp32 ``<name>_scale`` [n] at 1.
+        Both int8 tensors are parameters without gradient (an int8
+        tensor cannot require one), so they sit in ``state_dict()`` under
+        the JAX names."""
+        if not self.int8:
+            module.register_parameter(name, self.weight(k, n))
+            return
+        module.register_parameter(name, nn.Parameter(
+            torch.zeros((n, k), dtype=torch.int8, device=self.device),
+            requires_grad=False))
+        module.register_parameter(name + "_scale", nn.Parameter(
+            torch.ones((n,), dtype=torch.float32, device=self.device),
+            requires_grad=False))
+
+
+def _proj(module: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor:
+    """The one weight product every Llama linear goes through, as in the
+    JAX model: a native weight is a dense ``x @ w`` in x's dtype; an int8
+    weight (it has a ``<name>_scale`` twin) goes through
+    ``ops.quant.quantized_matmul`` — the int8 matrix product kernel on
+    the card."""
+    w = getattr(module, name)
+    scale = getattr(module, name + "_scale", None)
+    if scale is not None:
+        return quantized_matmul(x, w, scale)
+    return torch.matmul(x, w.to(x.dtype))
 
 
 def _token_mean(nll: torch.Tensor, labels: torch.Tensor,
@@ -202,13 +272,45 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
                              ignore_index=ignore_index)
 
 
+# -- int8 paged-KV helpers ----------------------------------------------
+#
+# kv_dtype="int8" pools hold K/V pages as int8 with ONE fp32 absmax scale
+# per physical page and K/V side: a layer's pool entry is the 4-tuple
+# (kp, vp, kscale, vscale), kscale/vscale [num_pages], scale 0 meaning a
+# page never written (it reads as zeros). Scales only grow: a token write
+# that needs a larger scale requantizes its page onto the new grid first.
+# Rounding and clipping are the JAX package's, bit for bit.
+
+_KV_EPS = 1e-30      # guards the divides where a scale is 0
+
+
+def _kv_quantized(kv: Pool) -> bool:
+    return len(kv) == 4
+
+
+def _quantize(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """round-half-to-even(t / max(s, eps)) clipped to ±127, as int8;
+    ``s`` broadcasts against ``t``."""
+    return torch.round(t / s.clamp_min(_KV_EPS)).clamp_(-127, 127).to(
+        torch.int8)
+
+
 def _kv_scatter_pages(kv: Pool, phys: torch.Tensor, k_tiles: torch.Tensor,
                       v_tiles: torch.Tensor) -> Pool:
     """Full-page write (prefill): ``phys`` [P] physical page ids, tiles
-    [n_kv, P, page, hd]. In place."""
-    kp, vp = kv
-    kp[:, phys] = k_tiles.to(kp.dtype)
-    vp[:, phys] = v_tiles.to(vp.dtype)
+    [n_kv, P, page, hd]. In place. Int8 pools get one absmax scale per
+    written page, replacing the old one (the page is rewritten whole)."""
+    if not _kv_quantized(kv):
+        kp, vp = kv
+        kp[:, phys] = k_tiles.to(kp.dtype)
+        vp[:, phys] = v_tiles.to(vp.dtype)
+        return kv
+    kp, vp, ks, vs = kv
+    for pool, scale, tiles in ((kp, ks, k_tiles), (vp, vs, v_tiles)):
+        t = tiles.float()
+        s = t.abs().amax(dim=(0, 2, 3)) / 127.0                  # [P]
+        pool[:, phys] = _quantize(t, s[None, :, None, None])
+        scale[phys] = s
     return kv
 
 
@@ -216,10 +318,32 @@ def _kv_scatter_tokens(kv: Pool, phys: torch.Tensor, off: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor) -> Pool:
     """Token-slot write (decode): ``phys``/``off`` [b] physical page and
     in-page offset per token; ``k_new``/``v_new`` [n_kv, b, hd]. In
-    place."""
-    kp, vp = kv
-    kp[:, phys, off] = k_new.to(kp.dtype)
-    vp[:, phys, off] = v_new.to(vp.dtype)
+    place. Int8 pools grow the touched pages' scales to cover the new
+    token (a scatter-max, so several tokens landing in one page, as idle
+    slots do on the garbage page, agree on its scale, as JAX's
+    ``.at[].max`` does), requantize those pages onto the grown scale
+    (a page whose scale did not change keeps its codes: the factor is
+    exactly 1), then write the new codes."""
+    if not _kv_quantized(kv):
+        kp, vp = kv
+        kp[:, phys, off] = k_new.to(kp.dtype)
+        vp[:, phys, off] = v_new.to(vp.dtype)
+        return kv
+    kp, vp, ks, vs = kv
+    for pool, scale, new in ((kp, ks, k_new), (vp, vs, v_new)):
+        t = new.float()
+        amax = t.abs().amax(dim=(0, -1))                         # [b]
+        grown = torch.maximum(scale, torch.zeros_like(scale).scatter_reduce(
+            0, phys, amax / 127.0, "amax"))
+        s_w = grown[phys]                                        # [b]
+        factor = torch.where(s_w > 0, scale[phys] / s_w.clamp_min(_KV_EPS),
+                             0.0)
+        pages = pool[:, phys].float()                # [n_kv, b, page, hd]
+        pool[:, phys] = torch.round(
+            pages * factor[None, :, None, None]).clamp_(-127, 127).to(
+                torch.int8)
+        pool[:, phys, off] = _quantize(t, s_w[None, :, None])
+        scale.copy_(grown)
     return kv
 
 
@@ -229,8 +353,8 @@ class LlamaAttention(nn.Module):
         self.cfg = cfg
         d, hd = cfg.hidden_size, cfg.head_dim
         n_h, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
-        self.qkv_proj = init.weight(d, (n_h + 2 * n_kv) * hd)
-        self.o_proj = init.weight(n_h * hd, d)
+        init.proj(self, "qkv_proj", d, (n_h + 2 * n_kv) * hd)
+        init.proj(self, "o_proj", n_h * hd, d)
 
     def _qkv_rope(self, x, cos, sin, position_ids=None, neg_sin=None):
         """Fused QKV projection + head split + rotary embedding. q, k and
@@ -241,7 +365,7 @@ class LlamaAttention(nn.Module):
         b, s, _ = x.shape
         n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                          cfg.head_dim)
-        qkv = torch.matmul(x, self.qkv_proj.to(x.dtype))
+        qkv = _proj(self, x, "qkv_proj")
         q, k, v = torch.split(qkv, [n_h * hd, n_kv * hd, n_kv * hd], dim=-1)
         q = q.view(b, s, n_h, hd)
         k = k.view(b, s, n_kv, hd)
@@ -252,8 +376,7 @@ class LlamaAttention(nn.Module):
 
     def _out(self, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         b, s = attn.shape[:2]
-        return torch.matmul(attn.reshape(b, s, -1).to(x.dtype),
-                            self.o_proj.to(x.dtype))
+        return _proj(self, attn.reshape(b, s, -1).to(x.dtype), "o_proj")
 
     def forward(self, x, cos, sin, position_ids=None, segment_ids=None,
                 neg_sin=None):
@@ -272,9 +395,11 @@ class LlamaAttention(nn.Module):
     def prefill_paged(self, x, cos, sin, kv: Pool, tables: torch.Tensor):
         """Prompt pass writing K/V into head-major page pools
         [H_kv, num_pages, page_size, hd] through ``tables``
-        [b, max_pages]. The prompt is padded up to a page multiple inside
-        the pool; padded slots lie beyond seq_len and are overwritten by
-        decode before anything attends to them."""
+        [b, max_pages]; ``kv`` is the layer's pool entry, native or int8
+        (:data:`Pool`). The prompt attends to its own float K/V; the pool
+        gets them quantized. The prompt is padded up to a page multiple
+        inside the pool; padded slots lie beyond seq_len and are
+        overwritten by decode before anything attends to them."""
         cfg = self.cfg
         b, s, _ = x.shape
         n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
@@ -296,7 +421,8 @@ class LlamaAttention(nn.Module):
                      tables: torch.Tensor):
         """One-token step over the page pools: writes the new K/V into the
         slot for position ``pos`` [b] and attends positions 0..pos through
-        the paged decode kernel (its plain version on the CPU)."""
+        the paged decode kernel (its plain version on the CPU), with the
+        pages' scales when the pools are int8."""
         b = x.shape[0]
         page = kv[0].shape[2]
         q, k, v = self._qkv_rope(x, cos, sin, pos.view(b, 1))
@@ -308,8 +434,10 @@ class LlamaAttention(nn.Module):
         off = pos % page
         kv = _kv_scatter_tokens(kv, phys, off, k[:, 0].transpose(0, 1),
                                 v[:, 0].transpose(0, 1))
+        scales = ({"k_scales": kv[2], "v_scales": kv[3]}
+                  if _kv_quantized(kv) else {})
         out = paged_decode_attention(q[:, 0].contiguous(), kv[0], kv[1],
-                                     tables, pos)
+                                     tables, pos, **scales)
         return self._out(out.reshape(b, 1, -1), x), kv
 
 
@@ -317,13 +445,12 @@ class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, init: _Init):
         super().__init__()
         d, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_up_proj = init.weight(d, 2 * m)
-        self.down_proj = init.weight(m, d)
+        init.proj(self, "gate_up_proj", d, 2 * m)
+        init.proj(self, "down_proj", m, d)
 
     def forward(self, x):
-        gu = torch.matmul(x, self.gate_up_proj.to(x.dtype))
-        g, u = gu.chunk(2, dim=-1)
-        return torch.matmul(F.silu(g) * u, self.down_proj.to(x.dtype))
+        g, u = _proj(self, x, "gate_up_proj").chunk(2, dim=-1)
+        return _proj(self, F.silu(g) * u, "down_proj")
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -397,16 +524,26 @@ class LlamaModel(nn.Module):
                            page_size: int = 128
                            ) -> Tuple[List[Pool], torch.Tensor]:
         """Per-layer head-major page pools (zeros) + a block table that
-        gives each sequence its pages contiguously."""
+        gives each sequence its pages contiguously. ``cfg.kv_dtype="int8"``
+        pools are 4-tuples: int8 pages and one fp32 scale per page and
+        K/V side, starting at 0 (a page that holds nothing, read as the
+        zeros a native pool starts with)."""
         cfg = self.cfg
         pages_per_seq = -(-max_len // page_size)
         num_pages = batch * pages_per_seq
         shape = (cfg.num_key_value_heads, num_pages, page_size,
                  cfg.head_dim)
         dev, dt = self.embed_tokens.device, self.embed_tokens.dtype
-        pools = [(torch.zeros(shape, dtype=dt, device=dev),
-                  torch.zeros(shape, dtype=dt, device=dev))
-                 for _ in range(cfg.num_hidden_layers)]
+        if cfg.kv_dtype == "int8":
+            pools = [(torch.zeros(shape, dtype=torch.int8, device=dev),
+                      torch.zeros(shape, dtype=torch.int8, device=dev),
+                      torch.zeros((num_pages,), device=dev),
+                      torch.zeros((num_pages,), device=dev))
+                     for _ in range(cfg.num_hidden_layers)]
+        else:
+            pools = [(torch.zeros(shape, dtype=dt, device=dev),
+                      torch.zeros(shape, dtype=dt, device=dev))
+                     for _ in range(cfg.num_hidden_layers)]
         tables = torch.arange(num_pages, dtype=torch.int32,
                               device=dev).reshape(batch, pages_per_seq)
         return pools, tables
@@ -437,23 +574,30 @@ class LlamaForCausalLM(nn.Module):
     """Llama with its vocabulary head. ``device`` defaults to the CUDA
     card (raising where there is none); ``dtype`` to ``cfg.dtype``;
     parameters are drawn from ``generator`` (a generator seeded with 0 on
-    ``device`` when None)."""
+    ``device`` when None). ``init_weights=False`` leaves the float
+    weights uninitialised, for a caller that loads a state dict next
+    (``quantization.quantize_model``)."""
 
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 init_weights: bool = True):
         super().__init__()
-        init = _Init(cfg, device, dtype, generator)
+        init = _Init(cfg, device, dtype, generator, draw=init_weights)
         self.cfg = cfg
         if not cfg.tie_word_embeddings:
-            self.lm_head = init.weight(cfg.hidden_size, cfg.vocab_size)
+            init.proj(self, "lm_head", cfg.hidden_size, cfg.vocab_size)
         else:
             self.lm_head = None
         self.model = LlamaModel(cfg, init=init)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        w = (self.model.embed_tokens.t() if self.cfg.tie_word_embeddings
-             else self.lm_head)
-        return torch.matmul(hidden, w.to(hidden.dtype))
+        """Vocabulary projection: the tied embedding's dense product, or
+        the ``lm_head`` through :func:`_proj` (int8 in a quantized
+        model)."""
+        if self.cfg.tie_word_embeddings:
+            return torch.matmul(hidden,
+                                self.model.embed_tokens.t().to(hidden.dtype))
+        return _proj(self, hidden, "lm_head")
 
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
@@ -468,7 +612,13 @@ class LlamaForCausalLM(nn.Module):
         Its returned logits are then computed only for the caller: where
         jit would drop them unread, eager PyTorch computes them, so a
         training loop asks for the loss alone (``Trainer`` does). The
-        naive head materialises the logits for :func:`causal_lm_loss`."""
+        naive head materialises the logits for :func:`causal_lm_loss`.
+        An int8-weight model serves only: ``labels`` raise ValueError."""
+        if labels is not None and self.cfg.weight_dtype == "int8":
+            raise ValueError(
+                "weight_dtype='int8' is a serving-only layout (no float "
+                "master weights to train); quantize a trained model with "
+                "paddle_tpu_torch.quantization.quantize_model instead")
         hidden = self.model(input_ids, position_ids, segment_ids)
         if labels is None:
             return self.logits(hidden)

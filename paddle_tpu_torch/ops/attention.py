@@ -74,22 +74,31 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, block_tables: torch.Tensor,
                        seq_lens: torch.Tensor,
-                       scale: Optional[float] = None) -> torch.Tensor:
-    """Copy of ``paddle_tpu.ops.pallas.paged_attention.paged_decode_xla``
-    (native pools): gather the whole table, attend positions
-    0..seq_lens[b] inclusive with an fp32 softmax. Table entries are
-    clamped into the pool, as a JAX gather clamps."""
+                       scale: Optional[float] = None,
+                       k_scales: Optional[torch.Tensor] = None,
+                       v_scales: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Copy of ``paddle_tpu.ops.pallas.paged_attention.paged_decode_xla``:
+    gather the whole table, attend positions 0..seq_lens[b] inclusive with
+    an fp32 softmax. Int8 pools come with ``k_scales``/``v_scales``
+    [num_pages] fp32 (both or neither) and are dequantized in the gather:
+    widened to fp32 and multiplied by their page's scale. Table entries
+    are clamped into the pool, as a JAX gather clamps."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
     B, H, D = q.shape
     H_kv, num_pages, page_size, _ = k_pages.shape
     T = block_tables.shape[1] * page_size
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     safe = block_tables.long().clamp(0, num_pages - 1)
 
-    def gather(pages):
+    def gather(pages, pscales):
         g = pages[:, safe]                       # [H_kv, B, mp, page, D]
+        if pscales is not None:
+            g = g.float() * pscales.float()[safe][None, :, :, None, None]
         g = g.reshape(H_kv, B, T, D).movedim(0, 2)
         return torch.repeat_interleave(g, H // H_kv, dim=2)
-    ks, vs = gather(k_pages), gather(v_pages)
+    ks, vs = gather(k_pages, k_scales), gather(v_pages, v_scales)
     lg = torch.einsum("bhd,bthd->bht", q.float(), ks.float()) * scale
     valid = (torch.arange(T, device=q.device)[None, None, :]
              <= seq_lens.to(q.device).long()[:, None, None])
@@ -99,13 +108,18 @@ def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """One-token decode attention over paged pools: the CUDA kernel on a
-    CUDA tensor, the plain version on a CPU tensor."""
+                           scale: Optional[float] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """One-token decode attention over paged pools, native or int8 with
+    per-page scales: the CUDA kernel on a CUDA tensor, the plain version
+    on a CPU tensor."""
     if q.device.type == "cpu":
         return paged_decode_plain(q, k_pages, v_pages, block_tables,
-                                  seq_lens, scale)
-    return paged_decode(q, k_pages, v_pages, block_tables, seq_lens, scale)
+                                  seq_lens, scale, k_scales, v_scales)
+    return paged_decode(q, k_pages, v_pages, block_tables, seq_lens, scale,
+                        k_scales, v_scales)
 
 
 # -- flash attention ---------------------------------------------------------

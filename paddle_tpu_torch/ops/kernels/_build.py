@@ -39,9 +39,10 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rms_norm_bwd": 0,
                             "fused_rope": 0, "flash_fwd": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                            "paged_decode": 0, "vocab_ce_fwd": 0,
-                            "vocab_ce_dlog": 0, "vocab_ce_dh": 0,
-                            "vocab_ce_dw": 0}
+                            "paged_decode": 0, "paged_decode_int8": 0,
+                            "vocab_ce_fwd": 0, "vocab_ce_dlog": 0,
+                            "vocab_ce_dh": 0, "vocab_ce_dw": 0,
+                            "int8_matmul": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_LOG: Dict[str, object] = {}
@@ -145,8 +146,8 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pt_rms_norm_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
     so.pt_fused_rope.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
                                  LL, LL, LL, LL, LL, LL, I, I, P]
-    so.pt_paged_decode.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I,
-                                   F, I, P]
+    so.pt_paged_decode.argtypes = [P] * 8 + [I] * 7 + [F, I, P]
+    so.pt_int8_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
     flash = [P] * 13 + [I] * 6 + [LL] * 9 + [F, I, I, U, U, F, F, I, I, P]
     so.pt_vocab_ce_splits.argtypes = [I, I, I]
     so.pt_vocab_ce_fwd.argtypes = [P] * 4 + [I] * 6 + [P]
@@ -154,8 +155,9 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pt_vocab_ce_dh.argtypes = [P] * 4 + [I] * 10 + [P]
     so.pt_vocab_ce_dw.argtypes = [P] * 3 + [I] * 8 + [P]
     fns = [so.pt_rms_norm_fwd, so.pt_rms_norm_bwd, so.pt_fused_rope,
-           so.pt_paged_decode, so.pt_vocab_ce_splits, so.pt_vocab_ce_fwd,
-           so.pt_vocab_ce_dlog, so.pt_vocab_ce_dh, so.pt_vocab_ce_dw]
+           so.pt_paged_decode, so.pt_int8_matmul,
+           so.pt_vocab_ce_splits, so.pt_vocab_ce_fwd, so.pt_vocab_ce_dlog,
+           so.pt_vocab_ce_dh, so.pt_vocab_ce_dw]
     for name in ("pt_flash_fwd", "pt_flash_bwd_dq", "pt_flash_bwd_dkv"):
         fn = getattr(so, name)
         fn.argtypes = flash

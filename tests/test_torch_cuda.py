@@ -17,6 +17,8 @@ to 1e-4 in bf16; their bf16 dh is held per row (one token's H values)
 and dW per column (one vocabulary entry's H values) in the same way.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -462,3 +464,140 @@ def test_recompute_on_card_gives_the_same_gradients(dev, recompute):
     for n, g in grads[0].items():
         assert float((grads[1][n] - g).abs().max()) <= \
             1e-6 * float(g.abs().max()), n
+
+
+# -- quantized serving: the int8 matrix product and int8 paged decode -------
+
+def _int8_product_inputs(dev, dt, m, n, k, seed):
+    from paddle_tpu_torch.nn.quantized_linear import weight_quantize
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(dt)
+    wq, scale = weight_quantize(0.02 * torch.randn((k, n), generator=g,
+                                                   device=dev))
+    return x, wq, scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [1, 5, 8, 100])
+@pytest.mark.parametrize("n,k", [(48, 80), (272, 1040)])
+def test_int8_matmul_kernel_matches_plain(dev, dtype, m, n, k):
+    """Both bf16 tilings (m <= 16 and m > 16) and the fp32 route, with m
+    ragged against every tile, n not a multiple of the 32-column decode
+    tile and k not a multiple of a stage; bf16 also per row."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul
+    from paddle_tpu_torch.ops.quant import weight_only_plain
+    x, wq, scale = _int8_product_inputs(dev, getattr(torch, dtype), m, n, k,
+                                        m * n + k)
+    _build.reset_launches()
+    got = int8_matmul.int8_matmul(x, wq, scale)
+    assert _build.LAUNCHES["int8_matmul"] == 1
+    want = weight_only_plain(x, wq, scale)
+    _close(got, want, dtype)
+    _rows_close(got, want, dtype)
+
+
+def test_int8_matmul_wrapper_refuses_what_it_does_not_take(dev):
+    from paddle_tpu_torch.ops.kernels import int8_matmul
+    x, wq, scale = _int8_product_inputs(dev, torch.bfloat16, 4, 64, 64, 1)
+    with pytest.raises(TypeError):                       # fp16 x
+        int8_matmul.int8_matmul(x.half(), wq, scale)
+    with pytest.raises(ValueError, match="int8"):
+        int8_matmul.int8_matmul(x, wq.to(torch.int16), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matmul.int8_matmul(x.t().contiguous().t(), wq, scale)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_matmul.int8_matmul(x[:, :40].contiguous(),
+                                wq[:, :40].contiguous(), scale)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        int8_matmul.int8_matmul(x, wq[:40].contiguous(), scale[:40])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,H_kv,D,page", [(8, 4, 128, 8), (8, 8, 64, 16),
+                                           (16, 4, 128, 128),
+                                           (16, 2, 256, 8)])
+def test_paged_decode_int8_kernel_matches_plain(dev, dtype, H, H_kv, D,
+                                                page):
+    """Int8 pools with per-page scales of varied magnitude and a page
+    never written (scale 0): pages that a 128-token chunk spans (page 8)
+    or fills (page 128), lengths at the first token, at and across a
+    page edge and at the full table; bf16 also per row."""
+    dt = getattr(torch, dtype)
+    rs = np.random.RandomState(H + D + page)
+    B, mp = 4, 4
+    num_pages = B * mp + 1
+    q = torch.tensor(rs.normal(0, 1, (B, H, D)), device=dev).to(dt)
+    pools = []
+    for _ in range(2):
+        f = rs.normal(0, 1, (H_kv, num_pages, page, D)) * rs.uniform(
+            0.25, 4.0, (1, num_pages, 1, 1))
+        s = np.abs(f).max(axis=(0, 2, 3)) / 127.0
+        codes = np.clip(np.round(f / s[None, :, None, None]), -127, 127)
+        s[3] = 0.0                                      # never written
+        pools.append((torch.tensor(codes, device=dev).to(torch.int8),
+                      torch.tensor(s, device=dev).float()))
+    (kp, ks), (vp, vs) = pools
+    tables = rs.permutation(num_pages)[:B * mp].reshape(B, mp)
+    tables[3, 0] = 3
+    lens = np.array([0, page - 1, page, mp * page - 1], np.int64)
+    for i in range(B):
+        tables[i, lens[i] // page + 1:] = -1
+    args = (q, kp, vp, torch.tensor(tables.astype(np.int32), device=dev),
+            torch.tensor(lens, device=dev))
+    _build.reset_launches()
+    got = paged_attention.paged_decode(*args, k_scales=ks, v_scales=vs)
+    assert _build.LAUNCHES["paged_decode_int8"] == 1
+    assert _build.LAUNCHES["paged_decode"] == 0
+    want = attn_ops.paged_decode_plain(*args, k_scales=ks, v_scales=vs)
+    _close(got, want, dtype)
+    _rows_close(got, want, dtype)
+    with pytest.raises(ValueError, match="int8"):
+        paged_attention.paged_decode(*args)             # int8, no scales
+    with pytest.raises(ValueError, match="float32"):
+        paged_attention.paged_decode(*args, k_scales=ks.double(),
+                                     v_scales=vs)
+
+
+def test_quantized_decode_routes_through_both_kernels(dev):
+    """The same int8-weight, int8-KV tiny Llama on the card (kernels) and
+    on the CPU (plain versions): a prefill and four teacher-forced decode
+    steps give logits within 2e-3 of their largest magnitude (fp32 in
+    other summation orders, 1e-6, plus the K/V codes that land on the
+    other side of a rounding boundary: each moves one element by one
+    quantization step and a logit by about 2e-4 of the largest here;
+    a wrong page, block or scale moves them by 1e-1 or more), and one
+    decode step launches int8_matmul 4 x layers + 1 times and
+    paged_decode_int8 once a layer."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2)          # head_dim 64
+    native = LlamaForCausalLM(cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    cpu = quantize_model(native, kv_dtype="int8")
+    card = copy.deepcopy(cpu).to(dev)
+    ids = np.random.RandomState(3).randint(0, cfg.vocab_size, (14,))
+    L = 10
+    logits = []
+    with torch.inference_mode():
+        for m in (cpu, card):
+            d = m.lm_head.device
+            pools, tables = m.model.alloc_paged_caches(1, 32, 8)
+            h, _ = m.model.prefill_paged(torch.tensor(ids[None, :L],
+                                                      device=d),
+                                         pools, tables)
+            out = [m.logits(h[0, -1])]
+            for i in range(L, len(ids)):
+                _build.reset_launches()
+                h, _ = m.model.decode_step_paged(
+                    torch.tensor(ids[i:i + 1], device=d),
+                    torch.tensor([i], device=d), pools, tables)
+                out.append(m.logits(h[:, 0])[0])
+            logits.append(torch.stack(out).float().cpu())
+    counts = dict(_build.LAUNCHES)
+    assert counts["int8_matmul"] == 4 * cfg.num_hidden_layers + 1, counts
+    assert counts["paged_decode_int8"] == cfg.num_hidden_layers, counts
+    assert counts["paged_decode"] == 0, counts
+    want, got = logits
+    assert float((got - want).abs().max()) <= 2e-3 * float(
+        want.abs().max()), float((got - want).abs().max())
