@@ -33,6 +33,13 @@ Phases, in order; any failure exits non-zero before the result line:
      paged decode at B = 8, context 1024, page 128 (bf16 and fp32 q, and
      a ragged case with a page never written), per row, where a page
      read with another page's K or V scale must fail;
+     MoE: the grouped matmul at the bf16 dropless DeepSeekMoE-16B
+     step's shapes (m = 49152 rows, 64 experts; gate_up k 2048, n 2816
+     and down k 1408, n 2048; balanced and skewed counts with a quarter
+     of the experts empty): forward, dx (the forward kernel reading the
+     weight transposed) and dW, per row, beside torch._grouped_mm (or a
+     matmul loop where that is missing); a planted wrong tile→group and
+     a planted dW row shift must fail; fp32 at a small ragged shape;
   4. engine equality: Llama-3-8B widths at 2 layers, fp32, seeded random
      weights: greedy tokens of the engine on the card equal those of a
      step-by-step plain-version path on the CPU;
@@ -71,7 +78,20 @@ Phases, in order; any failure exits non-zero before the result line:
      the loss must be finite and fall. Then 2 + 4 steps each of the
      naive head and of recompute "full" and "selective" on the same
      batch (step time, peak memory); the default run's peak memory must
-     lie below the naive head's.
+     lie below the naive head's;
+  8. MoE equality: one dropless MoELayer at DeepSeekMoE-16B widths,
+     forward and backward, under torch.cuda.set_sync_debug_mode("error");
+     then DeepSeekMoE-16B's layout at 2 layers (dense MLP 1024,
+     vocabulary 4096), dropless, the same seeded weights and batch on the
+     card and on the CPU: tokens whose routing ids differ (none in fp32),
+     the first step's loss (fp32 rtol 1e-4, bf16 1e-2) and fp32
+     gradients (1e-4 of each tensor's largest);
+  9. the MoE training run: DeepSeekMoE-16B widths at 4 layers (1 dense +
+     3 MoE), bf16, dropless, as phase 7 (2 warm-up + 8 timed steps,
+     launch counts, one profiled step: grouped-matmul ms, routing ops,
+     idle share); every training kernel and both grouped-matmul kernels
+     must launch, the loss must be finite and fall. Then 2 + 4 steps at
+     capacity_factor 1.25 beside it.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -1357,6 +1377,12 @@ def kernel_category(name: str) -> str:
         return "flash " + name.split("flash_")[1].split("<")[0]
     if "vocab_ce" in name:
         return "fused vocab-CE head kernels"
+    if "grouped_matmul" in name:
+        return "grouped matmul kernels"
+    if any(w in name for w in ("Sort", "sort", "topk", "TopK", "scatter",
+                               "index_copy", "indexSelect", "index_select",
+                               "index_add", "indexFunc")):
+        return "MoE routing (sort, top-k, counts, gathers)"
     if "rms_norm" in name or "rope_kernel" in name:
         return "rms_norm / rope kernels"
     if name.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in name:
@@ -1366,6 +1392,24 @@ def kernel_category(name: str) -> str:
     if "embedding" in name or "index" in name:
         return "embedding / index"
     return "elementwise and reductions (optimizer, clip, casts, MLP)"
+
+
+def log_step_profile(label, prof):
+    """Sum a profiled step's kernels by kernel_category() into
+    ``prof["by_category"]`` and print the step's busy and idle time."""
+    if prof is None:
+        log(f"{label} step profile: no device time reported")
+        return
+    by = {}
+    for row in prof["top"]:
+        key = kernel_category(row["name"])
+        ms, n = by.get(key, (0.0, 0))
+        by[key] = (ms + row["ms"], n + row["count"])
+    prof["by_category"] = by
+    log(f"{label} step profile: device busy {prof['device_busy_ms']:.1f} ms "
+        f"of {prof['wall_ms_under_profiler']:.1f} ms (idle share "
+        f"{prof['device_idle_share']:.4f}), {prof['launches']} launches; by "
+        f"category (ms, launches): {by}")
 
 
 def train_batch(torch, vocab, b, s, dev, seed, split=None):
@@ -1494,18 +1538,21 @@ def phase_recompute_equality(torch, pt, dev, make_cfg, ref):
                          "without it")
 
 
-def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False):
-    """Build Llama(cfg) and its trainer (AdamW(1e-4, weight_decay=0.01),
-    global-norm clip 1.0, seed 10) on ``dev``, take ``warm_steps`` and
-    then ``steps`` timed steps of ``batch`` through Trainer.fit, with the
-    launch counts reset just before the timed steps and read just after.
-    Returns the run's numbers."""
+def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False,
+              model_cls=None):
+    """Build ``model_cls(cfg)`` (LlamaForCausalLM by default) and its
+    trainer (AdamW(1e-4, weight_decay=0.01), global-norm clip 1.0, seed
+    10) on ``dev``, take ``warm_steps`` and then ``steps`` timed steps of
+    ``batch`` through Trainer.fit, with the launch counts reset just
+    before the timed steps and read just after. Returns the run's
+    numbers."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
     from paddle_tpu_torch.trainer import Trainer
     t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(10, dev))
+    model = (model_cls or LlamaForCausalLM)(cfg, device=dev,
+                                            generator=pt.generator(10, dev))
     trainer = Trainer(model, AdamW(learning_rate=1e-4, parameters=model,
                                    weight_decay=0.01,
                                    grad_clip=ClipGradByGlobalNorm(1.0)))
@@ -1536,7 +1583,8 @@ def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False):
     times = [m.step_time_s for m in hist]
     tps = len(hist) * b * s / sum(times)
     fpt = model.flops_per_token(s)
-    info = {"loss_impl": cfg.loss_impl, "recompute": cfg.recompute,
+    info = {"loss_impl": getattr(cfg, "loss_impl", "fused"),
+            "recompute": cfg.recompute,
             "layers": cfg.num_hidden_layers, "params": model.num_params(),
             "batch": [b, s], "built_s": built_s,
             "losses": [m.loss for m in warm + hist], "step_times_s": times,
@@ -1583,20 +1631,7 @@ def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
         f"{info['fwd_bwd_peak_memory_bytes']})")
     log(f"training losses: {losses}")
     log(f"training launches per step: {info['launches_per_step']}")
-    prof = info["profile_step"]
-    if prof is not None:
-        by = {}
-        for row in prof["top"]:
-            key = kernel_category(row["name"])
-            ms, n = by.get(key, (0.0, 0))
-            by[key] = (ms + row["ms"], n + row["count"])
-        prof["by_category"] = by
-        log(f"training step profile: device busy {prof['device_busy_ms']:.1f}"
-            f" ms of {prof['wall_ms_under_profiler']:.1f} ms (idle share "
-            f"{prof['device_idle_share']:.4f}), {prof['launches']} launches;"
-            f" by category (ms, launches): {by}")
-    else:
-        log("training step profile: no device time reported")
+    log_step_profile("training", info["profile_step"])
     variants = {}
     for name, kw in (("naive_head", dict(loss_impl="naive")),
                      ("recompute_full", dict(recompute="full")),
@@ -1629,6 +1664,352 @@ def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
     return launches
 
 
+# -- MoE: the grouped matmul kernels, equality and the training run -------
+
+def expert_counts(torch, kind, m, e, g):
+    """int32 group sizes summing to m over e experts: "balanced" (equal),
+    or "skewed": a quarter of the experts empty and the rest drawn from a
+    Zipf law (exponent 1.2) in random order."""
+    if kind == "balanced":
+        return torch.full((e,), m // e, dtype=torch.int32, device="cuda")
+    live = e - e // 4
+    w = 1.0 / torch.arange(1, live + 1, dtype=torch.float64) ** 1.2
+    c = torch.floor(w / w.sum() * m).long()
+    c[0] += m - int(c.sum())
+    c = torch.cat([c, torch.zeros(e - live, dtype=torch.long)])
+    perm = torch.randperm(e, generator=g, device="cuda").cpu()
+    return c[perm].to(torch.int32).cuda()
+
+
+def grouped_library(torch, case, a, b, ends, gs):
+    """The yardstick for one grouped product: ``torch._grouped_mm`` (bf16
+    out; cumulative ``offs``) where this torch has it and it takes these
+    operands, else a loop of torch.matmul over a host-side split (timed
+    only; the port calls neither). ``case``: "fwd" a [m, k] · b [g, k, n],
+    "dw" a [m, k]^T · b [m, n] per run. Returns (callable, name)."""
+    runs = [int(c) for c in gs.tolist()]
+    if case == "fwd":
+        def loop():
+            return [torch.matmul(x, b[i]) for i, x in
+                    enumerate(torch.split(a, runs)) if runs[i]]
+    else:
+        def loop():
+            return [torch.matmul(x.t(), y) for x, y in
+                    zip(torch.split(a, runs), torch.split(b, runs))]
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is not None:
+        args = (a, b) if case == "fwd" else (a.t(), b)
+        try:
+            fn(*args, offs=ends)
+            torch.cuda.synchronize()
+            return (lambda: fn(*args, offs=ends)), "torch._grouped_mm"
+        except (RuntimeError, TypeError, ValueError) as e:
+            RESULTS.setdefault("grouped_mm_refused", []).append(
+                f"{case}: {str(e)[:200]}")
+    return loop, "torch.matmul loop over a host split"
+
+
+MOE_M, MOE_E = 49152, 64      # 2 x 4096 tokens x top-6; 64 experts
+
+
+def phase_moe_kernels(torch, pt):
+    """Phase 3, the grouped matmul at the bf16 dropless DeepSeekMoE-16B
+    step's shapes (m = 49152 rows, 64 experts): the forward at gate_up
+    (k 2048, n 2816) and down (k 1408, n 2048), with balanced and skewed
+    counts, dx (the forward kernel reading the weight transposed) and dW
+    of each, against the plain versions, elementwise and per row, timed
+    beside the plain loop and the library call; a planted wrong
+    tile→group (every run's offsets taken from the run before it) and a
+    planted dW row shift (every run one row later) must fail the row
+    check. fp32 at a small ragged shape (an empty group, a group
+    smaller than a tile, rows past the groups)."""
+    from paddle_tpu_torch.ops import grouped_matmul as gmm
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1357)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    planted = {}
+    bf = torch.bfloat16
+
+    def plant(kernel, case, what, got, want):
+        e = flash_compare(torch, [(got, want)], "bfloat16")
+        planted[f"{kernel}/{case}/{what}"] = {
+            "row_err": e[3], "row_caught": not e[5], "max_abs_err": e[0]}
+        log(f"planted fault in {kernel} [{case}] ({what}): max_abs_err="
+            f"{e[0]:.3e}, row_err={e[3]:.3e} vs row_tol {ROW_TOL} (row check "
+            f"{'rejects' if not e[5] else 'MISSES'} it)")
+        if e[5]:
+            FAILED_CASES.append(f"{kernel}/{case}/{what}_missed")
+
+    for proj, (k, n) in (("gate_up", (2048, 2816)), ("down", (1408, 2048))):
+        w = (0.02 * torch.randn((MOE_E, k, n), generator=g,
+                                device=dev)).to(bf)
+        xs = torch.randn((MOE_M, k), generator=g, device=dev).to(bf)
+        gy = torch.randn((MOE_M, n), generator=g, device=dev).to(bf)
+        for kind in ("balanced", "skewed"):
+            case = f"{proj}_{kind}"
+            gs = expert_counts(torch, kind, MOE_M, MOE_E, g)
+            ends = kgm.group_ends(gs)
+            live = int((gs > 0).sum())
+            ops = 2 * MOE_M * k * n
+            wbytes = live * k * n * 2
+            lib_f, lib_name = grouped_library(torch, "fwd", xs, w, ends, gs)
+            lib_dx, _ = grouped_library(torch, "fwd", gy, w.transpose(1, 2),
+                                        ends, gs)
+            lib_dw, lib_dw_name = grouped_library(torch, "dw", xs, gy, ends,
+                                                  gs)
+            RESULTS.setdefault("grouped_library", {})[case] = [lib_name,
+                                                               lib_dw_name]
+            y = kgm.grouped_matmul(xs, w, ends)
+            want = gmm.grouped_matmul_plain(xs, w, gs)
+            record("grouped_matmul", case, "bfloat16",
+                   flash_compare(torch, [(y, want)], "bfloat16"),
+                   timed_ms(torch, lambda: kgm.grouped_matmul(xs, w, ends),
+                            flush),
+                   timed_ms(torch, lambda: gmm.grouped_matmul_plain(
+                       xs, w, gs), flush, reps=10),
+                   timed_ms(torch, lib_f, flush),
+                   bound(MOE_M * k * 2 + wbytes + MOE_M * n * 4, ops,
+                         BF16_OPS_PER_S))
+            # every run's rows taken from the run before: rows multiply
+            # the next expert's weight, the last run's rows become 0
+            shifted = torch.cat([ends.new_zeros(1), ends[:-1]])
+            plant("grouped_matmul", case, "tile_group_shifted",
+                  kgm.grouped_matmul(xs, w, shifted), want)
+            del y, want
+            dx = kgm.grouped_matmul(gy, w, ends, out_dtype=bf,
+                                    transpose_w=True)
+            want = gmm.grouped_matmul_plain(gy, w.transpose(1, 2),
+                                            gs).to(bf)
+            record("grouped_matmul", f"{proj}_dx_{kind}", "bfloat16",
+                   flash_compare(torch, [(dx, want)], "bfloat16"),
+                   timed_ms(torch, lambda: kgm.grouped_matmul(
+                       gy, w, ends, out_dtype=bf, transpose_w=True), flush),
+                   timed_ms(torch, lambda: gmm.grouped_matmul_plain(
+                       gy, w.transpose(1, 2), gs).to(bf), flush, reps=10),
+                   timed_ms(torch, lib_dx, flush),
+                   bound(MOE_M * n * 2 + wbytes + MOE_M * k * 2, ops,
+                         BF16_OPS_PER_S))
+            del dx, want
+            dw = kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=bf)
+            want = gmm.grouped_matmul_dw_plain(xs, gy, gs).to(bf)
+            record("grouped_matmul_dw", case, "bfloat16",
+                   flash_compare(torch, [(dw, want)], "bfloat16"),
+                   timed_ms(torch, lambda: kgm.grouped_matmul_dw(
+                       xs, gy, ends, out_dtype=bf), flush),
+                   timed_ms(torch, lambda: gmm.grouped_matmul_dw_plain(
+                       xs, gy, gs).to(bf), flush, reps=10),
+                   timed_ms(torch, lib_dw, flush),
+                   bound(MOE_M * (k + n) * 2 + MOE_E * k * n * 2, ops,
+                         BF16_OPS_PER_S))
+            empty = gs == 0
+            if bool(empty.any()) and int(torch.count_nonzero(dw[empty])):
+                FAILED_CASES.append(f"grouped_matmul_dw/{case}/empty_not_0")
+            # every run one row later: each run's dW loses its first row
+            # and gains the next run's first
+            plant("grouped_matmul_dw", case, "row_shift",
+                  kgm.grouped_matmul_dw(xs, gy, (ends + 1).clamp_max(MOE_M),
+                                        out_dtype=bf), want)
+            del dw, want
+            torch.cuda.synchronize()
+        del w, xs, gy
+        torch.cuda.empty_cache()
+
+    # fp32: FMAs, ragged everything, rows past the groups
+    counts = torch.tensor([37, 0, 5, 300, 1], dtype=torch.int32, device=dev)
+    m, k, n = 400, 96, 80
+    xs = torch.randn((m, k), generator=g, device=dev)
+    w = 0.1 * torch.randn((5, k, n), generator=g, device=dev)
+    gy = torch.randn((m, n), generator=g, device=dev)
+    ends = kgm.group_ends(counts)
+    for kernel, got, want in (
+            ("grouped_matmul", kgm.grouped_matmul(xs, w, ends),
+             gmm.grouped_matmul_plain(xs, w, counts)),
+            ("grouped_matmul", kgm.grouped_matmul(gy, w, ends,
+                                                  transpose_w=True),
+             gmm.grouped_matmul_plain(gy, w.transpose(1, 2), counts))):
+        record(kernel, "ragged_400", "float32",
+               compare(torch, got, want, "float32"))
+    # dW sums up to 300 rows in another order: the rounding error scales
+    # with the summands, not with the (often cancelling) result, so it is
+    # held to 1e-5 of its largest magnitude, as the RMSNorm backward's dw
+    dw = kgm.grouped_matmul_dw(xs, gy, ends)
+    want = gmm.grouped_matmul_dw_plain(xs, gy, counts)
+    diff, scale = float((dw - want).abs().max()), float(want.abs().max())
+    record("grouped_matmul_dw", "ragged_400", "float32",
+           (diff, diff / scale, diff <= 1e-5 * scale), tol="1e-5 of max")
+    RESULTS["planted_moe"] = planted
+    del flush
+    torch.cuda.empty_cache()
+
+
+def phase_moe_sync(torch, pt, dev):
+    """Phase 8, host syncs: one dropless MoELayer at DeepSeekMoE-16B
+    widths (hidden 2048, 64 experts of 1408, top-6, bf16) over 4096
+    tokens, forward and backward under
+    torch.cuda.set_sync_debug_mode("error") after a warm-up pass: any
+    call that makes the host wait for the device raises."""
+    from paddle_tpu_torch.parallel.moe import MoELayer
+    layer = MoELayer(2048, 1408, 64, top_k=6, capacity_factor=None,
+                     dtype="bfloat16", device=dev,
+                     generator=pt.generator(11, dev))
+    x = torch.randn((1, 4096, 2048), device=dev, dtype=torch.bfloat16,
+                    generator=pt.generator(12, dev), requires_grad=True)
+
+    def step():
+        out, aux = layer(x)
+        (out.float().square().mean() + aux).backward()
+    step()
+    sync(torch, dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    sync(torch, dev)
+    RESULTS["moe_sync_check"] = "no host sync in one MoELayer fwd + bwd"
+    log("MoE host-sync check: one dropless MoELayer forward + backward "
+        "(DeepSeekMoE-16B widths, 4096 tokens, bf16) ran under "
+        "set_sync_debug_mode('error')")
+    del layer, x
+    empty_cache(torch, dev)
+
+
+def routing_ids(torch, model):
+    """Forward pre-hooks on every MoE layer that keep the top-k expert
+    ids each token is routed to, sorted (the order of the choices does
+    not matter to the result): returns (ids list, hook handles)."""
+    ids, handles = [], []
+    for layer in model.layers:
+        moe = getattr(layer, "moe", None)
+        if moe is None:
+            continue
+
+        def hook(mod, args):
+            with torch.no_grad():
+                z = args[0].reshape(-1, args[0].shape[-1])
+                probs = torch.softmax(mod._logits(z), dim=-1)
+                ids.append(torch.topk(probs, mod.top_k, dim=-1)[1].sort(
+                    -1)[0].cpu())
+        handles.append(moe.register_forward_pre_hook(hook))
+    return ids, handles
+
+
+# phase 8 in bf16: the card's and the CPU's bf16 rounding differ, and a
+# token whose k-th and (k+1)-th router probabilities are near-equal can
+# then take another expert; the loss is held to BF16_LOSS_RTOL and the
+# differing routing ids are reported
+def phase_moe_equality(torch, pt, dev, make_cfg, dtype):
+    """Phase 8: DeepSeekMoE-16B's attention and expert layout (hidden
+    2048, 16 heads, 64 experts of 1408, top-6, 2 shared experts) at 2
+    layers (1 dense, 1 MoE) with the dense MLP cut to 1024 and the
+    vocabulary to 4096, dropless, the same seeded weights and batch
+    (2 x 256 tokens) on the card (kernels) and on the CPU (plain
+    versions): routing ids, the first step's loss and gradients. fp32:
+    no routing id may differ, loss rtol 1e-4, gradients 1e-4 of each
+    tensor's largest; bf16: loss rtol BF16_LOSS_RTOL, gradients and
+    differing ids reported."""
+    from paddle_tpu_torch.models import MoEForCausalLM
+    cfg = make_cfg(num_hidden_layers=2, intermediate_size=1024,
+                   vocab_size=4096, capacity_factor=None, dtype=dtype)
+    t0 = time.perf_counter()
+    card = MoEForCausalLM(cfg, device=dev, generator=pt.generator(9, dev))
+    cpu = copy.deepcopy(card).to("cpu")
+    side = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        d = next(model.parameters()).device
+        batch = train_batch(torch, cfg.vocab_size, 2, 256, d, 9)
+        ids, handles = routing_ids(torch, model)
+        loss = model(**batch, return_logits=False)
+        for h in handles:
+            h.remove()
+        loss.backward()
+        side[name] = (float(loss.detach()), torch.cat(ids),
+                      {n: p.grad.detach().float().cpu()
+                       for n, p in model.named_parameters()})
+    (lc, ic, gc), (lp, ip, gp) = side["card"], side["cpu"]
+    differ = int((ic != ip).any(-1).sum())
+    grad_err = {n: float((gc[n] - gp[n]).abs().max()
+                         / gp[n].abs().max().clamp_min(1e-30)) for n in gp}
+    worst = max(grad_err, key=grad_err.get)
+    fp32 = dtype == "float32"
+    loss_rtol = 1e-4 if fp32 else BF16_LOSS_RTOL
+    loss_ok = abs(lc - lp) <= loss_rtol * abs(lp)
+    ok = loss_ok and (not fp32 or (differ == 0 and grad_err[worst] <= 1e-4))
+    log(f"MoE equality (deepseek_moe_16b widths, 2 layers, MLP 1024, vocab "
+        f"4096, dropless, {dtype}, 2 x 256 tokens): loss card {lc} cpu {lp} "
+        f"(rtol {loss_rtol}); tokens whose routing ids differ: {differ} of "
+        f"{ip.shape[0]}; first-step gradients: worst max|diff|/max|cpu| "
+        f"{grad_err[worst]:.2e} at {worst}"
+        f"{' (tol 1e-4)' if fp32 else ' (reported)'}: "
+        f"{'ok' if ok else 'FAIL'}; {time.perf_counter() - t0:.1f} s")
+    RESULTS.setdefault("moe_equality", {})[dtype] = {
+        "loss_card": lc, "loss_cpu": lp, "routing_tokens_differ": differ,
+        "tokens": ip.shape[0], "grad_err": grad_err}
+    del card, cpu
+    empty_cache(torch, dev)
+    if not ok:
+        raise SystemExit(f"{dtype} MoE training on the card differs from "
+                         f"the plain path")
+
+
+MOE_TRAINING_KERNELS = TRAINING_KERNELS + ("grouped_matmul",
+                                           "grouped_matmul_dw")
+
+
+def phase_moe_train(torch, pt, dev, make_cfg, b=2, s=4096):
+    """Phase 9: train DeepSeekMoE-16B widths at 4 layers (1 dense + 3
+    MoE), bf16, dropless, fused vocab-CE head, AdamW(1e-4, weight_decay
+    0.01), clip 1.0, batch b x s from a numpy seed: 2 warm-up and 8 timed
+    steps through Trainer.fit, launch counts reset just before and read
+    just after, one step profiled. Then 2 + 4 steps at capacity_factor
+    1.25 on the same batch. Every training kernel and both grouped-matmul
+    kernels must launch, and the loss must be finite and fall."""
+    from paddle_tpu_torch.models import MoEForCausalLM
+    cfg = make_cfg(num_hidden_layers=4, capacity_factor=None,
+                   dtype="bfloat16")
+    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
+    info = train_run(torch, pt, dev, cfg, batch, 2, 8, profile=True,
+                     model_cls=MoEForCausalLM)
+    launches, losses = info["launches"], info["losses"]
+    RESULTS["moe_training"] = info
+    log(f"MoE training model: deepseek_moe_16b widths, "
+        f"{cfg.num_hidden_layers} layers, bf16, dropless, "
+        f"{info['params'] / 1e9:.3f} B parameters, built in "
+        f"{info['built_s']:.1f} s; card {info['card']}")
+    log(f"MoE training: 8 timed steps of {b} x {s} tokens: "
+        f"{info['tokens_per_s']:.1f} tokens/s, median step "
+        f"{info['median_step_s']:.4f} s, MFU (activated parameters, vs "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s bf16, {info['card']}) "
+        f"{info['mfu_palm']}, peak memory {info['peak_memory_bytes']} bytes "
+        f"(forward + backward alone {info['fwd_bwd_peak_memory_bytes']})")
+    log(f"MoE training losses: {losses}")
+    log(f"MoE training launches per step: {info['launches_per_step']}")
+    log_step_profile("MoE training", info["profile_step"])
+    cap = train_run(torch, pt, dev, make_cfg(
+        num_hidden_layers=4, capacity_factor=1.25, dtype="bfloat16"),
+        batch, 2, 4, model_cls=MoEForCausalLM)
+    RESULTS["moe_training_capacity"] = cap
+    log(f"MoE training at capacity_factor 1.25: 4 timed steps: "
+        f"{cap['tokens_per_s']:.1f} tokens/s, median step "
+        f"{cap['median_step_s']:.4f} s, MFU {cap['mfu_palm']}, peak memory "
+        f"{cap['peak_memory_bytes']} bytes, losses {cap['losses']}, "
+        f"launches per step {cap['launches_per_step']}")
+    missing = [k for k in MOE_TRAINING_KERNELS if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the MoE training path: "
+                         f"{missing}")
+    for name, run in (("dropless", info), ("capacity", cap)):
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise SystemExit(f"MoE training loss not finite ({name}): "
+                             f"{run['losses']}")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"MoE training loss did not fall: {losses}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1639,8 +2020,8 @@ def main() -> int:
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops.kernels import (_build, flash_attention,
                                               fused_norm, fused_rope,
-                                              fused_vocab_ce, int8_matmul,
-                                              paged_attention)
+                                              fused_vocab_ce, grouped_matmul,
+                                              int8_matmul, paged_attention)
     t_start = time.perf_counter()
     # 1. the card
     card = pt.device_info()
@@ -1659,10 +2040,12 @@ def main() -> int:
         phase_quant_kernels(torch, pt)
     phase_train_kernels(torch, pt)
     phase_ce_kernels(torch, pt)
+    with torch.inference_mode():
+        phase_moe_kernels(torch, pt)
     if FAILED_CASES:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{FAILED_CASES}")
-    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models import LlamaConfig, MoEConfig
     dev = torch.device("cuda")
     phase_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
     phase_quant_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
@@ -1673,6 +2056,10 @@ def main() -> int:
     phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, "bfloat16")
     phase_recompute_equality(torch, pt, dev, LlamaConfig.llama3_8b, ref)
     train_launches = phase_train(torch, pt, dev, LlamaConfig.llama3_8b)
+    phase_moe_sync(torch, pt, dev)
+    for dtype in ("float32", "bfloat16"):
+        phase_moe_equality(torch, pt, dev, MoEConfig.deepseek_moe_16b, dtype)
+    moe_launches = phase_moe_train(torch, pt, dev, MoEConfig.deepseek_moe_16b)
     cases = RESULTS["kernel_cases"]
 
     def main_case(kernel, case):
@@ -1700,17 +2087,22 @@ def main() -> int:
             ("int8_matmul", int8_matmul.SOURCE, int8_matmul.REPLACES,
              "decode_gate_up"),
             ("paged_decode_int8", paged_attention.SOURCE,
-             paged_attention.REPLACES, "ctx1024")):
+             paged_attention.REPLACES, "ctx1024"),
+            ("grouped_matmul", grouped_matmul.SOURCE,
+             grouped_matmul.REPLACES, "gate_up_balanced"),
+            ("grouped_matmul_dw", grouped_matmul.SOURCE,
+             grouped_matmul.REPLACES_DW, "gate_up_balanced")):
         c = main_case(name, case)
         by_path = {"serving": serve_launches[name],
                    "training": train_launches[name],
-                   "quantized_serving": quant_launches[name]}
+                   "quantized_serving": quant_launches[name],
+                   "moe_training": moe_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # launches on the main paths: the serving run, the timed
-            # training steps and the quantized serving run, and each
-            # path's own count
+            # training steps, the quantized serving run and the timed MoE
+            # training steps, and each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases

@@ -2,3 +2,5 @@
 
 from .llama import (LlamaConfig, LlamaForCausalLM,  # noqa: F401
                     LlamaModel)
+from .moe_lm import (MoEConfig, MoEDecoderLayer,  # noqa: F401
+                     MoEForCausalLM, SharedExpertMLP)

@@ -245,8 +245,9 @@ def _token_mean(nll: torch.Tensor, labels: torch.Tensor,
 def fused_loss_enabled(cfg) -> bool:
     """The fused loss head is the default; ``cfg.loss_impl='naive'`` or
     the environment variable ``PT_NAIVE_LOSS_HEAD`` (set and non-empty)
-    select the materialised-logits head, as in ``paddle_tpu``."""
-    return (cfg.loss_impl == "fused"
+    select the materialised-logits head, as in ``paddle_tpu``. A config
+    without ``loss_impl`` (``MoEConfig``) takes the fused head."""
+    return (getattr(cfg, "loss_impl", "fused") == "fused"
             and not os.environ.get("PT_NAIVE_LOSS_HEAD"))
 
 

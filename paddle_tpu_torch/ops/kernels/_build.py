@@ -42,7 +42,8 @@ LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rms_norm_bwd": 0,
                             "paged_decode": 0, "paged_decode_int8": 0,
                             "vocab_ce_fwd": 0, "vocab_ce_dlog": 0,
                             "vocab_ce_dh": 0, "vocab_ce_dw": 0,
-                            "int8_matmul": 0}
+                            "int8_matmul": 0, "grouped_matmul": 0,
+                            "grouped_matmul_dw": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_LOG: Dict[str, object] = {}
@@ -148,6 +149,8 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
                                  LL, LL, LL, LL, LL, LL, I, I, P]
     so.pt_paged_decode.argtypes = [P] * 8 + [I] * 7 + [F, I, P]
     so.pt_int8_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
+    so.pt_grouped_matmul.argtypes = [P] * 4 + [I] * 8 + [P]
+    so.pt_grouped_matmul_dw.argtypes = [P] * 4 + [I] * 7 + [P]
     flash = [P] * 13 + [I] * 6 + [LL] * 9 + [F, I, I, U, U, F, F, I, I, P]
     so.pt_vocab_ce_splits.argtypes = [I, I, I]
     so.pt_vocab_ce_fwd.argtypes = [P] * 4 + [I] * 6 + [P]
@@ -155,7 +158,8 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pt_vocab_ce_dh.argtypes = [P] * 4 + [I] * 10 + [P]
     so.pt_vocab_ce_dw.argtypes = [P] * 3 + [I] * 8 + [P]
     fns = [so.pt_rms_norm_fwd, so.pt_rms_norm_bwd, so.pt_fused_rope,
-           so.pt_paged_decode, so.pt_int8_matmul,
+           so.pt_paged_decode, so.pt_int8_matmul, so.pt_grouped_matmul,
+           so.pt_grouped_matmul_dw,
            so.pt_vocab_ce_splits, so.pt_vocab_ce_fwd, so.pt_vocab_ce_dlog,
            so.pt_vocab_ce_dh, so.pt_vocab_ce_dw]
     for name in ("pt_flash_fwd", "pt_flash_bwd_dq", "pt_flash_bwd_dkv"):

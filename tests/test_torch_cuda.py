@@ -601,3 +601,153 @@ def test_quantized_decode_routes_through_both_kernels(dev):
     want, got = logits
     assert float((got - want).abs().max()) <= 2e-3 * float(
         want.abs().max()), float((got - want).abs().max())
+
+
+# -- MoE: the grouped matmul and the dropless layer -------------------------
+
+# (group sizes, m, k, n): an empty group, groups smaller than a tile and
+# larger than one, rows past the groups (m above their sum), widths that
+# are not multiples of 8 (element-wise tile loads)
+GMM_CASES = {
+    "ragged": ([37, 0, 5, 300, 1], 343, 96, 80),
+    "balanced": ([128, 128, 128, 128], 512, 256, 512),
+    "one_group": ([0, 0, 200, 0], 200, 64, 48),
+    "rows_past_the_groups": ([10, 20, 0, 30], 100, 48, 40),
+    "odd_widths": ([7, 9, 3], 19, 20, 36),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_grouped_matmul_kernels_match_plain(dev, dtype, case):
+    """The forward (fp32 out), dx (the forward kernel reading the weight
+    transposed, out in the operands' type) and dW against the plain
+    versions; an empty group's dW and rows past the groups are 0. fp32
+    dW sums up to 300 rows in another order: its rounding error scales
+    with the summands, not with the (often cancelling) result, so it is
+    held to 1e-5 of its largest magnitude, as the RMSNorm backward's
+    dw."""
+    from paddle_tpu_torch.ops import grouped_matmul as gmm
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    counts, m, k, n = GMM_CASES[case]
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(m * k + n)
+    xs = torch.randn((m, k), generator=g, device=dev).to(dt)
+    w = (0.1 * torch.randn((len(counts), k, n), generator=g,
+                           device=dev)).to(dt)
+    gy = torch.randn((m, n), generator=g, device=dev).to(dt)
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    ends = kgm.group_ends(gs)
+    _build.reset_launches()
+    y = kgm.grouped_matmul(xs, w, ends)
+    dx = kgm.grouped_matmul(gy, w, ends, out_dtype=dt, transpose_w=True)
+    dw = kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=dt)
+    assert _build.LAUNCHES["grouped_matmul"] == 2
+    assert _build.LAUNCHES["grouped_matmul_dw"] == 1
+    assert y.dtype == torch.float32 and dx.dtype == dw.dtype == dt
+    for got, want in (
+            (y, gmm.grouped_matmul_plain(xs, w, gs)),
+            (dx, gmm.grouped_matmul_plain(gy, w.transpose(1, 2),
+                                          gs).to(dt)),
+            (dw, gmm.grouped_matmul_dw_plain(xs, gy, gs).to(dt))):
+        if got is dw and dtype == "float32":
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max())
+        else:
+            _close(got, want, dtype)
+        _rows_close(got, want, dtype)
+    used = sum(counts)
+    assert torch.count_nonzero(y[used:]) == 0
+    assert torch.count_nonzero(dx[used:]) == 0
+    for i, c in enumerate(counts):
+        if c == 0:
+            assert torch.count_nonzero(dw[i]) == 0
+
+
+def test_grouped_matmul_wrappers_refuse_what_they_do_not_take(dev):
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    xs = torch.zeros((8, 16), device=dev)
+    w = torch.zeros((2, 16, 8), device=dev)
+    ends = torch.tensor([4, 8], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        kgm.grouped_matmul(xs.cpu(), w.cpu(), ends.cpu())
+    with pytest.raises(ValueError, match="share a dtype"):
+        kgm.grouped_matmul(xs.bfloat16(), w, ends)
+    with pytest.raises(ValueError, match="float32 result"):
+        kgm.grouped_matmul(xs, w, ends, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="int32"):
+        kgm.grouped_matmul(xs, w, ends.long())
+    with pytest.raises(ValueError, match="does not match"):
+        kgm.grouped_matmul(xs, w, ends, transpose_w=True)
+
+
+def test_moe_layer_on_card_matches_cpu_without_host_syncs(dev):
+    """The dropless MoELayer (fp32) on the card against the CPU: output,
+    aux loss and every gradient within 1e-5 of each tensor's largest;
+    the routing is equal. Then a bf16 layer's forward and backward run
+    under torch.cuda.set_sync_debug_mode("error"): nothing on the path
+    makes the host wait for the device."""
+    from paddle_tpu_torch.parallel.moe import MoELayer
+    grads = []
+    rs = np.random.RandomState(4)
+    x0 = rs.randn(2, 48, 256).astype(np.float32)
+    r = torch.tensor(rs.randn(2, 48, 256).astype(np.float32))
+    for device in ("cpu", dev):
+        layer = MoELayer(256, 128, 8, top_k=3, capacity_factor=None,
+                         device="cpu",
+                         generator=torch.Generator().manual_seed(1)).to(
+                             device)
+        x = torch.tensor(x0, device=device, requires_grad=True)
+        out, aux = layer(x)
+        ((out * r.to(device)).sum() + aux).backward()
+        grads.append({"out": out.detach(), "aux": aux.detach(), "x": x.grad,
+                      "hist": layer.routing_histogram(x.detach()),
+                      **{n: p.grad for n, p in layer.named_parameters()}})
+    assert torch.equal(grads[0]["hist"], grads[1]["hist"].cpu())
+    for n, want in grads[0].items():
+        got = grads[1][n].cpu().float()
+        assert float((got - want.float()).abs().max()) <= 1e-5 * max(
+            float(want.float().abs().max()), 1.0), n
+    layer = MoELayer(256, 128, 8, top_k=3, capacity_factor=None,
+                     dtype="bfloat16", device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    x = torch.randn((2, 48, 256), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+
+    def step():
+        out, aux = layer(x)
+        (out.float().sum() + aux).backward()
+    step()                              # builds and loads the kernels
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["grouped_matmul"] == 4, dict(_build.LAUNCHES)
+    assert _build.LAUNCHES["grouped_matmul_dw"] == 2, dict(_build.LAUNCHES)
+
+
+def test_moe_model_training_on_card_matches_cpu(dev):
+    """Three AdamW steps of the same seeded tiny dropless MoE model (fp32,
+    shared-expert gate) on the card and on the CPU: losses within
+    1e-4."""
+    from paddle_tpu_torch.models import MoEConfig, MoEForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    cfg = MoEConfig.tiny(capacity_factor=None, shared_expert_gate=True)
+    ids = np.random.RandomState(5).randint(0, cfg.vocab_size, (2, 65))
+    losses = []
+    for device in ("cpu", dev):
+        m = MoEForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+        m = m.to(device)
+        tr = Trainer(m, AdamW(learning_rate=1e-3, parameters=m,
+                              grad_clip=ClipGradByGlobalNorm(1.0)))
+        batch = {"input_ids": torch.tensor(ids[:, :-1], device=device),
+                 "labels": torch.tensor(ids[:, 1:], device=device)}
+        losses.append([float(tr.train_step(batch)) for _ in range(3)])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4, atol=1e-4)
