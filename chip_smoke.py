@@ -15,10 +15,12 @@ Phases, in order; any failure exits non-zero before the result line:
      must fail that check), and time kernel, plain version and library
      call (CUDA events, L2 flushed before every launch, median of 25
      after warm-up; 10 for slow plain versions). Training kernels: the
-     RMSNorm backward at 8192 x 4096; flash forward, dq and dk/dv at b=2,
-     s=4096, 32 heads over 8 KV heads, d=128, bf16, causal; flash also in
-     fp32 at s=1024, with segment ids (fully masked rows included), with
-     dropout p=0.1 and at a ragged s=1000; the fused vocab-CE kernels
+     RMSNorm backward at 8192 x 4096; the flash forward and backward at
+     b=2, s=4096, 32 heads over 8 KV heads, d=128, bf16, causal (with
+     TFLOP/s; a K/V tile planted in place of another must break out and
+     dq, a Q/dO/lse/delta tile dk and dv); flash also in fp32 at s=1024,
+     with segment ids (fully masked rows included), with dropout p=0.1
+     and at a ragged s=1000; the fused vocab-CE kernels
      (forward, dlog, dh, dW) at 8192 tokens x hidden 4096 x vocabulary
      128256 in bf16 (lse/tgt to 1e-4, dlog, dh and dW per row or column,
      and two planted wrong vocabulary blocks that every check must
@@ -65,7 +67,7 @@ Phases, in order; any failure exits non-zero before the result line:
      seeded weights and batch (segment ids included) on the card
      (kernels) and on the CPU (plain versions): in fp32, first-step
      gradients and 3 AdamW steps' losses agree; in bf16 (the flash
-     kernels' tensor-core route), the first step's loss and gradients
+     kernels' Hopper route), the first step's loss and gradients
      agree; in fp32 with recompute "full" and "selective", the card's
      first-step gradients equal those without recompute within 1e-6;
   7. the training run: Llama-3-8B widths at 4 layers, bf16, the default
@@ -142,7 +144,7 @@ SERVING_KERNELS = ("rms_norm", "fused_rope", "paged_decode")
 QUANT_SERVING_KERNELS = ("rms_norm", "fused_rope", "int8_matmul",
                          "paged_decode_int8")
 TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
-                    "flash_bwd_dq", "flash_bwd_dkv") + CE_KERNELS
+                    "flash_bwd") + CE_KERNELS
 RESULTS: dict = {"kernel_cases": []}
 FAILED_CASES: list = []
 
@@ -603,9 +605,9 @@ def phase_quant_kernels(torch, pt):
 
 def phase_train_kernels(torch, pt):
     """Phase 3, training kernels: the RMSNorm backward, the RoPE
-    backward's table and the three flash kernels against their plain
-    versions at the training path's shapes. Runs with autograd on, for
-    the library backward calls."""
+    backward's table and the flash forward and backward against their
+    plain versions at the training path's shapes. Runs with autograd on,
+    for the library backward calls."""
     from paddle_tpu_torch.ops import attention as attn_ops
     from paddle_tpu_torch.ops import norm as norm_ops
     from paddle_tpu_torch.ops import rope as rope_ops
@@ -685,9 +687,7 @@ def phase_train_kernels(torch, pt):
         want_out, want_lse = attn_ops._flash_fwd_plain(q, k, v, *args)
         delta = (want_out.float() * dout.float()).sum(-1).transpose(
             1, 2).contiguous()
-        dq = flash_attention.flash_bwd_dq(q, k, v, dout, want_lse, delta,
-                                          *args)
-        dk, dv = flash_attention.flash_bwd_dkv(q, k, v, dout, want_lse,
+        dq, dk, dv = flash_attention.flash_bwd(q, k, v, dout, want_lse,
                                                delta, *args)
         wdq, wdk, wdv = attn_ops._flash_bwd_plain(q, k, v, dout, want_lse,
                                                   delta, *args)
@@ -717,38 +717,46 @@ def phase_train_kernels(torch, pt):
             plain_bwd = timed_ms(torch, lambda: attn_ops._flash_bwd_plain(
                 q, k, v, dout, want_lse, delta, *args), flush,
                 reps=plain_reps)
-            t["flash_bwd_dq"] = (
-                timed_ms(torch, lambda: flash_attention.flash_bwd_dq(
-                    q, k, v, dout, want_lse, delta, *args), flush),
-                plain_bwd, lib_bwd)
-            t["flash_bwd_dkv"] = (
-                timed_ms(torch, lambda: flash_attention.flash_bwd_dkv(
+            # the backward's every launch: the workspace's zeroing, the
+            # kernel, the cast of dq
+            t["flash_bwd"] = (
+                timed_ms(torch, lambda: flash_attention.flash_bwd(
                     q, k, v, dout, want_lse, delta, *args), flush),
                 plain_bwd, lib_bwd)
             del lib_out, qt, kt, vt
+        # operations: the forward's 2 products, the backward's 5 (S, dP,
+        # dV, dK, dQ), 2 * HD each per causal (q, k) pair
+        ops = {"flash_fwd": 4 * HD * pairs, "flash_bwd": 10 * HD * pairs}
         bounds = {"flash_fwd": bound(qb + 2 * kvb + qb + rowb,
-                                     4 * HD * pairs, peak),
-                  "flash_bwd_dq": bound(3 * qb + 2 * kvb + 2 * rowb,
-                                        6 * HD * pairs, peak),
-                  "flash_bwd_dkv": bound(2 * qb + 4 * kvb + 2 * rowb,
-                                         8 * HD * pairs, peak)}
+                                     ops["flash_fwd"], peak),
+                  "flash_bwd": bound(3 * qb + 4 * kvb + 2 * rowb,
+                                     ops["flash_bwd"], peak)}
         eo = flash_compare(torch, [(out, want_out)], name)
         el = compare(torch, lse, want_lse, "float32")
         errs = {"flash_fwd": (max(eo[0], el[0]), max(eo[1], el[1]),
                               eo[2] and el[2], eo[3]),
-                "flash_bwd_dq": flash_compare(torch, [(dq, wdq)], name),
-                "flash_bwd_dkv": flash_compare(
-                    torch, [(dk, wdk), (dv, wdv)], name)}
-        for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                "flash_bwd": flash_compare(
+                    torch, [(dq, wdq), (dk, wdk), (dv, wdv)], name)}
+        for kern in ("flash_fwd", "flash_bwd"):
             kms, pms, lms = t.get(kern, (None, None, None))
             record(kern, case, name, errs[kern], kms, pms, lms,
                    bounds[kern] if timed else (None, None))
+            if kms is not None:
+                rate = {"tflops": ops[kern] / kms / 1e9,
+                        "library_tflops": ops[kern] / lms / 1e9,
+                        "bound_share": bounds[kern][0] / kms}
+                RESULTS.setdefault("flash_rates", {})[
+                    f"{kern}/{case}/{name}"] = rate
+                log(f"kernel {kern} [{case} {name}]: {us(kms)} = "
+                    f"{rate['tflops']:.1f} TFLOP/s ({ops[kern]:.4g} "
+                    f"operations), library {rate['library_tflops']:.1f} "
+                    f"TFLOP/s, {rate['bound_share']:.3f} of the bound")
         if timed and dt == torch.bfloat16:
             planted_tile(torch, flash_attention, args, q, k, v, dout,
                          want_lse, delta,
-                         {"flash_fwd": [(want_out,)],
-                          "flash_bwd_dq": [(wdq,)],
-                          "flash_bwd_dkv": [(wdk,), (wdv,)]})
+                         {"flash_fwd": [want_out],
+                          "flash_bwd/dq": [wdq],
+                          "flash_bwd/dk_dv": [wdk, wdv]})
         torch.cuda.synchronize()
 
     flash_case("train_4096", 2, 4096, torch.bfloat16, timed=True)
@@ -976,12 +984,14 @@ def planted_vocab_block(torch, kce, vocab_ce, h, w, labels, g_lse, g_tgt,
 
 
 def planted_tile(torch, fa, args, q, k, v, dout, lse, delta, wants):
-    """Run each flash kernel as if it read one tile in place of another
+    """Run the flash kernels as if they read one tile in place of another
     (tile A's rows of one KV head, or of one query head with its dout,
     lse and delta, copied over tile B, once in the middle of the
-    sequence and once at its end) and hold it against the plain versions
-    of the true inputs: the row check must reject every one. A failure
-    means the check cannot see a wrong tile."""
+    sequence and once at its end) and hold them against the plain
+    versions of the true inputs: a K/V plant must break the forward's out
+    and the backward's dq, a Q/dO/lse/delta plant the backward's dk and
+    dv, and the row check must reject every one. A failure means the
+    check cannot see a wrong tile."""
     s = q.shape[1]
     res = {}
     for where, b0 in (("mid", s // 2), ("late", s - 128)):
@@ -995,15 +1005,15 @@ def planted_tile(torch, fa, args, q, k, v, dout, lse, delta, wants):
                 t[:, 0, B] = t[:, 0, A]
             return t
         k2, v2 = plant(k), plant(v)
+        kv_planted = fa.flash_bwd(q, k2, v2, dout, lse, delta, *args)
+        q_planted = fa.flash_bwd(plant(q), k, v, plant(dout), plant(lse, 2),
+                                 plant(delta, 2), *args)
         got = {"flash_fwd": [fa.flash_fwd(q, k2, v2, *args)[0]],
-               "flash_bwd_dq": [fa.flash_bwd_dq(q, k2, v2, dout, lse, delta,
-                                                *args)],
-               "flash_bwd_dkv": list(fa.flash_bwd_dkv(
-                   plant(q), k, v, plant(dout), plant(lse, 2),
-                   plant(delta, 2), *args))}
+               "flash_bwd/dq": [kv_planted[0]],
+               "flash_bwd/dk_dv": list(q_planted[1:])}
         for kern, outs in got.items():
-            e = flash_compare(torch, [(g, w[0]) for g, w in
-                                      zip(outs, wants[kern])], "bfloat16")
+            e = flash_compare(torch, list(zip(outs, wants[kern])),
+                              "bfloat16")
             res[f"{kern}/{where}"] = {
                 "row_err": e[3], "row_caught": not e[5],
                 "elementwise_caught": not e[4], "max_abs_err": e[0]}
@@ -1374,7 +1384,7 @@ def kernel_category(name: str) -> str:
     """A profiler kernel name → the layer it belongs to, for the training
     step's breakdown."""
     if "flash_" in name:
-        return "flash " + name.split("flash_")[1].split("<")[0]
+        return "flash " + ("backward" if "bwd" in name else "forward")
     if "vocab_ce" in name:
         return "fused vocab-CE head kernels"
     if "grouped_matmul" in name:
@@ -1440,7 +1450,7 @@ def phase_train_equality(torch, pt, dev, make_cfg, dtype="float32"):
     """Phase 6: the training step on the card (kernels) against the same
     step on the CPU (plain versions). fp32: first-step gradients and 3
     AdamW steps' losses. bf16 (the dtype of the training run, whose
-    flash kernels take the tensor-core route): the first step's loss and
+    flash kernels take the Hopper route): the first step's loss and
     gradients."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
@@ -2075,10 +2085,8 @@ def main() -> int:
              "prefill_1024"),
             ("flash_fwd", flash_attention.SOURCE,
              flash_attention.REPLACES["flash_fwd"], "train_4096"),
-            ("flash_bwd_dq", flash_attention.SOURCE,
-             flash_attention.REPLACES["flash_bwd_dq"], "train_4096"),
-            ("flash_bwd_dkv", flash_attention.SOURCE,
-             flash_attention.REPLACES["flash_bwd_dkv"], "train_4096"),
+            ("flash_bwd", flash_attention.SOURCE,
+             flash_attention.REPLACES["flash_bwd"], "train_4096"),
             ("paged_decode", paged_attention.SOURCE,
              paged_attention.REPLACES, "ctx1024"),
             *((name, fused_vocab_ce.SOURCE, fused_vocab_ce.REPLACES[name],

@@ -14,8 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .kernels.flash_attention import (dropout_threshold, flash_bwd_dkv,
-                                      flash_bwd_dq, flash_fwd)
+from .kernels.flash_attention import dropout_threshold, flash_bwd, flash_fwd
 from .hash32 import M32, mul32
 from .kernels.paged_attention import paged_decode
 
@@ -219,8 +218,8 @@ class _FlashAttention(torch.autograd.Function):
     """Flash attention with its kernel backward: the forward saves
     (q, k, v, out, lse); the backward takes delta = rowsum(out * dout) in
     fp32 as a torch expression (XLA computes it outside the kernels in
-    the JAX package too), then the dq and dk/dv kernels. CPU tensors
-    take the plain versions through the same wiring."""
+    the JAX package too), then the backward kernel. CPU tensors take the
+    plain versions through the same wiring."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, dropout_p,
@@ -246,8 +245,7 @@ class _FlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = _flash_bwd_plain(q, k, v, dout, lse, delta, *args)
         else:
-            dq = flash_bwd_dq(q, k, v, dout, lse, delta, *args)
-            dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, *args)
+            dq, dk, dv = flash_bwd(q, k, v, dout, lse, delta, *args)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -271,7 +269,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     dropout_seed: Optional[int] = None) -> torch.Tensor:
     """Counterpart of ``paddle_tpu.ops.attention.flash_attention`` (and
     ``flash_attention_pallas``): q [b, sq, h, d], k/v [b, sk, hk, d] →
-    [b, sq, h, d] in q's dtype. The three CUDA kernels on CUDA tensors,
+    [b, sq, h, d] in q's dtype. The CUDA kernels on CUDA tensors,
     their plain versions on CPU tensors, through one autograd.Function.
 
     ``segment_ids`` ([b, s] ints, or a (q_seg, kv_seg) pair) restricts

@@ -4,12 +4,16 @@
 The rows of ``xs [m, k]`` split into ``g`` contiguous runs by
 ``group_sizes [g]``; run i multiplies ``w[i] [k, n]``; the result is fp32
 ``[m, n]``, as ``xla_grouped_matmul`` returns it. :func:`grouped_matmul`
-is the one entry the MoE layer calls: an autograd Function whose forward
-is the CUDA kernel on CUDA tensors and :func:`grouped_matmul_plain` on
-CPU tensors, and whose backward is exact (the vjp of ``ragged_dot``, as
-the JAX package's ``_gmm_bwd``): dx through the same kernel with the
-weight read transposed, dw through the dw kernel, each cast to its
-operand's dtype.
+is the public op: an autograd Function whose forward is the CUDA kernel
+on CUDA tensors and :func:`grouped_matmul_plain` on CPU tensors, and
+whose backward is exact (the vjp of ``ragged_dot``, as the JAX package's
+``_gmm_bwd``): the fp32 cotangent stays fp32, so dx and dw are fp32
+products over operands widened to fp32, each cast to its operand's
+dtype. :func:`grouped_matmul_act` is the MoE layer's entry: the same
+product already cast to the operands' dtype (as both call sites cast it
+at once), so its cotangent has that dtype and the backward runs both
+products on the operands' type: dx through the forward kernel reading
+the weight transposed, dw through the dw kernel.
 """
 
 from __future__ import annotations
@@ -54,50 +58,70 @@ def grouped_matmul_dw_plain(xs: torch.Tensor, gy: torch.Tensor,
     return dw
 
 
+def _backward(xs, w, group_sizes, ends, gy, needs):
+    """(dx, dw) of y = grouped xs @ w for the cotangent ``gy``, each in its
+    operand's dtype. The products run on gy's dtype: an fp32 gy widens
+    the operands (the kernels' fp32 route on the card), a gy of the
+    operands' dtype keeps them as they are."""
+    gy = gy.contiguous()
+    a, b = (xs, w) if gy.dtype == xs.dtype else (xs.float(), w.float())
+    dx = dw = None
+    if ends is None:
+        if needs[0]:
+            dx = grouped_matmul_plain(gy, b.transpose(1, 2),
+                                      group_sizes).to(xs.dtype)
+        if needs[1]:
+            dw = grouped_matmul_dw_plain(a, gy, group_sizes).to(w.dtype)
+    else:
+        if needs[0]:
+            dx = kgm.grouped_matmul(gy, b, ends, out_dtype=gy.dtype,
+                                    transpose_w=True).to(xs.dtype)
+        if needs[1]:
+            dw = kgm.grouped_matmul_dw(a, gy, ends,
+                                       out_dtype=gy.dtype).to(w.dtype)
+    return dx, dw
+
+
 class _GroupedMatmul(torch.autograd.Function):
+    """``cast`` False: the fp32 product, whose fp32 cotangent the
+    backward keeps; True: the product cast to the operands' dtype."""
+
     @staticmethod
-    def forward(ctx, xs, w, group_sizes):
+    def forward(ctx, xs, w, group_sizes, cast):
+        out_dtype = xs.dtype if cast else torch.float32
         if xs.device.type == "cpu":
             ends = None
-            y = grouped_matmul_plain(xs, w, group_sizes)
+            y = grouped_matmul_plain(xs, w, group_sizes).to(out_dtype)
         else:
             ends = kgm.group_ends(group_sizes)
-            y = kgm.grouped_matmul(xs, w, ends)
+            y = kgm.grouped_matmul(xs, w, ends, out_dtype=out_dtype)
         ctx.save_for_backward(xs, w, group_sizes, ends)
         return y
 
     @staticmethod
     def backward(ctx, gy):
         xs, w, group_sizes, ends = ctx.saved_tensors
-        # Both MoE call sites cast the fp32 product to the activation
-        # dtype at once, so the cotangent arriving here is a value of
-        # that dtype held in fp32: casting it to the operands' dtype
-        # loses nothing in a bf16 model (and is no cast in an fp32 one),
-        # and lets both products run on the operands' type.
-        gy = gy.to(xs.dtype).contiguous()
-        dx = dw = None
-        if ends is None:
-            if ctx.needs_input_grad[0]:
-                dx = grouped_matmul_plain(gy, w.transpose(1, 2),
-                                          group_sizes).to(xs.dtype)
-            if ctx.needs_input_grad[1]:
-                dw = grouped_matmul_dw_plain(xs, gy, group_sizes).to(w.dtype)
-        else:
-            if ctx.needs_input_grad[0]:
-                dx = kgm.grouped_matmul(gy, w, ends, out_dtype=xs.dtype,
-                                        transpose_w=True)
-            if ctx.needs_input_grad[1]:
-                dw = kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=w.dtype)
-        return dx, dw, None
+        dx, dw = _backward(xs, w, group_sizes, ends, gy,
+                           ctx.needs_input_grad)
+        return dx, dw, None, None
 
 
 def grouped_matmul(xs: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor) -> torch.Tensor:
     """fp32 y[m, n] = run-wise ``xs[run] @ w[run]``; xs float [m, k], w
     [g, k, n] of xs's dtype, group_sizes int [g] summing to m.
-    Differentiable in xs and w."""
-    return _GroupedMatmul.apply(xs, w, group_sizes)
+    Differentiable in xs and w; the backward keeps an fp32 cotangent
+    exact, as the JAX package's ``_gmm_bwd`` does."""
+    return _GroupedMatmul.apply(xs, w, group_sizes, False)
 
 
-__all__ = ["grouped_matmul", "grouped_matmul_plain",
+def grouped_matmul_act(xs: torch.Tensor, w: torch.Tensor,
+                       group_sizes: torch.Tensor) -> torch.Tensor:
+    """:func:`grouped_matmul` cast to xs's dtype (the value of
+    ``grouped_matmul(xs, w, group_sizes).to(xs.dtype)``), whose cotangent
+    has xs's dtype: the MoE layer's expert products."""
+    return _GroupedMatmul.apply(xs, w, group_sizes, True)
+
+
+__all__ = ["grouped_matmul", "grouped_matmul_act", "grouped_matmul_plain",
            "grouped_matmul_dw_plain"]

@@ -38,7 +38,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rms_norm_bwd": 0,
                             "fused_rope": 0, "flash_fwd": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_bwd": 0,
                             "paged_decode": 0, "paged_decode_int8": 0,
                             "vocab_ce_fwd": 0, "vocab_ce_dlog": 0,
                             "vocab_ce_dh": 0, "vocab_ce_dw": 0,
@@ -151,7 +151,7 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pt_int8_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
     so.pt_grouped_matmul.argtypes = [P] * 4 + [I] * 8 + [P]
     so.pt_grouped_matmul_dw.argtypes = [P] * 4 + [I] * 7 + [P]
-    flash = [P] * 13 + [I] * 6 + [LL] * 9 + [F, I, I, U, U, F, F, I, I, P]
+    flash = [P] * 13 + [I] * 6 + [LL] * 9 + [F, I, I, U, U, F, F, I, P]
     so.pt_vocab_ce_splits.argtypes = [I, I, I]
     so.pt_vocab_ce_fwd.argtypes = [P] * 4 + [I] * 6 + [P]
     so.pt_vocab_ce_dlog.argtypes = [P] * 7 + [I] * 8 + [P]
@@ -162,7 +162,8 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
            so.pt_grouped_matmul_dw,
            so.pt_vocab_ce_splits, so.pt_vocab_ce_fwd, so.pt_vocab_ce_dlog,
            so.pt_vocab_ce_dh, so.pt_vocab_ce_dw]
-    for name in ("pt_flash_fwd", "pt_flash_bwd_dq", "pt_flash_bwd_dkv"):
+    for name in ("pt_flash_fwd", "pt_flash_bwd_dq", "pt_flash_bwd_dkv",
+                 "pt_flash_bwd"):
         fn = getattr(so, name)
         fn.argtypes = flash
         fns.append(fn)

@@ -1,8 +1,9 @@
 """Launch wrappers of the flash-attention kernels
 (``csrc/flash_attention.cu``).
 
-Replace ``paddle_tpu/ops/pallas/flash_attention.py`` ``_fwd_kernel``,
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``. The plain versions are
+Replace ``paddle_tpu/ops/pallas/flash_attention.py`` ``_fwd_kernel``
+(:func:`flash_fwd`) and ``_bwd_dq_kernel`` with ``_bwd_dkv_kernel``
+(:func:`flash_bwd`). The plain versions are
 ``ops.attention._flash_fwd_plain`` / ``_flash_bwd_plain``;
 ``ops.attention.flash_attention`` chooses between the two by the
 tensors' device.
@@ -10,6 +11,13 @@ tensors' device.
 q is [b, sq, h, d]; k and v are [b, sk, hk, d] with h a multiple of hk.
 They may be strided views (v is a split of the fused qkv projection):
 only the last dimension must be contiguous. Outputs are contiguous.
+
+bf16 goes to the Hopper kernels, which read q, k, v and dout by TMA:
+their base addresses and strides must be multiples of 16 bytes, and the
+wrappers raise where they are not (they never copy). The bf16 backward
+is one kernel that adds dq into a zeroed fp32 workspace with atomics,
+then cast to bf16: its last bits vary from run to run. fp32 goes to the
+deterministic FMA kernels (the backward as two launches, dq and dk/dv).
 """
 
 from __future__ import annotations
@@ -22,9 +30,12 @@ from . import _build
 
 SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 REPLACES = {"flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:141",
-            "flash_bwd_dq": "paddle_tpu/ops/pallas/flash_attention.py:291",
-            "flash_bwd_dkv": "paddle_tpu/ops/pallas/flash_attention.py:348"}
+            "flash_bwd": "paddle_tpu/ops/pallas/flash_attention.py:291,348"}
 HEAD_DIMS = (32, 64, 128)
+# a launch returns _MAP_REFUSED + i when cuTensorMapEncodeTiled refuses
+# tensor map i
+_MAP_REFUSED = 10000
+_MAPS = ("q", "k", "v", "dout", "lse and delta")
 
 
 def dropout_threshold(p: float) -> int:
@@ -60,12 +71,24 @@ def _check(q, k, v, causal, q_seg, kv_seg):
                                   "query rows with no key")
     if (q_seg is None) != (kv_seg is None):
         raise ValueError("pass both segment id tensors or neither")
+    if q.dtype == torch.bfloat16:
+        _check_tma(q=q, k=k, v=v)
     if q_seg is not None:
         for t, s in ((q_seg, sq), (kv_seg, sk)):
             if (t.dtype != torch.int32 or t.shape != (b, s)
                     or not t.is_contiguous() or t.device != q.device):
                 raise ValueError(f"segment ids must be contiguous int32 "
                                  f"[{b}, {s}] on {q.device}")
+
+
+def _check_tma(**tensors):
+    """TMA reads rows from 16-byte aligned addresses and strides."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(
+                st * t.element_size() % 16 for st in t.stride()[:3]):
+            raise ValueError(f"bf16 flash kernels read {name} by TMA: its "
+                             f"address and strides {tuple(t.stride())} "
+                             f"must be multiples of 16 bytes")
 
 
 def _launch(fn_name: str, q, k, v, dout, q_seg, kv_seg, lse_in, delta,
@@ -75,11 +98,6 @@ def _launch(fn_name: str, q, k, v, dout, q_seg, kv_seg, lse_in, delta,
     ptr = (lambda t: t.data_ptr() if t is not None else None)
     out, lse, dq, dk, dv = outs
     keep_div = 1.0 - dropout_p
-    # rows of q, k, v, dout on 16-byte boundaries: the bf16 kernels copy
-    # them 8 elements at a time
-    rows = [q, k, v] + ([dout] if dout is not None else [])
-    vec = all(t.data_ptr() % 16 == 0
-              and all(st % 8 == 0 for st in t.stride()[:3]) for t in rows)
     err = getattr(_build.lib(), fn_name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(dout), ptr(q_seg),
         ptr(kv_seg), ptr(lse_in), ptr(delta), ptr(out), ptr(lse), ptr(dq),
@@ -89,10 +107,12 @@ def _launch(fn_name: str, q, k, v, dout, q_seg, kv_seg, lse_in, delta,
         v.stride(0), v.stride(1), v.stride(2),
         float(scale), int(bool(causal)), int(dropout_p > 0.0),
         int(seed) & 0xFFFFFFFF, dropout_threshold(dropout_p), keep_div,
-        1.0 / keep_div, int(vec), _build.dtype_code(q.dtype),
+        1.0 / keep_div, _build.dtype_code(q.dtype),
         _build.stream_ptr(q.device))
+    if err >= _MAP_REFUSED:
+        raise RuntimeError(f"{fn_name}: cuTensorMapEncodeTiled refused the "
+                           f"TMA tensor map of {_MAPS[err - _MAP_REFUSED]}")
     _build.check(err, fn_name)
-    _build.count_launch(fn_name[3:])
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,6 +132,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, lse
     _launch("pt_flash_fwd", q, k, v, None, q_seg, kv_seg, None, None,
             (out, lse, None, None, None), causal, scale, dropout_p, seed)
+    _build.count_launch("flash_fwd")
     return out, lse
 
 
@@ -127,36 +148,45 @@ def _check_bwd(q, dout, lse, delta):
                              f"{sq}] on {q.device}")
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool, scale: float,
-                 q_seg=None, kv_seg=None, dropout_p: float = 0.0,
-                 seed: int = 0) -> torch.Tensor:
-    """dq [b, sq, h, d] in q's dtype from the forward's ``lse`` and
-    ``delta = rowsum(out * dout)`` [b, h, sq] fp32."""
-    _check(q, k, v, causal, q_seg, kv_seg)
-    _check_bwd(q, dout, lse, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if dq.numel() == 0:
-        return dq
-    _launch("pt_flash_bwd_dq", q, k, v, dout, q_seg, kv_seg, lse, delta,
-            (None, None, dq, None, None), causal, scale, dropout_p, seed)
-    return dq
-
-
-def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool, scale: float,
-                  q_seg=None, kv_seg=None, dropout_p: float = 0.0,
-                  seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) [b, sk, hk, d] in k's dtype, summed over each KV head's
-    group of query heads inside the kernel."""
+def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
+              q_seg=None, kv_seg=None, dropout_p: float = 0.0,
+              seed: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq [b, sq, h, d], dk, dv [b, sk, hk, d])`` in q's dtype from the
+    forward's ``lse`` and ``delta = rowsum(out * dout)`` [b, h, sq] fp32;
+    dk and dv summed over each KV head's group of query heads inside the
+    kernel. bf16: one launch, dq through an fp32 workspace; fp32: the dq
+    and dk/dv kernels. Counted as one ``flash_bwd`` launch either way."""
     _check(q, k, v, causal, q_seg, kv_seg)
     _check_bwd(q, dout, lse, delta)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    if dk.numel() == 0:
-        return dk, dv
+    args = (causal, scale, dropout_p, seed)
+    if q.dtype == torch.bfloat16:
+        ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        if ws.numel() and dk.numel():
+            _check_tma(dout=dout)
+            if lse.data_ptr() % 16 or delta.data_ptr() % 16:
+                raise ValueError("bf16 flash backward reads lse and delta "
+                                 "by TMA: their addresses must be "
+                                 "multiples of 16 bytes")
+            _launch("pt_flash_bwd", q, k, v, dout, q_seg, kv_seg, lse, delta,
+                    (None, None, ws, dk, dv), *args)
+            _build.count_launch("flash_bwd")
+        else:
+            dk.zero_()
+            dv.zero_()
+        return ws.to(q.dtype), dk, dv
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    _launch("pt_flash_bwd_dq", q, k, v, dout, q_seg, kv_seg, lse, delta,
+            (None, None, dq, None, None), *args)
     _launch("pt_flash_bwd_dkv", q, k, v, dout, q_seg, kv_seg, lse, delta,
-            (None, None, None, dk, dv), causal, scale, dropout_p, seed)
-    return dk, dv
+            (None, None, None, dk, dv), *args)
+    _build.count_launch("flash_bwd")
+    return dq, dk, dv
 
 
-__all__ = ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+__all__ = ["flash_fwd", "flash_bwd",
            "dropout_threshold", "SOURCE", "REPLACES", "HEAD_DIMS"]

@@ -39,7 +39,7 @@ from torch import nn
 
 from ..device import dtype_of, resolve_device
 from ..nn.initializer import Normal
-from ..ops.grouped_matmul import grouped_matmul
+from ..ops.grouped_matmul import grouped_matmul_act
 
 
 def _counts(ids: torch.Tensor, e: int) -> torch.Tensor:
@@ -273,9 +273,8 @@ class MoELayer(nn.Module):
         xs = flat.index_select(0, order % t)                      # [k t, d]
         w_gu = self.experts.w_gate_up.to(flat.dtype)              # [e, d, 2f]
         w_dn = self.experts.w_down.to(flat.dtype)                 # [e, f, d]
-        g, u = grouped_matmul(xs, w_gu, group_sizes).to(
-            flat.dtype).chunk(2, dim=-1)
-        ys = grouped_matmul(F.silu(g) * u, w_dn, group_sizes).to(flat.dtype)
+        g, u = grouped_matmul_act(xs, w_gu, group_sizes).chunk(2, dim=-1)
+        ys = grouped_matmul_act(F.silu(g) * u, w_dn, group_sizes)
         # unsort to choice-major, weight, reduce over k
         y_cm = torch.zeros_like(ys).index_copy(0, order, ys).reshape(k, t, d)
         g_km = _combine_weights(gates, k > 1).t()                 # [k, t]

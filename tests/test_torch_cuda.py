@@ -153,15 +153,29 @@ FLASH_CASES = {
     "ragged_sq_lt_sk": (1, 100, 157, 8, 2, 64, True, False, 0.0),
     "segments": (2, 200, 200, 4, 1, 128, False, True, 0.0),
     "dropout_d32": (2, 128, 128, 4, 2, 32, True, False, 0.1),
+    # the Hopper kernels' tile edges: 128-row query and key tiles, 64-row
+    # backward query tiles, rings of two stages
+    "gqa_s4096": (1, 4096, 4096, 8, 2, 128, True, False, 0.0),
+    "sq300_sk700_group4": (2, 300, 700, 8, 2, 128, True, False, 0.0),
+    "causal_d32": (2, 257, 257, 4, 4, 32, True, False, 0.0),
+    "segments_d64": (1, 333, 333, 6, 3, 64, False, True, 0.0),
+    "segments_causal": (2, 384, 384, 8, 2, 128, True, True, 0.0),
 }
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+# bf16 only: the Hopper kernels' long case; the fp32 FMA kernels' 1e-5
+# holds for rows of up to ~1000 keys, not for a sum over 4096
+BF16_ONLY = ("gqa_s4096",)
+FLASH_PARAMS = [(c, d) for c in sorted(FLASH_CASES) for d in DTYPES
+                if not (c in BF16_ONLY and d == "float32")]
+
+
+@pytest.mark.parametrize("case,dtype", FLASH_PARAMS,
+                         ids=[f"{c}-{d}" for c, d in FLASH_PARAMS])
 def test_flash_kernels_match_plain(dev, dtype, case):
-    """flash_fwd (out, lse), flash_bwd_dq and flash_bwd_dkv against the
-    plain versions: GQA, ragged lengths, sq < sk, segment ids with fully
-    masked rows, dropout, head dims 32/64/128; v a strided view."""
+    """flash_fwd (out, lse) and flash_bwd (dq, dk, dv) against the plain
+    versions: GQA, ragged lengths, sq < sk, segment ids with fully masked
+    rows, dropout, head dims 32/64/128; k and v strided views."""
     b, sq, sk, h, hk, d, causal, seg, p = FLASH_CASES[case]
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(sq * 7 + d)
@@ -183,14 +197,58 @@ def test_flash_kernels_match_plain(dev, dtype, case):
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
     delta = (want_out.float() * dout.float()).sum(-1).transpose(
         1, 2).contiguous()
-    dq = flash_attention.flash_bwd_dq(q, k, v, dout, want_lse, delta, *args)
-    dk, dv = flash_attention.flash_bwd_dkv(q, k, v, dout, want_lse, delta,
+    dq, dk, dv = flash_attention.flash_bwd(q, k, v, dout, want_lse, delta,
                                            *args)
     wdq, wdk, wdv = attn_ops._flash_bwd_plain(q, k, v, dout, want_lse, delta,
                                               *args)
     for got, want in ((dq, wdq), (dk, wdk), (dv, wdv)):
         _close(got, want, dtype)
         _rows_close(got, want, dtype)
+
+
+def _flash_inputs(dev, b, s, h, hk, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, dout = (torch.randn((b, s, h, d), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    kv = torch.randn((b, s, 2 * hk, d), generator=g, device=dev).to(
+        torch.bfloat16)
+    return q, kv[:, :, :hk], kv[:, :, hk:], dout
+
+
+def test_bf16_flash_bwd_runs_agree(dev):
+    """Two bf16 backward runs on the same inputs: dk and dv are equal to
+    the bit (each block sums its own keys in a fixed order); dq, summed
+    by atomics in an order that varies, agrees within the bf16 tolerance
+    elementwise and per row."""
+    q, k, v, dout = _flash_inputs(dev, 2, 1024, 8, 2, 128, 11)
+    args = (True, 128 ** -0.5, None, None, 0.0, 0)
+    out, lse = flash_attention.flash_fwd(q, k, v, *args)
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    a = flash_attention.flash_bwd(q, k, v, dout, lse, delta, *args)
+    b = flash_attention.flash_bwd(q, k, v, dout, lse, delta, *args)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+    _close(a[0], b[0], "bfloat16")
+    _rows_close(a[0], b[0], "bfloat16")
+
+
+def test_flash_wrappers_refuse_unaligned_bf16_views(dev):
+    """The bf16 kernels read by TMA: a view 2 bytes off a 16-byte boundary,
+    or with a stride that is not a multiple of 16 bytes, is refused, not
+    copied."""
+    q, k, v, dout = _flash_inputs(dev, 1, 64, 4, 2, 64, 12)
+    args = (True, 0.125)
+    buf = torch.zeros((1, 64, 4 * 64 + 1), dtype=torch.bfloat16, device=dev)
+    off = buf[:, :, 1:].view(1, 64, 4, 64)          # address + 2 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_fwd(off, k, v, *args)
+    wide = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_fwd(q, wide[..., :64], v, *args)
+    out, lse = flash_attention.flash_fwd(q, k, v, *args)
+    base = torch.zeros(4 * 64 + 1, device=dev)
+    delta = base[1:].view(1, 4, 64)                 # address + 4 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention.flash_bwd(q, k, v, dout, lse, delta, *args)
 
 
 def test_cuda_routes_carry_gradients(dev):
@@ -212,7 +270,7 @@ def test_cuda_routes_carry_gradients(dev):
     counts = dict(_build.LAUNCHES)
     assert counts["rms_norm"] == 1 and counts["rms_norm_bwd"] == 1, counts
     assert counts["fused_rope"] == 2, counts           # forward + backward
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd"):
         assert counts[name] == 1, counts
 
 
@@ -244,7 +302,7 @@ def test_training_on_card_matches_cpu(dev):
 
 def test_bf16_training_step_on_card_matches_cpu(dev):
     """One bf16 forward and backward of the same seeded tiny Llama on the
-    card (the flash kernels' tensor-core route) and on the CPU (plain
+    card (the flash kernels' Hopper route) and on the CPU (plain
     versions): the loss within 1e-2 and every gradient within 3e-2 in
     relative Frobenius norm (the two sides' GEMMs round bf16 apart)."""
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -662,6 +720,36 @@ def test_grouped_matmul_kernels_match_plain(dev, dtype, case):
     for i, c in enumerate(counts):
         if c == 0:
             assert torch.count_nonzero(dw[i]) == 0
+
+
+def test_grouped_matmul_keeps_an_fp32_cotangent_on_the_card(dev):
+    """bf16 operands under an fp32 cotangent: dx and dw on the card (the
+    kernels' fp32 route over widened operands) equal the CPU's (the plain
+    fp32 products) within one bf16 step, the rounding of one fp32 sum
+    taken in another order. The MoE layer's grouped_matmul_act gives the
+    cast product and takes the bf16 kernels."""
+    from paddle_tpu_torch.ops import grouped_matmul as gmm
+    counts, m, k, n = GMM_CASES["ragged"]
+    rs = np.random.RandomState(5)
+    xs = torch.tensor(rs.randn(m, k), dtype=torch.float32).bfloat16()
+    w = torch.tensor(0.1 * rs.randn(len(counts), k, n),
+                     dtype=torch.float32).bfloat16()
+    r = torch.tensor(rs.randn(m, n), dtype=torch.float32)
+    gs = torch.tensor(counts, dtype=torch.int32)
+    grads = []
+    for d in (torch.device("cpu"), dev):
+        tx = xs.to(d).detach().requires_grad_()
+        tw = w.to(d).detach().requires_grad_()
+        (gmm.grouped_matmul(tx, tw, gs.to(d)) * r.to(d)).sum().backward()
+        assert tx.grad.dtype == tw.grad.dtype == torch.bfloat16
+        grads.append((tx.grad.float().cpu(), tw.grad.float().cpu()))
+    for want, got in zip(*grads):
+        bad = (got - want).abs() > 2.0 ** -7 * want.abs()
+        assert not bad.any(), int(bad.sum())
+    y = gmm.grouped_matmul_act(xs.to(dev), w.to(dev), gs.to(dev))
+    assert y.dtype == torch.bfloat16
+    _close(y, gmm.grouped_matmul_plain(xs, w, gs).bfloat16().to(dev),
+           "bfloat16")
 
 
 def test_grouped_matmul_wrappers_refuse_what_they_do_not_take(dev):

@@ -84,23 +84,48 @@ def test_grouped_matmul_plain_bf16_matches_xla_and_pallas():
                                           interpret=True), 2e-2)
 
 
-@pytest.mark.parametrize("counts", COUNTS, ids=str)
-def test_grouped_matmul_grads_match_jax_grad(counts):
+def _bf16_ulp_close(got, want):
+    """Each entry within 2**-8 of its magnitude (under one bf16 step) of
+    the bf16 rounding of the fp32 result: the two sides sum the same
+    exact products in another order before one rounding."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    bad = np.abs(got - want) > 2.0 ** -8 * np.abs(want)
+    assert not bad.any(), (int(bad.sum()), float(np.abs(got - want).max()))
+
+
+@pytest.mark.parametrize(
+    "counts,dtype", [(c, "float32") for c in COUNTS]
+    + [(c, "bfloat16") for c in COUNTS],
+    ids=[str(c) for c in COUNTS] + [f"bf16-{c}" for c in COUNTS])
+def test_grouped_matmul_grads_match_jax_grad(counts, dtype):
     """dx and dw of the autograd Function against jax.grad of the JAX
     dispatcher (whose custom vjp is ragged_dot's): an empty group's dw is
     exactly zero, and rows past the groups' sum get zero output and
-    gradient."""
+    gradient. The bf16 cases take bf16 operands and an fp32 cotangent
+    (the loss weights r are fp32), which the JAX backward keeps fp32:
+    dx and dw are the bf16 roundings of fp32 sums of exact products."""
     xs, w, r = _gmm_inputs(seed=1)
     gs = np.asarray(counts, np.int32)
+    if dtype == "bfloat16":
+        xs = np.asarray(jnp.asarray(xs, jnp.bfloat16), np.float32)
+        w = np.asarray(jnp.asarray(w, jnp.bfloat16), np.float32)
 
     def jloss(x, ww):
         return jnp.sum(jgm.grouped_matmul(x, ww, jnp.asarray(gs)) * r)
-    jdx, jdw = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(xs),
-                                               jnp.asarray(w))
-    tx, tw = _t(xs).requires_grad_(), _t(w).requires_grad_()
+    jdx, jdw = jax.grad(jloss, argnums=(0, 1))(
+        jnp.asarray(xs, dtype), jnp.asarray(w, dtype))
+    tdt = getattr(torch, dtype)
+    tx = _t(xs).to(tdt).requires_grad_()
+    tw = _t(w).to(tdt).requires_grad_()
     (gmm.grouped_matmul(tx, tw, _t(gs)) * _t(r)).sum().backward()
-    _close(tx.grad, jdx)
-    _close(tw.grad, jdw)
+    assert tx.grad.dtype == tw.grad.dtype == tdt
+    if dtype == "float32":
+        _close(tx.grad, jdx)
+        _close(tw.grad, jdw)
+    else:
+        _bf16_ulp_close(tx.grad.float(), np.asarray(jdx, np.float32))
+        _bf16_ulp_close(tw.grad.float(), np.asarray(jdw, np.float32))
     for i, c in enumerate(counts):
         if c == 0:
             assert torch.count_nonzero(tw.grad[i]) == 0
