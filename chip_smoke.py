@@ -24,7 +24,9 @@ Phases, in order; any failure exits non-zero before the result line:
      (forward, dlog, dh, dW) at 8192 tokens x hidden 4096 x vocabulary
      128256 in bf16 (lse/tgt to 1e-4, dlog, dh and dW per row or column,
      and two planted wrong vocabulary blocks that every check must
-     reject), and in fp32 at 2048 x 1024 x 20000 with ignored rows and a
+     reject; the backward's TFLOP/s and share of the bound), dlog, dh and
+     dW of one chunk at the DeepSeekMoE-16B head (hidden 2048,
+     vocabulary 102400) beside torch.matmul, and in fp32 at 2048 x 1024 x 20000 with ignored rows and a
      tied, transposed W through the autograd Function;
      Quantized serving: the int8 matrix product at the five projections
      of a Llama-3-8B decode step (m = 8, bf16), at gate_up with m = 1024
@@ -781,12 +783,89 @@ def ce_compare(torch, pairs, atol):
     return max_abs, max_rel, ok
 
 
+def ce_rate(kern, case, ops, bnd, kms, lms):
+    """Log and keep a timed bf16 CE row's rate: TFLOP/s of the kernel and
+    of the library call, and the share of the bound it reaches."""
+    rate = {"tflops": ops / kms / 1e9,
+            "library_tflops": ops / lms / 1e9 if lms else None,
+            "bound_share": bnd[0] / kms}
+    RESULTS.setdefault("ce_rates", {})[f"{kern}/{case}"] = rate
+    lib = ("-" if lms is None else f"{rate['library_tflops']:.1f} TFLOP/s")
+    log(f"kernel {kern} [{case} bfloat16]: {us(kms)} = "
+        f"{rate['tflops']:.1f} TFLOP/s ({ops:.4g} operations), library "
+        f"{lib}, {rate['bound_share']:.3f} of the bound")
+
+
+def ce_bwd_rows(torch, kce, vocab_ce, case, h, w, labels, lse, g_lse, g_tgt,
+                flush):
+    """dlog, dh and dW of one vocabulary chunk (columns 0 .. CHUNK) at the
+    shape of h [N, H] and W [H, V], bf16: each kernel launched once and
+    held per row (dlog, dh) or per column (dW) against its plain version,
+    timed beside the plain version and one torch.matmul of the same
+    product (dlog: none), with its rate. dh adds to the fp32 sums of
+    earlier chunks in the timed launches, as a middle chunk does."""
+    N, H = h.shape
+    C, e, bf = kce.CHUNK, 2, torch.bfloat16
+    hf, lab = h.float(), labels.long()[:, None]
+    dlog = torch.empty((N, C), dtype=bf, device=h.device)
+    kce.vocab_ce_dlog(h, w, labels, lse, g_lse, g_tgt, 0, C, dlog)
+    want_dlog, wc32 = vocab_ce._dlog_plain(hf, w, lab, lse, g_lse, g_tgt, 0,
+                                           C)
+    want_dlog = want_dlog.to(bf)
+    ops = 2 * N * H * C
+    bnd = bound(N * H * e + H * C * e + 4 * N * 4 + N * C * e, ops,
+                BF16_OPS_PER_S)
+    kms = timed_ms(torch, lambda: kce.vocab_ce_dlog(
+        h, w, labels, lse, g_lse, g_tgt, 0, C, dlog), flush)
+    record("vocab_ce_dlog", case, "bfloat16",
+           flash_compare(torch, [(dlog, want_dlog)], "bfloat16"), kms,
+           timed_ms(torch, lambda: vocab_ce._dlog_plain(
+               hf, w, lab, lse, g_lse, g_tgt, 0, C)[0].to(bf), flush,
+                    reps=10), None, bnd)
+    ce_rate("vocab_ce_dlog", case, ops, bnd, kms, None)
+    del want_dlog
+
+    wc = w[:, :C]
+    out_dh = torch.empty_like(h)
+    kce.vocab_ce_dh(dlog, w, 0, C, out_dh)
+    want_dh = dlog.float() @ wc32.t()
+    acc = torch.zeros((N, H), dtype=torch.float32, device=h.device)
+    bnd = bound(N * C * e + H * C * e + 2 * N * H * 4, ops, BF16_OPS_PER_S)
+    kms = timed_ms(torch, lambda: kce.vocab_ce_dh(
+        dlog, w, 0, C, out_dh, acc, first=False, last=False), flush)
+    lms = timed_ms(torch, lambda: torch.matmul(dlog, wc.t()), flush)
+    record("vocab_ce_dh", case, "bfloat16",
+           flash_compare(torch, [(out_dh, want_dh)], "bfloat16"), kms,
+           timed_ms(torch, lambda: dlog.float() @ wc32.t(), flush, reps=10),
+           lms, bnd)
+    ce_rate("vocab_ce_dh", case, ops, bnd, kms, lms)
+    del out_dh, want_dh, acc
+
+    out_dw = torch.empty_like(w)
+    kce.vocab_ce_dw(h, dlog, 0, C, out_dw)
+    want_dw = hf.t() @ dlog.float()
+    bnd = bound(N * H * e + N * C * e + H * C * e, ops, BF16_OPS_PER_S)
+    kms = timed_ms(torch, lambda: kce.vocab_ce_dw(h, dlog, 0, C, out_dw),
+                   flush)
+    lms = timed_ms(torch, lambda: torch.matmul(h.t(), dlog), flush)
+    record("vocab_ce_dw", case, "bfloat16",
+           flash_compare(torch, [(out_dw[:, :C].t(), want_dw.t())],
+                         "bfloat16"), kms,
+           timed_ms(torch, lambda: (hf.t() @ dlog.float()).to(bf), flush,
+                    reps=10), lms, bnd)
+    ce_rate("vocab_ce_dw", case, ops, bnd, kms, lms)
+    del out_dw, want_dw, wc32, dlog
+
+
 def phase_ce_kernels(torch, pt):
     """Phase 3, the fused vocab-CE kernels. At the training shape (2 x
     4096 tokens, hidden 4096, vocabulary 128256, bf16): the forward, the
     dlog of one chunk, and dh and dW of the whole backward against the
     plain versions, timed per launch beside the plain version and the
-    PyTorch yardstick, and with planted wrong vocabulary blocks. In fp32
+    PyTorch yardstick, with the backward's TFLOP/s and share of the
+    bound, and with planted wrong vocabulary blocks. dlog, dh and dW of
+    one chunk again at the DeepSeekMoE-16B head (hidden 2048, vocabulary
+    102400), and the whole backward's time at both shapes. In fp32
     at 2048 x 1024 over a vocabulary of 20000 (not a multiple of the
     tile, three backward chunks) with ignored rows and a tied,
     transposed W, through the autograd Function. Runs with autograd
@@ -832,16 +911,18 @@ def phase_ce_kernels(torch, pt):
     kce.vocab_ce_dlog(h, w, labels, want_lse, g_lse, g_tgt, 0, C, dlog)
     want_dlog = vocab_ce._dlog_plain(hf, w, lab, want_lse, g_lse, g_tgt, 0,
                                      C)[0].to(bf)
+    ops = 2 * N * H * C          # each of dlog, dh and dW, a chunk
+    bnd = bound(N * H * e + H * C * e + 4 * N * 4 + N * C * e, ops,
+                BF16_OPS_PER_S)
+    kms = timed_ms(torch, lambda: kce.vocab_ce_dlog(
+        h, w, labels, want_lse, g_lse, g_tgt, 0, C, dlog), flush)
     record("vocab_ce_dlog", "train_chunk_8192", "bfloat16",
-           flash_compare(torch, [(dlog, want_dlog)], "bfloat16"),
-           timed_ms(torch, lambda: kce.vocab_ce_dlog(
-               h, w, labels, want_lse, g_lse, g_tgt, 0, C, dlog), flush),
+           flash_compare(torch, [(dlog, want_dlog)], "bfloat16"), kms,
            timed_ms(torch, lambda: vocab_ce._dlog_plain(
                hf, w, lab, want_lse, g_lse, g_tgt, 0, C)[0].to(bf), flush,
                     reps=10),
-           None,
-           bound(N * H * e + H * C * e + 4 * N * 4 + N * C * e,
-                 2 * N * H * C, BF16_OPS_PER_S))
+           None, bnd)
+    ce_rate("vocab_ce_dlog", "train_chunk_8192", ops, bnd, kms, None)
     del want_dlog
 
     dh, dw = kce.vocab_ce_bwd(h, w, labels, want_lse, g_lse, g_tgt)
@@ -853,24 +934,24 @@ def phase_ce_kernels(torch, pt):
     acc = torch.empty((N, H), dtype=torch.float32, device=dev)
     out_dh, out_dw = torch.empty_like(h), torch.empty_like(w)
     wc = w[:, :C]
+    bnd = bound(N * C * e + H * C * e + 2 * N * H * 4, ops, BF16_OPS_PER_S)
+    kms = timed_ms(torch, lambda: kce.vocab_ce_dh(
+        dlog, w, 0, C, out_dh, acc, first=False, last=False), flush)
+    lms = timed_ms(torch, lambda: torch.matmul(dlog, wc.t()), flush)
     record("vocab_ce_dh", "train_8192", "bfloat16",
-           flash_compare(torch, [(dh, want_dh)], "bfloat16"),
-           timed_ms(torch, lambda: kce.vocab_ce_dh(
-               dlog, w, 0, C, out_dh, acc, first=False, last=False), flush),
+           flash_compare(torch, [(dh, want_dh)], "bfloat16"), kms,
            timed_ms(torch, lambda: dlog.float() @ wc.float().t(), flush,
-                    reps=10),
-           timed_ms(torch, lambda: torch.matmul(dlog, wc.t()), flush),
-           bound(N * C * e + H * C * e + 2 * N * H * 4, 2 * N * H * C,
-                 BF16_OPS_PER_S))
+                    reps=10), lms, bnd)
+    ce_rate("vocab_ce_dh", "train_8192", ops, bnd, kms, lms)
+    bnd = bound(N * H * e + N * C * e + H * C * e, ops, BF16_OPS_PER_S)
+    kms = timed_ms(torch, lambda: kce.vocab_ce_dw(h, dlog, 0, C, out_dw),
+                   flush)
+    lms = timed_ms(torch, lambda: torch.matmul(h.t(), dlog), flush)
     record("vocab_ce_dw", "train_8192", "bfloat16",
-           flash_compare(torch, [(dw.t(), want_dw.t())], "bfloat16"),
-           timed_ms(torch, lambda: kce.vocab_ce_dw(h, dlog, 0, C, out_dw),
-                    flush),
+           flash_compare(torch, [(dw.t(), want_dw.t())], "bfloat16"), kms,
            timed_ms(torch, lambda: (hf.t() @ dlog.float()).to(bf), flush,
-                    reps=10),
-           timed_ms(torch, lambda: torch.matmul(h.t(), dlog), flush),
-           bound(N * H * e + N * C * e + H * C * e, 2 * N * H * C,
-                 BF16_OPS_PER_S))
+                    reps=10), lms, bnd)
+    ce_rate("vocab_ce_dw", "train_8192", ops, bnd, kms, lms)
     del acc, out_dh, out_dw, dh, dw
 
     # the whole head: forward + backward of the kernels, of the plain
@@ -896,6 +977,29 @@ def phase_ce_kernels(torch, pt):
     planted_vocab_block(torch, kce, vocab_ce, h, w, labels, g_lse, g_tgt,
                         want_lse, want_tgt, want_dh, want_dw, plants)
     del h, w, dlog, want_dh, want_dw
+    torch.cuda.empty_cache()
+
+    # the backward at the DeepSeekMoE-16B head's shape (2 x 4096 tokens,
+    # hidden 2048, vocabulary 102400: 12 full chunks and one of 4096)
+    N3, H3, V3 = 8192, 2048, 102400
+    h3 = torch.randn((N3, H3), generator=g, device=dev).to(bf)
+    w3 = (0.02 * torch.randn((H3, V3), generator=g, device=dev)).to(bf)
+    lab3 = torch.randint(0, V3, (N3,), generator=g, device=dev).to(i32)
+    lab3[::97] = -1
+    gl3 = torch.randn((N3,), generator=g, device=dev)
+    gt3 = torch.randn((N3,), generator=g, device=dev)
+    lse3, _ = vocab_ce._fwd_plain(h3, w3, lab3)
+    ce_bwd_rows(torch, kce, vocab_ce, "moe_chunk_8192", h3, w3, lab3, lse3,
+                gl3, gt3, flush)
+    head3 = {
+        "kernels_bwd_ms": timed_ms(torch, lambda: kce.vocab_ce_bwd(
+            h3, w3, lab3, lse3, gl3, gt3), flush, reps=5),
+        "launches_per_bwd": -(-V3 // C) * 3,
+        "bound_bwd_ms": bound(2 * N3 * H3 * e + 2 * H3 * V3 * e + 4 * N3 * 4,
+                              6 * N3 * H3 * V3, BF16_OPS_PER_S)[0]}
+    RESULTS["vocab_ce_head_moe"] = head3
+    log(f"vocab-CE backward at {N3} x {H3} x {V3} bf16: {head3}")
+    del h3, w3, lab3, gl3, gt3, lse3
     torch.cuda.empty_cache()
 
     # fp32, tied: W is the transposed view of an embedding [V, H]

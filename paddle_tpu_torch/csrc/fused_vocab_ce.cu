@@ -1,11 +1,11 @@
 // Fused vocabulary projection + cross entropy for Hopper: four kernels.
 //
 // Replace the TPU kernels of paddle_tpu/ops/pallas/fused_vocab_ce.py:
-//   vocab_ce_fwd_kernel  <- `_fwd_kernel`     (call in `_fwd_pallas`)
-//   vocab_ce_dlog_kernel <- `_dlog_block`, the logits recompute that
-//                           `_bwd_dh_kernel` and `_bwd_dw_kernel` share
-//   vocab_ce_dh_kernel   <- `_bwd_dh_kernel`  (call in `_bwd_pallas`)
-//   vocab_ce_dw_kernel   <- `_bwd_dw_kernel`  (call in `_bwd_pallas`)
+//   vocab_ce_fwd_kernel <- `_fwd_kernel`     (call in `_fwd_pallas`)
+//   dlog                <- `_dlog_block`, the logits recompute that
+//                          `_bwd_dh_kernel` and `_bwd_dw_kernel` share
+//   dh                  <- `_bwd_dh_kernel`  (call in `_bwd_pallas`)
+//   dw                  <- `_bwd_dw_kernel`  (call in `_bwd_pallas`)
 // and compute what they compute, on h [N, H] and W [H, V] (both row-major,
 // one element type) and labels [N] int32:
 //   fwd:  per row, lse = logsumexp_v(h . W[:, v]) and tgt = the logit at
@@ -27,25 +27,40 @@
 // Design: the TPU kernels keep an fp32 accumulator of [rows, H] (dh) or
 // [H, vocab block] (dW) in VMEM across the sequential grid axis; at
 // H = 4096 neither fits one block's shared memory here. So the backward
-// streams the vocabulary in chunks: the dlog kernel recomputes the chunk's
-// logits once and writes dlog, the dh kernel adds dlog . W_chunk^T to an
-// fp32 dh in device memory (chunk after chunk, no atomics, so the result
-// does not depend on block order), and the dw kernel writes its columns
-// of dW. The forward splits the vocabulary over the blocks of a row tile
-// (64 row tiles alone would not fill 132 SMs); each block keeps its rows'
-// (m, s, t) in shared memory over its tiles, and the wrapper merges the
-// splits' partials, as the RMSNorm backward's partial sum is finished
-// outside its kernel. Every product is one tile loop (tile_gemm.cuh,
-// shared with the grouped matmul): bf16 on the tensor cores (mma.sync m16n8k16 fed by ldmatrix,
-// fp32 accumulators, 128 x 256 block tiles of eight 64 x 64 warp tiles,
-// a 4-stage cp.async ring of 32-deep slices), fp32 as real fp32 FMAs
-// (64 x 64 tiles), as the fp32 tolerance needs. The tile lands in shared
-// memory as fp32, where the kernel's own epilogue reads it. `wgmma`, TMA
-// and warp specialisation are later work.
+// streams the vocabulary in chunks: dlog recomputes the chunk's logits
+// once and writes dlog, dh adds dlog . W_chunk^T to an fp32 dh in device
+// memory (chunk after chunk, no atomics, so the result does not depend on
+// block order and is the same on every run), and dw writes its columns
+// of dW.
+//   bf16 backward: the three products run on one TMA + `wgmma` mainloop
+//     (wgmma_gemm.cuh: 128 x 256 tiles, a 4-stage mbarrier ring, one
+//     producer and two consumer warpgroups, persistent blocks), each with
+//     its own epilogue on the accumulator fragment in registers:
+//     dlog  A = h (K-major), B = W[:, c0 ..] (MN-major); exp, one-hot,
+//           bf16 pairs into the workspace;
+//     dh    A = the workspace (K-major), B(k, n) = W[n, c0 + k]
+//           (K-major); adds the earlier chunks' fp32 sums and writes them
+//           back, or bf16 for the last chunk;
+//     dw    A(m, k) = h[k, m] (MN-major), B = the workspace (MN-major);
+//           bf16 into dW[:, c0 ..] with row stride V.
+//     The workspace's tensor map is cw columns wide, so TMA reads zeros
+//     past the chunk and dh's contraction ends at its edge. TMA needs
+//     16-byte aligned bases and row strides: the wrapper pads W to a
+//     multiple of 8 columns, rounds the workspace up to 64, and refuses an
+//     H that is not a multiple of 8.
+//   The forward splits the vocabulary over the blocks of a row tile (64
+//     row tiles alone would not fill 132 SMs); each block keeps its rows'
+//     (m, s, t) in shared memory over its tiles, and the wrapper merges
+//     the splits' partials, as the RMSNorm backward's partial sum is
+//     finished outside its kernel. It and the fp32 backward run the tile
+//     loop of tile_gemm.cuh (shared with the grouped matmul): bf16 on
+//     `ldmatrix` + `mma.sync` into an fp32 tile in shared memory, fp32 as
+//     real fp32 FMAs (64 x 64 tiles), as the fp32 tolerance needs.
 
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -71,22 +86,8 @@ struct Args {
   int c0, C, cw;       // chunk: first column, workspace width, columns
   int splits;
   int first, last;     // dh: first and last chunk
-  int vec;             // 16-byte operand copies (bf16)
+  int vec;             // 16-byte operand copies (bf16 forward)
 };
-
-// Output tile (tm, tn) of block blockIdx.x: consecutive blocks walk down
-// GROUP row tiles of one column tile before moving right, so the blocks
-// resident together share their A rows and B columns in L2.
-__device__ __forceinline__ void tile_of(int tiles_m, int tiles_n, int& tm,
-                                        int& tn) {
-  constexpr int GROUP = 8;
-  const int id = blockIdx.x;
-  const int per_group = GROUP * tiles_n;
-  const int first = (id / per_group) * GROUP;
-  const int gm = min(tiles_m - first, GROUP);
-  tm = first + (id % per_group) % gm;
-  tn = (id % per_group) / gm;
-}
 
 // grid (splits, row tiles): block (sp, rt) runs vocabulary tiles
 // [ntiles sp / splits, ntiles (sp + 1) / splits) of row tile rt
@@ -156,19 +157,24 @@ __global__ void __launch_bounds__(NT, 1) vocab_ce_fwd_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 backward: real fp32 FMAs (FmaGemm, 64 x 64 tiles)
+// ---------------------------------------------------------------------------
+
 // dlog[:, :cw] of the chunk starting at column c0: the logits tile
 // h . W[:, c0 + n0 ..] and the softmax cotangent
-template <typename T>
-__global__ void __launch_bounds__(NT, 1) vocab_ce_dlog_kernel(Args a) {
-  using G = typename GemmOf<T, true, true>::type;
+__global__ void __launch_bounds__(NT, 1) dlog_fma_kernel(Args a) {
+  using G = FmaGemm<true, true>;
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Cs = reinterpret_cast<const float*>(smem);
   int tm, tn;
-  tile_of((a.N + G::BM - 1) / G::BM, (a.cw + G::BN - 1) / G::BN, tm, tn);
+  pt::wg::raster(blockIdx.x, (a.N + G::BM - 1) / G::BM,
+                 (a.cw + G::BN - 1) / G::BN, tm, tn);
   const int m0 = tm * G::BM, n0 = tn * G::BN;
-  G::run(static_cast<const T*>(a.h), a.H, static_cast<const T*>(a.w) + a.c0,
-         a.V, a.N, a.cw, a.H, m0, n0, a.vec != 0, smem);
-  T* dlog = static_cast<T*>(a.dlog);
+  G::run(static_cast<const float*>(a.h), a.H,
+         static_cast<const float*>(a.w) + a.c0, a.V, a.N, a.cw, a.H, m0, n0,
+         false, smem);
+  float* dlog = static_cast<float*>(a.dlog);
   for (int i = threadIdx.x; i < G::BM * G::BN; i += NT) {
     const int r = i / G::BN, c = i % G::BN;
     const int gr = m0 + r, gc = n0 + c;
@@ -176,26 +182,25 @@ __global__ void __launch_bounds__(NT, 1) vocab_ce_dlog_kernel(Args a) {
     const float logit = Cs[r * G::LDC + c];
     const float p =
         logit <= NEG_INF * 0.5f ? 0.f : expf(logit - a.lse[gr]);
-    const float d = a.glse[gr] * p +
-                    (a.c0 + gc == a.labels[gr] ? a.gtgt[gr] : 0.f);
-    dlog[static_cast<long long>(gr) * a.C + gc] = pt::from_f<T>(d);
+    dlog[static_cast<long long>(gr) * a.C + gc] =
+        a.glse[gr] * p + (a.c0 + gc == a.labels[gr] ? a.gtgt[gr] : 0.f);
   }
 }
 
 // dh (+)= dlog[:, :cw] . W[:, c0 .. c0 + cw)^T
-template <typename T>
-__global__ void __launch_bounds__(NT, 1) vocab_ce_dh_kernel(Args a) {
-  using G = typename GemmOf<T, true, false>::type;
+__global__ void __launch_bounds__(NT, 1) dh_fma_kernel(Args a) {
+  using G = FmaGemm<true, false>;
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Cs = reinterpret_cast<const float*>(smem);
   int tm, tn;
-  tile_of((a.N + G::BM - 1) / G::BM, (a.H + G::BN - 1) / G::BN, tm, tn);
+  pt::wg::raster(blockIdx.x, (a.N + G::BM - 1) / G::BM,
+                 (a.H + G::BN - 1) / G::BN, tm, tn);
   const int m0 = tm * G::BM, n0 = tn * G::BN;
   // B(k, n) = W[n, c0 + k]: column-major with leading dimension V
-  G::run(static_cast<const T*>(a.dlog), a.C,
-         static_cast<const T*>(a.w) + a.c0, a.V, a.N, a.H, a.cw, m0, n0,
-         a.vec != 0, smem);
-  T* out = static_cast<T*>(a.out);
+  G::run(static_cast<const float*>(a.dlog), a.C,
+         static_cast<const float*>(a.w) + a.c0, a.V, a.N, a.H, a.cw, m0, n0,
+         false, smem);
+  float* out = static_cast<float*>(a.out);
   for (int i = threadIdx.x; i < G::BM * G::BN; i += NT) {
     const int r = i / G::BN, c = i % G::BN;
     const int gr = m0 + r, gc = n0 + c;
@@ -204,33 +209,179 @@ __global__ void __launch_bounds__(NT, 1) vocab_ce_dh_kernel(Args a) {
     float x = Cs[r * G::LDC + c];
     if (!a.first) x += a.acc[at];
     if (a.last)
-      out[at] = pt::from_f<T>(x);
+      out[at] = x;
     else
       a.acc[at] = x;
   }
 }
 
 // dW[:, c0 .. c0 + cw) = h^T . dlog[:, :cw]
-template <typename T>
-__global__ void __launch_bounds__(NT, 1) vocab_ce_dw_kernel(Args a) {
-  using G = typename GemmOf<T, false, true>::type;
+__global__ void __launch_bounds__(NT, 1) dw_fma_kernel(Args a) {
+  using G = FmaGemm<false, true>;
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Cs = reinterpret_cast<const float*>(smem);
   int tm, tn;
-  tile_of((a.H + G::BM - 1) / G::BM, (a.cw + G::BN - 1) / G::BN, tm, tn);
+  pt::wg::raster(blockIdx.x, (a.H + G::BM - 1) / G::BM,
+                 (a.cw + G::BN - 1) / G::BN, tm, tn);
   const int m0 = tm * G::BM, n0 = tn * G::BN;
   // A(m, k) = h[k, m]: column-major with leading dimension H
-  G::run(static_cast<const T*>(a.h), a.H, static_cast<const T*>(a.dlog),
-         a.C, a.H, a.cw, a.N, m0, n0, a.vec != 0, smem);
-  T* out = static_cast<T*>(a.out);
+  G::run(static_cast<const float*>(a.h), a.H,
+         static_cast<const float*>(a.dlog), a.C, a.H, a.cw, a.N, m0, n0,
+         false, smem);
+  float* out = static_cast<float*>(a.out);
   for (int i = threadIdx.x; i < G::BM * G::BN; i += NT) {
     const int r = i / G::BN, c = i % G::BN;
     const int gr = m0 + r, gc = n0 + c;
     if (gr >= a.H || gc >= a.cw) continue;
-    out[static_cast<long long>(gr) * a.V + a.c0 + gc] =
-        pt::from_f<T>(Cs[r * G::LDC + c]);
+    out[static_cast<long long>(gr) * a.V + a.c0 + gc] = Cs[r * G::LDC + c];
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 backward: epilogues of the TMA + `wgmma` mainloop (wgmma_gemm.cuh),
+// applied to the accumulator fragment a pair of columns at a time
+// ---------------------------------------------------------------------------
+
+// (in a namespace of their own, so that a profiler's kernel names say
+// which head the mainloop ran for)
+namespace vocab_ce {
+
+// dlog of chunk columns 0 .. cw - 1 (vocabulary c0 ..), rounded to bf16,
+// into the workspace (row stride ld)
+struct DlogEpi {
+  bf* out;
+  const int* labels;
+  const float* lse;
+  const float* glse;
+  const float* gtgt;
+  long long ld;
+  int N, c0, cw;
+
+  struct Row {
+    bf* out;
+    float lse, glse, gtgt;
+    int lab;  // the label's column in the chunk (may lie outside it)
+    bool ok;
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    Row x = {nullptr, 0.f, 0.f, 0.f, -1, r < N};
+    if (x.ok) {
+      x.out = out + static_cast<long long>(r) * ld;
+      x.lse = lse[r];
+      x.glse = glse[r];
+      x.gtgt = gtgt[r];
+      x.lab = labels[r] - c0;
+    }
+    return x;
+  }
+  __device__ __forceinline__ float2 addend(const Row&, int) const {
+    return make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ float value(const Row& r, int col,
+                                         float logit) const {
+    const float p = logit <= NEG_INF * 0.5f ? 0.f : expf(logit - r.lse);
+    return r.glse * p + (col == r.lab ? r.gtgt : 0.f);
+  }
+  __device__ __forceinline__ void pair(const Row& r, int col, float x0,
+                                       float x1) const {
+    if (col >= cw) return;
+    const float d0 = value(r, col, x0);
+    if (col + 1 < cw)
+      *reinterpret_cast<__nv_bfloat162*>(r.out + col) =
+          __floats2bfloat162_rn(d0, value(r, col + 1, x1));
+    else
+      r.out[col] = __float2bfloat16(d0);
+  }
+};
+
+// dh columns (H a multiple of 8, so a pair never straddles the edge):
+// the earlier chunks' fp32 sums added unless `first` (the tile's sum plus
+// them, as the FMA route adds them); fp32 back into acc, or bf16 into out
+// for the `last` chunk
+struct DhEpi {
+  float* acc;
+  bf* out;
+  int N, H, first, last;
+
+  struct Row {
+    long long at;
+    bool ok;
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    return {static_cast<long long>(r) * H, r < N};
+  }
+  __device__ __forceinline__ float2 addend(const Row& r, int col) const {
+    if (first || col >= H) return make_float2(0.f, 0.f);
+    return *reinterpret_cast<const float2*>(acc + r.at + col);
+  }
+  __device__ __forceinline__ void pair(const Row& r, int col, float x0,
+                                       float x1) const {
+    if (col >= H) return;
+    const long long at = r.at + col;
+    if (last)
+      *reinterpret_cast<__nv_bfloat162*>(out + at) =
+          __floats2bfloat162_rn(x0, x1);
+    else
+      *reinterpret_cast<float2*>(acc + at) = make_float2(x0, x1);
+  }
+};
+
+// dW[:, c0 + col] for chunk columns col < cw, bf16, row stride V; pairs
+// are stored together where V and c0 are even (4-byte aligned)
+struct DwEpi {
+  bf* out;
+  long long V;
+  int H, c0, cw, pairs;
+
+  struct Row {
+    bf* out;
+    bool ok;
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    return {out + static_cast<long long>(r) * V + c0, r < H};
+  }
+  __device__ __forceinline__ float2 addend(const Row&, int) const {
+    return make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void pair(const Row& r, int col, float x0,
+                                       float x1) const {
+    if (col >= cw) return;
+    if (pairs && col + 1 < cw) {
+      *reinterpret_cast<__nv_bfloat162*>(r.out + col) =
+          __floats2bfloat162_rn(x0, x1);
+    } else {
+      r.out[col] = __float2bfloat16(x0);
+      if (col + 1 < cw) r.out[col + 1] = __float2bfloat16(x1);
+    }
+  }
+};
+
+}  // namespace vocab_ce
+
+int bwd_bf16(int which, const Args& a, cudaStream_t s) {
+  using pt::wg::gemm;
+  using pt::wg::Operand;
+  const Operand h = {a.h, a.H, a.N, a.H};         // [N, H]
+  const Operand w = {a.w, a.V, a.H, a.V};         // [H, V]
+  const Operand dlog = {a.dlog, a.cw, a.N, a.C};  // [N, cw] of [N, C]
+  if (which == 1) {
+    const vocab_ce::DlogEpi e = {static_cast<bf*>(a.dlog), a.labels, a.lse,
+                                 a.glse, a.gtgt, a.C, a.N, a.c0, a.cw};
+    return gemm<false, true>(h, w, a.N, a.cw, a.H, a.c0, e, s);
+  }
+  if (which == 2) {
+    const vocab_ce::DhEpi e = {a.acc, static_cast<bf*>(a.out), a.N, a.H,
+                               a.first, a.last};
+    return gemm<false, false>(dlog, w, a.N, a.H, a.cw, a.c0, e, s);
+  }
+  const vocab_ce::DwEpi e = {static_cast<bf*>(a.out), a.V, a.H, a.c0, a.cw,
+                             (a.V % 2 == 0 && a.c0 % 2 == 0) ? 1 : 0};
+  return gemm<true, true>(h, dlog, a.H, a.cw, a.N, 0, e, s);
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
 
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a,
@@ -244,37 +395,36 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a,
 }
 
 template <typename T>
-unsigned grid_2d(int M, int N) {
+cudaError_t fwd(const Args& a, cudaStream_t s) {
   using G = typename GemmOf<T, true, true>::type;
-  return static_cast<unsigned>(((M + G::BM - 1) / G::BM) *
-                               ((N + G::BN - 1) / G::BN));
+  const dim3 grid(a.splits, (a.N + G::BM - 1) / G::BM);
+  return launch(vocab_ce_fwd_kernel<T>, grid, G::SMEM + 4 * G::BM * 4, a, s);
 }
 
-template <typename T>
-cudaError_t run(int which, const Args& a, cudaStream_t s) {
-  using G = typename GemmOf<T, true, true>::type;  // BM, BN of every kernel
-  switch (which) {
-    case 0: {
-      const dim3 grid(a.splits, (a.N + G::BM - 1) / G::BM);
-      return launch(vocab_ce_fwd_kernel<T>, grid, G::SMEM + 4 * G::BM * 4,
-                    a, s);
-    }
-    case 1:
-      return launch(vocab_ce_dlog_kernel<T>, dim3(grid_2d<T>(a.N, a.cw)),
-                    G::SMEM, a, s);
-    case 2:
-      return launch(vocab_ce_dh_kernel<T>, dim3(grid_2d<T>(a.N, a.H)),
-                    GemmOf<T, true, false>::type::SMEM, a, s);
-    default:
-      return launch(vocab_ce_dw_kernel<T>, dim3(grid_2d<T>(a.H, a.cw)),
-                    GemmOf<T, false, true>::type::SMEM, a, s);
-  }
+cudaError_t bwd_fp32(int which, const Args& a, cudaStream_t s) {
+  using G = FmaGemm<true, true>;  // BM, BN of the three
+  auto grid = [](int M, int N) {
+    return dim3(static_cast<unsigned>(((M + G::BM - 1) / G::BM) *
+                                      ((N + G::BN - 1) / G::BN)));
+  };
+  if (which == 1)
+    return launch(dlog_fma_kernel, grid(a.N, a.cw), G::SMEM, a, s);
+  if (which == 2)
+    return launch(dh_fma_kernel, grid(a.N, a.H),
+                  FmaGemm<true, false>::SMEM, a, s);
+  return launch(dw_fma_kernel, grid(a.H, a.cw), FmaGemm<false, true>::SMEM,
+                a, s);
 }
 
+// which: 0 forward, 1 dlog, 2 dh, 3 dw
 int dispatch(int which, int dtype, const Args& a, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(run<float>(which, a, s));
-  if (dtype == 1) return static_cast<int>(run<bf>(which, a, s));
+  if (dtype == 0)
+    return static_cast<int>(which == 0 ? fwd<float>(a, s)
+                                       : bwd_fp32(which, a, s));
+  if (dtype == 1)
+    return which == 0 ? static_cast<int>(fwd<bf>(a, s))
+                      : bwd_bf16(which, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -324,8 +474,7 @@ extern "C" int pt_vocab_ce_dlog(const void* h, const void* w,
                                 const void* labels, const void* lse,
                                 const void* glse, const void* gtgt,
                                 void* dlog, int N, int H, int V, int c0,
-                                int C, int cw, int dtype, int vec,
-                                void* stream) {
+                                int C, int cw, int dtype, void* stream) {
   Args a = make_args(N, H, V);
   a.h = h;
   a.w = w;
@@ -337,14 +486,13 @@ extern "C" int pt_vocab_ce_dlog(const void* h, const void* w,
   a.c0 = c0;
   a.C = C;
   a.cw = cw;
-  a.vec = vec;
   return dispatch(1, dtype, a, stream);
 }
 
 extern "C" int pt_vocab_ce_dh(const void* dlog, const void* w, void* acc,
                               void* out, int N, int H, int V, int c0, int C,
                               int cw, int first, int last, int dtype,
-                              int vec, void* stream) {
+                              void* stream) {
   Args a = make_args(N, H, V);
   a.dlog = const_cast<void*>(dlog);
   a.w = w;
@@ -355,13 +503,12 @@ extern "C" int pt_vocab_ce_dh(const void* dlog, const void* w, void* acc,
   a.cw = cw;
   a.first = first;
   a.last = last;
-  a.vec = vec;
   return dispatch(2, dtype, a, stream);
 }
 
 extern "C" int pt_vocab_ce_dw(const void* h, const void* dlog, void* out,
                               int N, int H, int V, int c0, int C, int cw,
-                              int dtype, int vec, void* stream) {
+                              int dtype, void* stream) {
   Args a = make_args(N, H, V);
   a.h = h;
   a.dlog = const_cast<void*>(dlog);
@@ -369,6 +516,5 @@ extern "C" int pt_vocab_ce_dw(const void* h, const void* dlog, void* out,
   a.c0 = c0;
   a.C = C;
   a.cw = cw;
-  a.vec = vec;
   return dispatch(3, dtype, a, stream);
 }

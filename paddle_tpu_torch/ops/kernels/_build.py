@@ -154,9 +154,9 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     flash = [P] * 13 + [I] * 6 + [LL] * 9 + [F, I, I, U, U, F, F, I, P]
     so.pt_vocab_ce_splits.argtypes = [I, I, I]
     so.pt_vocab_ce_fwd.argtypes = [P] * 4 + [I] * 6 + [P]
-    so.pt_vocab_ce_dlog.argtypes = [P] * 7 + [I] * 8 + [P]
-    so.pt_vocab_ce_dh.argtypes = [P] * 4 + [I] * 10 + [P]
-    so.pt_vocab_ce_dw.argtypes = [P] * 3 + [I] * 8 + [P]
+    so.pt_vocab_ce_dlog.argtypes = [P] * 7 + [I] * 7 + [P]
+    so.pt_vocab_ce_dh.argtypes = [P] * 4 + [I] * 9 + [P]
+    so.pt_vocab_ce_dw.argtypes = [P] * 3 + [I] * 7 + [P]
     fns = [so.pt_rms_norm_fwd, so.pt_rms_norm_bwd, so.pt_fused_rope,
            so.pt_paged_decode, so.pt_int8_matmul, so.pt_grouped_matmul,
            so.pt_grouped_matmul_dw,

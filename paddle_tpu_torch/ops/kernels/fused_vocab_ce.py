@@ -10,7 +10,11 @@ versions are ``ops.vocab_ce._fwd_plain`` / ``_bwd_plain``;
 versions by the tensors' device.
 
 h is [N, H] and W [H, V], contiguous, one element type (float32 or
-bfloat16); labels [N] int32 (a label outside [0, V) has target 0).
+bfloat16); labels [N] int32 (a label outside [0, V) has target 0). The
+bf16 backward kernels read their operands by TMA, which needs 16-byte
+aligned bases and row strides: H, W's V and the dlog workspace's width
+a multiple of 8 (:func:`vocab_ce_bwd` pads W and rounds the workspace;
+the single-launch wrappers raise).
 """
 
 from __future__ import annotations
@@ -30,6 +34,12 @@ REPLACES = {"vocab_ce_fwd": "paddle_tpu/ops/pallas/fused_vocab_ce.py:179",
 # in the element type (128 MB at N = 8192 in bf16, against 2.1 GB of
 # bf16 logits), and the backward launches dlog, dh and dW once a chunk
 CHUNK = 8192
+# the dlog workspace's width is a multiple of this many columns (one
+# 128-byte TMA box of bf16)
+WORKSPACE_ALIGN = 64
+# the bf16 backward reads W with a row stride of a multiple of this many
+# columns (16 bytes)
+VOCAB_PAD = 8
 
 
 def _cuda(name: str, *ts: torch.Tensor) -> None:
@@ -67,6 +77,43 @@ def _check_chunk(c0: int, cw: int, C: int, V: int) -> None:
     if not (0 <= c0 and 0 < cw <= C and c0 + cw <= V):
         raise ValueError(f"chunk [{c0}, {c0 + cw}) does not fit V={V} and "
                          f"C={C}")
+
+
+def _check_tma(name: str, code: int, tensors=(), **extents: int) -> None:
+    """bf16: every extent named (a row length or leading dimension) a
+    multiple of 8 elements and every base 16-byte aligned, as TMA reads
+    them; fp32 takes anything."""
+    if code != 1:
+        return
+    bad = [f"{k}={v}" for k, v in extents.items() if v % 8]
+    bad += [f"a base at {t.data_ptr():#x}" for t in tensors
+            if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{name} (bf16, TMA) needs multiples of 8 elements "
+                         f"and 16-byte aligned bases, got " + ", ".join(bad))
+
+
+def _workspace_ld(c: int) -> int:
+    """The dlog workspace's leading dimension for chunks of c columns:
+    c rounded up to a multiple of :data:`WORKSPACE_ALIGN`."""
+    return -(-c // WORKSPACE_ALIGN) * WORKSPACE_ALIGN
+
+
+def _chunk_plan(v: int, c: int):
+    """``[(c0, cw), ...]``: the vocabulary [0, v) in chunks of at most c
+    columns, in order."""
+    return [(c0, min(c, v - c0)) for c0 in range(0, v, c)]
+
+
+def _pad_vocab(w: torch.Tensor) -> torch.Tensor:
+    """W [H, V] with zero columns appended up to a multiple of
+    :data:`VOCAB_PAD` (``paddle_tpu``'s ``_pad_vocab``); W itself when V
+    is one already."""
+    v = w.shape[1]
+    pad = -v % VOCAB_PAD
+    if pad == 0:
+        return w
+    return torch.nn.functional.pad(w, (0, pad))
 
 
 def _vec(code: int, *extents: int, tensors=()) -> int:
@@ -127,11 +174,11 @@ def vocab_ce_dlog(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"dlog must be a contiguous {h.dtype} [{N}, C] "
                          f"workspace on {h.device}")
     _check_chunk(c0, cw, C, V)
+    _check_tma("vocab_ce_dlog", code, (h, w, dlog), H=H, V=V, C=C)
     err = _build.lib().pt_vocab_ce_dlog(
         h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
         g_lse.data_ptr(), g_tgt.data_ptr(), dlog.data_ptr(), N, H, V, c0, C,
-        cw, code, _vec(code, H, V, cw, c0, tensors=(h, w)),
-        _build.stream_ptr(h.device))
+        cw, code, _build.stream_ptr(h.device))
     _build.check(err, "vocab_ce_dlog")
     _build.count_launch("vocab_ce_dlog")
     return dlog
@@ -164,12 +211,13 @@ def vocab_ce_dh(dlog: torch.Tensor, w: torch.Tensor, c0: int, cw: int,
         raise ValueError(f"a chunk that is not both first and last needs "
                          f"a contiguous fp32 [{N}, {H}] acc on {w.device}")
     _check_chunk(c0, cw, C, V)
+    _check_tma("vocab_ce_dh", code,
+               (dlog, w, out) + ((acc,) if acc is not None else ()),
+               H=H, V=V, C=C)
     err = _build.lib().pt_vocab_ce_dh(
         dlog.data_ptr(), w.data_ptr(),
         acc.data_ptr() if acc is not None else None, out.data_ptr(), N, H, V,
-        c0, C, cw, int(first), int(last), code,
-        _vec(code, V, C, cw, c0, tensors=(dlog, w)),
-        _build.stream_ptr(w.device))
+        c0, C, cw, int(first), int(last), code, _build.stream_ptr(w.device))
     _build.check(err, "vocab_ce_dh")
     _build.count_launch("vocab_ce_dh")
     return out
@@ -194,10 +242,10 @@ def vocab_ce_dw(h: torch.Tensor, dlog: torch.Tensor, c0: int, cw: int,
     if dlog.shape[0] != N or out.shape[0] != H:
         raise ValueError(f"dlog must be [{N}, C] and out [{H}, V]")
     _check_chunk(c0, cw, C, V)
+    _check_tma("vocab_ce_dw", code, (h, dlog, out), H=H, C=C)
     err = _build.lib().pt_vocab_ce_dw(
         h.data_ptr(), dlog.data_ptr(), out.data_ptr(), N, H, V, c0, C, cw,
-        code, _vec(code, H, C, cw, tensors=(h, dlog)),
-        _build.stream_ptr(h.device))
+        code, _build.stream_ptr(h.device))
     _build.check(err, "vocab_ce_dw")
     _build.count_launch("vocab_ce_dw")
     return out
@@ -211,8 +259,9 @@ def vocab_ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     (fp32 [N]): per vocabulary chunk of :data:`CHUNK` columns, the dlog
     kernel, then the dh and dW kernels on its workspace. dh [N, H] in h's
     dtype (fp32 sums across chunks), dW [H, V] in W's dtype; either is
-    None when not wanted."""
-    _check_hw(h, w)
+    None when not wanted. In bf16 the kernels read a copy of W padded to
+    :data:`VOCAB_PAD` columns where V is not a multiple of it."""
+    code = _check_hw(h, w)
     N, H = h.shape
     V = w.shape[1]
     if not (want_dh or want_dw):
@@ -221,23 +270,24 @@ def vocab_ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     dw = torch.empty_like(w) if want_dw else None
     if N == 0:
         return (dh, dw.zero_() if dw is not None else None)
-    C = min(CHUNK, V)
-    dlog = torch.empty((N, C), dtype=h.dtype, device=h.device)
-    chunks = range(0, V, C)
+    plan = _chunk_plan(V, min(CHUNK, V))
+    wk = _pad_vocab(w) if code == 1 else w
+    dlog = torch.empty((N, _workspace_ld(plan[0][1])), dtype=h.dtype,
+                       device=h.device)
     acc = None
-    if want_dh and len(chunks) > 1:
+    if want_dh and len(plan) > 1:
         acc = dh if h.dtype == torch.float32 else torch.empty(
             (N, H), dtype=torch.float32, device=h.device)
-    for c0 in chunks:
-        cw = min(C, V - c0)
-        vocab_ce_dlog(h, w, labels, lse, g_lse, g_tgt, c0, cw, dlog)
+    for i, (c0, cw) in enumerate(plan):
+        vocab_ce_dlog(h, wk, labels, lse, g_lse, g_tgt, c0, cw, dlog)
         if want_dh:
-            vocab_ce_dh(dlog, w, c0, cw, dh, acc, first=c0 == 0,
-                        last=c0 + C >= V)
+            vocab_ce_dh(dlog, wk, c0, cw, dh, acc, first=i == 0,
+                        last=i == len(plan) - 1)
         if want_dw:
             vocab_ce_dw(h, dlog, c0, cw, dw)
     return dh, dw
 
 
 __all__ = ["vocab_ce_fwd", "vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw",
-           "vocab_ce_bwd", "SOURCE", "REPLACES", "CHUNK"]
+           "vocab_ce_bwd", "SOURCE", "REPLACES", "CHUNK", "VOCAB_PAD",
+           "WORKSPACE_ALIGN"]

@@ -369,12 +369,21 @@ def test_engine_on_card_matches_cpu(dev):
 # (N, H, V, tied, backward chunk): V not a multiple of the 128-column
 # tile, rows not a multiple of the row tile, several backward chunks
 # (first, middle and last summed into dh), a V that is not a multiple of
-# 8 (element-wise operand loads) and a tied head's transposed W
+# 8 (element-wise operand loads; the bf16 backward pads W) and a tied
+# head's transposed W. The bf16 backward's 128 x 256 tiles reach their
+# edges in ragged_rows (N = 300), h320 (H = 320: dh's second column tile
+# and dW's third row tile are partly empty), narrow_last_chunk (a last
+# chunk of 40 columns, under one 64-deep k-slice of dh) and
+# odd_v_narrow_chunk (V = 777: padded W, a last chunk of 9 columns).
 CE_CASES = {
     "padded_v_one_chunk": (70, 256, 1000, False, 8192),
     "four_chunks": (130, 128, 1000, False, 256),
     "odd_v": (40, 64, 1001, False, 512),
     "tied_two_chunks": (64, 128, 512, True, 256),
+    "ragged_rows": (300, 256, 1024, False, 512),
+    "h320": (128, 320, 768, False, 256),
+    "narrow_last_chunk": (96, 128, 552, False, 256),
+    "odd_v_narrow_chunk": (96, 128, 777, False, 256),
 }
 
 
@@ -422,6 +431,46 @@ def test_vocab_ce_kernels_match_plain(dev, dtype, case, monkeypatch):
     _close(dw, want_dw, dtype)
     _rows_close(dh, want_dh, dtype)
     _rows_close(dw.t(), want_dw.t(), dtype)
+
+
+def test_bf16_vocab_ce_bwd_is_deterministic(dev, monkeypatch):
+    """Two bf16 backward runs over three chunks give bit-identical dh
+    and dW: each output tile is summed by one block in a fixed order, dh
+    across chunks in chunk order, with no atomics."""
+    monkeypatch.setattr(fused_vocab_ce, "CHUNK", 256)
+    h, w, labels, g_lse, g_tgt = _ce_inputs(dev, torch.bfloat16, 300, 320,
+                                            700, False)
+    lse, _ = vocab_ce._fwd_plain(h, w, labels)
+    runs = [fused_vocab_ce.vocab_ce_bwd(h, w, labels, lse, g_lse, g_tgt)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_bf16_vocab_ce_wrappers_refuse_what_tma_cannot_read(dev):
+    """The bf16 backward kernels raise (no fallback) on an H that is not
+    a multiple of 8, on a W or workspace row that is not, and on a base
+    that is not 16-byte aligned; vocab_ce_bwd pads W itself."""
+    bf = torch.bfloat16
+    h, w, labels, g_lse, g_tgt = _ce_inputs(dev, bf, 16, 64, 1001, False)
+    lse, _ = vocab_ce._fwd_plain(h, w, labels)
+    ws = torch.empty((16, 512), dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="V=1001"):
+        fused_vocab_ce.vocab_ce_dlog(h, w, labels, lse, g_lse, g_tgt, 0, 512,
+                                     ws)
+    h2, w2, labels2, gl2, gt2 = _ce_inputs(dev, bf, 16, 60, 512, False)
+    lse2, _ = vocab_ce._fwd_plain(h2, w2, labels2)
+    with pytest.raises(ValueError, match="H=60"):
+        fused_vocab_ce.vocab_ce_bwd(h2, w2, labels2, lse2, gl2, gt2)
+    wp = fused_vocab_ce._pad_vocab(w)
+    hs = torch.empty((16 * 64 + 1,), dtype=bf, device=dev)[1:].view(16, 64)
+    hs.copy_(h)
+    with pytest.raises(ValueError, match="a base at"):
+        fused_vocab_ce.vocab_ce_dlog(hs, wp, labels, lse, g_lse, g_tgt, 0,
+                                     512, ws)
+    _build.reset_launches()
+    dh, dw = fused_vocab_ce.vocab_ce_bwd(h, w, labels, lse, g_lse, g_tgt)
+    assert _build.LAUNCHES["vocab_ce_dw"] == 1 and dw.shape == w.shape
 
 
 @pytest.mark.parametrize("tied", [False, True])

@@ -189,3 +189,52 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_input():
     with pytest.raises(ValueError):
         vocab_ce.fused_linear_cross_entropy(_t(h), _t(w), _t(lab),
                                             impl="cuda")
+
+
+@pytest.mark.parametrize("v,chunk", [(300, 8192), (1000, 256), (1001, 512),
+                                     (552, 256), (777, 256), (128256, 8192),
+                                     (102400, 8192)])
+def test_chunk_plan_and_workspace_cover_the_vocabulary_once(v, chunk):
+    """The backward's chunks tile [0, V) in order, each column exactly
+    once, every chunk fits the workspace, and the workspace's leading
+    dimension is the first chunk's width rounded up to a multiple of 64
+    (one 128-byte TMA box of bf16)."""
+    c = min(chunk, v)
+    plan = kce._chunk_plan(v, c)
+    ld = kce._workspace_ld(c)
+    assert ld % kce.WORKSPACE_ALIGN == 0 and c <= ld < c + 64
+    seen = np.zeros(v, np.int64)
+    end = 0
+    for c0, cw in plan:
+        assert c0 == end and 0 < cw <= c
+        seen[c0:c0 + cw] += 1
+        end = c0 + cw
+    assert end == v and np.all(seen == 1)
+
+
+@pytest.mark.parametrize("v", [300, 1001, 777, 512])
+def test_padded_vocab_gives_the_plain_backward_unchanged(v):
+    """W padded with zero columns up to a multiple of 8 (as the bf16
+    backward reads it) and fed through the plain backward gives the same
+    dh and, on the real columns, the same dW as W itself (fp32, within
+    1e-6: the longer contraction may be summed in other blocks): the
+    padded columns' logits multiply zero weights in dh and their dW
+    columns are dropped."""
+    rs = np.random.RandomState(v)
+    h = torch.tensor(rs.randn(N, H).astype(np.float32))
+    w = torch.tensor((0.3 * rs.randn(H, v)).astype(np.float32))
+    lab = rs.randint(0, v, (N,)).astype(np.int32)
+    lab[::7] = -1
+    labels = torch.tensor(lab)
+    g_lse = torch.tensor(rs.randn(N).astype(np.float32))
+    g_tgt = torch.tensor(rs.randn(N).astype(np.float32))
+    wp = kce._pad_vocab(w)
+    assert wp.shape == (H, -(-v // 8) * 8) and wp.is_contiguous()
+    assert torch.equal(wp[:, :v], w) and not wp[:, v:].any()
+    if v % 8 == 0:
+        assert wp is w
+    lse, _ = vocab_ce._fwd_plain(h, w, labels)
+    dh, dw = vocab_ce._bwd_plain(h, w, labels, lse, g_lse, g_tgt)
+    dhp, dwp = vocab_ce._bwd_plain(h, wp, labels, lse, g_lse, g_tgt)
+    _close(dhp, dh, 1e-6)
+    _close(dwp[:, :v], dw, 1e-6)
