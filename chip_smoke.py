@@ -5,6 +5,10 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+``python3 chip_smoke.py --parent DIR``, with the parent commit's tree
+unpacked in DIR, also times the parent's int8 prefill and grouped
+kernels against this tree's in turns after phase 3.
+
 Phases, in order; any failure exits non-zero before the result line:
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from ``paddle_tpu_torch/csrc`` and print the
@@ -29,8 +33,9 @@ Phases, in order; any failure exits non-zero before the result line:
      vocabulary 102400) beside torch.matmul, and in fp32 at 2048 x 1024 x 20000 with ignored rows and a
      tied, transposed W through the autograd Function;
      Quantized serving: the int8 matrix product at the five projections
-     of a Llama-3-8B decode step (m = 8, bf16), at gate_up with m = 1024
-     and in fp32 at m = 5, n = 384, k = 256, held per 128 columns of each
+     of a Llama-3-8B decode step (m = 8, bf16), at gate_up with m = 128
+     and m = 1024 (prefills, with TFLOP/s and share of the bound) and in
+     fp32 at m = 5, n = 384, k = 256, held per 128 columns of each
      output row in bf16 (a weight with one 64-wide k-block swapped and a
      scale vector with one block of channels shifted must fail that
      check), beside one torch.matmul with the bf16 weight; the int8
@@ -41,9 +46,12 @@ Phases, in order; any failure exits non-zero before the result line:
      step's shapes (m = 49152 rows, 64 experts; gate_up k 2048, n 2816
      and down k 1408, n 2048; balanced and skewed counts with a quarter
      of the experts empty): forward, dx (the forward kernel reading the
-     weight transposed) and dW, per row, beside torch._grouped_mm (or a
-     matmul loop where that is missing); a planted wrong tile→group and
-     a planted dW row shift must fail; fp32 at a small ragged shape;
+     weight transposed) and dW, per row, with TFLOP/s and share of the
+     bound, beside torch._grouped_mm (or a matmul loop where that is
+     missing); a planted wrong tile→group and a planted dW row shift must
+     fail, and dW must be the same bit for bit on a second run; fp32 at
+     a small ragged shape; with --parent, the parent's int8 prefill and
+     grouped kernels against this tree's in turns;
   4. engine equality: Llama-3-8B widths at 2 layers, fp32, seeded random
      weights: greedy tokens of the engine on the card equal those of a
      step-by-step plain-version path on the CPU;
@@ -62,7 +70,8 @@ Phases, in order; any failure exits non-zero before the result line:
      (int8 weights and KV, the native model then freed) through the same
      run, side by side with phase 5: tokens/s, TTFT, ITL, one decode
      step, launches, model and KV-pool bytes, peak memory, and the greedy
-     agreement with phase 5's streams (reported only);
+     agreement with phase 5's streams (reported only); every int8
+     product of a prefill must take the kernel's wgmma route;
   6. training equality: Llama-3-8B's attention layout (hidden 4096, 32
      heads, 8 KV heads of 128) at 2 layers with the MLP cut to 1024 and
      the vocabulary to 4096, the default (fused) loss head, the same
@@ -94,8 +103,9 @@ Phases, in order; any failure exits non-zero before the result line:
      3 MoE), bf16, dropless, as phase 7 (2 warm-up + 8 timed steps,
      launch counts, one profiled step: grouped-matmul ms, routing ops,
      idle share); every training kernel and both grouped-matmul kernels
-     must launch, the loss must be finite and fall. Then 2 + 4 steps at
-     capacity_factor 1.25 beside it.
+     must launch, every grouped launch on the wgmma route, and the loss
+     must be finite and fall. Then 2 + 4 steps at capacity_factor 1.25
+     beside it.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -488,6 +498,9 @@ def phase_quant_kernels(torch, pt):
                         else FP32_OPS_PER_S)
             del wbf
         record("int8_matmul", case, name, err, *t, bnd)
+        if timed and m > 16:
+            product_rate("int8_matmul", case, 2 * m * n * k, bnd, t[0], t[2],
+                    key="gemm_rates")
         if plant:
             # (a) the weight's 64-wide k-block 7 swapped with block 8;
             # (b) the scales of channels 1024..1087 taken from the next
@@ -517,6 +530,8 @@ def phase_quant_kernels(torch, pt):
                          ("lm_head", (128256, 4096))):
         mm_case(f"decode_{proj}", 8, n, k, torch.bfloat16,
                 plant=proj == "qkv")
+    # prefill: the serving run's shortest prompt and a long one
+    mm_case("prefill_gate_up_128", 128, 28672, 4096, torch.bfloat16)
     mm_case("prefill_gate_up_1024", 1024, 28672, 4096, torch.bfloat16,
             plant=True)
     mm_case("ragged_5x384x256", 5, 384, 256, torch.float32, timed=False)
@@ -783,13 +798,15 @@ def ce_compare(torch, pairs, atol):
     return max_abs, max_rel, ok
 
 
-def ce_rate(kern, case, ops, bnd, kms, lms):
-    """Log and keep a timed bf16 CE row's rate: TFLOP/s of the kernel and
-    of the library call, and the share of the bound it reaches."""
+def product_rate(kern, case, ops, bnd, kms, lms, key="ce_rates"):
+    """Log and keep a timed bf16 product's rate under RESULTS[key]
+    (``ce_rates``, or ``gemm_rates`` for the int8 prefill and grouped
+    rows): TFLOP/s of the kernel and of the library call, and the share of
+    the bound it reaches."""
     rate = {"tflops": ops / kms / 1e9,
             "library_tflops": ops / lms / 1e9 if lms else None,
             "bound_share": bnd[0] / kms}
-    RESULTS.setdefault("ce_rates", {})[f"{kern}/{case}"] = rate
+    RESULTS.setdefault(key, {})[f"{kern}/{case}"] = rate
     lib = ("-" if lms is None else f"{rate['library_tflops']:.1f} TFLOP/s")
     log(f"kernel {kern} [{case} bfloat16]: {us(kms)} = "
         f"{rate['tflops']:.1f} TFLOP/s ({ops:.4g} operations), library "
@@ -822,7 +839,7 @@ def ce_bwd_rows(torch, kce, vocab_ce, case, h, w, labels, lse, g_lse, g_tgt,
            timed_ms(torch, lambda: vocab_ce._dlog_plain(
                hf, w, lab, lse, g_lse, g_tgt, 0, C)[0].to(bf), flush,
                     reps=10), None, bnd)
-    ce_rate("vocab_ce_dlog", case, ops, bnd, kms, None)
+    product_rate("vocab_ce_dlog", case, ops, bnd, kms, None)
     del want_dlog
 
     wc = w[:, :C]
@@ -838,7 +855,7 @@ def ce_bwd_rows(torch, kce, vocab_ce, case, h, w, labels, lse, g_lse, g_tgt,
            flash_compare(torch, [(out_dh, want_dh)], "bfloat16"), kms,
            timed_ms(torch, lambda: dlog.float() @ wc32.t(), flush, reps=10),
            lms, bnd)
-    ce_rate("vocab_ce_dh", case, ops, bnd, kms, lms)
+    product_rate("vocab_ce_dh", case, ops, bnd, kms, lms)
     del out_dh, want_dh, acc
 
     out_dw = torch.empty_like(w)
@@ -853,7 +870,7 @@ def ce_bwd_rows(torch, kce, vocab_ce, case, h, w, labels, lse, g_lse, g_tgt,
                          "bfloat16"), kms,
            timed_ms(torch, lambda: (hf.t() @ dlog.float()).to(bf), flush,
                     reps=10), lms, bnd)
-    ce_rate("vocab_ce_dw", case, ops, bnd, kms, lms)
+    product_rate("vocab_ce_dw", case, ops, bnd, kms, lms)
     del out_dw, want_dw, wc32, dlog
 
 
@@ -922,7 +939,7 @@ def phase_ce_kernels(torch, pt):
                hf, w, lab, want_lse, g_lse, g_tgt, 0, C)[0].to(bf), flush,
                     reps=10),
            None, bnd)
-    ce_rate("vocab_ce_dlog", "train_chunk_8192", ops, bnd, kms, None)
+    product_rate("vocab_ce_dlog", "train_chunk_8192", ops, bnd, kms, None)
     del want_dlog
 
     dh, dw = kce.vocab_ce_bwd(h, w, labels, want_lse, g_lse, g_tgt)
@@ -942,7 +959,7 @@ def phase_ce_kernels(torch, pt):
            flash_compare(torch, [(dh, want_dh)], "bfloat16"), kms,
            timed_ms(torch, lambda: dlog.float() @ wc.float().t(), flush,
                     reps=10), lms, bnd)
-    ce_rate("vocab_ce_dh", "train_8192", ops, bnd, kms, lms)
+    product_rate("vocab_ce_dh", "train_8192", ops, bnd, kms, lms)
     bnd = bound(N * H * e + N * C * e + H * C * e, ops, BF16_OPS_PER_S)
     kms = timed_ms(torch, lambda: kce.vocab_ce_dw(h, dlog, 0, C, out_dw),
                    flush)
@@ -951,7 +968,7 @@ def phase_ce_kernels(torch, pt):
            flash_compare(torch, [(dw.t(), want_dw.t())], "bfloat16"), kms,
            timed_ms(torch, lambda: (hf.t() @ dlog.float()).to(bf), flush,
                     reps=10), lms, bnd)
-    ce_rate("vocab_ce_dw", "train_8192", ops, bnd, kms, lms)
+    product_rate("vocab_ce_dw", "train_8192", ops, bnd, kms, lms)
     del acc, out_dh, out_dw, dh, dw
 
     # the whole head: forward + backward of the kernels, of the plain
@@ -1470,6 +1487,18 @@ def phase_serving(torch, pt, dev, make_cfg):
                                             quant_streams[i]))
                            for i in greedy]))
     quant["greedy_agreement_with_native"] = agree
+    # every int8 product of a prefill (m = the prompt's tokens) must take
+    # the wgmma route, and the counted run's prefills with it
+    pre = quant["launches_per_call"]["prefill"]
+    run = quant["launches"]
+    log(f"quantized serving int8 routes: per prefill of 128 tokens "
+        f"{pre['int8_matmul_wgmma']} of {pre['int8_matmul']} on wgmma; in "
+        f"the run wgmma {run['int8_matmul_wgmma']}, decode "
+        f"{run['int8_matmul_decode']}, fp32 {run['int8_matmul_fp32']}")
+    if not (0 < pre["int8_matmul"] == pre["int8_matmul_wgmma"]
+            and run["int8_matmul_wgmma"] > 0):
+        raise SystemExit("int8 prefill products did not take the wgmma "
+                         "route")
     log(f"quantized vs native serving: {quant['tokens_per_s']:.1f} vs "
         f"{native['tokens_per_s']:.1f} tokens/s; TTFT p50 "
         f"{quant['latency']['ttft_p50_s'] * 1e3:.1f} vs "
@@ -1491,7 +1520,7 @@ def kernel_category(name: str) -> str:
         return "flash " + ("backward" if "bwd" in name else "forward")
     if "vocab_ce" in name:
         return "fused vocab-CE head kernels"
-    if "grouped_matmul" in name:
+    if "grouped_matmul" in name or "grouped::" in name:
         return "grouped matmul kernels"
     if any(w in name for w in ("Sort", "sort", "topk", "TopK", "scatter",
                                "index_copy", "indexSelect", "index_select",
@@ -1877,15 +1906,17 @@ def phase_moe_kernels(torch, pt):
                                                                lib_dw_name]
             y = kgm.grouped_matmul(xs, w, ends)
             want = gmm.grouped_matmul_plain(xs, w, gs)
+            t = (timed_ms(torch, lambda: kgm.grouped_matmul(xs, w, ends),
+                          flush),
+                 timed_ms(torch, lambda: gmm.grouped_matmul_plain(
+                     xs, w, gs), flush, reps=10),
+                 timed_ms(torch, lib_f, flush))
+            bnd = bound(MOE_M * k * 2 + wbytes + MOE_M * n * 4, ops,
+                        BF16_OPS_PER_S)
             record("grouped_matmul", case, "bfloat16",
-                   flash_compare(torch, [(y, want)], "bfloat16"),
-                   timed_ms(torch, lambda: kgm.grouped_matmul(xs, w, ends),
-                            flush),
-                   timed_ms(torch, lambda: gmm.grouped_matmul_plain(
-                       xs, w, gs), flush, reps=10),
-                   timed_ms(torch, lib_f, flush),
-                   bound(MOE_M * k * 2 + wbytes + MOE_M * n * 4, ops,
-                         BF16_OPS_PER_S))
+                   flash_compare(torch, [(y, want)], "bfloat16"), *t, bnd)
+            product_rate("grouped_matmul", case, ops, bnd, t[0], t[2],
+                    key="gemm_rates")
             # every run's rows taken from the run before: rows multiply
             # the next expert's weight, the last run's rows become 0
             shifted = torch.cat([ends.new_zeros(1), ends[:-1]])
@@ -1896,27 +1927,36 @@ def phase_moe_kernels(torch, pt):
                                     transpose_w=True)
             want = gmm.grouped_matmul_plain(gy, w.transpose(1, 2),
                                             gs).to(bf)
+            t = (timed_ms(torch, lambda: kgm.grouped_matmul(
+                     gy, w, ends, out_dtype=bf, transpose_w=True), flush),
+                 timed_ms(torch, lambda: gmm.grouped_matmul_plain(
+                     gy, w.transpose(1, 2), gs).to(bf), flush, reps=10),
+                 timed_ms(torch, lib_dx, flush))
+            bnd = bound(MOE_M * n * 2 + wbytes + MOE_M * k * 2, ops,
+                        BF16_OPS_PER_S)
             record("grouped_matmul", f"{proj}_dx_{kind}", "bfloat16",
-                   flash_compare(torch, [(dx, want)], "bfloat16"),
-                   timed_ms(torch, lambda: kgm.grouped_matmul(
-                       gy, w, ends, out_dtype=bf, transpose_w=True), flush),
-                   timed_ms(torch, lambda: gmm.grouped_matmul_plain(
-                       gy, w.transpose(1, 2), gs).to(bf), flush, reps=10),
-                   timed_ms(torch, lib_dx, flush),
-                   bound(MOE_M * n * 2 + wbytes + MOE_M * k * 2, ops,
-                         BF16_OPS_PER_S))
+                   flash_compare(torch, [(dx, want)], "bfloat16"), *t, bnd)
+            product_rate("grouped_matmul", f"{proj}_dx_{kind}", ops, bnd, t[0],
+                    t[2], key="gemm_rates")
             del dx, want
             dw = kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=bf)
             want = gmm.grouped_matmul_dw_plain(xs, gy, gs).to(bf)
+            t = (timed_ms(torch, lambda: kgm.grouped_matmul_dw(
+                     xs, gy, ends, out_dtype=bf), flush),
+                 timed_ms(torch, lambda: gmm.grouped_matmul_dw_plain(
+                     xs, gy, gs).to(bf), flush, reps=10),
+                 timed_ms(torch, lib_dw, flush))
+            bnd = bound(MOE_M * (k + n) * 2 + MOE_E * k * n * 2, ops,
+                        BF16_OPS_PER_S)
             record("grouped_matmul_dw", case, "bfloat16",
-                   flash_compare(torch, [(dw, want)], "bfloat16"),
-                   timed_ms(torch, lambda: kgm.grouped_matmul_dw(
-                       xs, gy, ends, out_dtype=bf), flush),
-                   timed_ms(torch, lambda: gmm.grouped_matmul_dw_plain(
-                       xs, gy, gs).to(bf), flush, reps=10),
-                   timed_ms(torch, lib_dw, flush),
-                   bound(MOE_M * (k + n) * 2 + MOE_E * k * n * 2, ops,
-                         BF16_OPS_PER_S))
+                   flash_compare(torch, [(dw, want)], "bfloat16"), *t, bnd)
+            product_rate("grouped_matmul_dw", case, ops, bnd, t[0], t[2],
+                    key="gemm_rates")
+            again = kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=bf)
+            if not torch.equal(again, dw):
+                FAILED_CASES.append(f"grouped_matmul_dw/{case}/"
+                                    f"not_bit_identical")
+            del again
             empty = gs == 0
             if bool(empty.any()) and int(torch.count_nonzero(dw[empty])):
                 FAILED_CASES.append(f"grouped_matmul_dw/{case}/empty_not_0")
@@ -1954,6 +1994,106 @@ def phase_moe_kernels(torch, pt):
     record("grouped_matmul_dw", "ragged_400", "float32",
            (diff, diff / scale, diff <= 1e-5 * scale), tol="1e-5 of max")
     RESULTS["planted_moe"] = planted
+    del flush
+    torch.cuda.empty_cache()
+
+
+def phase_parent_turns(torch, parent):
+    """With ``--parent DIR`` (the parent commit's tree unpacked in DIR):
+    the parent's int8 prefill product and grouped bf16 kernels against
+    this tree's on the same inputs, each library built from its own
+    tree's sources, timed in turns (parent, this, this, parent) as
+    timed_ms times phase 3's rows: the int8 product at gate_up (n 28672,
+    k 4096) with m = 128 and 1024; forward, dx and dW at phase 3's
+    DeepSeekMoE-16B shapes, balanced and skewed. The two results' largest
+    difference is kept beside the times."""
+    from pathlib import Path
+    from paddle_tpu_torch.nn.quantized_linear import weight_quantize
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    from paddle_tpu_torch.ops.kernels import int8_matmul as kmm
+    root = Path(parent).resolve()
+    build_log = {}
+    plib = _build.load(_build.build(root / "paddle_tpu_torch" / "csrc",
+                                    root / "build" / "torch_kernels",
+                                    build_log))
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(97)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+    rows = {}
+
+    def turns(name, parent_fn, this_fn):
+        diff = float((parent_fn().float() - this_fn().float()).abs().max())
+        t = [timed_ms(torch, f, flush)
+             for f in (parent_fn, this_fn, this_fn, parent_fn)]
+        rows[name] = {"parent_us": [t[0] * 1e3, t[3] * 1e3],
+                      "this_us": [t[1] * 1e3, t[2] * 1e3],
+                      "max_abs_diff": diff}
+        log(f"parent vs this tree, {name}: parent {t[0] * 1e3:.1f} us, this "
+            f"{t[1] * 1e3:.1f} us, this {t[2] * 1e3:.1f} us, parent "
+            f"{t[3] * 1e3:.1f} us; max |parent - this| {diff:.3e}")
+
+    def ran(err, what):
+        _build.check(err, f"parent {what}")
+
+    n, k = 28672, 4096
+    wq, scale = weight_quantize(0.02 * torch.randn((k, n), generator=g,
+                                                   device=dev))
+    for m in (128, 1024):
+        x = torch.randn((m, k), generator=g, device=dev).to(bf)
+        y = torch.empty((m, n), dtype=bf, device=dev)
+
+        def par_mm():
+            ran(plib.pt_int8_matmul(x.data_ptr(), wq.data_ptr(),
+                                    scale.data_ptr(), y.data_ptr(), m, n, k,
+                                    1, _build.stream_ptr(dev)), "int8")
+            return y
+        turns(f"int8_matmul/prefill_gate_up_{m}", par_mm,
+              lambda: kmm.int8_matmul(x, wq, scale))
+    del wq, scale, x, y
+    for proj, (k, n) in (("gate_up", (2048, 2816)), ("down", (1408, 2048))):
+        w = (0.02 * torch.randn((MOE_E, k, n), generator=g,
+                                device=dev)).to(bf)
+        xs = torch.randn((MOE_M, k), generator=g, device=dev).to(bf)
+        gy = torch.randn((MOE_M, n), generator=g, device=dev).to(bf)
+        y = torch.empty((MOE_M, n), dtype=torch.float32, device=dev)
+        dx = torch.empty((MOE_M, k), dtype=bf, device=dev)
+        dw = torch.empty((MOE_E, k, n), dtype=bf, device=dev)
+        for kind in ("balanced", "skewed"):
+            ends = kgm.group_ends(expert_counts(torch, kind, MOE_M, MOE_E,
+                                                g))
+            s = _build.stream_ptr(dev)
+
+            def par_fwd():
+                ran(plib.pt_grouped_matmul(
+                    xs.data_ptr(), w.data_ptr(), ends.data_ptr(),
+                    y.data_ptr(), MOE_M, k, n, MOE_E, 0, 1, 0, 1, s), "fwd")
+                return y
+
+            def par_dx():
+                ran(plib.pt_grouped_matmul(
+                    gy.data_ptr(), w.data_ptr(), ends.data_ptr(),
+                    dx.data_ptr(), MOE_M, n, k, MOE_E, 1, 1, 1, 1, s), "dx")
+                return dx
+
+            def par_dw():
+                ran(plib.pt_grouped_matmul_dw(
+                    xs.data_ptr(), gy.data_ptr(), ends.data_ptr(),
+                    dw.data_ptr(), MOE_M, k, n, MOE_E, 1, 1, 1, s), "dw")
+                return dw
+            turns(f"grouped_matmul/{proj}_{kind}", par_fwd,
+                  lambda: kgm.grouped_matmul(xs, w, ends))
+            turns(f"grouped_matmul/{proj}_dx_{kind}", par_dx,
+                  lambda: kgm.grouped_matmul(gy, w, ends, out_dtype=bf,
+                                             transpose_w=True))
+            turns(f"grouped_matmul_dw/{proj}_{kind}", par_dw,
+                  lambda: kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=bf))
+        del w, xs, gy, y, dx, dw
+        torch.cuda.empty_cache()
+    RESULTS["parent_turns"] = {"parent": str(root), "rows": rows,
+                               "parent_build_s": build_log.get("seconds")}
     del flush
     torch.cuda.empty_cache()
 
@@ -2115,6 +2255,16 @@ def phase_moe_train(torch, pt, dev, make_cfg, b=2, s=4096):
     if missing:
         raise SystemExit(f"kernels not launched on the MoE training path: "
                          f"{missing}")
+    # every grouped launch of the dropless step on the wgmma route
+    off = [k for k in ("grouped_matmul", "grouped_matmul_dw")
+           if launches[f"{k}_wgmma"] != launches[k]]
+    log(f"MoE training grouped routes per step: "
+        f"{info['launches_per_step']['grouped_matmul_wgmma']} + "
+        f"{info['launches_per_step']['grouped_matmul_dw_wgmma']} on wgmma "
+        f"of {info['launches_per_step']['grouped_matmul']} + "
+        f"{info['launches_per_step']['grouped_matmul_dw']}")
+    if off:
+        raise SystemExit(f"grouped launches off the wgmma route: {off}")
     for name, run in (("dropless", info), ("capacity", cap)):
         if not all(math.isfinite(x) for x in run["losses"]):
             raise SystemExit(f"MoE training loss not finite ({name}): "
@@ -2156,6 +2306,9 @@ def main() -> int:
     phase_ce_kernels(torch, pt)
     with torch.inference_mode():
         phase_moe_kernels(torch, pt)
+        if "--parent" in sys.argv:
+            phase_parent_turns(torch, sys.argv[sys.argv.index("--parent")
+                                                + 1])
     if FAILED_CASES:
         raise SystemExit(f"kernels disagree with their plain versions: "
                          f"{FAILED_CASES}")

@@ -263,7 +263,7 @@ struct DlogEpi {
     int lab;  // the label's column in the chunk (may lie outside it)
     bool ok;
   };
-  __device__ __forceinline__ Row row(int r) const {
+  __device__ __forceinline__ Row row(const pt::wg::Tile&, int r) const {
     Row x = {nullptr, 0.f, 0.f, 0.f, -1, r < N};
     if (x.ok) {
       x.out = out + static_cast<long long>(r) * ld;
@@ -307,7 +307,7 @@ struct DhEpi {
     long long at;
     bool ok;
   };
-  __device__ __forceinline__ Row row(int r) const {
+  __device__ __forceinline__ Row row(const pt::wg::Tile&, int r) const {
     return {static_cast<long long>(r) * H, r < N};
   }
   __device__ __forceinline__ float2 addend(const Row& r, int col) const {
@@ -337,7 +337,7 @@ struct DwEpi {
     bf* out;
     bool ok;
   };
-  __device__ __forceinline__ Row row(int r) const {
+  __device__ __forceinline__ Row row(const pt::wg::Tile&, int r) const {
     return {out + static_cast<long long>(r) * V + c0, r < H};
   }
   __device__ __forceinline__ float2 addend(const Row&, int) const {

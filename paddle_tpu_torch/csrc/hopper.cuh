@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the port's `wgmma` kernels (flash
 // attention and the TMA + `wgmma` GEMM mainloop of wgmma_gemm.cuh):
 // shared-memory addresses and `wgmma` descriptors, the warpgroup fences,
-// mbarriers, TMA tile loads, register reallocation between warpgroups, and
-// the host's lookup of cuTensorMapEncodeTiled. Everything here needs
+// mbarriers, TMA tile loads, proxy fences and named barriers, register
+// reallocation between warpgroups, and the host's lookup of
+// cuTensorMapEncodeTiled. Everything here needs
 // sm_90a.
 #pragma once
 
@@ -116,6 +117,52 @@ __device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// a box from shared memory to the 3-D tensor map's coordinates, in the
+// bulk group of this thread (TMA drops what lies outside the tensor)
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           const void* src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups are still reading shared
+// memory (READ) or still writing to global memory (!READ)
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// reads of the async proxy (`wgmma` operands, TMA)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// barrier `id` (1 .. 15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 template <int NREG>

@@ -1,9 +1,10 @@
 // A TMA + `wgmma` GEMM mainloop for Hopper (sm_90a), bf16 operands and
 // fp32 accumulators, shared by the fused vocab-CE backward's three
-// products. C = A . B, A(m, k) and B(k, n) each K-major (k contiguous) or
-// MN-major (m or n contiguous), as the template says; the caller's
-// epilogue functor takes the accumulator fragment in registers and writes
-// what it wants (nothing goes through a shared-memory fp32 tile).
+// products and the grouped matmul's forward, dx and dW. C = A . B, A(m, k)
+// and B(k, n) each K-major (k contiguous) or MN-major (m or n contiguous),
+// as the template says; the caller's epilogue functor takes the
+// accumulator fragment in registers and writes what it wants (nothing goes
+// through a shared-memory fp32 tile).
 //
 // Design (the shape of CUTLASS's warp-specialised Hopper GEMM):
 //   - 128 x 256 output tiles, 64-deep k-slices;
@@ -15,13 +16,22 @@
 //     the 128-byte swizzle that the `wgmma` descriptors read in place;
 //     mbarriers carry completion (full) and release (empty, one arrival a
 //     consumer warpgroup);
-//   - persistent: min(tiles, SMs) blocks walk the tiles in a raster that
-//     keeps GROUP row tiles of one column tile together in L2, and the
-//     producer runs ahead into the next tile's slices while the consumers
-//     write the last one;
-//   - operands come from 2-D tensor maps over the whole row-major
-//     matrices; TMA fills what lies outside them with zeros, so ragged M,
-//     N and K need masking only in the epilogue.
+//   - persistent: min(tiles, SMs) blocks walk the tiles of a scheduler,
+//     and the producer runs ahead into the next tile's slices while the
+//     consumers write the last one;
+//   - operands come from tensor maps over whole row-major matrices; TMA
+//     fills what lies outside them with zeros, so ragged M, N and K need
+//     masking only in the epilogue.
+// The epilogue stores from registers, or (Store below) stages a bf16 tile
+// in shared memory and stores it by TMA while the next tile runs.
+// The scheduler (a template parameter) says which tiles there are, where
+// each one's slices come from and how many it has: `Dense` walks one
+// product in a raster that keeps GROUP row tiles of one column tile
+// together in L2; the grouped matmul's schedulers (grouped_matmul.cu)
+// read the runs' offsets on the device into a table in shared memory at
+// block start. A scheduler whose contraction runs over a ragged range of
+// rows (RAGGED_K, MN-major A and B) has the consumers zero the rows of a
+// slice past the range before its products.
 // Shared-memory layout of a slice: A is [128 rows][64 k] (K-major, one box)
 // or two panels of [64 k][64 m] (MN-major, one box each); B is
 // [256 rows][64 k] (K-major, one box) or four panels of [64 k][64 n]
@@ -30,6 +40,8 @@
 
 #include <cuda.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -46,6 +58,27 @@ constexpr int B_BYTES = BN * BK * 2;      // 32 KB
 constexpr int STAGE = A_BYTES + B_BYTES;  // 48 KB
 constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 constexpr int ACC = BN / 2;               // fp32 accumulators a thread
+constexpr int SMEM_MAX = 232448;          // a block's limit on sm_90
+// a TMA-store epilogue's staging: per consumer warpgroup half its
+// 64 x 256 bf16 tile, two [64][64] boxes in the 128-byte swizzle
+constexpr int STAGING = 2 * 2 * PANEL;
+
+// How an epilogue stores the accumulator (its member STORE; PAIRS if it
+// has none): PAIRS calls pair() with two columns a lane; QUADS calls
+// quad() with four bf16 columns a lane (8 bytes: whole 32-byte sectors a
+// row and store), after an exchange within each quad of lanes; TMA
+// stages the tile as bf16 in shared memory and calls store_box() to
+// store each [64][64] box by TMA, asynchronously, so the next tile's
+// products start at once.
+enum Store { PAIRS = 0, QUADS = 1, TMA = 2 };
+template <class E, class = void>
+struct store_of {
+  static constexpr int value = PAIRS;
+};
+template <class E>
+struct store_of<E, std::void_t<decltype(E::STORE)>> {
+  static constexpr int value = E::STORE;
+};
 
 // Output tile (tm, tn) of tile index id: consecutive ids walk down GROUP
 // row tiles of one column tile before moving right, so the tiles in
@@ -124,49 +157,172 @@ __device__ __forceinline__ uint64_t b_desc(const unsigned char* sb, int kk) {
             : gdesc(sb + kk * 32, 16, 1024, 1);
 }
 
-struct Shape {
+// One output tile: rows m0.., columns n0.., nk slices of BK. The grouped
+// schedulers also say which run (expert) it is and the rows [lo, hi) that
+// bound it: the forward's output rows, dW's contraction rows.
+struct Tile {
+  int m0, n0, nk;
+  int run, lo, hi;
+};
+
+// One product C [M, N] = A . B over K; boff is added to B's contiguous
+// coordinate (a column offset).
+struct Dense {
   int M, N, K;
   int tiles_m, tiles_n;
-  int boff;  // added to B's contiguous coordinate (a column offset)
+  int boff;
+  static constexpr bool RAGGED_K = false;
+
+  __host__ __device__ int table_bytes() const { return 0; }
+  __device__ void setup(int*, unsigned char*) const {}
+  __device__ int count(const int*) const { return tiles_m * tiles_n; }
+  __device__ Tile tile(const int*, int id) const {
+    int tm, tn;
+    raster(id, tiles_m, tiles_n, tm, tn);
+    return {tm * BM, tn * BN, (K + BK - 1) / BK, 0, 0, 0};
+  }
+  template <bool A_MN, bool B_MN>
+  __device__ void load(const Tile& t, int kt, const CUtensorMap* ta,
+                       const CUtensorMap* tb, unsigned char* sa,
+                       unsigned char* sb, uint64_t* bar) const {
+    const int k0 = kt * BK;
+    if (A_MN) {
+      tma_load2(sa, ta, bar, t.m0, k0);
+      tma_load2(sa + PANEL, ta, bar, t.m0 + 64, k0);
+    } else {
+      tma_load2(sa, ta, bar, k0, t.m0);
+    }
+    if (B_MN) {
+#pragma unroll
+      for (int p = 0; p < BN / 64; ++p)
+        tma_load2(sb + p * PANEL, tb, bar, boff + t.n0 + 64 * p, k0);
+    } else {
+      tma_load2(sb, tb, bar, boff + k0, t.n0);
+    }
+  }
 };
 
 // The accumulator fragment of a consumer warpgroup's 64 x 256 tile: thread
 // t (warp w = t / 32, lane) holds, for i in {0, 1} and c in 0 .. 31, the
 // pair acc[4 c + 2 i], acc[4 c + 2 i + 1] at row 16 w + lane / 4 + 8 i,
 // columns 8 c + 2 (lane % 4) + {0, 1}. The epilogue functor gives per
-// row `row(r)` (a state with `ok`), per pair of columns an `addend(state,
-// col)` to add (a float2; every one of a row is read before the first
-// pair is stored, so the reads of the row are in flight together), and
-// stores a pair with `pair(state, col, x0, x1)`.
+// row `row(tile, r)` (a state with `ok`), per pair of columns an
+// `addend(state, col)` to add (a float2; every one of a row is read
+// before the first pair is stored, so the reads of the row are in flight
+// together), and stores a pair with `pair(state, col, x0, x1)`; a QUADS
+// epilogue stores four bf16 columns with `quad(state, col, v)` instead.
 template <class Epi>
-__device__ __forceinline__ void store_tile(const Epi& epi,
+__device__ __forceinline__ void store_tile(const Epi& epi, const Tile& t,
                                            const float (&acc)[ACC], int r0,
                                            int c0) {
+  if constexpr (store_of<Epi>::value == QUADS) {
+    // lane c of a quad holds pair c of column groups j and j + 1 (a, b);
+    // two exchanges give lane c columns 8 j + 4 c .. + 3: lanes 0, 1 the
+    // pairs of group j, lanes 2, 3 those of group j + 1
+    const int c = threadIdx.x & 3;
+    const bool lo2 = c < 2, odd = c & 1;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const typename Epi::Row row = epi.row(r0 + 8 * i);
-    if (!row.ok) continue;
-    float2 add[BN / 8];
+    for (int i = 0; i < 2; ++i) {
+      const typename Epi::Row row = epi.row(t, r0 + 8 * i);
 #pragma unroll
-    for (int c = 0; c < BN / 8; ++c) add[c] = epi.addend(row, c0 + 8 * c);
+      for (int j = 0; j < BN / 8; j += 2) {
+        const uint32_t a =
+            pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        const uint32_t b =
+            pack_bf16(acc[4 * j + 4 + 2 * i], acc[4 * j + 4 + 2 * i + 1]);
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, lo2 ? b : a, 2);
+        const uint32_t lo = lo2 ? a : got, hi = lo2 ? got : b;
+        const uint32_t got2 = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 1);
+        if (row.ok)
+          epi.quad(row, c0 - 2 * c + 8 * j + 4 * c,
+                   odd ? make_uint2(got2, hi) : make_uint2(lo, got2));
+      }
+    }
+  } else {
 #pragma unroll
-    for (int c = 0; c < BN / 8; ++c)
-      epi.pair(row, c0 + 8 * c, acc[4 * c + 2 * i] + add[c].x,
-               acc[4 * c + 2 * i + 1] + add[c].y);
+    for (int i = 0; i < 2; ++i) {
+      const typename Epi::Row row = epi.row(t, r0 + 8 * i);
+      if (!row.ok) continue;
+      float2 add[BN / 8];
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) add[c] = epi.addend(row, c0 + 8 * c);
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c)
+        epi.pair(row, c0 + 8 * c, acc[4 * c + 2 * i] + add[c].x,
+                 acc[4 * c + 2 * i + 1] + add[c].y);
+    }
   }
 }
 
-template <bool A_MN, bool B_MN, class Epi>
+// A TMA epilogue: consumer warpgroup w (thread t of 128) stages its
+// 64 x 256 tile as bf16 in two halves of 128 columns through `stage`
+// (two [64][64] boxes in the 128-byte swizzle, conflict-free writes), and
+// thread 0 stores each box by TMA. A half waits only until the last
+// stores from `stage` have read it.
+template <class Epi>
+__device__ __forceinline__ void store_tile_tma(const Epi& epi,
+                                               const CUtensorMap* tc,
+                                               const Tile& tl,
+                                               const float (&acc)[ACC],
+                                               unsigned char* stage, int w,
+                                               int t) {
+  const int g = (t & 31) >> 2, c = t & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (t == 0) bulk_wait<0, true>();
+    named_sync(2 + w, 128);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = 16 * (t >> 5) + g + 8 * i;  // row of the 64; r % 8 = g
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int cc = 16 * h + q;
+        *reinterpret_cast<uint32_t*>(stage + (q >> 3) * PANEL + r * 128 +
+                                     (((q & 7) ^ g) << 4) + 4 * c) =
+            pack_bf16(acc[4 * cc + 2 * i], acc[4 * cc + 2 * i + 1]);
+      }
+    }
+    fence_async_shared();
+    named_sync(2 + w, 128);
+    if (t == 0) {
+      epi.store_box(tc, stage, tl, tl.m0 + 64 * w, tl.n0 + 128 * h);
+      epi.store_box(tc, stage + PANEL, tl, tl.m0 + 64 * w,
+                    tl.n0 + 128 * h + 64);
+      bulk_commit();
+    }
+  }
+}
+
+// rows [from, 64) of `panels` consecutive [64 k][64] MN-major panels set
+// to 0 by the 128 threads of a warpgroup (thread t): whole 128-byte rows,
+// which the swizzle permutes only within themselves
+__device__ __forceinline__ void zero_panel_rows(unsigned char* p, int panels,
+                                               int from, int t) {
+  const int per = (64 - from) * 8;  // 16-byte words of one panel
+  for (int i = t; i < panels * per; i += 128) {
+    const int q = i / per, j = i % per;
+    *reinterpret_cast<uint4*>(p + q * PANEL + from * 128 + j * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// tc: the output's tensor map, read by TMA epilogues only
+template <bool A_MN, bool B_MN, class Sched, class Epi>
 __global__ void __launch_bounds__(NTH, 1)
     gemm_kernel(const __grid_constant__ CUtensorMap ta,
-                const __grid_constant__ CUtensorMap tb, const Shape s,
+                const __grid_constant__ CUtensorMap tb,
+                const __grid_constant__ CUtensorMap tc, const Sched sched,
                 const Epi epi) {
+  static_assert(!Sched::RAGGED_K || (A_MN && B_MN),
+                "a ragged contraction needs MN-major A and B");
+  constexpr bool TMA_OUT = store_of<Epi>::value == TMA;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + STAGES * STAGE);
+  unsigned char* staging = sm + STAGES * STAGE;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(staging + (TMA_OUT ? STAGING : 0));
   uint64_t* empty = full + STAGES;
-  const int tiles = s.tiles_m * s.tiles_n;
-  const int nk = (s.K + BK - 1) / BK;
+  int* table = reinterpret_cast<int*>(empty + STAGES);
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -175,7 +331,10 @@ __global__ void __launch_bounds__(NTH, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // (the ring is the scheduler's scratch until the producer starts)
+  sched.setup(table, sm);
   __syncthreads();
+  const int tiles = sched.count(table);
 
   const int w = threadIdx.x / 128;
   if (w == 2) {
@@ -183,31 +342,15 @@ __global__ void __launch_bounds__(NTH, 1)
     setmaxnreg_dec<40>();
     if (threadIdx.x == 256) {
       int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        int tm, tn;
-        raster(tile, s.tiles_m, s.tiles_n, tm, tn);
-        const int m0 = tm * BM, n0 = tn * BN;
-        for (int kt = 0; kt < nk; ++kt, ++it) {
+      for (int id = blockIdx.x; id < tiles; id += gridDim.x) {
+        const Tile t = sched.tile(table, id);
+        for (int kt = 0; kt < t.nk; ++kt, ++it) {
           const int st = it % STAGES;
           mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
           unsigned char* sa = sm + st * STAGE;
-          unsigned char* sb = sa + A_BYTES;
-          const int k0 = kt * BK;
           mbar_expect_tx(&full[st], STAGE);
-          if (A_MN) {
-            tma_load2(sa, &ta, &full[st], m0, k0);
-            tma_load2(sa + PANEL, &ta, &full[st], m0 + 64, k0);
-          } else {
-            tma_load2(sa, &ta, &full[st], k0, m0);
-          }
-          if (B_MN) {
-#pragma unroll
-            for (int p = 0; p < BN / 64; ++p)
-              tma_load2(sb + p * PANEL, &tb, &full[st], s.boff + n0 + 64 * p,
-                        k0);
-          } else {
-            tma_load2(sb, &tb, &full[st], s.boff + k0, n0);
-          }
+          sched.template load<A_MN, B_MN>(t, kt, &ta, &tb, sa, sa + A_BYTES,
+                                          &full[st]);
         }
       }
     }
@@ -217,16 +360,27 @@ __global__ void __launch_bounds__(NTH, 1)
     const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
     float acc[ACC];
     int it = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      int tm, tn;
-      raster(tile, s.tiles_m, s.tiles_n, tm, tn);
+    for (int id = blockIdx.x; id < tiles; id += gridDim.x) {
+      const Tile tl = sched.tile(table, id);
 #pragma unroll
       for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
-      for (int kt = 0; kt < nk; ++kt, ++it) {
+      for (int kt = 0; kt < tl.nk; ++kt, ++it) {
         const int st = it % STAGES;
         mbar_wait(&full[st], (it / STAGES) & 1);
-        const unsigned char* sa = sm + st * STAGE;
-        const unsigned char* sb = sa + A_BYTES;
+        unsigned char* sa = sm + st * STAGE;
+        unsigned char* sb = sa + A_BYTES;
+        if constexpr (Sched::RAGGED_K) {
+          // the slice's rows past the contraction range belong to another
+          // run: zero them (A panel w, B panels 2 w and 2 w + 1), make the
+          // writes visible to `wgmma`, and wait for the other warpgroup's
+          const int valid = sched.valid_k(tl, kt);
+          if (valid < BK) {
+            zero_panel_rows(sa + w * PANEL, 1, valid, t);
+            zero_panel_rows(sb + 2 * w * PANEL, 2, valid, t);
+            fence_async_shared();
+            named_sync(1, 256);
+          }
+        }
         wg_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
@@ -239,10 +393,16 @@ __global__ void __launch_bounds__(NTH, 1)
       }
       wg_wait<0>();
       keep(acc);
-      if (nk > 0 && t == 0) mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
-      store_tile(epi, acc, tm * BM + 64 * w + 16 * warp + (lane >> 2),
-                 tn * BN + 2 * (lane & 3));
+      if (tl.nk > 0 && t == 0)
+        mbar_arrive(&empty[(it + STAGES - 1) % STAGES]);
+      if constexpr (TMA_OUT)
+        store_tile_tma(epi, &tc, tl, acc, staging + w * (STAGING / 2), w, t);
+      else
+        store_tile(epi, tl, acc, tl.m0 + 64 * w + 16 * warp + (lane >> 2),
+                   tl.n0 + 2 * (lane & 3));
     }
+    // the last stores have left shared memory before the block ends
+    if (TMA_OUT && t == 0) bulk_wait<0, false>();
   }
 }
 
@@ -269,6 +429,55 @@ inline bool map_bf16(CUtensorMap* m, const Operand& o, int box_rows) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the same over `depth` contiguous row-major matrices [rows, cols] (a
+// batch, such as the experts' weights [g, rows, cols]), read a box of one
+// matrix at a time: TMA's zero fill ends each at its own edges
+inline bool map_bf16_3d(CUtensorMap* m, const void* base, int cols, int rows,
+                        int depth, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(cols) * 2,
+      static_cast<cuuint64_t>(cols) * static_cast<cuuint64_t>(rows) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch the mainloop over the scheduler's tiles: min(max_tiles, SMs)
+// persistent blocks, with a TMA epilogue's staging and the scheduler's
+// table after the ring. max_tiles bounds the tiles from above where only
+// the device knows their count; tc is the output's tensor map (read by a
+// TMA epilogue only).
+template <bool A_MN, bool B_MN, class Sched, class Epi>
+int launch(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& tc,
+           const Sched& sched, const Epi& epi, long long max_tiles,
+           cudaStream_t stream) {
+  if (max_tiles <= 0) return cudaSuccess;
+  const int smem = SMEM + (store_of<Epi>::value == TMA ? STAGING : 0) +
+                   sched.table_bytes();
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gemm_kernel<A_MN, B_MN, Sched, Epi>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return e;
+  const int grid = max_tiles < sms ? static_cast<int>(max_tiles) : sms;
+  gemm_kernel<A_MN, B_MN, Sched, Epi>
+      <<<grid, NTH, smem, stream>>>(ta, tb, tc, sched, epi);
+  return cudaGetLastError();
+}
+
 // C [M, N] = A [M, K] . B [K, N] into `epi`. A is K-major (storage a =
 // [M rows, K cols]) or, with A_MN, MN-major (a = [K rows, M cols]); B is
 // K-major (b = [N rows, K cols]) or, with B_MN, MN-major (b = [K rows,
@@ -280,21 +489,10 @@ int gemm(const Operand& a, const Operand& b, int M, int N, int K, int boff,
   CUtensorMap ta, tb;
   if (!map_bf16(&ta, a, A_MN ? 64 : BM)) return MAP_REFUSED;
   if (!map_bf16(&tb, b, B_MN ? 64 : BN)) return MAP_REFUSED + 1;
-  const Shape s = {M, N, K, (M + BM - 1) / BM, (N + BN - 1) / BN, boff};
-  const int tiles = s.tiles_m * s.tiles_n;
-  if (tiles == 0) return cudaSuccess;
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(gemm_kernel<A_MN, B_MN, Epi>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM);
-  if (e != cudaSuccess) return e;
-  const int grid = tiles < sms ? tiles : sms;
-  gemm_kernel<A_MN, B_MN, Epi><<<grid, NTH, SMEM, stream>>>(ta, tb, s, epi);
-  return cudaGetLastError();
+  const Dense s = {M, N, K, (M + BM - 1) / BM, (N + BN - 1) / BN, boff};
+  return launch<A_MN, B_MN>(ta, tb, CUtensorMap{}, s, epi,
+                            static_cast<long long>(s.tiles_m) * s.tiles_n,
+                            stream);
 }
 
 }  // namespace wg

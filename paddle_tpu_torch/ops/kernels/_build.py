@@ -43,7 +43,17 @@ LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rms_norm_bwd": 0,
                             "vocab_ce_fwd": 0, "vocab_ce_dlog": 0,
                             "vocab_ce_dh": 0, "vocab_ce_dw": 0,
                             "int8_matmul": 0, "grouped_matmul": 0,
-                            "grouped_matmul_dw": 0}
+                            "grouped_matmul_dw": 0,
+                            # the route each of these took (every launch
+                            # counts under its kernel's name as well)
+                            "int8_matmul_wgmma": 0, "int8_matmul_decode": 0,
+                            "int8_matmul_fp32": 0,
+                            "grouped_matmul_wgmma": 0,
+                            "grouped_matmul_tile": 0,
+                            "grouped_matmul_fma": 0,
+                            "grouped_matmul_dw_wgmma": 0,
+                            "grouped_matmul_dw_tile": 0,
+                            "grouped_matmul_dw_fma": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_LOG: Dict[str, object] = {}
@@ -58,8 +68,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -74,34 +84,38 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted(csrc.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libpaddle_tpu_torch_kernels-{_digest()}.so"
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    return build_dir / f"libpaddle_tpu_torch_kernels-{_digest(csrc)}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library of their hash exists; returns
-    its path. Raises with nvcc's output when a compile fails."""
-    out = library_path()
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+          log: Optional[Dict[str, object]] = None) -> Path:
+    """Compile the sources of ``csrc`` (this package's by default) into
+    ``build_dir`` unless a library of their hash exists; returns its path
+    and records the build in ``log`` (:data:`BUILD_LOG` by default).
+    Raises with nvcc's output when a compile fails."""
+    log = BUILD_LOG if log is None else log
+    out = library_path(csrc, build_dir)
     if out.exists():
-        BUILD_LOG.update(seconds=0.0, cached=True, path=str(out))
+        log.update(seconds=0.0, cached=True, path=str(out))
         return out
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    stage = BUILD_DIR / f"stage-{os.getpid()}-{time.time_ns()}"
+    build_dir.mkdir(parents=True, exist_ok=True)
+    stage = build_dir / f"stage-{os.getpid()}-{time.time_ns()}"
     stage.mkdir()
     t0 = time.perf_counter()
     try:
         procs = []
-        for src in sources():
+        for src in sources(csrc):
             obj = stage / (src.stem + ".o")
             procs.append((src, obj, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
@@ -127,16 +141,22 @@ def build() -> Path:
         os.replace(tmp, out)
     finally:
         shutil.rmtree(stage, ignore_errors=True)
-    BUILD_LOG.update(seconds=time.perf_counter() - t0, cached=False,
-                     path=str(out), ptxas=logs)
+    log.update(seconds=time.perf_counter() - t0, cached=False,
+               path=str(out), ptxas=logs)
     return out
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A kernel library at ``path`` with its C entry points declared (this
+    package's, or another tree's of the same interface)."""
+    return _declare(ctypes.CDLL(str(path)))
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _LIB
     if _LIB is None:
-        _LIB = _declare(ctypes.CDLL(str(build())))
+        _LIB = load(build())
     return _LIB
 
 
@@ -191,5 +211,5 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-__all__ = ["build", "lib", "check", "LAUNCHES", "count_launch",
+__all__ = ["build", "lib", "load", "check", "LAUNCHES", "count_launch",
            "reset_launches", "BUILD_DIR", "CSRC", "dtype_code", "stream_ptr"]

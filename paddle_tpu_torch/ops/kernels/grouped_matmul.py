@@ -12,6 +12,14 @@ that kernel is this port's own design. The plain versions are
 Runs are given by their device offsets ``ends`` (:func:`group_ends`, the
 int32 cumulative sum of the group sizes): no wrapper reads a group size
 on the host.
+
+Each kernel has three routes, which :func:`route` chooses from dtype,
+widths, group count and alignment before the launch: ``"wgmma"`` (bf16,
+both widths multiples of 8, 16-byte aligned bases, at most
+``MAX_GROUPS`` groups: TMA + ``wgmma`` under a grouped tile scheduler),
+``"tile"`` (other bf16: the ``mma.sync`` tile loop) and ``"fma"``
+(fp32). A launch counts under the kernel's name and under
+``<name>_<route>``.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from . import _build
 SOURCE = "paddle_tpu_torch/csrc/grouped_matmul.cu"
 REPLACES = "paddle_tpu/ops/pallas/grouped_matmul.py:73"
 REPLACES_DW = "paddle_tpu/ops/pallas/grouped_matmul.py:304"
+# the largest group count of the wgmma route's shared-memory tables
+MAX_GROUPS = 512
 
 
 def group_ends(group_sizes: torch.Tensor) -> torch.Tensor:
@@ -55,11 +65,29 @@ def _check(name: str, a: torch.Tensor, b: torch.Tensor, ends: torch.Tensor,
     return code
 
 
-def _vec(k: int, n: int, *ts: torch.Tensor) -> int:
-    """1 when the bf16 tile loads may be 16-byte copies: both widths
-    multiples of 8 elements and every base 16-byte aligned."""
-    return int(k % 8 == 0 and n % 8 == 0
-               and all(t.data_ptr() % 16 == 0 for t in ts))
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def route(dtype: torch.dtype, k: int, n: int, g: int,
+          aligned: bool = True) -> str:
+    """The kernel route for operands of ``dtype``, contraction or input
+    width k, output width n, g groups; ``aligned``: every base 16-byte
+    aligned."""
+    if dtype == torch.float32:
+        return "fma"
+    if k % 8 == 0 and n % 8 == 0 and aligned and g <= MAX_GROUPS:
+        return "wgmma"
+    return "tile"
+
+
+def _code(way: str, k: int, n: int, aligned: bool) -> int:
+    """The C side's route code: 2 wgmma; the tile loop with 16-byte loads
+    (1) where both widths are multiples of 8 and the bases aligned, else
+    element loads (0)."""
+    if way == "wgmma":
+        return 2
+    return int(way == "tile" and k % 8 == 0 and n % 8 == 0 and aligned)
 
 
 def grouped_matmul(xs: torch.Tensor, w: torch.Tensor, ends: torch.Tensor,
@@ -84,12 +112,15 @@ def grouped_matmul(xs: torch.Tensor, w: torch.Tensor, ends: torch.Tensor,
     y = torch.empty((m, n), dtype=out_dtype, device=xs.device)
     if m == 0 or n == 0:
         return y
+    aligned = _aligned(xs, w)
+    way = route(xs.dtype, k, n, g, aligned)
     err = _build.lib().pt_grouped_matmul(
         xs.data_ptr(), w.data_ptr(), ends.data_ptr(), y.data_ptr(), m, k, n,
         g, int(transpose_w), code, _build.dtype_code(out_dtype),
-        _vec(k, n, xs, w), _build.stream_ptr(xs.device))
+        _code(way, k, n, aligned), _build.stream_ptr(xs.device))
     _build.check(err, "grouped_matmul")
     _build.count_launch("grouped_matmul")
+    _build.count_launch(f"grouped_matmul_{way}")
     return y
 
 
@@ -108,14 +139,17 @@ def grouped_matmul_dw(xs: torch.Tensor, gy: torch.Tensor, ends: torch.Tensor,
     dw = torch.empty((g, k, n), dtype=out_dtype, device=xs.device)
     if k == 0 or n == 0:
         return dw
+    aligned = _aligned(xs, gy)
+    way = route(xs.dtype, k, n, g, aligned)
     err = _build.lib().pt_grouped_matmul_dw(
         xs.data_ptr(), gy.data_ptr(), ends.data_ptr(), dw.data_ptr(), m, k, n,
-        g, code, _build.dtype_code(out_dtype), _vec(k, n, xs, gy),
+        g, code, _build.dtype_code(out_dtype), _code(way, k, n, aligned),
         _build.stream_ptr(xs.device))
     _build.check(err, "grouped_matmul_dw")
     _build.count_launch("grouped_matmul_dw")
+    _build.count_launch(f"grouped_matmul_dw_{way}")
     return dw
 
 
-__all__ = ["grouped_matmul", "grouped_matmul_dw", "group_ends", "SOURCE",
-           "REPLACES", "REPLACES_DW"]
+__all__ = ["grouped_matmul", "grouped_matmul_dw", "group_ends", "route",
+           "MAX_GROUPS", "SOURCE", "REPLACES", "REPLACES_DW"]

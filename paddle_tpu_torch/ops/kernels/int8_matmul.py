@@ -4,6 +4,12 @@
 Replaces ``paddle_tpu/ops/pallas/int8_matmul.py`` ``_kernel``. The plain
 version is ``ops.quant.weight_only_plain``; ``ops.quant.quantized_matmul``
 chooses between the two by the tensor's device.
+
+The kernel has three routes, which :func:`route` chooses from m and x's
+type before the launch: ``"wgmma"`` (bf16 x, m > 16: TMA + register-A
+``wgmma``, the prefill products), ``"decode"`` (bf16 x, m <= 16:
+``mma.sync`` decode tiling) and ``"fp32"`` (fp32 x: FMAs). A launch
+counts under ``int8_matmul`` and under ``int8_matmul_<route>``.
 """
 
 from __future__ import annotations
@@ -14,6 +20,16 @@ from . import _build
 
 SOURCE = "paddle_tpu_torch/csrc/int8_matmul.cu"
 REPLACES = "paddle_tpu/ops/pallas/int8_matmul.py:40"
+# the C side's route codes
+ROUTES = {"fp32": 0, "decode": 1, "wgmma": 2}
+DECODE_MAX_M = 16
+
+
+def route(m: int, dtype: torch.dtype) -> str:
+    """The kernel route for m rows of x of ``dtype``."""
+    if dtype == torch.float32:
+        return "fp32"
+    return "decode" if m <= DECODE_MAX_M else "wgmma"
 
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
@@ -45,16 +61,18 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor,
         raise ValueError("int8_matmul kernel needs contiguous inputs")
     if x.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("int8_matmul kernel needs 16-byte aligned x and wq")
-    code = _build.dtype_code(x.dtype)
+    _build.dtype_code(x.dtype)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
+    way = route(m, x.dtype)
     err = _build.lib().pt_int8_matmul(
         x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n, k,
-        code, _build.stream_ptr(x.device))
+        ROUTES[way], _build.stream_ptr(x.device))
     _build.check(err, "int8_matmul")
     _build.count_launch("int8_matmul")
+    _build.count_launch(f"int8_matmul_{way}")
     return y
 
 
-__all__ = ["int8_matmul", "SOURCE", "REPLACES"]
+__all__ = ["int8_matmul", "route", "ROUTES", "SOURCE", "REPLACES"]

@@ -603,6 +603,25 @@ def test_int8_matmul_kernel_matches_plain(dev, dtype, m, n, k):
     _rows_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("m", [17, 100, 129, 300, 1024])
+@pytest.mark.parametrize("n", [48, 272])
+def test_int8_matmul_wgmma_route_matches_plain(dev, m, n):
+    """The bf16 m > 16 route (TMA + register-A wgmma) at each of its token
+    tiles (64, 128, 256) and ragged against them, n not a multiple of the
+    128-channel tile, k = 1040 not a multiple of the 64-deep slice; per
+    row as well."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul
+    from paddle_tpu_torch.ops.quant import weight_only_plain
+    x, wq, scale = _int8_product_inputs(dev, torch.bfloat16, m, n, 1040,
+                                        m + n)
+    _build.reset_launches()
+    got = int8_matmul.int8_matmul(x, wq, scale)
+    assert _build.LAUNCHES["int8_matmul_wgmma"] == 1, dict(_build.LAUNCHES)
+    want = weight_only_plain(x, wq, scale)
+    _close(got, want, "bfloat16")
+    _rows_close(got, want, "bfloat16")
+
+
 def test_int8_matmul_wrapper_refuses_what_it_does_not_take(dev):
     from paddle_tpu_torch.ops.kernels import int8_matmul
     x, wq, scale = _int8_product_inputs(dev, torch.bfloat16, 4, 64, 64, 1)
@@ -769,6 +788,106 @@ def test_grouped_matmul_kernels_match_plain(dev, dtype, case):
     for i, c in enumerate(counts):
         if c == 0:
             assert torch.count_nonzero(dw[i]) == 0
+
+
+# the edges of the wgmma route (bf16; K and N multiples of 8, not of 64):
+# runs shorter than a 64-row slice, runs that start mid-slice, runs one
+# row past a 128-row tile or a slice, empty runs, rows past the groups, a
+# second 256-column tile, and many groups
+GMM_EDGE_CASES = {
+    "short_and_mid_slice": ([40, 25, 300, 7], 372, 200, 136),
+    "one_row_past": ([129, 65, 1, 193], 388, 136, 264),
+    "empty_and_tail": ([0, 150, 0, 90, 0], 300, 72, 40),
+    "many_groups": ([(7 * i) % 23 for i in range(70)], 800, 72, 520),
+    "300_groups": ([(3 * i) % 7 for i in range(300)], 905, 72, 40),
+}
+
+
+def _gmm_inputs(dev, counts, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    w = (0.1 * torch.randn((len(counts), k, n), generator=g,
+                           device=dev)).bfloat16()
+    gy = torch.randn((m, n), generator=g, device=dev).bfloat16()
+    gs = torch.tensor(counts, dtype=torch.int32, device=dev)
+    return xs, w, gy, gs
+
+
+@pytest.mark.parametrize("case", sorted(GMM_EDGE_CASES))
+def test_grouped_matmul_wgmma_route_edges(dev, case):
+    """Forward (fp32 and bf16 out), dx and dW on the wgmma route against
+    the plain versions, elementwise and per row; rows past the groups and
+    an empty group's dW are 0."""
+    from paddle_tpu_torch.ops import grouped_matmul as gmm
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    counts, m, k, n = GMM_EDGE_CASES[case]
+    assert sum(counts) <= m
+    xs, w, gy, gs = _gmm_inputs(dev, counts, m, k, n, m * k + n)
+    ends = kgm.group_ends(gs)
+    _build.reset_launches()
+    y = kgm.grouped_matmul(xs, w, ends)
+    yb = kgm.grouped_matmul(xs, w, ends, out_dtype=torch.bfloat16)
+    dx = kgm.grouped_matmul(gy, w, ends, out_dtype=torch.bfloat16,
+                            transpose_w=True)
+    dw = kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=torch.bfloat16)
+    assert _build.LAUNCHES["grouped_matmul_wgmma"] == 3, \
+        dict(_build.LAUNCHES)
+    assert _build.LAUNCHES["grouped_matmul_dw_wgmma"] == 1, \
+        dict(_build.LAUNCHES)
+    want_y = gmm.grouped_matmul_plain(xs, w, gs)
+    for got, want in (
+            (y, want_y), (yb, want_y.bfloat16()),
+            (dx, gmm.grouped_matmul_plain(gy, w.transpose(1, 2),
+                                          gs).bfloat16()),
+            (dw, gmm.grouped_matmul_dw_plain(xs, gy, gs).bfloat16())):
+        _close(got, want, "bfloat16")
+        _rows_close(got, want, "bfloat16")
+    used = sum(counts)
+    for t in (y, yb, dx):
+        assert torch.count_nonzero(t[used:]) == 0
+    for i, c in enumerate(counts):
+        if c == 0:
+            assert torch.count_nonzero(dw[i]) == 0
+
+
+def test_grouped_matmul_wgmma_route_is_deterministic(dev):
+    """The forward and dW on the wgmma route give the same bits on a
+    second run (one block sums each tile in a fixed order, no
+    atomics)."""
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    counts, m, k, n = GMM_EDGE_CASES["one_row_past"]
+    xs, w, gy, gs = _gmm_inputs(dev, counts, m, k, n, 3)
+    ends = kgm.group_ends(gs)
+    runs = [(kgm.grouped_matmul(xs, w, ends),
+             kgm.grouped_matmul(gy, w, ends, out_dtype=torch.bfloat16,
+                                transpose_w=True),
+             kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=torch.bfloat16))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_moe_widths_take_the_wgmma_route_on_the_card(dev):
+    """One bf16 dropless MoELayer at DeepSeekMoE-16B widths (hidden 2048,
+    64 experts of 1408, top-6) over 256 tokens, forward and backward:
+    all 4 grouped_matmul and 2 grouped_matmul_dw launches take the wgmma
+    route."""
+    from paddle_tpu_torch.parallel.moe import MoELayer
+    layer = MoELayer(2048, 1408, 64, top_k=6, capacity_factor=None,
+                     dtype="bfloat16", device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+    x = torch.randn((1, 256, 2048), device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    _build.reset_launches()
+    out, aux = layer(x)
+    (out.float().square().mean() + aux).backward()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    assert counts["grouped_matmul"] == counts["grouped_matmul_wgmma"] == 4, \
+        counts
+    assert counts["grouped_matmul_dw"] == counts[
+        "grouped_matmul_dw_wgmma"] == 2, counts
+    assert bool(torch.isfinite(x.grad).all())
 
 
 def test_grouped_matmul_keeps_an_fp32_cotangent_on_the_card(dev):

@@ -407,3 +407,47 @@ def test_a_config_without_loss_impl_takes_the_fused_head():
     assert not hasattr(MoEConfig.tiny(), "loss_impl")
     assert fused_loss_enabled(MoEConfig.tiny())
     assert jax_fused_enabled(JaxMoEConfig.tiny())
+
+
+def _expert_products(cfg):
+    """(k, n) of each grouped product of one MoE layer's step at ``cfg``'s
+    widths, as ``MoELayer`` calls the kernels: gate_up (w [e, d, 2f]) and
+    down (w [e, f, d]) forward, their dx (the weight read transposed) and
+    their dW."""
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+    return {"gate_up": (d, 2 * f), "gate_up_dx": (2 * f, d),
+            "gate_up_dw": (d, 2 * f), "down": (f, d), "down_dx": (d, f),
+            "down_dw": (f, d)}
+
+
+@pytest.mark.parametrize("preset", ["deepseek_moe_16b", "qwen2_moe_a14b",
+                                    "tiny"])
+def test_grouped_route_at_the_moe_widths(preset):
+    """Every grouped product of a dropless bf16 MoE step at the preset's
+    widths takes the wgmma route (widths multiples of 8, aligned bases,
+    groups within the scheduler's table); fp32 operands take the FMA
+    route. The choice is a function of dtype, widths, group count and
+    alignment, made before the launch."""
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    cfg = getattr(MoEConfig, preset)()
+    e = cfg.num_experts
+    for name, (k, n) in _expert_products(cfg).items():
+        assert kgm.route(torch.bfloat16, k, n, e) == "wgmma", name
+        assert kgm.route(torch.float32, k, n, e) == "fma", name
+
+
+@pytest.mark.parametrize("k,n,g,aligned,want", [
+    (20, 36, 3, True, "tile"),            # widths TMA cannot read
+    (96, 36, 3, True, "tile"),
+    (96, 80, 5, False, "tile"),           # an unaligned base
+    (96, 80, 513, True, "tile"),          # beyond the scheduler's table
+    (96, 80, 512, True, "wgmma"),
+    (8, 8, 1, True, "wgmma"),
+])
+def test_grouped_route_edges(k, n, g, aligned, want):
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import grouped_matmul as kgm
+    assert kgm.MAX_GROUPS == 512
+    assert kgm.route(torch.bfloat16, k, n, g, aligned) == want
+    for kernel in ("grouped_matmul", "grouped_matmul_dw"):
+        assert f"{kernel}_{want}" in _build.LAUNCHES

@@ -434,3 +434,29 @@ def test_config_checks_and_int8_layout():
     ids = torch.tensor([[1, 2, 3]])
     with torch.inference_mode():
         _close(q(ids), tied(ids), 5e-2)      # quantization error only
+
+
+@pytest.mark.parametrize("preset", ["llama3_8b", "tiny"])
+def test_int8_product_route_follows_m_and_dtype(preset):
+    """The int8 product's kernel route is a function of m and x's type
+    alone, chosen before the launch: at the preset's quantized
+    projections (every width a multiple of 16, as the kernel takes),
+    prompt rows (m > 16: the serving run's 128 .. 1536 tokens and a
+    ragged 17) take the wgmma route, a decode batch (m <= 16) the decode
+    tiling and fp32 x the FMA route; each route has its launch counter
+    beside the kernel's."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import int8_matmul as kmm
+    cfg = int8_config(getattr(LlamaConfig, preset)())
+    projs = [shape for shape, kind in parameter_shapes(cfg).values()
+             if kind == "int8"]
+    assert projs and all(n % 16 == 0 and k % 16 == 0 for n, k in projs)
+    for m in (17, 128, 1000, 1536):
+        assert kmm.route(m, torch.bfloat16) == "wgmma"
+    for m in (1, 8, 16):
+        assert kmm.route(m, torch.bfloat16) == "decode"
+    for m in (1, 17, 1536):
+        assert kmm.route(m, torch.float32) == "fp32"
+    assert set(kmm.ROUTES) == {"wgmma", "decode", "fp32"}
+    for way in kmm.ROUTES:
+        assert f"int8_matmul_{way}" in _build.LAUNCHES
