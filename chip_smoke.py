@@ -6,8 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --parent DIR``, with the parent commit's tree
-unpacked in DIR, also times the parent's int8 prefill and grouped
-kernels against this tree's in turns after phase 3.
+unpacked in DIR, also times the parent's int8 prefill, grouped, paged
+decode and CE kernels against this tree's in turns after phase 3 (the CE
+backward's outputs must be equal bit for bit).
 
 Phases, in order; any failure exits non-zero before the result line:
   1. print the card's name and power limit (nvidia-smi);
@@ -15,10 +16,11 @@ Phases, in order; any failure exits non-zero before the result line:
      build seconds;
   3. per kernel: run it and its plain PyTorch version on the serving
      and training paths' shapes, print the errors against the stated
-     tolerance (the flash kernels also per row, and a planted wrong tile
-     must fail that check), and time kernel, plain version and library
-     call (CUDA events, L2 flushed before every launch, median of 25
-     after warm-up; 10 for slow plain versions). Training kernels: the
+     tolerance (the flash kernels and bf16 paged decode also per row,
+     and a planted wrong tile or page must fail that check), and time
+     kernel, plain version and library call (CUDA events, L2 flushed and
+     the host given a head start before every launch, median of 25 after
+     warm-up; 10 for slow plain versions). Training kernels: the
      RMSNorm backward at 8192 x 4096; the flash forward and backward at
      b=2, s=4096, 32 heads over 8 KV heads, d=128, bf16, causal (with
      TFLOP/s; a K/V tile planted in place of another must break out and
@@ -41,7 +43,9 @@ Phases, in order; any failure exits non-zero before the result line:
      check), beside one torch.matmul with the bf16 weight; the int8
      paged decode at B = 8, context 1024, page 128 (bf16 and fp32 q, and
      a ragged case with a page never written), per row, where a page
-     read with another page's K or V scale must fail;
+     read with another page's K or V scale must fail; both paged decode
+     kernels also at contexts 128 to 2048 beside a streaming read of the
+     same K and V bytes;
      MoE: the grouped matmul at the bf16 dropless DeepSeekMoE-16B
      step's shapes (m = 49152 rows, 64 experts; gate_up k 2048, n 2816
      and down k 1408, n 2048; balanced and skewed counts with a quarter
@@ -165,14 +169,23 @@ def log(*a):
     print(*a, flush=True)
 
 
+# device cycles (about 0.3 ms) that the card sleeps between the L2 flush
+# and a timed launch, so that the host has enqueued the launch before
+# the start event is reached: the events then measure the device alone,
+# not a wrapper's host time (which exceeds the short kernels' own)
+HOST_LEAD_CYCLES = 500_000
+
+
 def timed_ms(torch, fn, flush, reps: int = 25, warmup: int = 3) -> float:
     """Median device time of one call of ``fn`` in ms, each launch timed
-    alone by CUDA events after the L2 cache was flushed."""
+    alone by CUDA events after the L2 cache was flushed and the host was
+    given a head start (HOST_LEAD_CYCLES)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -396,10 +409,15 @@ def phase_kernels(torch, pt):
                                      torch.full_like(tables, -1))
             got = paged_attention.paged_decode(q, kp, vp, tables, lens)
             want = attn_ops.paged_decode_plain(q, kp, vp, tables, lens)
-            err = compare(torch, got, want, name)
+            err = flash_compare(torch, [(got, want)], name)
             if case != "ctx1024":
                 record("paged_decode", case, name, err)
                 continue
+            if dt == torch.bfloat16:
+                planted_page(torch, paged_attention, q, kp, vp, tables,
+                             lens, want, name)
+                paged_sweep(torch, paged_attention, "paged_decode", q, kp,
+                            vp, tables, {}, flush)
             # library yardstick: SDPA over the K/V gathered beforehand
             # (gather not timed; the port never calls SDPA)
             safe = tables.long()[:, :ctx // page]
@@ -421,6 +439,54 @@ def phase_kernels(torch, pt):
                    bound(nbytes, 4 * B * H * ctx * HD))
     del flush
     torch.cuda.synchronize()
+
+
+def planted_page(torch, paged_attention, q, kp, vp, tables, lens, want,
+                 name):
+    """Run the native paged decode as if row 0's table read its page 5
+    in place of its page 3 (a wrong page lookup) and hold the result
+    against the plain version of the true table: the row check must
+    reject it (one eighth of the context's K and V is another page's)."""
+    bad = tables.clone()
+    bad[0, 3] = tables[0, 5]
+    e = flash_compare(torch, [(paged_attention.paged_decode(
+        q, kp, vp, bad, lens), want)], name)
+    RESULTS.setdefault("planted_paged", {})["paged_decode/page"] = {
+        "row_err": e[3], "row_caught": not e[5], "max_abs_err": e[0]}
+    log(f"planted page in paged_decode (row 0 reads its page 5 as page 3): "
+        f"max_abs_err={e[0]:.3e}, row_err={e[3]:.3e} vs row_tol {ROW_TOL} "
+        f"(row check {'rejects' if not e[5] else 'MISSES'} it)")
+    if e[5]:
+        FAILED_CASES.append("paged_decode/planted_page_missed")
+
+
+def paged_sweep(torch, paged_attention, kernel, q, kp, vp, tables, sc,
+                flush):
+    """The paged decode kernel's time at contexts 128, 512, 1024 and 2048
+    (B = 8, the ctx1024 case's pools and tables), each beside one
+    streaming read of as many bytes as its K and V (one torch sum over
+    an fp32 buffer of that size, under the same L2 flush): the yardstick
+    of what reading those bytes costs in this timing."""
+    B, HD = q.shape[0], q.shape[2]
+    HKV = kp.shape[0]
+    ctxs = (128, 512, 1024, 2048)
+    per_tok = 2 * B * HKV * HD * kp.element_size()   # K and V bytes a token
+    buf = torch.zeros((per_tok * ctxs[-1] // 4,), dtype=torch.float32,
+                      device=q.device)
+    rows = {}
+    for ctx in ctxs:
+        lens = torch.full((B,), ctx - 1, dtype=torch.int64, device=q.device)
+        n = per_tok * ctx
+        flat = buf[:n // 4]
+        rows[ctx] = {
+            "kernel_ms": timed_ms(torch, lambda: paged_attention.paged_decode(
+                q, kp, vp, tables, lens, **sc), flush),
+            "stream_read_ms": timed_ms(torch, lambda: flat.sum(), flush),
+            "kv_bytes": n}
+        log(f"kernel {kernel} sweep [ctx {ctx}]: {us(rows[ctx]['kernel_ms'])}"
+            f", a streaming read of its {n / 1e6:.1f} MB "
+            f"{us(rows[ctx]['stream_read_ms'])}")
+    RESULTS.setdefault("paged_decode_sweep", {})[kernel] = rows
 
 
 def seg_err(torch, got, want) -> float:
@@ -594,6 +660,8 @@ def phase_quant_kernels(torch, pt):
                        q4, kg, vg), flush),
                    bound(nbytes, 4 * B * H * ctx * HD))
             del kg, vg
+            paged_sweep(torch, paged_attention, "paged_decode_int8", q, kp,
+                        vp, tables, sc, flush)
             # planted: one page of row 0 read with the scale of the page
             # of row 0 whose scale differs most from its own
             row0 = tables[0, :ctx // page].long()
@@ -1793,6 +1861,10 @@ def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
     if missing:
         raise SystemExit(f"kernels not launched on the training path: "
                          f"{missing}")
+    if launches["vocab_ce_fwd_wgmma"] != launches["vocab_ce_fwd"]:
+        raise SystemExit(f"CE forward launches off the wgmma route: "
+                         f"{launches['vocab_ce_fwd_wgmma']} of "
+                         f"{launches['vocab_ce_fwd']}")
     for name, run in [("default", info)] + list(variants.items()):
         if not all(math.isfinite(x) for x in run["losses"]):
             raise SystemExit(f"training loss not finite ({name}): "
@@ -2005,8 +2077,9 @@ def phase_parent_turns(torch, parent):
     tree's sources, timed in turns (parent, this, this, parent) as
     timed_ms times phase 3's rows: the int8 product at gate_up (n 28672,
     k 4096) with m = 128 and 1024; forward, dx and dW at phase 3's
-    DeepSeekMoE-16B shapes, balanced and skewed. The two results' largest
-    difference is kept beside the times."""
+    DeepSeekMoE-16B shapes, balanced and skewed; then paged decode and
+    the CE kernels (parent_serving_and_ce_turns). The two results'
+    largest difference is kept beside the times."""
     from pathlib import Path
     from paddle_tpu_torch.nn.quantized_linear import weight_quantize
     from paddle_tpu_torch.ops.kernels import _build
@@ -2024,9 +2097,10 @@ def phase_parent_turns(torch, parent):
     bf = torch.bfloat16
     rows = {}
 
-    def turns(name, parent_fn, this_fn):
+    def turns(name, parent_fn, this_fn, exact=False, reps=25):
+        """exact: the two trees' outputs must be equal bit for bit."""
         diff = float((parent_fn().float() - this_fn().float()).abs().max())
-        t = [timed_ms(torch, f, flush)
+        t = [timed_ms(torch, f, flush, reps=reps)
              for f in (parent_fn, this_fn, this_fn, parent_fn)]
         rows[name] = {"parent_us": [t[0] * 1e3, t[3] * 1e3],
                       "this_us": [t[1] * 1e3, t[2] * 1e3],
@@ -2034,6 +2108,8 @@ def phase_parent_turns(torch, parent):
         log(f"parent vs this tree, {name}: parent {t[0] * 1e3:.1f} us, this "
             f"{t[1] * 1e3:.1f} us, this {t[2] * 1e3:.1f} us, parent "
             f"{t[3] * 1e3:.1f} us; max |parent - this| {diff:.3e}")
+        if exact and diff != 0.0:
+            FAILED_CASES.append(f"parent_turns/{name}_not_bit_equal")
 
     def ran(err, what):
         _build.check(err, f"parent {what}")
@@ -2092,9 +2168,116 @@ def phase_parent_turns(torch, parent):
                   lambda: kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=bf))
         del w, xs, gy, y, dx, dw
         torch.cuda.empty_cache()
+    parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns, ran,
+                                rows)
     RESULTS["parent_turns"] = {"parent": str(root), "rows": rows,
                                "parent_build_s": build_log.get("seconds")}
     del flush
+    torch.cuda.empty_cache()
+
+
+def parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns, ran,
+                                rows):
+    """The parent's and this tree's paged decode (native and int8 pools,
+    phase 3's ctx1024 shape, bf16) and CE forward (phase 3's train_8192
+    shape) in turns, and the CE backward's dlog, dh and dW of one chunk,
+    which must be equal bit for bit. The parent's pt_paged_decode is
+    called with its own signature (no split plan), and its forward's
+    partials ([3, N, splits]) are merged as its wrapper merged them."""
+    import ctypes
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import fused_vocab_ce as kce
+    from paddle_tpu_torch.ops.kernels import paged_attention
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    plib.pt_paged_decode.argtypes = [P] * 8 + [I] * 7 + [F, I, P]
+    bf, s = torch.bfloat16, _build.stream_ptr(dev)
+    B, H, HKV, HD, page, ctx = 8, 32, 8, 128, 128, 1024
+    mp = 2048 // page
+    num_pages = B * mp + 1
+    q = torch.randn((B, H, HD), generator=g, device=dev).to(bf)
+    tables = (torch.randperm(num_pages - 1, generator=g, device=dev)
+              [:B * mp] + 1).view(B, mp).to(torch.int32).contiguous()
+    lens = torch.full((B,), ctx - 1, dtype=torch.int64, device=dev)
+    out = torch.empty_like(q)
+    native = tuple(torch.randn((HKV, num_pages, page, HD), generator=g,
+                               device=dev).to(bf) for _ in range(2))
+    quant = (quant_pages(torch, g, dev, HKV, num_pages, page, HD),
+             quant_pages(torch, g, dev, HKV, num_pages, page, HD))
+    for name, kp, vp, sc in (
+            ("paged_decode/ctx1024", *native, {}),
+            ("paged_decode_int8/ctx1024", quant[0][0], quant[1][0],
+             dict(k_scales=quant[0][1], v_scales=quant[1][1]))):
+        ks, vs = (sc["k_scales"].data_ptr(), sc["v_scales"].data_ptr()) \
+            if sc else (None, None)
+
+        def par_pd(kp=kp, vp=vp, ks=ks, vs=vs, name=name):
+            ran(plib.pt_paged_decode(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks, vs,
+                tables.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H,
+                HKV, HD, num_pages, page, mp, 1.0 / math.sqrt(HD), 1, s),
+                name)
+            return out
+        turns(name, par_pd, lambda kp=kp, vp=vp, sc=sc:
+              paged_attention.paged_decode(q, kp, vp, tables, lens, **sc))
+    del native, quant, q, out
+    torch.cuda.empty_cache()
+
+    N, Hd, V, C = 8192, 4096, 128256, kce.CHUNK
+    h = torch.randn((N, Hd), generator=g, device=dev).to(bf)
+    w = (0.02 * torch.randn((Hd, V), generator=g, device=dev)).to(bf)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev).to(
+        torch.int32)
+    labels[::97] = -1
+    splits = plib.pt_vocab_ce_splits(N, V, 1)
+    part = torch.empty((3, N, splits), dtype=torch.float32, device=dev)
+
+    def par_fwd():
+        ran(plib.pt_vocab_ce_fwd(h.data_ptr(), w.data_ptr(),
+                                 labels.data_ptr(), part.data_ptr(), N, Hd,
+                                 V, splits, 1, 1, s), "vocab_ce_fwd")
+        m, sm, t = part
+        top = m.max(1).values
+        total = (sm * torch.exp(m - top[:, None])).sum(1)
+        return torch.stack((top + torch.log(torch.where(
+            total == 0.0, 1.0, total)), t.sum(1)))
+    turns("vocab_ce_fwd/train_8192", par_fwd,
+          lambda: torch.stack(kce.vocab_ce_fwd(h, w, labels)), reps=10)
+    lse = par_fwd()[0].contiguous()
+    del part
+    g_lse = torch.randn((N,), generator=g, device=dev)
+    g_tgt = torch.randn((N,), generator=g, device=dev)
+    dl_p, dl_t = (torch.empty((N, C), dtype=bf, device=dev)
+                  for _ in range(2))
+
+    def par_dlog():
+        ran(plib.pt_vocab_ce_dlog(
+            h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            g_lse.data_ptr(), g_tgt.data_ptr(), dl_p.data_ptr(), N, Hd, V, 0,
+            C, C, 1, s), "vocab_ce_dlog")
+        return dl_p
+    turns("vocab_ce_dlog/train_chunk_8192", par_dlog,
+          lambda: kce.vocab_ce_dlog(h, w, labels, lse, g_lse, g_tgt, 0, C,
+                                    dl_t), exact=True)
+    dh_p, dh_t = torch.empty_like(h), torch.empty_like(h)
+
+    def par_dh():
+        ran(plib.pt_vocab_ce_dh(dl_t.data_ptr(), w.data_ptr(), None,
+                                dh_p.data_ptr(), N, Hd, V, 0, C, C, 1, 1, 1,
+                                s), "vocab_ce_dh")
+        return dh_p
+    turns("vocab_ce_dh/train_chunk_8192", par_dh,
+          lambda: kce.vocab_ce_dh(dl_t, w, 0, C, dh_t), exact=True)
+    del dh_p, dh_t
+    dw_p, dw_t = torch.empty_like(w), torch.empty_like(w)
+
+    def par_dw():
+        ran(plib.pt_vocab_ce_dw(h.data_ptr(), dl_t.data_ptr(),
+                                dw_p.data_ptr(), N, Hd, V, 0, C, C, 1, s),
+            "vocab_ce_dw")
+        return dw_p[:, :C]
+    turns("vocab_ce_dw/train_chunk_8192", par_dw,
+          lambda: kce.vocab_ce_dw(h, dl_t, 0, C, dw_t)[:, :C], exact=True)
+    del dw_p, dw_t, dl_p, dl_t, h, w
     torch.cuda.empty_cache()
 
 
@@ -2256,7 +2439,8 @@ def phase_moe_train(torch, pt, dev, make_cfg, b=2, s=4096):
         raise SystemExit(f"kernels not launched on the MoE training path: "
                          f"{missing}")
     # every grouped launch of the dropless step on the wgmma route
-    off = [k for k in ("grouped_matmul", "grouped_matmul_dw")
+    off = [k for k in ("grouped_matmul", "grouped_matmul_dw",
+                       "vocab_ce_fwd")
            if launches[f"{k}_wgmma"] != launches[k]]
     log(f"MoE training grouped routes per step: "
         f"{info['launches_per_step']['grouped_matmul_wgmma']} + "
@@ -2264,7 +2448,8 @@ def phase_moe_train(torch, pt, dev, make_cfg, b=2, s=4096):
         f"of {info['launches_per_step']['grouped_matmul']} + "
         f"{info['launches_per_step']['grouped_matmul_dw']}")
     if off:
-        raise SystemExit(f"grouped launches off the wgmma route: {off}")
+        raise SystemExit(f"grouped or CE forward launches off the wgmma "
+                         f"route: {off}")
     for name, run in (("dropless", info), ("capacity", cap)):
         if not all(math.isfinite(x) for x in run["losses"]):
             raise SystemExit(f"MoE training loss not finite ({name}): "

@@ -1,7 +1,7 @@
 // Fused vocabulary projection + cross entropy for Hopper: four kernels.
 //
 // Replace the TPU kernels of paddle_tpu/ops/pallas/fused_vocab_ce.py:
-//   vocab_ce_fwd_kernel <- `_fwd_kernel`     (call in `_fwd_pallas`)
+//   fwd                 <- `_fwd_kernel`     (call in `_fwd_pallas`)
 //   dlog                <- `_dlog_block`, the logits recompute that
 //                          `_bwd_dh_kernel` and `_bwd_dw_kernel` share
 //   dh                  <- `_bwd_dh_kernel`  (call in `_bwd_pallas`)
@@ -48,14 +48,27 @@
 //     16-byte aligned bases and row strides: the wrapper pads W to a
 //     multiple of 8 columns, rounds the workspace up to 64, and refuses an
 //     H that is not a multiple of 8.
-//   The forward splits the vocabulary over the blocks of a row tile (64
-//     row tiles alone would not fill 132 SMs); each block keeps its rows'
-//     (m, s, t) in shared memory over its tiles, and the wrapper merges
-//     the splits' partials, as the RMSNorm backward's partial sum is
-//     finished outside its kernel. It and the fp32 backward run the tile
-//     loop of tile_gemm.cuh (shared with the grouped matmul): bf16 on
-//     `ldmatrix` + `mma.sync` into an fp32 tile in shared memory, fp32 as
-//     real fp32 FMAs (64 x 64 tiles), as the fp32 tolerance needs.
+//   bf16 forward: the same mainloop, A = h (K-major), B = W (MN-major),
+//     with a row-reducing epilogue (ROWS in wgmma_gemm.cuh) on the
+//     accumulator in registers: a row's 256 tile columns lie in the four
+//     lanes of a quad, 64 a lane, so the tile's row max, its sum of
+//     exponentials (relative to that max) and the target logit take one
+//     pass a lane and two shuffles within the quad; no fp32 tile goes
+//     through shared memory and no barrier spans warps. Each (row, column
+//     tile) leaves its (m, s, t) in part[3][tiles][N] (49 MB at the
+//     Llama shape, against 13 ms of products) and the wrapper merges the
+//     tiles in order, as it merges the fp32 route's splits. That was
+//     chosen over keeping (m, s, t) in registers across a block's range
+//     of column tiles: the persistent scheduler stays the backward's, the
+//     partials cost a few tens of microseconds, and the merge order is
+//     fixed either way, so lse and tgt are the same on every run. W is
+//     read with a row stride of a multiple of 8 columns (the wrapper pads
+//     it); columns >= V are masked in the epilogue.
+//   fp32 (all four kernels) runs the tile loop of tile_gemm.cuh as real
+//     fp32 FMAs (64 x 64 tiles), as the fp32 tolerance needs; its forward
+//     splits the vocabulary over the blocks of a row tile (row tiles alone
+//     would not fill 132 SMs), each block keeping its rows' (m, s, t) in
+//     shared memory over its tiles, and leaves part[3][splits][N].
 
 #include <stdint.h>
 
@@ -67,13 +80,11 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 using pt::tile::bf;
 using pt::tile::FmaGemm;
-using pt::tile::GemmOf;
 using pt::tile::NT;
-using pt::tile::TcGemm;
 
 struct Args {
   const void* h;       // [N, H]
-  const void* w;       // [H, V]
+  const void* w;       // [H, V], row stride ldw
   const int* labels;   // [N]
   const float* lse;    // [N]
   const float* glse;   // [N]
@@ -81,19 +92,17 @@ struct Args {
   void* dlog;          // [N, C] workspace
   float* acc;          // [N, H] fp32 dh sums (dh kernel; may alias out)
   void* out;           // dh [N, H] or dW [H, V]
-  float* part;         // forward partials [3][N][splits]: m, s, t
-  int N, H, V;
+  float* part;         // forward partials [3][parts][N]: m, s, t
+  int N, H, V, ldw;
   int c0, C, cw;       // chunk: first column, workspace width, columns
-  int splits;
+  int parts;           // forward: splits (fp32) or column tiles (bf16)
   int first, last;     // dh: first and last chunk
-  int vec;             // 16-byte operand copies (bf16 forward)
 };
 
-// grid (splits, row tiles): block (sp, rt) runs vocabulary tiles
-// [ntiles sp / splits, ntiles (sp + 1) / splits) of row tile rt
-template <typename T>
-__global__ void __launch_bounds__(NT, 1) vocab_ce_fwd_kernel(Args a) {
-  using G = typename GemmOf<T, true, true>::type;
+// fp32 forward, grid (splits, row tiles): block (sp, rt) runs vocabulary
+// tiles [ntiles sp / splits, ntiles (sp + 1) / splits) of row tile rt
+__global__ void __launch_bounds__(NT, 1) fwd_fma_kernel(Args a) {
+  using G = FmaGemm<true, true>;
   extern __shared__ __align__(128) unsigned char smem[];
   const float* Cs = reinterpret_cast<const float*>(smem);
   float* m_s = reinterpret_cast<float*>(smem + G::SMEM);
@@ -103,22 +112,22 @@ __global__ void __launch_bounds__(NT, 1) vocab_ce_fwd_kernel(Args a) {
   const int sp = blockIdx.x, m0 = blockIdx.y * G::BM;
   const int ntiles = (a.V + G::BN - 1) / G::BN;
   const int t0 = static_cast<int>(static_cast<long long>(ntiles) * sp /
-                                  a.splits);
+                                  a.parts);
   const int t1 = static_cast<int>(static_cast<long long>(ntiles) * (sp + 1) /
-                                  a.splits);
+                                  a.parts);
   for (int r = threadIdx.x; r < G::BM; r += NT) {
     m_s[r] = NEG_INF;
     s_s[r] = 0.f;
     t_s[r] = 0.f;
     lab_s[r] = m0 + r < a.N ? a.labels[m0 + r] : -1;
   }
-  const T* h = static_cast<const T*>(a.h);
-  const T* w = static_cast<const T*>(a.w);
+  const float* h = static_cast<const float*>(a.h);
+  const float* w = static_cast<const float*>(a.w);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   constexpr int PER = G::BN / 32;
   for (int t = t0; t < t1; ++t) {
     const int n0 = t * G::BN;
-    G::run(h, a.H, w, a.V, a.N, a.V, a.H, m0, n0, a.vec != 0, smem);
+    G::run(h, a.H, w, a.ldw, a.N, a.V, a.H, m0, n0, false, smem);
     // one warp a row: the tile's max, the target logit and the rescaled
     // sum of exponentials (the TPU kernel's block update)
     for (int r = warp; r < G::BM; r += NT / 32) {
@@ -128,7 +137,7 @@ __global__ void __launch_bounds__(NT, 1) vocab_ce_fwd_kernel(Args a) {
         const int col = n0 + lane + 32 * j;
         x[j] = col < a.V ? Cs[r * G::LDC + lane + 32 * j] : NEG_INF;
         mx = fmaxf(mx, x[j]);
-        if (col == lab_s[r]) tg += x[j];
+        if (col == lab_s[r] && col < a.V) tg += x[j];
       }
       mx = pt::warp_max(mx);
       tg = pt::warp_sum(tg);
@@ -147,10 +156,10 @@ __global__ void __launch_bounds__(NT, 1) vocab_ce_fwd_kernel(Args a) {
     }
     __syncthreads();  // Cs is read before the next tile's ring reuses it
   }
-  const long long NS = static_cast<long long>(a.N) * a.splits;
+  const long long NS = static_cast<long long>(a.N) * a.parts;
   for (int r = threadIdx.x; r < G::BM; r += NT) {
     if (m0 + r >= a.N) continue;
-    const long long at = static_cast<long long>(m0 + r) * a.splits + sp;
+    const long long at = static_cast<long long>(sp) * a.N + m0 + r;
     a.part[at] = m_s[r];
     a.part[NS + at] = s_s[r];
     a.part[2 * NS + at] = t_s[r];
@@ -245,6 +254,58 @@ __global__ void __launch_bounds__(NT, 1) dw_fma_kernel(Args a) {
 // (in a namespace of their own, so that a profiler's kernel names say
 // which head the mainloop ran for)
 namespace vocab_ce {
+
+// the forward's row reduction (STORE = ROWS): for each row and 256-column
+// tile, the tile's max m, the sum s of exp(logit - m) over columns < V
+// (entries <= -5e29 weigh 0) and the logit at the row's label (0 if it
+// lies outside the tile), into part[3][tiles][N]
+struct FwdEpi {
+  static constexpr int STORE = pt::wg::ROWS;
+  float* part;
+  const int* labels;
+  int N, V, tiles;
+
+  __device__ __forceinline__ void row_frag(const pt::wg::Tile& t, int r,
+                                           int c0,
+                                           const float (&x)[pt::wg::BN / 4])
+      const {
+    const bool ok = r < N;
+    const int lab = ok ? labels[r] : -1;
+    const bool full = t.n0 + pt::wg::BN <= V;  // no column past V
+    float mx = NEG_INF, tg = 0.f;
+#pragma unroll
+    for (int c = 0; c < pt::wg::BN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * c + e;
+        const bool in = full || col < V;
+        mx = fmaxf(mx, in ? x[2 * c + e] : NEG_INF);
+        tg = in && col == lab ? x[2 * c + e] : tg;
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < pt::wg::BN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * c + e;
+        const float v = full || col < V ? x[2 * c + e] : NEG_INF;
+        s += v <= NEG_INF * 0.5f ? 0.f : __expf(v - mx);
+      }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    tg += __shfl_xor_sync(0xffffffffu, tg, 1);
+    tg += __shfl_xor_sync(0xffffffffu, tg, 2);
+    if (ok && (threadIdx.x & 3) == 0) {
+      const long long at = static_cast<long long>(t.n0 / pt::wg::BN) * N + r;
+      const long long plane = static_cast<long long>(tiles) * N;
+      part[at] = mx;
+      part[plane + at] = s;
+      part[2 * plane + at] = tg;
+    }
+  }
+};
 
 // dlog of chunk columns 0 .. cw - 1 (vocabulary c0 ..), rounded to bf16,
 // into the workspace (row stride ld)
@@ -394,11 +455,20 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t fwd(const Args& a, cudaStream_t s) {
-  using G = typename GemmOf<T, true, true>::type;
-  const dim3 grid(a.splits, (a.N + G::BM - 1) / G::BM);
-  return launch(vocab_ce_fwd_kernel<T>, grid, G::SMEM + 4 * G::BM * 4, a, s);
+cudaError_t fwd_fp32(const Args& a, cudaStream_t s) {
+  using G = FmaGemm<true, true>;
+  const dim3 grid(a.parts, (a.N + G::BM - 1) / G::BM);
+  return launch(fwd_fma_kernel, grid, G::SMEM + 4 * G::BM * 4, a, s);
+}
+
+// bf16 forward: h [N, H] (K-major) times W [H, V] (MN-major, row stride
+// ldw) on the wgmma mainloop, reduced per row in the epilogue
+int fwd_bf16(const Args& a, cudaStream_t s) {
+  using pt::wg::Operand;
+  const Operand h = {a.h, a.H, a.N, a.H};
+  const Operand w = {a.w, a.ldw, a.H, a.ldw};
+  const vocab_ce::FwdEpi e = {a.part, a.labels, a.N, a.V, a.parts};
+  return pt::wg::gemm<false, true>(h, w, a.N, a.V, a.H, 0, e, s);
 }
 
 cudaError_t bwd_fp32(int which, const Args& a, cudaStream_t s) {
@@ -420,11 +490,9 @@ cudaError_t bwd_fp32(int which, const Args& a, cudaStream_t s) {
 int dispatch(int which, int dtype, const Args& a, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return static_cast<int>(which == 0 ? fwd<float>(a, s)
+    return static_cast<int>(which == 0 ? fwd_fp32(a, s)
                                        : bwd_fp32(which, a, s));
-  if (dtype == 1)
-    return which == 0 ? static_cast<int>(fwd<bf>(a, s))
-                      : bwd_bf16(which, a, s);
+  if (dtype == 1) return which == 0 ? fwd_bf16(a, s) : bwd_bf16(which, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -433,40 +501,44 @@ Args make_args(int N, int H, int V) {
   a.N = N;
   a.H = H;
   a.V = V;
+  a.ldw = V;
   return a;
 }
 
 }  // namespace
 
-// The forward's vocabulary splits for N rows: enough blocks for about
-// four waves of two blocks an SM on the current device, at most one
-// split a vocabulary tile. Negative on a CUDA error.
+// The forward's partials a row: bf16, one a 256-column tile; fp32, the
+// vocabulary splits, enough blocks for about four waves of two blocks an
+// SM on the current device, at most one split a vocabulary tile.
+// Negative on a CUDA error.
 extern "C" int pt_vocab_ce_splits(int N, int V, int dtype) {
+  if (dtype == 1) return (V + pt::wg::BN - 1) / pt::wg::BN;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return -static_cast<int>(e);
-  const int bm = dtype == 0 ? FmaGemm<true, true>::BM : TcGemm<true, true>::BM;
-  const int bn = dtype == 0 ? FmaGemm<true, true>::BN : TcGemm<true, true>::BN;
-  const int row_tiles = (N + bm - 1) / bm;
-  const int ntiles = (V + bn - 1) / bn;
+  using G = FmaGemm<true, true>;
+  const int row_tiles = (N + G::BM - 1) / G::BM;
+  const int ntiles = (V + G::BN - 1) / G::BN;
   int splits = (8 * sms + row_tiles - 1) / row_tiles;
   if (splits > ntiles) splits = ntiles;
   return splits < 1 ? 1 : splits;
 }
 
+// part: fp32 [3][parts][N] (parts from pt_vocab_ce_splits); ldw: W's row
+// stride (V for fp32; a multiple of 8 for bf16, columns >= V ignored)
 extern "C" int pt_vocab_ce_fwd(const void* h, const void* w,
                                const void* labels, void* part, int N, int H,
-                               int V, int splits, int dtype, int vec,
+                               int V, int ldw, int parts, int dtype,
                                void* stream) {
   Args a = make_args(N, H, V);
   a.h = h;
   a.w = w;
+  a.ldw = ldw;
   a.labels = static_cast<const int*>(labels);
   a.part = static_cast<float*>(part);
-  a.splits = splits;
-  a.vec = vec;
+  a.parts = parts;
   return dispatch(0, dtype, a, stream);
 }
 

@@ -130,6 +130,17 @@ __device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory, counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // a box from shared memory to the 3-D tensor map's coordinates, in the
 // bulk group of this thread (TMA drops what lies outside the tensor)
 __device__ __forceinline__ void tma_store3(const CUtensorMap* map,

@@ -1,9 +1,9 @@
 // One block tile of a matrix product, shared by the port's GEMM-shaped
-// kernels (the fused vocab-CE head and the grouped matmul): C = A . B for
-// a BM x BN tile, left in shared memory as fp32 Cs[BM][LDC] for the
-// caller's own epilogue. bf16 runs on the tensor cores (ldmatrix +
-// mma.sync m16n8k16, fp32 accumulators, a 4-stage cp.async ring), fp32 as
-// real fp32 FMAs. Blocks are NT = 256 threads. `GemmOf<T, AR, BR>::type`
+// kernels (the fused vocab-CE head's fp32 route and the grouped matmul's
+// fp32 and odd-width routes): C = A . B for a BM x BN tile, left in
+// shared memory as fp32 Cs[BM][LDC] for the caller's own epilogue. bf16
+// runs on the tensor cores (ldmatrix + mma.sync m16n8k16, fp32
+// accumulators, a 4-stage cp.async ring), fp32 as real fp32 FMAs. Blocks are NT = 256 threads. `GemmOf<T, AR, BR>::type`
 // picks the tile for the element type T; AR / BR say whether A(m, k) and
 // B(k, n) are row-major (their second index contiguous).
 #pragma once

@@ -1,10 +1,10 @@
 // A TMA + `wgmma` GEMM mainloop for Hopper (sm_90a), bf16 operands and
-// fp32 accumulators, shared by the fused vocab-CE backward's three
-// products and the grouped matmul's forward, dx and dW. C = A . B, A(m, k)
-// and B(k, n) each K-major (k contiguous) or MN-major (m or n contiguous),
-// as the template says; the caller's epilogue functor takes the
-// accumulator fragment in registers and writes what it wants (nothing goes
-// through a shared-memory fp32 tile).
+// fp32 accumulators, shared by the fused vocab-CE forward, the CE
+// backward's three products and the grouped matmul's forward, dx and dW.
+// C = A . B, A(m, k) and B(k, n) each K-major (k contiguous) or MN-major
+// (m or n contiguous), as the template says; the caller's epilogue
+// functor takes the accumulator fragment in registers and writes what it
+// wants (nothing goes through a shared-memory fp32 tile).
 //
 // Design (the shape of CUTLASS's warp-specialised Hopper GEMM):
 //   - 128 x 256 output tiles, 64-deep k-slices;
@@ -69,8 +69,10 @@ constexpr int STAGING = 2 * 2 * PANEL;
 // row and store), after an exchange within each quad of lanes; TMA
 // stages the tile as bf16 in shared memory and calls store_box() to
 // store each [64][64] box by TMA, asynchronously, so the next tile's
-// products start at once.
-enum Store { PAIRS = 0, QUADS = 1, TMA = 2 };
+// products start at once; ROWS hands row_frag() a lane's whole share of
+// a row (64 fp32 values, the other 192 columns in the three other lanes
+// of its quad) to reduce in registers.
+enum Store { PAIRS = 0, QUADS = 1, TMA = 2, ROWS = 3 };
 template <class E, class = void>
 struct store_of {
   static constexpr int value = PAIRS;
@@ -211,11 +213,25 @@ struct Dense {
 // before the first pair is stored, so the reads of the row are in flight
 // together), and stores a pair with `pair(state, col, x0, x1)`; a QUADS
 // epilogue stores four bf16 columns with `quad(state, col, v)` instead.
+// A ROWS epilogue gets `row_frag(tile, r, c0, x)` for each of the lane's
+// two rows, x[2 c + e] at column c0 + 8 c + e (c < 32, e < 2); every lane
+// calls it, whether or not row r exists, so it may shuffle within a quad.
 template <class Epi>
 __device__ __forceinline__ void store_tile(const Epi& epi, const Tile& t,
                                            const float (&acc)[ACC], int r0,
                                            int c0) {
-  if constexpr (store_of<Epi>::value == QUADS) {
+  if constexpr (store_of<Epi>::value == ROWS) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float x[BN / 4];
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        x[2 * c] = acc[4 * c + 2 * i];
+        x[2 * c + 1] = acc[4 * c + 2 * i + 1];
+      }
+      epi.row_frag(t, r0 + 8 * i, c0, x);
+    }
+  } else if constexpr (store_of<Epi>::value == QUADS) {
     // lane c of a quad holds pair c of column groups j and j + 1 (a, b);
     // two exchanges give lane c columns 8 j + 4 c .. + 3: lanes 0, 1 the
     // pairs of group j, lanes 2, 3 those of group j + 1

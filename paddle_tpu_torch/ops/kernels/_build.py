@@ -53,7 +53,8 @@ LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rms_norm_bwd": 0,
                             "grouped_matmul_fma": 0,
                             "grouped_matmul_dw_wgmma": 0,
                             "grouped_matmul_dw_tile": 0,
-                            "grouped_matmul_dw_fma": 0}
+                            "grouped_matmul_dw_fma": 0,
+                            "vocab_ce_fwd_wgmma": 0, "vocab_ce_fwd_fma": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_LOG: Dict[str, object] = {}
@@ -167,7 +168,7 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pt_rms_norm_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
     so.pt_fused_rope.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
                                  LL, LL, LL, LL, LL, LL, I, I, P]
-    so.pt_paged_decode.argtypes = [P] * 8 + [I] * 7 + [F, I, P]
+    so.pt_paged_decode.argtypes = [P] * 10 + [I] * 9 + [F, I, P]
     so.pt_int8_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
     so.pt_grouped_matmul.argtypes = [P] * 4 + [I] * 8 + [P]
     so.pt_grouped_matmul_dw.argtypes = [P] * 4 + [I] * 7 + [P]

@@ -11,10 +11,11 @@ versions by the tensors' device.
 
 h is [N, H] and W [H, V], contiguous, one element type (float32 or
 bfloat16); labels [N] int32 (a label outside [0, V) has target 0). The
-bf16 backward kernels read their operands by TMA, which needs 16-byte
-aligned bases and row strides: H, W's V and the dlog workspace's width
-a multiple of 8 (:func:`vocab_ce_bwd` pads W and rounds the workspace;
-the single-launch wrappers raise).
+bf16 kernels read their operands by TMA, which needs 16-byte aligned
+bases and row strides: H, W's V and the dlog workspace's width a
+multiple of 8 (:func:`vocab_ce_fwd` and :func:`vocab_ce_bwd` pad W, the
+backward rounds the workspace, and the single-launch backward wrappers
+raise).
 """
 
 from __future__ import annotations
@@ -116,42 +117,56 @@ def _pad_vocab(w: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(w, (0, pad))
 
 
-def _vec(code: int, *extents: int, tensors=()) -> int:
-    """1 when the bf16 operand tiles can be copied 16 bytes at a time:
-    every contiguous extent and leading dimension a multiple of 8
-    elements, every base 16-byte aligned."""
-    return int(code == 1 and all(e % 8 == 0 for e in extents)
-               and all(t.data_ptr() % 16 == 0 for t in tensors))
+def route(dtype) -> str:
+    """The forward's kernel route: "wgmma" for bfloat16 (the TMA +
+    ``wgmma`` mainloop with a row-reducing epilogue, one partial a
+    256-column tile), "fma" for float32 (the tile loop's fp32 FMAs, a
+    few vocabulary splits a row tile)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def merge_partials(part: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(lse, tgt)`` [N] from the forward's partials part [3, P, N]: per
+    row, P partial maxima m, sums s of exp(logit - m) and target logits
+    t (0 where the label lies elsewhere), merged in partial order. A row
+    whose sums are all 0 gets lse = its largest m."""
+    m, s, t = part
+    top = m.max(0).values
+    total = (s * torch.exp(m - top)).sum(0)
+    return top + torch.log(torch.where(total == 0.0, 1.0, total)), t.sum(0)
 
 
 def vocab_ce_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(lse, tgt)`` fp32 [N]: log-sum-exp over the vocabulary of
-    h . W and the logit at each row's label. The kernel leaves per-split
-    (m, s, t) partials; they are merged here (O(N x splits))."""
+    h . W and the logit at each row's label. The kernel leaves (m, s, t)
+    partials, one a column tile (bf16) or vocabulary split (fp32); they
+    are merged here (:func:`merge_partials`, O(N x partials)). bf16 needs
+    H a multiple of 8 and 16-byte aligned bases (TMA); W is read from a
+    copy padded to :data:`VOCAB_PAD` columns where V is not a multiple
+    of it. Counts its launches under ``vocab_ce_fwd`` and
+    ``vocab_ce_fwd_<route>``."""
     code = _check_hw(h, w)
     N, H = h.shape
     V = w.shape[1]
     _check_rows(N, h.device, labels=(labels, torch.int32))
+    _check_tma("vocab_ce_fwd", code, (h, w), H=H)
     if N == 0:
         z = torch.zeros((0,), dtype=torch.float32, device=h.device)
         return z, z.clone()
     lib = _build.lib()
-    splits = lib.pt_vocab_ce_splits(N, V, code)
-    if splits < 1:
-        _build.check(-splits, "vocab_ce_fwd")
-    part = torch.empty((3, N, splits), dtype=torch.float32, device=h.device)
+    parts = lib.pt_vocab_ce_splits(N, V, code)
+    if parts < 1:
+        _build.check(-parts, "vocab_ce_fwd")
+    wk = _pad_vocab(w) if code == 1 else w
+    part = torch.empty((3, parts, N), dtype=torch.float32, device=h.device)
     err = lib.pt_vocab_ce_fwd(
-        h.data_ptr(), w.data_ptr(), labels.data_ptr(), part.data_ptr(), N, H,
-        V, splits, code, _vec(code, H, V, tensors=(h, w)),
-        _build.stream_ptr(h.device))
+        h.data_ptr(), wk.data_ptr(), labels.data_ptr(), part.data_ptr(), N,
+        H, V, wk.shape[1], parts, code, _build.stream_ptr(h.device))
     _build.check(err, "vocab_ce_fwd")
     _build.count_launch("vocab_ce_fwd")
-    m, s, t = part
-    top = m.max(1).values
-    total = (s * torch.exp(m - top[:, None])).sum(1)
-    lse = top + torch.log(torch.where(total == 0.0, 1.0, total))
-    return lse, t.sum(1)
+    _build.count_launch(f"vocab_ce_fwd_{route(h.dtype)}")
+    return merge_partials(part)
 
 
 def vocab_ce_dlog(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -289,5 +304,5 @@ def vocab_ce_bwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 
 __all__ = ["vocab_ce_fwd", "vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw",
-           "vocab_ce_bwd", "SOURCE", "REPLACES", "CHUNK", "VOCAB_PAD",
-           "WORKSPACE_ALIGN"]
+           "vocab_ce_bwd", "route", "merge_partials", "SOURCE", "REPLACES",
+           "CHUNK", "VOCAB_PAD", "WORKSPACE_ALIGN"]

@@ -6,12 +6,17 @@ for native (float) pools and for int8 pools with per-page fp32 scales
 (its ``quant`` branch). The plain version is
 ``ops.attention.paged_decode_plain``; ``ops.attention.
 paged_decode_attention`` chooses between the two by the tensor's device.
+
+The kernel splits each sequence's context over blocks (:func:`split_plan`,
+a function of shapes alone) and merges the splits' fp32 partials on the
+device in split order (:func:`merge_splits` is that merge in plain
+PyTorch).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -19,8 +24,98 @@ from . import _build
 
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 REPLACES = "paddle_tpu/ops/pallas/paged_attention.py:47"
-GROUPS = (1, 2, 4, 8)
-HEAD_DIMS = (64, 128, 256)
+# head dims the kernel takes (the JAX gate ``paged_decode_supported``'s);
+# every group H % H_kv == 0 is taken
+HEAD_DIMS = (32, 64, 128, 256)
+# query rows a block holds at most: a larger group is cut into slices
+MAX_SLICE = 8
+# blocks an SM that the plan aims at for full tables (it gets at least
+# half as many; four blocks of 48 KB fit an SM at once)
+BLOCKS_PER_SM = 8
+# most tokens one split walks, so that long tables still give short,
+# many splits (each block's time stays small beside the merge)
+SPLIT_TOKENS = 512
+# most splits a (row, KV head, slice): the kernel's merge keeps each
+# split's (m, l) in shared memory
+MAX_SPLITS = 512
+
+_SMS: Dict[int, int] = {}
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
+
+
+def group_slice(group: int) -> Tuple[int, int]:
+    """``(gs, slices)``: a group of query rows over one KV head is held
+    ``gs`` rows a block (1, 2, 4 or 8), in ``slices`` blocks."""
+    if group < 1:
+        raise ValueError(f"group must be positive, got {group}")
+    gs = 1 << (min(group, MAX_SLICE) - 1).bit_length()
+    return gs, -(-group // gs)
+
+
+def split_plan(b: int, h_kv: int, slices: int, max_pages: int,
+               page_size: int, sms: int) -> Tuple[int, int]:
+    """``(pps, splits)``: each (row, KV head, group slice) is cut into
+    ``splits`` splits of ``pps`` consecutive table pages (the last may
+    hold fewer), from shapes alone, never from the sequence lengths (a
+    device tensor): at least half of :data:`BLOCKS_PER_SM` blocks an SM
+    when the tables are full (or every page its own split), at most
+    :data:`SPLIT_TOKENS` tokens a split unless a page holds more or the
+    table would need more than :data:`MAX_SPLITS` splits."""
+    pairs = max(1, b * h_kv * slices)
+    want = max(1, -(-BLOCKS_PER_SM * sms // pairs))
+    pps = -(-max_pages // want)
+    pps = max(1, min(pps, SPLIT_TOKENS // page_size),
+              -(-max_pages // MAX_SPLITS))
+    return pps, -(-max_pages // pps)
+
+
+def merge_splits(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                 ) -> torch.Tensor:
+    """The kernel's merge in plain PyTorch: splits' running maxima m
+    [..., S], sums l [..., S] and unnormalised outputs acc [..., S, D]
+    (S in split order) into softmax(.) V [..., D], fp32, as one pass over
+    all the splits' tokens gives it. A split whose m is -1e30 (no token)
+    weighs 0."""
+    top = m.max(-1, keepdim=True).values
+    f = torch.exp(m - top)
+    total = (l * f).sum(-1)
+    out = (acc * f[..., None]).sum(-2)
+    return out / torch.where(total == 0.0, 1.0, total)[..., None]
+
+
+def _plan(device: torch.device, b: int, h_kv: int, group: int,
+          max_pages: int, page_size: int) -> Tuple[int, int, int, int]:
+    """``(gs, slices, pps, splits)`` of a launch, kept by shape (the
+    decode step asks the same 32 times)."""
+    key = (device.index, b, h_kv, group, max_pages, page_size,
+           BLOCKS_PER_SM, SPLIT_TOKENS)
+    plan = _PLANS.get(key)
+    if plan is None:
+        gs, slices = group_slice(group)
+        plan = (gs, slices) + split_plan(b, h_kv, slices, max_pages,
+                                         page_size, _sms(device))
+        _PLANS[key] = plan
+    return plan
+
+
+def _sms(device: torch.device) -> int:
+    i = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """n zeroed int32 tickets of a device and stream, kept between calls:
+    the kernel's last split of each pair resets its ticket to 0."""
+    key = (device.index if device.index is not None else -1, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -50,9 +145,9 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                          "[H_kv, num_pages, page_size, D], both alike")
     B, H, D = q.shape
     H_kv, num_pages, page_size, Dk = k_pages.shape
-    if Dk != D or H % H_kv or H // H_kv not in GROUPS or D not in HEAD_DIMS:
+    if Dk != D or H_kv < 1 or H % H_kv or D not in HEAD_DIMS:
         raise ValueError(f"unsupported shapes: H={H}, H_kv={H_kv}, D={D} "
-                         f"(group in {GROUPS}, D in {HEAD_DIMS})")
+                         f"(H a multiple of H_kv, D in {HEAD_DIMS})")
     scales = (k_scales, v_scales) if quant else ()
     for t in (k_pages, v_pages, block_tables, seq_lens) + scales:
         if t.device != q.device:
@@ -83,15 +178,26 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     ks, vs = (k_scales.data_ptr(), v_scales.data_ptr()) if quant \
         else (None, None)
+    max_pages = block_tables.shape[1]
+    gs, slices, pps, splits = _plan(q.device, B, H_kv, H // H_kv,
+                                    max_pages, page_size)
+    pairs = B * H_kv * slices
+    part = (torch.empty((pairs * splits * gs * (D + 2),),
+                        dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    stream = _build.stream_ptr(q.device)
+    tickets = _tickets(q.device, stream, pairs)
     err = _build.lib().pt_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B, H,
-        H_kv, D, num_pages, page_size, block_tables.shape[1], scale, code,
-        _build.stream_ptr(q.device))
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None, tickets.data_ptr(),
+        B, H, H_kv, D, num_pages, page_size, max_pages, gs, pps, scale, code,
+        stream)
     name = "paged_decode_int8" if quant else "paged_decode"
     _build.check(err, name)
     _build.count_launch(name)
     return out
 
 
-__all__ = ["paged_decode", "SOURCE", "REPLACES"]
+__all__ = ["paged_decode", "split_plan", "group_slice", "merge_splits",
+           "SOURCE", "REPLACES", "HEAD_DIMS"]

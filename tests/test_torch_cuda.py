@@ -100,30 +100,126 @@ def test_rope_kernel_matches_plain(dev, dtype):
             _close(a, w, dtype)
 
 
+def _paged_lens(H, H_kv, page, B, mp):
+    """Lengths at the first token, at and across a page edge, at and
+    across the edge of the kernel's first split (its plan on this card),
+    and at the full table."""
+    gs, slices = paged_attention.group_slice(H // H_kv)
+    pps, _ = paged_attention.split_plan(B, H_kv, slices, mp, page,
+                                        paged_attention._sms(
+                                            torch.device("cuda")))
+    edge = min(pps, mp - 1) * page
+    return np.array([0, page - 1, page, edge - 1, edge, mp * page - 1],
+                    np.int64)
+
+
+# GQA groups 1-8 (the Llama groups, 3, 5, 6, 7) and 16 (two slices of
+# 8), every head dim the kernel takes, pages of 8, 16, 24 and 128
+PAGED_SHAPES = [(8, 8, 64, 16), (8, 4, 128, 16), (16, 4, 128, 24),
+                (16, 2, 256, 8), (6, 2, 32, 8), (10, 2, 64, 24),
+                (12, 2, 128, 128), (14, 2, 32, 16), (8, 1, 128, 8),
+                (16, 1, 64, 16), (7, 1, 256, 128)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("H,H_kv,D,page", [(8, 8, 64, 16), (8, 4, 128, 16),
-                                           (16, 4, 128, 24),
-                                           (16, 2, 256, 8)])
+@pytest.mark.parametrize("H,H_kv,D,page", PAGED_SHAPES)
 def test_paged_decode_kernel_matches_plain(dev, dtype, H, H_kv, D, page):
-    """GQA groups 1/2/4/8, every head dim the kernel takes, pages that a
-    staged chunk spans or splits, and lengths at the first token, at and
-    across a page edge and at the full table; unused table slots -1."""
+    """Every group 1-8 and 16, every head dim the kernel takes, pages
+    that a warp's chunk spans or splits, lengths at the first token, at
+    and across a page edge and a split edge and at the full table;
+    unused table slots -1; bf16 also per row."""
     dt = getattr(torch, dtype)
     rs = np.random.RandomState(H + D + page)
-    B, mp = 4, 8
+    B, mp = 6, 8
     num_pages = B * mp + 1
     q = rs.normal(0, 1, (B, H, D)).astype(np.float32)
     kp = rs.normal(0, 1, (H_kv, num_pages, page, D)).astype(np.float32)
     vp = rs.normal(0, 1, (H_kv, num_pages, page, D)).astype(np.float32)
     tables = rs.permutation(num_pages)[:B * mp].reshape(B, mp)
-    lens = np.array([0, page - 1, page, mp * page - 1], np.int64)
+    lens = _paged_lens(H, H_kv, page, B, mp)
     for i in range(B):
         tables[i, lens[i] // page + 1:] = -1
     args = [torch.tensor(a, device=dev).to(dt) for a in (q, kp, vp)] + [
         torch.tensor(tables.astype(np.int32), device=dev),
         torch.tensor(lens, device=dev)]
-    _close(paged_attention.paged_decode(*args),
-           attn_ops.paged_decode_plain(*args), dtype)
+    got = paged_attention.paged_decode(*args)
+    want = attn_ops.paged_decode_plain(*args)
+    _close(got, want, dtype)
+    _rows_close(got, want, dtype)
+
+
+def _paged_case(dev, dt, quant, H, H_kv, D, page, B, mp, seed):
+    """Pools (int8 with page scales, one page never written, or of dt),
+    full random tables and random lengths up to the table's end."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    num_pages = B * mp + 1
+    q = torch.randn((B, H, D), generator=g, device=dev).to(dt)
+    if quant:
+        pools = []
+        for _ in range(2):
+            f = torch.randn((H_kv, num_pages, page, D), generator=g,
+                            device=dev)
+            s = f.abs().amax(dim=(0, 2, 3)) / 127.0
+            s[3] = 0.0
+            pools.append(torch.round(f / s.clamp_min(1e-30)[
+                None, :, None, None]).clamp(-127, 127).to(torch.int8))
+            pools.append(s)
+        kp, ks, vp, vs = pools
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        kp = torch.randn((H_kv, num_pages, page, D), generator=g,
+                         device=dev).to(dt)
+        vp = torch.randn((H_kv, num_pages, page, D), generator=g,
+                         device=dev).to(dt)
+        sc = {}
+    tables = (torch.randperm(num_pages - 1, generator=g, device=dev)
+              [:B * mp] + 1).view(B, mp).to(torch.int32).contiguous()
+    tables[0, 0] = 3
+    lens = torch.randint(0, mp * page, (B,), generator=g, device=dev)
+    return (q, kp, vp, tables, lens), sc
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("blocks_per_sm", [0, 1, 8])
+def test_paged_decode_kernel_split_edges(dev, quant, blocks_per_sm,
+                                         monkeypatch):
+    """Three split plans of a 40-page table on a 132-SM card (one split
+    for the whole table; splits of 4 pages; the default's, a page a
+    split), lengths at and across a split edge and at the table's end,
+    native and int8 pools, bf16 against the plain version."""
+    monkeypatch.setattr(paged_attention, "BLOCKS_PER_SM", blocks_per_sm)
+    H, H_kv, D, page, B, mp = 16, 2, 128, 8, 6, 40
+    args, sc = _paged_case(dev, torch.bfloat16, quant, H, H_kv, D, page, B,
+                           mp, blocks_per_sm)
+    pps, _ = paged_attention.split_plan(
+        B, H_kv, paged_attention.group_slice(H // H_kv)[1], mp, page,
+        paged_attention._sms(dev))
+    edge = pps * page
+    args[4][:] = torch.tensor([0, edge - 1, edge, min(2 * edge, mp * page - 1),
+                               mp * page - 2, mp * page - 1], device=dev)
+    got = paged_attention.paged_decode(*args, **sc)
+    want = attn_ops.paged_decode_plain(*args, **sc)
+    _close(got, want, "bfloat16")
+    _rows_close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_decode_kernel_is_deterministic_and_never_syncs(dev, quant):
+    """At the serving shape (B = 8, 32 heads over 8 of 128, 1024-token
+    tables of 16-token pages, ragged lengths) a call under
+    set_sync_debug_mode("error") does not sync the host, and two runs
+    give the same output bit for bit: the splits merge in split order."""
+    args, sc = _paged_case(dev, torch.bfloat16, quant, 32, 8, 128, 16, 8,
+                           64, 11)
+    first = paged_attention.paged_decode(*args, **sc)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = paged_attention.paged_decode(*args, **sc)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, again)
+    _close(again, attn_ops.paged_decode_plain(*args, **sc), "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -447,6 +543,37 @@ def test_bf16_vocab_ce_bwd_is_deterministic(dev, monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,hd,v", [(300, 128, 1000), (77, 64, 777),
+                                    (129, 320, 2304)])
+def test_vocab_ce_fwd_kernel_edges_and_determinism(dev, dtype, n, hd, v):
+    """The forward alone at a ragged N, at a V that is not a multiple of
+    the 256-column tile (777: nor of 8, so bf16 reads a padded W), with
+    labels outside [0, V) (-1, V, inside the last tile past V, far past
+    it), against the plain version (fp32 1e-5, bf16 1e-4), counted on
+    its route, the same bit for bit on a second run; bf16 refuses an H
+    that is not a multiple of 8."""
+    dt = getattr(torch, dtype)
+    h, w, labels, _, _ = _ce_inputs(dev, dt, n, hd, v, False)
+    labels[2], labels[3], labels[4] = v, v + 3, 2 ** 30
+    _build.reset_launches()
+    lse, tgt = fused_vocab_ce.vocab_ce_fwd(h, w, labels)
+    route = fused_vocab_ce.route(dt)
+    assert _build.LAUNCHES["vocab_ce_fwd"] == 1
+    assert _build.LAUNCHES[f"vocab_ce_fwd_{route}"] == 1
+    want_lse, want_tgt = vocab_ce._fwd_plain(h, w, labels)
+    tol = 1e-5 if dtype == "float32" else 1e-4
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    torch.testing.assert_close(tgt, want_tgt, rtol=tol, atol=tol)
+    assert not tgt[::7].any() and not tgt[2:5].any()
+    lse2, tgt2 = fused_vocab_ce.vocab_ce_fwd(h, w, labels)
+    assert torch.equal(lse, lse2) and torch.equal(tgt, tgt2)
+    if dtype == "bfloat16":
+        with pytest.raises(ValueError, match="H=60"):
+            fused_vocab_ce.vocab_ce_fwd(h[:, :60].contiguous(),
+                                        w[:60].contiguous(), labels)
+
+
 def test_bf16_vocab_ce_wrappers_refuse_what_tma_cannot_read(dev):
     """The bf16 backward kernels raise (no fallback) on an H that is not
     a multiple of 8, on a W or workspace row that is not, and on a base
@@ -641,16 +768,20 @@ def test_int8_matmul_wrapper_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("H,H_kv,D,page", [(8, 4, 128, 8), (8, 8, 64, 16),
                                            (16, 4, 128, 128),
-                                           (16, 2, 256, 8)])
+                                           (16, 2, 256, 8), (6, 2, 32, 8),
+                                           (10, 2, 64, 24),
+                                           (14, 2, 128, 16), (8, 1, 32, 24),
+                                           (12, 2, 256, 128)])
 def test_paged_decode_int8_kernel_matches_plain(dev, dtype, H, H_kv, D,
                                                 page):
     """Int8 pools with per-page scales of varied magnitude and a page
-    never written (scale 0): pages that a 128-token chunk spans (page 8)
-    or fills (page 128), lengths at the first token, at and across a
-    page edge and at the full table; bf16 also per row."""
+    never written (scale 0): groups 1-8 (3, 5, 7 among them), every head
+    dim, pages that a warp's chunk spans (page 8) or splits (page 128),
+    lengths at the first token, at and across a page edge and a split
+    edge and at the full table; bf16 also per row."""
     dt = getattr(torch, dtype)
     rs = np.random.RandomState(H + D + page)
-    B, mp = 4, 4
+    B, mp = 6, 4
     num_pages = B * mp + 1
     q = torch.tensor(rs.normal(0, 1, (B, H, D)), device=dev).to(dt)
     pools = []
@@ -665,7 +796,7 @@ def test_paged_decode_int8_kernel_matches_plain(dev, dtype, H, H_kv, D,
     (kp, ks), (vp, vs) = pools
     tables = rs.permutation(num_pages)[:B * mp].reshape(B, mp)
     tables[3, 0] = 3
-    lens = np.array([0, page - 1, page, mp * page - 1], np.int64)
+    lens = _paged_lens(H, H_kv, page, B, mp)
     for i in range(B):
         tables[i, lens[i] // page + 1:] = -1
     args = (q, kp, vp, torch.tensor(tables.astype(np.int32), device=dev),

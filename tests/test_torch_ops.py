@@ -103,7 +103,10 @@ def _paged_inputs(rs, H, H_kv, B=3, D=32, page=8, mp=4, num_pages=14):
     return q, kp, vp, tables.astype(np.int32), lens
 
 
-@pytest.mark.parametrize("H,H_kv", [(4, 4), (4, 2), (8, 2)])
+# groups 1, 2 and 4, the groups of qwen2_moe_a14b (7) and ernie45_moe
+# (5), and a group of 16 (two slices of 8 in the kernel), all at D = 32
+@pytest.mark.parametrize("H,H_kv", [(4, 4), (4, 2), (8, 2), (10, 2), (14, 2),
+                                    (16, 1)])
 def test_paged_decode_plain_matches_pallas_and_xla(H, H_kv):
     rs = np.random.RandomState(H * 10 + H_kv)
     q, kp, vp, tables, lens = _paged_inputs(rs, H, H_kv)
@@ -114,6 +117,93 @@ def test_paged_decode_plain_matches_pallas_and_xla(H, H_kv):
             jnp.asarray(tables), jnp.asarray(lens.astype(np.int32)))
     _close(got, paged_decode_attention(*args, interpret=True))
     _close(got, paged_decode_xla(*args))
+
+
+@pytest.mark.parametrize("group", range(1, 21))
+def test_paged_decode_group_slices_cover_the_group(group):
+    """A group of query rows is held gs rows a block (1, 2, 4 or 8, no
+    more than the group needs) in slices that cover it, the last one
+    partly."""
+    gs, slices = paged_attention.group_slice(group)
+    assert gs in (1, 2, 4, 8) and gs < 2 * group
+    assert (slices - 1) * gs < group <= slices * gs
+    assert slices == 1 or gs == paged_attention.MAX_SLICE
+
+
+@pytest.mark.parametrize("b,h_kv,slices,max_pages,page,sms", [
+    (8, 8, 1, 16, 128, 132),      # the serving run: 16 splits of a page
+    (1, 1, 1, 16, 128, 132),      # one sequence: splits capped at 512 tokens
+    (4, 2, 2, 48, 8, 132),
+    (3, 2, 1, 5, 24, 132),        # a page size that is no power of two
+    (64, 8, 1, 4, 16, 132),       # many pairs: one split
+    (2, 1, 1, 3, 1024, 132),      # pages longer than a split's cap
+    (1, 4, 1, 1000, 16, 8),
+    (1, 1, 1, 40000, 8, 132)])    # more pages than MAX_SPLITS x 64
+def test_paged_decode_split_plan_covers_every_page_once(
+        b, h_kv, slices, max_pages, page, sms):
+    """Every page of the table falls in exactly one split; the plan is a
+    function of shapes (it is never given the sequence lengths, a device
+    tensor); full tables give at least half of BLOCKS_PER_SM blocks an
+    SM where the table has pages enough, and a split walks at most
+    SPLIT_TOKENS tokens unless one page holds more."""
+    import inspect
+    assert set(inspect.signature(paged_attention.split_plan).parameters) \
+        == {"b", "h_kv", "slices", "max_pages", "page_size", "sms"}
+    pps, splits = paged_attention.split_plan(b, h_kv, slices, max_pages,
+                                             page, sms)
+    seen = np.zeros(max_pages, np.int64)
+    for s in range(splits):
+        seen[s * pps:min((s + 1) * pps, max_pages)] += 1
+    assert np.all(seen == 1) and (splits - 1) * pps < max_pages
+    assert splits <= paged_attention.MAX_SPLITS
+    assert pps * page <= max(paged_attention.SPLIT_TOKENS, page) or \
+        pps == -(-max_pages // paged_attention.MAX_SPLITS)
+    pairs = b * h_kv * slices
+    assert pairs * splits >= min(paged_attention.BLOCKS_PER_SM * sms // 2,
+                                 pairs * max_pages,
+                                 pairs * paged_attention.MAX_SPLITS // 2)
+    assert paged_attention.split_plan(b, h_kv, slices, max_pages, page,
+                                      sms) == (pps, splits)
+
+
+@pytest.mark.parametrize("H,H_kv,page,pps", [(4, 2, 8, 1), (14, 2, 8, 3),
+                                             (8, 8, 24, 2)])
+def test_paged_decode_split_merge_matches_one_pass(H, H_kv, page, pps):
+    """Each split's (m, l, acc) over its own tokens (a split past the
+    sequence has none), merged by merge_splits in split order, equals one
+    pass over the whole sequence (paged_decode_plain), fp32, 1e-5."""
+    rs = np.random.RandomState(H + page + pps)
+    B, D, mp, num_pages = 3, 32, 7, 24
+    q, kp, vp, tables, lens = _paged_inputs(rs, H, H_kv, B, D, page, mp,
+                                            num_pages)
+    lens[:] = [0, 3 * page + 1, mp * page - 1]
+    for b in range(B):
+        tables[b] = rs.permutation(num_pages)[:mp]
+        tables[b, lens[b] // page + 1:] = -1
+    args = [torch.tensor(a) for a in (q, kp, vp, tables, lens)]
+    want = attn_ops.paged_decode_plain(*args)
+    G, splits = H // H_kv, -(-mp // pps)
+    safe = np.clip(tables, 0, num_pages - 1)
+    scale = 1.0 / np.sqrt(D)
+    m = np.full((B, H, splits), -1e30, np.float32)
+    l = np.zeros((B, H, splits), np.float32)
+    acc = np.zeros((B, H, splits, D), np.float32)
+    for b in range(B):
+        for h in range(H):
+            k = kp[h // G][safe[b]].reshape(-1, D)
+            v = vp[h // G][safe[b]].reshape(-1, D)
+            sc = (k @ q[b, h]) * scale
+            for s in range(splits):
+                t0, t1 = s * pps * page, min((s + 1) * pps * page,
+                                             int(lens[b]) + 1)
+                if t0 >= t1:
+                    continue
+                m[b, h, s] = sc[t0:t1].max()
+                p = np.exp(sc[t0:t1] - m[b, h, s])
+                l[b, h, s], acc[b, h, s] = p.sum(), p @ v[t0:t1]
+    got = paged_attention.merge_splits(torch.tensor(m), torch.tensor(l),
+                                       torch.tensor(acc))
+    _close(got, want)
 
 
 def test_sdpa_plain_matches_xla_causal_gqa():

@@ -213,9 +213,22 @@ def _quant_pages(rs, H_kv, num_pages, page, D):
 
 
 def test_paged_decode_plain_with_scales_matches_jax():
-    H, H_kv = 8, 2
-    rs = np.random.RandomState(H)
-    B, D, mp, num_pages = 3, 32, 4, 14
+    _check_paged_int8(8, 2, 32, raises=True)
+
+
+# the groups of ernie45_moe (5) and qwen2_moe_a14b (7), at D = 32 and 64
+@pytest.mark.parametrize("H,H_kv,D", [(10, 2, 32), (14, 2, 32), (7, 1, 64)])
+def test_paged_decode_plain_with_scales_matches_jax_other_groups(H, H_kv,
+                                                                 D):
+    _check_paged_int8(H, H_kv, D)
+
+
+def _check_paged_int8(H, H_kv, D, raises=False):
+    """The port's plain int8 paged decode against the JAX package's XLA
+    path and its Pallas kernel (interpret mode): lengths at the first
+    token, at a page edge and across one, a page never written."""
+    rs = np.random.RandomState(H if D == 32 else H + D)
+    B, mp, num_pages = 3, 4, 14
     q = rs.normal(0, 1, (B, H, D)).astype(np.float32)
     kp, ks = _quant_pages(rs, H_kv, num_pages, PAGE, D)
     vp, vs = _quant_pages(rs, H_kv, num_pages, PAGE, D)
@@ -233,6 +246,8 @@ def test_paged_decode_plain_with_scales_matches_jax():
     scales = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
     _close(got, paged_decode_xla(*args, **scales))
     _close(got, paged_decode_attention(*args, **scales, interpret=True))
+    if not raises:
+        return
     with pytest.raises(ValueError, match="together"):
         attn_ops.paged_decode_attention(
             *(torch.tensor(a) for a in (q, kp, vp, tables, lens)),

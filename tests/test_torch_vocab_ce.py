@@ -191,6 +191,35 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_bad_input():
                                             impl="cuda")
 
 
+@pytest.mark.parametrize("n,v", [(5, 300), (33, 256), (8, 1001)])
+def test_forward_partial_merge_matches_logsumexp(n, v):
+    """The bf16 forward's partials, one (m, s, t) a row and 256-column
+    tile as its epilogue leaves them (columns past V weigh 0, t from the
+    tile holding the label, 0 elsewhere), merged by merge_partials in
+    tile order: lse equals torch.logsumexp and tgt the label's logit (0
+    for a label outside [0, V)), fp32, 1e-5."""
+    rs = np.random.RandomState(n + v)
+    logits = torch.tensor((3 * rs.randn(n, v)).astype(np.float32))
+    lab = rs.randint(0, v, (n,))
+    lab[0], lab[1], lab[-1] = -1, v, v - 1       # outside, and the last
+    tiles = -(-v // 256)
+    part = torch.zeros((3, tiles, n))
+    for j in range(tiles):
+        x = logits[:, j * 256:(j + 1) * 256]
+        part[0, j] = x.max(1).values
+        part[1, j] = torch.exp(x - part[0, j][:, None]).sum(1)
+        inside = (lab >= j * 256) & (lab < min(v, (j + 1) * 256))
+        for r in np.nonzero(inside)[0]:
+            part[2, j, r] = x[r, lab[r] - j * 256]
+    lse, tgt = kce.merge_partials(part)
+    _close(lse, torch.logsumexp(logits, -1))
+    want = torch.tensor([float(logits[r, lab[r]]) if 0 <= lab[r] < v
+                         else 0.0 for r in range(n)])
+    _close(tgt, want)
+    assert kce.route(torch.bfloat16) == "wgmma"
+    assert kce.route(torch.float32) == "fma"
+
+
 @pytest.mark.parametrize("v,chunk", [(300, 8192), (1000, 256), (1001, 512),
                                      (552, 256), (777, 256), (128256, 8192),
                                      (102400, 8192)])
