@@ -6,9 +6,9 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --parent DIR``, with the parent commit's tree
-unpacked in DIR, also times the parent's int8 prefill, grouped, paged
-decode and CE kernels against this tree's in turns after phase 3 (the CE
-backward's outputs must be equal bit for bit).
+unpacked in DIR, also times the parent's int8 (decode and prefill),
+grouped, paged decode and CE kernels against this tree's in turns after
+phase 3 (the CE backward's outputs must be equal bit for bit).
 
 Phases, in order; any failure exits non-zero before the result line:
   1. print the card's name and power limit (nvidia-smi);
@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero before the result line:
      and a planted wrong tile or page must fail that check), and time
      kernel, plain version and library call (CUDA events, L2 flushed and
      the host given a head start before every launch, median of 25 after
-     warm-up; 10 for slow plain versions). Training kernels: the
+     warm-up; 10 for slow plain versions). The RMSNorm and RoPE
+     forwards at a decode step (B = 8), a 1024-token prefill and a
+     training step (8192 x 4096; b = 2, s = 4096, 32/8 heads), with
+     their launches a call and launches x the gap to the bound read
+     after phase 7 (``norm_rope_gaps``). Training kernels: the
      RMSNorm backward at 8192 x 4096; the flash forward and backward at
      b=2, s=4096, 32 heads over 8 KV heads, d=128, bf16, causal (with
      TFLOP/s; a K/V tile planted in place of another must break out and
@@ -35,12 +39,14 @@ Phases, in order; any failure exits non-zero before the result line:
      vocabulary 102400) beside torch.matmul, and in fp32 at 2048 x 1024 x 20000 with ignored rows and a
      tied, transposed W through the autograd Function;
      Quantized serving: the int8 matrix product at the five projections
-     of a Llama-3-8B decode step (m = 8, bf16), at gate_up with m = 128
+     of a Llama-3-8B decode step (m = 8, bf16; each also beside a
+     streaming read of its weight's bytes), at gate_up with m = 128
      and m = 1024 (prefills, with TFLOP/s and share of the bound) and in
      fp32 at m = 5, n = 384, k = 256, held per 128 columns of each
      output row in bf16 (a weight with one 64-wide k-block swapped and a
      scale vector with one block of channels shifted must fail that
-     check), beside one torch.matmul with the bf16 weight; the int8
+     check at qkv, at down and at the m = 1024 prefill), beside one
+     torch.matmul with the bf16 weight; the int8
      paged decode at B = 8, context 1024, page 128 (bf16 and fp32 q, and
      a ragged case with a page never written), per row, where a page
      read with another page's K or V scale must fail; both paged decode
@@ -54,8 +60,8 @@ Phases, in order; any failure exits non-zero before the result line:
      bound, beside torch._grouped_mm (or a matmul loop where that is
      missing); a planted wrong tile→group and a planted dW row shift must
      fail, and dW must be the same bit for bit on a second run; fp32 at
-     a small ragged shape; with --parent, the parent's int8 prefill and
-     grouped kernels against this tree's in turns;
+     a small ragged shape; with --parent, the parent's int8 and grouped
+     kernels against this tree's in turns;
   4. engine equality: Llama-3-8B widths at 2 layers, fp32, seeded random
      weights: greedy tokens of the engine on the card equal those of a
      step-by-step plain-version path on the CPU;
@@ -155,6 +161,10 @@ ROW_TOL = 2e-2
 # token's H values) and dW and dlog per column or row as the flash
 # tensors are, with ROW_TOL.
 CE_FP32_TOL = 1e-4
+# Llama-3-8B's int8 projections of a decode step, (n, k)
+DECODE_PROJECTIONS = {"qkv": (6144, 4096), "o": (4096, 4096),
+                      "gate_up": (28672, 4096), "down": (4096, 14336),
+                      "lm_head": (128256, 4096)}
 CE_KERNELS = ("vocab_ce_fwd", "vocab_ce_dlog", "vocab_ce_dh", "vocab_ce_dw")
 SERVING_KERNELS = ("rms_norm", "fused_rope", "paged_decode")
 QUANT_SERVING_KERNELS = ("rms_norm", "fused_rope", "int8_matmul",
@@ -334,8 +344,10 @@ def phase_kernels(torch, pt):
     D, H, HKV, HD = 4096, 32, 8, 128
     cos, sin = rope_ops.rope_freqs(HD, 8192, 500000.0, device=dev)
 
-    # -- RMSNorm: prefill 1024 tokens and decode B=8, fp32 weight ----------
-    for case, R in (("prefill_1024", 1024), ("decode_b8", 8)):
+    # -- RMSNorm: prefill 1024 tokens, decode B=8 and a training step's
+    # 2 x 4096 tokens, fp32 weight ------------------------------------------
+    for case, R in (("prefill_1024", 1024), ("decode_b8", 8),
+                    ("train_8192", 8192)):
         for dt in ((torch.bfloat16, torch.float32) if R == 1024
                    else (torch.bfloat16,)):
             name = str(dt).split(".")[-1]
@@ -356,8 +368,10 @@ def phase_kernels(torch, pt):
                             flush),
                    bound(2 * R * D * e + D * 4, 4 * R * D))
 
-    # -- RoPE: prefill q/k as views of a fused qkv, decode with positions --
-    for case, (b, s) in (("prefill_1024", (1, 1024)), ("decode_b8", (8, 1))):
+    # -- RoPE: prefill and training q/k as views of a fused qkv, decode with
+    # positions ---------------------------------------------------------------
+    for case, (b, s) in (("prefill_1024", (1, 1024)), ("decode_b8", (8, 1)),
+                         ("train_4096", (2, 4096))):
         for dt in ((torch.bfloat16, torch.float32) if s == 1024
                    else (torch.bfloat16,)):
             name = str(dt).split(".")[-1]
@@ -507,6 +521,49 @@ def int8_compare(torch, got, want, dtype_name):
     return e[0], e[1], e[2] and row_ok, seg, e[2], row_ok
 
 
+def int8_decode_plan_sweep(torch, g, dev, flush):
+    """The int8 decode route at the five projections (m = 8, bf16) under
+    other split plans than the default: the plan's cap on blocks an SM
+    (BLOCKS_PER_SM) and on a split's k (SPLIT_K_MAX), each plan's output
+    held to the plain version, its time as phase 3's."""
+    from paddle_tpu_torch.nn.quantized_linear import weight_quantize
+    from paddle_tpu_torch.ops import quant as quant_ops
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import int8_matmul as kmm
+    default = (kmm.BLOCKS_PER_SM, kmm.SPLIT_K_MAX)
+    sms = _build.sm_count(dev)
+    rows = {}
+    for proj, (n, k) in DECODE_PROJECTIONS.items():
+        wq, scale = weight_quantize(0.02 * torch.randn(
+            (k, n), generator=g, device=dev))
+        x = torch.randn((8, k), generator=g, device=dev).to(torch.bfloat16)
+        want = quant_ops.weight_only_plain(x, wq, scale)
+        for bps in (1.5, 2.5, 4):
+            for kmax in (2048, 4096):
+                kmm.BLOCKS_PER_SM, kmm.SPLIT_K_MAX = bps, kmax
+                try:
+                    err = int8_compare(torch, kmm.int8_matmul(x, wq, scale),
+                                       want, "bfloat16")
+                    ms = timed_ms(torch, lambda: kmm.int8_matmul(
+                        x, wq, scale), flush)
+                    plan = kmm.split_plan(8, n, k, sms)
+                finally:
+                    kmm.BLOCKS_PER_SM, kmm.SPLIT_K_MAX = default
+                rows[f"{proj}/bps{bps}/kmax{kmax}"] = {
+                    "us": ms * 1e3, "kps": plan[0], "splits": plan[1],
+                    "ok": err[2]}
+                log(f"int8 decode plan [{proj}, {bps} blocks an SM, splits "
+                    f"of at most {kmax} k]: kps {plan[0]}, {plan[1]} "
+                    f"splits, {ms * 1e3:.1f} us, "
+                    f"{'ok' if err[2] else 'FAIL'}")
+                if not err[2]:
+                    FAILED_CASES.append(f"int8_matmul/plan_{proj}_{bps}_"
+                                        f"{kmax}")
+        del wq, scale, x, want
+    RESULTS["int8_decode_plan_sweep"] = rows
+    torch.cuda.synchronize()
+
+
 def quant_pages(torch, g, dev, hkv, num_pages, page, hd):
     """Int8 page pools as the model writes them: float pages of varied
     magnitudes (a factor from 0.25 to 4 a page), one absmax scale a
@@ -521,11 +578,13 @@ def quant_pages(torch, g, dev, hkv, num_pages, page, hd):
 
 def phase_quant_kernels(torch, pt):
     """Phase 3, the quantized-serving kernels. int8_matmul at the five
-    projections of a Llama-3-8B decode step (m = 8, bf16), at gate_up with
-    m = 1024 (a prefill) and in fp32 at a small ragged shape (m = 5,
-    n = 384, k = 256), with planted faults at qkv and at the prefill; the
-    int8 paged decode at B = 8, context 1024, page 128 (bf16 and fp32 q,
-    and a ragged case), with planted page scales."""
+    projections of a Llama-3-8B decode step (m = 8, bf16; each beside a
+    streaming read of its weight's bytes), at gate_up with m = 128 and
+    1024 (prefills) and in fp32 at a small ragged shape (m = 5, n = 384,
+    k = 256), with planted faults at qkv, at down (k split) and at the
+    prefill, and the decode route's plan sweep; the int8 paged decode at
+    B = 8, context 1024, page 128 (bf16 and fp32 q, and a ragged case),
+    with planted page scales."""
     from paddle_tpu_torch.nn.quantized_linear import weight_quantize
     from paddle_tpu_torch.ops import attention as attn_ops
     from paddle_tpu_torch.ops import quant as quant_ops
@@ -538,7 +597,7 @@ def phase_quant_kernels(torch, pt):
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     planted = {}
 
-    def mm_case(case, m, n, k, dt, timed=True, plant=False):
+    def mm_case(case, m, n, k, dt, timed=True, plant=False, read=None):
         name = str(dt).split(".")[-1]
         wq, scale = weight_quantize(0.02 * torch.randn(
             (k, n), generator=g, device=dev))
@@ -564,6 +623,17 @@ def phase_quant_kernels(torch, pt):
                         else FP32_OPS_PER_S)
             del wbf
         record("int8_matmul", case, name, err, *t, bnd)
+        if read is not None:
+            # the yardstick of what reading the weight's bytes costs in
+            # this timing: one torch sum over an fp32 buffer of n k bytes,
+            # under the same L2 flush
+            flat = read[:n * k // 4]
+            rd = timed_ms(torch, lambda: flat.sum(), flush)
+            RESULTS.setdefault("int8_decode_stream_read", {})[case] = {
+                "kernel_ms": t[0], "stream_read_ms": rd, "bound_ms": bnd[0],
+                "weight_bytes": n * k}
+            log(f"kernel int8_matmul [{case}]: {us(t[0])}, a streaming "
+                f"read of its {n * k / 1e6:.1f} MB weight {us(rd)}")
         if timed and m > 16:
             product_rate("int8_matmul", case, 2 * m * n * k, bnd, t[0], t[2],
                     key="gemm_rates")
@@ -590,12 +660,13 @@ def phase_quant_kernels(torch, pt):
                     FAILED_CASES.append(f"int8_matmul/{case}/{what}_missed")
         torch.cuda.synchronize()
 
-    for proj, (n, k) in (("qkv", (6144, 4096)), ("o", (4096, 4096)),
-                         ("gate_up", (28672, 4096)),
-                         ("down", (4096, 14336)),
-                         ("lm_head", (128256, 4096))):
+    read = torch.zeros((max(n * k for n, k in DECODE_PROJECTIONS.values())
+                        // 4,), dtype=torch.float32, device=dev)
+    for proj, (n, k) in DECODE_PROJECTIONS.items():
         mm_case(f"decode_{proj}", 8, n, k, torch.bfloat16,
-                plant=proj == "qkv")
+                plant=proj in ("qkv", "down"), read=read)
+    del read
+    int8_decode_plan_sweep(torch, g, dev, flush)
     # prefill: the serving run's shortest prompt and a long one
     mm_case("prefill_gate_up_128", 128, 28672, 4096, torch.bfloat16)
     mm_case("prefill_gate_up_1024", 1024, 28672, 4096, torch.bfloat16,
@@ -2072,14 +2143,18 @@ def phase_moe_kernels(torch, pt):
 
 def phase_parent_turns(torch, parent):
     """With ``--parent DIR`` (the parent commit's tree unpacked in DIR):
-    the parent's int8 prefill product and grouped bf16 kernels against
-    this tree's on the same inputs, each library built from its own
-    tree's sources, timed in turns (parent, this, this, parent) as
-    timed_ms times phase 3's rows: the int8 product at gate_up (n 28672,
-    k 4096) with m = 128 and 1024; forward, dx and dW at phase 3's
-    DeepSeekMoE-16B shapes, balanced and skewed; then paged decode and
-    the CE kernels (parent_serving_and_ce_turns). The two results'
-    largest difference is kept beside the times."""
+    the parent's int8 product and grouped bf16 kernels against this
+    tree's on the same inputs, each library built from its own tree's
+    sources, timed in turns (parent, this, this, parent) as timed_ms
+    times phase 3's rows: the int8 product at the five decode
+    projections (m = 8) and at gate_up (n 28672, k 4096) with m = 128
+    and 1024, through the parent's own C interface and on the route its
+    own wrapper takes for that m; the grouped forward, dx and dW at
+    phase 3's DeepSeekMoE-16B shapes, balanced and skewed, through this
+    tree's wrappers (their C interface is unchanged; with_library); then
+    paged decode and the CE kernels (parent_serving_and_ce_turns). The
+    two results' largest difference is kept beside the times."""
+    import ctypes
     from pathlib import Path
     from paddle_tpu_torch.nn.quantized_linear import weight_quantize
     from paddle_tpu_torch.ops.kernels import _build
@@ -2111,86 +2186,83 @@ def phase_parent_turns(torch, parent):
         if exact and diff != 0.0:
             FAILED_CASES.append(f"parent_turns/{name}_not_bit_equal")
 
-    def ran(err, what):
-        _build.check(err, f"parent {what}")
-
-    n, k = 28672, 4096
-    wq, scale = weight_quantize(0.02 * torch.randn((k, n), generator=g,
-                                                   device=dev))
-    for m in (128, 1024):
+    # the parent's pt_int8_matmul has no workspace, tickets or split (its
+    # own argtypes); its wrapper takes route 1 for m <= 16 and 2 above,
+    # the thresholds of this tree's route()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    plib.pt_int8_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
+    for case, m, (n, k) in (
+            *((f"decode_{p}", 8, nk) for p, nk in DECODE_PROJECTIONS.items()),
+            ("prefill_gate_up_128", 128, (28672, 4096)),
+            ("prefill_gate_up_1024", 1024, (28672, 4096))):
+        wq, scale = weight_quantize(0.02 * torch.randn((k, n), generator=g,
+                                                       device=dev))
         x = torch.randn((m, k), generator=g, device=dev).to(bf)
         y = torch.empty((m, n), dtype=bf, device=dev)
+        code = kmm.ROUTES[kmm.route(m, bf)]
 
-        def par_mm():
-            ran(plib.pt_int8_matmul(x.data_ptr(), wq.data_ptr(),
-                                    scale.data_ptr(), y.data_ptr(), m, n, k,
-                                    1, _build.stream_ptr(dev)), "int8")
+        def par_mm(x=x, wq=wq, scale=scale, y=y, m=m, n=n, k=k, code=code):
+            _build.check(plib.pt_int8_matmul(
+                x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                m, n, k, code, _build.stream_ptr(dev)), "parent int8")
             return y
-        turns(f"int8_matmul/prefill_gate_up_{m}", par_mm,
-              lambda: kmm.int8_matmul(x, wq, scale))
-    del wq, scale, x, y
+        turns(f"int8_matmul/{case}", par_mm,
+              lambda x=x, wq=wq, scale=scale: kmm.int8_matmul(x, wq, scale))
+        del wq, scale, x, y
+    torch.cuda.empty_cache()
     for proj, (k, n) in (("gate_up", (2048, 2816)), ("down", (1408, 2048))):
         w = (0.02 * torch.randn((MOE_E, k, n), generator=g,
                                 device=dev)).to(bf)
         xs = torch.randn((MOE_M, k), generator=g, device=dev).to(bf)
         gy = torch.randn((MOE_M, n), generator=g, device=dev).to(bf)
-        y = torch.empty((MOE_M, n), dtype=torch.float32, device=dev)
-        dx = torch.empty((MOE_M, k), dtype=bf, device=dev)
-        dw = torch.empty((MOE_E, k, n), dtype=bf, device=dev)
         for kind in ("balanced", "skewed"):
             ends = kgm.group_ends(expert_counts(torch, kind, MOE_M, MOE_E,
                                                 g))
-            s = _build.stream_ptr(dev)
-
-            def par_fwd():
-                ran(plib.pt_grouped_matmul(
-                    xs.data_ptr(), w.data_ptr(), ends.data_ptr(),
-                    y.data_ptr(), MOE_M, k, n, MOE_E, 0, 1, 0, 1, s), "fwd")
-                return y
-
-            def par_dx():
-                ran(plib.pt_grouped_matmul(
-                    gy.data_ptr(), w.data_ptr(), ends.data_ptr(),
-                    dx.data_ptr(), MOE_M, n, k, MOE_E, 1, 1, 1, 1, s), "dx")
-                return dx
-
-            def par_dw():
-                ran(plib.pt_grouped_matmul_dw(
-                    xs.data_ptr(), gy.data_ptr(), ends.data_ptr(),
-                    dw.data_ptr(), MOE_M, k, n, MOE_E, 1, 1, 1, s), "dw")
-                return dw
-            turns(f"grouped_matmul/{proj}_{kind}", par_fwd,
-                  lambda: kgm.grouped_matmul(xs, w, ends))
-            turns(f"grouped_matmul/{proj}_dx_{kind}", par_dx,
-                  lambda: kgm.grouped_matmul(gy, w, ends, out_dtype=bf,
-                                             transpose_w=True))
-            turns(f"grouped_matmul_dw/{proj}_{kind}", par_dw,
-                  lambda: kgm.grouped_matmul_dw(xs, gy, ends, out_dtype=bf))
-        del w, xs, gy, y, dx, dw
+            for name, fn in (
+                    (f"grouped_matmul/{proj}_{kind}",
+                     lambda: kgm.grouped_matmul(xs, w, ends)),
+                    (f"grouped_matmul/{proj}_dx_{kind}",
+                     lambda: kgm.grouped_matmul(gy, w, ends, out_dtype=bf,
+                                                transpose_w=True)),
+                    (f"grouped_matmul_dw/{proj}_{kind}",
+                     lambda: kgm.grouped_matmul_dw(xs, gy, ends,
+                                                   out_dtype=bf))):
+                turns(name, with_library(plib, fn), fn)
+        del w, xs, gy
         torch.cuda.empty_cache()
-    parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns, ran,
-                                rows)
+    parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns)
     RESULTS["parent_turns"] = {"parent": str(root), "rows": rows,
                                "parent_build_s": build_log.get("seconds")}
     del flush
     torch.cuda.empty_cache()
 
 
-def parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns, ran,
-                                rows):
+def with_library(lib, fn):
+    """``fn`` as a call that runs with the kernel library ``lib`` (another
+    tree's, of the same C interface) in place of this tree's, so that this
+    tree's wrappers launch that tree's kernels."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    def call():
+        own, _build._LIB = _build._LIB, lib
+        try:
+            return fn()
+        finally:
+            _build._LIB = own
+    return call
+
+
+def parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns):
     """The parent's and this tree's paged decode (native and int8 pools,
     phase 3's ctx1024 shape, bf16) and CE forward (phase 3's train_8192
     shape) in turns, and the CE backward's dlog, dh and dW of one chunk,
-    which must be equal bit for bit. The parent's pt_paged_decode is
-    called with its own signature (no split plan), and its forward's
-    partials ([3, N, splits]) are merged as its wrapper merged them."""
-    import ctypes
-    from paddle_tpu_torch.ops.kernels import _build
+    which must be equal bit for bit. These kernels' C interfaces are the
+    parent's too, so the parent's run through this tree's wrappers with
+    the parent's library in place (``with_library``)."""
     from paddle_tpu_torch.ops.kernels import fused_vocab_ce as kce
     from paddle_tpu_torch.ops.kernels import paged_attention
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    plib.pt_paged_decode.argtypes = [P] * 8 + [I] * 7 + [F, I, P]
-    bf, s = torch.bfloat16, _build.stream_ptr(dev)
+    on = with_library
+    bf = torch.bfloat16
     B, H, HKV, HD, page, ctx = 8, 32, 8, 128, 128, 1024
     mp = 2048 // page
     num_pages = B * mp + 1
@@ -2198,7 +2270,6 @@ def parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns, ran,
     tables = (torch.randperm(num_pages - 1, generator=g, device=dev)
               [:B * mp] + 1).view(B, mp).to(torch.int32).contiguous()
     lens = torch.full((B,), ctx - 1, dtype=torch.int64, device=dev)
-    out = torch.empty_like(q)
     native = tuple(torch.randn((HKV, num_pages, page, HD), generator=g,
                                device=dev).to(bf) for _ in range(2))
     quant = (quant_pages(torch, g, dev, HKV, num_pages, page, HD),
@@ -2207,19 +2278,11 @@ def parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns, ran,
             ("paged_decode/ctx1024", *native, {}),
             ("paged_decode_int8/ctx1024", quant[0][0], quant[1][0],
              dict(k_scales=quant[0][1], v_scales=quant[1][1]))):
-        ks, vs = (sc["k_scales"].data_ptr(), sc["v_scales"].data_ptr()) \
-            if sc else (None, None)
-
-        def par_pd(kp=kp, vp=vp, ks=ks, vs=vs, name=name):
-            ran(plib.pt_paged_decode(
-                q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ks, vs,
-                tables.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H,
-                HKV, HD, num_pages, page, mp, 1.0 / math.sqrt(HD), 1, s),
-                name)
-            return out
-        turns(name, par_pd, lambda kp=kp, vp=vp, sc=sc:
-              paged_attention.paged_decode(q, kp, vp, tables, lens, **sc))
-    del native, quant, q, out
+        def this(kp=kp, vp=vp, sc=sc):
+            return paged_attention.paged_decode(q, kp, vp, tables, lens,
+                                                **sc)
+        turns(name, on(plib, this), this)
+    del native, quant, q
     torch.cuda.empty_cache()
 
     N, Hd, V, C = 8192, 4096, 128256, kce.CHUNK
@@ -2228,57 +2291,58 @@ def parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns, ran,
     labels = torch.randint(0, V, (N,), generator=g, device=dev).to(
         torch.int32)
     labels[::97] = -1
-    splits = plib.pt_vocab_ce_splits(N, V, 1)
-    part = torch.empty((3, N, splits), dtype=torch.float32, device=dev)
 
-    def par_fwd():
-        ran(plib.pt_vocab_ce_fwd(h.data_ptr(), w.data_ptr(),
-                                 labels.data_ptr(), part.data_ptr(), N, Hd,
-                                 V, splits, 1, 1, s), "vocab_ce_fwd")
-        m, sm, t = part
-        top = m.max(1).values
-        total = (sm * torch.exp(m - top[:, None])).sum(1)
-        return torch.stack((top + torch.log(torch.where(
-            total == 0.0, 1.0, total)), t.sum(1)))
-    turns("vocab_ce_fwd/train_8192", par_fwd,
-          lambda: torch.stack(kce.vocab_ce_fwd(h, w, labels)), reps=10)
-    lse = par_fwd()[0].contiguous()
-    del part
+    def fwd():
+        return torch.stack(kce.vocab_ce_fwd(h, w, labels))
+    turns("vocab_ce_fwd/train_8192", on(plib, fwd), fwd, reps=10)
+    lse = fwd()[0].contiguous()
     g_lse = torch.randn((N,), generator=g, device=dev)
     g_tgt = torch.randn((N,), generator=g, device=dev)
     dl_p, dl_t = (torch.empty((N, C), dtype=bf, device=dev)
                   for _ in range(2))
-
-    def par_dlog():
-        ran(plib.pt_vocab_ce_dlog(
-            h.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-            g_lse.data_ptr(), g_tgt.data_ptr(), dl_p.data_ptr(), N, Hd, V, 0,
-            C, C, 1, s), "vocab_ce_dlog")
-        return dl_p
-    turns("vocab_ce_dlog/train_chunk_8192", par_dlog,
+    turns("vocab_ce_dlog/train_chunk_8192",
+          on(plib, lambda: kce.vocab_ce_dlog(h, w, labels, lse, g_lse, g_tgt,
+                                             0, C, dl_p)),
           lambda: kce.vocab_ce_dlog(h, w, labels, lse, g_lse, g_tgt, 0, C,
                                     dl_t), exact=True)
     dh_p, dh_t = torch.empty_like(h), torch.empty_like(h)
-
-    def par_dh():
-        ran(plib.pt_vocab_ce_dh(dl_t.data_ptr(), w.data_ptr(), None,
-                                dh_p.data_ptr(), N, Hd, V, 0, C, C, 1, 1, 1,
-                                s), "vocab_ce_dh")
-        return dh_p
-    turns("vocab_ce_dh/train_chunk_8192", par_dh,
+    turns("vocab_ce_dh/train_chunk_8192",
+          on(plib, lambda: kce.vocab_ce_dh(dl_t, w, 0, C, dh_p)),
           lambda: kce.vocab_ce_dh(dl_t, w, 0, C, dh_t), exact=True)
     del dh_p, dh_t
     dw_p, dw_t = torch.empty_like(w), torch.empty_like(w)
-
-    def par_dw():
-        ran(plib.pt_vocab_ce_dw(h.data_ptr(), dl_t.data_ptr(),
-                                dw_p.data_ptr(), N, Hd, V, 0, C, C, 1, s),
-            "vocab_ce_dw")
-        return dw_p[:, :C]
-    turns("vocab_ce_dw/train_chunk_8192", par_dw,
+    turns("vocab_ce_dw/train_chunk_8192",
+          on(plib, lambda: kce.vocab_ce_dw(h, dl_t, 0, C, dw_p)[:, :C]),
           lambda: kce.vocab_ce_dw(h, dl_t, 0, C, dw_t)[:, :C], exact=True)
     del dw_p, dw_t, dl_p, dl_t, h, w
     torch.cuda.empty_cache()
+
+
+def norm_rope_gaps():
+    """The RMSNorm and RoPE forwards at their launched shapes (phase 3's
+    bf16 rows): time, bound, launches a call of the path that runs that
+    shape (a decode step and a prefill of phase 5, a step of phase 7)
+    and launches x (time - bound), in us."""
+    per = {"decode_b8": RESULTS["serving"]["launches_per_call"]
+           ["decode_step"],
+           "prefill_1024": RESULTS["serving"]["launches_per_call"]
+           ["prefill"],
+           "train": RESULTS["training"]["launches_per_step"]}
+    rows = {}
+    for c in RESULTS["kernel_cases"]:
+        if (c["kernel"] not in ("rms_norm", "fused_rope")
+                or c["dtype"] != "bfloat16" or c["ms"] is None):
+            continue
+        n = per["train" if c["case"].startswith("train") else c["case"]][
+            c["kernel"]]
+        row = {"us": c["ms"] * 1e3, "bound_us": c["bound_ms"] * 1e3,
+               "launches": n,
+               "launches_x_gap_us": n * (c["ms"] - c["bound_ms"]) * 1e3}
+        rows[f"{c['kernel']}/{c['case']}"] = row
+        log(f"{c['kernel']} [{c['case']}]: {row['us']:.2f} us, bound "
+            f"{row['bound_us']:.2f} us, {n} launches a call, launches x gap "
+            f"{row['launches_x_gap_us']:.1f} us")
+    RESULTS["norm_rope_gaps"] = rows
 
 
 def phase_moe_sync(torch, pt, dev):
@@ -2508,6 +2572,7 @@ def main() -> int:
     phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, "bfloat16")
     phase_recompute_equality(torch, pt, dev, LlamaConfig.llama3_8b, ref)
     train_launches = phase_train(torch, pt, dev, LlamaConfig.llama3_8b)
+    norm_rope_gaps()
     phase_moe_sync(torch, pt, dev)
     for dtype in ("float32", "bfloat16"):
         phase_moe_equality(torch, pt, dev, MoEConfig.deepseek_moe_16b, dtype)

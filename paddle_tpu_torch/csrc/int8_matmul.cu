@@ -8,57 +8,85 @@
 // fp32 and y [m, n] in x's type, rounded once. Any m >= 1 (rows past m are
 // masked); n and k multiples of 16.
 //
-// Bound: at decode (m = 8) bytes: the n x k int8 weight crosses device
+// Bound: at decode (m <= 16) bytes: the n x k int8 weight crosses device
 // memory once and x, scale and y are small; at Llama-3-8B widths that is
 // 7.5 / 5.0 / 35.0 / 17.5 / 156.8 us for qkv / o / gate_up / down /
 // lm_head at 3.35 TB/s. At prefill (m of a page multiple, up to 1536)
 // operations: 2 m n k on the tensor cores.
 //
-// Design. The weight is widened from int8 in registers, right before the
-// product, and never written back dequantized: that pass is what the
-// kernel exists to avoid. The scale multiplies the fp32 sum once, in the
-// epilogue, as the TPU kernel's `_epilogue` does. Three routes, which the
-// wrapper chooses from m and x's type:
-//  - bf16 x, m > 16 (prefill): TMA + `wgmma` with warp specialisation
-//    (CUTLASS's mixed-input Hopper GEMM). The operands are swapped,
-//    y^T = wq . x^T, so that the int8 weight is the M-side operand, the
-//    only one `wgmma` takes from registers. Tiles of 128 channels x BN
-//    tokens (BN = 256 at m >= 256, 128 at m > 64, else 64), 64-deep
-//    k-slices in a 4-stage ring: TMA brings the weight as int8 in 64-byte
-//    rows in the 64-byte swizzle (conflict-free reads of the fragment's
-//    bytes) and x as a bf16 K-major box in the 128-byte swizzle that the
-//    `wgmma` descriptor reads in place. One producer warpgroup (one thread
-//    issues the copies) and two consumer warpgroups of 64 channels each;
-//    persistent blocks walk the tiles in wgmma_gemm.cuh's raster, so the
-//    token tiles of one channel tile run together and read its weight from
-//    L2. Each consumer thread reads its A fragment (rows g and g + 8, k =
-//    2c, 2c + 1, 2c + 8, 2c + 9 of each 16-deep step) from the int8 tile
-//    and widens it to bf16 in registers, exactly: the byte goes into the
-//    fp32 pattern of 2^23 + (b + 128) by one `prmt`, one subtract leaves
-//    b, and the high halves of two such floats are a bf16 pair. The
-//    fragments are double-buffered across slices, since `wgmma` reads its
-//    registers after issue. The epilogue multiplies each channel by its
-//    scale, rounds once, and stages the tile transposed ([token][channel],
+// The weight is widened from int8 in registers, right before the product,
+// and never written back dequantized: that pass is what the kernel exists
+// to avoid. Widening is exact: the byte, offset by 128, goes into the fp32
+// pattern of 2^23 + (b + 128) by one `prmt`, one subtract leaves b, and
+// the high halves of two such floats are a bf16 pair. The scale multiplies
+// the fp32 sum once, in the epilogue, as the TPU kernel's `_epilogue` does.
+// Three routes, which the wrapper chooses from m and x's type:
+//  - bf16 x, m <= 16 (decode; namespace `decode`). The time is the
+//    weight's bytes, so the design is about keeping HBM busy from every
+//    SM with nothing else in the weight's way:
+//    * operands swapped, y^T = wq . x^T, on mma.sync m16n8k16: the weight
+//      is the A operand (16 channels x 16 k; [n, k] with k contiguous is
+//      the `.row` layout) and x^T the B operand (8 tokens; [m, k] is the
+//      `.col` layout), so one n8 tile holds m <= 8 and two hold m <= 16,
+//      and no product is spent on rows of zeros. k is permuted inside
+//      each 64-deep step so that a lane's fragments are 16 contiguous
+//      bytes of weight rows g and g + 8 (k = 16c .. 16c + 15; its four
+//      16-deep products take bytes 4j .. 4j + 3 as k 2c, 2c + 1, 2c + 8,
+//      2c + 9) and 32 contiguous bytes of x row g: the same permutation
+//      on both operands leaves the sum unchanged; each read is one
+//      16-byte shared-memory load, conflict-free (rows 16 bytes past a
+//      multiple of 128);
+//    * blocks of 4 warps own 64 channels (16 a warp) and one k slice. The
+//      block stages its slice of x (all m rows, zero past m) in shared
+//      memory once, with `cp.async`, and its four warps read their B
+//      fragments from there;
+//    * each warp streams its own 16 weight rows through a ring of its own
+//      (STAGES stages of W bytes a row): lanes 0..15 each issue one TMA
+//      bulk copy (`cp.async.bulk`) of a row's next W bytes, completing on
+//      the stage's mbarrier, so the copy engine keeps the bytes in flight
+//      and the threads only widen and multiply; a warp needs no block
+//      barrier until the end. The copies carry an L2 evict-first policy:
+//      the weight is read once, so its lines are the ones to go. Loading
+//      each lane's 16 bytes straight into registers (64-byte pieces of
+//      each row a load) stayed well above a plain read of the weight at
+//      gate_up, down and lm_head, and more bytes in flight made it slower
+//      (PERF.md): the row pieces, not the bytes in flight, were the
+//      limit. Whole 256-byte pieces a row, two stages deep, did best of
+//      the geometries tried (128 to 512 bytes, one to four stages);
+//    * split over k: the grid is (channel tiles x splits), planned on the
+//      host from (m, n, k, SM count) alone (ops/kernels/int8_matmul.py
+//      `split_plan`): the most splits whose blocks all fit the card in
+//      one wave, at most 2.5 blocks an SM. More blocks streaming at once
+//      ran slower, and a second, partial wave costs a whole block's time
+//      (chip_smoke.py's plan sweep). Splits write fp32 partials in
+//      fragment order to a workspace and take a ticket (one
+//      acquire-release atomic a block); the last block of a channel tile
+//      adds the partials in split order, applies the scale, stores y and
+//      resets the ticket. So the route is one launch and bit-identical
+//      between runs. A plan of one split stores y straight from the
+//      accumulators.
+//  - bf16 x, m > 16 (prefill; namespace `prefill`): TMA + `wgmma` with
+//    warp specialisation (CUTLASS's mixed-input Hopper GEMM). The operands
+//    are swapped, y^T = wq . x^T, so that the int8 weight is the M-side
+//    operand, the only one `wgmma` takes from registers. Tiles of 128
+//    channels x BN tokens (BN = 256 at m >= 256, 128 at m > 64, else 64),
+//    64-deep k-slices in a 4-stage ring: TMA brings the weight as int8 in
+//    64-byte rows in the 64-byte swizzle (conflict-free reads of the
+//    fragment's bytes) and x as a bf16 K-major box in the 128-byte swizzle
+//    that the `wgmma` descriptor reads in place. One producer warpgroup
+//    (one thread issues the copies) and two consumer warpgroups of 64
+//    channels each; persistent blocks walk the tiles in wgmma_gemm.cuh's
+//    raster, so the token tiles of one channel tile run together and read
+//    its weight from L2. Each consumer thread reads its A fragment (rows g
+//    and g + 8, k = 2c, 2c + 1, 2c + 8, 2c + 9 of each 16-deep step) from
+//    the int8 tile and widens it to bf16 in registers. The fragments are
+//    double-buffered across slices, since `wgmma` reads its registers
+//    after issue. The epilogue multiplies each channel by its scale,
+//    rounds once, and stages the tile transposed ([token][channel],
 //    16-byte chunks swizzled by token) in shared memory, then writes y
 //    rows in 16-byte stores.
-//  - bf16 x, m <= 16 (decode): tensor cores, mma.sync m16n8k16 (bf16
-//    operands, fp32 accumulators) from a cp.async ring with 16-byte copies.
-//    Each thread reads its B fragment as one 32-bit word of four int8
-//    values of one weight row (wq is [n, k], k contiguous: the `.col`
-//    layout the B operand wants) and widens it to two bf16 pairs; int8 is
-//    exact in bf16. The four values are k = 4c .. 4c + 3 of the 16-deep
-//    step (c = lane % 4), where the fragment's own order is 2c, 2c + 1,
-//    2c + 8, 2c + 9: the A fragment is read with the same permutation of
-//    k, which leaves the sum unchanged and makes both reads single words
-//    (A: two 8-byte reads per 16 rows). 16 x 32 block tiles, 4 warps that
-//    split each 256-deep stage four ways (k groups) and add their partial
-//    sums in a fixed order at the end, 4 stages. At n = 4096 that is 128
-//    blocks for 132 SMs, each streaming 32 weight rows; rows 8..15 of the
-//    tile are zero-filled without reading memory.
 //  - fp32 x: real fp32 FMAs (64 x 64 tiles, 4 x 4 outputs a thread), as
 //    the fp32 tolerance needs; the weight widens to fp32 in shared memory.
-// A split over k across blocks (n = 4096 leaves SMs idle at decode) is
-// later work.
 
 #include <stdint.h>
 
@@ -68,50 +96,29 @@
 namespace {
 
 using bf = __nv_bfloat16;
-using pt::cp_async16;
-using pt::cp_async_commit;
-using pt::cp_async_wait;
 
-// block tile BM x BN; WGM x WGN warps over it, repeated for KS k groups
-template <int BM_, int BN_, int WGM, int WGN, int KS_, int STAGES_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, KS = KS_, STAGES = STAGES_;
-  static constexpr int THREADS = WGM * WGN * KS * 32;
-  static constexpr int BK = 64;             // k of one group in a stage
-  static constexpr int SK = BK * KS;        // k of a stage
-  static constexpr int WM = BM / WGM, WN = BN / WGN;
-  static constexpr int MT = WM / 16, NT = WN / 8;
-  static constexpr int WG = WGM * WGN;      // warps of one k group
-  // staged rows padded so that the fragment reads of a warp fall in
-  // distinct banks: x rows 2 SK + 32 bytes, weight rows SK + 16 bytes
-  static constexpr int LDX = SK + 16;       // bf16 elements
-  static constexpr int LDW = SK + 16;       // bytes
-  static constexpr int X_BYTES = BM * LDX * 2;
-  static constexpr int STAGE_BYTES = X_BYTES + BN * LDW;
-  static constexpr int LDC = BN + 4;        // fp32 partial sums
-  static constexpr int RING = STAGES * STAGE_BYTES;
-  static constexpr int CS = KS * BM * LDC * 4;
-  static constexpr int SMEM = RING > CS ? RING : CS;
-};
-
-using DecodeTile = Tile<16, 32, 1, 1, 4, 4>;
-
-// four int8 values of a 32-bit word -> two bf16 pairs, low bytes first
-__device__ __forceinline__ void widen4(unsigned q, unsigned& lo,
-                                       unsigned& hi) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(
-      static_cast<float>(static_cast<signed char>(q & 0xffu)),
-      static_cast<float>(static_cast<signed char>((q >> 8) & 0xffu)));
-  const __nv_bfloat162 b = __floats2bfloat162_rn(
-      static_cast<float>(static_cast<signed char>((q >> 16) & 0xffu)),
-      static_cast<float>(static_cast<signed char>(q >> 24)));
-  lo = *reinterpret_cast<const unsigned*>(&a);
-  hi = *reinterpret_cast<const unsigned*>(&b);
+// four int8 values (bytes of q, low first) -> two bf16 pairs, exactly:
+// byte b becomes the fp32 pattern of 2^23 + (b + 128), one subtract
+// leaves b, and a bf16 pair is the high halves of two such floats
+__device__ __forceinline__ void widen(uint32_t q, uint32_t& lo,
+                                      uint32_t& hi) {
+  q ^= 0x80808080u;
+  constexpr float kMagic = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650)) -
+                   kMagic;
+  const float f1 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7651)) -
+                   kMagic;
+  const float f2 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7652)) -
+                   kMagic;
+  const float f3 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7653)) -
+                   kMagic;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // d += a . b on one m16n8k16 tile: bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
@@ -119,122 +126,254 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <class C>
-__global__ void __launch_bounds__(C::THREADS)
-int8_mm_bf16_kernel(const bf* __restrict__ x, const int8_t* __restrict__ w,
-                    const float* __restrict__ scale, bf* __restrict__ y,
-                    int m, int n, int k) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kg = warp / C::WG, wi = warp % C::WG;
-  const int wm = wi / (C::BN / C::WN), wn = wi % (C::BN / C::WN);
-  const int m0 = blockIdx.y * C::BM, n0 = blockIdx.x * C::BN;
-  const int g = lane >> 2, c = lane & 3;
-  const int nsteps = (k + C::SK - 1) / C::SK;
+// ---------------------------------------------------------------------------
+// bf16 x, m <= 16: split over k, the weight streamed into registers
+// ---------------------------------------------------------------------------
 
-  auto stage_x = [&](int s) {
-    return reinterpret_cast<bf*>(smem + s * C::STAGE_BYTES);
-  };
-  auto stage_w = [&](int s) {
-    return reinterpret_cast<int8_t*>(smem + s * C::STAGE_BYTES + C::X_BYTES);
-  };
-  // stage `step` of x (BM rows, 8 elements a copy) and of the weight (BN
-  // rows, 16 a copy); k is a multiple of 16, so a copy is whole or absent
-  auto load = [&](int step, int s) {
-    const int k0 = step * C::SK;
-    bf* xd = stage_x(s);
-    for (int v = tid; v < C::BM * C::SK / 8; v += C::THREADS) {
-      const int r = v / (C::SK / 8), cc = (v % (C::SK / 8)) * 8;
-      const bool ok = m0 + r < m && k0 + cc < k;
-      cp_async16(xd + r * C::LDX + cc,
-                 ok ? x + static_cast<size_t>(m0 + r) * k + k0 + cc : x, ok);
-    }
-    int8_t* wd = stage_w(s);
-    for (int v = tid; v < C::BN * C::SK / 16; v += C::THREADS) {
-      const int r = v / (C::SK / 16), cc = (v % (C::SK / 16)) * 16;
-      const bool ok = n0 + r < n && k0 + cc < k;
-      cp_async16(wd + r * C::LDW + cc,
-                 ok ? w + static_cast<size_t>(n0 + r) * k + k0 + cc : w, ok);
-    }
-  };
+namespace decode {
 
-  float acc[C::MT][C::NT][4];
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+using namespace pt::hopper;
 
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < nsteps) load(s, s);
-    cp_async_commit();
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();
-    // refill the slot that step - 1 read, which every thread has left
-    const int next = step + C::STAGES - 1;
-    if (next < nsteps) load(next, next % C::STAGES);
-    cp_async_commit();
-    const int s = step % C::STAGES;
-    const bf* xt = stage_x(s) + kg * C::BK;
-    const int8_t* wt = stage_w(s) + kg * C::BK;
-#pragma unroll
-    for (int kk = 0; kk < C::BK; kk += 16) {
-      unsigned a[C::MT][4];
-#pragma unroll
-      for (int i = 0; i < C::MT; ++i) {
-        const bf* p = xt + (wm * C::WM + i * 16 + g) * C::LDX + kk + 4 * c;
-        const uint2 lo = *reinterpret_cast<const uint2*>(p);
-        const uint2 hi = *reinterpret_cast<const uint2*>(p + 8 * C::LDX);
-        a[i][0] = lo.x;     // row g,     k 4c, 4c + 1
-        a[i][1] = hi.x;     // row g + 8, k 4c, 4c + 1
-        a[i][2] = lo.y;     // row g,     k 4c + 2, 4c + 3
-        a[i][3] = hi.y;     // row g + 8, k 4c + 2, 4c + 3
-      }
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j) {
-        const int8_t* p = wt + (wn * C::WN + j * 8 + g) * C::LDW + kk + 4 * c;
-        unsigned b0, b1;
-        widen4(*reinterpret_cast<const unsigned*>(p), b0, b1);
-#pragma unroll
-        for (int i = 0; i < C::MT; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring becomes the partial sums
+constexpr int WARPS = 4;
+constexpr int NTH = 32 * WARPS;
+constexpr int BN = 16 * WARPS;     // channels a block
+constexpr int CK = 64;             // k of a step: 16 bytes a lane and row
+constexpr int W = 256;             // bytes of a weight row a stage
+constexpr int STAGES = 2;          // stages of a warp's ring
+constexpr int ROW = W + 16;        // row stride: 16 bytes past 128 n
+constexpr int STAGE = 16 * ROW;    // a warp's 16 rows
+constexpr int RING = WARPS * STAGES * STAGE;
+constexpr int BARS = WARPS * STAGES * 8;
 
-  float* cs = reinterpret_cast<float*>(smem) + kg * C::BM * C::LDC;
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j) {
-      const int r = wm * C::WM + i * 16 + g, col = wn * C::WN + j * 8 + 2 * c;
-      cs[r * C::LDC + col] = acc[i][j][0];
-      cs[r * C::LDC + col + 1] = acc[i][j][1];
-      cs[(r + 8) * C::LDC + col] = acc[i][j][2];
-      cs[(r + 8) * C::LDC + col + 1] = acc[i][j][3];
-    }
-  __syncthreads();
-  // k groups added in order, the scale on the sum, two columns a thread
-  const float* c0 = reinterpret_cast<const float*>(smem);
-  for (int v = tid; v < C::BM * C::BN / 2; v += C::THREADS) {
-    const int r = v / (C::BN / 2), col = (v % (C::BN / 2)) * 2;
-    if (m0 + r >= m || n0 + col >= n) continue;
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int q = 0; q < C::KS; ++q) {
-      s0 += c0[(q * C::BM + r) * C::LDC + col];
-      s1 += c0[(q * C::BM + r) * C::LDC + col + 1];
-    }
-    *reinterpret_cast<__nv_bfloat162*>(
-        y + static_cast<size_t>(m0 + r) * n + n0 + col) =
-        __floats2bfloat162_rn(s0 * scale[n0 + col], s1 * scale[n0 + col + 1]);
-  }
+// the weight's L2 policy: it is read once, so its lines go first and
+// leave what else L2 holds (activations, KV pages, dirty lines) in place
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(pol));
+  return pol;
 }
+
+// `bytes` from device memory into shared memory by the copy engine,
+// completing on `bar`, under L2 policy `pol`
+__device__ __forceinline__ void bulk_load_hint(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(pol)
+      : "memory");
+}
+
+// shared memory of a block: the warps' rings, their mbarriers and the
+// x slice (8 NT rows of `steps` CK elements, a row 16 bytes past a
+// multiple of 128)
+__host__ __device__ constexpr int smem_bytes(int nt, int steps) {
+  return RING + BARS + nt * 8 * (steps * CK + 8) * 2;
+}
+
+// NT n8 tiles of tokens (m <= 8 NT). Block (tile, split) computes
+// channels [64 tile, 64 tile + 64) over k [kps split, kps split + kps).
+template <int NT>
+__global__ void __launch_bounds__(NTH)
+int8_decode_kernel(const bf* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ scale, bf* __restrict__ y,
+                   float* __restrict__ part, int* __restrict__ tickets,
+                   int m, int n, int k, int kps) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int s_last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int tile = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int k0 = split * kps;
+  const int kl = min(kps, k - k0);          // a multiple of 16
+  const int steps = (kl + CK - 1) / CK;
+  const int stages = (kl + W - 1) / W;
+  const int ldx = steps * CK + 8;           // x row stride, elements
+  const int ch = tile * BN + warp * 16;     // the warp's first channel
+  const bool live = ch < n;                 // n is a multiple of 16
+  unsigned char* ring = smem + warp * STAGES * STAGE;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + RING) + warp * STAGES;
+  bf* xs = reinterpret_cast<bf*>(smem + RING + BARS);
+
+  if (lane == 0)
+    for (int st = 0; st < STAGES; ++st) mbar_init(&bar[st], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncwarp();
+  // stage st of the warp's 16 rows: one bulk copy a row (lanes 0..15),
+  // completing on the stage's mbarrier
+  const uint64_t pol = l2_evict_first();
+  auto issue = [&](int st) {
+    if (!live || st >= stages) return;
+    const int bytes = min(W, kl - st * W);
+    uint64_t* b = &bar[st % STAGES];
+    if (lane == 0) mbar_expect_tx(b, 16 * bytes);
+    if (lane < 16)
+      bulk_load_hint(ring + (st % STAGES) * STAGE + lane * ROW,
+                     w + static_cast<size_t>(ch + lane) * k + k0 + st * W,
+                     bytes, b, pol);
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES; ++st) issue(st);
+
+  // the block's slice of x, 16 bytes a copy, zero past m and past kl
+  const int pieces = steps * CK / 8;
+  for (int v = tid; v < NT * 8 * pieces; v += NTH) {
+    const int r = v / pieces, p = v - r * pieces;
+    const bool ok = r < m && p * 8 < kl;
+    pt::cp_async16(xs + r * ldx + p * 8,
+                   ok ? x + static_cast<size_t>(r) * k + k0 + p * 8 : x, ok);
+  }
+  pt::cp_async_commit();
+  pt::cp_async_wait<0>();
+  __syncthreads();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+  const bf* xr = xs + g * ldx + 16 * c;     // token g, k 16c .. 16c + 15
+  for (int st = 0; live && st < stages; ++st) {
+    mbar_wait(&bar[st % STAGES], (st / STAGES) & 1);
+    const unsigned char* ra = ring + (st % STAGES) * STAGE + g * ROW + 16 * c;
+    const int used = min(W, kl - st * W);
+#pragma unroll
+    for (int u = 0; u < W / CK; ++u) {
+      if (u * CK >= used) break;
+      // bytes past the slice are stale or never written: finite int8
+      // values, multiplied by x's zeros
+      const uint4 qa = *reinterpret_cast<const uint4*>(ra + u * CK);
+      const uint4 qb = *reinterpret_cast<const uint4*>(ra + 8 * ROW + u * CK);
+      const uint32_t wa[4] = {qa.x, qa.y, qa.z, qa.w};
+      const uint32_t wb[4] = {qb.x, qb.y, qb.z, qb.w};
+      uint32_t a[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        widen(wa[j], a[j][0], a[j][2]);   // row g: k 2c, 2c+1 | 2c+8, 2c+9
+        widen(wb[j], a[j][1], a[j][3]);   // row g + 8
+      }
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const bf* p = xr + t * 8 * ldx + st * W + u * CK;
+        const uint4 x0 = *reinterpret_cast<const uint4*>(p);
+        const uint4 x1 = *reinterpret_cast<const uint4*>(p + 8);
+        mma_bf16(acc[t], a[0], x0.x, x0.y);
+        mma_bf16(acc[t], a[1], x0.z, x0.w);
+        mma_bf16(acc[t], a[2], x1.x, x1.y);
+        mma_bf16(acc[t], a[3], x1.z, x1.w);
+      }
+    }
+    __syncwarp();   // every lane has read the stage: refill it
+    issue(st + STAGES);
+  }
+
+  // acc[t]: channel ch + g, tokens 8t + 2c, 8t + 2c + 1 (0, 1) and
+  // channel ch + g + 8 (2, 3); the scale on the sum, rounded once
+  auto store = [&](const float (&v)[NT][4]) {
+    if (!live) return;
+    const float s0 = scale[ch + g], s1 = scale[ch + g + 8];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tok = 8 * t + 2 * c + e;
+        if (tok < m) {
+          bf* row = y + static_cast<size_t>(tok) * n + ch + g;
+          row[0] = __float2bfloat16(v[t][e] * s0);
+          row[8] = __float2bfloat16(v[t][2 + e] * s1);
+        }
+      }
+  };
+  if (splits == 1) {
+    store(acc);
+    return;
+  }
+  // partials in fragment order: [tile][split][warp][t][lane] float4
+  const size_t per_split = static_cast<size_t>(WARPS) * NT * 32;
+  float4* base = reinterpret_cast<float4*>(part) +
+                 static_cast<size_t>(tile) * splits * per_split +
+                 (warp * NT) * 32 + lane;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    base[split * per_split + t * 32] =
+        make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+  // the last split of the tile to finish merges: each thread's partials
+  // are fenced, the block's barrier orders them before thread 0's
+  // acquire-release ticket, and the merging block's reads after it
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int prev;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+                 : "=r"(prev)
+                 : "l"(tickets + tile)
+                 : "memory");
+    s_last = prev == splits - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  if (tid == 0) tickets[tile] = 0;
+  float sum[NT][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const float4 v = __ldcg(base + t * 32);
+    sum[t][0] = v.x;
+    sum[t][1] = v.y;
+    sum[t][2] = v.z;
+    sum[t][3] = v.w;
+  }
+#pragma unroll 4
+  for (int sp = 1; sp < splits; ++sp)
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float4 v = __ldcg(base + sp * per_split + t * 32);
+      sum[t][0] += v.x;
+      sum[t][1] += v.y;
+      sum[t][2] += v.z;
+      sum[t][3] += v.w;
+    }
+  store(sum);
+}
+
+template <int NT>
+int launch(const void* x, const void* wq, const float* scale, void* y,
+           float* part, int* tickets, int m, int n, int k, int kps,
+           cudaStream_t stream) {
+  if (kps <= 0 || kps % 16) return cudaErrorInvalidValue;
+  const int splits = (k + kps - 1) / kps;
+  if (splits > 65535 || (splits > 1 && (part == nullptr ||
+                                        tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  const int smem = smem_bytes(NT, ((kps < k ? kps : k) + CK - 1) / CK);
+  if (smem > pt::wg::SMEM_MAX - 1024) return cudaErrorInvalidValue;
+  auto kernel = int8_decode_kernel<NT>;
+  // the attributes once a device (for the largest slice so far)
+  static int ready_smem[32] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 32) return cudaErrorInvalidDevice;
+  if (ready_smem[dev] < smem) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    ready_smem[dev] = smem;
+  }
+  const dim3 grid((n + BN - 1) / BN, splits);
+  kernel<<<grid, NTH, smem, stream>>>(
+      static_cast<const bf*>(x), static_cast<const int8_t*>(wq), scale,
+      static_cast<bf*>(y), part, tickets, m, n, k, kps);
+  return cudaGetLastError();
+}
+
+}  // namespace decode
 
 constexpr int F_BM = 64, F_BN = 64, F_BK = 16, F_THREADS = 256;
 
@@ -294,24 +433,6 @@ int8_mm_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
       if (r < m && col < n)
         y[static_cast<size_t>(r) * n + col] = acc[i][j] * scale[col];
     }
-}
-
-template <class C>
-cudaError_t launch_bf16(const void* x, const void* w, const float* scale,
-                        void* y, int m, int n, int k, cudaStream_t s) {
-  static bool ready = false;  // dynamic shared memory above 48 KB
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        int8_mm_bf16_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        C::SMEM);
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  const dim3 grid((n + C::BN - 1) / C::BN, (m + C::BM - 1) / C::BM);
-  int8_mm_bf16_kernel<C><<<grid, C::THREADS, C::SMEM, s>>>(
-      static_cast<const bf*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<bf*>(y), m, n, k);
-  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -447,25 +568,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
     wgmma_rs_n128(d, a, b, 1);
   else
     wgmma_rs_n64(d, a, b, 1);
-}
-
-// four int8 values (bytes of q, low first) -> two bf16 pairs, exactly:
-// byte b becomes the fp32 pattern of 2^23 + (b + 128), one subtract
-// leaves b, and a bf16 pair is the high halves of two such floats
-__device__ __forceinline__ void widen(uint32_t q, uint32_t& lo,
-                                      uint32_t& hi) {
-  q ^= 0x80808080u;
-  constexpr float kMagic = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7650)) -
-                   kMagic;
-  const float f1 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7651)) -
-                   kMagic;
-  const float f2 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7652)) -
-                   kMagic;
-  const float f3 = __uint_as_float(__byte_perm(q, 0x4B000000u, 0x7653)) -
-                   kMagic;
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
 }
 
 // the A fragments of a slice's four 16-deep steps for weight rows r0 and
@@ -668,19 +770,28 @@ int launch_any(const void* x, const void* wq, const float* scale, void* y,
 
 }  // namespace
 
-// `route`: 0 fp32 x (FMAs), 1 bf16 x on the mma.sync decode tiling, 2 bf16
-// x on TMA + `wgmma` (the wrapper takes 1 for m <= 16, else 2).
+// `route`: 0 fp32 x (FMAs), 1 bf16 x on the split-k decode kernel (m <=
+// 16), 2 bf16 x on TMA + `wgmma` (the wrapper takes 1 for m <= 16, else
+// 2). kps: route 1's k a split (a multiple of 16; splits = ceil(k / kps)),
+// ignored otherwise. part: route 1's fp32 workspace of ceil(n / 64) x
+// splits x 512 x ceil(m / 8) floats when splits > 1; tickets: int32
+// [ceil(n / 64)], zero (the kernel leaves them zero).
 extern "C" int pt_int8_matmul(const void* x, const void* wq,
-                              const void* scale, void* y, int m, int n, int k,
-                              int route, void* stream) {
+                              const void* scale, void* y, void* part,
+                              void* tickets, int m, int n, int k, int route,
+                              int kps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   if (m < 1 || n < 16 || k < 16 || n % 16 || k % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   if (route == 2) return prefill::launch_any(x, wq, sc, y, m, n, k, s);
-  if (route == 1)
-    return static_cast<int>(launch_bf16<DecodeTile>(x, wq, sc, y, m, n, k,
-                                                    s));
+  if (route == 1) {
+    if (m > 16) return static_cast<int>(cudaErrorInvalidValue);
+    float* pf = static_cast<float*>(part);
+    int* tk = static_cast<int*>(tickets);
+    return m <= 8 ? decode::launch<1>(x, wq, sc, y, pf, tk, m, n, k, kps, s)
+                  : decode::launch<2>(x, wq, sc, y, pf, tk, m, n, k, kps, s);
+  }
   if (route == 0) {
     const dim3 grid((n + F_BN - 1) / F_BN, (m + F_BM - 1) / F_BM);
     int8_mm_f32_kernel<<<grid, F_THREADS, 0, s>>>(

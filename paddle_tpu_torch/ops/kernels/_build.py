@@ -169,7 +169,7 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     so.pt_fused_rope.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
                                  LL, LL, LL, LL, LL, LL, I, I, P]
     so.pt_paged_decode.argtypes = [P] * 10 + [I] * 9 + [F, I, P]
-    so.pt_int8_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
+    so.pt_int8_matmul.argtypes = [P] * 6 + [I] * 5 + [P]
     so.pt_grouped_matmul.argtypes = [P] * 4 + [I] * 8 + [P]
     so.pt_grouped_matmul_dw.argtypes = [P] * 4 + [I] * 7 + [P]
     flash = [P] * 13 + [I] * 6 + [LL] * 9 + [F, I, I, U, U, F, F, I, P]
@@ -212,5 +212,34 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_SMS: Dict[int, int] = {}
+_TICKETS: Dict[tuple, object] = {}
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (kept after the first ask)."""
+    import torch
+    i = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def tickets(device, stream: int, n: int):
+    """At least n zeroed int32 tickets of a device and stream, kept
+    between calls: the split kernels (paged decode, the int8 decode
+    product) take one a block and the last block of each group resets
+    its ticket to 0, so one launch leaves them as it found them."""
+    import torch
+    key = (device.index if device.index is not None else -1, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
 __all__ = ["build", "lib", "load", "check", "LAUNCHES", "count_launch",
-           "reset_launches", "BUILD_DIR", "CSRC", "dtype_code", "stream_ptr"]
+           "reset_launches", "BUILD_DIR", "CSRC", "dtype_code", "stream_ptr",
+           "sm_count", "tickets"]

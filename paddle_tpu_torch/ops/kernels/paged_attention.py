@@ -39,8 +39,6 @@ SPLIT_TOKENS = 512
 # split's (m, l) in shared memory
 MAX_SPLITS = 512
 
-_SMS: Dict[int, int] = {}
-_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 _PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
 
 
@@ -94,28 +92,10 @@ def _plan(device: torch.device, b: int, h_kv: int, group: int,
     if plan is None:
         gs, slices = group_slice(group)
         plan = (gs, slices) + split_plan(b, h_kv, slices, max_pages,
-                                         page_size, _sms(device))
+                                         page_size,
+                                         _build.sm_count(device))
         _PLANS[key] = plan
     return plan
-
-
-def _sms(device: torch.device) -> int:
-    i = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if i not in _SMS:
-        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
-    return _SMS[i]
-
-
-def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """n zeroed int32 tickets of a device and stream, kept between calls:
-    the kernel's last split of each pair resets its ticket to 0."""
-    key = (device.index if device.index is not None else -1, stream)
-    t = _TICKETS.get(key)
-    if t is None or t.numel() < n:
-        t = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
-        _TICKETS[key] = t
-    return t
 
 
 def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
@@ -186,7 +166,7 @@ def paged_decode(q: torch.Tensor, k_pages: torch.Tensor,
                         dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     stream = _build.stream_ptr(q.device)
-    tickets = _tickets(q.device, stream, pairs)
+    tickets = _build.tickets(q.device, stream, pairs)
     err = _build.lib().pt_paged_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
         block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),

@@ -106,7 +106,7 @@ def _paged_lens(H, H_kv, page, B, mp):
     and at the full table."""
     gs, slices = paged_attention.group_slice(H // H_kv)
     pps, _ = paged_attention.split_plan(B, H_kv, slices, mp, page,
-                                        paged_attention._sms(
+                                        _build.sm_count(
                                             torch.device("cuda")))
     edge = min(pps, mp - 1) * page
     return np.array([0, page - 1, page, edge - 1, edge, mp * page - 1],
@@ -193,7 +193,7 @@ def test_paged_decode_kernel_split_edges(dev, quant, blocks_per_sm,
                            mp, blocks_per_sm)
     pps, _ = paged_attention.split_plan(
         B, H_kv, paged_attention.group_slice(H // H_kv)[1], mp, page,
-        paged_attention._sms(dev))
+        _build.sm_count(dev))
     edge = pps * page
     args[4][:] = torch.tensor([0, edge - 1, edge, min(2 * edge, mp * page - 1),
                                mp * page - 2, mp * page - 1], device=dev)
@@ -715,9 +715,9 @@ def _int8_product_inputs(dev, dt, m, n, k, seed):
 @pytest.mark.parametrize("m", [1, 5, 8, 100])
 @pytest.mark.parametrize("n,k", [(48, 80), (272, 1040)])
 def test_int8_matmul_kernel_matches_plain(dev, dtype, m, n, k):
-    """Both bf16 tilings (m <= 16 and m > 16) and the fp32 route, with m
-    ragged against every tile, n not a multiple of the 32-column decode
-    tile and k not a multiple of a stage; bf16 also per row."""
+    """Both bf16 routes (m <= 16 and m > 16) and the fp32 route, with m
+    ragged against every tile, n not a multiple of the 64-channel decode
+    tile and k not a multiple of a step; bf16 also per row."""
     from paddle_tpu_torch.ops.kernels import int8_matmul
     from paddle_tpu_torch.ops.quant import weight_only_plain
     x, wq, scale = _int8_product_inputs(dev, getattr(torch, dtype), m, n, k,
@@ -747,6 +747,76 @@ def test_int8_matmul_wgmma_route_matches_plain(dev, m, n):
     want = weight_only_plain(x, wq, scale)
     _close(got, want, "bfloat16")
     _rows_close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 16])
+@pytest.mark.parametrize("n,k", [(272, 1040), (4096, 14336), (6144, 4096)])
+def test_int8_decode_route_matches_plain(dev, m, n, k):
+    """The bf16 m <= 16 route (split over k): n = 272 leaves the last
+    64-channel tile one live warp, k = 1040 is not a multiple of the
+    64-deep step and splits unevenly, k = 14336 is down's; one launch,
+    elementwise and per row."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul
+    from paddle_tpu_torch.ops.quant import weight_only_plain
+    x, wq, scale = _int8_product_inputs(dev, torch.bfloat16, m, n, k,
+                                        3 * m + n + k)
+    _build.reset_launches()
+    got = int8_matmul.int8_matmul(x, wq, scale)
+    assert _build.LAUNCHES["int8_matmul_decode"] == 1, dict(_build.LAUNCHES)
+    assert _build.LAUNCHES["int8_matmul"] == 1
+    want = weight_only_plain(x, wq, scale)
+    _close(got, want, "bfloat16")
+    _rows_close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("m", [8, 16])
+def test_int8_decode_route_is_deterministic_and_never_syncs(dev, m):
+    """At down's shape (5 splits at m = 8 and 7 at m = 16 on a 132-SM
+    card) a call under set_sync_debug_mode("error") does not sync the
+    host, and two runs give the same output bit for bit: the splits add
+    in split order."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul
+    from paddle_tpu_torch.ops.quant import weight_only_plain
+    x, wq, scale = _int8_product_inputs(dev, torch.bfloat16, m, 4096,
+                                        14336, 5)
+    first = int8_matmul.int8_matmul(x, wq, scale)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = int8_matmul.int8_matmul(x, wq, scale)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, again)
+    _close(again, weight_only_plain(x, wq, scale), "bfloat16")
+
+
+@pytest.mark.parametrize("blocks_per_sm", [0, 1, 8])
+def test_int8_decode_split_plans_back_to_back(dev, blocks_per_sm,
+                                              monkeypatch):
+    """Shapes whose plans differ (one split; a few; many, uneven), at
+    three plan targets, launched back to back on one stream before any
+    check: each agrees with the plain version, and the tickets are all
+    zero afterwards (every tile's last split reset its own)."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul
+    from paddle_tpu_torch.ops.quant import weight_only_plain
+    monkeypatch.setattr(int8_matmul, "BLOCKS_PER_SM", blocks_per_sm)
+    cases = [(8, 4096, 4096), (3, 272, 1040), (16, 1024, 14336),
+             (1, 6144, 4096), (12, 160, 2064)]
+    ins = [_int8_product_inputs(dev, torch.bfloat16, m, n, k, i)
+           for i, (m, n, k) in enumerate(cases)]
+    sms = _build.sm_count(dev)
+    plans = {int8_matmul.split_plan(m, n, k, sms) for m, n, k in cases}
+    assert len(plans) >= 3, plans
+    outs = [int8_matmul.int8_matmul(*a) for a in ins]
+    outs += [int8_matmul.int8_matmul(*a) for a in ins]
+    torch.cuda.synchronize()
+    for i, a in enumerate(ins):
+        want = weight_only_plain(*a)
+        _close(outs[i], want, "bfloat16")
+        _rows_close(outs[i], want, "bfloat16")
+        assert torch.equal(outs[i], outs[i + len(ins)])
+    tickets = _build.tickets(dev, _build.stream_ptr(dev), 1)
+    assert int(tickets.abs().sum()) == 0
 
 
 def test_int8_matmul_wrapper_refuses_what_it_does_not_take(dev):
