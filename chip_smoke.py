@@ -7,8 +7,11 @@ Run from the repository root, with no arguments:
 
 ``python3 chip_smoke.py --parent DIR``, with the parent commit's tree
 unpacked in DIR, also times the parent's int8 (decode and prefill),
-grouped, paged decode and CE kernels against this tree's in turns after
-phase 3 (the CE backward's outputs must be equal bit for bit).
+grouped, paged decode, CE, RMSNorm forward and RoPE kernels against this
+tree's in turns after phase 3 (the CE backward's outputs must be equal
+bit for bit). ``--sweep`` also times the RMSNorm forward and RoPE under
+other plan constants in phase 3 (``norm_rope_plan_sweep``, each held
+bit for bit to the default plan's output).
 
 Phases, in order; any failure exits non-zero before the result line:
   1. print the card's name and power limit (nvidia-smi);
@@ -20,12 +23,15 @@ Phases, in order; any failure exits non-zero before the result line:
      and a planted wrong tile or page must fail that check), and time
      kernel, plain version and library call (CUDA events, L2 flushed and
      the host given a head start before every launch, median of 25 after
-     warm-up; 10 for slow plain versions). The RMSNorm and RoPE
-     forwards at a decode step (B = 8), a 1024-token prefill and a
-     training step (8192 x 4096; b = 2, s = 4096, 32/8 heads), with
-     their launches a call and launches x the gap to the bound read
-     after phase 7 (``norm_rope_gaps``). Training kernels: the
-     RMSNorm backward at 8192 x 4096; the flash forward and backward at
+     warm-up; 10 for slow plain versions). First the launch floor: an
+     empty kernel timed the same way. The RMSNorm and RoPE forwards at
+     a decode step (B = 8), a 1024-token prefill and a training step
+     (8192 x 4096 and DeepSeekMoE's 8192 x 2048; b = 2, s = 4096 at
+     32/8 and 16/16 heads), RMSNorm's rstd held to 1e-5; a row with its
+     last vector dropped and decode positions off by one must fail those
+     checks; their launches a call and launches x the gap to
+     max(bound, floor) read after phase 9 (``norm_rope_gaps``). Training
+     kernels: the RMSNorm backward at 8192 x 4096; the flash forward and backward at
      b=2, s=4096, 32 heads over 8 KV heads, d=128, bf16, causal (with
      TFLOP/s; a K/V tile planted in place of another must break out and
      dq, a Q/dO/lse/delta tile dk and dv); flash also in fp32 at s=1024,
@@ -76,6 +82,7 @@ Phases, in order; any failure exits non-zero before the result line:
      ContinuousBatchingEngine(max_batch=8, page_size=128, max_len=2048,
      decode_block=8, async_depth=2). Kernel launch counts are reset just
      before and read just after; every serving kernel must have launched;
+     one decode step profiled, with RMSNorm's and RoPE's device us;
   5b. the quantized serving run: the same model quantized on the card
      (int8 weights and KV, the native model then freed) through the same
      run, side by side with phase 5: tokens/s, TTFT, ITL, one decode
@@ -265,9 +272,11 @@ class DeviceSpan:
         return self.s.elapsed_time(self.e)
 
 
-def profile_step(torch, dev, step, top=8):
+def profile_step(torch, dev, step, top=8, sums=None):
     """Device busy time of one call of ``step`` by kernel name, from
-    torch.profiler (CUPTI); None where it reports no device time."""
+    torch.profiler (CUPTI); None where it reports no device time.
+    ``sums`` {label: name fragments}: also the summed device us and
+    launches of the kernels whose names hold a fragment."""
     if dev.type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
@@ -286,7 +295,12 @@ def profile_step(torch, dev, step, top=8):
         return None
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    summed = {label: {"us": sum(r[1] for r in rows if any(
+        f in r[0] for f in frags)) * 1e3, "launches": sum(
+        r[2] for r in rows if any(f in r[0] for f in frags))}
+        for label, frags in (sums or {}).items()}
     return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
+            "sums": summed,
             "device_idle_share": 1.0 - busy / wall_ms,
             "kernels": len(rows),
             "launches": sum(r[2] for r in rows),
@@ -304,16 +318,18 @@ def us(ms):
 
 
 def record(kernel, case, dt, err, kms=None, pms=None, lms=None,
-           bnd=(None, None), tol=None):
+           bnd=(None, None), tol=None, copy_ms=None):
     """One checked case; the times are None for a case checked only.
     ``err`` is compare()'s triple, or flash_compare()'s six-tuple;
-    ``tol`` overrides the printed elementwise tolerance TOL[dt]."""
+    ``tol`` overrides the printed elementwise tolerance TOL[dt];
+    ``copy_ms`` is a streaming copy of the kernel's bytes (read and
+    write), timed the same way, where one is kept."""
     max_abs, max_rel, ok = err[:3]
     tol = TOL[dt] if tol is None else tol
     row = dict(kernel=kernel, case=case, dtype=dt, max_abs_err=max_abs,
                max_rel_err=max_rel, tol=tol, ok=ok, ms=kms,
                plain_ms=pms, library_ms=lms, bound_ms=bnd[0],
-               bound_by=bnd[1])
+               bound_by=bnd[1], copy_ms=copy_ms)
     rows = ""
     if len(err) > 3:
         tol = ROW_TOL if dt == "bfloat16" else None
@@ -322,12 +338,141 @@ def record(kernel, case, dt, err, kms=None, pms=None, lms=None,
     RESULTS["kernel_cases"].append(row)
     timing = ("not timed" if kms is None else
               f"kernel {us(kms)}, plain {us(pms)}, library {us(lms)}, "
-              f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})")
+              f"bound {bnd[0] * 1e3:.2f} us ({bnd[1]})"
+              + ("" if copy_ms is None else f", copy {us(copy_ms)}"))
     log(f"kernel {kernel} [{case} {dt}] max_abs_err={max_abs:.3e} "
         f"max_rel_err={max_rel:.3e} tol(atol,rtol)={tol}{rows} "
         f"{'ok' if ok else 'FAIL'} | {timing}")
     if not ok:
         FAILED_CASES.append(f"{kernel}/{case}/{dt}")
+
+
+# The RMSNorm and RoPE forwards' rows: (case, rows, width) and (case,
+# (b, s), (q heads, kv heads)); decode and prefill at Llama-3-8B's
+# widths, training at Llama-3-8B's and DeepSeekMoE-16B's (the MoE slice
+# trains only)
+NORM_CASES = (("prefill_1024", 1024, 4096), ("decode_b8", 8, 4096),
+              ("train_8192", 8192, 4096), ("train_8192_moe", 8192, 2048))
+ROPE_CASES = (("prefill_1024", (1, 1024), (32, 8)),
+              ("decode_b8", (8, 1), (32, 8)),
+              ("train_4096", (2, 4096), (32, 8)),
+              ("train_4096_moe", (2, 4096), (16, 16)))
+# the profiler's kernel names of the RMSNorm forward and RoPE routes
+NORM_ROPE_KERNELS = {"rms_norm": ("rms_norm_row_kernel",
+                                  "rms_norm_vec_kernel"),
+                     "fused_rope": ("rope_vec_kernel", "rope_scalar_kernel")}
+# rstd is fp32 on both sides, apart only in summation order
+RSTD_TOL = 1e-5
+
+
+def norm_err(torch, got, want, dtype_name):
+    """compare() of the RMSNorm forward's y (the dtype's tolerance) and
+    rstd (RSTD_TOL), combined: (max_abs, max_rel, ok)."""
+    ey = compare(torch, got[0], want[0], dtype_name)
+    diff = (got[1] - want[1]).abs()
+    er = (float(diff.max()), float((diff / want[1].abs()).max()),
+          bool((diff <= RSTD_TOL * (1 + want[1].abs())).all()))
+    return max(ey[0], er[0]), max(ey[1], er[1]), ey[2] and er[2]
+
+
+def planted_norm_vector(torch, fused_norm, x, w, eps, want):
+    """The RMSNorm forward run as if it had dropped the last 16-byte
+    vector of row 3 (those 8 inputs zeroed): the row check (y and rstd)
+    must reject it. Both readings are kept."""
+    bad = x.clone()
+    bad[3, -8:] = 0
+    got = fused_norm.rms_norm_fwd(bad, w, eps, return_rstd=True)
+    y_err = compare(torch, got[0], want[0], "bfloat16")
+    rstd_err = float(((got[1] - want[1]).abs() / want[1].abs()).max())
+    err = norm_err(torch, got, want, "bfloat16")
+    RESULTS["planted_norm_vector"] = {"y_max_abs": y_err[0],
+                                      "rstd_max_rel": rstd_err,
+                                      "rejected": not err[2]}
+    log(f"planted RMSNorm fault (last vector of row 3 dropped): y max abs "
+        f"{y_err[0]:.3e}, rstd max rel {rstd_err:.3e} (limit {RSTD_TOL}): "
+        f"{'rejected' if not err[2] else 'NOT rejected'}")
+    if err[2]:
+        FAILED_CASES.append("rms_norm/planted_vector_not_rejected")
+
+
+def planted_rope_position(torch, fused_rope, q, k, cos, sin, pos, want):
+    """RoPE at decode run with every position one too far: the check must
+    reject it."""
+    got = fused_rope.fused_rope(q, k, cos, sin, pos + 1)
+    errs = [compare(torch, a, b, "bfloat16") for a, b in zip(got, want)]
+    ok = all(e[2] for e in errs)
+    RESULTS["planted_rope_position"] = {
+        "max_abs": max(e[0] for e in errs), "rejected": not ok}
+    log(f"planted RoPE fault (positions off by one): max abs "
+        f"{max(e[0] for e in errs):.3e}: "
+        f"{'rejected' if not ok else 'NOT rejected'}")
+    if ok:
+        FAILED_CASES.append("fused_rope/planted_position_not_rejected")
+
+
+def norm_rope_plan_sweep(torch, dev, g, cos, sin, flush):
+    """With ``--sweep``: the RMSNorm forward and RoPE under other plan
+    constants, at phase 3's bf16 shapes, each timed as the rows are (us)
+    and held bit for bit to the default plan's output (a plan changes no
+    arithmetic)."""
+    from paddle_tpu_torch.ops.kernels import fused_norm, fused_rope
+    rows = {}
+
+    def sweep(label, mod, settings, fn, want):
+        saved = {k: getattr(mod, k) for k in settings}
+        try:
+            for k, v in settings.items():
+                setattr(mod, k, v)
+            got = fn()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            us_ = timed_ms(torch, fn, flush) * 1e3
+        finally:
+            for k, v in saved.items():
+                setattr(mod, k, v)
+        rows[label] = {"us": us_, "bit_equal": same}
+        if not same:
+            FAILED_CASES.append(f"plan_sweep/{label}_not_bit_equal")
+        return us_
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for case, R, width in NORM_CASES:
+        x = torch.randn((R, width), generator=g, device=dev).to(
+            torch.bfloat16)
+        w = 1 + 0.1 * torch.randn((width,), generator=g, device=dev)
+
+        def norm(x=x, w=w):
+            return fused_norm.rms_norm_fwd(x, w, 1e-5, return_rstd=True)
+        want = norm()
+        for bps in ((2,) if R <= sms else (1, 2, 3, 4)):
+            sweep(f"rms_norm/{case}/blocks_per_sm{bps}", fused_norm,
+                  {"BLOCKS_PER_SM": bps}, norm, want)
+    for case, (b, s), (h, hkv) in ROPE_CASES:
+        qkv = torch.randn((b, s, (h + 2 * hkv) * 128), generator=g,
+                          device=dev).to(torch.bfloat16)
+        q = qkv[..., :h * 128].view(b, s, h, 128)
+        k = qkv[..., h * 128:(h + hkv) * 128].view(b, s, hkv, 128)
+        pos = (None if s > 1 else torch.randint(
+            0, 2048, (b, s), generator=g, device=dev))
+
+        def rope(q=q, k=k, pos=pos):
+            return fused_rope.fused_rope(q, k, cos, sin, pos)
+        want = rope()
+        for threads in (64, 128, 256):
+            for min_t in (256, 1024, 4096):
+                for bps in (4, 16):
+                    sweep(f"fused_rope/{case}/threads{threads}/"
+                          f"min_threads{min_t}/blocks_per_sm{bps}",
+                          fused_rope, {"THREADS": threads,
+                                       "MIN_THREADS_PER_SM": min_t,
+                                       "BLOCKS_PER_SM": bps}, rope, want)
+    RESULTS["norm_rope_plan_sweep"] = rows
+    best = {}
+    for label, row in rows.items():
+        kernel, case = label.split("/")[:2]
+        key = f"{kernel}/{case}"
+        if key not in best or row["us"] < best[key][1]:
+            best[key] = (label, row["us"])
+    for key, (label, us_) in best.items():
+        log(f"plan sweep, fastest {key}: {label} {us_:.2f} us")
 
 
 def phase_kernels(torch, pt):
@@ -341,44 +486,57 @@ def phase_kernels(torch, pt):
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-    D, H, HKV, HD = 4096, 32, 8, 128
+    H, HKV, HD = 32, 8, 128
     cos, sin = rope_ops.rope_freqs(HD, 8192, 500000.0, device=dev)
 
-    # -- RMSNorm: prefill 1024 tokens, decode B=8 and a training step's
-    # 2 x 4096 tokens, fp32 weight ------------------------------------------
-    for case, R in (("prefill_1024", 1024), ("decode_b8", 8),
-                    ("train_8192", 8192)):
+    # -- the launch floor: an empty kernel, timed as every row is --------
+    from paddle_tpu_torch.ops.kernels import _build
+    stream = _build.stream_ptr(dev)
+    floor_ms = timed_ms(torch, lambda: _build.check(
+        _build.lib().pt_empty(stream), "empty kernel"), flush)
+    RESULTS["launch_floor_us"] = floor_ms * 1e3
+    log(f"launch floor (an empty kernel, timed as every row): "
+        f"{floor_ms * 1e3:.2f} us")
+
+    # -- RMSNorm: prefill 1024 tokens, decode B=8, a training step's
+    # 2 x 4096 tokens at Llama's width and at DeepSeekMoE's, fp32 weight;
+    # y within the dtype's tolerance and rstd within 1e-5 -------------------
+    for case, R, width in NORM_CASES:
         for dt in ((torch.bfloat16, torch.float32) if R == 1024
                    else (torch.bfloat16,)):
             name = str(dt).split(".")[-1]
-            x = torch.randn((R, D), generator=g, device=dev).to(dt)
-            w = (1 + 0.1 * torch.randn((D,), generator=g, device=dev))
+            x = torch.randn((R, width), generator=g, device=dev).to(dt)
+            w = (1 + 0.1 * torch.randn((width,), generator=g, device=dev))
             eps = 1e-5
-            got = fused_norm.rms_norm_fwd(x, w, eps)[0]
-            want = norm_ops._rms_norm_plain(x, w, eps)
-            err = compare(torch, got, want, name)
+            want = norm_ops._rms_norm_fwd_plain(x, w, eps)
+            err = norm_err(torch, fused_norm.rms_norm_fwd(
+                x, w, eps, return_rstd=True), want, name)
+            if case == "decode_b8" and dt == torch.bfloat16:
+                planted_norm_vector(torch, fused_norm, x, w, eps, want)
             wl = w.to(dt)
             e = x.element_size()
+            dst = torch.empty_like(x)
             record("rms_norm", case, name, err,
                    timed_ms(torch, lambda: fused_norm.rms_norm_fwd(
                        x, w, eps), flush),
                    timed_ms(torch, lambda: norm_ops._rms_norm_plain(
                        x, w, eps), flush),
-                   timed_ms(torch, lambda: F.rms_norm(x, (D,), wl, eps),
-                            flush),
-                   bound(2 * R * D * e + D * 4, 4 * R * D))
+                   timed_ms(torch, lambda: F.rms_norm(x, (width,), wl,
+                                                      eps), flush),
+                   bound(2 * R * width * e + width * 4, 4 * R * width),
+                   copy_ms=timed_ms(torch, lambda: dst.copy_(x), flush))
 
-    # -- RoPE: prefill and training q/k as views of a fused qkv, decode with
-    # positions ---------------------------------------------------------------
-    for case, (b, s) in (("prefill_1024", (1, 1024)), ("decode_b8", (8, 1)),
-                         ("train_4096", (2, 4096))):
+    # -- RoPE: prefill and training q/k as views of a fused qkv (Llama's
+    # heads, and DeepSeekMoE's 16/16 in training), decode with positions
+    # -----------------------------------------------------------------------
+    for case, (b, s), (h, hkv) in ROPE_CASES:
         for dt in ((torch.bfloat16, torch.float32) if s == 1024
                    else (torch.bfloat16,)):
             name = str(dt).split(".")[-1]
-            qkv = torch.randn((b, s, (H + 2 * HKV) * HD), generator=g,
+            qkv = torch.randn((b, s, (h + 2 * hkv) * HD), generator=g,
                               device=dev).to(dt)
-            q = qkv[..., :H * HD].view(b, s, H, HD)
-            k = qkv[..., H * HD:(H + HKV) * HD].view(b, s, HKV, HD)
+            q = qkv[..., :h * HD].view(b, s, h, HD)
+            k = qkv[..., h * HD:(h + hkv) * HD].view(b, s, hkv, HD)
             pos = (None if s > 1 else torch.randint(
                 0, 2048, (b, s), generator=g, device=dev))
             gq, gk = fused_rope.fused_rope(q, k, cos, sin, pos)
@@ -386,14 +544,22 @@ def phase_kernels(torch, pt):
             ea = compare(torch, gq, wq, name)
             eb = compare(torch, gk, wk, name)
             err = (max(ea[0], eb[0]), max(ea[1], eb[1]), ea[2] and eb[2])
+            if case == "decode_b8" and dt == torch.bfloat16:
+                planted_rope_position(torch, fused_rope, q, k, cos, sin,
+                                      pos, (wq, wk))
             e = q.element_size()
-            nbytes = 2 * b * s * (H + HKV) * HD * e + 2 * b * s * HD * 4
+            nbytes = 2 * b * s * (h + hkv) * HD * e + 2 * b * s * HD * 4
+            src = torch.empty((b, s, h + hkv, HD), dtype=dt, device=dev)
+            dst = torch.empty_like(src)
             record("fused_rope", case, name, err,
                    timed_ms(torch, lambda: fused_rope.fused_rope(
                        q, k, cos, sin, pos), flush),
                    timed_ms(torch, lambda: rope_ops._rope_plain(
                        q, k, cos, sin, pos), flush),
-                   None, bound(nbytes, 3 * b * s * (H + HKV) * HD))
+                   None, bound(nbytes, 3 * b * s * (h + hkv) * HD),
+                   copy_ms=timed_ms(torch, lambda: dst.copy_(src), flush))
+    if "--sweep" in sys.argv:
+        norm_rope_plan_sweep(torch, dev, g, cos, sin, flush)
 
     # -- paged decode: B=8, page 128, context 1024 -------------------------
     B, page, ctx = 8, 128, 1024
@@ -1567,7 +1733,7 @@ def serve_run(torch, dev, model, label, kernels):
             step()
             host.append((time.perf_counter() - h0) * 1e3)
             dev_ms.append(span.end())
-        prof = profile_step(torch, dev, step)
+        prof = profile_step(torch, dev, step, sums=NORM_ROPE_KERNELS)
     weight_bytes = sum(p.numel() * p.element_size()
                        for n, p in model.named_parameters()
                        if n != "model.embed_tokens")
@@ -1578,6 +1744,10 @@ def serve_run(torch, dev, model, label, kernels):
     log(f"{label}: launches per prefill {per['prefill']}, per decode step "
         f"{per['decode_step']}; one decode step at B=8 ctx 1024: "
         f"{step_info}")
+    if prof is not None:
+        log(f"{label}: RMSNorm and RoPE in the profiled decode step: "
+            + ", ".join(f"{k} {v['us']:.1f} us in {v['launches']} launches"
+                        for k, v in prof["sums"].items()))
     info.update(launches_per_call=per, decode_step=step_info)
     RESULTS[label] = info
     del pools
@@ -1665,7 +1835,7 @@ def kernel_category(name: str) -> str:
                                "index_copy", "indexSelect", "index_select",
                                "index_add", "indexFunc")):
         return "MoE routing (sort, top-k, counts, gathers)"
-    if "rms_norm" in name or "rope_kernel" in name:
+    if "rms_norm" in name or "rope_" in name:
         return "rms_norm / rope kernels"
     if name.startswith(("nvjet", "sm90_", "cutlass")) or "gemm" in name:
         return "GEMM (cuBLAS)"
@@ -2143,18 +2313,17 @@ def phase_moe_kernels(torch, pt):
 
 def phase_parent_turns(torch, parent):
     """With ``--parent DIR`` (the parent commit's tree unpacked in DIR):
-    the parent's int8 product and grouped bf16 kernels against this
-    tree's on the same inputs, each library built from its own tree's
-    sources, timed in turns (parent, this, this, parent) as timed_ms
-    times phase 3's rows: the int8 product at the five decode
-    projections (m = 8) and at gate_up (n 28672, k 4096) with m = 128
-    and 1024, through the parent's own C interface and on the route its
-    own wrapper takes for that m; the grouped forward, dx and dW at
-    phase 3's DeepSeekMoE-16B shapes, balanced and skewed, through this
-    tree's wrappers (their C interface is unchanged; with_library); then
-    paged decode and the CE kernels (parent_serving_and_ce_turns). The
+    the parent's kernels against this tree's on the same inputs, each
+    library built from its own tree's sources, timed in turns (parent,
+    this, this, parent) as timed_ms times phase 3's rows: the int8
+    product at the five decode projections (m = 8) and at gate_up
+    (n 28672, k 4096) with m = 128 and 1024, and the grouped forward, dx
+    and dW at phase 3's DeepSeekMoE-16B shapes, balanced and skewed,
+    through this tree's wrappers (their C interface is unchanged;
+    with_library); then paged decode and the CE kernels
+    (parent_serving_and_ce_turns), and the RMSNorm forward and RoPE
+    through the parent's own C interface (parent_norm_rope_turns). The
     two results' largest difference is kept beside the times."""
-    import ctypes
     from pathlib import Path
     from paddle_tpu_torch.nn.quantized_linear import weight_quantize
     from paddle_tpu_torch.ops.kernels import _build
@@ -2186,11 +2355,9 @@ def phase_parent_turns(torch, parent):
         if exact and diff != 0.0:
             FAILED_CASES.append(f"parent_turns/{name}_not_bit_equal")
 
-    # the parent's pt_int8_matmul has no workspace, tickets or split (its
-    # own argtypes); its wrapper takes route 1 for m <= 16 and 2 above,
-    # the thresholds of this tree's route()
-    P, I = ctypes.c_void_p, ctypes.c_int
-    plib.pt_int8_matmul.argtypes = [P] * 4 + [I] * 4 + [P]
+    # the int8 product's C interface is the parent's too (the decode
+    # route's workspace, tickets and split are in both trees): both run
+    # through this tree's wrapper, the parent's with its library in place
     for case, m, (n, k) in (
             *((f"decode_{p}", 8, nk) for p, nk in DECODE_PROJECTIONS.items()),
             ("prefill_gate_up_128", 128, (28672, 4096)),
@@ -2198,17 +2365,11 @@ def phase_parent_turns(torch, parent):
         wq, scale = weight_quantize(0.02 * torch.randn((k, n), generator=g,
                                                        device=dev))
         x = torch.randn((m, k), generator=g, device=dev).to(bf)
-        y = torch.empty((m, n), dtype=bf, device=dev)
-        code = kmm.ROUTES[kmm.route(m, bf)]
 
-        def par_mm(x=x, wq=wq, scale=scale, y=y, m=m, n=n, k=k, code=code):
-            _build.check(plib.pt_int8_matmul(
-                x.data_ptr(), wq.data_ptr(), scale.data_ptr(), y.data_ptr(),
-                m, n, k, code, _build.stream_ptr(dev)), "parent int8")
-            return y
-        turns(f"int8_matmul/{case}", par_mm,
-              lambda x=x, wq=wq, scale=scale: kmm.int8_matmul(x, wq, scale))
-        del wq, scale, x, y
+        def this_mm(x=x, wq=wq, scale=scale):
+            return kmm.int8_matmul(x, wq, scale)
+        turns(f"int8_matmul/{case}", with_library(plib, this_mm), this_mm)
+        del wq, scale, x
     torch.cuda.empty_cache()
     for proj, (k, n) in (("gate_up", (2048, 2816)), ("down", (1408, 2048))):
         w = (0.02 * torch.randn((MOE_E, k, n), generator=g,
@@ -2231,10 +2392,90 @@ def phase_parent_turns(torch, parent):
         del w, xs, gy
         torch.cuda.empty_cache()
     parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns)
+    parent_norm_rope_turns(torch, plib, dev, g, turns)
     RESULTS["parent_turns"] = {"parent": str(root), "rows": rows,
                                "parent_build_s": build_log.get("seconds")}
     del flush
     torch.cuda.empty_cache()
+
+
+def parent_norm_rope_turns(torch, plib, dev, g, turns):
+    """The parent's RMSNorm forward and RoPE kernels against this tree's
+    at phase 3's shapes (decode, prefill and training at Llama's widths
+    and training at DeepSeekMoE's), bf16, each through its own tree's C
+    interface: the parent's took a vec8 flag for the norm and no
+    plan for either, so its argtypes are set here and it is called as
+    its own wrapper called it. The decode rows are also profiled as a
+    decode step runs them: 65 (RMSNorm) or 32 (RoPE) launches back to
+    back, no L2 flush, device time from torch.profiler."""
+    import ctypes
+    from paddle_tpu_torch.ops import rope as rope_ops
+    from paddle_tpu_torch.ops.kernels import _build, fused_norm, fused_rope
+    P, I, F, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_longlong)
+    profiled = {}
+
+    def profiled_turns(name, parent_fn, this_fn, n):
+        """Device us a launch, as torch.profiler reports it, of n launches
+        back to back (a decode step's count), parent / this / this /
+        parent."""
+        per = []
+        for fn in (parent_fn, this_fn, this_fn, parent_fn):
+            prof = profile_step(torch, dev, lambda fn=fn: [
+                fn() for _ in range(n)], sums={"all": ("",)})
+            per.append(prof["sums"]["all"]["us"] / n)
+        profiled[name] = {"launches": n, "parent_us": [per[0], per[3]],
+                          "this_us": [per[1], per[2]]}
+        log(f"profiled, {n} launches back to back, {name}: device us a "
+            f"launch: parent {per[0]:.2f}, this {per[1]:.2f}, this "
+            f"{per[2]:.2f}, parent {per[3]:.2f}")
+    plib.pt_rms_norm_fwd.argtypes = [P, P, P, P, I, I, F, I, I, I, P]
+    plib.pt_fused_rope.argtypes = [P] * 7 + [I] * 5 + [LL] * 6 + [I, I, P]
+    stream = _build.stream_ptr(dev)
+    for case, R, width in NORM_CASES:
+        x = torch.randn((R, width), generator=g, device=dev).to(
+            torch.bfloat16)
+        w = 1 + 0.1 * torch.randn((width,), generator=g, device=dev)
+        y = torch.empty_like(x)
+
+        def par_norm(x=x, w=w, y=y, R=R, width=width):
+            _build.check(plib.pt_rms_norm_fwd(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), None, R, width,
+                1e-5, 1, 0, 1, stream), "parent rms_norm")
+            return y
+        def this_norm(x=x, w=w):
+            return fused_norm.rms_norm_fwd(x, w, 1e-5)[0]
+        turns(f"rms_norm/{case}", par_norm, this_norm)
+        if case == "decode_b8":
+            profiled_turns(f"rms_norm/{case}", par_norm, this_norm, 65)
+    cos, sin = rope_ops.rope_freqs(128, 8192, 500000.0, device=dev)
+    for case, (b, s), (h, hkv) in ROPE_CASES:
+        qkv = torch.randn((b, s, (h + 2 * hkv) * 128), generator=g,
+                          device=dev).to(torch.bfloat16)
+        q = qkv[..., :h * 128].view(b, s, h, 128)
+        k = qkv[..., h * 128:(h + hkv) * 128].view(b, s, hkv, 128)
+        pos = (None if s > 1 else torch.randint(
+            0, 2048, (b, s), generator=g, device=dev))
+        qo = torch.empty((b, s, h, 128), dtype=q.dtype, device=dev)
+        ko = torch.empty((b, s, hkv, 128), dtype=q.dtype, device=dev)
+
+        def par_rope(q=q, k=k, qo=qo, ko=ko, pos=pos, b=b, s=s, h=h,
+                     hkv=hkv):
+            _build.check(plib.pt_fused_rope(
+                q.data_ptr(), k.data_ptr(), qo.data_ptr(), ko.data_ptr(),
+                cos.data_ptr(), sin.data_ptr(),
+                pos.data_ptr() if pos is not None else None, b, s, h, hkv,
+                128, *q.stride()[:3], *k.stride()[:3], cos.shape[0], 1,
+                stream), "parent fused_rope")
+            return qo
+
+        def this_rope(q=q, k=k, pos=pos):
+            return fused_rope.fused_rope(q, k, cos, sin, pos)[0]
+        # the difference is read on the rotated q (k takes the same path)
+        turns(f"fused_rope/{case}", par_rope, this_rope)
+        if case == "decode_b8":
+            profiled_turns(f"fused_rope/{case}", par_rope, this_rope, 32)
+    RESULTS["norm_rope_profiled_decode"] = profiled
 
 
 def with_library(lib, fn):
@@ -2320,27 +2561,40 @@ def parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns):
 
 def norm_rope_gaps():
     """The RMSNorm and RoPE forwards at their launched shapes (phase 3's
-    bf16 rows): time, bound, launches a call of the path that runs that
-    shape (a decode step and a prefill of phase 5, a step of phase 7)
-    and launches x (time - bound), in us."""
+    bf16 rows): time, bound, the launch floor, launches a call of the
+    path that runs that shape (a decode step and a prefill of phase 5, a
+    step of phase 7 or 9) and launches x the gap to the least time, in
+    us. The least time of a decode row is max(bound, floor): its bytes
+    take nanoseconds, and no launch takes less than the floor."""
+    floor = RESULTS["launch_floor_us"]
     per = {"decode_b8": RESULTS["serving"]["launches_per_call"]
            ["decode_step"],
            "prefill_1024": RESULTS["serving"]["launches_per_call"]
            ["prefill"],
-           "train": RESULTS["training"]["launches_per_step"]}
+           "train": RESULTS["training"]["launches_per_step"],
+           "train_moe": RESULTS["moe_training"]["launches_per_step"]}
     rows = {}
     for c in RESULTS["kernel_cases"]:
         if (c["kernel"] not in ("rms_norm", "fused_rope")
                 or c["dtype"] != "bfloat16" or c["ms"] is None):
             continue
-        n = per["train" if c["case"].startswith("train") else c["case"]][
-            c["kernel"]]
-        row = {"us": c["ms"] * 1e3, "bound_us": c["bound_ms"] * 1e3,
+        case = c["case"]
+        path = ("train_moe" if case.endswith("_moe") else
+                "train" if case.startswith("train") else case)
+        n = per[path][c["kernel"]]
+        bound_us = c["bound_ms"] * 1e3
+        least = max(bound_us, floor) if case == "decode_b8" else bound_us
+        row = {"us": c["ms"] * 1e3, "bound_us": bound_us, "floor_us": floor,
+               "copy_us": c["copy_ms"] * 1e3, "least_us": least,
+               "share_of_least": least / (c["ms"] * 1e3),
                "launches": n,
-               "launches_x_gap_us": n * (c["ms"] - c["bound_ms"]) * 1e3}
-        rows[f"{c['kernel']}/{c['case']}"] = row
-        log(f"{c['kernel']} [{c['case']}]: {row['us']:.2f} us, bound "
-            f"{row['bound_us']:.2f} us, {n} launches a call, launches x gap "
+               "launches_x_gap_us": n * (c["ms"] * 1e3 - least)}
+        rows[f"{c['kernel']}/{case}"] = row
+        log(f"{c['kernel']} [{case}]: {row['us']:.2f} us, bound "
+            f"{bound_us:.2f} us, floor {floor:.2f} us, a copy of its bytes "
+            f"{row['copy_us']:.2f} us, least "
+            f"{least:.2f} us ({row['share_of_least']:.2f} of it), {n} "
+            f"launches a call, launches x gap "
             f"{row['launches_x_gap_us']:.1f} us")
     RESULTS["norm_rope_gaps"] = rows
 
@@ -2572,11 +2826,11 @@ def main() -> int:
     phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, "bfloat16")
     phase_recompute_equality(torch, pt, dev, LlamaConfig.llama3_8b, ref)
     train_launches = phase_train(torch, pt, dev, LlamaConfig.llama3_8b)
-    norm_rope_gaps()
     phase_moe_sync(torch, pt, dev)
     for dtype in ("float32", "bfloat16"):
         phase_moe_equality(torch, pt, dev, MoEConfig.deepseek_moe_16b, dtype)
     moe_launches = phase_moe_train(torch, pt, dev, MoEConfig.deepseek_moe_16b)
+    norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
     def main_case(kernel, case):

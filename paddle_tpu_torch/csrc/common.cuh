@@ -1,7 +1,7 @@
 // Shared helpers of the port's CUDA kernels: element conversion to and
-// from fp32, warp/block reductions and 16-byte asynchronous copies into
-// shared memory. Element type codes used by every C entry point:
-// 0 = float32, 1 = bfloat16.
+// from fp32, eight-element vector accesses, warp/block reductions and
+// 16-byte asynchronous copies into shared memory. Element type codes
+// used by every C entry point: 0 = float32, 1 = bfloat16.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -56,6 +56,63 @@ __device__ __forceinline__ float block_sum(float v) {
   }
   __syncthreads();
   return total;
+}
+
+// Eight consecutive elements as they lie in memory (16 bytes of bf16, 32
+// of fp32), moved by 16-byte vector accesses: the address must be 16-byte
+// aligned. A kernel may hold them packed in registers (load) and widen
+// them to fp32 only where it uses them (get).
+template <typename T> struct Vec8;
+template <> struct Vec8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = reinterpret_cast<const float4*>(p)[0];
+    b = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+  static __device__ __forceinline__ void store(float* p,
+                                               const float (&v)[8]) {
+    reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+template <> struct Vec8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&v)[8]) {
+    uint4 w;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = w;
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&o)[8]) {
+  Vec8<T> v;
+  v.load(p);
+  v.get(o);
+}
+template <typename T>
+__device__ __forceinline__ void store8(T* p, const float (&v)[8]) {
+  Vec8<T>::store(p, v);
 }
 
 // 16 bytes from device memory into shared memory, asynchronously; with

@@ -379,18 +379,22 @@ class LlamaAttention(nn.Module):
         b, s = attn.shape[:2]
         return _proj(self, attn.reshape(b, s, -1).to(x.dtype), "o_proj")
 
-    def forward(self, x, cos, sin, position_ids=None, segment_ids=None,
-                neg_sin=None):
+    def forward(self, x, cos, sin, position_ids=None, attn_mask=None,
+                segment_ids=None, neg_sin=None):
         """Causal self-attention: the flash kernels (forward and
         backward) when ``cfg.use_flash_attention``, else ``sdpa_plain``,
-        as the JAX model chooses between flash and ``_sdpa_xla``."""
+        as the JAX model chooses between flash and ``_sdpa_xla``. A dense
+        ``attn_mask`` (boolean or additive, broadcast to [b, h, s, s])
+        takes ``sdpa_plain`` on either branch, as the JAX dispatch sends
+        it to ``_sdpa_xla``."""
         q, k, v = self._qkv_rope(x, cos, sin, position_ids, neg_sin)
         if self.cfg.use_flash_attention:
             out = ptF.scaled_dot_product_attention(
-                q, k, v, is_causal=True, training=self.training,
-                segment_ids=segment_ids)
+                q, k, v, attn_mask=attn_mask, is_causal=True,
+                training=self.training, segment_ids=segment_ids)
         else:
-            out = sdpa_plain(q, k, v, causal=True, segment_ids=segment_ids)
+            out = sdpa_plain(q, k, v, causal=True, segment_ids=segment_ids,
+                             attn_mask=attn_mask)
         return self._out(out, x)
 
     def prefill_paged(self, x, cos, sin, kv: Pool, tables: torch.Tensor):
@@ -466,10 +470,10 @@ class LlamaDecoderLayer(nn.Module):
             dtype="float32")
         self.mlp = LlamaMLP(cfg, init)
 
-    def forward(self, x, cos, sin, position_ids=None, segment_ids=None,
-                neg_sin=None):
+    def forward(self, x, cos, sin, position_ids=None, attn_mask=None,
+                segment_ids=None, neg_sin=None):
         h = x + self.self_attn(self.input_layernorm(x), cos, sin,
-                               position_ids, segment_ids, neg_sin)
+                               position_ids, attn_mask, segment_ids, neg_sin)
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -495,9 +499,12 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
         """input_ids [b, s] → final hidden states [b, s, hidden].
         ``position_ids`` [b, s] (default 0..s-1) index the RoPE tables;
+        ``attn_mask`` is a dense mask over [b, h, s, s] (boolean or
+        additive; a padding mask is [b, 1, 1, s]) beside the causal one;
         ``segment_ids`` [b, s] restrict attention to equal ids (packed
         sequences). With ``cfg.recompute`` "full" (nothing kept) or
         "selective" (the projections' products kept) and a gradient
@@ -514,7 +521,7 @@ class LlamaModel(nn.Module):
         x = F.embedding(input_ids, self.embed_tokens)
         for layer in self.layers:
             args = (x, self.rope_cos, self.rope_sin, position_ids,
-                    segment_ids, self.rope_neg_sin)
+                    attn_mask, segment_ids, self.rope_neg_sin)
             x = (run_recomputed(layer, *args, policy=policy) if remat
                  else layer(*args))
         return self.norm(x)
@@ -603,6 +610,7 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None,
                 segment_ids: Optional[torch.Tensor] = None,
                 return_logits: Optional[bool] = None):
         """input_ids [b, s] → logits [b, s, vocab] without ``labels``.
@@ -620,7 +628,7 @@ class LlamaForCausalLM(nn.Module):
                 "weight_dtype='int8' is a serving-only layout (no float "
                 "master weights to train); quantize a trained model with "
                 "paddle_tpu_torch.quantization.quantize_model instead")
-        hidden = self.model(input_ids, position_ids, segment_ids)
+        hidden = self.model(input_ids, position_ids, attn_mask, segment_ids)
         if labels is None:
             return self.logits(hidden)
         logits = None

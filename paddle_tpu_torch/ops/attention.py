@@ -47,13 +47,18 @@ def _allowed(b: int, sq: int, sk: int, causal: bool,
 
 def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                causal: bool = True, scale: Optional[float] = None,
-               segment_ids=None) -> torch.Tensor:
-    """Copy of ``paddle_tpu.ops.attention._sdpa_xla`` (no dense mask or
-    dropout): fp32 scores, bottom-right causal mask, segment ids ([b, s]
-    or a (q_seg, kv_seg) pair), fp32 softmax, probabilities cast to v's
-    dtype before the weighted sum, output in q's dtype. The serving
-    prefill runs this on the card as well: in the JAX package it is
-    outside every Pallas kernel."""
+               segment_ids=None, attn_mask: Optional[torch.Tensor] = None,
+               dropout_p: float = 0.0, dropout_seed: int = 0
+               ) -> torch.Tensor:
+    """Copy of ``paddle_tpu.ops.attention._sdpa_xla``: fp32 scores,
+    bottom-right causal mask, segment ids ([b, s] or a (q_seg, kv_seg)
+    pair), a dense ``attn_mask`` broadcast to [b, h, sq, sk] (boolean:
+    keep where True; otherwise added to the fp32 scores), fp32 softmax,
+    probabilities cast to v's dtype before the weighted sum, output in
+    q's dtype. ``dropout_p`` > 0 drops probabilities with the flash
+    kernels' keep mask of ``dropout_seed`` (the port has no global random
+    stream). The serving prefill runs this on the card as well: in the
+    JAX package it is outside every Pallas kernel."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     k = _expand_kv(k, h)
@@ -64,7 +69,16 @@ def sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = _allowed(b, sq, sk, causal, q_seg, kv_seg, q.device)
     if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = logits.masked_fill(~attn_mask, float("-inf"))
+        else:
+            logits = logits + attn_mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        keep = dropout_keep_plain(dropout_seed, b, h, sq, sk, dropout_p,
+                                  q.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)
@@ -275,11 +289,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``segment_ids`` ([b, s] ints, or a (q_seg, kv_seg) pair) restricts
     attention to equal ids. ``dropout_p`` > 0 drops inside the kernels
     with the keep mask of ``dropout_seed``, which is required: the port
-    has no global random stream. A dense ``attn_mask`` and ``causal``
-    with sq > sk raise NotImplementedError."""
-    if attn_mask is not None:
-        raise NotImplementedError("flash_attention takes segment_ids, not a "
-                                  "dense attn_mask")
+    has no global random stream. A dense ``attn_mask`` (boolean, or
+    added to the scores) goes to :func:`sdpa_plain` on every device, as
+    the JAX dispatch sends it to ``_sdpa_xla``: no kernel of the JAX
+    package takes one. ``causal`` with sq > sk raises
+    NotImplementedError (``_sdpa_xla`` gives rows of NaN there)."""
     if causal and q.shape[1] > k.shape[1]:
         raise NotImplementedError("causal attention with sq > sk leaves "
                                   "query rows with no key")
@@ -294,6 +308,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(kv_seg.shape)} do not match q "
                          f"{tuple(q.shape)} and k {tuple(k.shape)}")
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if attn_mask is not None:
+        return sdpa_plain(q, k, v, causal, scale, segment_ids, attn_mask,
+                          dropout_p, int(dropout_seed or 0))
     return _FlashAttention.apply(q, k, v, q_seg, kv_seg, bool(causal),
                                  float(scale), float(dropout_p),
                                  int(dropout_seed or 0))

@@ -54,7 +54,10 @@ LAUNCHES: Dict[str, int] = {"rms_norm": 0, "rms_norm_bwd": 0,
                             "grouped_matmul_dw_wgmma": 0,
                             "grouped_matmul_dw_tile": 0,
                             "grouped_matmul_dw_fma": 0,
-                            "vocab_ce_fwd_wgmma": 0, "vocab_ce_fwd_fma": 0}
+                            "vocab_ce_fwd_wgmma": 0, "vocab_ce_fwd_fma": 0,
+                            "rms_norm_row": 0, "rms_norm_vec": 0,
+                            "rms_norm_scalar": 0,
+                            "fused_rope_vec": 0, "fused_rope_scalar": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_LOG: Dict[str, object] = {}
@@ -164,10 +167,9 @@ def lib() -> ctypes.CDLL:
 def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F, LL, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
         ctypes.c_longlong, ctypes.c_uint
-    so.pt_rms_norm_fwd.argtypes = [P, P, P, P, I, I, F, I, I, I, P]
+    so.pt_rms_norm_fwd.argtypes = [P, P, P, P, I, I, F] + [I] * 7 + [P]
     so.pt_rms_norm_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
-    so.pt_fused_rope.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
-                                 LL, LL, LL, LL, LL, LL, I, I, P]
+    so.pt_fused_rope.argtypes = [P] * 7 + [I] * 5 + [LL] * 6 + [I] * 6 + [P]
     so.pt_paged_decode.argtypes = [P] * 10 + [I] * 9 + [F, I, P]
     so.pt_int8_matmul.argtypes = [P] * 6 + [I] * 5 + [P]
     so.pt_grouped_matmul.argtypes = [P] * 4 + [I] * 8 + [P]
@@ -188,6 +190,9 @@ def _declare(so: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(so, name)
         fn.argtypes = flash
         fns.append(fn)
+    if hasattr(so, "pt_empty"):      # a library of an older tree has none
+        so.pt_empty.argtypes = [P]
+        fns.append(so.pt_empty)
     for fn in fns:
         fn.restype = ctypes.c_int
     return so
@@ -226,6 +231,15 @@ def sm_count(device) -> int:
     return _SMS[i]
 
 
+def walking_grid(work: int, most: int) -> int:
+    """Blocks for ``work`` block-sized pieces when at most ``most``
+    blocks are launched and each block walks pieces a grid apart: every
+    block walks the same number of trips or one fewer, so no block is
+    left with a lone last trip."""
+    trips = -(-work // most)
+    return -(-work // trips)
+
+
 def tickets(device, stream: int, n: int):
     """At least n zeroed int32 tickets of a device and stream, kept
     between calls: the split kernels (paged decode, the int8 decode
@@ -242,4 +256,4 @@ def tickets(device, stream: int, n: int):
 
 __all__ = ["build", "lib", "load", "check", "LAUNCHES", "count_launch",
            "reset_launches", "BUILD_DIR", "CSRC", "dtype_code", "stream_ptr",
-           "sm_count", "tickets"]
+           "sm_count", "tickets", "walking_grid"]

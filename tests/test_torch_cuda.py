@@ -100,6 +100,116 @@ def test_rope_kernel_matches_plain(dev, dtype):
             _close(a, w, dtype)
 
 
+def _rms_case(dev, R, D, dt, wdt, seed, offset=False):
+    """x [R, D] of dt (one element into its buffer when ``offset``: a
+    contiguous view whose rows are not 16-byte aligned) and a weight."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn((R * D + 1,), generator=g, device=dev).to(dt)
+    x = (buf[1:] if offset else buf[:-1]).view(R, D)
+    w = (1 + 0.1 * torch.randn((D,), generator=g, device=dev)).to(wdt)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [100, 2048, 4096])
+@pytest.mark.parametrize("R", [1, 3, 8, 1024, 8197])
+def test_rms_norm_forward_routes_match_plain(dev, R, D, dtype):
+    """Every route of the forward (row at the widths the models launch;
+    scalar at D = 100 and on an offset view), fp32 and x-typed weights,
+    with and without rstd: y within the dtype's tolerance and rstd within
+    1e-5 of the plain version, on the route the plan names."""
+    dt = getattr(torch, dtype)
+    for wdt in (torch.float32, dt):
+        for offset in (False, True):
+            x, w = _rms_case(dev, R, D, dt, wdt, R + D, offset)
+            want, want_rstd = norm_ops._rms_norm_fwd_plain(x, w, 1e-5)
+            route = fused_norm.plan(
+                R, D, not offset and D % 8 == 0, _build.sm_count(dev)).route
+            assert route == ("scalar" if offset or D % 8 else
+                             "row" if D in fused_norm.ROW_WIDTHS else "vec")
+            for with_rstd in (True, False):
+                _build.reset_launches()
+                y, rstd = fused_norm.rms_norm_fwd(x, w, 1e-5,
+                                                  return_rstd=with_rstd)
+                assert _build.LAUNCHES[f"rms_norm_{route}"] == 1
+                _close(y, want, dtype)
+                if with_rstd:
+                    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5,
+                                               atol=1e-5)
+                else:
+                    assert rstd is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("heads", [(32, 8), (16, 16)])
+@pytest.mark.parametrize("b,s", [(8, 1), (1, 300), (2, 64)])
+def test_rope_routes_match_plain(dev, b, s, heads, dtype):
+    """RoPE at the models' head counts (d = 128) on strided views of one
+    fused qkv, at decode (per-row positions, some past the table, which
+    both sides clamp), a prefill and a training batch; the vec route, and
+    the scalar route on a view one element off. The backward through
+    autograd (the same kernel with the neg_sin table) against autograd
+    of the plain version."""
+    h, hk = heads
+    d = 128
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(b * s + h)
+    width = (h + 2 * hk) * d
+    buf = torch.randn((b * s * width + 1,), generator=g, device=dev).to(dt)
+    cos, sin = rope_ops.rope_freqs(d, 320, device=dev)
+    pos = (torch.randint(0, 400, (b, s), generator=g, device=dev)
+           if s == 1 else None)
+    for offset in (False, True):
+        qkv = (buf[1:] if offset else buf[:-1]).view(b, s, width)
+        q = qkv[..., :h * d].view(b, s, h, d)
+        k = qkv[..., h * d:(h + hk) * d].view(b, s, hk, d)
+        route = "scalar" if offset else "vec"
+        assert fused_rope.vector_aligned(q, k, cos, sin) == (not offset)
+        _build.reset_launches()
+        got = fused_rope.fused_rope(q, k, cos, sin, pos)
+        assert _build.LAUNCHES[f"fused_rope_{route}"] == 1
+        want = rope_ops._rope_plain(q, k, cos, sin, pos)
+        for a, w_ in zip(got, want):
+            _close(a, w_, dtype)
+        gq, gk = (torch.randn(t.shape, generator=g, device=dev).to(dt)
+                  for t in got)
+        grads = []
+        for fn in (rope_ops.apply_rotary_pos_emb, rope_ops._rope_plain):
+            qq, kk = (t.detach().clone().requires_grad_() for t in (q, k))
+            oq, ok = fn(qq, kk, cos, sin, pos)
+            torch.autograd.backward((oq, ok), (gq, gk))
+            grads.append((qq.grad, kk.grad))
+        for a, w_ in zip(*grads):
+            _close(a, w_, dtype)
+
+
+def test_norm_and_rope_are_deterministic_and_never_sync(dev):
+    """At the decode and training shapes (Llama widths, bf16), a call
+    under set_sync_debug_mode("error") does not sync the host, and two
+    runs give the same bits (no atomics on any route)."""
+    cos, sin = rope_ops.rope_freqs(128, 8192, 500000.0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    for R, (b, s) in ((8, (8, 1)), (8192, (2, 4096))):
+        x, w = _rms_case(dev, R, 4096, torch.bfloat16, torch.float32, R)
+        qkv = torch.randn((b, s, 48 * 128), generator=g, device=dev).to(
+            torch.bfloat16)
+        q = qkv[..., :4096].view(b, s, 32, 128)
+        k = qkv[..., 4096:5120].view(b, s, 8, 128)
+        pos = torch.full((b, s), 1023, device=dev) if s == 1 else None
+
+        def run():
+            return (*fused_norm.rms_norm_fwd(x, w, 1e-5, return_rstd=True),
+                    *fused_rope.fused_rope(q, k, cos, sin, pos))
+        first = run()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
 def _paged_lens(H, H_kv, page, B, mp):
     """Lengths at the first token, at and across a page edge, at and
     across the edge of the kernel's first split (its plan on this card),

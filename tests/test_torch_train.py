@@ -183,14 +183,94 @@ def test_flash_function_matches_autograd_of_plain(case):
 
 
 def test_flash_attention_refuses_what_it_does_not_take():
+    """Causal attention with sq > sk (``_sdpa_xla`` gives rows of NaN
+    there) and dropout without a seed stay refused, with a dense mask
+    too; the dense mask itself is taken (the parity tests below)."""
     q = torch.zeros((1, 8, 2, 32))
     k = torch.zeros((1, 4, 2, 32))
     with pytest.raises(NotImplementedError):
         attn_ops.flash_attention(q, k, k, causal=True)
     with pytest.raises(NotImplementedError):
-        attn_ops.flash_attention(q, q, q, attn_mask=torch.ones(8, 8))
+        attn_ops.flash_attention(q, k, k, causal=True,
+                                 attn_mask=torch.ones(8, 4, dtype=bool))
     with pytest.raises(ValueError, match="dropout_seed"):
         attn_ops.flash_attention(q, q, q, dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_seed"):
+        attn_ops.flash_attention(q, q, q, dropout_p=0.1,
+                                 attn_mask=torch.ones(8, 8, dtype=bool))
+
+
+def _dense_mask(kind, b, s, rs):
+    """A [b, 1, s, s] mask that keeps the diagonal (no row is fully
+    masked): boolean, or additive with random fp32 biases and -inf."""
+    keep = rs.rand(b, 1, s, s) < 0.7
+    keep |= np.eye(s, dtype=bool)[None, None]
+    if kind == "bool":
+        return keep
+    return np.where(keep, 0.5 * rs.randn(b, 1, s, s),
+                    -np.inf).astype(np.float32)
+
+
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+def test_flash_attention_dense_mask_matches_sdpa_xla(kind, segments):
+    """A dense mask, boolean or additive, with and without segment ids,
+    causal and GQA: the output and dq, dk, dv of the port's public
+    ``flash_attention`` against ``_sdpa_xla`` and ``jax.grad``, 1e-5."""
+    from paddle_tpu.ops.attention import _sdpa_xla
+    rs = np.random.RandomState(20 + 2 * (kind == "bool") + segments)
+    b, s, h, hk, d = 2, 24, 4, 2, 16
+    q = (0.5 * rs.randn(b, s, h, d)).astype(np.float32)
+    k = (0.5 * rs.randn(b, s, hk, d)).astype(np.float32)
+    v = (0.5 * rs.randn(b, s, hk, d)).astype(np.float32)
+    dout = rs.randn(b, s, h, d).astype(np.float32)
+    mask = _dense_mask(kind, b, s, rs)
+    seg = None
+    if segments:
+        seg = np.zeros((b, s), np.int32)
+        seg[:, 9:] = 1
+        seg[1, 17:] = 2
+
+    def jloss(q_, k_, v_):
+        out = _sdpa_xla(q_, k_, v_, attn_mask=jnp.asarray(mask), causal=True,
+                        segment_ids=None if seg is None
+                        else jnp.asarray(seg))
+        return jnp.sum(out * jnp.asarray(dout)), out
+    (_, want), grads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
+                                          has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ts = [_t(x).requires_grad_() for x in (q, k, v)]
+    got = attn_ops.flash_attention(*ts, attn_mask=_t(mask), causal=True,
+                                   segment_ids=None if seg is None
+                                   else _t(seg))
+    got.backward(_t(dout))
+    _close(got.detach(), want)
+    for t, gw in zip(ts, grads):
+        _close(t.grad, gw)
+
+
+def test_llama_padding_mask_matches_jax():
+    """The tiny (2-layer) Llama under a padding mask [b, 1, 1, s] beside
+    segment ids: logits, loss and every gradient of the default head
+    against the JAX model with the same weights (``convert``), 1e-5."""
+    jm, tm = _jax_pair(seed=11)
+    batch = _train_batch(tm.cfg, seed=12)
+    s = batch["input_ids"].shape[1]
+    mask = np.ones((2, 1, 1, s), bool)
+    mask[1, ..., 25:] = False                  # row 1 padded on the right
+    batch["attn_mask"] = mask
+    with torch.no_grad():
+        tlog = tm(_t(batch["input_ids"]), attn_mask=_t(mask),
+                  segment_ids=_t(batch["segment_ids"]))
+    _close(tlog, jm(jnp.asarray(batch["input_ids"]),
+                    attn_mask=jnp.asarray(mask),
+                    segment_ids=jnp.asarray(batch["segment_ids"])))
+    jl, jg = _jax_loss_and_grads(jm, batch)
+    tl, tg = _torch_loss_and_grads(tm, batch)
+    _close(tl, jl)
+    assert set(tg) == set(jg)
+    for name in jg:
+        _close(tg[name], jg[name])
 
 
 def test_sdpa_functional_drops_only_when_training():
