@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero before the result line:
      the host given a head start before every launch, median of 25 after
      warm-up; 10 for slow plain versions). First the launch floor: an
      empty kernel timed the same way. The RMSNorm and RoPE forwards at
-     a decode step (B = 8), a 1024-token prefill and a training step
+     a decode step (B = 8), a 1024-token prefill, a speculative verify
+     (B = 8 rows of 5 tokens; RoPE's row 0 at positions running past the
+     table, clamped), a 512-token prefill chunk and a training step
      (8192 x 4096 and DeepSeekMoE's 8192 x 2048; b = 2, s = 4096 at
      32/8 and 16/16 heads), RMSNorm's rstd held to 1e-5; a row with its
      last vector dropped and decode positions off by one must fail those
@@ -47,11 +49,14 @@ Phases, in order; any failure exits non-zero before the result line:
      Quantized serving: the int8 matrix product at the five projections
      of a Llama-3-8B decode step (m = 8, bf16; each also beside a
      streaming read of its weight's bytes), at gate_up with m = 128
-     and m = 1024 (prefills, with TFLOP/s and share of the bound) and in
-     fp32 at m = 5, n = 384, k = 256, held per 128 columns of each
+     and m = 1024 (prefills, with TFLOP/s and share of the bound), at
+     the five projections with m = 40 (a verify of B = 8, spec_k = 4)
+     and at qkv, o, gate_up and down with m = 512 (a prefill chunk), and
+     in fp32 at m = 5, n = 384, k = 256, held per 128 columns of each
      output row in bf16 (a weight with one 64-wide k-block swapped and a
      scale vector with one block of channels shifted must fail that
-     check at qkv, at down and at the m = 1024 prefill), beside one
+     check at qkv and down, at decode and at m = 40, at the m = 1024
+     prefill and at the m = 512 gate_up chunk), beside one
      torch.matmul with the bf16 weight; the int8
      paged decode at B = 8, context 1024, page 128 (bf16 and fp32 q, and
      a ragged case with a page never written), per row, where a page
@@ -73,22 +78,56 @@ Phases, in order; any failure exits non-zero before the result line:
      step-by-step plain-version path on the CPU;
   4b. quantized engine equality: the same widths and depth with int8
      weights and int8 KV, the same seeded weights on the card and on the
-     CPU: teacher-forced per-step logits within QUANT_LOGIT_TOL, the
-     pools' codes equal but for differences of 1 at no more than
-     QUANT_CODE_FRAC of them; the two engines' greedy agreement reported;
+     CPU: teacher-forced logits within QUANT_LOGIT_TOL, the pools' codes
+     equal but for differences of 1 at no more than QUANT_CODE_FRAC of
+     them and the page scales within QUANT_SCALE_RTOL, for a paged
+     prefill and 8 decode steps, and for the feature entry points (prefill
+     chunks of 4 rows x 128 tokens at offsets 0 and 128, then two
+     verifies of 8 rows x 5 tokens, the second over part of the first)
+     with the codes held per layer (QUANT_CODE_FRAC_LATER after the
+     first); beside each reading, what a 2e-6 perturbation of every
+     projection does on the CPU (``perturbed``);
+     the two engines' greedy agreement reported;
+  4c. feature equality: Llama-3-8B widths at 2 layers, fp32, seeded
+     weights, page_size 128, max_batch 4: greedy tokens of the engine on
+     the card equal the plain path on the CPU for every request of a
+     chunked-prefill run (prompts of 300-700 tokens, prefill_chunk 256),
+     a prefix-cache run (six prompts sharing a 512-token prefix, then one
+     submitted again whole: copy on write), a spec_k = 4 run, a spec_k =
+     4 run at async_depth 2 whose drafts are the plain path's own tokens
+     (it must accept drafts; eos and budgets end inside accepted runs)
+     and all three features at async_depth 2; two verify ticks (greedy
+     and sampled) and one prefill chunk then run under
+     torch.cuda.set_sync_debug_mode("error");
   5. the serving run: Llama-3-8B widths, all 32 layers, bf16, seeded
      random weights built on the card; 16 requests (prompts 128-1536
      tokens, 64 new tokens, every 4th sampled) through
      ContinuousBatchingEngine(max_batch=8, page_size=128, max_len=2048,
      decode_block=8, async_depth=2). Kernel launch counts are reset just
      before and read just after; every serving kernel must have launched;
-     one decode step profiled, with RMSNorm's and RoPE's device us;
+     then the launches of one call of each paged entry point and one
+     decode step profiled, with RMSNorm's and RoPE's device us;
   5b. the quantized serving run: the same model quantized on the card
      (int8 weights and KV, the native model then freed) through the same
      run, side by side with phase 5: tokens/s, TTFT, ITL, one decode
      step, launches, model and KV-pool bytes, peak memory, and the greedy
      agreement with phase 5's streams (reported only); every int8
      product of a prefill must take the kernel's wgmma route;
+  5c. the feature runs, on phase 5's model between 5 and 5b: phase 5's
+     16 requests with chunked prefill (prefill_chunk 512); 16 requests
+     of a shared 1024-token system prompt and a 128-512-token suffix
+     (seed 12), then 8 of them again as prompt + output up to its last
+     whole page (full hits) with the prefix cache; phase 5's requests
+     with spec_k 4; after 5b the prefix traffic on the int8 model with
+     all three. Each prints requests sent / succeeded / failed, tokens/s,
+     TTFT and ITL p50 and p99, the prefix hit tokens, hit rate and
+     copies on write or the acceptance rate and mean accepted length,
+     and launches by kernel (RMSNorm and RoPE in every run, paged decode
+     in the chunked and prefix runs, both int8 routes in the int8 run),
+     each beside the card's name and power limit; then the context
+     attention's device ms in one profiled prefill chunk and one verify
+     tick. A failed request, a missing launch, no hit (or fewer than 8
+     copies on write) or no scored draft fails the run;
   6. training equality: Llama-3-8B's attention layout (hidden 4096, 32
      heads, 8 KV heads of 128) at 2 layers with the MLP cut to 1024 and
      the vocabulary to 4096, the default (fused) loss head, the same
@@ -348,13 +387,17 @@ def record(kernel, case, dt, err, kms=None, pms=None, lms=None,
 
 
 # The RMSNorm and RoPE forwards' rows: (case, rows, width) and (case,
-# (b, s), (q heads, kv heads)); decode and prefill at Llama-3-8B's
-# widths, training at Llama-3-8B's and DeepSeekMoE-16B's (the MoE slice
-# trains only)
+# (b, s), (q heads, kv heads)); decode, prefill, a speculative verify
+# (B = 8, spec_k = 4: 5 tokens a row) and a 512-token prefill chunk at
+# Llama-3-8B's widths, training at Llama-3-8B's and DeepSeekMoE-16B's
+# (the MoE slice trains only)
 NORM_CASES = (("prefill_1024", 1024, 4096), ("decode_b8", 8, 4096),
+              ("verify_b8x5", 40, 4096), ("chunk_512", 512, 4096),
               ("train_8192", 8192, 4096), ("train_8192_moe", 8192, 2048))
 ROPE_CASES = (("prefill_1024", (1, 1024), (32, 8)),
               ("decode_b8", (8, 1), (32, 8)),
+              ("verify_b8x5", (8, 5), (32, 8)),
+              ("chunk_512", (1, 512), (32, 8)),
               ("train_4096", (2, 4096), (32, 8)),
               ("train_4096_moe", (2, 4096), (16, 16)))
 # the profiler's kernel names of the RMSNorm forward and RoPE routes
@@ -363,6 +406,25 @@ NORM_ROPE_KERNELS = {"rms_norm": ("rms_norm_row_kernel",
                      "fused_rope": ("rope_vec_kernel", "rope_scalar_kernel")}
 # rstd is fp32 on both sides, apart only in summation order
 RSTD_TOL = 1e-5
+
+
+def rope_positions(torch, g, dev, case, b, s, table=8192):
+    """The positions a RoPE row is called with: none for prefill and
+    training (0 .. s - 1); at decode one random position a row; a chunk's
+    s .. 2 s - 1 (the second chunk of a prompt); at verify s consecutive
+    positions a row from a random start, row 0 from table - 2, so that
+    its last three run past the ``table``-row cos/sin tables (clamped to
+    the last row, as a JAX gather clamps)."""
+    if case.startswith(("prefill", "train")):
+        return None
+    if case.startswith("chunk"):
+        return (torch.arange(s, device=dev) + s)[None].expand(
+            b, s).contiguous()
+    if s == 1:
+        return torch.randint(0, 2048, (b, s), generator=g, device=dev)
+    start = torch.randint(0, 2048, (b, 1), generator=g, device=dev)
+    start[0] = table - 2
+    return start + torch.arange(s, device=dev)[None]
 
 
 def norm_err(torch, got, want, dtype_name):
@@ -450,8 +512,7 @@ def norm_rope_plan_sweep(torch, dev, g, cos, sin, flush):
                           device=dev).to(torch.bfloat16)
         q = qkv[..., :h * 128].view(b, s, h, 128)
         k = qkv[..., h * 128:(h + hkv) * 128].view(b, s, hkv, 128)
-        pos = (None if s > 1 else torch.randint(
-            0, 2048, (b, s), generator=g, device=dev))
+        pos = rope_positions(torch, g, dev, case, b, s)
 
         def rope(q=q, k=k, pos=pos):
             return fused_rope.fused_rope(q, k, cos, sin, pos)
@@ -537,8 +598,7 @@ def phase_kernels(torch, pt):
                               device=dev).to(dt)
             q = qkv[..., :h * HD].view(b, s, h, HD)
             k = qkv[..., h * HD:(h + hkv) * HD].view(b, s, hkv, HD)
-            pos = (None if s > 1 else torch.randint(
-                0, 2048, (b, s), generator=g, device=dev))
+            pos = rope_positions(torch, g, dev, case, b, s)
             gq, gk = fused_rope.fused_rope(q, k, cos, sin, pos)
             wq, wk = rope_ops._rope_plain(q, k, cos, sin, pos)
             ea = compare(torch, gq, wq, name)
@@ -837,6 +897,15 @@ def phase_quant_kernels(torch, pt):
     mm_case("prefill_gate_up_128", 128, 28672, 4096, torch.bfloat16)
     mm_case("prefill_gate_up_1024", 1024, 28672, 4096, torch.bfloat16,
             plant=True)
+    # the feature runs' products: a speculative verify at B = 8, spec_k =
+    # 4 (m = 40) at each projection, and a 512-token prefill chunk
+    for proj, (n, k) in DECODE_PROJECTIONS.items():
+        mm_case(f"verify_{proj}_40", 40, n, k, torch.bfloat16,
+                plant=proj in ("qkv", "down"))
+    for proj in ("qkv", "o", "gate_up", "down"):
+        n, k = DECODE_PROJECTIONS[proj]
+        mm_case(f"chunk_{proj}_512", 512, n, k, torch.bfloat16,
+                plant=proj == "gate_up")
     mm_case("ragged_5x384x256", 5, 384, 256, torch.float32, timed=False)
     torch.cuda.empty_cache()
 
@@ -899,13 +968,15 @@ def phase_quant_kernels(torch, pt):
             del kg, vg
             paged_sweep(torch, paged_attention, "paged_decode_int8", q, kp,
                         vp, tables, sc, flush)
-            # planted: one page of row 0 read with the scale of the page
-            # of row 0 whose scale differs most from its own
+            # planted: row 0's page of the largest K scale (the page its
+            # attention weighs most) read with the K (V) scale of the page
+            # of row 0 whose K (V) scale differs most from its own
             row0 = tables[0, :ctx // page].long()
-            p0 = row0[3]
-            other = row0[(ks[row0] / ks[p0]).log().abs().argmax()]
+            p0 = row0[ks[row0].argmax()]
             for what, kw in (("k_scale", "k_scales"),
                              ("v_scale", "v_scales")):
+                s0 = sc[kw]
+                other = row0[(s0[row0] / s0[p0]).log().abs().argmax()]
                 bad = dict(sc)
                 bad[kw] = sc[kw].clone()
                 bad[kw][p0] = sc[kw][other]
@@ -1526,16 +1597,142 @@ def phase_engine_equality(torch, pt, dev, make_cfg):
 # (a page's absmax / 127) by up to about 1e-4 (1.34e-4 on the card,
 # H100 80GB HBM3, 700 W); a scale from a wrong page is off by 1e-2 or
 # more.
+# The feature arm (chunks of 128 tokens attended over 256 positions, then
+# verifies) is held per layer. Its first layer's codes come from the
+# projections alone and keep QUANT_CODE_FRAC (card 1.6e-5). Its second
+# layer's come from attention over the first layer's codes, where a code
+# that differs moves a value by a whole quantization step, over a longer
+# context than the prefill arm's. Beside each arm, phase 4b reads the
+# CPU with every projection's output perturbed by 2e-6 relative
+# (``perturbed``) against the plain CPU by the same measures: in the
+# feature arm that flipped 6.0e-3 of the second layer's codes where the
+# card flipped 4.0e-3 (H100 80GB HBM3, 700 W). Later layers are held to
+# QUANT_CODE_FRAC_LATER, above that; every difference must still be 1,
+# and the logits and scales keep their limits.
 QUANT_LOGIT_TOL = 5e-3     # max |card - cpu| / max |cpu| over all steps
 QUANT_CODE_FRAC = 1e-3     # codes that may differ (by 1) / codes written
+QUANT_CODE_FRAC_LATER = 2e-2   # the feature arm, layers after the first
 QUANT_SCALE_RTOL = 1e-3    # page scales, relative
+
+
+def decode_teacher_forced(torch, model, hist, L):
+    """``model``'s logits over a fixed history on its device: a paged
+    prefill of hist[:L], then one decode step a token of the rest.
+    Returns the logits (fp32, on the CPU) and the pools."""
+    d = model.lm_head.device
+    core = model.model
+    pools, tables = core.alloc_paged_caches(1, 256, 128)
+    h, _ = core.prefill_paged(torch.tensor(hist[None, :L], device=d),
+                              pools, tables)
+    logits = [model.logits(h[0, -1])]
+    for i in range(L, len(hist)):
+        h, _ = core.decode_step_paged(
+            torch.tensor(hist[i:i + 1], device=d),
+            torch.tensor([i], device=d), pools, tables)
+        logits.append(model.logits(h[0, 0]))
+    return (torch.stack(logits).float().cpu(),
+            [[t.cpu() for t in p] for p in pools])
+
+
+def features_teacher_forced(torch, model, ids, verify):
+    """The engine features' entry points of ``model`` over fixed tokens,
+    on its device: rows 0-3 prefilled from ``ids`` [8, 256] by two
+    128-token chunks (offsets 0 and 128), rows 4-7 by one, four rows a
+    chunk call (m = 512 in the products); then the two speculative
+    verifies of ``verify`` [2, 8, 5] (m = 40), the second starting
+    1 + (row % 5) past the first, over part of what the first wrote, as a
+    verify after a partial acceptance does. Returns the logits of each
+    chunk call's last token a row and of every verify token (fp32, on the
+    CPU) and the pools."""
+    d = model.lm_head.device
+    core = model.model
+    pools, tables = core.alloc_paged_caches(8, 512, 128)
+    logits = []
+    for rows, offset in ((slice(0, 4), 0), (slice(0, 4), 128),
+                         (slice(4, 8), 0)):
+        h, _ = core.prefill_chunk_paged(
+            torch.tensor(ids[rows, offset:offset + 128], device=d), offset,
+            pools, tables[rows])
+        logits.append(model.logits(h[:, -1]))
+    pos = np.array([256] * 4 + [128] * 4)
+    for i, toks in enumerate(verify):
+        at = pos + (1 + np.arange(8) % 5 if i else 0)
+        h, _ = core.decode_verify_paged(torch.tensor(toks, device=d),
+                                        torch.tensor(at, device=d), pools,
+                                        tables)
+        logits.append(model.logits(h).flatten(0, 1))
+    return (torch.cat(logits).float().cpu(),
+            [[t.cpu() for t in p] for p in pools])
+
+
+def int8_agreement(lc, pc, lp, pp, per_layer=False):
+    """The card's int8 logits and pools (lc, pc) against the CPU's (lp,
+    pp), under phase 4b's limits (``per_layer``: the first layer's codes
+    within QUANT_CODE_FRAC and the later layers' within
+    QUANT_CODE_FRAC_LATER; otherwise all codes within QUANT_CODE_FRAC):
+    {logit_err, codes_written, codes_differ, codes_differ_frac,
+    codes_differ_frac_by_layer, codes_max_diff, scale_rel_err, ok}."""
+    logit_err = float((lc - lp).abs().max() / lp.abs().max())
+    written = differ = worst = 0
+    scale_err = 0.0
+    by_layer = []
+    for layer_c, layer_p in zip(pc, pp):
+        by_layer.append(differ)
+        for codes_c, codes_p, s_c, s_p in ((layer_c[0], layer_p[0],
+                                            layer_c[2], layer_p[2]),
+                                           (layer_c[1], layer_p[1],
+                                            layer_c[3], layer_p[3])):
+            used = s_p > 0
+            dc = (codes_c.int() - codes_p.int()).abs()[:, used]
+            written += dc.numel()
+            differ += int((dc > 0).sum())
+            worst = max(worst, int(dc.max()))
+            scale_err = max(scale_err, float(
+                ((s_c - s_p).abs() / s_p.clamp_min(1e-30))[used].max()))
+            if bool((s_c[~used] != 0).any()):
+                worst = max(worst, 127)          # a page written on one side
+    frac = differ / max(written, 1)
+    # each layer writes as many codes
+    by_layer = [(b - a) / max(written / len(pc), 1) for a, b in
+                zip(by_layer, by_layer[1:] + [differ])]
+    ok = {"logits": logit_err <= QUANT_LOGIT_TOL
+          and bool(np.isfinite(lc.numpy()).all()),
+          "codes": worst <= 1 and (
+              by_layer[0] <= QUANT_CODE_FRAC
+              and max(by_layer[1:], default=0) <= QUANT_CODE_FRAC_LATER
+              if per_layer else frac <= QUANT_CODE_FRAC),
+          "scales": scale_err <= QUANT_SCALE_RTOL}
+    return {"logit_err": logit_err, "max_abs_logit": float(lp.abs().max()),
+            "codes_written": written, "codes_differ": differ,
+            "codes_differ_frac": frac, "codes_differ_frac_by_layer": by_layer,
+            "codes_max_diff": worst, "scale_rel_err": scale_err, "ok": ok}
+
+
+def perturbed(torch, run, model, rel=2e-6):
+    """``run(model)`` with every projection's output perturbed by ``rel``
+    relative (a seeded normal draw): on the CPU, the reading phase 4b's
+    code limits are set against."""
+    from paddle_tpu_torch.models import llama
+    proj = llama._proj
+    g = torch.Generator().manual_seed(0)
+
+    def noisy(module, x, name):
+        y = proj(module, x, name)
+        return y * (1 + rel * torch.randn(y.shape, generator=g))
+    llama._proj = noisy
+    try:
+        return run(model)
+    finally:
+        llama._proj = proj
 
 
 def phase_quant_engine_equality(torch, pt, dev, make_cfg):
     """Phase 4b: Llama-3-8B widths at 2 layers, fp32 activations, int8
     weights and int8 KV, the same seeded weights on the card and on the
-    CPU. Hard limits: teacher-forced per-step logits (a 130-token
-    prefill, then 8 decode steps of a fixed history) within
+    CPU. Hard limits, for the paged prefill and decode (a 130-token
+    prefill, then 8 decode steps of a fixed history) and for the engine
+    features' entry points (prefill chunks and speculative verifies,
+    ``features_teacher_forced``): teacher-forced logits within
     QUANT_LOGIT_TOL, and the pools' codes equal but for differences of 1
     at no more than QUANT_CODE_FRAC of the written elements, scales
     within QUANT_SCALE_RTOL. Reported only: the greedy-token agreement of
@@ -1551,46 +1748,21 @@ def phase_quant_engine_equality(torch, pt, dev, make_cfg):
     del native
     cpu = copy.deepcopy(card).to("cpu")
     hist = np.random.RandomState(11).randint(0, cfg.vocab_size, (139,))
-    L = 130
-    side = {}
+    rs = np.random.RandomState(13)
+    ids = rs.randint(0, cfg.vocab_size, (8, 256))
+    verify = rs.randint(0, cfg.vocab_size, (2, 8, 5))
+    runs = {"prefill_decode": lambda m: decode_teacher_forced(
+                torch, m, hist, 130),
+            "chunk_verify": lambda m: features_teacher_forced(
+                torch, m, ids, verify)}
+    checks = {}
     with torch.inference_mode():
-        for name, model in (("card", card), ("cpu", cpu)):
-            d = model.lm_head.device
-            core = model.model
-            pools, tables = core.alloc_paged_caches(1, 256, 128)
-            h, _ = core.prefill_paged(torch.tensor(hist[None, :L], device=d),
-                                      pools, tables)
-            logits = [model.logits(h[0, -1])]
-            for i in range(L, len(hist)):
-                h, _ = core.decode_step_paged(
-                    torch.tensor(hist[i:i + 1], device=d),
-                    torch.tensor([i], device=d), pools, tables)
-                logits.append(model.logits(h[0, 0]))
-            side[name] = (torch.stack(logits).float().cpu(),
-                          [[t.cpu() for t in p] for p in pools])
-    (lc, pc), (lp, pp) = side["card"], side["cpu"]
-    logit_err = float((lc - lp).abs().max() / lp.abs().max())
-    written = differ = worst = 0
-    scale_err = 0.0
-    for layer_c, layer_p in zip(pc, pp):
-        for codes_c, codes_p, s_c, s_p in ((layer_c[0], layer_p[0],
-                                            layer_c[2], layer_p[2]),
-                                           (layer_c[1], layer_p[1],
-                                            layer_c[3], layer_p[3])):
-            used = s_p > 0
-            dc = (codes_c.int() - codes_p.int()).abs()[:, used]
-            written += dc.numel()
-            differ += int((dc > 0).sum())
-            worst = max(worst, int(dc.max()))
-            scale_err = max(scale_err, float(
-                ((s_c - s_p).abs() / s_p.clamp_min(1e-30))[used].max()))
-            if bool((s_c[~used] != 0).any()):
-                worst = max(worst, 127)          # a page written on one side
-    frac = differ / max(written, 1)
-    logits_ok = logit_err <= QUANT_LOGIT_TOL and bool(
-        torch.isfinite(lc).all())
-    codes_ok = worst <= 1 and frac <= QUANT_CODE_FRAC
-    scales_ok = scale_err <= QUANT_SCALE_RTOL
+        for label, run in runs.items():
+            want = run(cpu)
+            checks[label] = int8_agreement(*run(card), *want,
+                                           per_layer=label == "chunk_verify")
+            checks[label]["cpu_perturbed"] = int8_agreement(
+                *perturbed(torch, run, cpu), *want)
     # the engines, on the card and on the CPU: greedy agreement, reported
     rs = np.random.RandomState(7)
     prompts = [rs.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
@@ -1610,121 +1782,393 @@ def phase_quant_engine_equality(torch, pt, dev, make_cfg):
         streams[name] = [out[r].tolist() for r in rids]
     agree = float(np.mean([np.mean(np.equal(a, b)) for a, b in
                            zip(streams["card"], streams["cpu"])]))
-    res = {"logit_err": logit_err, "logit_tol": QUANT_LOGIT_TOL,
-           "max_abs_logit": float(lp.abs().max()),
-           "codes_written": written, "codes_differ": differ,
-           "codes_differ_frac": frac, "codes_max_diff": worst,
-           "code_frac_tol": QUANT_CODE_FRAC, "scale_rel_err": scale_err,
-           "scale_rtol": QUANT_SCALE_RTOL, "greedy_agreement": agree,
-           "streams": streams}
+    res = {"logit_tol": QUANT_LOGIT_TOL, "code_frac_tol": QUANT_CODE_FRAC,
+           "scale_rtol": QUANT_SCALE_RTOL, **checks,
+           "greedy_agreement": agree, "streams": streams}
     RESULTS["quant_engine_equality"] = res
-    log(f"quantized engine equality (llama3_8b widths, 2 layers, fp32, int8 "
-        f"weights and KV): teacher-forced logits max|card-cpu|/max|cpu| "
-        f"{logit_err:.3e} (tol {QUANT_LOGIT_TOL}: "
-        f"{'ok' if logits_ok else 'FAIL'}); KV codes differing {differ} of "
-        f"{written} written ({frac:.2e}, tol {QUANT_CODE_FRAC}, largest "
-        f"difference {worst}: {'ok' if codes_ok else 'FAIL'}); page scales "
-        f"rel err {scale_err:.2e} (tol {QUANT_SCALE_RTOL}: "
-        f"{'ok' if scales_ok else 'FAIL'}); engines' greedy agreement "
-        f"{agree:.3f} (reported only); {time.perf_counter() - t0:.1f} s")
+    for label, c in checks.items():
+        ok = c["ok"]
+        log(f"quantized engine equality, {label} (llama3_8b widths, 2 "
+            f"layers, fp32, int8 weights and KV): teacher-forced logits "
+            f"max|card-cpu|/max|cpu| {c['logit_err']:.3e} (tol "
+            f"{QUANT_LOGIT_TOL}: {'ok' if ok['logits'] else 'FAIL'}); KV "
+            f"codes differing {c['codes_differ']} of {c['codes_written']} "
+            f"written ({c['codes_differ_frac']:.2e}; by layer "
+            f"{['%.2e' % f for f in c['codes_differ_frac_by_layer']]}; tol "
+            + (f"{QUANT_CODE_FRAC} first layer, {QUANT_CODE_FRAC_LATER} "
+               f"later" if label == "chunk_verify" else
+               f"{QUANT_CODE_FRAC}") + ", "
+            f"largest difference {c['codes_max_diff']}: "
+            f"{'ok' if ok['codes'] else 'FAIL'}); page scales rel err "
+            f"{c['scale_rel_err']:.2e} (tol {QUANT_SCALE_RTOL}: "
+            f"{'ok' if ok['scales'] else 'FAIL'}); the CPU with every "
+            f"projection perturbed by 2e-6 against the CPU: "
+            + ", ".join(f"{k} {c['cpu_perturbed'][k]}" for k in (
+                "logit_err", "codes_differ_frac",
+                "codes_differ_frac_by_layer", "codes_max_diff",
+                "scale_rel_err")) + f" {card_line()}")
+    log(f"quantized engine equality: engines' greedy agreement {agree:.3f} "
+        f"(reported only); {time.perf_counter() - t0:.1f} s")
     del card, cpu
     empty_cache(torch, dev)
-    if not (logits_ok and codes_ok and scales_ok):
-        raise SystemExit("the quantized model on the card differs from the "
-                         "plain path")
+    bad = [label for label, c in checks.items() if not all(c["ok"].values())]
+    if bad:
+        raise SystemExit(f"the quantized model on the card differs from the "
+                         f"plain path: {bad}")
 
 
-def serve_run(torch, dev, model, label, kernels):
-    """The serving run of phases 5 and 5b over ``model``: a warm-up
-    engine, then 16 requests (prompts 128-1536 tokens from numpy seed 8,
-    64 new tokens, every 4th sampled) through ContinuousBatchingEngine
-    (max_batch=8, page_size=128, max_len=2048, decode_block=8,
-    async_depth=2), launch counts reset just before and read just after;
-    then per-call launch counts and one decode step at B=8, context 1024
-    (device span, host enqueue, profile). Fails unless every kernel of
-    ``kernels`` launched, every token is in the vocabulary and the
-    logits are finite. Returns the run's numbers and the streams."""
+def replay_drafts(torch, dev, streams, H):
+    """A DraftProvider that proposes the plain path's own continuation:
+    ``streams`` are (prompt, tokens) pairs; a row whose history starts
+    with a stream's prompt gets the next ``k`` tokens of prompt + tokens
+    after its ``hist_len`` (its last token past the stream's end or
+    where no prompt matches). Every draft it makes before a stream ends
+    is one the engine accepts, so the commit of accepted runs is driven
+    on the card. Tensor ops on the device only, as the contract asks."""
+    from paddle_tpu_torch.inference import DraftProvider
+    seqs = np.full((len(streams), H), -1, np.int64)
+    plen = np.zeros(len(streams), np.int64)
+    for i, (p, t) in enumerate(streams):
+        full = np.concatenate([p, t])[:H]
+        seqs[i, :len(full)] = full
+        plen[i] = len(p)
+    seqs_d = torch.tensor(seqs, device=dev)               # [N, H]
+    plen_d = torch.tensor(plen, device=dev)
+    prompt_mask = torch.arange(H, device=dev)[None] < plen_d[:, None]
+
+    class Replay(DraftProvider):
+        def propose(self, history, hist_len, k):
+            hist_len = hist_len.long()
+            same = (history[:, None, :] == seqs_d[None]) | ~prompt_mask[None]
+            match = same.all(-1) & (plen_d[None] <= hist_len[:, None])
+            seq = seqs_d[match.long().argmax(1)]          # [B, H]
+            idx = (hist_len[:, None]
+                   + torch.arange(k, device=history.device)[None])
+            toks = seq.gather(1, idx.clamp_max(H - 1))
+            last = history.gather(1, (hist_len - 1).clamp(0, H - 1)[:, None])
+            ok = match.any(1)[:, None] & (idx < H) & (toks >= 0)
+            return torch.where(ok, toks, last)
+    return Replay()
+
+
+def hold_tick_without_sync(torch, dev, eng, chunk):
+    """Run two speculative verify ticks (greedy and sampled) and one
+    prefill chunk of ``eng`` (a live engine with a decoding slot 0) on
+    the device under torch.cuda.set_sync_debug_mode("error"), their
+    inputs uploaded before: a host sync in any of them raises."""
+    with torch.inference_mode():
+        eng._tables_dev = eng._to_device(eng.tables)
+        ids = eng._to_device(np.zeros((1, chunk), np.int64))
+        tables1 = eng._to_device(eng.tables[:1])
+        sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._spec_tick(False)
+            eng._spec_tick(True)
+            eng._chunk_step(ids, chunk, tables1, chunk)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        sync(torch, dev)
+
+
+def phase_feature_equality(torch, pt, dev, make_cfg, page=128, shared=512,
+                           lens=(300, 701), chunk=256, max_len=1024):
+    """Phase 4c: the engine's features at Llama-3-8B widths, 2 layers,
+    fp32, seeded weights (page_size ``page``, max_batch 4): the greedy
+    tokens on the card must equal ``plain_greedy`` on the CPU for every
+    request of a chunked-prefill run (three prompts of ``lens`` tokens,
+    prefill_chunk ``chunk``), a prefix-cache run (six prompts sharing a
+    ``shared``-token prefix, then one submitted again whole: the
+    copy-on-write path), a spec_k = 4 run (n-gram drafts), a spec_k = 4
+    run at async_depth 2 whose drafts replay the plain path's tokens
+    (``replay_drafts``: accepted runs commit, eos and budgets end inside
+    them; it must accept drafts) and a run with all three at async_depth
+    2 (the resubmitted prompt ends on a page boundary: the tree holds
+    whole pages); then two verify ticks (greedy and sampled) and one
+    prefill chunk run under set_sync_debug_mode("error"). Keyword sizes
+    are for a rehearsal on the CPU at a tiny config."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    cfg = make_cfg(num_hidden_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=pt.generator(12, dev))
+    ref = copy.deepcopy(model).to("cpu")
+    rs = np.random.RandomState(12)
+    V = cfg.vocab_size
+    long = [rs.randint(0, V, (n,)).astype(np.int32)
+            for n in rs.randint(lens[0], lens[1], size=3)]
+    pre = rs.randint(0, V, (shared,)).astype(np.int32)
+    ns = rs.randint(page // 8, page, size=6)
+    # the first family prompt ends on a page boundary, so the whole of it
+    # is in the tree (which holds whole pages) once it has been served
+    ns[0] = page - shared % page
+    family = [np.concatenate([pre, rs.randint(0, V, (n,)).astype(np.int32)])
+              for n in ns]
+    n_new = 8
+    with torch.inference_mode():
+        want = {id(p): plain_greedy(torch, ref, p, n_new, page)
+                for p in long + family}
+    kw = dict(max_batch=4, page_size=page, max_len=max_len)
+    # the replay run: drafts of the plain path's own tokens, so accepted
+    # runs commit; eos is the first request's 4th token, inside the run
+    # its first verify accepts, and the other requests' budgets run out
+    # inside an accepted run
+    eos = int(want[id(long[0])][3])
+    replay = replay_drafts(torch, dev, [(p, want[id(p)]) for p in
+                                        long + family], max_len)
+    runs = {"chunked": (dict(chunked_prefill=True, prefill_chunk=chunk),
+                        [long], None),
+            "prefix": (dict(prefix_cache=True), [family, family[:1]], None),
+            "spec4": (dict(spec_k=4), [long + family[:2]], None),
+            "spec4_replay": (dict(spec_k=4, draft_provider=replay,
+                                  async_depth=2), [long + family[:2]], eos),
+            "all": (dict(chunked_prefill=True, prefill_chunk=chunk,
+                         prefix_cache=True, spec_k=4, async_depth=2),
+                    [long + family, family[:1]], None)}
+    res, bad = {}, []
+    eng = None
+    for name, (feats, rounds, stop) in runs.items():
+        eng = ContinuousBatchingEngine(
+            model, generation_config=GenerationConfig(
+                max_new_tokens=n_new, eos_token_id=stop), **kw, **feats)
+        equal = []
+        for batch in rounds:
+            rids = [eng.submit(p) for p in batch]
+            out = eng.run()
+            for r, p in zip(rids, batch):
+                w = want[id(p)]
+                if stop is not None and (w == stop).any():
+                    w = w[:int(np.argmax(w == stop)) + 1]
+                equal.append(bool(np.array_equal(out[r], w)))
+        if eng._prefix is not None:
+            eng._check_page_invariants()
+        res[name] = {"equal": equal, "stats": eng.stats(),
+                     "prefix": eng.prefix_stats(), "spec": eng.spec_stats()}
+        if not all(equal) or (eng._prefix is not None
+                              and eng.prefix_cow_copies < 1) or (
+                feats.get("draft_provider") is replay
+                and eng.spec_tokens_accepted < 1):
+            bad.append(name)
+        log(f"feature equality {name} (llama3_8b widths, 2 layers, fp32, "
+            f"page {page}): {sum(equal)}/{len(equal)} requests equal the "
+            f"plain path; prefix {eng.prefix_stats()}; spec "
+            f"{eng.spec_stats()}")
+    # the last engine ("all") again: a request decoding in slot 0, then a
+    # verify tick and a chunk step with no host sync
+    eng.submit(long[0][:page + 1])
+    with torch.inference_mode():
+        eng._admit()
+        while not eng._decode_ready(eng._slots[0]):
+            eng._prefill_tick()
+    hold_tick_without_sync(torch, dev, eng, chunk)
+    log(f"feature equality: two verify ticks (B=4, spec_k=4; greedy and "
+        f"sampled) and a "
+        f"{chunk}-token prefill chunk ran under set_sync_debug_mode('error') "
+        f"without a host sync; {time.perf_counter() - t0:.1f} s")
+    RESULTS["feature_equality"] = res
+    del eng, model, ref
+    empty_cache(torch, dev)
+    if bad:
+        raise SystemExit(f"engine features differ from the plain path: "
+                         f"{bad}: {res}")
+
+
+# Phases 5-5c: the engine's settings (the warm-up's too), each request's
+# new tokens, phase 5's prompt lengths, phase 5c's shared system prompt
+# and its suffixes, its prefill chunk and draft length, and the position
+# of the profiled context-attention ticks
+SERVE_KW = dict(max_batch=8, page_size=128, max_len=2048, decode_block=8,
+                async_depth=2)
+SERVE_NEW = 64
+PROMPT_LENS = (128, 1536)
+SYSTEM_LEN, SUFFIX_LENS = 1024, (128, 512)
+CHUNK, SPEC_K = 512, 4
+CTX_START = 1024
+
+
+def serving_traffic(V):
+    """Phase 5's 16 prompts (numpy seed 8); no second round."""
+    rs = np.random.RandomState(8)
+    lens = rs.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=16)
+    return [rs.randint(0, V, (n,)).astype(np.int32) for n in lens], ()
+
+
+def prefix_traffic(V):
+    """16 prompts, each one shared system prompt plus a unique suffix
+    (numpy seed 12); then the last 8 again as prompt + output (up to the
+    last whole page)."""
+    rs = np.random.RandomState(12)
+    system = rs.randint(0, V, (SYSTEM_LEN,)).astype(np.int32)
+    lens = rs.randint(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1, size=16)
+    return ([np.concatenate([system, rs.randint(0, V, (n,)).astype(
+        np.int32)]) for n in lens], range(8, 16))
+
+
+# phase 5c: (label, engine features, traffic, kernels that must launch)
+FEATURE_RUNS = (
+    ("serving_chunked", {"chunked_prefill": True, "prefill_chunk": CHUNK},
+     serving_traffic, SERVING_KERNELS),
+    ("serving_prefix", {"prefix_cache": True}, prefix_traffic,
+     SERVING_KERNELS),
+    ("serving_spec", {"spec_k": SPEC_K}, serving_traffic,
+     ("rms_norm", "fused_rope")))
+QUANT_FEATURE_RUN = ("quantized_serving_features",
+                     {"chunked_prefill": True, "prefill_chunk": CHUNK,
+                      "prefix_cache": True, "spec_k": SPEC_K},
+                     prefix_traffic,
+                     ("rms_norm", "fused_rope", "int8_matmul_wgmma",
+                      "int8_matmul_decode"))
+
+
+def serve_run(torch, dev, model, label, kernels, feats=None,
+              traffic=serving_traffic):
+    """One serving run of phases 5, 5b and 5c over ``model``: a warm-up
+    engine on two of the prompts, then ``traffic``'s 16 prompts and its second round (the
+    requests it names again, as prompt + output up to the last whole
+    page: full prefix hits), SERVE_NEW new tokens each and every 4th
+    sampled, through ContinuousBatchingEngine(**SERVE_KW, **feats);
+    launch counts reset just before and read just after. Fails unless
+    every request succeeded (all its tokens, each in the vocabulary),
+    the logits are finite, every kernel of ``kernels`` launched and,
+    with the features on, the prefix cache hit (hit rate > 0, a copy on
+    write for each request of the second round) and speculation scored
+    drafts. Returns the run's numbers and the first round's streams."""
     from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                             GenerationConfig)
     from paddle_tpu_torch.ops.kernels import _build
-    cfg = model.cfg
+    V = model.cfg.vocab_size
+    feats = feats or {}
     sampled = GenerationConfig(do_sample=True, temperature=0.8, top_k=40,
                                top_p=0.95)
-    kw = dict(max_batch=8, page_size=128, max_len=2048, decode_block=8,
-              async_depth=2, generation_config=GenerationConfig(seed=0))
-    # warm-up (cuBLAS handles, allocator), outside the counted run
+    kw = dict(SERVE_KW, generation_config=GenerationConfig(seed=0), **feats)
+    prompts, again = traffic(V)
+    # warm-up (cuBLAS handles, allocator) on the first two prompts, 4
+    # tokens each, the second sampled, outside the counted run
     warm = ContinuousBatchingEngine(model, **kw)
-    warm.submit(np.arange(128) % cfg.vocab_size, max_new_tokens=4)
-    warm.submit(np.arange(300) % cfg.vocab_size, max_new_tokens=4,
-                generation_config=sampled)
+    warm.submit(prompts[0], max_new_tokens=4)
+    warm.submit(prompts[1], max_new_tokens=4, generation_config=sampled)
     warm.run()
     del warm
     sync(torch, dev)
+    gcs = [sampled if i % 4 == 3 else None for i in range(len(prompts))]
     eng = ContinuousBatchingEngine(model, **kw)
-    rs = np.random.RandomState(8)
-    lens = rs.randint(128, 1537, size=16)
-    prompts = [rs.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in lens]
-    n_new = 64
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
     t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=n_new,
-                       generation_config=sampled if i % 4 == 3 else None)
-            for i, p in enumerate(prompts)]
+    rids = [eng.submit(p, max_new_tokens=SERVE_NEW, generation_config=g)
+            for p, g in zip(prompts, gcs)]
     out = eng.run()
+    # the conversation (prompt + output) up to its last whole page: the
+    # tree holds whole pages only, so that much is a full hit
+    page = SERVE_KW["page_size"]
+    convs = [np.concatenate([prompts[i], out[rids[i]]]) for i in again]
+    sent = rids + [eng.submit(c[:len(c) // page * page],
+                              max_new_tokens=SERVE_NEW,
+                              generation_config=gcs[i])
+                   for i, c in zip(again, convs)]
+    if convs:
+        out.update(eng.run())
     sync(torch, dev)
     wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
-    lat = eng.latency_stats()
-    n_tok = sum(len(out[r]) for r in rids)
+    ok = [r for r in sent if r in out and len(out[r]) == SERVE_NEW
+          and int(out[r].min()) >= 0 and int(out[r].max()) < V]
     logits_ok = bool(torch.isfinite(eng._state["logits"].float()).all())
-    tok_ok = all(len(out[r]) == n_new and int(out[r].min()) >= 0
-                 and int(out[r].max()) < cfg.vocab_size for r in rids)
-    tps = n_tok / wall
+    n_tok = sum(len(out[r]) for r in sent if r in out)
+    lat = eng.latency_stats()
+    pre, spec = eng.prefix_stats(), eng.spec_stats()
     pool_bytes = sum(t.numel() * t.element_size() for p in eng.pools
                      for t in p)
     model_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
-    log(f"{label}: {len(rids)} requests, prompt tokens {int(lens.sum())}, "
-        f"generated {n_tok} in {wall:.3f} s = {tps:.1f} tokens/s; TTFT "
-        f"p50 {lat['ttft_p50_s']*1e3:.1f} ms p99 "
-        f"{lat['ttft_p99_s']*1e3:.1f} ms; ITL p50 "
-        f"{lat.get('itl_p50_s', float('nan'))*1e3:.2f} ms p99 "
-        f"{lat.get('itl_p99_s', float('nan'))*1e3:.2f} ms; model bytes "
-        f"{model_bytes}, KV-pool bytes {pool_bytes}, peak memory {peak}; "
-        f"stats {eng.stats()}")
-    log(f"{label} launches: {launches}")
-    info = {"requests": len(rids), "prompt_tokens": int(lens.sum()),
-            "generated_tokens": n_tok, "wall_s": wall, "tokens_per_s": tps,
-            "latency": lat, "stats": eng.stats(), "launches": launches,
+    info = {"requests_sent": len(sent), "requests_succeeded": len(ok),
+            "requests_failed": len(sent) - len(ok),
+            "prompt_tokens": int(sum(len(p) for p in prompts)),
+            "generated_tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall, "latency": lat,
+            "stats": eng.stats(), "prefix": pre, "spec": spec,
+            "launches": launches, "features": feats,
             "model_bytes": model_bytes, "kv_pool_bytes": pool_bytes,
-            "peak_memory_bytes": peak,
-            "kv_quant_ticks": eng.kv_quant_ticks}
+            "peak_memory_bytes": peak, "kv_quant_ticks": eng.kv_quant_ticks}
+    RESULTS[label] = info
+    log(f"{label} ({feats}): requests sent {len(sent)}, succeeded "
+        f"{len(ok)}, failed {len(sent) - len(ok)}; prompt tokens "
+        f"{info['prompt_tokens']}, generated {n_tok} in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s; TTFT p50 "
+        f"{lat['ttft_p50_s'] * 1e3:.1f} ms p99 {lat['ttft_p99_s'] * 1e3:.1f}"
+        f" ms; ITL p50 {lat.get('itl_p50_s', float('nan')) * 1e3:.2f} ms "
+        f"p99 {lat.get('itl_p99_s', float('nan')) * 1e3:.2f} ms; "
+        + (f"prefix hit tokens {pre['prefix_hit_tokens']:.0f}, hit rate "
+           f"{pre.get('prefix_hit_rate', 0.0):.4f}, COW copies "
+           f"{pre['prefix_cow_copies']:.0f}; " if pre else "")
+        + (f"acceptance rate {spec.get('spec_accept_rate', 0.0):.4f}, mean "
+           f"accepted length {spec.get('spec_mean_accepted_len', 0.0):.4f}; "
+           if spec else "")
+        + f"model bytes {model_bytes}, KV-pool bytes {pool_bytes}, peak "
+        f"memory {peak}; stats {eng.stats()} {card_line()}")
+    log(f"{label} launches: {launches} {card_line()}")
     streams = [out[r] for r in rids]
     del eng
-    # per-call launch counts and one decode step's time, measured after
-    # the counted run
+    empty_cache(torch, dev)
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the {label} path: "
+                         f"{missing}")
+    if len(ok) != len(sent) or not logits_ok:
+        raise SystemExit(f"{label}: {len(sent) - len(ok)} requests failed "
+                         f"(logits finite {logits_ok})")
+    if pre and not (pre.get("prefix_hit_rate", 0.0) > 0
+                    and pre["prefix_cow_copies"] >= len(convs) > 0):
+        raise SystemExit(f"{label}: the prefix cache did not hit: {pre}")
+    if spec and "spec_accept_rate" not in spec:
+        raise SystemExit(f"{label}: no draft was scored: {spec}")
+    return info, streams
+
+
+def decode_step_probe(torch, dev, model, label):
+    """After phase 5's or 5b's counted run: the launches of one call of
+    each paged entry point (a PROMPT_LENS[0]-token prefill, a decode
+    step of B = 8 rows at context CTX_START, a verify of 8 rows of
+    SPEC_K + 1 tokens, a CHUNK-token prefill chunk), and that decode step
+    timed (device span, host enqueue) and profiled, kept in
+    RESULTS[label]."""
+    from paddle_tpu_torch.ops.kernels import _build
     core = model.model
-    pools, tables = core.alloc_paged_caches(8, 2048, 128)
+    B = SERVE_KW["max_batch"]
+    pools, tables = core.alloc_paged_caches(B, SERVE_KW["max_len"],
+                                            SERVE_KW["page_size"])
     per = {}
     with torch.inference_mode():
         _build.reset_launches()
-        ids = torch.zeros((1, 128), dtype=torch.int64, device=dev)
+        ids = torch.zeros((1, PROMPT_LENS[0]), dtype=torch.int64, device=dev)
         core.prefill_paged(ids, pools, tables[:1])
         per["prefill"] = dict(_build.LAUNCHES)
         _build.reset_launches()
-        tok = torch.zeros((8,), dtype=torch.int64, device=dev)
-        pos = torch.full((8,), 1023, dtype=torch.int64, device=dev)
+        tok = torch.zeros((B,), dtype=torch.int64, device=dev)
+        pos = torch.full((B,), CTX_START - 1, dtype=torch.int64, device=dev)
 
         def step():
             h, _ = core.decode_step_paged(tok, pos, pools, tables)
             return model.logits(h[:, 0])
         step()
         per["decode_step"] = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        core.decode_verify_paged(torch.zeros((B, SPEC_K + 1),
+                                             dtype=torch.int64, device=dev),
+                                 pos, pools, tables)
+        per["verify"] = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        core.prefill_chunk_paged(torch.zeros((1, CHUNK), dtype=torch.int64,
+                                             device=dev), CHUNK, pools,
+                                 tables[:1])
+        per["chunk"] = dict(_build.LAUNCHES)
         host, dev_ms = [], []
         for _ in range(10):
             sync(torch, dev)
@@ -1741,25 +2185,88 @@ def serve_run(torch, dev, model, label, kernels):
                  "device_span_ms": statistics.median(dev_ms),
                  "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S
                  * 1e3, "profile": prof}
-    log(f"{label}: launches per prefill {per['prefill']}, per decode step "
-        f"{per['decode_step']}; one decode step at B=8 ctx 1024: "
-        f"{step_info}")
+    log(f"{label}: launches per call {per}; one decode step at B={B} ctx "
+        f"{CTX_START}: {step_info}")
     if prof is not None:
         log(f"{label}: RMSNorm and RoPE in the profiled decode step: "
             + ", ".join(f"{k} {v['us']:.1f} us in {v['launches']} launches"
                         for k, v in prof["sums"].items()))
-    info.update(launches_per_call=per, decode_step=step_info)
-    RESULTS[label] = info
+    RESULTS[label].update(launches_per_call=per, decode_step=step_info)
     del pools
     empty_cache(torch, dev)
-    missing = [k for k in kernels if launches[k] <= 0]
-    if missing:
-        raise SystemExit(f"kernels not launched on the {label} path: "
-                         f"{missing}")
-    if not (tok_ok and logits_ok):
-        raise SystemExit(f"{label} output malformed "
-                         f"(tokens ok {tok_ok}, logits finite {logits_ok})")
-    return info, streams
+
+
+def ctx_attention_profile(torch, dev, model, kind):
+    """The context attention's device ms in one tick at the feature runs'
+    shapes, from torch.profiler: ``kind`` "chunk" is a prefill chunk
+    (b = 1, CHUNK tokens at position CTX_START), "verify" a speculative
+    verify (b = 8, SPEC_K + 1 tokens a row from CTX_START); each profiled
+    as the model call plus its logits, and the attention alone
+    (``_paged_ctx_attention`` of every layer on the same inputs). None on
+    the CPU."""
+    core, cfg = model.model, model.cfg
+    B = SERVE_KW["max_batch"]
+    pools, tables = core.alloc_paged_caches(B, SERVE_KW["max_len"],
+                                            SERVE_KW["page_size"])
+    b, C = (1, CHUNK) if kind == "chunk" else (B, SPEC_K + 1)
+    tb = tables[:b]
+    with torch.inference_mode():
+        ids = torch.zeros((b, C), dtype=torch.int64, device=dev)
+        if kind == "chunk":
+            positions = (torch.arange(C, device=dev) + CTX_START).expand(b, C)
+
+            def tick():
+                h, _ = core.prefill_chunk_paged(ids, CTX_START, pools, tb)
+                return model.logits(h[0, -1])
+        else:
+            pos = torch.full((b,), CTX_START, dtype=torch.int64, device=dev)
+            positions = pos[:, None] + torch.arange(C, device=dev)
+
+            def tick():
+                h, _ = core.decode_verify_paged(ids, pos, pools, tb)
+                return model.logits(h)
+        q = torch.randn((b, C, cfg.num_attention_heads, cfg.head_dim),
+                        device=dev).to(model.model.embed_tokens.dtype)
+
+        def attention():
+            for layer, kv in zip(core.layers, pools):
+                layer.self_attn._paged_ctx_attention(q, positions, kv, tb)
+        tick()
+        attention()
+        pt_, pa = (profile_step(torch, dev, tick),
+                   profile_step(torch, dev, attention))
+    del pools
+    empty_cache(torch, dev)
+    if pt_ is None or pa is None:
+        return None
+    return {"kind": kind, "rows": b, "tokens_a_row": C, "position": CTX_START,
+            "tick_device_busy_ms": pt_["device_busy_ms"],
+            "tick_idle_share": pt_["device_idle_share"],
+            "ctx_attention_device_ms": pa["device_busy_ms"],
+            "ctx_attention_share": pa["device_busy_ms"]
+            / pt_["device_busy_ms"]}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return f"[{RESULTS.get('card', 'no card')}]"
+
+
+def profile_ctx(torch, dev, model, label):
+    prof = {kind: ctx_attention_profile(torch, dev, model, kind)
+            for kind in ("chunk", "verify")}
+    RESULTS[label + "_ctx_attention"] = prof
+    for kind, p in prof.items():
+        if p is None:
+            log(f"{label} context attention ({kind}): no device time "
+                f"reported")
+            continue
+        log(f"{label} context attention in one {kind} tick ({p['rows']} x "
+            f"{p['tokens_a_row']} tokens at position {p['position']}): "
+            f"{p['ctx_attention_device_ms']:.3f} ms of "
+            f"{p['tick_device_busy_ms']:.3f} ms device busy (share "
+            f"{p['ctx_attention_share']:.4f}, tick idle share "
+            f"{p['tick_idle_share']:.4f}) {card_line()}")
 
 
 def phase_serving(torch, pt, dev, make_cfg):
@@ -1767,7 +2274,9 @@ def phase_serving(torch, pt, dev, make_cfg):
     widths (all 32 layers, built on the card), then phase 5b: the same
     model quantized on the card (``quantize_model(model,
     kv_dtype="int8")``, the native model then freed) through the same
-    run. Returns both runs' launch counts."""
+    run; phase 5c between and after them (the feature runs over the
+    native and the quantized model). Returns the launch counts of both
+    runs and {label: launches} of the feature runs."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.quantization import quantize_model
     cfg = make_cfg(dtype="bfloat16")
@@ -1778,6 +2287,11 @@ def phase_serving(torch, pt, dev, make_cfg):
         f"bf16, built in {time.perf_counter() - t0:.1f} s")
     native, native_streams = serve_run(torch, dev, model, "serving",
                                        SERVING_KERNELS)
+    decode_step_probe(torch, dev, model, "serving")
+    features = {label: serve_run(torch, dev, model, label, kernels, feats,
+                                 traffic)[0]["launches"]
+                for label, feats, traffic, kernels in FEATURE_RUNS}
+    profile_ctx(torch, dev, model, "serving_features")
     t0 = time.perf_counter()
     qmodel = quantize_model(model, kv_dtype="int8")
     del model
@@ -1788,6 +2302,7 @@ def phase_serving(torch, pt, dev, make_cfg):
     quant, quant_streams = serve_run(torch, dev, qmodel,
                                      "quantized_serving",
                                      QUANT_SERVING_KERNELS)
+    decode_step_probe(torch, dev, qmodel, "quantized_serving")
     # greedy requests only (every 4th samples): the share of positions
     # where the quantized stream equals the native one (reported only:
     # random weights have near-ties)
@@ -1817,9 +2332,13 @@ def phase_serving(torch, pt, dev, make_cfg):
         f"{quant['model_bytes']} vs {native['model_bytes']}; KV-pool bytes "
         f"{quant['kv_pool_bytes']} vs {native['kv_pool_bytes']}; greedy "
         f"agreement with the native streams {agree:.3f}")
+    label, feats, traffic, kernels = QUANT_FEATURE_RUN
+    features[label] = serve_run(torch, dev, qmodel, label, kernels, feats,
+                                traffic)[0]["launches"]
+    profile_ctx(torch, dev, qmodel, label)
     del qmodel
     empty_cache(torch, dev)
-    return native["launches"], quant["launches"]
+    return native["launches"], quant["launches"], features
 
 
 def kernel_category(name: str) -> str:
@@ -2454,8 +2973,7 @@ def parent_norm_rope_turns(torch, plib, dev, g, turns):
                           device=dev).to(torch.bfloat16)
         q = qkv[..., :h * 128].view(b, s, h, 128)
         k = qkv[..., h * 128:(h + hkv) * 128].view(b, s, hkv, 128)
-        pos = (None if s > 1 else torch.randint(
-            0, 2048, (b, s), generator=g, device=dev))
+        pos = rope_positions(torch, g, dev, case, b, s)
         qo = torch.empty((b, s, h, 128), dtype=q.dtype, device=dev)
         ko = torch.empty((b, s, hkv, 128), dtype=q.dtype, device=dev)
 
@@ -2567,10 +3085,10 @@ def norm_rope_gaps():
     us. The least time of a decode row is max(bound, floor): its bytes
     take nanoseconds, and no launch takes less than the floor."""
     floor = RESULTS["launch_floor_us"]
-    per = {"decode_b8": RESULTS["serving"]["launches_per_call"]
-           ["decode_step"],
-           "prefill_1024": RESULTS["serving"]["launches_per_call"]
-           ["prefill"],
+    calls = RESULTS["serving"]["launches_per_call"]
+    per = {"decode_b8": calls["decode_step"],
+           "prefill_1024": calls["prefill"],
+           "verify_b8x5": calls["verify"], "chunk_512": calls["chunk"],
            "train": RESULTS["training"]["launches_per_step"],
            "train_moe": RESULTS["moe_training"]["launches_per_step"]}
     rows = {}
@@ -2583,7 +3101,8 @@ def norm_rope_gaps():
                 "train" if case.startswith("train") else case)
         n = per[path][c["kernel"]]
         bound_us = c["bound_ms"] * 1e3
-        least = max(bound_us, floor) if case == "decode_b8" else bound_us
+        least = (max(bound_us, floor) if case in ("decode_b8", "verify_b8x5")
+                 else bound_us)
         row = {"us": c["ms"] * 1e3, "bound_us": bound_us, "floor_us": floor,
                "copy_us": c["copy_ms"] * 1e3, "least_us": least,
                "share_of_least": least / (c["ms"] * 1e3),
@@ -2819,8 +3338,9 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
     phase_quant_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
-    serve_launches, quant_launches = phase_serving(torch, pt, dev,
-                                                   LlamaConfig.llama3_8b)
+    phase_feature_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    serve_launches, quant_launches, feature_launches = phase_serving(
+        torch, pt, dev, LlamaConfig.llama3_8b)
     ref = phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b,
                                "float32")
     phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, "bfloat16")
@@ -2865,13 +3385,16 @@ def main() -> int:
         by_path = {"serving": serve_launches[name],
                    "training": train_launches[name],
                    "quantized_serving": quant_launches[name],
-                   "moe_training": moe_launches[name]}
+                   "moe_training": moe_launches[name],
+                   **{label: counts.get(name, 0)
+                      for label, counts in feature_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # launches on the main paths: the serving run, the timed
-            # training steps, the quantized serving run and the timed MoE
-            # training steps, and each path's own count
+            # training steps, the quantized serving run, the timed MoE
+            # training steps and phase 5c's feature runs, and each path's
+            # own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases

@@ -42,7 +42,7 @@ def mask_logits_rowwise(logits: torch.Tensor, temperature: torch.Tensor,
     k_eff = torch.where(top_k > 0, top_k.clamp_max(vocab),
                         torch.full_like(top_k, vocab)).long()
     kth = sorted_x.gather(1, (k_eff - 1)[:, None])
-    neg = torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+    neg = x.new_full((), float("-inf"))       # a fill: no host copy
     x = torch.where(x < kth, neg, x)
     sorted_m = torch.where(sorted_x >= kth, sorted_x, neg)
     cum = torch.cumsum(torch.softmax(sorted_m, dim=-1), dim=-1)

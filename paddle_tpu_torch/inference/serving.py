@@ -1,6 +1,6 @@
 """Continuous-batching serving engine over the paged-KV decode path
 (counterpart of ``paddle_tpu/inference/serving.py``
-``ContinuousBatchingEngine``, core path).
+``ContinuousBatchingEngine``).
 
 - ``max_batch`` fixed slots. Inactive slots write their K/V into a
   reserved garbage page (page 0) and their sampled token is ignored.
@@ -20,34 +20,66 @@
   flags are copied to pinned host buffers without blocking, a CUDA event
   marks their arrival, and the host reconciles the oldest block while
   the card runs the next one. Scheduler state (last logits, positions,
-  active mask, budgets, token counts, sampling knobs) lives on the
-  device as tensors updated in place, in stream order.
+  active mask, budgets, token counts, sampling knobs, the speculative
+  token history) lives on the device as tensors updated in place, in
+  stream order; host arrays reach the card through pinned memory
+  without a host sync.
 
+Serving-engine features, each off by default:
+
+- ``cancel``, ``take_finished`` and ``submit(replay_prefix=)``: a
+  request ends now, finished requests are collected between ticks, and
+  a request resumes from tokens an earlier incarnation emitted.
+- Chunked prefill (``chunked_prefill=True``): admission claims a
+  request's pages and its prompt is written ``prefill_chunk`` tokens (a
+  page multiple) a tick through the model's ``prefill_chunk_paged``,
+  between the decode blocks of the running slots, which skip it until
+  its last chunk activates it.
+- Radix prefix cache (``prefix_cache=True``): a radix tree over token
+  sequences (``prefix_cache.RadixPrefixCache``) owns refcounted pages of
+  the pool. Admission maps every fully matched page into the slot's
+  table and prefills only the suffix from the page-aligned offset; a
+  full-prompt match copies the page holding the last prompt token into
+  a private page (copy on write) and re-forwards that one token through
+  ``decode_verify_paged`` for the first-token logits. Retiring and
+  preempted slots donate their completed pages; refcount-0 tree pages
+  are evicted LRU-first only under pool pressure. Every pool page is
+  free, private to one table, or tree-owned with ``ref`` equal to the
+  tables mapping it (``_check_page_invariants``).
+- Speculative decoding (``spec_k > 0``): a tick drafts ``spec_k`` tokens
+  from the slot's token history on the device (``DraftProvider``,
+  n-gram prompt lookup by default), verifies them in one
+  ``spec_k + 1``-wide ``decode_verify_paged`` and commits the agreeing
+  prefix. The token at in-tick offset j is picked with the stream
+  position ``gen + j``, so a draft is accepted only if it equals the
+  token the non-speculative block would emit: spec-on streams equal
+  spec-off, greedy and sampled. The host projects the largest stride a
+  block can commit and re-anchors at drain time.
 - A quantized model (``quantization.quantize_model``, int8 weights and
-  ``kv_dtype="int8"`` pools) runs unchanged: its pools are 4-tuples with
-  per-page scales, ``kv_quant`` says so and ``kv_quant_ticks`` counts
-  the decode blocks dispatched over them. Idle slots' K/V land on the
-  garbage page and grow only its scale.
+  ``kv_dtype="int8"`` pools) runs every path above unchanged: its pools
+  are 4-tuples with per-page scales (a copied page takes its scale
+  along), ``kv_quant`` says so and ``kv_quant_ticks`` counts the decode
+  blocks dispatched over them. Idle slots' K/V land on the garbage page
+  and grow only its scale.
 
-Not ported yet, each listed in ROADMAP.md: speculative decoding, the
-prefix cache, admission policies, chunked prefill, KV-page handoff
-(int8 with any of those four as well), the metrics/tracing/sentry hooks
-and the dense/paged crossover (the port always decodes through the
-paged kernel).
+Not ported yet, each listed in ROADMAP.md: KV-page handoff, admission
+policies and the dense/paged crossover (the port always decodes through
+the paged kernel), and the metrics/tracing/sentry hooks (``submit``
+takes no ``trace=``, the engine no ``name=``).
 
 The engine is exact over native pools: greedy outputs equal per-request
-greedy decoding whatever the batching, preemption or pipelining. Over
-int8 pools a page claimed during decode keeps the scale its previous
-owner left (as in the JAX package), so a request's codes, and at a
-near-tie its tokens, can depend on which pages it was given (ROADMAP.md,
-D4).
+greedy decoding whatever the batching, preemption, pipelining, chunking,
+prefix sharing or speculation. Over int8 pools a page claimed during
+decode keeps the scale its previous owner left (as in the JAX package),
+so a request's codes, and at a near-tie its tokens, can depend on which
+pages it was given (ROADMAP.md, D4).
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
 
@@ -56,6 +88,8 @@ import torch
 
 from .generation import (GenerationConfig, decode_stop_update,
                          sample_logits_per_slot)
+from .prefix_cache import RadixPrefixCache
+from .speculative import DraftProvider, NgramDraftProvider
 
 
 @dataclass
@@ -78,7 +112,8 @@ class _Request:
     done_t: float = 0.0
     last_emit_t: float = 0.0
     itl_gaps: List[float] = field(default_factory=list)
-    prefill_target: int = 0
+    prefilled: int = 0                  # KV tokens written so far
+    prefill_target: int = 0             # prompt + replay length
 
 
 @dataclass
@@ -86,13 +121,17 @@ class _InflightBlock:
     """One dispatched decode block awaiting reconciliation: host buffers
     the block's outputs are being copied into, the event that marks the
     copies done (None on the CPU, where they are synchronous) and the
-    (slot, request) pairs the host believed live at dispatch."""
+    (slot, request) pairs the host believed live at dispatch. Speculative
+    blocks also bring back the post-block positions and keep the stride
+    the host projected for each slot."""
     toks: torch.Tensor                  # [K, B] int64, host
     kept: torch.Tensor                  # [K, B] bool, host
     active: torch.Tensor                # [B] bool, host, post-block
+    pos: Optional[torch.Tensor]         # [B] int64, host, post-block (spec)
     event: Optional[torch.cuda.Event]
     participants: List[Tuple[int, "_Request"]]
     K: int
+    steps: Optional[Dict[int, int]] = None
 
 
 class _PoolDry(Exception):
@@ -100,19 +139,44 @@ class _PoolDry(Exception):
     first (retirements may free pages) before preempting."""
 
 
+def _entry_page_copy(entry, src: int, dst: int) -> None:
+    """Copy physical page ``src`` to ``dst`` within one layer's pool
+    entry, in place: 4-D page pools carry pages on axis 1, the 1-D
+    per-page scales of int8 pools on axis 0, so a copied page takes its
+    scale along."""
+    for a in entry:
+        if a.dim() == 4:
+            a[:, dst].copy_(a[:, src])
+        else:
+            a[dst].copy_(a[src])
+
+
 class ContinuousBatchingEngine:
     """Continuous batching over a model exposing ``alloc_paged_caches`` /
-    ``prefill_paged`` / ``decode_step_paged`` on its core and a
-    ``logits`` head (``LlamaForCausalLM``). Runs on the model's device.
+    ``prefill_paged`` / ``decode_step_paged`` (and, for chunked prefill,
+    the prefix cache and speculation, ``prefill_chunk_paged`` /
+    ``decode_verify_paged``) on its core and a ``logits`` head
+    (``LlamaForCausalLM``). Runs on the model's device.
 
-    ``async_depth``: in-flight dispatch window; 1 is synchronous."""
+    ``async_depth``: in-flight dispatch window; 1 is synchronous.
+    ``spec_k``: draft tokens a speculative tick (0 = off); a tick is then
+    one ``spec_k + 1``-wide verify and ``decode_block`` is not read."""
 
     def __init__(self, model, max_batch: int = 8, page_size: int = 128,
                  max_len: int = 2048, num_pages: Optional[int] = None,
                  generation_config: Optional[GenerationConfig] = None,
-                 decode_block: int = 1, async_depth: int = 2):
+                 decode_block: int = 1, async_depth: int = 2,
+                 chunked_prefill: bool = False,
+                 prefill_chunk: Optional[int] = None, spec_k: int = 0,
+                 draft_provider: Optional[DraftProvider] = None,
+                 prefix_cache: bool = False):
         self.model = model
-        self.core = model.model
+        self.core = getattr(model, "model", model)
+        if spec_k and not hasattr(self.core, "decode_verify_paged"):
+            raise ValueError(
+                f"spec_k={spec_k} needs a model whose core implements "
+                f"decode_verify_paged (multi-token paged verify); "
+                f"{type(self.core).__name__} does not")
         self.device = self.core.embed_tokens.device
         self.cfg = generation_config or GenerationConfig()
         self.max_batch = max_batch
@@ -143,6 +207,31 @@ class ContinuousBatchingEngine:
         self.decode_block = max(1, int(decode_block))
         self.async_depth = max(1, int(async_depth))
         self._inflight: Deque[_InflightBlock] = deque()
+        # speculative decoding: the draft provider and each slot's token
+        # history on the device (prompt + committed tokens)
+        self.spec_k = max(0, int(spec_k))
+        self._draft: Optional[DraftProvider] = None
+        self._hist: Optional[torch.Tensor] = None
+        self.spec_tokens_proposed = 0       # drafts scored by a verify
+        self.spec_tokens_accepted = 0       # drafts committed
+        self._spec_drains = 0               # committing spec drains
+        if self.spec_k:
+            self._draft = draft_provider or NgramDraftProvider()
+            self._hist = torch.zeros((max_batch, max_len),
+                                     dtype=torch.int64, device=self.device)
+        # radix prefix cache: tree nodes own refcounted pages of this
+        # pool; one lock per occupied slot names the nodes it maps
+        self._prefix = RadixPrefixCache(page_size) if prefix_cache else None
+        self._tree_locks: List[Optional[object]] = [None] * max_batch
+        self.prefix_hit_tokens = 0          # prompt tokens not recomputed
+        self.prefix_cow_copies = 0          # shared pages copied on write
+        self._prefix_prompt_tokens = 0      # the hit rate's denominator
+        # chunked prefill: one page-aligned chunk a tick
+        self.chunked_prefill = bool(chunked_prefill)
+        self.prefill_chunk = int(prefill_chunk or page_size)
+        if self.prefill_chunk % page_size:
+            raise ValueError(f"prefill_chunk ({self.prefill_chunk}) must "
+                             f"be a multiple of page_size ({page_size})")
         # device-resident scheduler state, created at first activation
         self._state: Optional[Dict[str, torch.Tensor]] = None
         self._knobs: Optional[Dict[str, torch.Tensor]] = None
@@ -156,11 +245,15 @@ class ContinuousBatchingEngine:
 
     def submit(self, input_ids, max_new_tokens: Optional[int] = None,
                generation_config: Optional[GenerationConfig] = None,
-               rseed: Optional[int] = None) -> int:
+               rseed: Optional[int] = None, replay_prefix=None) -> int:
         """Queue one request; returns its id. ``generation_config``
         overrides the sampling knobs and eos for this request;
         ``max_new_tokens`` (default: the engine's config) is its budget;
-        ``rseed`` is its sampling-stream identity (default: its id)."""
+        ``rseed`` is its sampling-stream identity (default: its id).
+        ``replay_prefix`` holds tokens an earlier incarnation already
+        emitted: they are prefilled with the prompt (or mapped from the
+        prefix cache), count against the budget, and generation resumes
+        at token index ``len(replay_prefix)`` as after a preemption."""
         ids = np.asarray(input_ids, np.int32).reshape(-1)
         gc = generation_config or self.cfg
         new = (max_new_tokens if max_new_tokens is not None
@@ -172,7 +265,14 @@ class ContinuousBatchingEngine:
         if len(ids) + new > self.max_len:
             raise ValueError(f"prompt {len(ids)} + max_new {new} exceeds "
                              f"engine max_len {self.max_len}")
-        if -(-len(ids) // self.page_size) > self._total_pages:
+        replay = ([] if replay_prefix is None
+                  else [int(t) for t in np.asarray(replay_prefix,
+                                                   np.int32).reshape(-1)])
+        if len(replay) >= new:
+            raise ValueError(f"replay_prefix ({len(replay)} tokens) "
+                             f"exhausts max_new_tokens ({new})")
+        if -(-(len(ids) + len(replay)) // self.page_size) \
+                > self._total_pages:
             raise ValueError(f"prompt needs more pages than the pool "
                              f"holds ({self._total_pages}); raise "
                              f"num_pages")
@@ -182,6 +282,7 @@ class ContinuousBatchingEngine:
                        do_sample=bool(gc.do_sample),
                        eos_token_id=gc.eos_token_id,
                        rseed=None if rseed is None else int(rseed))
+        req.generated = replay
         req.submit_t = time.perf_counter()
         self._requests[req.rid] = req
         self._queue.append(req)
@@ -192,11 +293,13 @@ class ContinuousBatchingEngine:
 
     @torch.inference_mode()
     def step(self) -> List[tuple]:
-        """One scheduler tick: admit what fits, dispatch the next decode
-        block, reconcile drained blocks. Returns [(rid, token), ...] that
-        arrived this tick."""
+        """One scheduler tick: admit what fits, advance one prefill chunk
+        (chunked mode), dispatch the next decode block, reconcile drained
+        blocks. Returns [(rid, token), ...] that arrived this tick."""
         emitted: List[tuple] = []
         self._admit()
+        if self.chunked_prefill:
+            self._prefill_tick()
         dispatched = self._dispatch_block(emitted)
         if not dispatched and self._inflight:
             emitted.extend(self._reconcile_one())
@@ -215,20 +318,97 @@ class ContinuousBatchingEngine:
             self.step()
         while self._inflight:
             self._reconcile_one()
+        return self.take_finished()
+
+    def take_finished(self) -> Dict[int, np.ndarray]:
+        """Finished requests' token streams (replay prefix included),
+        released: the incremental form of ``run()``'s collection, for a
+        caller that drives ``step()`` itself."""
         out = {rid: np.asarray(r.generated, np.int32)
                for rid, r in self._requests.items() if r.done}
         for rid in out:
             del self._requests[rid]
         return out
 
+    @torch.inference_mode()
+    def cancel(self, rid: int) -> bool:
+        """End ``rid`` now and free its slot and pages. A queued request
+        is removed; an active one first drains the in-flight blocks (a
+        dispatched block may still write its pages), then its slot is
+        freed with ``cache=True`` (its completed pages stay future
+        prefix hits). Returns True when the request existed and had not
+        finished; a finished request stays for ``take_finished``."""
+        req = self._requests.get(rid)
+        if req is None or req.done:
+            return False
+        try:
+            self._queue.remove(req)
+        except ValueError:
+            pass
+        slot = next((i for i, s in enumerate(self._slots) if s is req), -1)
+        if slot >= 0:
+            # tokens other slots commit in this drain land in their
+            # requests' streams; only this tick's emitted view skips them
+            self._drain_all()
+            if not req.done and self._slots[slot] is req:
+                self._deactivate(slot)
+                self._free_slot(slot, cache=True)
+        if req.done:
+            return False
+        self._requests.pop(rid, None)
+        return True
+
     def stats(self) -> Dict[str, int]:
-        return {"free_pages": len(self._free),
-                "active": sum(s is not None for s in self._slots),
-                "queued": len(self._queue),
-                "preemptions": self.preemptions,
-                "pool_dry_drains": self.pool_dry_drains,
-                "inflight": len(self._inflight),
-                "decode_blocks": self.decode_blocks}
+        out = {"free_pages": len(self._free),
+               "active": sum(s is not None for s in self._slots),
+               "queued": len(self._queue),
+               "preemptions": self.preemptions,
+               "pool_dry_drains": self.pool_dry_drains,
+               "inflight": len(self._inflight),
+               "decode_blocks": self.decode_blocks}
+        if self.spec_k:
+            out["spec_tokens_proposed"] = self.spec_tokens_proposed
+            out["spec_tokens_accepted"] = self.spec_tokens_accepted
+        if self._prefix is not None:
+            out["prefix_hit_tokens"] = self.prefix_hit_tokens
+            out["prefix_cow_copies"] = self.prefix_cow_copies
+            out["prefix_shared_pages"] = self._prefix.num_pages
+        return out
+
+    def prefix_stats(self) -> Dict[str, float]:
+        """Prefix-cache effectiveness over the engine's life: hit tokens
+        (prompt tokens served from shared pages), the hit rate against
+        every admitted prompt token, copies on write and the tree's size.
+        Empty when ``prefix_cache=False``."""
+        if self._prefix is None:
+            return {}
+        out = {"prefix_hit_tokens": float(self.prefix_hit_tokens),
+               "prefix_prompt_tokens": float(self._prefix_prompt_tokens),
+               "prefix_cow_copies": float(self.prefix_cow_copies),
+               "prefix_shared_pages": float(self._prefix.num_pages),
+               "prefix_nodes": float(self._prefix.num_nodes())}
+        if self._prefix_prompt_tokens:
+            out["prefix_hit_rate"] = (self.prefix_hit_tokens
+                                      / self._prefix_prompt_tokens)
+        return out
+
+    def spec_stats(self) -> Dict[str, float]:
+        """Speculation over the engine's life: acceptance rate (accepted
+        ÷ proposed drafts) and mean committed tokens per committing drain
+        (1.0 = no gain, spec_k + 1 = every draft accepted). Empty when
+        ``spec_k == 0``."""
+        if not self.spec_k:
+            return {}
+        out = {"spec_k": float(self.spec_k),
+               "spec_tokens_proposed": float(self.spec_tokens_proposed),
+               "spec_tokens_accepted": float(self.spec_tokens_accepted)}
+        if self.spec_tokens_proposed:
+            out["spec_accept_rate"] = (self.spec_tokens_accepted
+                                       / self.spec_tokens_proposed)
+        if self._spec_drains:
+            out["spec_mean_accepted_len"] = 1.0 + (
+                self.spec_tokens_accepted / self._spec_drains)
+        return out
 
     def latency_stats(self) -> Dict[str, float]:
         """TTFT / end-to-end latency percentiles over the most recent
@@ -251,14 +431,35 @@ class ContinuousBatchingEngine:
 
     # -- page allocator -----------------------------------------------------
 
-    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+    def _alloc_pages(self, n: int, protect=None) -> Optional[List[int]]:
+        """Pop ``n`` pages; under pressure refcount-0 prefix-tree pages
+        are LRU-evicted into the free list first (``protect`` pins the
+        match path of the request being admitted). None when even that
+        cannot cover ``n``."""
+        if len(self._free) < n and self._prefix is not None:
+            self._free.extend(
+                self._prefix.evict(n - len(self._free), protect))
         if len(self._free) < n:
             return None
         return [self._free.pop() for _ in range(n)]
 
-    def _free_slot(self, slot: int):
+    def _free_slot(self, slot: int, cache: bool = False):
+        """Release a slot: with the prefix cache, ``cache`` donates its
+        completed pages first (retirement, preemption, cancel), its lock
+        is released exactly once, and only its private pages return to
+        the free list."""
         req = self._slots[slot]
-        self._free.extend(int(p) for p in self.tables[slot] if p != 0)
+        if self._prefix is not None:
+            if cache and self._decode_ready(req):
+                self._insert_prefix(slot, req)
+            lock = self._tree_locks[slot]
+            if lock is not None:
+                self._prefix.release(lock)
+                self._tree_locks[slot] = None
+            self._free.extend(int(p) for p in self.tables[slot]
+                              if p != 0 and not self._prefix.owns(int(p)))
+        else:
+            self._free.extend(int(p) for p in self.tables[slot] if p != 0)
         self.tables[slot] = 0
         self._tables_dirty = True
         self._proj_pos[slot] = 0
@@ -266,8 +467,18 @@ class ContinuousBatchingEngine:
         self._slots[slot] = None
         if req is not None:
             req.slot = -1
+            req.prefilled = 0     # the freed pages took the written KV
 
     # -- device-resident scheduler state ------------------------------------
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device: on the card through
+        pinned memory, without a host sync (stream order keeps it ahead
+        of the work that reads it)."""
+        t = torch.from_numpy(np.array(a))       # a copy the host may reuse
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
 
     def _init_state(self, logits_row: torch.Tensor):
         B, dev = self.max_batch, self.device
@@ -289,7 +500,8 @@ class ContinuousBatchingEngine:
 
     def _activate(self, slot: int, req: _Request, logits_row: torch.Tensor):
         """Flip a slot live on the device after its prefill: set its row
-        of every scheduler tensor and its first-token logits."""
+        of every scheduler tensor, its first-token logits and, with
+        speculation, its token history."""
         if self._state is None:
             self._init_state(logits_row)
         L = req.prefill_target
@@ -311,6 +523,10 @@ class ContinuousBatchingEngine:
         self._proj_pos[slot] = L
         self._proj_gen[slot] = len(req.generated)
         self._dosample[slot] = req.do_sample
+        if self.spec_k:
+            row = np.zeros((self.max_len,), np.int64)
+            row[:L] = self._req_tokens(req)
+            self._hist[slot] = self._to_device(row)
 
     def _deactivate(self, slot: int):
         if self._state is not None:
@@ -321,17 +537,76 @@ class ContinuousBatchingEngine:
     def _bucket(self, L: int) -> int:
         return -(-L // self.page_size) * self.page_size
 
+    @staticmethod
+    def _req_tokens(req: _Request) -> np.ndarray:
+        """Prompt + tokens generated before a preemption or replay: the
+        one sequence the prefix match, donation and prefill key on."""
+        return np.concatenate([req.prompt,
+                               np.asarray(req.generated, np.int32)])
+
+    def _decode_ready(self, req: Optional[_Request]) -> bool:
+        return req is not None and req.prefilled >= req.prefill_target
+
     def _prefill(self, slot: int, toks: np.ndarray) -> torch.Tensor:
         """Prompt (+ replay) pass for one slot, padded to a page
         multiple; returns the logits row at the last real token."""
         L = len(toks)
         ids = np.zeros((1, self._bucket(L)), np.int64)
         ids[0, :L] = toks
-        tables1 = torch.tensor(self.tables[slot:slot + 1],
-                               device=self.device)
         hidden, _ = self.core.prefill_paged(
-            torch.tensor(ids, device=self.device), self.pools, tables1)
+            self._to_device(ids), self.pools,
+            self._to_device(self.tables[slot:slot + 1]))
         return self.model.logits(hidden[0, L - 1])
+
+    def _chunk_step(self, ids: torch.Tensor, off: int, tables1: torch.Tensor,
+                    last: int) -> torch.Tensor:
+        """One prefill chunk on the device: ``ids`` [1, C] at positions
+        off .. off + C - 1 through ``prefill_chunk_paged``; returns the
+        logits row at position ``last`` (meaningful on a final chunk)."""
+        hidden, _ = self.core.prefill_chunk_paged(ids, off, self.pools,
+                                                  tables1)
+        return self.model.logits(hidden[0, last - off])
+
+    def _chunk_logits(self, slot: int, toks: np.ndarray, off: int, C: int,
+                      last: int) -> torch.Tensor:
+        """Prefill ``toks[off:off + C]`` (zero-padded to C) of ``slot``."""
+        ids = np.zeros((1, C), np.int64)
+        chunk = toks[off:off + C]
+        ids[0, :len(chunk)] = chunk
+        return self._chunk_step(self._to_device(ids), off,
+                                self._to_device(self.tables[slot:slot + 1]),
+                                last)
+
+    def _tail_logits(self, slot: int, tok: int, pos: int, src: int,
+                     dst: int) -> torch.Tensor:
+        """The full-prompt hit's whole compute: copy the shared page
+        ``src`` holding position ``pos`` into the slot's private page
+        ``dst`` (every layer, scales included), then re-forward the one
+        token at ``pos`` through ``decode_verify_paged``; its K/V land in
+        the copy and its logits row is what a full prefill gives."""
+        for entry in self.pools:
+            _entry_page_copy(entry, src, dst)
+        h, _ = self.core.decode_verify_paged(
+            self._to_device(np.array([[tok]], np.int64)),
+            self._to_device(np.array([pos], np.int64)), self.pools,
+            self._to_device(self.tables[slot:slot + 1]))
+        return self.model.logits(h[0, 0])
+
+    def _insert_prefix(self, slot: int, req: _Request) -> None:
+        """Donate the slot's completed full pages (prompt + committed
+        generations) to the radix tree. Ranges the tree already covers
+        stay the slot's private duplicates; new nodes join the slot's
+        lock at ref 1."""
+        toks = self._req_tokens(req)
+        n_ins = len(toks) // self.page_size
+        if n_ins == 0:
+            return
+        lock = self._tree_locks[slot]
+        if lock is None:
+            lock = self._tree_locks[slot] = self._prefix.new_lock()
+        self._prefix.insert(toks[:n_ins * self.page_size],
+                            [int(p) for p in self.tables[slot, :n_ins]],
+                            lock)
 
     def _admit(self):
         while self._queue:
@@ -340,26 +615,113 @@ class ContinuousBatchingEngine:
             if slot is None:
                 return
             req = self._queue[0]
-            toks = np.concatenate([req.prompt,
-                                   np.asarray(req.generated, np.int32)])
+            toks = self._req_tokens(req)
             L = len(toks)
             need = -(-L // self.page_size)
-            pages = self._alloc_pages(need)
+            # prefix sharing: map every fully matched page; a full-prompt
+            # match keeps the boundary page shared too and copies it on
+            # write, otherwise the page holding the first unmatched token
+            # is recomputed by the suffix prefill. n_lock * page_size < L,
+            # so decode positions land beyond the shared region.
+            n_lock, fast, m = 0, False, 0
+            if self._prefix is not None:
+                m = self._prefix.match(toks)
+                fast = m >= L
+                n_lock = (L - 1) // self.page_size if fast \
+                    else m // self.page_size
+            pages = self._alloc_pages(need - n_lock,
+                                      protect=toks if m else None)
             if pages is None:
                 if any(s is not None for s in self._slots):
                     return                   # wait for pages to free up
-                raise RuntimeError(
-                    f"request {req.rid} needs {need} pages but the pool "
-                    f"holds {self._total_pages}; raise num_pages")
+                if m:
+                    # nothing running, and the protected match path holds
+                    # the pages the private remainder needs: admit cold
+                    n_lock, fast = 0, False
+                    pages = self._alloc_pages(need)
+                if pages is None:
+                    raise RuntimeError(
+                        f"request {req.rid} needs {need} pages but the "
+                        f"pool holds {self._total_pages}; raise num_pages")
             self._queue.popleft()
-            self.tables[slot, :need] = pages
+            if self._prefix is not None:
+                lock = (self._prefix.lock_prefix(toks, n_lock) if n_lock
+                        else self._prefix.new_lock())
+                self._tree_locks[slot] = lock
+                self.tables[slot, :n_lock] = lock.pages()
+                self._prefix_prompt_tokens += L
+                self.prefix_hit_tokens += (L - 1) if fast \
+                    else n_lock * self.page_size
+            self.tables[slot, n_lock:n_lock + len(pages)] = pages
             self._tables_dirty = True
             self._slots[slot] = req
             req.slot = slot
+            self._dosample[slot] = req.do_sample
             req.prefill_target = L
-            self._activate(slot, req, self._prefill(slot, toks))
+            if fast:
+                # positions < L - 1 of the shared page matched, so their
+                # K/V are what this request would compute; the copy takes
+                # position L - 1 onwards
+                src = self._prefix.page_at(toks, n_lock)
+                if src is None:
+                    raise RuntimeError("the matched tail page vanished")
+                self.prefix_cow_copies += 1
+                logits = self._tail_logits(slot, int(toks[L - 1]), L - 1,
+                                           src, pages[0])
+                req.prefilled = L
+                self._activate(slot, req, logits)
+                self._insert_prefix(slot, req)
+                continue
+            off = n_lock * self.page_size
+            if self.chunked_prefill:
+                # pages claimed now; K/V written one chunk a tick from
+                # the page-aligned end of the shared prefix
+                req.prefilled = off
+                self._proj_pos[slot] = 0
+                self._proj_gen[slot] = 0
+                continue
+            req.prefilled = L
+            if off:
+                # the suffix only, from the page-aligned offset, attending
+                # over the mapped shared history plus itself
+                logits = self._chunk_logits(slot, toks, off,
+                                            self._bucket(L) - off, L - 1)
+            else:
+                logits = self._prefill(slot, toks)
+            self._activate(slot, req, logits)
+            if self._prefix is not None:
+                self._insert_prefix(slot, req)
+
+    def _prefill_tick(self):
+        """Advance the oldest in-prefill slot by one chunk."""
+        cand = [(self._slots[s].rid, s) for s in range(self.max_batch)
+                if self._slots[s] is not None
+                and not self._decode_ready(self._slots[s])]
+        if not cand:
+            return
+        slot = min(cand)[1]
+        req = self._slots[slot]
+        C, off = self.prefill_chunk, req.prefilled
+        logits = self._chunk_logits(slot, self._req_tokens(req), off, C,
+                                    min(req.prefill_target - 1, off + C - 1))
+        req.prefilled = min(off + C, self._bucket(req.prefill_target))
+        if req.prefilled >= req.prefill_target:
+            self._activate(slot, req, logits)
+            if self._prefix is not None:
+                self._insert_prefix(slot, req)
 
     # -- decode -------------------------------------------------------------
+
+    def _pick(self, lf: torch.Tensor, off: int,
+              any_sample: bool) -> torch.Tensor:
+        """The token each row emits from fp32 logits ``lf`` [B, V] at
+        stream position gen + ``off``: argmax, or the per-row sampler."""
+        if not any_sample:
+            return torch.argmax(lf, dim=-1)
+        kn = self._knobs
+        return sample_logits_per_slot(
+            lf, kn["temp"], kn["topk"], kn["topp"], kn["dosample"],
+            self.cfg.seed, kn["rseed"], self._state["gen"] + off)
 
     def _decode_block(self, K: int, any_sample: bool
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -373,13 +735,7 @@ class ContinuousBatchingEngine:
         kept = torch.empty((K, B), dtype=torch.bool, device=self.device)
         tables = self._tables_dev
         for j in range(K):
-            lf = st["logits"].float()
-            if any_sample:
-                tok = sample_logits_per_slot(
-                    lf, kn["temp"], kn["topk"], kn["topp"], kn["dosample"],
-                    self.cfg.seed, kn["rseed"], st["gen"])
-            else:
-                tok = torch.argmax(lf, dim=-1)
+            tok = self._pick(st["logits"].float(), 0, any_sample)
             active = st["active"]
             tok = torch.where(active, tok, torch.zeros_like(tok))
             tbl = tables * active[:, None].to(tables.dtype)
@@ -398,21 +754,98 @@ class ContinuousBatchingEngine:
             st["active"].copy_(new_active)
         return toks, kept
 
+    def _spec_tick(self, any_sample: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One speculative tick on the device, with no host sync: the
+        first token from the carried logits (committed unconditionally),
+        ``spec_k`` drafts from the history including it, one
+        ``spec_k + 1``-wide verify, and the agreeing prefix committed
+        through the same stop update the decode block carries (eos or
+        budget inside the accepted run truncates it, rejection through
+        the prefix count). Returns device [spec_k + 1, B] tokens and kept
+        masks; positions advance by the committed count only, so rejected
+        drafts' K/V are overwritten by the next verify or sit on the
+        garbage page."""
+        st, kn = self._state, self._knobs
+        k, hist = self.spec_k, self._hist
+        B, H = hist.shape
+        pos, active = st["pos"], st["active"]
+        rows = torch.arange(B, device=self.device)
+        tok0 = self._pick(st["logits"].float(), 0, any_sample)
+        tok0 = torch.where(active, tok0, 0)
+        wp = pos.clamp_max(H - 1)
+        hist[rows, wp] = torch.where(active, tok0, hist[rows, wp])
+        drafts = self._draft.propose(hist, pos + active.long(), k)
+        drafts = torch.where(active[:, None], drafts.long(), 0)
+        inputs = torch.cat([tok0[:, None], drafts], dim=1)   # [B, k + 1]
+        tbl = self._tables_dev * active[:, None].to(self._tables_dev.dtype)
+        h, _ = self.core.decode_verify_paged(inputs, pos, self.pools, tbl)
+        logits_all = self.model.logits(h)                    # [B, k + 1, V]
+        lf_all = logits_all.float()
+        targets = torch.stack([self._pick(lf_all[:, j - 1], j, any_sample)
+                               for j in range(1, k + 1)], dim=1)
+        n_commit = 1 + torch.cumprod((drafts == targets).long(),
+                                     dim=1).sum(dim=1)       # [B] 1..k+1
+        alive, bud = active, st["budget"]
+        toks = torch.empty((k + 1, B), dtype=torch.int64, device=self.device)
+        kept = torch.empty((k + 1, B), dtype=torch.bool, device=self.device)
+        for j in range(k + 1):
+            tj = inputs[:, j]
+            commit = alive & (j < n_commit)
+            toks[j] = torch.where(commit, tj, 0)
+            kept[j] = commit
+            cont, bud = decode_stop_update(tj, commit, bud, kn["eos"])
+            alive = torch.where(commit, cont, alive)
+        nkept = kept.long().sum(dim=0)
+        for j in range(1, k + 1):
+            wp = (pos + j).clamp_max(H - 1)
+            hist[rows, wp] = torch.where(kept[j], toks[j], hist[rows, wp])
+        # the carried logits: the row after the last accepted token, whose
+        # whole input prefix matched the committed stream (a row stopped
+        # inside the run retires, so its carry is never read)
+        sel = (n_commit - 1).clamp_max(k)
+        st["logits"].copy_(logits_all[rows, sel])
+        st["pos"].add_(nkept)
+        st["gen"].add_(nkept)
+        st["budget"].copy_(bud)
+        st["active"].copy_(alive)
+        return toks, kept
+
     def _participants(self) -> List[Tuple[int, _Request]]:
         """Slots the next block decodes for: prefilled and not yet
-        scheduled through their whole budget."""
+        scheduled through their whole budget. With speculation the
+        projection assumes the largest stride, so a slot is excluded
+        only when the least its in-flight blocks can have committed (one
+        token each while the row lives) exhausts its budget; otherwise
+        its row, still active on the device, would commit tokens that no
+        drain reads."""
+        if self.spec_k:
+            def _done(s, r):
+                # only this request's blocks: a reused slot may sit in
+                # stale blocks of its previous occupant
+                min_gen = len(r.generated) + sum(
+                    1 for b in self._inflight
+                    if any(s2 == s and r2 is r
+                           for s2, r2 in b.participants))
+                return min_gen >= r.max_new_tokens
+            return [(s, r) for s in range(self.max_batch)
+                    if self._decode_ready(r := self._slots[s])
+                    and not _done(s, r)]
         return [(s, r) for s in range(self.max_batch)
-                if (r := self._slots[s]) is not None
+                if self._decode_ready(r := self._slots[s])
                 and int(self._proj_gen[s]) < r.max_new_tokens]
 
     def _ensure_decode_pages(self, K: int):
-        """Claim every page a live slot may write within the next K steps
-        (against its projected position, capped by its remaining
-        budget); preempt when the pool is dry."""
+        """Claim every page a decoding slot may write within the next K
+        steps (against its projected position, capped by its remaining
+        budget); preempt when the pool is dry. Admission keeps the mapped
+        prefix below the first decode position and donation takes only
+        pages wholly behind it, so a tree-owned page in that span is a
+        broken invariant and raises."""
         for slot in range(self.max_batch):
             req = self._slots[slot]
-            if req is None:
-                continue
+            if not self._decode_ready(req):
+                continue              # mid-prefill slots claim at admission
             pos = int(self._proj_pos[slot])
             span = min(K, req.max_new_tokens - int(self._proj_gen[slot]))
             if span <= 0:
@@ -422,15 +855,20 @@ class ContinuousBatchingEngine:
             for pidx in range(first, last + 1):
                 if pidx >= self.pages_per_seq:
                     raise RuntimeError("sequence exceeded engine max_len")
-                if self.tables[slot, pidx] != 0:
+                existing = int(self.tables[slot, pidx])
+                if existing != 0:
+                    if self._prefix is not None \
+                            and self._prefix.owns(existing):
+                        raise RuntimeError(f"decode would write the shared "
+                                           f"page {existing}")
                     continue
                 self.tables[slot, pidx] = self._claim_one(slot)
                 self._tables_dirty = True
 
     def _claim_one(self, exclude_slot: int) -> int:
         """One page for a decode-time claim; recompute-preempts the
-        newest other request once the pool is dry, raising _PoolDry first
-        while blocks are in flight."""
+        newest other request once the pool and the evictable prefix tree
+        are dry, raising _PoolDry first while blocks are in flight."""
         page = self._alloc_pages(1)
         while page is None:
             if self._inflight:
@@ -443,7 +881,9 @@ class ContinuousBatchingEngine:
             self.preemptions += 1
             vreq = self._slots[victim]
             self._deactivate(victim)
-            self._free_slot(victim)
+            # the victim's completed pages go to the tree (prefix mode):
+            # its replay maps them instead of prefilling again
+            self._free_slot(victim, cache=True)
             self._queue.appendleft(vreq)
             page = self._alloc_pages(1)
         return page[0]
@@ -455,10 +895,15 @@ class ContinuousBatchingEngine:
             parts = self._participants()
             if not parts:
                 return False
-            cap = self.pages_per_seq * self.page_size
-            K = max(1, min(self.decode_block,
-                           min(cap - int(self._proj_pos[s])
-                               for s, _ in parts)))
+            if self.spec_k:
+                # a fixed spec_k + 1-row tick; drafts written past the
+                # claimed pages land on the garbage page
+                K = self.spec_k + 1
+            else:
+                cap = self.pages_per_seq * self.page_size
+                K = max(1, min(self.decode_block,
+                               min(cap - int(self._proj_pos[s])
+                                   for s, _ in parts)))
             try:
                 self._ensure_decode_pages(K)
             except _PoolDry:
@@ -471,33 +916,48 @@ class ContinuousBatchingEngine:
             break
         any_sample = bool(any(self._dosample[s] for s, _ in parts))
         if self._tables_dirty:
-            self._tables_dev = torch.tensor(self.tables, device=self.device)
+            self._tables_dev = self._to_device(self.tables)
             self._tables_dirty = False
-        toks, kept = self._decode_block(K, any_sample)
+        if self.spec_k:
+            toks, kept = self._spec_tick(any_sample)
+        else:
+            toks, kept = self._decode_block(K, any_sample)
         self.decode_blocks += 1
         if self.kv_quant:
             self.kv_quant_ticks += 1
-        blk = self._start_drain(toks, kept, parts, K)
+        stride: Optional[Dict[int, int]] = {} if self.spec_k else None
         for s, req in parts:
             steps = min(K, req.max_new_tokens - int(self._proj_gen[s]))
+            if self.spec_k:
+                # a slot whose projection is saturated rides along so its
+                # device commits drain, projecting nothing new
+                steps = max(0, steps)
+                stride[s] = steps
             self._proj_gen[s] += steps
             self._proj_pos[s] += steps
-        self._inflight.append(blk)
+        self._inflight.append(self._start_drain(toks, kept, parts, K,
+                                                stride))
         return True
 
-    def _start_drain(self, toks, kept, parts, K) -> _InflightBlock:
+    def _start_drain(self, toks, kept, parts, K, steps) -> _InflightBlock:
         """Copy the block's outputs to host buffers: pinned and
         non-blocking on the card, with an event marking arrival."""
-        srcs = (toks, kept, self._state["active"])
+        srcs = [toks, kept, self._state["active"]]
+        if self.spec_k:
+            srcs.append(self._state["pos"])
         if self.device.type != "cuda":
-            return _InflightBlock(*(t.clone() for t in srcs), None, parts, K)
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in srcs]
-        for h, t in zip(host, srcs):
-            h.copy_(t, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return _InflightBlock(*host, event, parts, K)
+            host = [t.clone() for t in srcs]
+            event = None
+        else:
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    for t in srcs]
+            for h, t in zip(host, srcs):
+                h.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        pos = host[3] if self.spec_k else None
+        return _InflightBlock(host[0], host[1], host[2], pos, event, parts,
+                              K, steps)
 
     @staticmethod
     def _block_ready(blk: _InflightBlock) -> bool:
@@ -511,7 +971,8 @@ class ContinuousBatchingEngine:
 
     def _reconcile_one(self) -> List[tuple]:
         """Drain the oldest in-flight block: append kept tokens, retire
-        slots whose done flag came back, stamp arrival latencies."""
+        slots whose done flag came back, stamp arrival latencies, and in
+        speculative mode re-anchor the projections at the drained truth."""
         blk = self._inflight.popleft()
         if blk.event is not None:
             blk.event.synchronize()
@@ -533,6 +994,12 @@ class ContinuousBatchingEngine:
                     req.first_tok_t = now
                 emitted.append((req.rid, t))
             if nk:
+                if self.spec_k:
+                    # every committing drain scored spec_k drafts; commits
+                    # beyond the tick's first token are accepted drafts
+                    self._spec_drains += 1
+                    self.spec_tokens_proposed += self.spec_k
+                    self.spec_tokens_accepted += nk - 1
                 if req.last_emit_t:
                     req.itl_gaps.extend([(now - req.last_emit_t) / nk] * nk)
                 req.last_emit_t = now
@@ -543,8 +1010,46 @@ class ContinuousBatchingEngine:
                                         req.done_t - req.submit_t,
                                         len(req.generated)))
                 self._itl_gaps.extend(req.itl_gaps)
-                self._free_slot(slot)
+                self._free_slot(slot, cache=True)
+        if self.spec_k:
+            # the projection assumed the largest stride per block; the
+            # device may have committed fewer. Tables keep every page ever
+            # claimed, so claim coverage stays ahead of the commits.
+            pos_after = blk.pos.numpy()
+            for slot, req in blk.participants:
+                if self._slots[slot] is not req or req.done:
+                    continue
+                extra = sum((b2.steps or {}).get(slot, 0)
+                            for b2 in self._inflight)
+                self._proj_gen[slot] = len(req.generated) + extra
+                self._proj_pos[slot] = int(pos_after[slot]) + extra
         return emitted
+
+    def _check_page_invariants(self) -> None:
+        """Test hook: every pool page is exactly one of free / private to
+        ONE table / tree-owned with ``node.ref`` equal to the tables
+        mapping it, and none is lost."""
+        free = [int(p) for p in self._free]
+        assert len(set(free)) == len(free), "duplicate pages in free list"
+        assert 0 not in free, "garbage page leaked into the free list"
+        mapped = Counter(int(p) for row in self.tables for p in row if p)
+        tree = dict(self._prefix._pages) if self._prefix is not None \
+            else {}
+        assert not set(free) & set(mapped), "page both free and mapped"
+        assert not set(free) & set(tree), "page both free and tree-owned"
+        for p, node in tree.items():
+            assert mapped.get(p, 0) == node.ref, (
+                f"tree page {p}: refcount {node.ref} != "
+                f"{mapped.get(p, 0)} mapping tables")
+        for p, c in mapped.items():
+            if p not in tree:
+                assert c == 1, f"private page {p} mapped by {c} tables"
+        accounted = (len(free) + len(tree)
+                     + sum(1 for p in mapped if p not in tree))
+        assert accounted == self._total_pages, (
+            f"page leak: {self._total_pages - accounted} unaccounted")
+        if self._prefix is not None:
+            self._prefix.check()
 
 
 __all__ = ["ContinuousBatchingEngine"]

@@ -11,10 +11,16 @@ Ported here: ``forward`` (logits, or with ``labels`` the loss through
 the fused vocab-CE head by default or the naive head; attention through
 the flash kernels; each layer under activation recompute when
 ``cfg.recompute`` asks), the size accounting ``num_params`` /
-``flops_per_token``, and the paged-KV serving trio
-``alloc_paged_caches`` / ``prefill_paged`` / ``decode_step_paged``. The
-page pools are updated IN PLACE (``index_put_``) where JAX returns new
-arrays; the methods still return the pools so callers read the same.
+``flops_per_token``, and the paged-KV serving entry points
+``alloc_paged_caches`` / ``prefill_paged`` / ``decode_step_paged`` and
+the serving engine's ``prefill_chunk_paged`` (chunked prefill, prefix
+suffixes) / ``decode_verify_paged`` (speculative verify, the prefix
+cache's one-token re-forward). The last two attend through
+``_paged_ctx_attention``: a gather of the whole page table, fp32 scores
+and a masked softmax in plain PyTorch, as the JAX model computes it in
+XLA outside any Pallas kernel. The page pools are updated IN PLACE
+(``index_put_``) where JAX returns new arrays; the methods still return
+the pools so callers read the same.
 
 Quantized serving (``cfg.weight_dtype="int8"``, ``cfg.kv_dtype="int8"``):
 every projection and the untied ``lm_head`` is an int8 ``[n, k]`` weight
@@ -289,6 +295,13 @@ def _kv_quantized(kv: Pool) -> bool:
     return len(kv) == 4
 
 
+def _absmax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """amax / 127 as an IEEE division on every device: CUDA divides by a
+    Python scalar as a product with its rounded reciprocal, one ulp off
+    the CPU's (and JAX's) quotient, so the divisor is a 0-d tensor."""
+    return amax / amax.new_full((), 127.0)
+
+
 def _quantize(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """round-half-to-even(t / max(s, eps)) clipped to ±127, as int8;
     ``s`` broadcasts against ``t``."""
@@ -309,7 +322,7 @@ def _kv_scatter_pages(kv: Pool, phys: torch.Tensor, k_tiles: torch.Tensor,
     kp, vp, ks, vs = kv
     for pool, scale, tiles in ((kp, ks, k_tiles), (vp, vs, v_tiles)):
         t = tiles.float()
-        s = t.abs().amax(dim=(0, 2, 3)) / 127.0                  # [P]
+        s = _absmax_scale(t.abs().amax(dim=(0, 2, 3)))           # [P]
         pool[:, phys] = _quantize(t, s[None, :, None, None])
         scale[phys] = s
     return kv
@@ -317,14 +330,16 @@ def _kv_scatter_pages(kv: Pool, phys: torch.Tensor, k_tiles: torch.Tensor,
 
 def _kv_scatter_tokens(kv: Pool, phys: torch.Tensor, off: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor) -> Pool:
-    """Token-slot write (decode): ``phys``/``off`` [b] physical page and
-    in-page offset per token; ``k_new``/``v_new`` [n_kv, b, hd]. In
-    place. Int8 pools grow the touched pages' scales to cover the new
-    token (a scatter-max, so several tokens landing in one page, as idle
-    slots do on the garbage page, agree on its scale, as JAX's
-    ``.at[].max`` does), requantize those pages onto the grown scale
-    (a page whose scale did not change keeps its codes: the factor is
-    exactly 1), then write the new codes."""
+    """Token-slot write (decode, speculative verify): ``phys``/``off``
+    [...] (``[b]`` or ``[b, T]``) physical page and in-page offset per
+    token; ``k_new``/``v_new`` [n_kv, ..., hd]. In place. Int8 pools
+    grow the touched pages' scales to cover the new tokens (a
+    scatter-max over the flattened page ids, so several tokens landing
+    in one page, as a verify row's tokens or idle slots on the garbage
+    page do, agree on its scale, as JAX's ``.at[].max`` does),
+    requantize those pages onto the grown scale (a page whose scale did
+    not change keeps its codes: the factor is exactly 1; a page named
+    twice gets the same codes twice), then write the new codes."""
     if not _kv_quantized(kv):
         kp, vp = kv
         kp[:, phys, off] = k_new.to(kp.dtype)
@@ -333,19 +348,39 @@ def _kv_scatter_tokens(kv: Pool, phys: torch.Tensor, off: torch.Tensor,
     kp, vp, ks, vs = kv
     for pool, scale, new in ((kp, ks, k_new), (vp, vs, v_new)):
         t = new.float()
-        amax = t.abs().amax(dim=(0, -1))                         # [b]
+        amax = t.abs().amax(dim=(0, -1))                         # [...]
         grown = torch.maximum(scale, torch.zeros_like(scale).scatter_reduce(
-            0, phys, amax / 127.0, "amax"))
-        s_w = grown[phys]                                        # [b]
+            0, phys.reshape(-1), _absmax_scale(amax).reshape(-1), "amax"))
+        s_w = grown[phys]                                        # [...]
         factor = torch.where(s_w > 0, scale[phys] / s_w.clamp_min(_KV_EPS),
                              0.0)
-        pages = pool[:, phys].float()                # [n_kv, b, page, hd]
+        pages = pool[:, phys].float()           # [n_kv, ..., page, hd]
         pool[:, phys] = torch.round(
-            pages * factor[None, :, None, None]).clamp_(-127, 127).to(
+            pages * factor[None, ..., None, None]).clamp_(-127, 127).to(
                 torch.int8)
-        pool[:, phys, off] = _quantize(t, s_w[None, :, None])
+        pool[:, phys, off] = _quantize(t, s_w[None, ..., None])
         scale.copy_(grown)
     return kv
+
+
+def _kv_gather_ctx(kv: Pool, tables: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Whole-table gather for the context-attention read: (k_ctx, v_ctx)
+    [b, n_kv, max_pages * page, hd] fp32 views, int8 pages dequantized
+    with their page's scale (copy of the JAX model's ``_kv_gather_ctx``)."""
+    flat = tables.reshape(-1).long()
+    b, mp = tables.shape
+
+    def one(pool, scale=None):
+        n_kv, _, page, hd = pool.shape
+        ctx = pool[:, flat].float()                 # [n_kv, b*mp, page, hd]
+        if scale is not None:
+            ctx.mul_(scale[flat][None, :, None, None])
+        return ctx.view(n_kv, b, mp * page, hd).transpose(0, 1)
+    if _kv_quantized(kv):
+        kp, vp, ks, vs = kv
+        return one(kp, ks), one(vp, vs)
+    return one(kv[0]), one(kv[1])
 
 
 class LlamaAttention(nn.Module):
@@ -444,6 +479,73 @@ class LlamaAttention(nn.Module):
         out = paged_decode_attention(q[:, 0].contiguous(), kv[0], kv[1],
                                      tables, pos, **scales)
         return self._out(out.reshape(b, 1, -1), x), kv
+
+    def _paged_ctx_attention(self, q, positions, kv: Pool, tables):
+        """Full-table-span paged attention read (the JAX model's, which
+        runs in XLA outside every Pallas kernel, so here it is plain
+        PyTorch on every device): queries ``q`` [b, C, n_h, hd] at
+        absolute ``positions`` [b, C] attend over the whole gathered
+        table (max_pages * page keys) in fp32, masked by key index <=
+        position per row. The query heads of one KV head are grouped
+        against it, so the gathered K/V are never expanded to n_h heads.
+        Returns [b, C, n_h * hd] fp32."""
+        cfg = self.cfg
+        n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                         cfg.head_dim)
+        b, C = positions.shape
+        k_ctx, v_ctx = _kv_gather_ctx(kv, tables)   # [b, n_kv, S, hd]
+        S = k_ctx.shape[2]
+        qf = q.float().view(b, C, n_kv, n_h // n_kv, hd)
+        scores = torch.einsum("bcgrd,bgsd->bgrcs", qf, k_ctx) / (hd ** 0.5)
+        del k_ctx
+        j = torch.arange(S, device=q.device)
+        allowed = j[None, None, None, None, :] <= positions[:, None, None,
+                                                            :, None]
+        probs = torch.softmax(scores.masked_fill_(~allowed, -1e30), dim=-1)
+        out = torch.einsum("bgrcs,bgsd->bcgrd", probs, v_ctx)
+        return out.reshape(b, C, n_h * hd)
+
+    def prefill_chunk_paged(self, x, cos, sin, offset, kv: Pool, tables):
+        """Chunked-prefill step: a C-token chunk at positions [offset,
+        offset + C) writes its K/V pages and attends over the paged
+        history plus itself. ``offset`` (an int or a 0-d tensor) is
+        page-aligned and C a page multiple; the engine enforces both.
+        Tiles past the table go to the garbage page 0 explicitly."""
+        cfg = self.cfg
+        b, C, _ = x.shape
+        n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
+        page = kv[0].shape[2]
+        positions = (torch.arange(C, device=x.device) + offset).expand(b, C)
+        q, k, v = self._qkv_rope(x, cos, sin, positions)
+        npg, mp = C // page, tables.shape[1]
+        pidx = torch.arange(npg, device=x.device) + offset // page
+        phys = torch.where(pidx[None, :] < mp,
+                           tables[:, pidx.clamp_max(mp - 1)].long(), 0)
+
+        def tiles(new):
+            return new.reshape(b, npg, page, n_kv, hd).permute(
+                3, 0, 1, 2, 4).reshape(n_kv, b * npg, page, hd)
+        kv = _kv_scatter_pages(kv, phys.reshape(-1), tiles(k), tiles(v))
+        return self._out(self._paged_ctx_attention(q, positions, kv, tables),
+                         x), kv
+
+    def decode_verify_paged(self, x, cos, sin, pos: torch.Tensor, kv: Pool,
+                            tables):
+        """Speculative-verify step: T tokens a row at the row's positions
+        ``pos[b] .. pos[b] + T - 1``; writes all T K/V slots (writes past
+        a row's table go to the garbage page 0), then attends causally
+        over the paged history plus the in-chunk prefix."""
+        b, T = x.shape[:2]
+        page, mp = kv[0].shape[2], tables.shape[1]
+        positions = pos[:, None] + torch.arange(T, device=x.device)[None, :]
+        q, k, v = self._qkv_rope(x, cos, sin, positions)
+        pidx = positions // page
+        phys = torch.where(pidx < mp, torch.gather(
+            tables, 1, pidx.clamp_max(mp - 1)).long(), 0)
+        kv = _kv_scatter_tokens(kv, phys, positions % page,
+                                k.permute(2, 0, 1, 3), v.permute(2, 0, 1, 3))
+        return self._out(self._paged_ctx_attention(q, positions, kv, tables),
+                         x), kv
 
 
 class LlamaMLP(nn.Module):
@@ -556,26 +658,41 @@ class LlamaModel(nn.Module):
                               device=dev).reshape(batch, pages_per_seq)
         return pools, tables
 
-    def prefill_paged(self, input_ids, pools: List[Pool], tables):
+    def _paged_pass(self, input_ids, pools: List[Pool], tables, method: str,
+                    *lead):
+        """Embed ``input_ids`` [b, s] and run every layer with its
+        attention's paged ``method`` (called as ``method(x, cos, sin,
+        *lead, kv, tables)``), which updates the layer's pools in place."""
         x = F.embedding(input_ids, self.embed_tokens)
         for layer, kv in zip(self.layers, pools):
-            a, _ = layer.self_attn.prefill_paged(
-                layer.input_layernorm(x), self.rope_cos, self.rope_sin, kv,
-                tables)
+            a, _ = getattr(layer.self_attn, method)(
+                layer.input_layernorm(x), self.rope_cos, self.rope_sin,
+                *lead, kv, tables)
             h = x + a
             x = h + layer.mlp(layer.post_attention_layernorm(h))
         return self.norm(x), pools
 
+    def prefill_paged(self, input_ids, pools: List[Pool], tables):
+        return self._paged_pass(input_ids, pools, tables, "prefill_paged")
+
     def decode_step_paged(self, token_ids, pos, pools: List[Pool], tables):
         """token_ids [b], pos [b] int64 → (hidden [b, 1, d], pools)."""
-        x = F.embedding(token_ids[:, None], self.embed_tokens)
-        for layer, kv in zip(self.layers, pools):
-            a, _ = layer.self_attn.decode_paged(
-                layer.input_layernorm(x), self.rope_cos, self.rope_sin, pos,
-                kv, tables)
-            h = x + a
-            x = h + layer.mlp(layer.post_attention_layernorm(h))
-        return self.norm(x), pools
+        return self._paged_pass(token_ids[:, None], pools, tables,
+                                "decode_paged", pos)
+
+    def prefill_chunk_paged(self, input_ids, offset, pools: List[Pool],
+                            tables):
+        """input_ids [b, C] at positions offset .. offset + C - 1 (offset
+        page-aligned, C a page multiple) → (hidden [b, C, d], pools)."""
+        return self._paged_pass(input_ids, pools, tables,
+                                "prefill_chunk_paged", offset)
+
+    def decode_verify_paged(self, token_ids, pos, pools: List[Pool], tables):
+        """Speculative verify: token_ids [b, T] at the rows' positions
+        pos[b] .. pos[b] + T - 1 → (hidden [b, T, d], pools); hidden at
+        index j scores the token after input j."""
+        return self._paged_pass(token_ids, pools, tables,
+                                "decode_verify_paged", pos)
 
 
 class LlamaForCausalLM(nn.Module):

@@ -55,7 +55,9 @@ def weight_quantize(x: torch.Tensor, algo: str = "weight_only_int8",
     wt = torch.empty((n, k), dtype=torch.float32, device=x.device)
     wt.copy_(x.t())
     amax = torch.maximum(wt.amax(dim=1), -wt.amin(dim=1))       # [n]
-    scale = amax / 127.0
+    # a 0-d tensor divisor keeps the division IEEE on the card too (CUDA
+    # multiplies by the rounded reciprocal of a Python scalar divisor)
+    scale = amax / amax.new_full((), 127.0)
     wt.div_(scale.clamp_min(1e-10)[:, None]).round_().clamp_(-127, 127)
     return wt.to(torch.int8), scale
 

@@ -572,6 +572,176 @@ def test_engine_on_card_matches_cpu(dev):
         np.testing.assert_array_equal(a, w)
 
 
+def _replay_drafts(streams, H, device):
+    """A draft provider that proposes the continuation of whichever of
+    ``streams`` (prompt, tokens) a row's history starts with: drafts the
+    engine accepts, until the stream ends (then the row's last token)."""
+    from paddle_tpu_torch.inference import DraftProvider
+    seqs = np.full((len(streams), H), -1, np.int64)
+    for i, (p, t) in enumerate(streams):
+        full = np.concatenate([p, t])[:H]
+        seqs[i, :len(full)] = full
+    seqs = torch.tensor(seqs, device=device)
+    plen = torch.tensor([len(p) for p, _ in streams], device=device)
+    in_prompt = torch.arange(H, device=device)[None] < plen[:, None]
+
+    class Replay(DraftProvider):
+        def propose(self, history, hist_len, k):
+            hist_len = hist_len.long()
+            match = (((history[:, None] == seqs[None]) | ~in_prompt[None])
+                     .all(-1) & (plen[None] <= hist_len[:, None]))
+            seq = seqs[match.long().argmax(1)]
+            idx = hist_len[:, None] + torch.arange(k, device=device)[None]
+            toks = seq.gather(1, idx.clamp_max(H - 1))
+            last = history.gather(1, (hist_len - 1).clamp(0, H - 1)[:, None])
+            ok = match.any(1)[:, None] & (idx < H) & (toks >= 0)
+            return torch.where(ok, toks, last)
+    return Replay()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_engine_features_on_card_match_cpu(dev, quant):
+    """Chunked prefill, the prefix cache (a resubmitted prompt takes the
+    copy-on-write path) and spec_k = 3 together, at async depth 2: the
+    same seeded model (and its int8 twin) on the card and on the CPU give
+    the same greedy streams and the same prefix and speculation counts,
+    with n-gram drafts and with drafts that replay the CPU's streams (so
+    accepted runs commit on the card, eos ending one inside such a run);
+    two verify ticks (greedy and sampled) and a prefill chunk then run
+    under set_sync_debug_mode("error") without syncing the host."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2)          # head_dim 64
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    if quant:
+        cpu = quantize_model(cpu, kv_dtype="int8")
+    card = copy.deepcopy(cpu).to(dev)
+    rs = np.random.RandomState(1)
+    shared = rs.randint(0, cfg.vocab_size, (19,))
+    prompts = [np.concatenate([shared, rs.randint(0, cfg.vocab_size, (n,))])
+               for n in (3, 9, 14)] + [rs.randint(0, cfg.vocab_size, (7,))]
+
+    def serve(model, drafts=None, eos=None):
+        eng = ContinuousBatchingEngine(
+            model, max_batch=2, page_size=8, max_len=64, async_depth=2,
+            generation_config=GenerationConfig(max_new_tokens=10,
+                                               eos_token_id=eos),
+            chunked_prefill=True, prefill_chunk=16, prefix_cache=True,
+            spec_k=3, draft_provider=drafts)
+        out = []
+        for batch in (prompts, prompts[:2]):
+            rids = [eng.submit(p) for p in batch]
+            got = eng.run()
+            out.extend(got[r].tolist() for r in rids)
+        eng._check_page_invariants()
+        return out, eng
+    want, ecpu = serve(cpu)
+    got, eng = serve(card)
+    assert got == want
+    assert eng.prefix_stats() == ecpu.prefix_stats()
+    assert eng.spec_stats() == ecpu.spec_stats()
+    assert eng.prefix_cow_copies >= 1
+    eos = want[0][4]
+    want_eos = [w[:w.index(eos) + 1] if eos in w else w for w in want]
+    side = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        side[name] = serve(model, _replay_drafts(list(zip(prompts, want)),
+                                                 64, d), eos)
+    assert side["card"][0] == side["cpu"][0] == want_eos
+    assert side["card"][1].spec_stats() == side["cpu"][1].spec_stats()
+    assert side["card"][1].spec_tokens_accepted > 0
+    with torch.inference_mode():
+        eng.submit(prompts[3])
+        eng._admit()
+        while not eng._decode_ready(eng._slots[0]):
+            eng._prefill_tick()
+        eng._tables_dev = eng._to_device(eng.tables)
+        ids = eng._to_device(np.zeros((1, 16), np.int64))
+        tables1 = eng._to_device(eng.tables[:1])
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._spec_tick(False)
+            eng._spec_tick(True)
+            eng._chunk_step(ids, 16, tables1, 16)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.parametrize("T", [1, 3, 5])
+def test_kv_scatter_tokens_rows_on_card_match_cpu(dev, T):
+    """The int8 token write with [b, T] pages and offsets (a verify's
+    tokens, several in one page, rows on the garbage page) gives the
+    CPU's codes and scales bit for bit."""
+    from paddle_tpu_torch.models.llama import _kv_scatter_tokens
+    rs = np.random.RandomState(T)
+    b, H_kv, P, page, D = 8, 8, 20, 16, 128
+    pools = (rs.randint(-127, 128, (H_kv, P, page, D)).astype(np.int8),
+             rs.randint(-127, 128, (H_kv, P, page, D)).astype(np.int8),
+             rs.uniform(0.01, 0.05, (P,)).astype(np.float32),
+             rs.uniform(0.01, 0.05, (P,)).astype(np.float32))
+    pos = rs.randint(0, 3 * page, (b,))[:, None] + np.arange(T)[None, :]
+    phys = np.where(pos < 2 * page, 1 + 2 * np.arange(b)[:, None]
+                    + pos // page, 0)                 # two pages a row
+    k = rs.normal(0, 3, (H_kv, b, T, D)).astype(np.float32)
+    v = rs.normal(0, 3, (H_kv, b, T, D)).astype(np.float32)
+    out = []
+    for d in ("cpu", dev):
+        got = _kv_scatter_tokens(
+            tuple(torch.tensor(a, device=d) for a in pools),
+            torch.tensor(phys, device=d), torch.tensor(pos % page, device=d),
+            torch.tensor(k, device=d), torch.tensor(v, device=d))
+        out.append([t.cpu() for t in got])
+    for c, g in zip(*out):
+        if c.dim() == 4:                 # the garbage page's codes: any
+            c, g = c[:, 1:], g[:, 1:]    # of the writes to a slot may stay
+        assert torch.equal(c, g)
+
+
+def test_int8_scales_on_card_equal_cpu(dev):
+    """The int8 page write and weight quantization divide absmax by 127
+    as the CPU (and JAX) do, so their scales and codes on the card are
+    the CPU's bit for bit."""
+    from paddle_tpu_torch.models.llama import _kv_scatter_pages
+    from paddle_tpu_torch.nn.quantized_linear import weight_quantize
+    rs = np.random.RandomState(5)
+    w = rs.normal(0, 0.02, (1040, 272)).astype(np.float32)
+    tiles = rs.normal(0, 3, (2, 8, 4, 16, 128)).astype(np.float32)
+    phys = np.array([3, 1, 7, 5])
+    out = []
+    for d in ("cpu", dev):
+        pools = (torch.zeros((8, 9, 16, 128), dtype=torch.int8, device=d),
+                 torch.zeros((8, 9, 16, 128), dtype=torch.int8, device=d),
+                 torch.zeros((9,), device=d), torch.zeros((9,), device=d))
+        got = _kv_scatter_pages(pools, torch.tensor(phys, device=d),
+                                torch.tensor(tiles[0], device=d),
+                                torch.tensor(tiles[1], device=d))
+        got += weight_quantize(torch.tensor(w, device=d))
+        out.append([t.cpu() for t in got])
+    for c, g in zip(*out):
+        assert torch.equal(c, g)
+
+
+@pytest.mark.parametrize("n,k", [(6144, 4096), (4096, 14336)])
+def test_int8_matmul_at_verify_rows_matches_plain(dev, n, k):
+    """m = 40, a speculative verify at B = 8, spec_k = 4, at Llama-3-8B's
+    qkv and down widths: the bf16 wgmma route, elementwise and per row."""
+    from paddle_tpu_torch.ops.kernels import int8_matmul
+    from paddle_tpu_torch.ops.quant import weight_only_plain
+    x, wq, scale = _int8_product_inputs(dev, torch.bfloat16, 40, n, k,
+                                        n + k)
+    _build.reset_launches()
+    got = int8_matmul.int8_matmul(x, wq, scale)
+    assert _build.LAUNCHES["int8_matmul_wgmma"] == 1, dict(_build.LAUNCHES)
+    want = weight_only_plain(x, wq, scale)
+    _close(got, want, "bfloat16")
+    _rows_close(got, want, "bfloat16")
+
+
 # (N, H, V, tied, backward chunk): V not a multiple of the 128-column
 # tile, rows not a multiple of the row tile, several backward chunks
 # (first, middle and last summed into dh), a V that is not a multiple of
