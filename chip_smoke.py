@@ -99,6 +99,20 @@ Phases, in order; any failure exits non-zero before the result line:
      and all three features at async_depth 2; two verify ticks (greedy
      and sampled) and one prefill chunk then run under
      torch.cuda.set_sync_debug_mode("error");
+  4d. fabric equality: the same widths and depth, fp32, seeded weights:
+     phase 4's four prompts and two of 300 and 450 tokens through
+     ServingFabric(InProcTransport(build_replicas(model, 2, roles=
+     ["prefill", "both"], page_size=128, max_len=512)),
+     disagg_threshold_tokens=128): every prompt at or over the threshold
+     handed off, greedy tokens equal the plain path, pages exported ==
+     adopted > 0, the adopted pages the exporter's bit for bit; a
+     forced-dense engine (attn_crossover = max_len) gives the paged
+     engine's tokens. The int8 arm runs the same fabric over the
+     quantized model one request at a time, against one int8 engine
+     with the prefix cache that serves a handed-off prompt as the fabric
+     does (a one-token prefill, then the request over its cached pages):
+     equal tokens, codes and scales adopted bit for bit, a v1 payload
+     refused;
   5. the serving run: Llama-3-8B widths, all 32 layers, bf16, seeded
      random weights built on the card; 16 requests (prompts 128-1536
      tokens, 64 new tokens, every 4th sampled) through
@@ -107,6 +121,21 @@ Phases, in order; any failure exits non-zero before the result line:
      before and read just after; every serving kernel must have launched;
      then the launches of one call of each paged entry point and one
      decode step profiled, with RMSNorm's and RoPE's device us;
+  3c. the crossover sweep, on phase 5's model after it (and on 5b's):
+     one decode step (decode_step_paged and the head) at B = 8 and
+     contexts 128 to 8192 under the paged kernel and the dense route
+     (CUDA events, median of 10), and one layer's attention alone under
+     each (median of 25, L2 flushed); prints both and the crossover they
+     imply beside the port's default paged_decode_crossover();
+  5d. the fabric run, on phase 5's model after 5c's native runs (and on
+     5b's): phase 5's 16 requests through ServingFabric(InProcTransport(
+     build_replicas(model, 2, roles=["prefill", "both"], **phase 5's
+     engine settings)), policy="affinity", disagg_threshold_tokens=512):
+     requests sent / succeeded / failed, tokens/s, TTFT and ITL, requests
+     handed off, pages exported / adopted, extract and adopt ms a page,
+     attention-route ticks by replica and launches, beside phase 5's (or
+     5b's) numbers of the same call; a failed request, no adopted page or
+     a serving kernel not launched fails it;
   5b. the quantized serving run: the same model quantized on the card
      (int8 weights and KV, the native model then freed) through the same
      run, side by side with phase 5: tokens/s, TTFT, ITL, one decode
@@ -223,6 +252,18 @@ FAILED_CASES: list = []
 
 def log(*a):
     print(*a, flush=True)
+
+
+_MARK = [time.perf_counter()]
+
+
+def mark(phase: str):
+    """Log (and keep in RESULTS["phase_s"]) the seconds since the
+    previous mark as ``phase``'s."""
+    now = time.perf_counter()
+    dt, _MARK[0] = now - _MARK[0], now
+    RESULTS.setdefault("phase_s", {})[phase] = dt
+    log(f"phase {phase}: {dt:.1f} s")
 
 
 # device cycles (about 0.3 ms) that the card sleeps between the L2 flush
@@ -1582,6 +1623,178 @@ def phase_engine_equality(torch, pt, dev, make_cfg):
                          f"{RESULTS['engine_equality']}")
 
 
+def fabric_prompts(V):
+    """Phase 4's four prompts (numpy seed 7) and two longer ones (seed 9)."""
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, V, (n,)).astype(np.int32)
+               for n in (37, 130, 64, 200)]
+    rs = np.random.RandomState(9)
+    return prompts + [rs.randint(0, V, (n,)).astype(np.int32)
+                      for n in (300, 450)]
+
+
+def recording_transport(replicas):
+    """An InProcTransport that keeps every adopted payload with its
+    destination (phase 4d holds them to the destination's pages)."""
+    from paddle_tpu_torch.serving_fabric import InProcTransport
+
+    class Recording(InProcTransport):
+        def __init__(self):
+            super().__init__(replicas)
+            self.adopted = []
+
+        def adopt(self, name, payload):
+            n = super().adopt(name, payload)
+            self.adopted.append((name, payload))
+            return n
+    return Recording()
+
+
+def adopted_equal(torch, tr):
+    """Each adopted payload against its destination's export of the same
+    tokens: kv (and scales) equal bit for bit, the same sha256."""
+    out = []
+    for name, pay in tr.adopted:
+        back = tr._replicas[name].engine.serialize_pages(pay["tokens"])
+        same = (back is not None and back["sha256"] == pay["sha256"]
+                and torch.equal(back["kv"], pay["kv"]))
+        if pay.get("scales") is not None:
+            same = same and torch.equal(back["scales"], pay["scales"])
+        out.append(bool(same))
+    return out
+
+
+def phase_fabric_equality(torch, pt, dev, make_cfg, threshold=128):
+    """Phase 4d: the serving fabric at Llama-3-8B widths, 2 layers, fp32,
+    seeded weights: a prefill replica and a "both" replica over one
+    model, disaggregation at ``threshold`` tokens. Every prompt at or
+    over it is handed off; greedy tokens equal the plain path on the
+    CPU; pages exported == adopted > 0 and the adopted pages equal the
+    exporter's bit for bit; a forced-dense engine equals the paged one.
+    Then the int8 arm: the same fabric over the quantized model, one
+    request at a time, against one int8 engine with the prefix cache
+    that serves a handed-off prompt as the fabric does (a one-token
+    prefill first, then the request over its own cached pages); codes
+    and scales adopted bit for bit, and a v1 payload refused."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    from paddle_tpu_torch.serving_fabric import (ServingFabric,
+                                                 build_replicas)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = make_cfg(num_hidden_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(7, dev))
+    ref = copy.deepcopy(model).to("cpu")
+    prompts = fabric_prompts(cfg.vocab_size)
+    n_new, page, max_len = 8, 128, 512
+    gc = GenerationConfig(max_new_tokens=n_new)
+    long_ = [len(p) >= threshold for p in prompts]
+
+    def fabric(m, **kw):
+        tr = recording_transport(build_replicas(
+            m, 2, roles=["prefill", "both"], page_size=page,
+            max_len=max_len, generation_config=gc, **kw))
+        fab = ServingFabric(tr, disagg_threshold_tokens=threshold)
+        fids = [fab.submit(p, n_new) for p in prompts]
+        out = fab.run()
+        engines = [r.engine for r in tr._replicas.values()]
+        st = fab.stats()
+        counts = {"handoffs": fab.handoffs,
+                  "handoff_failures": fab.handoff_failures,
+                  "replicas_dead": st["replicas_dead"],
+                  "readmitted": st["readmitted"],
+                  "handed_off": sorted(len(p["tokens"]) for _, p in
+                                       tr.adopted),
+                  "pages_exported": sum(e.pages_exported for e in engines),
+                  "pages_adopted": sum(e.pages_adopted for e in engines)}
+        counts["adopted_equal"] = adopted_equal(torch, tr)
+        return [out[f] for f in fids], counts, tr
+
+    got, counts, _ = fabric(model)
+    # phase 4 served its four prompts with the same seeded model: its
+    # plain streams are theirs; the two longer prompts run here
+    want = [np.asarray(w, np.int32)
+            for w in RESULTS["engine_equality"]["plain"]]
+    with torch.inference_mode():
+        want += [plain_greedy(torch, ref, p, n_new, page)
+                 for p in prompts[len(want):]]
+    same = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+
+    def engine_tokens(crossover):
+        eng = ContinuousBatchingEngine(model, page_size=page,
+                                       max_len=max_len, generation_config=gc,
+                                       attn_crossover=crossover)
+        rids = [eng.submit(p) for p in prompts]
+        out = eng.run()
+        return [out[r] for r in rids], dict(eng.attn_path_ticks)
+    dense, dense_ticks = engine_tokens(max_len)
+    paged, paged_ticks = engine_tokens(0)
+    dense_same = [bool(np.array_equal(a, b)) for a, b in zip(dense, paged)]
+    handed_want = sorted((len(p) // page) * page
+                         for p, lg in zip(prompts, long_) if lg)
+    res = {"equal_plain": same, "counts": counts,
+           "dense_equal_paged": dense_same, "dense_ticks": dense_ticks,
+           "paged_ticks": paged_ticks}
+    log(f"fabric equality (llama3_8b widths, 2 layers, fp32; prefill + both "
+        f"replicas, disagg at {threshold} tokens): {sum(same)}/{len(same)} "
+        f"requests equal the plain path; {counts}; forced-dense engine "
+        f"{sum(dense_same)}/{len(dense_same)} equal the paged one (ticks "
+        f"{dense_ticks} / {paged_ticks})")
+    ok = (all(same) and all(dense_same)
+          and counts["handed_off"] == handed_want
+          and counts["handoffs"] == sum(long_)
+          and counts["handoff_failures"] == counts["readmitted"] == 0
+          and not counts["replicas_dead"]
+          and counts["pages_exported"] == counts["pages_adopted"] > 0
+          and all(counts["adopted_equal"])
+          and dense_ticks["paged"] == 0 < dense_ticks["dense"]
+          and paged_ticks["dense"] == 0 < paged_ticks["paged"])
+    # the int8 arm
+    qmodel = quantize_model(model, kv_dtype="int8")
+    del model
+    qgot, qcounts, qtr = fabric(qmodel, max_batch=1, num_pages=32)
+    single = ContinuousBatchingEngine(qmodel, max_batch=1, page_size=page,
+                                      max_len=max_len, num_pages=32,
+                                      generation_config=gc,
+                                      prefix_cache=True)
+    qwant = []
+    for p, lg in zip(prompts, long_):
+        if lg:
+            single.submit(p, max_new_tokens=1)
+            single.run()
+        rid = single.submit(p)
+        qwant.append(single.run()[rid])
+    qsame = [bool(np.array_equal(g, w)) for g, w in zip(qgot, qwant)]
+    name, pay = qtr.adopted[0]
+    eng = qtr._replicas[name].engine
+    v1 = dict(pay, fmt="pt-kv-pages-v1")
+    free0 = sorted(eng._free)
+    try:
+        eng.adopt_pages(v1)
+        v1_refused = False
+    except ValueError:
+        v1_refused = sorted(eng._free) == free0
+    res["int8"] = {"equal_single": qsame, "counts": qcounts,
+                   "v1_refused": v1_refused}
+    log(f"fabric equality, int8 arm (one request at a time): "
+        f"{sum(qsame)}/{len(qsame)} requests equal the single int8 engine; "
+        f"{qcounts}; v1 payload refused {v1_refused}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    RESULTS["fabric_equality"] = res
+    ok = ok and (all(qsame) and v1_refused
+                 and qcounts["handed_off"] == handed_want
+                 and qcounts["handoff_failures"] == qcounts["readmitted"] == 0
+                 and not qcounts["replicas_dead"]
+                 and qcounts["pages_exported"] == qcounts["pages_adopted"] > 0
+                 and all(qcounts["adopted_equal"]))
+    del qmodel, ref, single, eng, qtr
+    empty_cache(torch, dev)
+    if not ok:
+        raise SystemExit(f"fabric equality failed: {res}")
+
+
 # Phase 4b holds the card's int8 model (kernels) to the CPU's (plain
 # versions), both fp32 over the same int8 weights. The two compute K/V in
 # other summation orders (1e-6 apart), so a code whose value lies within
@@ -2132,6 +2345,257 @@ def serve_run(torch, dev, model, label, kernels, feats=None,
     return info, streams
 
 
+CROSSOVER_CTX = (128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def crossover_sweep(torch, dev, model, label):
+    """Phase 3c: one decode step of ``model`` (``decode_step_paged`` and
+    the head) at B = 8 rows at context c, for c in CROSSOVER_CTX, under
+    the paged route and the dense route (``force_decode_impl``), over a
+    table that covers exactly c tokens a row (the dense route gathers
+    the whole table: this is its best case); CUDA events, median of 10
+    after 2 warm-ups. The step is host-bound (its launches take longer
+    to enqueue than the card takes to run them), so its times are
+    printed and not used. The two routes differ only in the attention,
+    so the crossover comes from one layer's attention alone, timed on
+    the device (the paged kernel against ``paged_decode_dense``, L2
+    flushed, the host given a head start, median of 25): the largest
+    context up to which the dense route was faster at every context
+    swept (0: paged at every context). Fails when that is not the
+    port's ``paged_decode_crossover()``."""
+    from paddle_tpu_torch.ops.attention import (force_decode_impl,
+                                                paged_decode_attention,
+                                                paged_decode_crossover,
+                                                paged_decode_dense)
+    core = model.model
+    B, page = SERVE_KW["max_batch"], SERVE_KW["page_size"]
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    rows, crossover, dense_ahead = [], 0, True
+    for ctx in CROSSOVER_CTX:
+        pools, tables = core.alloc_paged_caches(B, ctx, page)
+        tok = torch.zeros((B,), dtype=torch.int64, device=dev)
+        pos = torch.full((B,), ctx - 1, dtype=torch.int64, device=dev)
+        row = {"ctx": ctx}
+        with torch.inference_mode():
+            for impl in ("paged", "dense"):
+                def step():
+                    with force_decode_impl(impl):
+                        h, _ = core.decode_step_paged(tok, pos, pools,
+                                                      tables)
+                        return model.logits(h[:, 0])
+                for _ in range(2):
+                    step()
+                times = []
+                for _ in range(10):
+                    sync(torch, dev)
+                    span = DeviceSpan(torch, dev)
+                    step()
+                    times.append(span.end())
+                row[f"{impl}_step_ms"] = statistics.median(times)
+            kv = pools[0]
+            q = torch.randn((B, model.cfg.num_attention_heads,
+                             model.cfg.head_dim), device=dev).to(
+                                 core.embed_tokens.dtype)
+            scales = ({"k_scales": kv[2], "v_scales": kv[3]}
+                      if len(kv) == 4 else {})
+            for impl, fn in (("paged", paged_decode_attention),
+                             ("dense", paged_decode_dense)):
+                row[f"{impl}_attention_ms"] = timed_ms(
+                    torch, lambda: fn(q, kv[0], kv[1], tables, pos, **scales),
+                    flush)
+        dense_ahead = (dense_ahead and row["dense_attention_ms"]
+                       < row["paged_attention_ms"])
+        if dense_ahead:
+            crossover = ctx
+        rows.append(row)
+        del pools, tables
+        empty_cache(torch, dev)
+    del flush
+    for r in rows:
+        log(f"{label} crossover sweep, ctx {r['ctx']}: decode step paged "
+            f"{r['paged_step_ms']:.3f} ms, dense {r['dense_step_ms']:.3f} ms;"
+            f" one layer's attention paged {r['paged_attention_ms'] * 1e3:.1f}"
+            f" us, dense {r['dense_attention_ms'] * 1e3:.1f} us {card_line()}")
+    step_dense = sum(r["dense_step_ms"] < r["paged_step_ms"] for r in rows)
+    default = paged_decode_crossover()
+    log(f"{label}: the crossover the attention's device times imply is "
+        f"{crossover} tokens (B={B}, page {page}); the port's default "
+        f"paged_decode_crossover() = {default}; the host-bound whole step "
+        f"was faster dense at {step_dense} of {len(rows)} contexts "
+        f"(reported only) {card_line()}")
+    RESULTS[label + "_crossover"] = {"rows": rows, "crossover": crossover,
+                                     "default": default,
+                                     "step_dense_faster": step_dense}
+    if crossover != default:
+        raise SystemExit(f"{label}: the measured crossover {crossover} is "
+                         f"not the port's default {default}")
+    return crossover
+
+
+SAMPLED_KNOBS = {"do_sample": True, "temperature": 0.8, "top_k": 40,
+                 "top_p": 0.95}
+FABRIC_THRESHOLD = 512
+
+
+def handoff_alone(torch, dev, model, src, prompt, reps=3):
+    """One handoff of ``prompt``'s pages from engine ``src`` on the idle
+    card, after phase 5d's window (the window itself times no handoff:
+    a wait there would drain the replicas' queued decode work): host ms
+    of ``serialize_pages`` (the gather and copy to the host, then the
+    sha256), of the sha256 alone over the same payload, and of
+    ``adopt_pages`` into a fresh engine with the prefix cache (the
+    sha256 check, then the copy up), its copies waited for; medians of
+    ``reps``. Returns ms a page."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.inference.serving import _payload_sha256
+    ext, hsh, adp = [], [], []
+    for _ in range(reps):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        pay = src.serialize_pages(prompt)
+        ext.append((time.perf_counter() - t0) * 1e3)
+        if pay is None:
+            raise SystemExit("handoff_alone: the prefill replica holds no "
+                             "page of the prompt")
+        t0 = time.perf_counter()
+        _payload_sha256(pay["tokens"], pay["kv"], pay.get("scales"))
+        hsh.append((time.perf_counter() - t0) * 1e3)
+        n = pay["shape"][3]
+        dst = ContinuousBatchingEngine(
+            model, max_batch=1, page_size=SERVE_KW["page_size"],
+            max_len=SERVE_KW["max_len"], num_pages=n, prefix_cache=True)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        if len(dst.adopt_pages(pay)) != n:
+            raise SystemExit("handoff_alone: the fresh engine did not adopt "
+                             "every page")
+        sync(torch, dev)
+        adp.append((time.perf_counter() - t0) * 1e3)
+        del dst
+    med = statistics.median
+    return {"pages": n, "bytes_a_page": pay["kv"].nbytes // n,
+            "extract_ms_per_page": med(ext) / n,
+            "sha256_ms_per_page": med(hsh) / n,
+            "adopt_ms_per_page": med(adp) / n}
+
+
+def fabric_run(torch, dev, model, label, kernels, serve_label, n_req=16):
+    """Phase 5d: the first ``n_req`` of phase 5's 16 requests (SERVE_NEW
+    tokens, every 4th sampled) through ServingFabric(InProcTransport(
+    build_replicas(model, 2, roles=["prefill", "both"], **SERVE_KW)),
+    policy="affinity", disagg_threshold_tokens=FABRIC_THRESHOLD), after
+    a warm-up fabric on two prompts; launch counts reset just before and
+    read just after. Prints requests sent / succeeded / failed, tokens/s,
+    TTFT and ITL, requests handed off, pages exported / adopted, each
+    replica's attention-route ticks and launches, beside phase
+    ``serve_label``'s numbers of the same call; then one handoff timed
+    alone (``handoff_alone``). Fails on a failed request, a handoff that
+    failed or did not happen (every prompt at or over the threshold is
+    handed off), a replica marked down or a request re-admitted, no
+    adopted page, or a kernel of ``kernels`` not launched."""
+    from paddle_tpu_torch.inference import GenerationConfig
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.serving_fabric import (InProcTransport,
+                                                 ServingFabric,
+                                                 build_replicas)
+    V = model.cfg.vocab_size
+    prompts = serving_traffic(V)[0][:n_req]
+
+    def fabric():
+        tr = InProcTransport(build_replicas(
+            model, 2, roles=["prefill", "both"],
+            generation_config=GenerationConfig(seed=0), **SERVE_KW))
+        return tr, ServingFabric(tr, policy="affinity",
+                                 disagg_threshold_tokens=FABRIC_THRESHOLD)
+    tr, fab = fabric()            # warm-up: one handed-off prompt, one not
+    long_ = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    fab.submit(prompts[long_], 4)
+    fab.submit(prompts[0], 4, knobs=SAMPLED_KNOBS)
+    fab.run()
+    del tr, fab
+    empty_cache(torch, dev)
+    sync(torch, dev)
+    tr, fab = fabric()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fids = [fab.submit(p, SERVE_NEW,
+                       knobs=SAMPLED_KNOBS if i % 4 == 3 else None)
+            for i, p in enumerate(prompts)]
+    out = fab.run()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    ok = [f for f in fids if out.get(f) is not None
+          and len(out[f]) == SERVE_NEW and int(out[f].min()) >= 0
+          and int(out[f].max()) < V]
+    n_tok = sum(len(out[f]) for f in fids if out.get(f) is not None)
+    lat = fab.latency_stats()
+    st = fab.stats()
+    engines = {r.name: r.engine for r in tr._replicas.values()}
+    exported = sum(e.pages_exported for e in engines.values())
+    adopted = sum(e.pages_adopted for e in engines.values())
+    long_want = sum(len(p) >= FABRIC_THRESHOLD for p in prompts)
+    info = {"requests_sent": len(fids), "requests_succeeded": len(ok),
+            "requests_failed": len(fids) - len(ok),
+            "generated_tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall, "latency": lat,
+            "handed_off": fab.handoffs, "long_prompts": long_want,
+            "handoff_failures": fab.handoff_failures,
+            "replicas_dead": st["replicas_dead"],
+            "readmitted": st["readmitted"],
+            "pages_exported": exported, "pages_adopted": adopted,
+            "attn_path_ticks": {n: dict(e.attn_path_ticks)
+                                for n, e in engines.items()},
+            "routed": st["routed"], "launches": launches}
+    src = next(r.engine for r in tr._replicas.values()
+               if r.role == "prefill")
+    info["handoff_alone"] = handoff_alone(torch, dev, model, src,
+                                          prompts[long_])
+    RESULTS[label] = info
+    base = RESULTS[serve_label]
+    blat = base["latency"]
+    ha = info["handoff_alone"]
+    log(f"{label} (prefill + both replicas, affinity, disagg at "
+        f"{FABRIC_THRESHOLD} tokens): requests sent {len(fids)}, succeeded "
+        f"{len(ok)}, failed {len(fids) - len(ok)}; generated {n_tok} in "
+        f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; TTFT p50 "
+        f"{lat['ttft_p50_s'] * 1e3:.1f} ms p99 {lat['ttft_p99_s'] * 1e3:.1f}"
+        f" ms; ITL p50 {lat['itl_p50_s'] * 1e3:.2f} ms p99 "
+        f"{lat['itl_p99_s'] * 1e3:.2f} ms; handed off {fab.handoffs} of "
+        f"{long_want} prompts at or over the threshold (failures "
+        f"{fab.handoff_failures}, replicas down {st['replicas_dead']}, "
+        f"re-admitted {st['readmitted']}); pages exported {exported}, "
+        f"adopted {adopted}; attention route ticks {info['attn_path_ticks']}"
+        f"; routed {info['routed']} {card_line()}")
+    log(f"{label}: one handoff alone on the idle card ({ha['pages']} pages "
+        f"of {ha['bytes_a_page']} bytes, median of 3): extract "
+        f"{ha['extract_ms_per_page']:.3f} ms a page (of which sha256 "
+        f"{ha['sha256_ms_per_page']:.3f}), adopt "
+        f"{ha['adopt_ms_per_page']:.3f} ms a page (its sha256 check the "
+        f"same) {card_line()}")
+    log(f"{label} ({len(fids)} requests) beside {serve_label} "
+        f"({base['requests_sent']}; same call): {n_tok / wall:.1f} vs "
+        f"{base['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+        f"{lat['ttft_p50_s'] * 1e3:.1f} vs {blat['ttft_p50_s'] * 1e3:.1f} ms;"
+        f" ITL p50 {lat['itl_p50_s'] * 1e3:.2f} vs "
+        f"{blat['itl_p50_s'] * 1e3:.2f} ms, p99 "
+        f"{lat['itl_p99_s'] * 1e3:.2f} vs {blat['itl_p99_s'] * 1e3:.2f} ms")
+    log(f"{label} launches: {launches} {card_line()}")
+    del tr, fab, engines, src
+    empty_cache(torch, dev)
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the {label} path: "
+                         f"{missing}")
+    if (len(ok) != len(fids) or adopted <= 0
+            or info["handed_off"] != long_want or info["handoff_failures"]
+            or info["replicas_dead"] or info["readmitted"]):
+        raise SystemExit(f"{label}: {len(fids) - len(ok)} requests failed, "
+                         f"{adopted} pages adopted, handoffs or replicas "
+                         f"failed; {info}")
+    return launches
+
+
 def decode_step_probe(torch, dev, model, label):
     """After phase 5's or 5b's counted run: the launches of one call of
     each paged entry point (a PROMPT_LENS[0]-token prefill, a decode
@@ -2288,9 +2752,16 @@ def phase_serving(torch, pt, dev, make_cfg):
     native, native_streams = serve_run(torch, dev, model, "serving",
                                        SERVING_KERNELS)
     decode_step_probe(torch, dev, model, "serving")
+    mark("5 serving")
+    cross = crossover_sweep(torch, dev, model, "serving")
+    mark("3c crossover, native")
     features = {label: serve_run(torch, dev, model, label, kernels, feats,
                                  traffic)[0]["launches"]
                 for label, feats, traffic, kernels in FEATURE_RUNS}
+    mark("5c features, native")
+    features["fabric"] = fabric_run(torch, dev, model, "fabric",
+                                    SERVING_KERNELS, "serving")
+    mark("5d fabric, native")
     profile_ctx(torch, dev, model, "serving_features")
     t0 = time.perf_counter()
     qmodel = quantize_model(model, kv_dtype="int8")
@@ -2303,6 +2774,14 @@ def phase_serving(torch, pt, dev, make_cfg):
                                      "quantized_serving",
                                      QUANT_SERVING_KERNELS)
     decode_step_probe(torch, dev, qmodel, "quantized_serving")
+    mark("5b quantized serving")
+    qcross = crossover_sweep(torch, dev, qmodel, "quantized_serving")
+    mark("3c crossover, int8")
+    RESULTS["crossover"] = {"native": cross, "int8": qcross}
+    features["fabric_int8"] = fabric_run(torch, dev, qmodel, "fabric_int8",
+                                         QUANT_SERVING_KERNELS,
+                                         "quantized_serving", n_req=8)
+    mark("5d fabric, int8")
     # greedy requests only (every 4th samples): the share of positions
     # where the quantized stream equals the native one (reported only:
     # random weights have near-ties)
@@ -2336,6 +2815,7 @@ def phase_serving(torch, pt, dev, make_cfg):
     features[label] = serve_run(torch, dev, qmodel, label, kernels, feats,
                                 traffic)[0]["launches"]
     profile_ctx(torch, dev, qmodel, label)
+    mark("5c features, int8")
     del qmodel
     empty_cache(torch, dev)
     return native["launches"], quant["launches"], features
@@ -3308,7 +3788,7 @@ def main() -> int:
                                               fused_norm, fused_rope,
                                               fused_vocab_ce, grouped_matmul,
                                               int8_matmul, paged_attention)
-    t_start = time.perf_counter()
+    t_start = _MARK[0] = time.perf_counter()
     # 1. the card
     card = pt.device_info()
     log(card)
@@ -3319,6 +3799,7 @@ def main() -> int:
     path = _build.library_path()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s -> {path}")
     RESULTS["build"] = {k: v for k, v in _build.BUILD_LOG.items()}
+    mark("build")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with torch.inference_mode():
@@ -3328,6 +3809,8 @@ def main() -> int:
     phase_ce_kernels(torch, pt)
     with torch.inference_mode():
         phase_moe_kernels(torch, pt)
+    mark("3 kernels")
+    with torch.inference_mode():
         if "--parent" in sys.argv:
             phase_parent_turns(torch, sys.argv[sys.argv.index("--parent")
                                                 + 1])
@@ -3337,19 +3820,27 @@ def main() -> int:
     from paddle_tpu_torch.models import LlamaConfig, MoEConfig
     dev = torch.device("cuda")
     phase_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("4 engine equality")
     phase_quant_engine_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("4b quantized engine equality")
     phase_feature_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("4c feature equality")
+    phase_fabric_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("4d fabric equality")
     serve_launches, quant_launches, feature_launches = phase_serving(
         torch, pt, dev, LlamaConfig.llama3_8b)
     ref = phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b,
                                "float32")
     phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b, "bfloat16")
     phase_recompute_equality(torch, pt, dev, LlamaConfig.llama3_8b, ref)
+    mark("6 training equality")
     train_launches = phase_train(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("7 training")
     phase_moe_sync(torch, pt, dev)
     for dtype in ("float32", "bfloat16"):
         phase_moe_equality(torch, pt, dev, MoEConfig.deepseek_moe_16b, dtype)
     moe_launches = phase_moe_train(torch, pt, dev, MoEConfig.deepseek_moe_16b)
+    mark("8 MoE")
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 

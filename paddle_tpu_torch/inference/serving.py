@@ -61,11 +61,24 @@ Serving-engine features, each off by default:
   along), ``kv_quant`` says so and ``kv_quant_ticks`` counts the decode
   blocks dispatched over them. Idle slots' K/V land on the garbage page
   and grow only its scale.
-
-Not ported yet, each listed in ROADMAP.md: KV-page handoff, admission
-policies and the dense/paged crossover (the port always decodes through
-the paged kernel), and the metrics/tracing/sentry hooks (``submit``
-takes no ``trace=``, the engine no ``name=``).
+- The dense/paged crossover (``attn_crossover``, default
+  ``ops.attention.paged_decode_crossover()``): each decode block takes
+  the dense route (``paged_decode_dense``) when the batch's largest
+  projected context after the block is at or below it, the paged kernel
+  otherwise; ``attn_path_ticks`` counts the blocks of each route.
+  Speculative ticks have no such fork.
+- Admission policies (``admission=``, ``inference.admission``): the
+  policy picks which queued request to admit (priced by
+  ``_uncached_tokens``) or defers all, and picks the preemption victim.
+- KV-page handoff (``serialize_pages`` / ``adopt_pages``, the prefill to
+  decode transfer of ``serving_fabric``): a payload holds the pages the
+  prefix tree covers for a token run, in the JAX package's layout and
+  format, with a sha256 that adoption checks before it touches the pool.
+- Metrics and tracing: with ``observability.REGISTRY`` enabled the engine
+  publishes ``pt_serving_*`` gauges each tick and counters and
+  percentiles at ``publish_metrics()`` (labelled ``engine=<name>`` when
+  named); ``submit(trace=)`` stitches replica spans under a caller's
+  trace context.
 
 The engine is exact over native pools: greedy outputs equal per-request
 greedy decoding whatever the batching, preemption, pipelining, chunking,
@@ -77,6 +90,7 @@ pages it was given (ROADMAP.md, D4).
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import time
 from collections import Counter, deque
@@ -86,10 +100,25 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..observability.metrics import REGISTRY as _REG
+from ..observability.tracing import TRACER as _TRACE
+from ..ops.attention import force_decode_impl, paged_decode_crossover
+from .admission import AdmissionPolicy, VictimInfo
 from .generation import (GenerationConfig, decode_stop_update,
                          sample_logits_per_slot)
 from .prefix_cache import RadixPrefixCache
 from .speculative import DraftProvider, NgramDraftProvider
+
+# the KV-page handoff payload's format (serialize_pages / adopt_pages),
+# the JAX package's: v2 carries the pool dtype and, for int8 pools, the
+# per-page fp32 K/V scales; v1 (scale-less, float pages) is adopted by
+# native pools only
+HANDOFF_FMT = "pt-kv-pages-v2"
+HANDOFF_FMT_V1 = "pt-kv-pages-v1"
+# a payload's dtype names (numpy's and JAX's) and the pool dtypes
+HANDOFF_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "int8": torch.int8}
+_DTYPE_NAMES = {v: k for k, v in HANDOFF_DTYPES.items()}
 
 
 @dataclass
@@ -114,6 +143,9 @@ class _Request:
     itl_gaps: List[float] = field(default_factory=list)
     prefilled: int = 0                  # KV tokens written so far
     prefill_target: int = 0             # prompt + replay length
+    # tracing: {"tr": tracer, "parent": wire ctx, "queue"/"res": open
+    # spans, "last": decode-epoch wall stamp}; None when untraced
+    tspans: Optional[dict] = None
 
 
 @dataclass
@@ -151,6 +183,24 @@ def _entry_page_copy(entry, src: int, dst: int) -> None:
             a[dst].copy_(a[src])
 
 
+def _payload_sha256(toks: np.ndarray, kv: torch.Tensor,
+                    scales: Optional[torch.Tensor] = None) -> str:
+    """The handoff checksum, the JAX package's: sha256 over the bytes of
+    tokens, kv and scales in row-major order (bf16 as its 16-bit
+    patterns, as ``ml_dtypes.bfloat16`` holds them), hashed in place."""
+    h = hashlib.sha256(np.ascontiguousarray(toks, np.int32))
+    for t in (kv, scales):
+        if t is not None:
+            h.update(t.contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def _is_host_tensor(a) -> bool:
+    """A payload's arrays are CPU tensors (``payload_from_wire`` makes
+    them from the wire form)."""
+    return isinstance(a, torch.Tensor) and a.device.type == "cpu"
+
+
 class ContinuousBatchingEngine:
     """Continuous batching over a model exposing ``alloc_paged_caches`` /
     ``prefill_paged`` / ``decode_step_paged`` (and, for chunked prefill,
@@ -160,7 +210,12 @@ class ContinuousBatchingEngine:
 
     ``async_depth``: in-flight dispatch window; 1 is synchronous.
     ``spec_k``: draft tokens a speculative tick (0 = off); a tick is then
-    one ``spec_k + 1``-wide verify and ``decode_block`` is not read."""
+    one ``spec_k + 1``-wide verify and ``decode_block`` is not read.
+    ``attn_crossover``: context length at or below which a decode block
+    takes the dense route (default ``paged_decode_crossover()``).
+    ``admission``: an ``AdmissionPolicy`` (None: FIFO admission and the
+    newest request as the preemption victim).
+    ``name``: the replica's name, the ``engine=`` label of its metrics."""
 
     def __init__(self, model, max_batch: int = 8, page_size: int = 128,
                  max_len: int = 2048, num_pages: Optional[int] = None,
@@ -169,8 +224,19 @@ class ContinuousBatchingEngine:
                  chunked_prefill: bool = False,
                  prefill_chunk: Optional[int] = None, spec_k: int = 0,
                  draft_provider: Optional[DraftProvider] = None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False,
+                 attn_crossover: Optional[int] = None,
+                 admission: Optional[AdmissionPolicy] = None,
+                 name: Optional[str] = None):
         self.model = model
+        # N engines in one process (the in-process serving fabric) keep
+        # their registry series apart by an engine=<name> label
+        self.name = name or ""
+        self._mlabels: Dict[str, str] = ({"engine": self.name}
+                                         if self.name else {})
+        # a tracer of its own (tests play both sides of a TCP hop in one
+        # process); None: the process tracer
+        self._tracer = None
         self.core = getattr(model, "model", model)
         if spec_k and not hasattr(self.core, "decode_verify_paged"):
             raise ValueError(
@@ -226,6 +292,17 @@ class ContinuousBatchingEngine:
         self.prefix_hit_tokens = 0          # prompt tokens not recomputed
         self.prefix_cow_copies = 0          # shared pages copied on write
         self._prefix_prompt_tokens = 0      # the hit rate's denominator
+        self._admission = admission
+        self._price_cache: Dict[int, tuple] = {}   # rid -> (key, price)
+        # each decode block's attention route: dense at or below the
+        # crossover (the batch's largest projected context), else paged
+        self.attn_crossover = int(paged_decode_crossover()
+                                  if attn_crossover is None
+                                  else attn_crossover)
+        self.attn_path_ticks = {"dense": 0, "paged": 0}
+        # KV-page handoff counters (serialize_pages / adopt_pages)
+        self.pages_exported = 0
+        self.pages_adopted = 0
         # chunked prefill: one page-aligned chunk a tick
         self.chunked_prefill = bool(chunked_prefill)
         self.prefill_chunk = int(prefill_chunk or page_size)
@@ -240,12 +317,37 @@ class ContinuousBatchingEngine:
         self.decode_blocks = 0
         self._latencies = deque(maxlen=10_000)  # (ttft_s, total_s, n_tok)
         self._itl_gaps = deque(maxlen=100_000)
+        # lifetime counters publish_metrics mirrors into the registry as
+        # deltas since its previous call
+        self._tokens_emitted = 0
+        self._requests_retired = 0
+        self._published: Dict[str, float] = {}
+        # gauge handles resolved once: the per-tick path pays no lookup
+        self._g_queue = _REG.gauge("pt_serving_queue_depth",
+                                   "requests waiting for a slot")
+        self._g_inflight = _REG.gauge(
+            "pt_serving_inflight_blocks",
+            "decode blocks dispatched but not yet drained")
+        self._g_active = _REG.gauge("pt_serving_active_slots",
+                                    "slots holding a request")
+        self._g_free = _REG.gauge("pt_serving_free_pages",
+                                  "KV pool pages unclaimed")
+        self._g_occupancy = _REG.gauge(
+            "pt_serving_page_pool_occupancy",
+            "fraction of the KV page pool claimed")
+        self._g_prefix_pages = _REG.gauge(
+            "pt_serving_prefix_shared_pages",
+            "pool pages owned by the radix prefix cache")
+        self._g_prefix_hit = _REG.gauge(
+            "pt_serving_prefix_hit_rate",
+            "prefix-cache hit tokens / admitted prompt tokens")
 
     # -- public API ---------------------------------------------------------
 
     def submit(self, input_ids, max_new_tokens: Optional[int] = None,
                generation_config: Optional[GenerationConfig] = None,
-               rseed: Optional[int] = None, replay_prefix=None) -> int:
+               rseed: Optional[int] = None, replay_prefix=None,
+               trace=None) -> int:
         """Queue one request; returns its id. ``generation_config``
         overrides the sampling knobs and eos for this request;
         ``max_new_tokens`` (default: the engine's config) is its budget;
@@ -253,7 +355,10 @@ class ContinuousBatchingEngine:
         ``replay_prefix`` holds tokens an earlier incarnation already
         emitted: they are prefilled with the prompt (or mapped from the
         prefix cache), count against the budget, and generation resumes
-        at token index ``len(replay_prefix)`` as after a preemption."""
+        at token index ``len(replay_prefix)`` as after a preemption.
+        ``trace``: the wire ``TraceContext`` dict the fabric carried; with
+        the tracer enabled, the request's replica spans (queue, resident,
+        prefill, decode) stitch under it."""
         ids = np.asarray(input_ids, np.int32).reshape(-1)
         gc = generation_config or self.cfg
         new = (max_new_tokens if max_new_tokens is not None
@@ -284,6 +389,13 @@ class ContinuousBatchingEngine:
                        rseed=None if rseed is None else int(rseed))
         req.generated = replay
         req.submit_t = time.perf_counter()
+        if trace is not None:
+            tr = self._tracer or _TRACE
+            if tr.enabled:
+                sp = tr.start("replica::queue", parent=trace,
+                              tags={"rid": req.rid, "engine": self.name})
+                if sp is not None:
+                    req.tspans = {"tr": tr, "parent": trace, "queue": sp}
         self._requests[req.rid] = req
         self._queue.append(req)
         return req.rid
@@ -307,18 +419,23 @@ class ContinuousBatchingEngine:
             emitted.extend(self._reconcile_one())
         while self._inflight and self._block_ready(self._inflight[0]):
             emitted.extend(self._reconcile_one())
+        if _REG.enabled:
+            self._tick_gauges()
         return emitted
 
     @torch.inference_mode()
     def run(self) -> Dict[int, np.ndarray]:
         """Drive until every submitted request completes; returns
         {rid: generated tokens} for the requests this call finished and
-        releases them."""
+        releases them (and publishes the metrics when they are on)."""
         while self.has_work():
             self.step()
         while self._inflight:
             self._reconcile_one()
-        return self.take_finished()
+        out = self.take_finished()
+        if _REG.enabled:
+            self.publish_metrics()
+        return out
 
     def take_finished(self) -> Dict[int, np.ndarray]:
         """Finished requests' token streams (replay prefix included),
@@ -355,7 +472,13 @@ class ContinuousBatchingEngine:
                 self._free_slot(slot, cache=True)
         if req.done:
             return False
+        if req.tspans is not None:
+            for k in ("queue", "res"):
+                sp = req.tspans.pop(k, None)
+                if sp is not None:
+                    sp.tag(outcome="cancelled").end()
         self._requests.pop(rid, None)
+        self._price_cache.pop(rid, None)
         return True
 
     def stats(self) -> Dict[str, int]:
@@ -365,7 +488,9 @@ class ContinuousBatchingEngine:
                "preemptions": self.preemptions,
                "pool_dry_drains": self.pool_dry_drains,
                "inflight": len(self._inflight),
-               "decode_blocks": self.decode_blocks}
+               "decode_blocks": self.decode_blocks,
+               "attn_dense_ticks": self.attn_path_ticks["dense"],
+               "attn_paged_ticks": self.attn_path_ticks["paged"]}
         if self.spec_k:
             out["spec_tokens_proposed"] = self.spec_tokens_proposed
             out["spec_tokens_accepted"] = self.spec_tokens_accepted
@@ -429,6 +554,230 @@ class ContinuousBatchingEngine:
             out["itl_p99_s"] = float(np.percentile(gaps, 99))
         return out
 
+    def reset_latency_stats(self) -> None:
+        """Drop the retired-request latency window (e.g. after a warm-up)."""
+        self._latencies.clear()
+        self._itl_gaps.clear()
+
+    # -- KV-page handoff (the serving fabric's prefill -> decode transfer) --
+
+    def serialize_pages(self, tokens) -> Optional[Dict[str, object]]:
+        """Export the KV pages the radix tree holds for the longest
+        page-aligned prefix of ``tokens``: every layer's K and V pages
+        (``kv`` [L, 2, H_kv, n, page, D], a CPU tensor of the pool's dtype;
+        int8 pools add ``scales`` [L, 2, n] fp32), the covered token run
+        and a sha256 over the bytes of tokens, kv and scales, in the JAX
+        package's layout and format. None when the tree covers no full
+        page of ``tokens``. ``serving_fabric.transport.payload_to_wire``
+        is its wire form."""
+        if self._prefix is None:
+            raise RuntimeError("serialize_pages needs prefix_cache=True "
+                               "(the radix tree owns the exportable "
+                               "pages)")
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        ids = self._prefix.match_page_ids(toks)
+        if not ids:
+            return None
+        toks = toks[:len(ids) * self.page_size]
+        pids = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        kv = torch.stack([torch.stack([e[0][:, pids], e[1][:, pids]])
+                          for e in self.pools]).cpu()
+        scales = (torch.stack([torch.stack([e[2][pids], e[3][pids]])
+                               for e in self.pools]).float().cpu()
+                  if self.kv_quant else None)
+        self.pages_exported += len(ids)
+        payload = {"fmt": HANDOFF_FMT, "page_size": self.page_size,
+                   "tokens": toks, "kv": kv,
+                   "dtype": _DTYPE_NAMES[kv.dtype], "shape": list(kv.shape),
+                   "sha256": _payload_sha256(toks, kv, scales)}
+        if scales is not None:
+            payload["scales"] = scales
+            payload["scales_shape"] = list(scales.shape)
+        return payload
+
+    def adopt_pages(self, payload) -> List[int]:
+        """Adopt a :meth:`serialize_pages` payload into this engine's pool
+        and radix tree (the JAX package's arrives through
+        ``serving_fabric.transport.payload_from_wire``): the pages the
+        tree does not cover yet land in freshly allocated pool pages
+        (under pressure the allocator evicts from the tree) and the token
+        run is inserted at refcount 0, so the next admission of a
+        matching prompt hits. Returns the page ids
+        that became tree-owned ([] when the tree already covered the
+        run). Validation comes first: a payload of an unknown format, a
+        v1 payload into an int8 pool, scales into a native pool, or a
+        shape, dtype or sha256 mismatch raises ValueError, and a pool
+        that cannot hold the pages RuntimeError, before anything
+        changes."""
+        if self._prefix is None:
+            raise RuntimeError("adopt_pages needs prefix_cache=True")
+        fmt = payload.get("fmt") if isinstance(payload, dict) else None
+        if fmt not in (HANDOFF_FMT, HANDOFF_FMT_V1):
+            raise ValueError("handoff payload: unknown format")
+        if fmt == HANDOFF_FMT_V1 and self.kv_quant:
+            raise ValueError("handoff payload: v1 (scale-less) payload "
+                             "cannot seed an int8 KV pool")
+        if int(payload.get("page_size", -1)) != self.page_size:
+            raise ValueError(
+                f"handoff payload: page_size {payload.get('page_size')} "
+                f"!= engine page_size {self.page_size}")
+        toks = np.asarray(payload.get("tokens"), np.int32).reshape(-1)
+        ps = self.page_size
+        if len(toks) == 0 or len(toks) % ps:
+            raise ValueError("handoff payload: token run is not a "
+                             "whole-page multiple")
+        n = len(toks) // ps
+        kp0 = self.pools[0][0]
+        want = (len(self.pools), 2, kp0.shape[0], n, ps, kp0.shape[3])
+        kv = payload.get("kv")
+        if not _is_host_tensor(kv) or tuple(kv.shape) != want \
+                or list(kv.shape) != list(payload.get("shape", [])):
+            raise ValueError(
+                f"handoff payload: kv shape {getattr(kv, 'shape', None)} "
+                f"!= expected {want}")
+        name = _DTYPE_NAMES.get(kv.dtype)
+        if name != payload.get("dtype") or kv.dtype != kp0.dtype:
+            raise ValueError(
+                f"handoff payload: dtype {payload.get('dtype')} != pool "
+                f"dtype {_DTYPE_NAMES.get(kp0.dtype)}")
+        scales = payload.get("scales")
+        if self.kv_quant:
+            sc_want = (len(self.pools), 2, n)
+            if not _is_host_tensor(scales) or tuple(scales.shape) != sc_want \
+                    or scales.dtype != torch.float32 \
+                    or list(scales.shape) != list(
+                        payload.get("scales_shape", [])):
+                raise ValueError(
+                    f"handoff payload: scales shape "
+                    f"{getattr(scales, 'shape', None)} != expected "
+                    f"{sc_want} (int8 pool needs per-page fp32 scales)")
+        elif scales is not None:
+            raise ValueError("handoff payload: scales present but this "
+                             "engine's KV pool is not quantized")
+        if _payload_sha256(toks, kv, scales) != payload.get("sha256"):
+            raise ValueError("handoff payload: checksum mismatch "
+                             "(corrupt or truncated transfer)")
+        # validated: only now touch the pool, and stage only the uncovered
+        # whole-page suffix (allocating the covered pages under pressure
+        # could evict the very prefixes the transfer exists to seed)
+        k = min(self._prefix.match(toks, touch=False) // ps, n)
+        if k >= n:
+            return []
+        pages = self._alloc_pages(n - k, protect=toks)
+        if pages is None:
+            raise RuntimeError(
+                f"adopt_pages: pool cannot hold {n - k} more pages "
+                f"even after tree eviction; raise num_pages")
+        pids = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        data = kv[:, :, :, k:].to(self.device)
+        sc = scales[:, :, k:].to(self.device) if self.kv_quant else None
+        for i, e in enumerate(self.pools):
+            e[0][:, pids] = data[i, 0]
+            e[1][:, pids] = data[i, 1]
+            if sc is not None:
+                e[2][pids] = sc[i, 0]
+                e[3][pids] = sc[i, 1]
+        # insert walks the whole run; the covered prefix takes page-id
+        # placeholders it never reads (it consumes ids from the first
+        # uncovered boundary on)
+        donated = self._prefix.insert(toks, [0] * k + pages, lock=None)
+        assert set(donated) <= set(pages), \
+            "placeholder page id donated to the tree"
+        taken = set(donated)
+        self._free.extend(p for p in pages if p not in taken)
+        self.pages_adopted += len(donated)
+        return donated
+
+    # -- metrics -------------------------------------------------------------
+
+    def _tick_gauges(self) -> None:
+        """Per-tick point-in-time gauges (reached only with the registry
+        enabled)."""
+        lb = self._mlabels
+        self._g_queue.set(len(self._queue), **lb)
+        self._g_inflight.set(len(self._inflight), **lb)
+        self._g_active.set(sum(s is not None for s in self._slots), **lb)
+        self._g_free.set(len(self._free), **lb)
+        self._g_occupancy.set(
+            1.0 - len(self._free) / max(self._total_pages, 1), **lb)
+        if self._prefix is not None:
+            self._g_prefix_pages.set(self._prefix.num_pages, **lb)
+
+    def publish_metrics(self) -> Dict[str, float]:
+        """Mirror the engine's counters and latency percentiles into the
+        metrics registry under the JAX package's ``pt_serving_*`` names.
+        Lifetime counters publish as deltas since the previous call, so
+        registry counters stay monotonic; an empty latency window clears
+        its percentile gauges. Called by ``run()``; returns
+        ``latency_stats()``."""
+        lat = self.latency_stats()
+        if not _REG.enabled:
+            return lat
+        lb = self._mlabels
+        for name, val, help in (
+                ("pt_serving_preemptions_total", self.preemptions,
+                 "recompute-policy slot evictions"),
+                ("pt_serving_pool_dry_drains_total", self.pool_dry_drains,
+                 "dry pools answered by draining the in-flight window"),
+                ("pt_serving_tokens_total", self._tokens_emitted,
+                 "tokens emitted to clients"),
+                ("pt_serving_requests_total", self._requests_retired,
+                 "requests retired"),
+                ("pt_spec_tokens_proposed_total",
+                 self.spec_tokens_proposed,
+                 "draft tokens scored by speculative verify passes"),
+                ("pt_spec_tokens_accepted_total",
+                 self.spec_tokens_accepted,
+                 "draft tokens committed by speculative verify passes"),
+                ("pt_serving_prefix_hit_tokens_total",
+                 self.prefix_hit_tokens,
+                 "prompt tokens served from shared prefix pages"),
+                ("pt_serving_cow_copies_total", self.prefix_cow_copies,
+                 "shared pages copy-on-written at divergence"),
+                ("pt_serving_kv_quant_ticks_total", self.kv_quant_ticks,
+                 "decode/verify ticks served from an int8 KV pool")):
+            prev = self._published.get(name, 0)
+            if val > prev:
+                _REG.counter(name, help).inc(val - prev, **lb)
+            self._published[name] = val
+        sp = self.spec_stats()
+        if "spec_accept_rate" in sp:
+            _REG.gauge("pt_spec_accept_rate",
+                       "accepted / proposed speculative drafts").set(
+                sp["spec_accept_rate"], **lb)
+        if "spec_mean_accepted_len" in sp:
+            _REG.gauge("pt_spec_mean_accepted_len",
+                       "mean committed tokens per speculative drain").set(
+                sp["spec_mean_accepted_len"], **lb)
+        if self._prefix is not None and self._prefix_prompt_tokens:
+            self._g_prefix_hit.set(self.prefix_hit_tokens
+                                   / self._prefix_prompt_tokens, **lb)
+        _REG.gauge("pt_serving_kv_quant_enabled",
+                   "1 when the KV page pool is int8 with per-page "
+                   "scales").set(float(self.kv_quant), **lb)
+        if self.kv_quant:
+            _REG.gauge("pt_serving_kv_quant_pool_bytes",
+                       "HBM bytes held by the int8 KV pool incl. scale "
+                       "arrays", "By").set(float(sum(
+                           a.numel() * a.element_size()
+                           for e in self.pools for a in e)), **lb)
+        for key, metric in (("ttft", "pt_serving_ttft_seconds"),
+                            ("latency", "pt_serving_latency_seconds"),
+                            ("itl", "pt_serving_itl_seconds")):
+            for q in ("p50", "p99"):
+                v = lat.get(f"{key}_{q}_s")
+                g = _REG.gauge(metric, f"{key} percentile over the "
+                                       f"retired-request window", "s")
+                if v is not None:
+                    g.set(v, q=q, **lb)
+                else:
+                    g.clear(q=q, **lb)
+        _REG.gauge("pt_serving_window_requests",
+                   "retired requests in the latency window").set(
+            lat.get("requests", 0), **lb)
+        self._tick_gauges()
+        return lat
+
     # -- page allocator -----------------------------------------------------
 
     def _alloc_pages(self, n: int, protect=None) -> Optional[List[int]]:
@@ -468,6 +817,11 @@ class ContinuousBatchingEngine:
         if req is not None:
             req.slot = -1
             req.prefilled = 0     # the freed pages took the written KV
+            if req.tspans is not None:
+                rsp = req.tspans.pop("res", None)
+                if rsp is not None:
+                    rsp.tag(reason="done" if req.done else "preempt",
+                            n=len(req.generated)).end()
 
     # -- device-resident scheduler state ------------------------------------
 
@@ -523,6 +877,9 @@ class ContinuousBatchingEngine:
         self._proj_pos[slot] = L
         self._proj_gen[slot] = len(req.generated)
         self._dosample[slot] = req.do_sample
+        if req.tspans is not None:
+            # the first replica::decode span of this residency starts here
+            req.tspans["last"] = time.time()
         if self.spec_k:
             row = np.zeros((self.max_len,), np.int64)
             row[:L] = self._req_tokens(req)
@@ -608,13 +965,64 @@ class ContinuousBatchingEngine:
                             [int(p) for p in self.tables[slot, :n_ins]],
                             lock)
 
+    def _uncached_tokens(self, req: _Request) -> int:
+        """Predicted prefill cost of admitting ``req`` now: the tokens its
+        admission would recompute (1 for a full-prompt hit, the logits
+        re-forward). The admission policy prices with it. Prices are
+        cached per request against the tree's mutation epoch and the
+        replay length; a pricing read does not touch the tree's LRU."""
+        L = len(req.prompt) + len(req.generated)
+        if self._prefix is None:
+            return L
+        key = (self._prefix.epoch, L)
+        hit = self._price_cache.get(req.rid)
+        if hit is not None and hit[0] == key:
+            return hit[1]
+        m = self._prefix.match(self._req_tokens(req), touch=False)
+        if m >= L and hasattr(self.core, "decode_verify_paged"):
+            price = 1
+        else:
+            price = L - (min(m, L - 1) // self.page_size) * self.page_size
+        if len(self._price_cache) > 4 * self.max_batch + 1024:
+            self._price_cache.clear()          # bound stale-rid growth
+        self._price_cache[req.rid] = (key, price)
+        return price
+
+    @staticmethod
+    def _prefill_span(req: _Request, kind: str):
+        """A replica::prefill span under ``req``'s resident span (None when
+        untraced)."""
+        ts = req.tspans
+        if ts is None:
+            return None
+        return ts["tr"].start("replica::prefill",
+                              parent=ts.get("res") or ts["parent"],
+                              tags={"kind": kind})
+
     def _admit(self):
+        lat, prices, q_snap = None, {}, None
         while self._queue:
             slot = next((i for i, s in enumerate(self._slots) if s is None),
                         None)
             if slot is None:
                 return
-            req = self._queue[0]
+            if self._admission is not None:
+                if lat is None:
+                    lat = self.latency_stats()
+
+                # each queued request priced at most once per call
+                def _price(r):
+                    v = prices.get(r.rid)
+                    if v is None:
+                        v = prices[r.rid] = self._uncached_tokens(r)
+                    return v
+                q_snap = list(self._queue)
+                qi = self._admission.select(q_snap, _price, lat)
+                if qi is None:
+                    return                   # the policy defers them all
+                req = q_snap[qi]
+            else:
+                qi, req = 0, self._queue[0]
             toks = self._req_tokens(req)
             L = len(toks)
             need = -(-L // self.page_size)
@@ -643,7 +1051,13 @@ class ContinuousBatchingEngine:
                     raise RuntimeError(
                         f"request {req.rid} needs {need} pages but the "
                         f"pool holds {self._total_pages}; raise num_pages")
-            self._queue.popleft()
+            if self._admission is not None:
+                # pages really claimed: now the requests passed over are
+                # charged a skip
+                self._admission.note_admitted(q_snap, qi)
+                del self._queue[qi]
+            else:
+                self._queue.popleft()
             if self._prefix is not None:
                 lock = (self._prefix.lock_prefix(toks, n_lock) if n_lock
                         else self._prefix.new_lock())
@@ -656,6 +1070,17 @@ class ContinuousBatchingEngine:
             self._tables_dirty = True
             self._slots[slot] = req
             req.slot = slot
+            if req.tspans is not None:
+                ts = req.tspans
+                q = ts.pop("queue", None)
+                if q is not None:     # absent on preemption re-admits
+                    q.tag(outcome="admitted", slot=slot).end()
+                rsp = ts["tr"].start("replica::resident",
+                                     parent=ts["parent"],
+                                     tags={"slot": slot})
+                if rsp is not None:
+                    ts["res"] = rsp
+                ts["last"] = time.time()
             self._dosample[slot] = req.do_sample
             req.prefill_target = L
             if fast:
@@ -666,8 +1091,11 @@ class ContinuousBatchingEngine:
                 if src is None:
                     raise RuntimeError("the matched tail page vanished")
                 self.prefix_cow_copies += 1
+                psp = self._prefill_span(req, "cow")
                 logits = self._tail_logits(slot, int(toks[L - 1]), L - 1,
                                            src, pages[0])
+                if psp is not None:
+                    psp.end()
                 req.prefilled = L
                 self._activate(slot, req, logits)
                 self._insert_prefix(slot, req)
@@ -681,6 +1109,7 @@ class ContinuousBatchingEngine:
                 self._proj_gen[slot] = 0
                 continue
             req.prefilled = L
+            psp = self._prefill_span(req, "suffix" if off else "full")
             if off:
                 # the suffix only, from the page-aligned offset, attending
                 # over the mapped shared history plus itself
@@ -688,6 +1117,8 @@ class ContinuousBatchingEngine:
                                             self._bucket(L) - off, L - 1)
             else:
                 logits = self._prefill(slot, toks)
+            if psp is not None:
+                psp.end()
             self._activate(slot, req, logits)
             if self._prefix is not None:
                 self._insert_prefix(slot, req)
@@ -702,8 +1133,11 @@ class ContinuousBatchingEngine:
         slot = min(cand)[1]
         req = self._slots[slot]
         C, off = self.prefill_chunk, req.prefilled
+        psp = self._prefill_span(req, "chunk")
         logits = self._chunk_logits(slot, self._req_tokens(req), off, C,
                                     min(req.prefill_target - 1, off + C - 1))
+        if psp is not None:
+            psp.tag(off=off).end()
         req.prefilled = min(off + C, self._bucket(req.prefill_target))
         if req.prefilled >= req.prefill_target:
             self._activate(slot, req, logits)
@@ -866,9 +1300,10 @@ class ContinuousBatchingEngine:
                 self._tables_dirty = True
 
     def _claim_one(self, exclude_slot: int) -> int:
-        """One page for a decode-time claim; recompute-preempts the
-        newest other request once the pool and the evictable prefix tree
-        are dry, raising _PoolDry first while blocks are in flight."""
+        """One page for a decode-time claim; recompute-preempts another
+        request (the admission policy's victim, else the newest) once the
+        pool and the evictable prefix tree are dry, raising _PoolDry
+        first while blocks are in flight."""
         page = self._alloc_pages(1)
         while page is None:
             if self._inflight:
@@ -877,7 +1312,26 @@ class ContinuousBatchingEngine:
                      if self._slots[i] is not None and i != exclude_slot]
             if not cands:
                 raise RuntimeError("page pool too small for one request")
-            victim = max(cands, key=lambda i: self._slots[i].rid)
+            if self._admission is not None:
+                infos = []
+                for i in cands:
+                    r = self._slots[i]
+                    priv = shared = 0
+                    for p in self.tables[i]:
+                        if p == 0:
+                            continue
+                        if self._prefix is not None \
+                                and self._prefix.owns(int(p)):
+                            shared += 1
+                        else:
+                            priv += 1
+                    infos.append(VictimInfo(slot=i, rid=r.rid,
+                                            progress=len(r.generated),
+                                            private_pages=priv,
+                                            shared_pages=shared))
+                victim = self._admission.choose_victim(infos)
+            else:
+                victim = max(cands, key=lambda i: self._slots[i].rid)
             self.preemptions += 1
             vreq = self._slots[victim]
             self._deactivate(victim)
@@ -919,9 +1373,16 @@ class ContinuousBatchingEngine:
             self._tables_dev = self._to_device(self.tables)
             self._tables_dirty = False
         if self.spec_k:
+            # the verify forward has its own context attention: no fork
             toks, kept = self._spec_tick(any_sample)
         else:
-            toks, kept = self._decode_block(K, any_sample)
+            # the route from the batch's largest context after this block
+            ctx_len = max(int(self._proj_pos[s]) for s, _ in parts) + K
+            attn_impl = ("dense" if ctx_len <= self.attn_crossover
+                         else "paged")
+            self.attn_path_ticks[attn_impl] += 1
+            with force_decode_impl(attn_impl):
+                toks, kept = self._decode_block(K, any_sample)
         self.decode_blocks += 1
         if self.kv_quant:
             self.kv_quant_ticks += 1
@@ -994,6 +1455,7 @@ class ContinuousBatchingEngine:
                     req.first_tok_t = now
                 emitted.append((req.rid, t))
             if nk:
+                self._tokens_emitted += nk
                 if self.spec_k:
                     # every committing drain scored spec_k drafts; commits
                     # beyond the tick's first token are accepted drafts
@@ -1003,9 +1465,22 @@ class ContinuousBatchingEngine:
                 if req.last_emit_t:
                     req.itl_gaps.extend([(now - req.last_emit_t) / nk] * nk)
                 req.last_emit_t = now
+                if req.tspans is not None:
+                    # one replica::decode span a committing drain, from
+                    # the previous commit to this one
+                    ts = req.tspans
+                    wnow = time.time()
+                    sp = ts["tr"].start(
+                        "replica::decode",
+                        parent=ts.get("res") or ts["parent"],
+                        start=ts.get("last", wnow), tags={"n": nk})
+                    if sp is not None:
+                        sp.end(wnow)
+                    ts["last"] = wnow
             if not active_after[slot]:
                 req.done = True
                 req.done_t = now
+                self._requests_retired += 1
                 self._latencies.append((req.first_tok_t - req.submit_t,
                                         req.done_t - req.submit_t,
                                         len(req.generated)))
@@ -1052,4 +1527,5 @@ class ContinuousBatchingEngine:
             self._prefix.check()
 
 
-__all__ = ["ContinuousBatchingEngine"]
+__all__ = ["ContinuousBatchingEngine", "HANDOFF_FMT", "HANDOFF_FMT_V1",
+           "HANDOFF_DTYPES"]

@@ -46,7 +46,8 @@ from ..nn import RMSNorm
 from ..nn import functional as ptF
 from ..nn.initializer import Normal
 from ..ops import rope as rope_ops
-from ..ops.attention import paged_decode_attention, sdpa_plain
+from ..ops.attention import (forced_decode_impl, paged_decode_attention,
+                             paged_decode_dense, sdpa_plain)
 from ..ops.quant import quantized_matmul
 from ..ops.vocab_ce import fused_linear_cross_entropy
 
@@ -462,7 +463,10 @@ class LlamaAttention(nn.Module):
         """One-token step over the page pools: writes the new K/V into the
         slot for position ``pos`` [b] and attends positions 0..pos through
         the paged decode kernel (its plain version on the CPU), with the
-        pages' scales when the pools are int8."""
+        pages' scales when the pools are int8. Inside a
+        ``force_decode_impl("dense")`` scope (the serving engine's choice
+        at or below its crossover) the attention takes the dense route,
+        ``paged_decode_dense``, on every device."""
         b = x.shape[0]
         page = kv[0].shape[2]
         q, k, v = self._qkv_rope(x, cos, sin, pos.view(b, 1))
@@ -476,8 +480,10 @@ class LlamaAttention(nn.Module):
                                 v[:, 0].transpose(0, 1))
         scales = ({"k_scales": kv[2], "v_scales": kv[3]}
                   if _kv_quantized(kv) else {})
-        out = paged_decode_attention(q[:, 0].contiguous(), kv[0], kv[1],
-                                     tables, pos, **scales)
+        route = (paged_decode_dense if forced_decode_impl() == "dense"
+                 else paged_decode_attention)
+        out = route(q[:, 0].contiguous(), kv[0], kv[1], tables, pos,
+                    **scales)
         return self._out(out.reshape(b, 1, -1), x), kv
 
     def _paged_ctx_attention(self, q, positions, kv: Pool, tables):

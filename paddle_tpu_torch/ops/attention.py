@@ -13,6 +13,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .kernels.flash_attention import dropout_threshold, flash_bwd, flash_fwd
 from .hash32 import M32, mul32
@@ -133,6 +134,92 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
                                   seq_lens, scale, k_scales, v_scales)
     return paged_decode(q, k_pages, v_pages, block_tables, seq_lens, scale,
                         k_scales, v_scales)
+
+
+# -- the dense decode route and the dense/paged crossover --------------------
+
+def paged_decode_dense(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor,
+                       seq_lens: torch.Tensor,
+                       scale: Optional[float] = None,
+                       k_scales: Optional[torch.Tensor] = None,
+                       v_scales: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The dense decode route (counterpart of JAX's ``paged_decode_xla``
+    where the engine picks it below the crossover): gather every page of
+    each row's table into contiguous fp32 K/V [B, H_kv, T, D], int8 pages
+    dequantized with their page's scale, then fp32 attention over
+    positions 0..seq_lens[b] through ``F.scaled_dot_product_attention``,
+    the query heads of one KV head taken as its rows (K/V never
+    expanded). The same function on every device; the output is in q's
+    dtype."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    B, H, D = q.shape
+    H_kv, num_pages, page_size, _ = k_pages.shape
+    T = block_tables.shape[1] * page_size
+    flat = block_tables.long().clamp(0, num_pages - 1).reshape(-1)
+
+    def gather(pages, pscales):
+        g = pages[:, flat].float()               # [H_kv, B * mp, page, D]
+        if pscales is not None:
+            g.mul_(pscales.float()[flat][None, :, None, None])
+        return g.view(H_kv, B, T, D).transpose(0, 1)
+    k, v = gather(k_pages, k_scales), gather(v_pages, v_scales)
+    valid = (torch.arange(T, device=q.device)[None, :]
+             <= seq_lens.to(q.device).long()[:, None])          # [B, T]
+    out = F.scaled_dot_product_attention(
+        q.float().view(B, H_kv, H // H_kv, D), k, v,
+        attn_mask=valid[:, None, None, :],
+        scale=scale if scale is not None else 1.0 / math.sqrt(D))
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+_FORCED_IMPL = [None]     # None: the paged kernel; "dense" | "paged"
+
+
+class force_decode_impl:
+    """Scope that picks the decode attention route of
+    ``LlamaAttention.decode_paged`` (counterpart of JAX's
+    ``force_decode_impl``): ``"dense"`` takes :func:`paged_decode_dense`,
+    ``"paged"`` or None :func:`paged_decode_attention`. The serving
+    engine enters it around each decode block with the route its
+    crossover chose."""
+
+    def __init__(self, impl):
+        if impl not in (None, "dense", "paged"):
+            raise ValueError(f"impl must be None|'dense'|'paged', "
+                             f"got {impl!r}")
+        self.impl = impl
+
+    def __enter__(self):
+        _FORCED_IMPL.append(self.impl)
+        return self
+
+    def __exit__(self, *exc):
+        _FORCED_IMPL.pop()
+        return False
+
+
+def forced_decode_impl():
+    return _FORCED_IMPL[-1]
+
+
+def paged_decode_crossover() -> int:
+    """Context length (tokens) at or below which the serving engine
+    decodes through the dense route, the paged kernel above it. 0: the
+    paged kernel at every context. Measured by ``chip_smoke.py``'s phase
+    3c on an NVIDIA H100 80GB HBM3 at a 700.00 W limit, at Llama-3-8B
+    widths, B = 8, contexts 128 to 8192, native and int8 pools: the two
+    routes differ only in the attention, and one layer's attention on
+    the device was faster through the paged kernel at every context
+    (native 13.1 against 79.0 µs at 128, 123.4 against 1889.7 µs at
+    8192; int8 13.7 against 95.4 and 93.3 against 2300.7 µs). The whole
+    decode step is host-bound there, so its times do not decide it. The
+    dense route runs only where a caller asks for it
+    (``attn_crossover=``). The JAX package's TuneDB lookup is not
+    ported."""
+    return 0
 
 
 # -- flash attention ---------------------------------------------------------
@@ -317,4 +404,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = ["sdpa_plain", "paged_decode_plain", "paged_decode_attention",
-           "flash_attention", "dropout_keep_plain"]
+           "paged_decode_dense", "force_decode_impl", "forced_decode_impl",
+           "paged_decode_crossover", "flash_attention", "dropout_keep_plain"]

@@ -572,6 +572,109 @@ def test_engine_on_card_matches_cpu(dev):
         np.testing.assert_array_equal(a, w)
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_decode_route_on_card_matches_plain(dev, dtype, quant):
+    """The dense decode route (gather + fp32 SDPA) on the card against
+    the paged kernel's plain version: B = 3 rows of a non-contiguous
+    table, one at position 0, over native or int8 pools."""
+    g = torch.Generator().manual_seed(5)
+    B, H, H_kv, D, P, page = 3, 32, 8, 128, 20, 16
+    q = torch.randn(B, H, D, generator=g)
+    kp, vp = (torch.randn(H_kv, P, page, D, generator=g) for _ in range(2))
+    sc = {}
+    if quant:
+        sc = {"k_scales": torch.rand(P, generator=g) / 100,
+              "v_scales": torch.rand(P, generator=g) / 100}
+        kp, vp = ((t * 40).round().clamp(-127, 127).to(torch.int8)
+                  for t in (kp, vp))
+    tables = torch.tensor([[3, 7, 1, 19], [4, 0, 9, 2], [5, 6, 8, 11]],
+                          dtype=torch.int32)
+    lens = torch.tensor([0, 37, 63])
+    dt = getattr(torch, dtype)
+    q = q.to(dt)
+    if not quant:
+        kp, vp = kp.to(dt), vp.to(dt)
+    want = attn_ops.paged_decode_plain(q, kp, vp, tables, lens, **sc)
+    on = {k: v.to(dev) for k, v in sc.items()}
+    got = attn_ops.paged_decode_dense(q.to(dev), kp.to(dev), vp.to(dev),
+                                      tables.to(dev), lens.to(dev), **on)
+    _close(got.cpu().float(), want.float(), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_page_handoff_between_card_engines_is_bit_exact(dev, quant):
+    """serialize_pages on one card engine, adopt_pages on another (through
+    the wire form as well): the adopter's export of the same run is the
+    exporter's bit for bit (kv, scales, sha256; bf16 pages cross the
+    wire as raw bytes), and the adopted pages serve the prompt with a
+    prefix hit."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    from paddle_tpu_torch.serving_fabric import (payload_from_wire,
+                                                 payload_to_wire)
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=dev)
+    if quant:
+        model = quantize_model(model, kv_dtype="int8")
+    rs = np.random.RandomState(3)
+    prompt = rs.randint(0, cfg.vocab_size, (3 * 8 + 5,))
+
+    def engine():
+        return ContinuousBatchingEngine(
+            model, max_batch=2, page_size=8, max_len=64, prefix_cache=True,
+            generation_config=GenerationConfig(max_new_tokens=4))
+    a, b = engine(), engine()
+    rid = a.submit(prompt)
+    ref = a.run()[rid]
+    pay = a.serialize_pages(prompt)
+    assert pay["kv"].dtype == (torch.int8 if quant else torch.bfloat16)
+    assert len(b.adopt_pages(payload_from_wire(payload_to_wire(pay)))) == 3
+    back = b.serialize_pages(prompt)
+    assert back["sha256"] == pay["sha256"]
+    assert torch.equal(back["kv"], pay["kv"])
+    if quant:
+        assert torch.equal(back["scales"], pay["scales"])
+    b._check_page_invariants()
+    rid = b.submit(prompt)
+    assert len(b.run()[rid]) == len(ref)
+    assert b.prefix_hit_tokens == 3 * 8
+
+
+def test_crossover_routes_on_card(dev):
+    """Above the crossover a CUDA engine launches the paged kernel, at or
+    below it the dense route launches none; the tokens agree."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2)
+    model = LlamaForCausalLM(cfg, device=dev)
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (5, 13)]
+
+    def serve(crossover):
+        eng = ContinuousBatchingEngine(
+            model, max_batch=2, page_size=8, max_len=64, decode_block=2,
+            attn_crossover=crossover,
+            generation_config=GenerationConfig(max_new_tokens=6))
+        rids = [eng.submit(p) for p in prompts]
+        _build.reset_launches()
+        out = eng.run()
+        return [out[r] for r in rids], dict(_build.LAUNCHES), eng
+    paged, launches, eng = serve(0)
+    assert launches["paged_decode"] > 0
+    assert eng.attn_path_ticks["paged"] > 0 == eng.attn_path_ticks["dense"]
+    dense, launches, eng = serve(64)
+    assert launches["paged_decode"] == 0
+    assert eng.attn_path_ticks["dense"] > 0 == eng.attn_path_ticks["paged"]
+    for a, b in zip(paged, dense):
+        np.testing.assert_array_equal(a, b)
+
+
 def _replay_drafts(streams, H, device):
     """A draft provider that proposes the continuation of whichever of
     ``streams`` (prompt, tokens) a row's history starts with: drafts the
