@@ -113,6 +113,18 @@ Phases, in order; any failure exits non-zero before the result line:
      does (a one-token prefill, then the request over its cached pages):
      equal tokens, codes and scales adopted bit for bit, a v1 payload
      refused;
+  4e. front-door equality: 4d's model and prompts (untimed) through a
+     FrontDoor over BreakerTransport(InProcTransport(prefill + "both"
+     replicas)), clients in their own process: greedy streams equal
+     4d's, sampled ones a serial engine's under the rseeds the door
+     recorded; a torn frame gets an error event on a connection that
+     lives, seq gapless; a disconnect then a retry loses and repeats no
+     token; a client that never reads is evicted with its slot and
+     pages returned while eight others finish; a replica hung after a
+     handoff trips its breaker, the streams finish on the survivor
+     exactly and the probe readmits it; a deadline miss and an overload
+     are refused typed with retry_after_ms; an int8 replica pair serves
+     three prompts equal to 4d's single int8 engine;
   5. the serving run: Llama-3-8B widths, all 32 layers, bf16, seeded
      random weights built on the card; 16 requests (prompts 128-1536
      tokens, 64 new tokens, every 4th sampled) through
@@ -136,6 +148,24 @@ Phases, in order; any failure exits non-zero before the result line:
      attention-route ticks by replica and launches, beside phase 5's (or
      5b's) numbers of the same call; a failed request, no adopted page or
      a serving kernel not launched fails it;
+  5e. the front door, on phase 5's model after 5d's native run: phase
+     5's 16 requests from 16 FabricClients in a client process of their
+     own (``--client-process``: it imports ``serving_fabric.client`` and
+     no torch) through FrontDoor(ServingFabric(BreakerTransport(
+     InProcTransport(5d's two replicas)))), with the metrics registry
+     on, the SLO sentry's serving, fabric and front-door packs installed
+     (``min_interval_s=1.0``) and the window in
+     ``profiler.serving_trace``: tokens/s, TTFT and ITL at the client
+     and at the router beside 5d's, the sentry's ticks, tick ms and
+     incidents, host ms per span, breaker trips (0) and the longest
+     healthy op, launches; greedy streams equal 5d's, and each
+     router-level latency rule fires iff the router's p99 is over its
+     ceiling. Then the hang leg on fresh replicas: the prefill replica
+     hung after its 4th handoff under an op budget of 3x that longest
+     op (at least 1 s): one trip within 2x the budget, its requests
+     served by the "both" replica, readmission once released, greedy
+     streams equal 5d's (or, for a long prompt served cold, one engine
+     serving it cold);
   5b. the quantized serving run: the same model quantized on the card
      (int8 weights and KV, the native model then freed) through the same
      run, side by side with phase 5: tokens/s, TTFT, ITL, one decode
@@ -247,6 +277,8 @@ QUANT_SERVING_KERNELS = ("rms_norm", "fused_rope", "int8_matmul",
 TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
                     "flash_bwd") + CE_KERNELS
 RESULTS: dict = {"kernel_cases": []}
+ROOT_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "chiprun_out")
 FAILED_CASES: list = []
 
 
@@ -1736,7 +1768,7 @@ def phase_fabric_equality(torch, pt, dev, make_cfg, threshold=128):
                          for p, lg in zip(prompts, long_) if lg)
     res = {"equal_plain": same, "counts": counts,
            "dense_equal_paged": dense_same, "dense_ticks": dense_ticks,
-           "paged_ticks": paged_ticks}
+           "paged_ticks": paged_ticks, "streams": [g.tolist() for g in got]}
     log(f"fabric equality (llama3_8b widths, 2 layers, fp32; prefill + both "
         f"replicas, disagg at {threshold} tokens): {sum(same)}/{len(same)} "
         f"requests equal the plain path; {counts}; forced-dense engine "
@@ -1777,7 +1809,8 @@ def phase_fabric_equality(torch, pt, dev, make_cfg, threshold=128):
     except ValueError:
         v1_refused = sorted(eng._free) == free0
     res["int8"] = {"equal_single": qsame, "counts": qcounts,
-                   "v1_refused": v1_refused}
+                   "v1_refused": v1_refused,
+                   "streams": [w.tolist() for w in qwant]}
     log(f"fabric equality, int8 arm (one request at a time): "
         f"{sum(qsame)}/{len(qsame)} requests equal the single int8 engine; "
         f"{qcounts}; v1 payload refused {v1_refused}; "
@@ -1793,6 +1826,587 @@ def phase_fabric_equality(torch, pt, dev, make_cfg, threshold=128):
     empty_cache(torch, dev)
     if not ok:
         raise SystemExit(f"fabric equality failed: {res}")
+
+
+# -- the front door's clients (phases 4e and 5e) -----------------------------
+#
+# The clients run in a process of their own (``python3 chip_smoke.py
+# --client-process``) that imports ``serving_fabric.client`` and nothing
+# that imports torch, so the server's GIL carries the server alone. The
+# parent writes one JSON command a line to its stdin and reads one JSON
+# answer a line from its stdout (``Clients``). Every socket has a time
+# limit; so has every answer.
+
+CLIENT_IO_S = 300.0          # a client's socket timeout
+# the hang legs' op budget: 3x the longest healthy op of the window
+# before, and never below this (a healthy poll that admits several
+# prompts at once may take a few times the longest single prefill)
+MIN_OP_BUDGET_S = 1.0
+# a half-open probe's budget in the hang legs: each probe of the hung
+# replica (one a second, the breaker's cooldown) stalls the router this
+# long, so it is kept short; a released replica that still finishes
+# stale work fails a probe or two and is readmitted at the next
+PROBE_BUDGET_S = 0.25
+CLIENT_CALL_S = 600.0        # the longest the parent waits for one answer
+
+
+def _client_streams(FabricClient, host, port, reqs, attempts):
+    """One thread and one FabricClient a request, all started together.
+    Each token is stamped when its ``tok`` event reaches the client:
+    returns, a request, its tokens, the submit time, [(stamp, tokens)]
+    per event, the finish time and the failure (typed where the door
+    typed it)."""
+    import threading
+
+    class Stamping(FabricClient):
+        def _recv(self, f):
+            ev = super()._recv(f)
+            self.last_ev_t = time.perf_counter()
+            return ev
+
+    out = [None] * len(reqs)
+
+    def go(i, r):
+        c = Stamping(host, port, max_attempts=attempts,
+                     io_timeout_s=CLIENT_IO_S)
+        stamps = []
+        rec = {"id": r["id"], "t_submit": time.perf_counter()}
+        try:
+            res = c.generate(r["prompt"], r["max_new"],
+                             knobs=r.get("knobs"),
+                             deadline_ms=r.get("deadline_ms"),
+                             request_id=r["id"],
+                             on_token=lambda t: stamps.append(c.last_ev_t))
+            rec.update(tokens=res.tokens, attempts=res.attempts,
+                       retries=res.retries)
+        except Exception as e:      # noqa: BLE001 — reported to the parent
+            wire = getattr(e, "to_wire", None)
+            rec.update(error=f"{type(e).__name__}: {e}",
+                       wire=wire() if wire else None)
+        rec["t_done"] = time.perf_counter()
+        events = []
+        for t in stamps:
+            if events and events[-1][0] == t:
+                events[-1][1] += 1
+            else:
+                events.append([t, 1])
+        rec["events"] = events
+        out[i] = rec
+
+    ts = [threading.Thread(target=go, args=(i, r), daemon=True)
+          for i, r in enumerate(reqs)]
+    for t in ts:
+        t.start()
+    return ts, out
+
+
+def _raw(host, port, timeout=CLIENT_IO_S):
+    import socket
+    s = socket.create_connection((host, port), timeout=10.0)
+    s.settimeout(timeout)
+    return s, s.makefile("rb")
+
+
+def _raw_send(sock, msg):
+    sock.sendall(json.dumps(msg).encode() + b"\n")
+
+
+def _raw_recv(f):
+    line = f.readline(1 << 20)
+    if not line:
+        raise ConnectionError("server closed the connection")
+    return json.loads(line)
+
+
+def client_process() -> int:
+    """The client side of phases 4e and 5e (see above). Commands:
+    ``streams`` (concurrent FabricClients; ``wait=False`` returns at once
+    and ``join`` collects), ``sequential`` (one client, one request after
+    another), ``frames`` (torn frames and a ping on one raw connection),
+    ``partial`` (submit on a raw connection, read the first tokens, drop
+    the connection), ``resume`` (resubmit with ``have``: the missing
+    suffix), ``loris_open`` / ``loris_close`` (a client that never
+    reads), ``flood`` (submits on one raw connection until a refusal)
+    and ``exit``."""
+    import socket
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from paddle_tpu_torch.serving_fabric.client import FabricClient
+    state = {}
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        op, host, port = cmd.get("op"), cmd.get("host"), cmd.get("port")
+        ans: dict = {"op": op}
+        try:
+            if op == "exit":
+                break
+            if op in ("streams", "sequential"):
+                if op == "sequential":
+                    ans["results"] = []
+                    for r in cmd["reqs"]:
+                        ts, out = _client_streams(FabricClient, host, port,
+                                                  [r], cmd.get("attempts", 3))
+                        ts[0].join(CLIENT_IO_S)
+                        ans["results"].append(out[0])
+                else:
+                    state["batch"] = _client_streams(
+                        FabricClient, host, port, cmd["reqs"],
+                        cmd.get("attempts", 3))
+                    if cmd.get("wait", True):
+                        op = "join"
+                    else:
+                        ans["started"] = len(cmd["reqs"])
+            if op == "join":
+                ts, out = state.pop("batch")
+                for t in ts:
+                    t.join(CLIENT_IO_S)
+                ans["results"] = out
+                ans["alive"] = sum(t.is_alive() for t in ts)
+            elif op == "frames":
+                s, f = _raw(host, port)
+                s.sendall(b'{"op": "submit", "truncated\n')
+                s.sendall(b'[1, 2, 3]\n')
+                _raw_send(s, {"op": "frobnicate"})
+                _raw_send(s, {"op": "submit"})
+                _raw_send(s, {"op": "ping"})
+                ans["events"] = [_raw_recv(f) for _ in range(5)]
+                s.close()
+            elif op in ("partial", "resume"):
+                s, f = _raw(host, port)
+                msg = {"op": "submit", "id": cmd["id"],
+                       "prompt": cmd["prompt"],
+                       "max_new_tokens": cmd["max_new"]}
+                if op == "resume":
+                    msg["have"] = cmd["have"]
+                _raw_send(s, msg)
+                toks, n = [], None
+                while n is None:
+                    ev = _raw_recv(f)
+                    if ev.get("id") != cmd["id"]:
+                        continue
+                    if ev.get("ev") == "tok":
+                        toks.extend(int(t) for t in ev["toks"])
+                        if op == "partial":
+                            break
+                    elif ev.get("ev") == "done":
+                        toks.extend(int(t) for t in ev.get("toks", ()))
+                        n = int(ev["n"])
+                    elif ev.get("ev") in ("reject", "cancelled"):
+                        ans["event"] = ev
+                        break
+                if op == "partial":
+                    # a real disconnect: the file object holds a second
+                    # descriptor, so shut the socket down
+                    s.shutdown(socket.SHUT_RDWR)
+                f.close()
+                s.close()
+                ans.update(tokens=toks, n=n)
+            elif op == "loris_open":
+                s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                # a tiny receive window before connect and a long id, so
+                # a few events fill both sides' buffers
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 2048)
+                s.settimeout(10.0)
+                s.connect((host, port))
+                _raw_send(s, {"op": "submit", "id": cmd["id"],
+                              "prompt": cmd["prompt"],
+                              "max_new_tokens": cmd["max_new"]})
+                state["loris"] = s
+            elif op == "loris_close":
+                state.pop("loris").close()
+            elif op == "flood":
+                s, f = _raw(host, port)
+                for i in range(cmd["n"]):
+                    _raw_send(s, {"op": "submit", "id": f"{cmd['id']}-{i}",
+                                  "prompt": cmd["prompt"],
+                                  "max_new_tokens": cmd["max_new"]})
+                deadline = time.monotonic() + CLIENT_IO_S
+                while "event" not in ans and time.monotonic() < deadline:
+                    ev = _raw_recv(f)
+                    if ev.get("ev") == "reject":
+                        ans["event"] = ev
+                s.close()
+        except Exception as e:      # noqa: BLE001 — reported to the parent
+            ans["error"] = f"{type(e).__name__}: {e}"
+        print(json.dumps(ans), flush=True)
+    if "loris" in state:
+        state["loris"].close()
+    return 0
+
+
+class Clients:
+    """The parent's end of ``client_process``: started on entry, told to
+    exit (and killed if it does not) on exit."""
+
+    def __init__(self, door):
+        self.host, self.port = door.host, door.port
+
+    def __enter__(self):
+        import queue
+        import subprocess
+        import threading
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--client-process"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            env=env)
+        self.lines: "queue.Queue" = queue.Queue()
+        threading.Thread(target=lambda: [self.lines.put(ln) for ln in
+                                         self.proc.stdout],
+                         daemon=True).start()
+        return self
+
+    def retarget(self, door):
+        self.host, self.port = door.host, door.port
+        return self
+
+    def call(self, op, timeout=CLIENT_CALL_S, **kw):
+        import queue
+        kw.update(op=op, host=self.host, port=self.port)
+        self.proc.stdin.write(json.dumps(kw) + "\n")
+        self.proc.stdin.flush()
+        try:
+            ans = json.loads(self.lines.get(timeout=timeout))
+        except queue.Empty:
+            raise SystemExit(f"client process: no answer to {op!r} in "
+                             f"{timeout} s")
+        if "error" in ans:
+            raise SystemExit(f"client process: {op!r} failed: "
+                             f"{ans['error']}")
+        return ans
+
+    def __exit__(self, *exc):
+        try:
+            self.proc.stdin.write(json.dumps({"op": "exit"}) + "\n")
+            self.proc.stdin.close()
+            self.proc.wait(timeout=30)
+        except Exception:           # noqa: BLE001 — then it is killed
+            self.proc.kill()
+            self.proc.wait()
+        return False
+
+
+def client_latency(results):
+    """Client-side numbers of one window: tokens/s (tokens ÷ first
+    submit to last finish), TTFT (submit to the first token's event) and
+    ITL (an event's gap since the previous one, divided among its
+    tokens, as the engine and the router divide a drain), p50 / p99."""
+    ok = [r for r in results if r.get("tokens") is not None]
+    ttft = [r["events"][0][0] - r["t_submit"] for r in ok if r["events"]]
+    itl = []
+    for r in ok:
+        ev = r["events"]
+        for (t0, _), (t1, n) in zip(ev, ev[1:]):
+            itl.extend([(t1 - t0) / n] * n)
+    n_tok = sum(len(r["tokens"]) for r in ok)
+    wall = (max(r["t_done"] for r in results)
+            - min(r["t_submit"] for r in results))
+    pct = lambda a, q: float(np.percentile(a, q)) if a else float("nan")
+    return {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ttft_p50_s": pct(ttft, 50), "ttft_p99_s": pct(ttft, 99),
+            "itl_p50_s": pct(itl, 50), "itl_p99_s": pct(itl, 99)}
+
+
+def timed_transport(replicas):
+    """An InProcTransport that times every op that answered (a hung op
+    raises and is not timed), keeps each adopted token run with its
+    destination, and can hang a replica right after a given adopt
+    (``hang_after = (replica, n)``: after the n-th adopt in all)."""
+    from paddle_tpu_torch.serving_fabric import InProcTransport
+
+    class Timed(InProcTransport):
+        def __init__(self):
+            super().__init__(replicas)
+            self.op_s: dict = {}
+            self.adopts: list = []
+            self.hang_after = None
+            self.hung_at = None
+
+        def _timed(self, op, name, fn, *a):
+            t0 = time.perf_counter()
+            out = fn(self, name, *a)
+            self.op_s.setdefault(op, []).append(
+                (name, time.perf_counter() - t0))
+            return out
+
+        def submit(self, name, req):
+            return self._timed("submit", name, InProcTransport.submit, req)
+
+        def poll(self, name):
+            return self._timed("poll", name, InProcTransport.poll)
+
+        def extract(self, name, tokens):
+            return self._timed("extract", name, InProcTransport.extract,
+                               tokens)
+
+        def adopt(self, name, payload):
+            n = self._timed("adopt", name, InProcTransport.adopt, payload)
+            self.adopts.append((name, np.asarray(payload["tokens"])))
+            if self.hang_after is not None \
+                    and len(self.adopts) == self.hang_after[1]:
+                self.hang(self.hang_after[0])
+                self.hang_after = None
+                self.hung_at = time.monotonic()
+            return n
+
+        def longest(self, ops=("poll", "submit", "extract", "adopt")):
+            return max((s for op in ops for _, s in self.op_s.get(op, ())),
+                       default=0.0)
+    return Timed()
+
+
+def frontdoor_stack(model, names, roles, threshold, policy, door_kw=None,
+                    **engine_kw):
+    """FrontDoor(ServingFabric(BreakerTransport(timed InProcTransport(
+    build_replicas(...))))) started; returns (door, fabric, breaker,
+    timed transport)."""
+    from paddle_tpu_torch.serving_fabric import (BreakerTransport,
+                                                 FrontDoor, ServingFabric,
+                                                 build_replicas)
+
+    class Stamped(BreakerTransport):
+        """Keeps the monotonic time of each trip."""
+        trip_t: list = []
+
+        def _trip(self, name, why):
+            super()._trip(name, why)
+            self.trip_t.append(time.monotonic())
+    tr = timed_transport(build_replicas(model, len(roles), roles=roles,
+                                        names=names, **engine_kw))
+    br = Stamped(tr)
+    br.trip_t = []
+    fab = ServingFabric(br, policy=policy,
+                        disagg_threshold_tokens=threshold)
+    return FrontDoor(fab, **(door_kw or {})).start(), fab, br, tr
+
+
+def wait_for(cond, timeout_s, what):
+    """Poll ``cond`` every 20 ms up to ``timeout_s``; fail the phase
+    with ``what`` if it never holds."""
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"timed out after {timeout_s} s: {what}")
+        time.sleep(0.02)
+    return True
+
+
+def serial_streams(model, prompts, n_new, rseeds=None, knobs=None,
+                   **engine_kw):
+    """One engine serving ``prompts`` (under ``rseeds``, with the
+    sampled ``knobs`` where given): the streams a fabric must reproduce
+    whatever its placement and batching."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    eng = ContinuousBatchingEngine(model, **engine_kw)
+    rids = []
+    for i, p in enumerate(prompts):
+        k = knobs[i] if knobs else None
+        gc = (GenerationConfig(max_new_tokens=n_new,
+                               seed=eng.cfg.seed, **k) if k else None)
+        rids.append(eng.submit(p, n_new, generation_config=gc,
+                               rseed=None if rseeds is None else rseeds[i]))
+    out = eng.run()
+    return [out[r].tolist() for r in rids]
+
+
+def hang_check(fab, br, tr, victim, budget_s, clients, reqs, after=1):
+    """Hang ``victim`` right after the ``after``-th adopt from now, under
+    op budgets of
+    ``budget_s``, while ``reqs`` stream; then release it and wait for
+    the half-open probe to readmit it. Returns the window's results, the
+    seconds from the hang to the trip, and the token runs handed off
+    before the hang."""
+    from paddle_tpu_torch.serving_fabric.breaker import DEFAULT_OP_TIMEOUTS
+    from paddle_tpu_torch.testing.chaos import unhang_replica
+    for op in ("poll", "submit", "extract", "adopt"):
+        br.op_timeouts[op] = budget_s
+    br.probe_timeout_s = PROBE_BUDGET_S
+    trips0, n0 = len(br.trip_t), len(tr.adopts)
+    tr.hang_after, tr.hung_at = (victim, n0 + after), None
+    # the streams end on the survivor whatever happens to the victim
+    results = clients.call("streams", reqs=reqs)["results"]
+    if tr.hung_at is None:
+        raise SystemExit(f"hang leg: fewer than {after} handoffs, so "
+                         f"{victim} was never hung")
+    if len(br.trip_t) == trips0:
+        raise SystemExit(f"hang leg: the breaker never tripped on hung "
+                         f"{victim}")
+    tripped_s = br.trip_t[trips0] - tr.hung_at
+    handed = [toks for _, toks in tr.adopts[n0:]]
+    unhang_replica(br, victim)
+    wait_for(lambda: victim not in fab._dead and br.state(victim) ==
+             "closed", 60.0, f"{victim} was never readmitted")
+    br.op_timeouts.update(DEFAULT_OP_TIMEOUTS)
+    return results, tripped_s, handed
+
+
+def phase_frontdoor_equality(torch, pt, dev, make_cfg, threshold=128):
+    """Phase 4e: the front door over phase 4d's fabric (2 layers, fp32,
+    the same seeded model and prompts; untimed): FrontDoor(ServingFabric(
+    BreakerTransport(InProcTransport(prefill + "both" replicas)),
+    disagg_threshold_tokens=threshold)), driven by FabricClients in the
+    client process. Greedy streams equal phase 4d's, sampled ones a
+    serial engine's under the rseeds the door recorded; a torn frame gets
+    an ``error`` event on a connection that lives and ``seq`` is gapless;
+    a disconnect then a retry loses and repeats no token; a client that
+    never reads is cancelled, its slot and pages returned, the other
+    streams unharmed; a replica hung right after a handoff trips its
+    breaker within a budget taken from the longest healthy op, the
+    streams finish on the survivor exactly, and the half-open probe
+    readmits it once released; a deadline miss and an overload are
+    refused typed with ``retry_after_ms``. The int8 arm: the quantized
+    model behind one replica pair (one slot each, 32 pages), three
+    prompts one after another, equal to phase 4d's single int8 engine."""
+    from paddle_tpu_torch.inference import GenerationConfig
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    from paddle_tpu_torch.serving_fabric import (FrontDoor, InProcTransport,
+                                                 LoadShedder, ServingFabric,
+                                                 build_replicas)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = make_cfg(num_hidden_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(7, dev))
+    prompts = [p.tolist() for p in fabric_prompts(cfg.vocab_size)]
+    want = RESULTS["fabric_equality"]["streams"]
+    n_new, page, max_len = 8, 128, 512
+    kw = dict(page_size=page, max_len=max_len,
+              generation_config=GenerationConfig(max_new_tokens=n_new))
+    names, roles = ["r0", "r1"], ["prefill", "both"]
+    res: dict = {}
+    checks: dict = {}
+
+    def stack(m=model, door_kw=None, **more):
+        return frontdoor_stack(m, names, roles, threshold, "affinity",
+                               door_kw, **dict(kw, **more))
+    door, fab, br, tr = stack(door_kw=dict(outbox_max=64, write_stall_s=0.25,
+                                           sndbuf=2048))
+    try:
+        with Clients(door) as cl:
+            # streams: the six greedy prompts and four sampled copies
+            reqs = [{"id": f"g{i}", "prompt": p, "max_new": n_new}
+                    for i, p in enumerate(prompts)]
+            reqs += [{"id": f"s{i}", "prompt": prompts[i], "max_new": n_new,
+                      "knobs": SAMPLED_KNOBS} for i in range(4)]
+            out = {r["id"]: r for r in cl.call("streams", reqs=reqs)[
+                "results"]}
+            checks["greedy_equal_4d"] = [out[f"g{i}"].get("tokens") == w
+                                         for i, w in enumerate(want)]
+            with door._flock:
+                rseeds = [door._streams[f"s{i}"].rseed for i in range(4)]
+            sampled_want = serial_streams(
+                model, prompts[:4], n_new, rseeds,
+                [SAMPLED_KNOBS] * 4, **kw)
+            checks["sampled_equal_serial"] = [
+                out[f"s{i}"].get("tokens") == w
+                for i, w in enumerate(sampled_want)]
+            longest = tr.longest()
+            # framing
+            evs = cl.call("frames")["events"]
+            checks["torn_frames"] = (
+                [e["ev"] for e in evs] == ["error"] * 4 + ["pong"]
+                and [e["seq"] for e in evs] == list(range(5)))
+            # a disconnect mid-stream, then a retry with ``have``
+            n_long, p = 40, prompts[0]
+            got = cl.call("partial", id="rt", prompt=p, max_new=n_long)
+            wait_for(lambda: door.stream_states().get("rt") == "orphaned",
+                     60.0, "the dropped stream never orphaned")
+            rest = cl.call("resume", id="rt", prompt=p, max_new=n_long,
+                           have=len(got["tokens"]))
+            resumed = got["tokens"] + rest["tokens"]
+            ref = serial_streams(model, [p], n_long, **kw)[0]
+            checks["resume_exact"] = (0 < len(got["tokens"]) < n_long
+                                      and rest["n"] == n_long
+                                      and resumed == ref
+                                      and door.retries >= 1)
+            # a client that never reads, beside eight that do
+            loris = "slow-" + "x" * 8000
+            cl.call("loris_open", id=loris, prompt=[1] * 6, max_new=90)
+            healthy = [{"id": f"h{i}", "prompt": prompts[i % 6],
+                        "max_new": n_new} for i in range(8)]
+            hout = cl.call("streams", reqs=healthy)["results"]
+            wait_for(lambda: door.stream_states().get(loris) == "orphaned",
+                     90.0, "the slow client was never evicted")
+            wait_for(lambda: not fab.has_work(), 60.0, "the fabric drained")
+            cl.call("loris_close")
+            engines = [r.engine for r in tr._replicas.values()]
+            for e in engines:
+                e._check_page_invariants()
+            checks["loris_evicted"] = (
+                all(r.get("tokens") == want[i % 6]
+                    for i, r in enumerate(hout))
+                and not any(e.has_work() for e in engines)
+                and all(s is None for e in engines for s in e._slots))
+            # refusals: a deadline miss on this door
+            dl = cl.call("streams", reqs=[{"id": "dl", "prompt": prompts[0],
+                                           "max_new": n_new,
+                                           "deadline_ms": 0.01}])[
+                "results"][0]
+            checks["deadline_typed"] = (
+                dl.get("wire") is not None
+                and dl["wire"]["kind"] == "deadline"
+                and dl["wire"]["retry_after_ms"] is not None)
+            checks["no_trip"] = br.trips == 0
+            door.stop()
+            # an overload: one slot behind a shedder with a hard cap
+            reps = build_replicas(model, 1, max_batch=1, **kw)
+            shed = LoadShedder(queue_depth_hi=2, queue_depth_lo=0,
+                               queue_cap=3, breach_ticks=1,
+                               retry_after_ms=123.0)
+            door = FrontDoor(ServingFabric(InProcTransport(reps),
+                                           shedder=shed)).start()
+            ev = cl.retarget(door).call("flood", id="ov", n=8,
+                                        prompt=prompts[0],
+                                        max_new=n_new).get("event")
+            checks["overload_typed"] = (ev is not None
+                                        and ev["kind"] == "overloaded"
+                                        and ev["retry_after_ms"] == 123.0)
+            door.stop()
+            del reps
+            # a hang, on fresh replicas (their trees empty, so the long
+            # prompts are handed off again): the prefill replica right
+            # after the first handoff, under 3x the longest healthy op
+            door, fab, br, tr = stack()
+            budget = max(3.0 * longest, MIN_OP_BUDGET_S)
+            hres, tripped_s, handed = hang_check(
+                fab, br, tr, "r0", budget, cl.retarget(door),
+                [{"id": f"hg{i}", "prompt": p, "max_new": n_new}
+                 for i, p in enumerate(prompts)])
+            st = fab.stats()
+            checks["hang"] = (
+                [r.get("tokens") for r in hres] == want
+                and br.trips == 1 and tripped_s < 2 * budget
+                and (st["readmitted"] + st["handoff_failures"]) >= 1)
+            res["hang"] = {"longest_healthy_op_s": longest,
+                           "budget_s": budget, "tripped_s": tripped_s,
+                           "handed_off": len(handed),
+                           "readmitted": st["readmitted"],
+                           "handoff_failures": st["handoff_failures"]}
+            door.stop()
+            # the int8 arm, one request after another
+            qmodel = quantize_model(model, kv_dtype="int8")
+            door, fab, br, tr = stack(m=qmodel, max_batch=1, num_pages=32)
+            qout = cl.retarget(door).call(
+                "sequential", reqs=[{"id": f"q{i}", "prompt": prompts[i],
+                                     "max_new": n_new} for i in range(3)])[
+                "results"]
+            qwant = RESULTS["fabric_equality"]["int8"]["streams"][:3]
+            checks["int8_equal_single"] = [r.get("tokens") == w
+                                           for r, w in zip(qout, qwant)]
+            checks["int8_handoffs"] = fab.handoffs == 1
+    finally:
+        door.stop()
+    res["checks"] = checks
+    RESULTS["frontdoor_equality"] = res
+    flat = [all(v) if isinstance(v, list) else bool(v)
+            for v in checks.values()]
+    log(f"front-door equality (llama3_8b widths, 2 layers, fp32; prefill + "
+        f"both replicas behind a breaker, clients in their own process): "
+        f"{checks}; hang {res['hang']}; {time.perf_counter() - t0:.1f} s")
+    del model, qmodel, door, fab, br, tr
+    empty_cache(torch, dev)
+    if not all(flat):
+        raise SystemExit(f"front-door equality failed: {res}")
 
 
 # Phase 4b holds the card's int8 model (kernels) to the CPU's (plain
@@ -2546,7 +3160,9 @@ def fabric_run(torch, dev, model, label, kernels, serve_label, n_req=16):
             "pages_exported": exported, "pages_adopted": adopted,
             "attn_path_ticks": {n: dict(e.attn_path_ticks)
                                 for n, e in engines.items()},
-            "routed": st["routed"], "launches": launches}
+            "routed": st["routed"], "launches": launches,
+            "streams": [None if out.get(f) is None else out[f].tolist()
+                        for f in fids]}
     src = next(r.engine for r in tr._replicas.values()
                if r.role == "prefill")
     info["handoff_alone"] = handoff_alone(torch, dev, model, src,
@@ -2593,6 +3209,274 @@ def fabric_run(torch, dev, model, label, kernels, serve_label, n_req=16):
         raise SystemExit(f"{label}: {len(fids) - len(ok)} requests failed, "
                          f"{adopted} pages adopted, handoffs or replicas "
                          f"failed; {info}")
+    return launches
+
+
+def first_diff(a, b):
+    """The first index where token lists ``a`` and ``b`` differ (None
+    when equal)."""
+    if a == b:
+        return None
+    return next((i for i, (x, y) in enumerate(zip(a or [], b))
+                 if x != y), min(len(a or []), len(b)))
+
+
+def timed_sentry(sn, rules, **kw):
+    """An SloSentry that also sums the host time of the ticks that
+    evaluated (``tick_s``; a rate-limited tick returns at once)."""
+    class Timed(sn.SloSentry):
+        tick_s = 0.0
+
+        def tick(self, now=None):
+            n, t0 = self.ticks, time.perf_counter()
+            out = super().tick(now)
+            if self.ticks > n:
+                self.tick_s += time.perf_counter() - t0
+            return out
+    return Timed(rules, **kw)
+
+
+# the router-level latency rules of the 5e sentry: rule -> the router's
+# latency_stats() key its gauge mirrors
+ROUTER_RULES = {"fabric_ttft_p99_ceiling": "ttft_p99_s",
+                "frontdoor_ttft_p99_ceiling": "ttft_p99_s",
+                "fabric_itl_p99_ceiling": "itl_p99_s"}
+
+
+def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
+    """Phase 5e: phase 5's 16 requests (SERVE_NEW tokens, every 4th
+    sampled) from 16 concurrent FabricClients in the client process
+    through FrontDoor(ServingFabric(BreakerTransport(InProcTransport(
+    build_replicas(model, 2, roles=["prefill", "both"], **SERVE_KW))),
+    policy="affinity", disagg_threshold_tokens=FABRIC_THRESHOLD)), after
+    a warm-up stack of its own (as 5d's), with the metrics registry on,
+    the SLO sentry installed (serving, fabric and front-door packs at
+    their defaults, ``min_interval_s=1.0``) and the window inside
+    ``profiler.serving_trace``; launch counts reset just before and read
+    just after. Prints tokens/s, TTFT and ITL at the client (stamped when
+    a token's event reaches it) and at the router, beside phase
+    ``base_label``'s of the same call; the sentry's ticks, their mean ms
+    and incidents by rule; host ms and count per span name; breaker trips
+    and the longest healthy op; launches by kernel. Fails on a failed
+    request, a greedy stream unequal to ``base_label``'s, a trip, a span
+    name of SERVING_EVENTS missing, a kernel of ``kernels`` not launched,
+    or a router-level latency rule whose incident does not follow the
+    router's p99 against its ceiling: after the window the router's
+    percentiles are published (the door's path never calls ``run()``,
+    which does that) and the sentry evaluates the final state for each
+    rule's ``breach_for`` windows.
+
+    Then the hang leg, on fresh replicas of the same kind (their prefix
+    trees empty: on the window's replicas every long prompt would be a
+    full prefix hit, and nothing would be handed off): the first
+    ``n_hang`` requests, the prefill replica hung right after the 4th
+    handoff under an op budget of 3x the window's longest healthy op
+    (at least MIN_OP_BUDGET_S). The breaker must trip once, within 2x
+    the budget; the requests the prefill replica held go to the "both"
+    replica; once released, the replica is readmitted. Greedy streams of
+    prompts that took the same path as in 5d (short, or handed off)
+    equal 5d's; a long prompt served cold (re-admitted, or its handoff
+    failed) runs another arithmetic in bf16 (a full prefill where 5d
+    prefilled the suffix over adopted pages) and must equal one engine
+    serving it cold. Returns the window's launches."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference import GenerationConfig
+    from paddle_tpu_torch.observability import REGISTRY
+    from paddle_tpu_torch.observability import sentry as sn
+    from paddle_tpu_torch.ops.kernels import _build
+    V = model.cfg.vocab_size
+    prompts = [p.tolist() for p in serving_traffic(V)[0]]
+    base = RESULTS[base_label]
+    want = base["streams"]
+    names, roles = ["r0", "r1"], ["prefill", "both"]
+    kw = dict(generation_config=GenerationConfig(seed=0), **SERVE_KW)
+    greedy = [i for i in range(len(prompts)) if i % 4 != 3]
+
+    def reqs(tag, n=len(prompts)):
+        return [{"id": f"{tag}{i}", "prompt": prompts[i], "max_new": SERVE_NEW,
+                 "knobs": SAMPLED_KNOBS if i % 4 == 3 else None}
+                for i in range(n)]
+
+    def stack():
+        return frontdoor_stack(model, names, roles, FABRIC_THRESHOLD,
+                               "affinity", **kw)
+
+    def failed(results):
+        return [r["id"] for r in results
+                if r.get("tokens") is None or len(r["tokens"]) != SERVE_NEW
+                or min(r["tokens"]) < 0 or max(r["tokens"]) >= V]
+
+    long_ = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    door, fab, br, tr = stack()
+    info: dict = {}
+    try:
+        with Clients(door) as cl:
+            warm = cl.call("streams", reqs=[
+                {"id": "w0", "prompt": prompts[long_], "max_new": 4},
+                {"id": "w1", "prompt": prompts[0], "max_new": 4,
+                 "knobs": SAMPLED_KNOBS}])["results"]
+            door.stop()
+            del door, fab, br, tr
+            empty_cache(torch, dev)
+            door, fab, br, tr = stack()
+            rules = (sn.serving_rules() + sn.fabric_rules(replicas=names)
+                     + sn.frontdoor_rules(replicas=names))
+            sentry = timed_sentry(sn, rules, min_interval_s=1.0)
+            REGISTRY.reset()
+            REGISTRY.enable()
+            sn.install(sentry)
+            sync(torch, dev)
+            _build.reset_launches()
+            with profiler.serving_trace(
+                    os.path.join(ROOT_OUT, "frontdoor_trace"),
+                    worker_name="frontdoor") as prof:
+                out = cl.retarget(door).call("streams", reqs=reqs("f"))[
+                    "results"]
+                sync(torch, dev)
+            launches = dict(_build.LAUNCHES)
+            ticks, tick_s = sentry.ticks, sentry.tick_s
+            with door._flock:
+                lat = fab.publish_metrics()
+                now = time.monotonic()
+                for k in range(max(r.breach_for for r in rules)):
+                    sentry.tick(now=now + sentry.min_interval_s * (k + 1))
+                st = fab.stats()
+            sn.uninstall()
+            REGISTRY.disable()
+            fired: dict = {}
+            for inc in sentry.incidents:
+                fired[inc.rule] = fired.get(inc.rule, 0) + 1
+            ceilings = {r.name: r.ceiling for r in rules
+                        if r.name in ROUTER_RULES}
+            iff = {name: ((name in fired)
+                          == (lat.get(key, 0.0) > ceilings[name]))
+                   for name, key in ROUTER_RULES.items()}
+            spans: dict = {}
+            for ev in prof.result.events:
+                ms, n = spans.get(ev.name, (0.0, 0))
+                spans[ev.name] = (ms + (ev.end_ns - ev.start_ns) / 1e6, n + 1)
+            client = client_latency(out)
+            longest = tr.longest()
+            longest_poll = tr.longest(("poll",))
+            budget = max(3.0 * longest, MIN_OP_BUDGET_S)
+            info = {"requests_sent": len(out), "failed": failed(out),
+                    "warm_failed": [r["id"] for r in warm
+                                    if len(r.get("tokens") or ()) != 4],
+                    "client": client, "router": lat,
+                    "greedy_equal_5d": [out[i].get("tokens") == want[i]
+                                        for i in greedy],
+                    "handed_off": st["handoffs"],
+                    "sentry": {"ticks": ticks,
+                               "tick_ms_mean": (tick_s / ticks * 1e3
+                                                if ticks else None),
+                               "incidents": fired, "router_rules_iff": iff,
+                               "ceilings": ceilings},
+                    "spans": {k: {"ms": v[0], "count": v[1]}
+                              for k, v in sorted(spans.items())},
+                    "trips": br.trips, "longest_healthy_op_s": longest,
+                    "longest_healthy_poll_s": longest_poll,
+                    "launches": launches}
+            missing_spans = sorted(set(profiler.SERVING_EVENTS) - set(spans))
+            blat = base["latency"]
+            log(f"{label} (front door over prefill + both replicas behind a "
+                f"breaker, 16 clients in their own process): requests sent "
+                f"{len(out)}, failed {len(info['failed'])}; at the client "
+                f"{client['tokens']} tokens in {client['wall_s']:.3f} s = "
+                f"{client['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                f"{client['ttft_p50_s'] * 1e3:.1f} ms p99 "
+                f"{client['ttft_p99_s'] * 1e3:.1f} ms, ITL p50 "
+                f"{client['itl_p50_s'] * 1e3:.2f} ms p99 "
+                f"{client['itl_p99_s'] * 1e3:.2f} ms; at the router TTFT "
+                f"p50 {lat['ttft_p50_s'] * 1e3:.1f} ms p99 "
+                f"{lat['ttft_p99_s'] * 1e3:.1f} ms, ITL p50 "
+                f"{lat['itl_p50_s'] * 1e3:.2f} ms p99 "
+                f"{lat['itl_p99_s'] * 1e3:.2f} ms; {base_label} (same call) "
+                f"{base['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                f"{blat['ttft_p50_s'] * 1e3:.1f} ms p99 "
+                f"{blat['ttft_p99_s'] * 1e3:.1f} ms, ITL p50 "
+                f"{blat['itl_p50_s'] * 1e3:.2f} ms p99 "
+                f"{blat['itl_p99_s'] * 1e3:.2f} ms; handed off "
+                f"{st['handoffs']}; greedy equal to {base_label} "
+                f"{sum(info['greedy_equal_5d'])}/{len(greedy)} "
+                f"{card_line()}")
+            log(f"{label} sentry: {ticks} evaluated ticks in the window, "
+                f"mean {info['sentry']['tick_ms_mean']} ms a tick; "
+                f"incidents by rule {fired}; router rules fire iff p99 > "
+                f"ceiling: {iff} (ceilings {ceilings}) {card_line()}")
+            log(f"{label} spans (host ms, count): "
+                + ", ".join(f"{k} {v[0]:.1f} ms / {v[1]}"
+                            for k, v in sorted(spans.items()))
+                + f"; breaker trips {br.trips}; longest healthy op "
+                f"{longest * 1e3:.1f} ms (poll {longest_poll * 1e3:.1f} ms)"
+                f" {card_line()}")
+            log(f"{label} launches: {launches} {card_line()}")
+            door.stop()
+            del door, fab, br, tr
+            empty_cache(torch, dev)
+            # the hang leg
+            door, fab, br, tr = stack()
+            t_leg = time.perf_counter()
+            hres, tripped_s, handed = hang_check(
+                fab, br, tr, "r0", budget, cl.retarget(door),
+                reqs("h", n_hang), after=4)
+            hlat, hst = fab.latency_stats(), fab.stats()
+            leg_s = time.perf_counter() - t_leg
+    finally:
+        door.stop()
+
+    def handed_off(i):
+        p = np.asarray(prompts[i])
+        return any(np.array_equal(run, p[:len(run)]) for run in handed)
+    cold = [i for i in greedy if i < n_hang
+            and len(prompts[i]) >= FABRIC_THRESHOLD and not handed_off(i)]
+    cold_want = dict(zip(cold, serial_streams(
+        model, [prompts[i] for i in cold], SERVE_NEW, **kw)))
+    hang_eq = {i: hres[i].get("tokens") == cold_want.get(i, want[i])
+               for i in greedy if i < n_hang}
+    hclient = client_latency(hres)
+    info["hang"] = {"requests": n_hang, "failed": failed(hres),
+                    "budget_s": budget, "tripped_s": tripped_s,
+                    "trips": br.trips, "handed_off_before_and_after":
+                    len(handed), "readmitted": hst["readmitted"],
+                    "handoff_failures": hst["handoff_failures"],
+                    "cold": cold, "greedy_equal": hang_eq,
+                    "cold_first_diff_from_5d": {
+                        i: first_diff(hres[i].get("tokens"), want[i])
+                        for i in cold},
+                    "client": hclient, "router": hlat, "leg_s": leg_s}
+    log(f"{label} hang leg ({n_hang} requests; r0, the prefill replica, "
+        f"hung after its 4th handoff): longest healthy op of the window "
+        f"{longest * 1e3:.1f} ms (poll {longest_poll * 1e3:.1f} ms) -> op "
+        f"budget {budget * 1e3:.1f} ms; tripped after {tripped_s:.3f} s, "
+        f"trips {br.trips}; handed off {len(handed)}, re-admitted "
+        f"{hst['readmitted']}, handoff failures {hst['handoff_failures']}, "
+        f"served cold {cold}; greedy equal "
+        f"{sum(hang_eq.values())}/{len(hang_eq)} (cold ones against one "
+        f"engine serving them cold; the first token where each differs "
+        f"from {base_label}'s, None if none: "
+        f"{info['hang']['cold_first_diff_from_5d']}); failed "
+        f"{len(info['hang']['failed'])}; client {hclient['tokens_per_s']:.1f}"
+        f" tokens/s, TTFT p99 {hclient['ttft_p99_s'] * 1e3:.1f} ms; router "
+        f"TTFT p99 {hlat['ttft_p99_s'] * 1e3:.1f} ms; {leg_s:.1f} s "
+        f"{card_line()}")
+    RESULTS[label] = info
+    del door, fab, br, tr
+    empty_cache(torch, dev)
+    missing = [k for k in kernels if launches.get(k, 0) <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched on the {label} path: "
+                         f"{missing}")
+    if (info["failed"] or info["warm_failed"]
+            or not all(info["greedy_equal_5d"]) or info["trips"]
+            or missing_spans or not all(iff.values())):
+        raise SystemExit(f"{label}: failed, unequal, tripped, spans "
+                         f"missing {missing_spans} or the sentry disagreed "
+                         f"with the router; {info}")
+    h = info["hang"]
+    if (h["failed"] or h["trips"] != 1 or tripped_s >= 2 * budget
+            or h["readmitted"] + h["handoff_failures"] < 1
+            or not all(hang_eq.values())):
+        raise SystemExit(f"{label} hang leg failed: {h}")
     return launches
 
 
@@ -2762,6 +3646,9 @@ def phase_serving(torch, pt, dev, make_cfg):
     features["fabric"] = fabric_run(torch, dev, model, "fabric",
                                     SERVING_KERNELS, "serving")
     mark("5d fabric, native")
+    features["frontdoor"] = frontdoor_run(torch, dev, model, "frontdoor",
+                                          SERVING_KERNELS, "fabric")
+    mark("5e front door")
     profile_ctx(torch, dev, model, "serving_features")
     t0 = time.perf_counter()
     qmodel = quantize_model(model, kv_dtype="int8")
@@ -3777,6 +4664,8 @@ def phase_moe_train(torch, pt, dev, make_cfg, b=2, s=4096):
 
 
 def main() -> int:
+    if "--client-process" in sys.argv:
+        return client_process()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3827,6 +4716,8 @@ def main() -> int:
     mark("4c feature equality")
     phase_fabric_equality(torch, pt, dev, LlamaConfig.llama3_8b)
     mark("4d fabric equality")
+    phase_frontdoor_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("4e front-door equality")
     serve_launches, quant_launches, feature_launches = phase_serving(
         torch, pt, dev, LlamaConfig.llama3_8b)
     ref = phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b,
@@ -3884,8 +4775,8 @@ def main() -> int:
             "replaces": replaces,
             # launches on the main paths: the serving run, the timed
             # training steps, the quantized serving run, the timed MoE
-            # training steps and phase 5c's feature runs, and each path's
-            # own count
+            # training steps, phase 5c's feature runs, 5d's fabric runs
+            # and 5e's front-door window, and each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases

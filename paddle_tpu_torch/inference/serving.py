@@ -77,8 +77,18 @@ Serving-engine features, each off by default:
 - Metrics and tracing: with ``observability.REGISTRY`` enabled the engine
   publishes ``pt_serving_*`` gauges each tick and counters and
   percentiles at ``publish_metrics()`` (labelled ``engine=<name>`` when
-  named); ``submit(trace=)`` stitches replica spans under a caller's
-  trace context.
+  named) and ticks the installed SLO sentry after each (``step`` and
+  ``run``); ``submit(trace=)`` stitches replica spans under a caller's
+  trace context. ``profiler.RecordEvent`` spans mark admission
+  (``serving::admit``), each prefill (``serving::prefill``), each decode
+  block's dispatch (``serving::dispatch``) and each block's drain
+  (``serving::drain``): host time, a global load and a branch when no
+  profiler records.
+- Threads: grad and inference mode are thread-local, so every verb that
+  touches the pools or the model (``submit``, ``step``, ``run``,
+  ``cancel``, ``serialize_pages``, ``adopt_pages``) sets inference mode
+  itself; a front door's drive thread or a breaker's worker thread may
+  call any of them on an engine built elsewhere.
 
 The engine is exact over native pools: greedy outputs equal per-request
 greedy decoding whatever the batching, preemption, pipelining, chunking,
@@ -101,8 +111,10 @@ import numpy as np
 import torch
 
 from ..observability.metrics import REGISTRY as _REG
+from ..observability.sentry import sentry as _sentry
 from ..observability.tracing import TRACER as _TRACE
 from ..ops.attention import force_decode_impl, paged_decode_crossover
+from ..profiler import RecordEvent
 from .admission import AdmissionPolicy, VictimInfo
 from .generation import (GenerationConfig, decode_stop_update,
                          sample_logits_per_slot)
@@ -344,6 +356,7 @@ class ContinuousBatchingEngine:
 
     # -- public API ---------------------------------------------------------
 
+    @torch.inference_mode()
     def submit(self, input_ids, max_new_tokens: Optional[int] = None,
                generation_config: Optional[GenerationConfig] = None,
                rseed: Optional[int] = None, replay_prefix=None,
@@ -409,7 +422,8 @@ class ContinuousBatchingEngine:
         (chunked mode), dispatch the next decode block, reconcile drained
         blocks. Returns [(rid, token), ...] that arrived this tick."""
         emitted: List[tuple] = []
-        self._admit()
+        with RecordEvent("serving::admit"):
+            self._admit()
         if self.chunked_prefill:
             self._prefill_tick()
         dispatched = self._dispatch_block(emitted)
@@ -421,6 +435,9 @@ class ContinuousBatchingEngine:
             emitted.extend(self._reconcile_one())
         if _REG.enabled:
             self._tick_gauges()
+            # the gauges above are fresh: the sentry's drain boundary (an
+            # uninstalled sentry is a load and a branch)
+            _sentry.maybe_tick()
         return emitted
 
     @torch.inference_mode()
@@ -435,6 +452,8 @@ class ContinuousBatchingEngine:
         out = self.take_finished()
         if _REG.enabled:
             self.publish_metrics()
+            # the percentile gauges were just republished
+            _sentry.maybe_tick()
         return out
 
     def take_finished(self) -> Dict[int, np.ndarray]:
@@ -561,6 +580,7 @@ class ContinuousBatchingEngine:
 
     # -- KV-page handoff (the serving fabric's prefill -> decode transfer) --
 
+    @torch.inference_mode()
     def serialize_pages(self, tokens) -> Optional[Dict[str, object]]:
         """Export the KV pages the radix tree holds for the longest
         page-aligned prefix of ``tokens``: every layer's K and V pages
@@ -595,6 +615,7 @@ class ContinuousBatchingEngine:
             payload["scales_shape"] = list(scales.shape)
         return payload
 
+    @torch.inference_mode()
     def adopt_pages(self, payload) -> List[int]:
         """Adopt a :meth:`serialize_pages` payload into this engine's pool
         and radix tree (the JAX package's arrives through
@@ -1092,8 +1113,9 @@ class ContinuousBatchingEngine:
                     raise RuntimeError("the matched tail page vanished")
                 self.prefix_cow_copies += 1
                 psp = self._prefill_span(req, "cow")
-                logits = self._tail_logits(slot, int(toks[L - 1]), L - 1,
-                                           src, pages[0])
+                with RecordEvent("serving::prefill"):
+                    logits = self._tail_logits(slot, int(toks[L - 1]),
+                                               L - 1, src, pages[0])
                 if psp is not None:
                     psp.end()
                 req.prefilled = L
@@ -1110,13 +1132,14 @@ class ContinuousBatchingEngine:
                 continue
             req.prefilled = L
             psp = self._prefill_span(req, "suffix" if off else "full")
-            if off:
-                # the suffix only, from the page-aligned offset, attending
-                # over the mapped shared history plus itself
-                logits = self._chunk_logits(slot, toks, off,
-                                            self._bucket(L) - off, L - 1)
-            else:
-                logits = self._prefill(slot, toks)
+            with RecordEvent("serving::prefill"):
+                if off:
+                    # the suffix only, from the page-aligned offset,
+                    # attending over the mapped shared history plus itself
+                    logits = self._chunk_logits(slot, toks, off,
+                                                self._bucket(L) - off, L - 1)
+                else:
+                    logits = self._prefill(slot, toks)
             if psp is not None:
                 psp.end()
             self._activate(slot, req, logits)
@@ -1134,8 +1157,10 @@ class ContinuousBatchingEngine:
         req = self._slots[slot]
         C, off = self.prefill_chunk, req.prefilled
         psp = self._prefill_span(req, "chunk")
-        logits = self._chunk_logits(slot, self._req_tokens(req), off, C,
-                                    min(req.prefill_target - 1, off + C - 1))
+        with RecordEvent("serving::prefill"):
+            logits = self._chunk_logits(
+                slot, self._req_tokens(req), off, C,
+                min(req.prefill_target - 1, off + C - 1))
         if psp is not None:
             psp.tag(off=off).end()
         req.prefilled = min(off + C, self._bucket(req.prefill_target))
@@ -1372,17 +1397,20 @@ class ContinuousBatchingEngine:
         if self._tables_dirty:
             self._tables_dev = self._to_device(self.tables)
             self._tables_dirty = False
-        if self.spec_k:
-            # the verify forward has its own context attention: no fork
-            toks, kept = self._spec_tick(any_sample)
-        else:
-            # the route from the batch's largest context after this block
-            ctx_len = max(int(self._proj_pos[s]) for s, _ in parts) + K
-            attn_impl = ("dense" if ctx_len <= self.attn_crossover
-                         else "paged")
-            self.attn_path_ticks[attn_impl] += 1
-            with force_decode_impl(attn_impl):
-                toks, kept = self._decode_block(K, any_sample)
+        with RecordEvent("serving::dispatch"):
+            if self.spec_k:
+                # the verify forward has its own context attention: no
+                # fork
+                toks, kept = self._spec_tick(any_sample)
+            else:
+                # the route from the batch's largest context after this
+                # block
+                ctx_len = max(int(self._proj_pos[s]) for s, _ in parts) + K
+                attn_impl = ("dense" if ctx_len <= self.attn_crossover
+                             else "paged")
+                self.attn_path_ticks[attn_impl] += 1
+                with force_decode_impl(attn_impl):
+                    toks, kept = self._decode_block(K, any_sample)
         self.decode_blocks += 1
         if self.kv_quant:
             self.kv_quant_ticks += 1
@@ -1435,10 +1463,11 @@ class ContinuousBatchingEngine:
         slots whose done flag came back, stamp arrival latencies, and in
         speculative mode re-anchor the projections at the drained truth."""
         blk = self._inflight.popleft()
-        if blk.event is not None:
-            blk.event.synchronize()
-        toks, kept = blk.toks.numpy(), blk.kept.numpy()
-        active_after = blk.active.numpy()
+        with RecordEvent("serving::drain"):
+            if blk.event is not None:
+                blk.event.synchronize()
+            toks, kept = blk.toks.numpy(), blk.kept.numpy()
+            active_after = blk.active.numpy()
         emitted: List[tuple] = []
         now = time.perf_counter()
         for slot, req in blk.participants:

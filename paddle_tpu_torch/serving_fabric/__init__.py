@@ -17,9 +17,15 @@ ContinuousBatchingEngines, with prefill/decode disaggregation
   weighted fairness and token-bucket quotas priced in uncached-suffix
   tokens.
 * :class:`LoadShedder`, :class:`Backoff` and the typed rejections.
+* :class:`FrontDoor` / :class:`FabricClient` — the concurrent streaming
+  TCP edge over a fabric (newline-JSON, per-connection ``seq``, per-id
+  dedupe with replay resume, slow-client eviction, typed refusals) and
+  the retrying, hedging client of it.
+* :class:`BreakerTransport` — a per-replica circuit breaker (op-class
+  timeouts, open → half-open probe → closed) around any transport.
 
-The front door (``FrontDoor``, ``FabricClient``, ``BreakerTransport``)
-and the SLO sentry's fabric rules are not ported (ROADMAP.md, A.9).
+The names load on first use: a client process imports
+``serving_fabric.client`` alone and never imports ``torch``.
 
 Quickstart (``device="cpu"`` models in tests; the card by default)::
 
@@ -37,23 +43,35 @@ Quickstart (``device="cpu"`` models in tests; the card by default)::
 
 from __future__ import annotations
 
-from .digest import PrefixDigest
-from .fair import TenantFairPolicy, TenantSpec
-from .replica import Replica, build_replicas
-from .robust import (AllReplicasDown, Backoff, DeadlineExceeded,
-                     FabricRejected, LoadShedder, Overloaded)
-from .router import FabricRequest, ServingFabric
-from .transport import (FabricTransport, InProcTransport, ReplicaDown,
-                        TcpReplicaServer, TcpTransport, payload_from_wire,
-                        payload_to_wire)
+import importlib
 
-__all__ = [
-    "ServingFabric", "FabricRequest",
-    "Replica", "build_replicas",
-    "FabricTransport", "InProcTransport", "TcpTransport",
-    "TcpReplicaServer", "ReplicaDown",
-    "payload_to_wire", "payload_from_wire",
-    "PrefixDigest", "TenantFairPolicy", "TenantSpec",
-    "LoadShedder", "Backoff", "FabricRejected", "Overloaded",
-    "AllReplicasDown", "DeadlineExceeded",
-]
+# public name -> submodule that defines it
+_WHERE = {
+    "ServingFabric": "router", "FabricRequest": "router",
+    "Replica": "replica", "build_replicas": "replica",
+    "FabricTransport": "transport", "InProcTransport": "transport",
+    "TcpTransport": "transport", "TcpReplicaServer": "transport",
+    "ReplicaDown": "transport", "payload_to_wire": "transport",
+    "payload_from_wire": "transport",
+    "PrefixDigest": "digest",
+    "TenantFairPolicy": "fair", "TenantSpec": "fair",
+    "FrontDoor": "frontdoor", "FabricClient": "client",
+    "BreakerTransport": "breaker",
+    "LoadShedder": "robust", "Backoff": "robust",
+    "FabricRejected": "robust", "Overloaded": "robust",
+    "AllReplicasDown": "robust", "DeadlineExceeded": "robust",
+}
+
+__all__ = list(_WHERE)
+
+
+def __getattr__(name):
+    mod = _WHERE.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    return getattr(importlib.import_module(f".{mod}", __name__), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_WHERE))

@@ -1,5 +1,5 @@
 """ServingFabric: the front door over N replicas (copy of
-``paddle_tpu/serving_fabric/router.py`` without its SLO-sentry ticks).
+``paddle_tpu/serving_fabric/router.py``).
 
 One router owns the GLOBAL request queue and drives every replica
 through a :class:`~.transport.FabricTransport`. Per scheduler pass
@@ -36,7 +36,8 @@ through a :class:`~.transport.FabricTransport`. Per scheduler pass
    delivered list is authoritative).
 
 Everything observable publishes through the metrics registry under
-``pt_fabric_*`` (per-replica/per-tenant label sets).
+``pt_fabric_*`` (per-replica/per-tenant label sets), and each pass and
+``run()`` tick the installed SLO sentry.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..observability.metrics import REGISTRY as _REG
+from ..observability.sentry import sentry as _sentry
 from ..observability.tracing import TRACER as _TRACE, TraceContext
 from .digest import PrefixDigest
 from .fair import TenantFairPolicy
@@ -316,6 +318,7 @@ class ServingFabric:
         self._enforce_deadlines()
         if _REG.enabled:
             self._tick_gauges()
+            _sentry.maybe_tick()
         return delivered
 
     def take_finished(self) -> Dict[int, Optional[np.ndarray]]:
@@ -355,6 +358,7 @@ class ServingFabric:
         out.update(self.take_finished())
         if _REG.enabled:
             self.publish_metrics()
+            _sentry.maybe_tick()
         return out
 
     # -- heartbeat / hysteresis ----------------------------------------------

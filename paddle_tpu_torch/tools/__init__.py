@@ -1,0 +1,4 @@
+"""Command-line tools of the port, run as ``python -m
+paddle_tpu_torch.tools.<name>`` (counterparts of the JAX package's
+``tools/``): ``serve_fabric`` drives a replica pool through the router
+from a trace, ``load_test`` drives the front door under load."""

@@ -1591,3 +1591,146 @@ def test_moe_model_training_on_card_matches_cpu(dev):
                  "labels": torch.tensor(ids[:, 1:], device=device)}
         losses.append([float(tr.train_step(batch)) for _ in range(3)])
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4, atol=1e-4)
+
+
+# -- the serving path on other threads, its spans, the front door ----------
+
+def _on_thread(fn):
+    """``fn()`` on a fresh thread (normal grad mode, the default stream)
+    with the stream it saw; re-raises its exception here."""
+    import threading
+    box = {}
+
+    def work():
+        try:
+            box["stream"] = torch.cuda.current_stream()
+            box["r"] = fn()
+        except BaseException as e:      # noqa: BLE001 — re-raised below
+            box["e"] = e
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive()
+    if "e" in box:
+        raise box["e"]
+    return box["r"], box["stream"]
+
+
+def _tiny_card_model(dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    return LlamaForCausalLM(LlamaConfig.tiny(), device=dev,
+                            generator=pt.generator(0, dev))
+
+
+def test_engine_verbs_from_fresh_threads_on_the_card(dev):
+    """An engine built on the card under inference mode, driven only from
+    fresh threads (submit, step, run, cancel, serialize_pages,
+    adopt_pages): the tokens and the launches by kernel of an engine
+    driven from this thread, into the default stream (D12)."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    model = _tiny_card_model(dev)
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, 256, (n,)).astype(np.int32) for n in (19, 7)]
+    kw = dict(max_batch=2, page_size=8, max_len=64, prefix_cache=True,
+              generation_config=GenerationConfig(max_new_tokens=6))
+    runs = []
+    for threaded in (False, True):
+        with torch.inference_mode():
+            src = ContinuousBatchingEngine(model, **kw)
+            dst = ContinuousBatchingEngine(model, **kw)
+        call = _on_thread if threaded else (lambda f: (f(), None))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        rids = [call(lambda p=p: src.submit(p))[0] for p in prompts]
+        out, stream = call(src.run)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        if threaded:
+            assert stream == torch.cuda.default_stream(dev)
+        pay = call(lambda: src.serialize_pages(prompts[0]))[0]
+        assert len(call(lambda: dst.adopt_pages(pay))[0]) == 2
+        rid = call(lambda: dst.submit(prompts[0]))[0]
+        call(dst.step)
+        assert call(lambda: dst.cancel(rid))[0] is True
+        rid = call(lambda: dst.submit(prompts[0]))[0]
+        again = call(dst.run)[0][rid]
+        dst._check_page_invariants()
+        runs.append(([out[r].tolist() for r in rids], again.tolist(),
+                     launches))
+    assert runs[1] == runs[0]
+    assert all(runs[1][2][k] > 0 for k in SERVING_KERNELS), runs[1][2]
+    assert runs[1][1] == runs[1][0][0]
+
+
+def test_serving_spans_and_device_trace_of_a_card_run(dev, tmp_path):
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    model = _tiny_card_model(dev)
+    eng = ContinuousBatchingEngine(
+        model, max_batch=2, page_size=8, max_len=64, chunked_prefill=True,
+        prefill_chunk=8, generation_config=GenerationConfig(max_new_tokens=6))
+    rs = np.random.RandomState(7)
+    p = profiler.Profiler(
+        on_trace_ready=profiler.export_chrome_tracing(str(tmp_path / "host")),
+        trace_device=True, device_trace_dir=str(tmp_path / "device"))
+    with p:
+        for n in (21, 9):
+            eng.submit(rs.randint(0, 256, (n,)).astype(np.int32))
+        eng.run()
+    names = [e.name for e in p.result.events]
+    assert set(profiler.SERVING_EVENTS) <= set(names)
+    assert names.count("serving::prefill") >= 4      # chunks of 8
+    import glob
+    import json
+    host = glob.glob(str(tmp_path / "host" / "*.json"))
+    device = glob.glob(str(tmp_path / "device" / "*.json"))
+    assert len(host) == 1 and len(device) == 1
+    events = json.load(open(device[0]))["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("paged" in k for k in kernels), sorted(set(kernels))[:20]
+
+
+def test_front_door_round_trip_on_the_card(dev):
+    """Two replicas of a tiny card model behind a breaker and a front
+    door; four greedy clients in this process: the streams of one engine
+    on the card, no trip."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    from paddle_tpu_torch.serving_fabric import (BreakerTransport,
+                                                 FabricClient, FrontDoor,
+                                                 InProcTransport,
+                                                 ServingFabric,
+                                                 build_replicas)
+    import threading
+    model = _tiny_card_model(dev)
+    gc = GenerationConfig(max_new_tokens=8)
+    rs = np.random.RandomState(8)
+    prompts = [rs.randint(0, 256, (n,)).astype(np.int32)
+               for n in (5, 17, 9, 30)]
+    reps = build_replicas(model, 2, roles=["prefill", "both"], page_size=8,
+                          max_len=64, max_batch=2, generation_config=gc)
+    br = BreakerTransport(InProcTransport(reps))
+    door = FrontDoor(ServingFabric(br, disagg_threshold_tokens=16)).start()
+    got = [None] * len(prompts)
+    try:
+        def go(i):
+            got[i] = FabricClient(door.host, door.port,
+                                  io_timeout_s=120.0).generate(
+                prompts[i], 8, request_id=f"c{i}").tokens
+        ts = [threading.Thread(target=go, args=(i,))
+              for i in range(len(prompts))]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+    finally:
+        door.stop()
+    eng = ContinuousBatchingEngine(model, max_batch=2, page_size=8,
+                                   max_len=64, generation_config=gc)
+    rids = [eng.submit(p) for p in prompts]
+    out = eng.run()
+    assert got == [out[r].tolist() for r in rids]
+    assert br.trips == 0
