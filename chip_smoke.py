@@ -220,7 +220,56 @@ Phases, in order; any failure exits non-zero before the result line:
      idle share); every training kernel and both grouped-matmul kernels
      must launch, every grouped launch on the wgmma route, and the loss
      must be finite and fall. Then 2 + 4 steps at capacity_factor 1.25
-     beside it.
+     beside it;
+ 10. the trainer runtime, at phase 7's configuration (Llama-3-8B widths
+     at 4 layers, bf16, fused head, AdamW(1e-4, weight_decay 0.01) with
+     global-norm clip 1.0), batches of 2 x 4096 tokens from the port's
+     DataLoader over a seeded numpy token dataset with
+     prefetch_to_device=True; launch counts reset before the first leg
+     and read after (e), every training kernel must launch. The machine
+     with the card ends a command that writes 45 GiB to its disk, so
+     the legs that save are cut (SAVE_LAYERS, KILL_DIR). (b, skip) a
+     chaos.nan_batch at step 4 under AnomalyGuard(policy="skip"),
+     donate=False: the step skipped, the parameters equal their
+     pre-step values bit for bit, the cursor past the batch, the peak
+     memory of the pre-step copy; (a) at 1 layer: 6 steps under
+     CheckpointManager(save_interval_steps=3, keep_last_n=1,
+     async_save=True): the state's bytes, the disk's free bytes, each
+     save's synchronous snapshot and background write + sha256 seconds
+     and GB/s, the steps saved (3 async, 6 sync) and committed ([6]); a
+     fresh Trainer over a model from another seed resumes with
+     resume="auto" (verify and restore seconds) and holds every
+     parameter, master and moment, the step, the scheduler and the data
+     cursor bit for bit; its next 2 losses must lie in the band of two
+     uninterrupted runs (the saver going on, and a fresh run: their
+     losses at each step widened by their largest difference); (b,
+     rollback) and (c) at phase 6's layout in fp32: a NaN batch at step
+     4 under policy="rollback" restores step 3's state bit for bit, the
+     loader replays from cursor 3, the goodput ledger books
+     rollback_wasted, and the run ends on an unpoisoned run's state bit
+     for bit; then PreemptionGuard.trigger() at step 6: one final
+     synchronous checkpoint ([6]), TrainingPreempted with exit code 75,
+     the flight recorder's dump, pt_preemptions_total 1, and a fresh
+     trainer resumes it bit for bit and goes on a step; (d)
+     steps_per_dispatch=4 against 1, 2 warm-up and 8 steps each, beside
+     a second K=1 run: step time, the host's loss reads, the idle share
+     of one profiled dispatch, and the K=4 run's largest loss distance
+     from K=1 beside the two K=1 runs' (bf16 backward atomics make each
+     run another sample); at phase 6's layout in fp32 (deterministic
+     kernels) K=4 must equal K=1 bit for bit, losses and state, and the
+     steps saved under save_interval_steps=3 (read by a recorder that
+     writes nothing) must be JAX's (SUPERSTEP_SAVES); (e) offload_opt_state=True: one update from the
+     same gradients with the state in pinned host memory equals the
+     update on the card bit for bit, then 2 + 4 steps: peak memory and
+     step time; (f) the kill leg in fp32 at phase 6's layout, its
+     checkpoints in KILL_DIR: testing/_chaos_train.py through
+     chaos.spawn_trainer on the card, an uninterrupted run beside one
+     saving every 3 steps and SIGKILLed at step 7 after its async save
+     of step 6 is durable; a fresh process resumes it: the final
+     parameters equal the uninterrupted run's bit for bit, latest_step
+     skips the torn step 6 and the manager quarantines it. The
+     checkpoints of (a)-(c) live in the output directory (ROOT_OUT) and
+     are removed at the end.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -2337,6 +2386,18 @@ def phase_frontdoor_equality(torch, pt, dev, make_cfg, threshold=128):
                     for i, r in enumerate(hout))
                 and not any(e.has_work() for e in engines)
                 and all(s is None for e in engines for s in e._slots))
+            # which part failed, if one did: a healthy stream's first
+            # token off 4d's (and its error event), or an engine not idle
+            res["loris"] = {
+                "streams_off": {r.get("id", i): (
+                    first_diff(r.get("tokens") or [], want[i % 6]),
+                    r.get("event") or r.get("wire"))
+                    for i, r in enumerate(hout)
+                    if r.get("tokens") != want[i % 6]},
+                "engines_busy": [e.has_work() for e in engines]}
+            if not checks["loris_evicted"]:
+                log(f"front-door equality, slow client leg: "
+                    f"{res['loris']}")
             # refusals: a deadline miss on this door
             dl = cl.call("streams", reqs=[{"id": "dl", "prompt": prompts[0],
                                            "max_new": n_new,
@@ -4663,6 +4724,636 @@ def phase_moe_train(torch, pt, dev, make_cfg, b=2, s=4096):
     return launches
 
 
+# -- phase 10: the trainer runtime -------------------------------------------
+
+# the poisoned batch of phase 10 is cut to this many tokens: its NaN dense
+# mask sends attention to sdpa_plain (the JAX dispatch's dense-mask
+# route), whose fp32 scores at 4096 tokens would not fit beside the
+# pre-step copy of the state that policy "skip" keeps
+POISON_TOKENS = 256
+# phase 10's kill leg: phase 6's layout in fp32 through the chaos script
+KILL_ARGS = ["--preset", "llama3_8b", "--layers", "2", "--mlp", "1024",
+             "--vocab", "4096", "--dtype", "float32", "--seq", "256",
+             "--batch", "2", "--async-save"]
+
+
+class RuntimeTokens:
+    """A seeded numpy token dataset: item i is one sequence of ``s``
+    tokens and its next-token labels."""
+
+    def __init__(self, vocab, n, s, seed=10):
+        self.ids = np.random.RandomState(seed).randint(0, vocab, (n, s + 1))
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return {"input_ids": self.ids[i, :-1], "labels": self.ids[i, 1:]}
+
+
+class PoisonOnce:
+    """A collate function that poisons the ``at``-th batch it collates,
+    once (``chaos.nan_batch`` over an additive attention mask, the
+    batch's only float input, on its first POISON_TOKENS tokens); a
+    replay after a rollback collates that batch again, clean."""
+
+    def __init__(self, at):
+        self.at, self.n = at, 0
+
+    def __call__(self, items):
+        from paddle_tpu_torch.io import default_collate_fn
+        from paddle_tpu_torch.testing import chaos
+        batch = default_collate_fn(items)
+        self.n += 1
+        if self.n - 1 != self.at:
+            return batch
+        cut = {k: v[:, :POISON_TOKENS] for k, v in batch.items()}
+        mask = np.zeros((len(items), 1, 1, POISON_TOKENS), np.float32)
+        return chaos.nan_batch({**cut, "attn_mask": mask},
+                               fields=["attn_mask"])
+
+
+def runtime_loader(dev, tokens, b, poison_at=None):
+    from paddle_tpu_torch.io import DataLoader
+    return DataLoader(tokens, batch_size=b, drop_last=True,
+                      prefetch_to_device=True, device=dev,
+                      collate_fn=(PoisonOnce(poison_at)
+                                  if poison_at is not None else None))
+
+
+def runtime_trainer(torch, pt, dev, cfg, seed, **kw):
+    """Phase 7's trainer: AdamW(1e-4, weight_decay 0.01), global-norm clip
+    1.0, over a model built from ``seed``."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(seed,
+                                                                     dev))
+    return Trainer(model, AdamW(learning_rate=1e-4, parameters=model,
+                                weight_decay=0.01,
+                                grad_clip=ClipGradByGlobalNorm(1.0)), **kw)
+
+
+def differing(torch, a, b):
+    """Keys of the live state (parameters, masters, slots) in which
+    trainers ``a`` and ``b`` differ (any bit)."""
+    live = dict(b._live_tensors())
+    return [key for key, t in a._live_tensors()
+            if not torch.equal(t, live[key].to(t.device))]
+
+
+def timed_calls(obj, name, box):
+    """Wrap ``obj.name`` so each call's seconds append to ``box``."""
+    fn = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            box.append(time.perf_counter() - t0)
+    setattr(obj, name, wrapped)
+
+
+def losses_of(hist):
+    return {m.step: m.loss for m in hist}
+
+
+def spread_band(ref_a, ref_b):
+    """The two uninterrupted runs' losses by step → (spread, band): the
+    spread is their largest difference over the steps both have; a loss
+    at step i lies within it when it is inside [min - spread, max +
+    spread] of the two runs' losses at i."""
+    common = sorted(set(ref_a) & set(ref_b))
+    spread = max(abs(ref_a[i] - ref_b[i]) for i in common)
+    band = {i: (min(ref_a[i], ref_b[i]) - spread,
+                max(ref_a[i], ref_b[i]) + spread) for i in common}
+    return spread, band
+
+
+def outside(band, losses):
+    return {i: v for i, v in losses.items()
+            if i in band and not band[i][0] <= v <= band[i][1]}
+
+
+def chaos_result(proc, timeout=600):
+    out, _ = proc.communicate(timeout=timeout)
+    text = out.decode(errors="replace")
+    for line in text.splitlines():
+        if line.startswith("CHAOS_RESULT "):
+            return proc.returncode, json.loads(line[len("CHAOS_RESULT "):])
+    return proc.returncode, text[-3000:]
+
+
+def kill_leg(torch, dev, root, steps=8, kill_at=7):
+    """Phase 10 (f): the chaos script on the card in fp32 (phase 6's
+    layout): an uninterrupted run (its only save the final one) beside a
+    run saving every 3 steps, async, SIGKILLed at ``kill_at`` once its
+    save of step 6 is durable (uncommitted); then a fresh process resumes
+    the killed run (again only the final save). Returns the leg's
+    record."""
+    from paddle_tpu_torch import checkpoint as ckpt
+    from paddle_tpu_torch.resilience import CheckpointManager
+    from paddle_tpu_torch.testing import chaos
+    t0 = time.perf_counter()
+    ref_dir, run_dir = os.path.join(root, "ref"), os.path.join(root, "run")
+    final_only = KILL_ARGS + ["--save-interval", str(10 * steps)]
+    ref = chaos.spawn_trainer(ref_dir, steps=steps, extra_args=final_only)
+    killed = chaos.spawn_trainer(run_dir, steps=steps, extra_args=KILL_ARGS
+                                 + ["--save-interval", "3",
+                                    "--hard-exit-at", str(kill_at)])
+    rc_ref, res_ref = chaos_result(ref)
+    rc_kill, res_kill = chaos_result(killed)
+    latest = ckpt.latest_step(run_dir)
+    torn_complete = ckpt.is_complete_checkpoint(os.path.join(run_dir,
+                                                             "step_6"))
+    rc_res, res = chaos_result(chaos.spawn_trainer(run_dir, steps=steps,
+                                                   extra_args=final_only))
+    quarantined = CheckpointManager(run_dir).quarantined()
+    digest = (lambda r: r["digest"] if isinstance(r, dict) else None)
+    rec = {"rc_ref": rc_ref, "rc_killed": rc_kill, "rc_resumed": rc_res,
+           "latest_step_after_kill": latest,
+           "torn_step_complete": torn_complete, "quarantined": quarantined,
+           "digest_ref": digest(res_ref), "digest_resumed": digest(res),
+           "ref": res_ref, "resumed": res, "killed_output": (
+               res_kill if isinstance(res_kill, str) else None),
+           "seconds": time.perf_counter() - t0}
+    rec["ok"] = (rc_ref == 0 and rc_res == 0 and rc_kill == -9
+                 and rec["digest_ref"] is not None
+                 and rec["digest_resumed"] == rec["digest_ref"]
+                 and res["step"] == steps and latest == 3
+                 and not torn_complete
+                 and quarantined == ["step_6-uncommitted"])
+    return rec
+
+
+# the layers of phase 10's save-and-resume leg (a). The machine with the
+# card ends a command that has written 45 GiB to its disk (deleted files
+# count): two saves of the 4-layer state (26.9 GB each) would pass it, so
+# (a) keeps Llama-3-8B's widths at 1 layer (17.8 GB a save, 35.5 GB for
+# its two); the rollback and preemption legs checkpoint phase 6's layout
+# in fp32 (1.7 GB a save, three saves), and the kill leg's subprocesses
+# write theirs to KILL_DIR, memory-backed
+SAVE_LAYERS = 1
+KILL_DIR = "/dev/shm"
+# the saves of (d)'s timed fit (steps 3-10 after 2 warm-up steps) under
+# save_interval_steps=3, (step, async): JAX's cadence, each periodic save
+# at the first dispatch boundary at or after a multiple of the interval,
+# the final one synchronous (tests/test_torch_trainer_runtime.py holds
+# the port's cadence to the JAX trainer's)
+SUPERSTEP_SAVES = {1: [(3, True), (6, True), (9, True), (10, False)],
+                   4: [(6, True), (10, False)]}
+
+
+class SaveRecorder:
+    """A stand-in checkpoint manager that records the steps a fit saves at,
+    (step, async), and writes nothing: (d) reads the superstep's save
+    cadence at full width without writing its bytes."""
+
+    def __init__(self, save_interval_steps, async_save=True):
+        self.save_interval_steps = save_interval_steps
+        self.async_save = async_save
+        self.root = ROOT_OUT
+        self.calls = []
+
+    def save(self, step, tree, async_save=None, **kw):
+        self.calls.append((step, self.async_save if async_save is None
+                           else async_save))
+        return True
+
+
+def record_saves(mgr):
+    """Record (step, async) of each ``mgr.save`` call in the returned
+    list."""
+    calls = []
+    save = mgr.save
+
+    def recorded(step, tree, **kw):
+        a = kw.get("async_save")
+        calls.append((step, mgr.async_save if a is None else a))
+        return save(step, tree, **kw)
+    mgr.save = recorded
+    return calls
+
+
+def rollback_and_preemption(torch, pt, dev, cfg, tokens, root, b=2):
+    """Phase 10 (b, rollback) and (c) on ``cfg``: a NaN batch at step 4
+    under policy="rollback" with a manager saving every 3 steps, then a
+    preemption at step 6 and a fresh trainer resuming it. Returns the two
+    records, each with its verdict under "ok"."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.resilience import (AnomalyGuard, CheckpointManager,
+                                             PreemptionGuard,
+                                             TrainingPreempted)
+    r = runtime_trainer(torch, pt, dev, cfg, 9)
+    data = runtime_loader(dev, tokens, b, poison_at=3)
+    mgr = CheckpointManager(os.path.join(root, "r"), save_interval_steps=3,
+                            keep_last_n=1, async_save=True)
+    at3, restored = {}, []
+    restore = r._apply_restored
+
+    def checked(tree):
+        cursor = restore(tree)
+        restored.append(all(torch.equal(p, at3[k])
+                            for k, p in r.params.items()))
+        return cursor
+    r._apply_restored = checked
+    led = obs.ledger()
+    led.reset()
+    guard = AnomalyGuard(policy="rollback", warmup_steps=100)
+    hist = r.fit(data, 5, log_every=1, checkpoint_manager=mgr,
+                 anomaly_guard=guard,
+                 on_metrics=lambda m: at3.update(
+                     {k: p.detach().clone() for k, p in r.params.items()})
+                 if m.step == 3 else None)
+    r._apply_restored = restore
+    clean = runtime_trainer(torch, pt, dev, cfg, 9)
+    clean.fit(runtime_loader(dev, tokens, b), 5, log_every=1)
+    rb = {"rollbacks": guard.rollbacks,
+          "steps_logged": [m.step for m in hist],
+          "restored_equal": restored,
+          "cursor": data.state_dict()["batches_served"],
+          "rollback_wasted_s": led.totals()["rollback_wasted"],
+          "committed": mgr.committed_steps(),
+          "differing_from_clean": differing(torch, r, clean)}
+    del clean
+    rb["ok"] = (guard.rollbacks == 1 and restored == [True]
+                and rb["steps_logged"] == [1, 2, 3, 4, 5]
+                and rb["cursor"] == 5 and rb["rollback_wasted_s"] > 0
+                and rb["committed"] == [5]
+                and not rb["differing_from_clean"])
+    obs.enable(flight_dir=os.path.join(root, "flight"))
+    pg = PreemptionGuard()
+    code = None
+    data.set_state_dict(data.state_dict())
+    try:
+        r.fit(data, 3, log_every=1, checkpoint_manager=mgr,
+              preemption_guard=pg,
+              on_metrics=lambda m: pg.trigger() if m.step >= 6 else None)
+    except TrainingPreempted as e:
+        code = e.code
+    finally:
+        preempts = obs.REGISTRY.counter("pt_preemptions_total").value()
+        obs.disable()
+    flight = os.path.join(mgr.root, "_flight")
+    reasons = []
+    for name in (os.listdir(flight) if os.path.isdir(flight) else []):
+        with open(os.path.join(flight, name)) as f:
+            reasons.append(json.load(f)["reason"])
+    p = runtime_trainer(torch, pt, dev, cfg, 12)
+    data_p = runtime_loader(dev, tokens, b)
+    p.fit(data_p, 6, log_every=1, resume="auto",
+          checkpoint_manager=CheckpointManager(mgr.root,
+                                               save_interval_steps=3))
+    pre = {"exit_code": code, "committed": mgr.committed_steps(),
+           "flight_dumps": reasons, "preemptions_counted": preempts,
+           "resumed_differing": differing(torch, r, p)}
+    del r
+    went_on = p.fit(data_p, 1, log_every=1)
+    pre["went_on"] = [(m.step, m.loss) for m in went_on]
+    pre["ok"] = (code == 75 and pre["committed"] == [6]
+                 and reasons == ["preemption"] and preempts == 1
+                 and not pre["resumed_differing"] and went_on
+                 and went_on[0].step == 7
+                 and math.isfinite(went_on[0].loss))
+    return rb, pre
+
+
+def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
+    """Phase 10: the trainer runtime (see the module docstring for (a)-(f)
+    and the depths). Launch counts are reset before the first leg and
+    read after (e); every training kernel must launch. Returns the
+    launches."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch import checkpoint as ckpt
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.resilience import (AnomalyGuard, CheckpointManager,
+                                             PreemptionGuard,
+                                             TrainingPreempted)
+    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
+    cfg_a = make_cfg(num_hidden_layers=SAVE_LAYERS, dtype="bfloat16")
+    small = make_cfg(num_hidden_layers=2, dtype="float32",
+                     intermediate_size=1024, vocab_size=4096)
+    card = RESULTS.get("card")
+    out = RESULTS.setdefault("trainer_runtime", {"card": card})
+    cuda = dev.type == "cuda"
+    fails = []
+    root = os.path.join(ROOT_OUT, "runtime_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out["disk_free_bytes"] = shutil.disk_usage(root).free
+    tokens = RuntimeTokens(cfg.vocab_size, 64 * b, s)
+    small_tokens = RuntimeTokens(small.vocab_size, 64, 256)
+    gb = 1e9
+    _build.reset_launches()
+    try:
+        # (b, skip) first: its pre-step copy needs the card to itself
+        st = runtime_trainer(torch, pt, dev, cfg, 10, donate=False)
+        data_s = runtime_loader(dev, RuntimeTokens(cfg.vocab_size, 4 * b, s),
+                                b, poison_at=3)
+        pre = {}
+        sync(torch, dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        guard = AnomalyGuard(policy="skip", warmup_steps=100)
+        st.fit(data_s, 5, log_every=1, anomaly_guard=guard,
+               on_metrics=lambda m: pre.update(
+                   {k: p.detach().clone() for k, p in st.params.items()})
+               if m.step == 3 else None)
+        peak_skip = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        same = all(torch.equal(p, pre[k]) for k, p in st.params.items())
+        skip = {"skips": guard.skips, "step": st._step,
+                "cursor": data_s.state_dict()["batches_served"],
+                "params_equal_pre_step": same,
+                "peak_memory_bytes_donate_false": peak_skip}
+        out["skip"] = skip
+        log(f"runtime (b) skip: NaN batch at step 4 under policy='skip', "
+            f"donate=False: skips {guard.skips}, step {st._step}, cursor "
+            f"{skip['cursor']}, parameters equal their pre-step values bit "
+            f"for bit: {same}; peak memory {peak_skip} bytes "
+            f"({peak_skip / gb:.2f} GB; the pre-step copy of the state); "
+            f"{card}")
+        if not (guard.skips == 1 and st._step == 3 and skip["cursor"] == 4
+                and same):
+            fails.append("skip")
+        del st, pre
+        empty_cache(torch, dev)
+
+        # (a) save and resume, at SAVE_LAYERS layers
+        data_a = runtime_loader(dev, tokens, b)
+        a = runtime_trainer(torch, pt, dev, cfg_a, 10)
+        mgr = CheckpointManager(os.path.join(root, "a"),
+                                save_interval_steps=3, keep_last_n=1,
+                                async_save=True)
+        calls = record_saves(mgr)
+        t0 = time.perf_counter()
+        hist_a = a.fit(data_a, 6, log_every=1, checkpoint_manager=mgr)
+        fit_a_s = time.perf_counter() - t0
+        state_bytes = sum(t.numel() * t.element_size()
+                          for _, t in a._live_tensors())
+        saves = [dict(x) for x in ckpt.writer().saves][-2:]
+        committed_a = mgr.committed_steps()
+        a.model.zero_grad(set_to_none=True)
+        data_b = runtime_loader(dev, tokens, b)
+        bt = runtime_trainer(torch, pt, dev, cfg_a, 11)
+        mgr_b = CheckpointManager(mgr.root, save_interval_steps=3,
+                                  keep_last_n=1, async_save=True)
+        verify_s, apply_s = [], []
+        timed_calls(mgr_b, "verify", verify_s)
+        timed_calls(bt, "_apply_restored", apply_s)
+        t0 = time.perf_counter()
+        bt.fit(data_b, 6, log_every=1, checkpoint_manager=mgr_b,
+               resume="auto")
+        sync(torch, dev)
+        resume_s = time.perf_counter() - t0
+        diff = differing(torch, a, bt)
+        sa, sb = (x.optimizer.lr_scheduler for x in (a, bt))
+        resumed = {
+            "differing": diff, "step": bt._step,
+            "opt_step": bt.opt_state["step"],
+            "cursor": data_b.state_dict()["batches_served"],
+            "cursor_a": data_a.state_dict()["batches_served"],
+            "sched_equal": (sa is None and sb is None) or (
+                sa.state_dict() == sb.state_dict())}
+        out["save_resume"] = {
+            "layers": SAVE_LAYERS, "state_bytes": state_bytes,
+            "disk_free_bytes": out["disk_free_bytes"], "saves": saves,
+            "save_calls": calls, "committed": committed_a,
+            "fit_6_steps_s": fit_a_s, "resume_s": resume_s,
+            "verify_s": verify_s, "apply_s": apply_s, **resumed}
+        log(f"runtime (a) save ({SAVE_LAYERS} layer(s) at Llama-3-8B "
+            f"widths, bf16): state {state_bytes} bytes "
+            f"({state_bytes / gb:.2f} GB), disk free "
+            f"{out['disk_free_bytes']} bytes; saves at {calls} (step, "
+            f"async); committed {committed_a}; {card}")
+        for x in saves:
+            w = x.get("write_s", float("nan"))
+            log(f"runtime (a) save {os.path.basename(x['path'])}: snapshot "
+                f"{x['snapshot_s']:.3f} s (synchronous, pinned host), write "
+                f"+ sha256 {w:.3f} s "
+                f"({'background' if x['async'] else 'synchronous'}), "
+                f"{x.get('bytes', 0) / w / gb:.3f} GB/s; {card}")
+        log(f"runtime (a) resume: {resume_s:.3f} s in all (verify "
+            f"{sum(verify_s):.3f} s, copy into the live tensors "
+            f"{sum(apply_s):.3f} s); differing tensors {len(diff)}; step "
+            f"{bt._step}, optimizer step {bt.opt_state['step']}, scheduler "
+            f"equal {resumed['sched_equal']}, cursor {resumed['cursor']} "
+            f"(the saver's {resumed['cursor_a']}); {card}")
+        if (diff or bt._step != 6 or bt.opt_state["step"] != 6
+                or not resumed["sched_equal"] or resumed["cursor"] != 6
+                or resumed["cursor_a"] != 6 or committed_a != [6]
+                or calls != [(3, True), (6, False)]):
+            fails.append("save/resume")
+        # the resumed trainer's next 2 steps against two uninterrupted
+        # runs: the saver going on, and a fresh run of 8 steps
+        data_b.set_state_dict(data_b.state_dict())
+        run_b = losses_of(bt.fit(data_b, 2, log_every=1))
+        del bt
+        empty_cache(torch, dev)
+        data_a.set_state_dict(data_a.state_dict())
+        hist_a += a.fit(data_a, 2, log_every=1)
+        run_a = losses_of(hist_a)
+        del a
+        empty_cache(torch, dev)
+        c = runtime_trainer(torch, pt, dev, cfg_a, 10)
+        run_c = losses_of(c.fit(runtime_loader(dev, tokens, b), 8,
+                                log_every=1))
+        del c
+        empty_cache(torch, dev)
+        spread, band = spread_band(run_a, run_c)
+        off_b = outside(band, run_b)
+        out["save_resume"].update(next_losses=run_b, spread=spread,
+                                  outside_band=off_b)
+        log(f"runtime (a) next 2 losses of the resumed trainer {run_b}; two "
+            f"uninterrupted runs differ by at most {spread:.3e}; outside "
+            f"their band: {off_b}; {card}")
+        if off_b:
+            fails.append("resumed losses")
+
+        # (b, rollback) and (c) on phase 6's layout in fp32
+        before = dict(_build.LAUNCHES)
+        rb, pre_c = rollback_and_preemption(
+            torch, pt, dev, small, small_tokens, os.path.join(root, "bc"))
+        fp32_ce = _build.LAUNCHES["vocab_ce_fwd"] - before["vocab_ce_fwd"]
+        out["rollback"], out["preemption"] = rb, pre_c
+        log(f"runtime (b) rollback (phase 6's layout, fp32): NaN batch at "
+            f"step 4 under policy='rollback': rollbacks {rb['rollbacks']}, "
+            f"restored state equal to step 3's: {rb['restored_equal']}, "
+            f"steps logged {rb['steps_logged']}, cursor {rb['cursor']} "
+            f"(replayed from 3), rollback_wasted "
+            f"{rb['rollback_wasted_s']:.3f} s, committed {rb['committed']}, "
+            f"final state equal to an unpoisoned run's: "
+            f"{not rb['differing_from_clean']}; {card}")
+        log(f"runtime (c) preemption (phase 6's layout, fp32): trigger() at "
+            f"step 6: exit code {pre_c['exit_code']}, committed "
+            f"{pre_c['committed']}, flight dumps {pre_c['flight_dumps']}, "
+            f"pt_preemptions_total {pre_c['preemptions_counted']}; a fresh "
+            f"trainer resumes it ({len(pre_c['resumed_differing'])} "
+            f"differing tensors) and goes on: {pre_c['went_on']}; {card}")
+        if not rb["ok"]:
+            fails.append("rollback")
+        if not pre_c["ok"]:
+            fails.append("preemption")
+
+        # (d) the superstep, K = 4 against K = 1 (timed), and K = 1
+        # again for the two-run spread
+        sup, runs = {}, {}
+        for K, timed in ((1, True), (4, True), (1, False)):
+            tr = runtime_trainer(torch, pt, dev, cfg, 10)
+            it = iter(runtime_loader(dev, tokens, b))
+            hist = tr.fit(it, 2, log_every=1, steps_per_dispatch=K)
+            if not timed:
+                hist += tr.fit(it, 8, log_every=1)
+                runs["K=1 again"] = losses_of(hist)
+                del tr
+                empty_cache(torch, dev)
+                continue
+            reads0 = tr.dispatch_stats["loss_reads"]
+            rec = SaveRecorder(3)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            hist += tr.fit(it, 8, log_every=1, steps_per_dispatch=K,
+                           checkpoint_manager=rec)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            reads = tr.dispatch_stats["loss_reads"] - reads0
+            prof = profile_step(torch, dev, lambda: tr.fit(
+                it, K, log_every=1, steps_per_dispatch=K), top=None)
+            runs[f"K={K}"] = losses_of(hist)
+            sup[K] = {"step_s": wall / 8, "loss_reads_8_steps": reads,
+                      "saves": rec.calls,
+                      "dispatch_host_s_per_step":
+                          tr.dispatch_stats["dispatch_host_s"]
+                          / tr.dispatch_stats["steps"],
+                      "idle_share": prof and prof["device_idle_share"],
+                      "busy_ms": prof and prof["device_busy_ms"],
+                      "wall_ms": prof and prof["wall_ms_under_profiler"],
+                      "losses": [m.loss for m in hist]}
+            log(f"runtime (d) steps_per_dispatch={K}: step "
+                f"{sup[K]['step_s']:.4f} s over 8 steps, host loss reads "
+                f"{sup[K]['loss_reads_8_steps']} in 8 steps (log_every=1), "
+                f"enqueue {sup[K]['dispatch_host_s_per_step']:.4f} s a step, "
+                f"saves at {rec.calls}; one profiled dispatch of {K} "
+                f"step(s): device busy {sup[K]['busy_ms']} ms of "
+                f"{sup[K]['wall_ms']} ms (idle share "
+                f"{sup[K]['idle_share']}); {card}")
+            del tr
+            empty_cache(torch, dev)
+        # bf16: the flash backward adds dq with atomics, so each run is
+        # another sample; the K=4 run's largest distance from K=1 is
+        # reported beside the two K=1 runs' (their spread). The superstep
+        # is the same step, so the check is K=4 against K=1 bit for bit
+        # in fp32, whose kernels are deterministic (phase 6's layout)
+        spread4 = max(abs(runs["K=1"][i] - runs["K=1 again"][i])
+                      for i in runs["K=1"])
+        dev4 = max(abs(runs["K=4"][i] - runs["K=1"][i]) for i in runs["K=1"])
+        fp32, ce0 = {}, _build.LAUNCHES["vocab_ce_fwd"]
+        for K in (1, 4):
+            tr = runtime_trainer(torch, pt, dev, small, 9)
+            h = tr.fit(runtime_loader(dev, small_tokens, b), 8, log_every=1,
+                       steps_per_dispatch=K)
+            fp32[K] = (tr, [m.loss for m in h])
+        fp32_ce += _build.LAUNCHES["vocab_ce_fwd"] - ce0
+        fp32_diff = differing(torch, fp32[1][0], fp32[4][0])
+        fp32_same = not fp32_diff and fp32[1][1] == fp32[4][1]
+        del fp32
+        empty_cache(torch, dev)
+        cadence_ok = all(sup[K]["saves"] == want
+                         for K, want in SUPERSTEP_SAVES.items())
+        sup.update(spread=spread4, k4_distance=dev4,
+                   fp32_bit_equal=fp32_same, fp32_differing=fp32_diff,
+                   cadence_ok=cadence_ok, expected_saves=SUPERSTEP_SAVES,
+                   losses_k1_again=runs["K=1 again"])
+        out["superstep"] = sup
+        log(f"runtime (d) losses, bf16: K=4 at most {dev4:.3e} from K=1, "
+            f"two K=1 runs at most {spread4:.3e} apart; fp32 (phase 6's "
+            f"layout): K=4 equal to K=1 bit for bit (losses and state): "
+            f"{fp32_same}; saves on dispatch boundaries as JAX's: "
+            f"{cadence_ok} ({SUPERSTEP_SAVES}); {card}")
+        if not (fp32_same and cadence_ok):
+            fails.append("superstep")
+
+        # (e) optimizer-state offload
+        x = runtime_trainer(torch, pt, dev, cfg, 10)
+        o = runtime_trainer(torch, pt, dev, cfg, 10, offload_opt_state=True)
+        batch = next(iter(runtime_loader(dev, tokens, b)))
+        x._loss(batch).backward()
+        grads = {k: p.grad.detach().clone() for k, p in x.params.items()}
+        x.optimizer.apply_gradients(x.params, {k: g.clone() for k, g in
+                                               grads.items()}, lr=1e-4)
+        o.optimizer.apply_gradients(o.params, grads, lr=1e-4)
+        sync(torch, dev)
+        same_update = all(torch.equal(p, o.params[k])
+                          for k, p in x.params.items())
+        on_host = not cuda or all(t.is_pinned() for key, t in
+                                  o._live_tensors() if key[0] != "params")
+        del x, grads, batch
+        empty_cache(torch, dev)
+        it = iter(runtime_loader(dev, tokens, b))
+        o.fit(it, 2, log_every=1)
+        sync(torch, dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        hist_o = o.fit(it, 4, log_every=1)
+        sync(torch, dev)
+        step_o = (time.perf_counter() - t0) / 4
+        peak_o = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        off_rec = {"same_update_bit_for_bit": same_update,
+                   "state_on_host": on_host, "step_s": step_o,
+                   "peak_memory_bytes": peak_o,
+                   "losses": [m.loss for m in hist_o]}
+        out["offload"] = off_rec
+        log(f"runtime (e) offload (masters and moments in pinned host "
+            f"memory, streamed a parameter at a time): one update from the "
+            f"same gradients equal to the update on the card bit for bit: "
+            f"{same_update}; state on the host: {on_host}; peak memory "
+            f"{peak_o} bytes ({peak_o / gb:.2f} GB; phase 7 without offload: "
+            f"37.19 GB), step {step_o:.4f} s (phase 7: 0.2731 s); {card}")
+        if not (same_update and on_host and all(
+                math.isfinite(m.loss) for m in hist_o)):
+            fails.append("offload")
+        del o
+        empty_cache(torch, dev)
+    finally:
+        # the checkpoints (tens of GB) never outlive the phase
+        ckpt.writer().release()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(_build.LAUNCHES)
+    out["launches"] = launches
+    log(f"runtime launches (a)-(e): {launches}")
+    kill_root = tempfile.mkdtemp(prefix="pt_runtime_kill_",
+                                 dir=KILL_DIR if os.path.isdir(KILL_DIR)
+                                 else ROOT_OUT)
+    try:
+        kill = kill_leg(torch, dev, kill_root)
+    finally:
+        shutil.rmtree(kill_root, ignore_errors=True)
+    out["kill"] = kill
+    log(f"runtime (f) kill leg (fp32, phase 6's layout, 8 steps, save every "
+        f"3 async, SIGKILL at 7): exit codes ref {kill['rc_ref']}, killed "
+        f"{kill['rc_killed']}, resumed {kill['rc_resumed']}; latest_step "
+        f"after the kill {kill['latest_step_after_kill']}, quarantined "
+        f"{kill['quarantined']}; digests ref {kill['digest_ref']} resumed "
+        f"{kill['digest_resumed']}; {kill['seconds']:.1f} s; {card}")
+    if not kill["ok"]:
+        fails.append("kill")
+    if fails:
+        raise SystemExit(f"trainer runtime checks failed: {fails}")
+    missing = [k for k in TRAINING_KERNELS if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"kernels not launched in the trainer runtime: "
+                         f"{missing}")
+    # bf16 CE forwards take the wgmma route; the fp32 legs' take fma
+    if launches["vocab_ce_fwd_wgmma"] != launches["vocab_ce_fwd"] - fp32_ce:
+        raise SystemExit(f"trainer runtime: bf16 CE forward launches off "
+                         f"the wgmma route: {launches['vocab_ce_fwd_wgmma']} "
+                         f"of {launches['vocab_ce_fwd'] - fp32_ce}")
+    return launches
+
+
 def main() -> int:
     if "--client-process" in sys.argv:
         return client_process()
@@ -4732,6 +5423,9 @@ def main() -> int:
         phase_moe_equality(torch, pt, dev, MoEConfig.deepseek_moe_16b, dtype)
     moe_launches = phase_moe_train(torch, pt, dev, MoEConfig.deepseek_moe_16b)
     mark("8 MoE")
+    runtime_launches = phase_trainer_runtime(torch, pt, dev,
+                                             LlamaConfig.llama3_8b)
+    mark("10 trainer runtime")
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
@@ -4768,6 +5462,7 @@ def main() -> int:
                    "training": train_launches[name],
                    "quantized_serving": quant_launches[name],
                    "moe_training": moe_launches[name],
+                   "trainer_runtime": runtime_launches[name],
                    **{label: counts.get(name, 0)
                       for label, counts in feature_launches.items()}}
         kernels.append({
@@ -4775,8 +5470,9 @@ def main() -> int:
             "replaces": replaces,
             # launches on the main paths: the serving run, the timed
             # training steps, the quantized serving run, the timed MoE
-            # training steps, phase 5c's feature runs, 5d's fabric runs
-            # and 5e's front-door window, and each path's own count
+            # training steps, phase 10's trainer runtime, phase 5c's
+            # feature runs, 5d's fabric runs and 5e's front-door window,
+            # and each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases

@@ -1,9 +1,12 @@
-"""Carry weights from the JAX package's models into the port's.
+"""Carry weights and optimizer state from the JAX package into the port.
 
 The JAX model's ``state_dict()``, converted to numpy, has the same names
 and layouts as the port's modules (``[in, out]`` float projections, or
 ``[out, in]`` int8 ones with their fp32 scales; the MoE models' expert
-weights ``[e, in, out]``), so the bridge is a checked copy.
+weights ``[e, in, out]``), so the bridge is a checked copy. The JAX
+optimizer's state ``{"step", "master", "slots"}`` has the port's layout
+too (fp32 masters of the low-precision parameters, fp32 slots), so
+:func:`opt_state_from_jax` is a checked copy as well.
 """
 
 from __future__ import annotations
@@ -57,4 +60,44 @@ def state_dict_from_jax(np_params: Dict[str, np.ndarray],
     return out
 
 
-__all__ = ["state_dict_from_jax"]
+def opt_state_from_jax(np_state: Dict, params: Dict[str, torch.Tensor]
+                       ) -> Dict:
+    """The JAX optimizer state (``{"step", "master", "slots"}`` with numpy
+    leaves, as ``paddle_tpu.optimizer.Optimizer.init_state`` /
+    ``apply_gradients`` keep it) → the port's optimizer state for
+    ``params`` (name → the port's parameter), each master and slot an
+    fp32 tensor on its parameter's device; ``step`` a Python int. Install
+    it with ``optimizer._state = ...`` or through
+    ``Trainer.set_state_dict``. Raises ValueError naming every missing,
+    extra or mis-shaped entry."""
+    masters = np_state.get("master", {}) or {}
+    slots = np_state["slots"]
+    bad = []
+    for k in sorted(set(masters) - set(params)):
+        bad.append(f"master {k}: no such parameter")
+    for k in sorted(set(params) ^ set(slots)):
+        bad.append(f"slots {k}: " + ("missing" if k in params
+                                     else "no such parameter"))
+    for k, v in masters.items():
+        if k in params and tuple(np.shape(v)) != tuple(params[k].shape):
+            bad.append(f"master {k}: shape {np.shape(v)} != "
+                       f"{tuple(params[k].shape)}")
+    for k, entry in slots.items():
+        for sk, v in entry.items():
+            if k in params and tuple(np.shape(v)) != tuple(params[k].shape):
+                bad.append(f"slots {k}/{sk}: shape {np.shape(v)} != "
+                           f"{tuple(params[k].shape)}")
+    if bad:
+        raise ValueError(f"JAX optimizer state does not match the "
+                         f"parameters: {bad}")
+
+    def t(k, v):
+        arr = np.array(v, dtype=np.float32, order="C")
+        return torch.from_numpy(arr).to(params[k].device)
+    return {"step": int(np.asarray(np_state["step"])),
+            "master": {k: t(k, v) for k, v in masters.items()},
+            "slots": {k: {sk: t(k, v) for sk, v in entry.items()}
+                      for k, entry in slots.items()}}
+
+
+__all__ = ["state_dict_from_jax", "opt_state_from_jax"]

@@ -333,6 +333,9 @@ class ContinuousBatchingEngine:
         # deltas since its previous call
         self._tokens_emitted = 0
         self._requests_retired = 0
+        # tokens other requests committed in a cancel's drain: the next
+        # step() emits them first (D13)
+        self._carried: List[tuple] = []
         self._published: Dict[str, float] = {}
         # gauge handles resolved once: the per-tick path pays no lookup
         self._g_queue = _REG.gauge("pt_serving_queue_depth",
@@ -420,8 +423,9 @@ class ContinuousBatchingEngine:
     def step(self) -> List[tuple]:
         """One scheduler tick: admit what fits, advance one prefill chunk
         (chunked mode), dispatch the next decode block, reconcile drained
-        blocks. Returns [(rid, token), ...] that arrived this tick."""
-        emitted: List[tuple] = []
+        blocks. Returns [(rid, token), ...] that arrived this tick, after
+        those a cancel's drain committed since the last tick."""
+        emitted, self._carried = self._carried, []
         with RecordEvent("serving::admit"):
             self._admit()
         if self.chunked_prefill:
@@ -483,9 +487,11 @@ class ContinuousBatchingEngine:
             pass
         slot = next((i for i, s in enumerate(self._slots) if s is req), -1)
         if slot >= 0:
-            # tokens other slots commit in this drain land in their
-            # requests' streams; only this tick's emitted view skips them
-            self._drain_all()
+            # tokens other slots commit in this drain reach their
+            # streams, and the next step() emits them (D13: a streaming
+            # caller would otherwise miss them)
+            self._carried.extend((r, t) for r, t in self._drain_all()
+                                 if r != rid)
             if not req.done and self._slots[slot] is req:
                 self._deactivate(slot)
                 self._free_slot(slot, cache=True)

@@ -13,6 +13,15 @@ cast of its updated master, as there.
 ``step()`` reads each bound parameter's ``.grad``; ``apply_gradients``
 takes an explicit name → gradient dict. Gradient clipping runs before
 the update.
+
+Optimizer-state offload (:func:`place_opt_state`): masters and moments
+may live in pinned host memory between steps. The JAX trainer moves the
+whole state up and back in one batched transfer around its step; here
+``apply_gradients`` sees host state beside card parameters and streams
+it one parameter at a time — that parameter's master and moments copied
+up, updated, copied back, all on the current stream — so the card holds
+one parameter's state at a time (the largest: the embedding or head)
+instead of the whole of it. The arithmetic is the same either way.
 """
 
 from __future__ import annotations
@@ -30,6 +39,39 @@ Params = Dict[str, torch.Tensor]
 
 def _is_low_precision(t: torch.Tensor) -> bool:
     return t.dtype in (torch.bfloat16, torch.float16)
+
+
+def _is_on_host(t: torch.Tensor, p: torch.Tensor) -> bool:
+    return t.device.type == "cpu" and p.device.type != "cpu"
+
+
+def _to_kind(t: torch.Tensor, kind: str, device) -> torch.Tensor:
+    if kind == "pinned_host":
+        if device.type == "cpu":
+            return t
+        return t.detach().to("cpu").pin_memory()
+    if kind == "device":
+        return t.to(device, non_blocking=True)
+    raise ValueError(f"memory kind {kind!r}: 'pinned_host' or 'device'")
+
+
+def place_opt_state(state: Dict, params: Params, kind: str) -> Dict:
+    """An optimizer state (``{"step", "master", "slots"}``) with each
+    master and slot in memory ``kind``: ``"pinned_host"`` (page-locked CPU
+    memory, beside card parameters) or ``"device"`` (its parameter's
+    device). Parameters on the CPU keep their state where it is. Returns a
+    new dict; a tensor already in place is reused. Counterpart of
+    ``paddle_tpu.optimizer.place_opt_state``; the port's updates then
+    stream host state themselves (module docstring)."""
+    def dev(name):
+        return params[name].device
+    out = dict(state)
+    out["master"] = {k: _to_kind(v, kind, dev(k))
+                     for k, v in state["master"].items()}
+    out["slots"] = {k: {sk: _to_kind(sv, kind, dev(k))
+                        for sk, sv in slots.items()}
+                    for k, slots in state["slots"].items()}
+    return out
 
 
 def _copy_state(tree):
@@ -58,6 +100,9 @@ class Optimizer:
                           if p.requires_grad}
         self._bound_params: Params = dict(parameters or {})
         self._state: Optional[Dict] = None
+        # set by a sharding helper in the JAX package; a Trainer built
+        # without offload_opt_state= inherits it
+        self._offload_opt_state = False
 
     # -- lr ------------------------------------------------------------------
 
@@ -75,20 +120,46 @@ class Optimizer:
     def lr_scheduler(self) -> Optional[LRScheduler]:
         return self._lr if isinstance(self._lr, LRScheduler) else None
 
+    def set_lr_scheduler(self, scheduler: LRScheduler) -> None:
+        """Swap in an LRScheduler (reference: optimizer.py
+        set_lr_scheduler — subsequent get_lr() reads the scheduler's
+        current value)."""
+        if not isinstance(scheduler, LRScheduler):
+            raise TypeError(f"scheduler must be an LRScheduler, got "
+                            f"{type(scheduler).__name__}")
+        self._lr = scheduler
+
     # -- state ---------------------------------------------------------------
 
-    def init_state(self, params: Params) -> Dict:
+    def init_state(self, params: Params, kind: str = "device") -> Dict:
+        """A fresh state: fp32 masters of the low-precision parameters and
+        zero moments, on the parameters' device or, with ``kind=
+        "pinned_host"``, in pinned host memory (built one tensor at a
+        time, never whole on the card)."""
         state = {"step": 0, "master": {}, "slots": {}}
         with torch.no_grad():
             if self.multi_precision:
-                state["master"] = {k: v.detach().float()
-                                   for k, v in params.items()
-                                   if _is_low_precision(v)}
-            state["slots"] = {k: self._init_slots(v)
-                              for k, v in params.items()}
+                state["master"] = {
+                    k: _to_kind(v.detach().float(), kind, v.device)
+                    for k, v in params.items() if _is_low_precision(v)}
+            state["slots"] = {
+                k: {sk: _to_kind(sv, kind, v.device)
+                    for sk, sv in self._init_slots(
+                        v, "cpu" if kind == "pinned_host" else None
+                    ).items()}
+                for k, v in params.items()}
         return state
 
-    def _init_slots(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def ensure_state(self, params: Params, kind: str = "device") -> Dict:
+        """The state, created by :meth:`init_state` if no update made it
+        yet (a restore before the first step copies into it)."""
+        if self._state is None:
+            self._state = self.init_state(params, kind)
+        return self._state
+
+    def _init_slots(self, p: torch.Tensor,
+                    device=None) -> Dict[str, torch.Tensor]:
+        """Zero slots for ``p`` on ``device`` (default ``p``'s)."""
         return {}
 
     def _update_(self, name: str, p32: torch.Tensor, g32: torch.Tensor,
@@ -108,7 +179,8 @@ class Optimizer:
         """One update of ``params`` (name → tensor, changed in place) from
         ``grads``; a parameter without a gradient is left as it is. The
         state is created at the first call. ``lr`` defaults to
-        :meth:`get_lr`."""
+        :meth:`get_lr`. A parameter whose master and slots lie in host
+        memory has them streamed up and back (module docstring)."""
         if self._state is None:
             self._state = self.init_state(params)
         if lr is None:
@@ -122,12 +194,28 @@ class Optimizer:
             if g is None:
                 continue
             master = state["master"].get(k)
+            slots = state["slots"][k]
             p32 = master if master is not None else p
             if p32.dtype != torch.float32:
                 raise TypeError(f"{k}: {p.dtype} parameter without an fp32 "
                                 f"master (multi_precision=False)")
-            self._update_(k, p32, g.float(), state["slots"][k], lr,
-                          state["step"])
+            host = [t for t in ([master] if master is not None else [])
+                    + list(slots.values()) if _is_on_host(t, p)]
+            if host:
+                # offloaded: this parameter's state up, updated, and back
+                # into the same pinned tensors; stream order keeps the
+                # copies and the update in sequence
+                up = {id(t): t.to(p.device, non_blocking=True)
+                      for t in host}
+                p32 = up.get(id(p32), p32)
+                dslots = {sk: up.get(id(sv), sv) for sk, sv in slots.items()}
+                self._update_(k, p32, g.float(), dslots, lr, state["step"])
+                if master is not None:
+                    p.copy_(p32)
+                for t in host:
+                    t.copy_(up[id(t)], non_blocking=True)
+                continue
+            self._update_(k, p32, g.float(), slots, lr, state["step"])
             if master is not None:
                 p.copy_(master)
 
@@ -169,11 +257,12 @@ class Adam(Optimizer):
                          multi_precision)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
-    def _init_slots(self, p):
+    def _init_slots(self, p, device=None):
+        device = p.device if device is None else device
         return {"m": torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device),
+                                 device=device),
                 "v": torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)}
+                                 device=device)}
 
     def _decoupled(self) -> bool:
         return False
@@ -222,4 +311,4 @@ class AdamW(Adam):
         return True
 
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "Adam", "AdamW", "place_opt_state"]

@@ -1,5 +1,5 @@
-"""Training loop with throughput and MFU accounting (counterpart of
-``paddle_tpu/trainer/trainer.py``).
+"""Training loop with throughput and MFU accounting, and the fault-tolerant
+runtime around it (counterpart of ``paddle_tpu/trainer/trainer.py``).
 
 The JAX ``Trainer`` jits one functional step over donated parameter and
 optimizer-state pytrees. Here the step is eager: the model's forward
@@ -8,20 +8,39 @@ the card), then the optimizer's in-place update. The learning rate of
 step n is the scheduler's ``lr_of(n)``, the fp32 value the JAX trainer
 evaluates in its step; a constant rate is rounded to fp32 likewise.
 
+The runtime of ``fit`` is the JAX trainer's: checkpoints and resume
+(``resilience.CheckpointManager``), the anomaly and preemption guards,
+the superstep (``steps_per_dispatch=K``) and optimizer-state offload. The
+port's state is updated IN PLACE (parameters, fp32 masters and moments
+share storage with the model and the optimizer), which changes four
+things:
+
+* an async checkpoint's host snapshot is taken before ``save`` returns
+  (``checkpoint.save_state_dict``); only the write runs in the background;
+* ``AnomalyGuard(policy="skip")`` keeps a pre-step clone of the whole
+  state on the card each step (``donate=False``; at Llama-3-8B widths and
+  4 layers, 26.9 GB); ``donate=True`` with "skip" is refused, as in JAX;
+* a restore copies into the live tensors (``copy_``), creating the
+  optimizer state first when it comes before any step;
+* the superstep is K eager steps enqueued back to back over the slices of
+  ``io.stack_batches``, their losses kept in a device vector that the host
+  reads once per drain.
+
 MFU = tokens/s × ``model.flops_per_token(seq_len)`` (PaLM count) ÷ the
 card's peak, from :data:`PEAK_FLOPS`. A device missing from the table
 (the CPU among them) reports MFU as NaN rather than against a made-up
 peak.
 
-Not ported yet, and refused rather than ignored: checkpointing and
-resume, the anomaly and preemption guards, ``steps_per_dispatch > 1``
-(the superstep) and optimizer-state offload.
+Not here: ``apply_plan`` (sharding plans, ROADMAP.md A.5) and
+``precompile`` (an eager step has nothing to compile ahead; CUDA graphs
+are B.3.3) raise; the cost observatory's step-cost gauges wait with A.6.
 """
 
 from __future__ import annotations
 
 import inspect
 import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional
@@ -29,8 +48,14 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from .. import observability as _obs
 from ..device import device_info
-from ..optimizer.optimizer import Optimizer
+from ..optimizer.optimizer import Optimizer, place_opt_state
+from ..profiler import RecordEvent
+
+# span names the trainer emits through RecordEvent (profiler traces and
+# the flight recorder's span ring both see them)
+TRAINER_EVENTS = ("trainer::dispatch", "trainer::checkpoint")
 
 # bf16 dense tensor-core peak per card, FLOP/s (NVIDIA H100 SXM data
 # sheet; the rate assumes the card's full 700 W power limit)
@@ -59,9 +84,9 @@ class TrainMetrics:
         return self.__dict__.copy()
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: it comes with "
-                               f"the trainer-runtime slice")
+def _ntok(batch) -> int:
+    ids = batch.get("input_ids")
+    return int(ids.shape[0] * ids.shape[1]) if ids is not None else 0
 
 
 class Trainer:
@@ -75,13 +100,22 @@ class Trainer:
     are summed in the parameters' dtype and divided by A, the loss is the
     mean, as in the JAX trainer. ``seed`` keys the step's random streams
     in the JAX trainer; the port's steps draw none (attention dropout is
-    0), so a seed other than 0 is refused until one does."""
+    0), so a seed other than 0 is refused until one does.
+
+    ``donate``: the JAX trainer donates its state to the step; the port's
+    step always updates in place. ``donate=False`` is what
+    ``AnomalyGuard(policy="skip")`` needs: the pre-step clone that undoes
+    a poisoned update. ``loss_key`` is accepted as in JAX and not read.
+
+    ``offload_opt_state=True`` keeps the masters and moments in pinned
+    host memory between steps; the optimizer streams each parameter's
+    state to the card for its update and back. None inherits the
+    optimizer's ``_offload_opt_state`` flag, also when it is set later."""
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
-                 accumulate_steps: int = 1, seed: int = 0,
-                 offload_opt_state: Optional[bool] = None):
-        if offload_opt_state:
-            raise _later("offload_opt_state")
+                 loss_key: Optional[str] = None, donate: bool = True,
+                 accumulate_steps: int = 1,
+                 offload_opt_state: Optional[bool] = None, seed: int = 0):
         if seed != 0:
             raise NotImplementedError(
                 "Trainer(seed=...) keys random streams that no ported "
@@ -93,11 +127,96 @@ class Trainer:
         self.params: Dict[str, torch.Tensor] = {
             n: p for n, p in model.named_parameters() if p.requires_grad}
         self.accumulate_steps = max(1, int(accumulate_steps))
+        self._donate = bool(donate)
         self._step = 0
         self.device = next(model.parameters()).device
         self.peak_flops = device_peak_flops(self.device)
         # the card's name and power limit: the peak assumes the full limit
         self.card = device_info() if self.device.type == "cuda" else None
+        self._offload_explicit = offload_opt_state is not None
+        if offload_opt_state is None:
+            offload_opt_state = getattr(optimizer, "_offload_opt_state",
+                                        False)
+        self._offload = False
+        if offload_opt_state:
+            self._set_offload()
+        self._watchdog = None
+        #: host-side accounting: steps and dispatches (a superstep is one
+        #: dispatch of K steps), the wall seconds spent ENQUEUEING steps,
+        #: and the host's reads of a loss from the device
+        self.dispatch_stats = {"steps": 0, "dispatches": 0,
+                               "dispatch_host_s": 0.0, "loss_reads": 0}
+
+    # -- state ----------------------------------------------------------------
+
+    def _set_offload(self) -> None:
+        """Put the optimizer state in pinned host memory (creating it
+        there when no step has made it yet)."""
+        self._offload = True
+        opt = self.optimizer
+        if opt._state is None:
+            opt._state = opt.init_state(self.params, "pinned_host")
+        else:
+            opt._state = place_opt_state(opt._state, self.params,
+                                         "pinned_host")
+
+    def _adopt_offload_flag(self) -> None:
+        """An optimizer flag set after this Trainer was built is honoured
+        from here on, unless offload_opt_state was passed explicitly."""
+        if (not self._offload and not self._offload_explicit
+                and getattr(self.optimizer, "_offload_opt_state", False)):
+            self._set_offload()
+
+    @property
+    def opt_state(self) -> Optional[Dict]:
+        """The optimizer's live state ``{"step", "master", "slots"}`` (None
+        before the first step)."""
+        return self.optimizer._state
+
+    def _sync_host_state(self) -> None:
+        """Wait for the offloaded state's pending card→host copies before
+        the host reads or writes it."""
+        if self._offload and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _live_tensors(self):
+        """(key, live tensor) of every parameter, master and slot."""
+        out = [(("params", k), p) for k, p in self.params.items()]
+        st = self.optimizer._state
+        if st is not None:
+            out += [(("master", k), t) for k, t in st["master"].items()]
+            out += [(("slots", k, sk), t)
+                    for k, slots in st["slots"].items()
+                    for sk, t in slots.items()]
+        return out
+
+    def _snapshot_state(self):
+        """A clone of the whole state (the undo of a skipped step)."""
+        self._sync_host_state()
+        sched = self.optimizer.lr_scheduler
+        st = self.optimizer._state
+        with torch.no_grad():
+            return {"tensors": {key: t.clone()
+                                for key, t in self._live_tensors()},
+                    "opt_step": None if st is None else st["step"],
+                    "sched": sched.state_dict() if sched else None}
+
+    def _restore_snapshot(self, prev) -> None:
+        if prev["opt_step"] is None:
+            # the poisoned step created the optimizer state: drop it (the
+            # next step creates it again from the restored parameters)
+            self.optimizer._state = None
+        self._sync_host_state()
+        with torch.no_grad():
+            for key, t in self._live_tensors():
+                t.copy_(prev["tensors"][key])
+        if prev["opt_step"] is not None:
+            self.optimizer._state["step"] = prev["opt_step"]
+        sched = self.optimizer.lr_scheduler
+        if sched is not None and prev["sched"] is not None:
+            sched.set_state_dict(prev["sched"])
+
+    # -- the step -------------------------------------------------------------
 
     def _lr(self) -> float:
         sched = self.optimizer.lr_scheduler
@@ -114,10 +233,7 @@ class Trainer:
         out = self.model(**batch)
         return out[0] if isinstance(out, tuple) else out
 
-    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """One optimization step. Returns the loss as a 0-d tensor on the
-        device, without waiting for it: callers read ``float()`` only
-        when they need the value."""
+    def _one_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         lr = self._lr()
         for p in self.params.values():
             p.grad = None
@@ -141,10 +257,62 @@ class Trainer:
                  if p.grad is not None}
         self.optimizer.apply_gradients(self.params, grads, lr=lr)
         self._step += 1
+        self.dispatch_stats["steps"] += 1
         sched = self.optimizer.lr_scheduler
         if sched is not None:
             sched.step()
         return loss
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One optimization step. Returns the loss as a 0-d tensor on the
+        device, without waiting for it: callers read ``float()`` only
+        when they need the value."""
+        self._adopt_offload_flag()
+        if self._watchdog is not None:
+            self._watchdog.tick()
+        t0 = time.perf_counter()
+        with RecordEvent("trainer::dispatch"):
+            loss = self._one_step(batch)
+        self.dispatch_stats["dispatches"] += 1
+        self.dispatch_stats["dispatch_host_s"] += time.perf_counter() - t0
+        return loss
+
+    def _read(self, loss: torch.Tensor) -> float:
+        self.dispatch_stats["loss_reads"] += 1
+        return float(loss)
+
+    def apply_plan(self, plan, devices=None):
+        raise NotImplementedError(
+            "Trainer.apply_plan: sharding plans come with the elastic and "
+            "resharding slice (ROADMAP.md, A.5)")
+
+    def precompile(self, sample_batch, steps_per_dispatch: int = 1,
+                   cache_dir: Optional[str] = None):
+        raise NotImplementedError(
+            "Trainer.precompile: an eager step has nothing to compile "
+            "ahead; captured steps come with CUDA graphs (ROADMAP.md, "
+            "B.3.3)")
+
+    # -- full loop with metrics ---------------------------------------------
+
+    def _metrics(self, step, loss_v, dt, log_every, tokens, sl, lr):
+        tps = tokens / dt if dt > 0 else 0.0
+        fpt = (self.model.flops_per_token(sl)
+               if hasattr(self.model, "flops_per_token") else 0.0)
+        mfu = (tps * fpt / self.peak_flops
+               if fpt and self.peak_flops else math.nan)
+        return TrainMetrics(step=step, loss=loss_v,
+                            step_time_s=dt / log_every, tokens_per_sec=tps,
+                            tokens_per_sec_per_chip=tps, mfu=mfu, lr=lr)
+
+    def _emit(self, m: TrainMetrics, history, on_metrics) -> None:
+        history.append(m)
+        _obs.observe_train_metrics(m)
+        # SLO sentry: rules evaluate at the same log boundary the gauges
+        # above were refreshed at (a load + branch when none is installed)
+        _obs.sentry.maybe_tick()
+        if on_metrics:
+            on_metrics(m)
 
     def fit(self, data: Iterable[Dict[str, torch.Tensor]], steps: int,
             log_every: int = 10, on_metrics: Optional[Callable] = None,
@@ -152,51 +320,475 @@ class Trainer:
             resume=None, anomaly_guard=None, preemption_guard=None,
             steps_per_dispatch: int = 1) -> List[TrainMetrics]:
         """Train ``steps`` steps from ``data`` (stopping early when it
-        runs out). Every ``log_every`` steps the loss is read (the only
-        wait for the device) and a :class:`TrainMetrics` over the steps
-        since the last one is recorded and passed to ``on_metrics``."""
-        for name, val in (("checkpoint_manager", checkpoint_manager),
-                          ("resume", resume),
-                          ("anomaly_guard", anomaly_guard),
-                          ("preemption_guard", preemption_guard)):
-            if val:
-                raise _later(name)
-        if int(steps_per_dispatch) > 1:
-            raise _later("steps_per_dispatch > 1")
-        target = self._step + int(steps)
-        it = iter(data)
-        history: List[TrainMetrics] = []
-        t_last = time.perf_counter()
-        tokens_since = 0
+        runs out). Every ``log_every`` steps the loss is read (a wait for
+        the device) and a :class:`TrainMetrics` over the steps since the
+        last one is recorded and passed to ``on_metrics``. The runtime:
+
+        * ``checkpoint_manager`` (resilience.CheckpointManager): periodic
+          saves every ``save_interval_steps`` plus a final synchronous save;
+        * ``resume="auto"``: restore the parameters, the optimizer state,
+          the step and the LR scheduler from the newest COMMITTED
+          checkpoint and fast-forward the data cursor (via
+          ``data.set_state_dict`` when the loader supports it). With
+          resume, ``steps`` is the TOTAL step budget of the run;
+        * ``preemption_guard`` (resilience.PreemptionGuard): on SIGTERM the
+          loop writes one final sync checkpoint at the next step boundary
+          and raises TrainingPreempted (exit code = resumable);
+        * ``anomaly_guard`` (resilience.AnomalyGuard): NaN/Inf or loss-spike
+          steps are skipped (undo the update; needs donate=False) or rolled
+          back to the last good checkpoint, within bounded budgets. With
+          ``check_every > 1`` (and a non-skip policy) loss verdicts are
+          consumed as a batched window — one device read per window;
+        * ``steps_per_dispatch=K`` (superstep): K steps enqueued back to
+          back over stacked batches; losses are read at log/anomaly/
+          checkpoint boundaries. Bit-identical to K=1 (the same step).
+          Checkpoint/anomaly cadence aligns to dispatch boundaries (first
+          boundary at-or-after the configured interval); resume may land
+          mid-superstep — the next dispatch is sized
+          ``min(K, target - step)``. Incompatible with ``policy="skip"``.
+          The hung-step watchdog (``PT_STEP_TIMEOUT_S``) is ticked per
+          dispatch and around the loss reads.
+        """
+        from ..distributed.watchdog import watchdog_from_env
+        if self._watchdog is None:
+            self._watchdog = watchdog_from_env()
+        if resume and checkpoint_manager is None:
+            raise ValueError("resume requires a checkpoint_manager")
+        if (anomaly_guard is not None and anomaly_guard.policy == "skip"
+                and self._donate):
+            raise ValueError(
+                "AnomalyGuard(policy='skip') requires Trainer(donate=False): "
+                "undoing a poisoned update needs a pre-step copy of the "
+                "state, which an in-place (donated) update does not keep. "
+                "Use policy='rollback' (with a checkpoint_manager) or "
+                "donate=False.")
+        K = max(1, int(steps_per_dispatch))
+        if K > 1 and anomaly_guard is not None \
+                and anomaly_guard.policy == "skip":
+            raise ValueError(
+                "steps_per_dispatch>1 cannot honor AnomalyGuard("
+                "policy='skip'): a poisoned update inside a superstep "
+                "cannot be undone from pre-step copies. Use "
+                "policy='rollback' (checkpoint-backed) or "
+                "steps_per_dispatch=1.")
+        if (checkpoint_manager is not None
+                and _obs.flight_recorder.recorder().active):
+            # crash dumps land next to the quarantine dir so a post-mortem
+            # ships with the checkpoint state it describes
+            _obs.flight_recorder.set_dir(
+                os.path.join(checkpoint_manager.root, "_flight"))
+        # goodput ledger: the whole fit window is accounted wall-time;
+        # everything not claimed by a span (save/restore/preempt) books as
+        # productive_step
+        led = _obs.ledger()
+        led.run_start()
+        try:
+            if resume and checkpoint_manager is not None:
+                self._resume_from(checkpoint_manager, data)
+                target = int(steps)
+            else:
+                target = self._step + int(steps)
+            it = iter(data)
+            kw = dict(mgr=checkpoint_manager, anomaly=anomaly_guard,
+                      guard=preemption_guard, data=data)
+            if K > 1:
+                return self._fit_superstep(it, target, K, log_every,
+                                           on_metrics, seq_len, [], **kw)
+            return self._fit_loop(it, target, log_every, on_metrics,
+                                  seq_len, [], time.perf_counter(), 0, **kw)
+        finally:
+            led.run_end()
+            if _obs.enabled():
+                _obs.publish()       # goodput buckets + snapshot -> exporters
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
+
+    def _fit_loop(self, it, target, log_every, on_metrics, seq_len,
+                  history, t_last, tokens_since, mgr=None, anomaly=None,
+                  guard=None, data=None):
+        # anomaly windowing: policy="skip" must read every step's loss (the
+        # undo needs the pre-step copy from BEFORE the next step runs);
+        # rollback/abort verdicts can consume a batched loss window
+        window = []
+        per_step_check = (anomaly is None or anomaly.policy == "skip"
+                          or getattr(anomaly, "check_every", 1) <= 1)
+        keep_prev = anomaly is not None and anomaly.policy == "skip"
         while self._step < target:
+            if guard is not None and guard.preempted:
+                if window:
+                    it, _ = self._drain_loss_window(window, anomaly, mgr,
+                                                    data, it)
+                self._preempt_exit(mgr, data)
             try:
                 batch = next(it)
             except StopIteration:
                 break
             ids = batch.get("input_ids")
+            prev = self._snapshot_state() if keep_prev else None
             loss = self.train_step(batch)
-            tokens_since += ids.numel() if ids is not None else 0
-            if self._step % log_every:
-                continue
-            loss_v = float(loss)   # waits for the device
-            dt = time.perf_counter() - t_last
-            tps = tokens_since / dt if dt > 0 else 0.0
-            sl = seq_len or (ids.shape[-1] if ids is not None else 1)
-            fpt = (self.model.flops_per_token(sl)
-                   if hasattr(self.model, "flops_per_token") else 0.0)
-            mfu = (tps * fpt / self.peak_flops
-                   if fpt and self.peak_flops else math.nan)
-            m = TrainMetrics(step=self._step, loss=loss_v,
-                             step_time_s=dt / log_every,
-                             tokens_per_sec=tps,
-                             tokens_per_sec_per_chip=tps, mfu=mfu,
-                             lr=self.optimizer.get_lr())
-            history.append(m)
-            if on_metrics:
-                on_metrics(m)
-            t_last = time.perf_counter()
-            tokens_since = 0
+            tokens_since += _ntok(batch)
+            if anomaly is not None:
+                if per_step_check:
+                    v = self._read(loss)
+                    verdict = anomaly.check(v)
+                    if verdict != "ok":
+                        it = self._handle_anomaly(verdict, anomaly, mgr,
+                                                  prev, data, it, v)
+                        continue
+                else:
+                    window.append((self._step, loss))
+                    if len(window) >= anomaly.check_every:
+                        it, rolled = self._drain_loss_window(
+                            window, anomaly, mgr, data, it)
+                        if rolled:
+                            continue
+            del prev
+            if self._step % log_every == 0:
+                loss_v = self._read(loss)   # waits for the device
+                dt = time.perf_counter() - t_last
+                sl = seq_len or (ids.shape[-1] if ids is not None else 1)
+                self._emit(self._metrics(self._step, loss_v, dt, log_every,
+                                         tokens_since, sl,
+                                         self.optimizer.get_lr()),
+                           history, on_metrics)
+                t_last = time.perf_counter()
+                tokens_since = 0
+            if guard is not None and guard.preempted:
+                if window:
+                    it, _ = self._drain_loss_window(window, anomaly, mgr,
+                                                    data, it)
+                self._preempt_exit(mgr, data)
+            if (mgr is not None
+                    and self._step % mgr.save_interval_steps == 0
+                    and self._step < target):
+                if window:
+                    # never checkpoint params the guard has not cleared
+                    it, rolled = self._drain_loss_window(window, anomaly,
+                                                         mgr, data, it)
+                    if rolled:
+                        continue
+                self._save_ckpt(mgr, data)
+        if window:
+            it, rolled = self._drain_loss_window(window, anomaly, mgr,
+                                                 data, it)
+            if rolled and self._step < target:
+                # rollback at the tail re-enters training for the remainder
+                return self._fit_loop(it, target, log_every, on_metrics,
+                                      seq_len, history, time.perf_counter(),
+                                      0, mgr=mgr, anomaly=anomaly,
+                                      guard=guard, data=data)
+        if guard is not None and guard.preempted:
+            self._preempt_exit(mgr, data)
+        if mgr is not None:
+            self._save_ckpt(mgr, data, async_save=False)
         return history
 
+    # -- superstep loop ------------------------------------------------------
 
-__all__ = ["Trainer", "TrainMetrics", "PEAK_FLOPS", "device_peak_flops"]
+    def _fit_superstep(self, it, target, K, log_every, on_metrics, seq_len,
+                       history, mgr=None, anomaly=None, guard=None,
+                       data=None):
+        """K-steps-per-dispatch loop: stack K batches → K steps enqueued
+        back to back over its slices → append the [K] device loss vector
+        to a small in-flight ring. The host reads losses only at
+        boundaries (ring full / log / anomaly window / checkpoint / end)."""
+        from ..io.dataloader import stack_batches
+        self._adopt_offload_flag()
+        ring = []          # (last_step, [ntok per step], device losses [k])
+        ring_depth = 2
+        state = {"tokens": 0, "steps": 0, "t_last": time.perf_counter(),
+                 "sl": seq_len or 1}
+        last_saved = self._step
+        exhausted = False
+
+        def drain(it):
+            """Read every pending loss window with ONE host sync, then run
+            anomaly verdicts + metric emission in step order."""
+            nonlocal exhausted
+            if not ring:
+                return it, False
+            entries = list(ring)
+            ring.clear()
+            if self._watchdog is not None:
+                self._watchdog.tick()    # the read below waits for the card
+            self.dispatch_stats["loss_reads"] += 1
+            flat = torch.cat([e[2] for e in entries]).float().cpu().numpy()
+            if self._watchdog is not None:
+                self._watchdog.tick()
+            # amortized timing: every step since the last emission shares
+            # the wall span [t_last, now] equally
+            now = time.perf_counter()
+            new_steps = sum(len(e[1]) for e in entries)
+            span = max(now - state["t_last"], 1e-9)
+            per_step_s = span / max(state["steps"] + new_steps, 1)
+            i = 0
+            for last_step, ntoks, _ in entries:
+                first = last_step - len(ntoks) + 1
+                for j, ntok in enumerate(ntoks):
+                    step = first + j
+                    v = float(flat[i])
+                    i += 1
+                    if anomaly is not None:
+                        verdict = anomaly.check(v)
+                        if verdict != "ok":
+                            # a rollback rewinds a stateful loader to the
+                            # checkpoint cursor — the replay pass may have
+                            # batches even if the old iterator ran dry
+                            exhausted = False
+                            return self._handle_anomaly(
+                                verdict, anomaly, mgr, None, data, it,
+                                v), True
+                    state["tokens"] += ntok
+                    state["steps"] += 1
+                    if step % log_every == 0:
+                        dt = per_step_s * max(state["steps"], 1)
+                        sched = self.optimizer.lr_scheduler
+                        # the host scheduler has already advanced past
+                        # this window — report the LR AT the logged step
+                        lr_at = (sched.lr_of(step) if sched is not None
+                                 else self.optimizer.get_lr())
+                        m = self._metrics(step, v, dt, 1, state["tokens"],
+                                          state["sl"], lr_at)
+                        m.step_time_s = per_step_s
+                        self._emit(m, history, on_metrics)
+                        # advance by the consumed share; the steps after
+                        # the last boundary keep their slice of the span
+                        state["t_last"] += dt
+                        state["tokens"] = 0
+                        state["steps"] = 0
+            return it, False
+
+        while True:
+            if guard is not None and guard.preempted:
+                it, _ = drain(it)
+                self._preempt_exit(mgr, data)
+            if self._step >= target or exhausted:
+                it, rolled = drain(it)
+                if rolled and self._step < target:
+                    # re-anchor the save cadence at the restored step, or
+                    # the whole replay window would go uncheckpointed
+                    last_saved = self._step
+                    continue
+                break
+            k = min(K, target - self._step)
+            batches = []
+            try:
+                while len(batches) < k:
+                    batches.append(next(it))
+            except StopIteration:
+                exhausted = True
+                if not batches:
+                    continue
+                k = len(batches)   # loader tail: smaller final dispatch
+            if self._watchdog is not None:
+                self._watchdog.tick()
+            ids = batches[-1].get("input_ids")
+            if seq_len is None and ids is not None:
+                state["sl"] = ids.shape[-1]
+            ntoks = [_ntok(b) for b in batches]
+            start = self._step
+            stack = stack_batches(batches)
+            t0 = time.perf_counter()
+            with RecordEvent("trainer::dispatch"):
+                losses = torch.stack([
+                    self._one_step({key: v[i] for key, v in stack.items()})
+                    for i in range(k)])
+            self.dispatch_stats["dispatches"] += 1
+            self.dispatch_stats["dispatch_host_s"] += (time.perf_counter()
+                                                       - t0)
+            ring.append((self._step, ntoks, losses))
+            crossed_log = (self._step // log_every) > (start // log_every)
+            if len(ring) >= ring_depth or crossed_log:
+                it, rolled = drain(it)
+                if rolled:
+                    last_saved = self._step
+                    continue
+            if (mgr is not None and self._step < target
+                    and (self._step // mgr.save_interval_steps)
+                    > (last_saved // mgr.save_interval_steps)):
+                it, rolled = drain(it)   # validate before checkpointing
+                last_saved = self._step
+                if rolled:
+                    continue
+                # async: the snapshot is taken now and the write overlaps
+                # the next dispatches; commit happens at the manager's next
+                # finalize (the following save, a restore, or the sync
+                # end-of-fit save below)
+                self._save_ckpt(mgr, data, async_save=True)
+        if guard is not None and guard.preempted:
+            self._preempt_exit(mgr, data)
+        if mgr is not None:
+            self._save_ckpt(mgr, data, async_save=False)
+        return history
+
+    # -- resilience runtime --------------------------------------------------
+
+    def _save_ckpt(self, mgr, data, async_save=None):
+        """One checkpoint save from the fit loop: traced as a
+        trainer::checkpoint span, watermarked in the goodput ledger (the
+        anchor a later rollback reclassifies against)."""
+        with RecordEvent("trainer::checkpoint"):
+            self._sync_host_state()
+            mgr.save(self._step, self._ckpt_tree(data),
+                     async_save=async_save, watchdog=self._watchdog)
+        _obs.ledger().note_checkpoint(self._step)
+
+    def _drain_loss_window(self, window, anomaly, mgr, data, it):
+        """Consume a pending (step, device-loss) window with ONE device→host
+        read; returns ``(iterator, rolled_back)``. Verdicts run in step
+        order so budgets/EWMA see the same sequence the per-step path
+        would."""
+        entries = list(window)
+        window.clear()
+        if self._watchdog is not None:
+            self._watchdog.tick()        # the read below waits for the card
+        self.dispatch_stats["loss_reads"] += 1
+        vals = torch.stack([l for _, l in entries]).float().cpu().numpy()
+        for (s, _), v in zip(entries, vals):
+            verdict = anomaly.check(float(v))
+            if verdict != "ok":
+                return self._handle_anomaly(verdict, anomaly, mgr, None,
+                                            data, it, float(v)), True
+        return it, False
+
+    def _ckpt_tree(self, data=None):
+        """Full training state as one checkpointable tree of the LIVE
+        tensors (the storage layer snapshots them). The structure is FIXED
+        (extra always present, same keys) so the restore target always
+        matches the saved layout. The optimizer state is created first if
+        no step has made it."""
+        sched = self.optimizer.lr_scheduler
+        if data is not None and hasattr(data, "state_dict"):
+            # the loader's own count: batches actually handed out this pass.
+            # NOT self._step — anomaly skips consume a batch without keeping
+            # the step, so the two drift apart exactly when resume must not
+            # replay the poisoned batch
+            cursor = int(data.state_dict().get("batches_served", self._step))
+        else:
+            cursor = self._step    # 1 batch per step for stateless iterables
+        st = self.optimizer.ensure_state(
+            self.params, "pinned_host" if self._offload else "device")
+        return {
+            "step": np.asarray(self._step, np.int64),
+            "params": dict(self.params),
+            "opt_state": {"step": np.asarray(st["step"], np.int64),
+                          "master": st["master"], "slots": st["slots"]},
+            "extra": {
+                "sched_last_epoch": np.asarray(
+                    sched.last_epoch if sched is not None else -1, np.int64),
+                # last_lr as VALUE, not formula: adaptive schedulers
+                # (ReduceOnPlateau) cannot recompute it from last_epoch
+                "sched_last_lr": np.asarray(
+                    sched.last_lr if sched is not None else -1.0, np.float64),
+                "data_cursor": np.asarray(cursor, np.int64),
+            },
+        }
+
+    def _apply_restored(self, tree) -> int:
+        """Copy a restored tree into the live tensors (the module's
+        parameters, the optimizer's masters and slots share storage, so
+        nothing is rebound); returns the data cursor."""
+        st = self.optimizer.ensure_state(
+            self.params, "pinned_host" if self._offload else "device")
+        self._sync_host_state()
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(tree["params"][k])
+            for k, t in st["master"].items():
+                t.copy_(tree["opt_state"]["master"][k])
+            for k, slots in st["slots"].items():
+                for sk, t in slots.items():
+                    t.copy_(tree["opt_state"]["slots"][k][sk])
+        st["step"] = int(np.asarray(tree["opt_state"]["step"]))
+        self._step = int(np.asarray(tree["step"]))
+        sched = self.optimizer.lr_scheduler
+        le = int(np.asarray(tree["extra"]["sched_last_epoch"]))
+        llr = float(np.asarray(tree["extra"]["sched_last_lr"]))
+        if sched is not None and le >= 0:
+            # set_state_dict, NOT step(epoch=le): ReduceOnPlateau.step is a
+            # no-op without metrics, which would silently reset its decayed
+            # LR to the constructor value
+            sched.set_state_dict({"last_epoch": le, "last_lr": (
+                llr if llr >= 0 else sched.last_lr)})
+        return int(np.asarray(tree["extra"]["data_cursor"]))
+
+    def _resume_from(self, mgr, data) -> Optional[int]:
+        """resume="auto": restore the newest committed checkpoint (corrupt
+        ones are quarantined by the manager and the previous step is used)
+        and position the data cursor."""
+        res = mgr.restore(self._ckpt_tree(), watchdog=self._watchdog)
+        if res is None:
+            return None          # nothing saved yet: cold start
+        step, tree = res
+        cursor = self._apply_restored(tree)
+        if hasattr(data, "set_state_dict"):
+            data.set_state_dict({"batches_served": cursor})
+        return step
+
+    def _preempt_exit(self, mgr, data=None):
+        """Step-boundary preemption: one final SYNCHRONOUS checkpoint, then
+        exit with the resumable status (a relauncher resumes instead of
+        restarting)."""
+        from ..resilience.preemption import TrainingPreempted
+        # the wind-down books as preemption_lost (minus the nested
+        # checkpoint_save span the manager opens for the final save)
+        with _obs.ledger().span("preemption_lost"):
+            if mgr is not None:
+                self._save_ckpt(mgr, data, async_save=False)
+            if _obs.REGISTRY.enabled:
+                _obs.REGISTRY.counter(
+                    "pt_preemptions_total",
+                    "orderly SIGTERM checkpoint-and-exit events").inc()
+            _obs.flight_recorder.maybe_dump(
+                "preemption", extra={"step": self._step})
+        raise TrainingPreempted(self._step)
+
+    def _handle_anomaly(self, verdict, anomaly, mgr, prev, data, it, loss):
+        """Apply the anomaly verdict; returns the (possibly replaced) data
+        iterator."""
+        from ..resilience.anomaly import SKIP
+        if verdict == SKIP and prev is not None:
+            # undo this step's (poisoned) update and move past the batch
+            self._restore_snapshot(prev)
+            self._step -= 1
+            return it
+        if verdict == "abort" or mgr is None:
+            # no checkpoint to roll back to (or policy says die): fail loudly
+            anomaly.raise_divergence(self._step, loss)
+        res = mgr.restore(self._ckpt_tree(), watchdog=self._watchdog)
+        if res is None:
+            anomaly.raise_divergence(self._step, loss)
+        _, tree = res
+        cursor = self._apply_restored(tree)
+        # productive time since the restored step's watermark is replayed
+        # ground: reclassify it as rollback_wasted
+        _obs.ledger().note_rollback(self._step)
+        if data is not None and hasattr(data, "set_state_dict"):
+            # replay from the checkpointed cursor; without a stateful
+            # loader the current iterator continues forward (rollback then
+            # sees new batches rather than a replay)
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()        # retire the old pass (and its prefetch thread)
+            data.set_state_dict({"batches_served": cursor})
+            return iter(data)
+        return it
+
+    def state_dict(self):
+        """The live state: parameters, optimizer state and step."""
+        return {"params": self.params, "opt_state": self.optimizer._state,
+                "step": self._step}
+
+    def set_state_dict(self, sd):
+        """Copy ``sd`` (as :meth:`state_dict` gives it) into the live
+        tensors."""
+        tree = {"step": sd["step"], "params": sd["params"],
+                "opt_state": sd["opt_state"],
+                "extra": {"sched_last_epoch": -1, "sched_last_lr": -1.0,
+                          "data_cursor": 0}}
+        self._apply_restored(tree)
+
+
+__all__ = ["Trainer", "TrainMetrics", "PEAK_FLOPS", "device_peak_flops",
+           "TRAINER_EVENTS"]

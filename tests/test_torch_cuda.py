@@ -1734,3 +1734,99 @@ def test_front_door_round_trip_on_the_card(dev):
     out = eng.run()
     assert got == [out[r].tolist() for r in rids]
     assert br.trips == 0
+
+
+# -- the trainer runtime on the card ------------------------------------------
+
+def _runtime_trainer(dev, seed, dtype="float32", **kw):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    m = LlamaForCausalLM(LlamaConfig.tiny(dtype=dtype), device=dev,
+                         generator=pt.generator(seed, dev))
+    return Trainer(m, AdamW(learning_rate=1e-3, parameters=m,
+                            weight_decay=0.01,
+                            grad_clip=ClipGradByGlobalNorm(1.0)), **kw)
+
+
+def _runtime_loader(dev, n=12):
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    ids = np.random.RandomState(4).randint(0, 256, (2 * n, 33))
+    return DataLoader(TensorDataset([ids]), batch_size=2,
+                      prefetch_to_device=True, device=dev,
+                      collate_fn=lambda it: {
+                          "input_ids": np.stack([i[0][:-1] for i in it]),
+                          "labels": np.stack([i[0][1:] for i in it])})
+
+
+def test_async_snapshot_precedes_the_in_place_update_on_the_card(dev,
+                                                                  tmp_path):
+    """An async save of card tensors returns with its host snapshot taken:
+    the in-place update enqueued right after it does not reach the file."""
+    from paddle_tpu_torch import checkpoint as ckpt
+    g = torch.Generator(device=dev).manual_seed(3)
+    tree = {"w": torch.randn((1024, 1024), generator=g, device=dev),
+            "b": torch.randn((4096,), generator=g,
+                             device=dev).to(torch.bfloat16)}
+    want = {k: v.to("cpu", copy=True) for k, v in tree.items()}
+    ckpt.save_state_dict(tree, str(tmp_path / "s"), async_save=True)
+    with torch.no_grad():
+        tree["w"].mul_(3.0).add_(1.0)
+        tree["b"].zero_()
+    ckpt.wait_until_finished()
+    got = ckpt.load_state_dict(str(tmp_path / "s"),
+                               {k: v.cpu() for k, v in tree.items()})
+    for k in want:
+        assert torch.equal(got[k], want[k])
+
+
+def test_restore_copies_into_the_live_tensors_on_the_card(dev, tmp_path):
+    """A resume copies into the live tensors: the module's parameters and
+    the optimizer's masters and moments keep their storage, and hold the
+    committed state bit for bit (bf16 parameters, fp32 masters); the data
+    loader prefetches onto the card and resumes at the cursor."""
+    from paddle_tpu_torch.resilience import CheckpointManager
+    a = _runtime_trainer(dev, 0, "bfloat16")
+    a.fit(_runtime_loader(dev), 4, log_every=2,
+          checkpoint_manager=CheckpointManager(str(tmp_path),
+                                               save_interval_steps=2))
+    b = _runtime_trainer(dev, 1, "bfloat16")
+    b.fit(_runtime_loader(dev), 1, log_every=1)      # state exists on b
+    ptrs = {k: t.data_ptr() for k, t in b._live_tensors()}
+    data = _runtime_loader(dev)
+    b.fit(data, 4, log_every=1, resume="auto",
+          checkpoint_manager=CheckpointManager(str(tmp_path)))
+    assert {k: t.data_ptr() for k, t in b._live_tensors()} == ptrs
+    assert b._step == 4 and data.state_dict() == {"batches_served": 4}
+    assert dict(b.model.named_parameters())["lm_head"].data_ptr() == \
+        b.params["lm_head"].data_ptr()
+    live = dict(b._live_tensors())
+    for key, t in a._live_tensors():
+        assert live[key].device == t.device and torch.equal(live[key], t)
+
+
+def test_offloaded_update_equals_the_update_on_the_card(dev):
+    """One update from the same gradients with the optimizer state in
+    pinned host memory (streamed a parameter at a time) and on the card:
+    the same parameters, masters and moments bit for bit; the offloaded
+    state stays on the host."""
+    a = _runtime_trainer(dev, 0, "bfloat16")
+    b = _runtime_trainer(dev, 0, "bfloat16", offload_opt_state=True)
+    batch = next(iter(_runtime_loader(dev)))
+    for _ in range(2):
+        for tr in (a, b):
+            tr.model.zero_grad(set_to_none=True)
+        loss = a._loss(batch)
+        loss.backward()
+        grads = {k: p.grad.detach().clone() for k, p in a.params.items()}
+        for tr in (a, b):
+            tr.optimizer.apply_gradients(
+                tr.params, {k: g.clone() for k, g in grads.items()},
+                lr=1e-3)
+    torch.cuda.synchronize(dev)
+    live = dict(b._live_tensors())
+    for key, t in a._live_tensors():
+        assert torch.equal(live[key].to(dev), t), key
+        if key[0] != "params":
+            assert live[key].device.type == "cpu" and live[key].is_pinned()

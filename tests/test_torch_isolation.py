@@ -33,6 +33,21 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
     assert r.returncode == 0, r.stderr[-3000:]
     assert "LOADED" in r.stdout
     assert len(mods) >= 15
+    # the trainer runtime's modules are among them
+    assert set(RUNTIME_MODULES) <= set(mods)
+
+
+RUNTIME_MODULES = (
+    "paddle_tpu_torch.checkpoint", "paddle_tpu_torch.resilience",
+    "paddle_tpu_torch.resilience.anomaly",
+    "paddle_tpu_torch.resilience.preemption",
+    "paddle_tpu_torch.resilience.checkpoint_manager",
+    "paddle_tpu_torch.resilience.reshard", "paddle_tpu_torch.io",
+    "paddle_tpu_torch.io.dataset", "paddle_tpu_torch.io.sampler",
+    "paddle_tpu_torch.io.dataloader", "paddle_tpu_torch.optimizer.lr",
+    "paddle_tpu_torch.distributed.watchdog",
+    "paddle_tpu_torch.testing.chaos", "paddle_tpu_torch.testing._chaos_train",
+    "paddle_tpu_torch.trainer.trainer")
 
 
 def _imports(path):
@@ -66,3 +81,18 @@ def test_model_defaults_to_the_card():
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         default_device()
+
+
+def test_runtime_entry_points_default_to_the_card(tmp_path):
+    """The DataLoader's device prefetch and the chaos training script run
+    on the card unless asked for the CPU, and raise without one."""
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+    from paddle_tpu_torch.testing import _chaos_train
+    ds = TensorDataset([torch.zeros(4, 2).numpy()])
+    if torch.cuda.is_available():
+        assert DataLoader(ds, prefetch_to_device=True).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DataLoader(ds, prefetch_to_device=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _chaos_train.main(["--ckpt-dir", str(tmp_path), "--steps", "1"])

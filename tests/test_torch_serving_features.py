@@ -479,6 +479,37 @@ def test_cancel_and_take_finished(models):
     assert not eng.cancel(rids[1])                # finished and taken
 
 
+def test_cancel_keeps_the_other_streams_emissions(models):
+    """D13: a cancel drains the in-flight blocks, and the tokens the other
+    requests commit in that drain come out of the next ``step()``: each
+    survivor's emissions, concatenated, are its finished stream (the
+    front door streams them; on the parent a token went missing there
+    and the finished stream's last token came twice)."""
+    pm = models["native"][1]
+    prompts = _family()
+    eng = _port_engine(pm, async_depth=2, decode_block=2)
+    rids = [eng.submit(p) for p in prompts[:3]]
+    seen = {r: [] for r in rids}
+    for _ in range(3):
+        for r, t in eng.step():
+            seen[r].append(t)
+    buf = []
+    with torch.inference_mode():             # a block left in flight
+        assert eng._dispatch_block(buf)
+    for r, t in buf:
+        seen[r].append(t)
+    assert eng._inflight
+    assert eng.cancel(rids[2])
+    got = {}
+    while eng.has_work() or eng._inflight:
+        for r, t in (eng.step() if eng.has_work() else eng._drain_all()):
+            seen[r].append(t)
+        got.update(eng.take_finished())
+    assert sorted(got) == rids[:2]
+    for r in rids[:2]:
+        assert seen[r] == got[r].tolist()
+
+
 def test_replay_prefix_resumes_the_stream(models):
     pm = models["native"][1]
     prompt = _family()[5]

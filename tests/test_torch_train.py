@@ -521,9 +521,11 @@ def test_trainer_four_steps_match_jax_trainer(tiny_pair):
 
 
 def test_training_fields_raise_until_ported():
-    """What stays refused: sequence parallelism, a non-ring sp_mode, the
-    trainer runtime's arguments of fit, optimizer-state offload and a
-    Trainer seed; the default head and recompute now train."""
+    """What stays refused: sequence parallelism, a non-ring sp_mode and a
+    Trainer seed; sharding plans (apply_plan, A.5) and ahead-of-time
+    steps (precompile, B.3.3) raise naming their ROADMAP items. The
+    default head and recompute train; the trainer runtime's arguments of
+    fit and offload_opt_state are accepted (tests/test_torch_trainer_runtime.py)."""
     cfg = LlamaConfig.tiny(num_hidden_layers=1)
     m = LlamaForCausalLM(cfg, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int64)
@@ -539,15 +541,15 @@ def test_training_fields_raise_until_ported():
         LlamaConfig.tiny(loss_impl="blockwise")
     with pytest.raises(NotImplementedError):
         LlamaConfig.tiny(sp_mode="ulysses")
-    tr = Trainer(m, AdamW(parameters=m))
-    for kw in (dict(checkpoint_manager=object()), dict(resume="auto"),
-               dict(anomaly_guard=object()), dict(preemption_guard=object()),
-               dict(steps_per_dispatch=2)):
-        with pytest.raises(NotImplementedError):
-            tr.fit([], 1, **kw)
-    for kw in (dict(offload_opt_state=True), dict(seed=1)):
-        with pytest.raises(NotImplementedError):
-            Trainer(m, AdamW(parameters=m), **kw)
+    with pytest.raises(NotImplementedError):
+        Trainer(m, AdamW(parameters=m), seed=1)
+    tr = Trainer(m, AdamW(parameters=m), offload_opt_state=True)
+    with pytest.raises(NotImplementedError, match="A.5"):
+        tr.apply_plan(object())
+    with pytest.raises(NotImplementedError, match="B.3.3"):
+        tr.precompile({"input_ids": ids, "labels": ids})
+    assert tr.fit([{"input_ids": ids, "labels": ids}], 1, log_every=1,
+                  steps_per_dispatch=2)[0].step == 1
 
 
 def test_trainer_accumulation_matches_one_batch():
