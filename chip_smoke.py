@@ -228,7 +228,7 @@ Phases, in order; any failure exits non-zero before the result line:
      prefetch_to_device=True; launch counts reset before the first leg
      and read after (e), every training kernel must launch. The machine
      with the card ends a command that writes 45 GiB to its disk, so
-     the legs that save are cut (SAVE_LAYERS, KILL_DIR). (b, skip) a
+     the legs that save are cut (SAVE_LAYERS, BC_LAYERS). (b, skip) a
      chaos.nan_batch at step 4 under AnomalyGuard(policy="skip"),
      donate=False: the step skipped, the parameters equal their
      pre-step values bit for bit, the cursor past the batch, the peak
@@ -243,7 +243,8 @@ Phases, in order; any failure exits non-zero before the result line:
      cursor bit for bit; its next 2 losses must lie in the band of two
      uninterrupted runs (the saver going on, and a fresh run: their
      losses at each step widened by their largest difference); (b,
-     rollback) and (c) at phase 6's layout in fp32: a NaN batch at step
+     rollback) and (c) at phase 6's layout in fp32 and 1 layer: a NaN
+     batch at step
      4 under policy="rollback" restores step 3's state bit for bit, the
      loader replays from cursor 3, the goodput ledger books
      rollback_wasted, and the run ends on an unpoisoned run's state bit
@@ -255,21 +256,22 @@ Phases, in order; any failure exits non-zero before the result line:
      a second K=1 run: step time, the host's loss reads, the idle share
      of one profiled dispatch, and the K=4 run's largest loss distance
      from K=1 beside the two K=1 runs' (bf16 backward atomics make each
-     run another sample); at phase 6's layout in fp32 (deterministic
-     kernels) K=4 must equal K=1 bit for bit, losses and state, and the
+     run another sample); at phase 7's widths and depth in fp32
+     (deterministic kernels), 6 steps each, K=4 must equal K=1 bit for
+     bit, losses and state, and the
      steps saved under save_interval_steps=3 (read by a recorder that
      writes nothing) must be JAX's (SUPERSTEP_SAVES); (e) offload_opt_state=True: one update from the
      same gradients with the state in pinned host memory equals the
      update on the card bit for bit, then 2 + 4 steps: peak memory and
-     step time; (f) the kill leg in fp32 at phase 6's layout, its
-     checkpoints in KILL_DIR: testing/_chaos_train.py through
+     step time; (f) the kill leg in fp32 at phase 6's layout:
+     testing/_chaos_train.py through
      chaos.spawn_trainer on the card, an uninterrupted run beside one
      saving every 3 steps and SIGKILLed at step 7 after its async save
      of step 6 is durable; a fresh process resumes it: the final
      parameters equal the uninterrupted run's bit for bit, latest_step
-     skips the torn step 6 and the manager quarantines it. The
-     checkpoints of (a)-(c) live in the output directory (ROOT_OUT) and
-     are removed at the end.
+     skips the torn step 6 and the manager quarantines it. Every
+     checkpoint lives in the output directory (ROOT_OUT) and is removed
+     at the end of its leg.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -4887,15 +4889,18 @@ def kill_leg(torch, dev, root, steps=8, kill_at=7):
     return rec
 
 
-# the layers of phase 10's save-and-resume leg (a). The machine with the
-# card ends a command that has written 45 GiB to its disk (deleted files
-# count): two saves of the 4-layer state (26.9 GB each) would pass it, so
-# (a) keeps Llama-3-8B's widths at 1 layer (17.8 GB a save, 35.5 GB for
-# its two); the rollback and preemption legs checkpoint phase 6's layout
-# in fp32 (1.7 GB a save, three saves), and the kill leg's subprocesses
-# write theirs to KILL_DIR, memory-backed
+# the layers of phase 10's save-and-resume leg (a) and of its rollback
+# and preemption legs (b, c). The machine with the card ends a command
+# that has written 45 GiB (48.3 GB) to its disk, deleted files counted,
+# and every checkpoint lives in the output directory (ROOT_OUT): (a) keeps
+# Llama-3-8B's widths at 1 layer (17.76 GB a save, two saves, 35.5 GB);
+# (b, c) take phase 6's layout in fp32 at 1 layer (1.06 GB a save, three
+# saves, 3.2 GB); the kill leg (f) keeps phase 6's 2 layers in fp32
+# (1.71 GB a save, four saves: the reference's final one, the killed
+# run's steps 3 and 6 and the resumed run's final one, 6.8 GB). 45.5 GB
+# in all; the phase prints what its own process wrote
 SAVE_LAYERS = 1
-KILL_DIR = "/dev/shm"
+BC_LAYERS = 1
 # the saves of (d)'s timed fit (steps 3-10 after 2 warm-up steps) under
 # save_interval_steps=3, (step, async): JAX's cadence, each periodic save
 # at the first dispatch boundary at or after a multiple of the interval,
@@ -5025,7 +5030,6 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
     read after (e); every training kernel must launch. Returns the
     launches."""
     import shutil
-    import tempfile
     from paddle_tpu_torch import checkpoint as ckpt
     from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.ops.kernels import _build
@@ -5034,7 +5038,7 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
                                              TrainingPreempted)
     cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
     cfg_a = make_cfg(num_hidden_layers=SAVE_LAYERS, dtype="bfloat16")
-    small = make_cfg(num_hidden_layers=2, dtype="float32",
+    small = make_cfg(num_hidden_layers=BC_LAYERS, dtype="float32",
                      intermediate_size=1024, vocab_size=4096)
     card = RESULTS.get("card")
     out = RESULTS.setdefault("trainer_runtime", {"card": card})
@@ -5047,6 +5051,7 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
     tokens = RuntimeTokens(cfg.vocab_size, 64 * b, s)
     small_tokens = RuntimeTokens(small.vocab_size, 64, 256)
     gb = 1e9
+    saves0 = list(ckpt.writer().saves)
     _build.reset_launches()
     try:
         # (b, skip) first: its pre-step copy needs the card to itself
@@ -5130,8 +5135,9 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
             f"async); committed {committed_a}; {card}")
         for x in saves:
             w = x.get("write_s", float("nan"))
+            into = "pinned buffers" if x["async"] else "plain host copies"
             log(f"runtime (a) save {os.path.basename(x['path'])}: snapshot "
-                f"{x['snapshot_s']:.3f} s (synchronous, pinned host), write "
+                f"{x['snapshot_s']:.3f} s (synchronous, into {into}), write "
                 f"+ sha256 {w:.3f} s "
                 f"({'background' if x['async'] else 'synchronous'}), "
                 f"{x.get('bytes', 0) / w / gb:.3f} GB/s; {card}")
@@ -5172,13 +5178,14 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
         if off_b:
             fails.append("resumed losses")
 
-        # (b, rollback) and (c) on phase 6's layout in fp32
+        # (b, rollback) and (c) on phase 6's layout in fp32, BC_LAYERS deep
         before = dict(_build.LAUNCHES)
         rb, pre_c = rollback_and_preemption(
             torch, pt, dev, small, small_tokens, os.path.join(root, "bc"))
         fp32_ce = _build.LAUNCHES["vocab_ce_fwd"] - before["vocab_ce_fwd"]
         out["rollback"], out["preemption"] = rb, pre_c
-        log(f"runtime (b) rollback (phase 6's layout, fp32): NaN batch at "
+        log(f"runtime (b) rollback (phase 6's layout at {BC_LAYERS} "
+            f"layer(s), fp32): NaN batch at "
             f"step 4 under policy='rollback': rollbacks {rb['rollbacks']}, "
             f"restored state equal to step 3's: {rb['restored_equal']}, "
             f"steps logged {rb['steps_logged']}, cursor {rb['cursor']} "
@@ -5186,7 +5193,8 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
             f"{rb['rollback_wasted_s']:.3f} s, committed {rb['committed']}, "
             f"final state equal to an unpoisoned run's: "
             f"{not rb['differing_from_clean']}; {card}")
-        log(f"runtime (c) preemption (phase 6's layout, fp32): trigger() at "
+        log(f"runtime (c) preemption (phase 6's layout at {BC_LAYERS} "
+            f"layer(s), fp32): trigger() at "
             f"step 6: exit code {pre_c['exit_code']}, committed "
             f"{pre_c['committed']}, flight dumps {pre_c['flight_dumps']}, "
             f"pt_preemptions_total {pre_c['preemptions_counted']}; a fresh "
@@ -5245,31 +5253,45 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
         # another sample; the K=4 run's largest distance from K=1 is
         # reported beside the two K=1 runs' (their spread). The superstep
         # is the same step, so the check is K=4 against K=1 bit for bit
-        # in fp32, whose kernels are deterministic (phase 6's layout)
+        # in fp32, whose kernels are deterministic, at phase 7's widths
+        # and depth (4 layers; fp32 parameters have no masters): 6 steps
+        # each (K=4 dispatches 4 then 2), K=1's state kept on the host
+        # while K=4 runs
         spread4 = max(abs(runs["K=1"][i] - runs["K=1 again"][i])
                       for i in runs["K=1"])
         dev4 = max(abs(runs["K=4"][i] - runs["K=1"][i]) for i in runs["K=1"])
+        cfg32 = make_cfg(num_hidden_layers=4, dtype="float32")
         fp32, ce0 = {}, _build.LAUNCHES["vocab_ce_fwd"]
+        t0 = time.perf_counter()
         for K in (1, 4):
-            tr = runtime_trainer(torch, pt, dev, small, 9)
-            h = tr.fit(runtime_loader(dev, small_tokens, b), 8, log_every=1,
+            tr = runtime_trainer(torch, pt, dev, cfg32, 10)
+            h = tr.fit(runtime_loader(dev, tokens, b), 6, log_every=1,
                        steps_per_dispatch=K)
-            fp32[K] = (tr, [m.loss for m in h])
+            if K == 1:
+                host1 = {key: t.detach().cpu()
+                         for key, t in tr._live_tensors()}
+            else:
+                fp32_diff = [key for key, t in tr._live_tensors()
+                             if not torch.equal(t.cpu(), host1[key])]
+            fp32[K] = [m.loss for m in h]
+            del tr, h
+            empty_cache(torch, dev)
+        del host1
+        fp32_s = time.perf_counter() - t0
         fp32_ce += _build.LAUNCHES["vocab_ce_fwd"] - ce0
-        fp32_diff = differing(torch, fp32[1][0], fp32[4][0])
-        fp32_same = not fp32_diff and fp32[1][1] == fp32[4][1]
-        del fp32
-        empty_cache(torch, dev)
+        fp32_same = not fp32_diff and fp32[1] == fp32[4]
         cadence_ok = all(sup[K]["saves"] == want
                          for K, want in SUPERSTEP_SAVES.items())
         sup.update(spread=spread4, k4_distance=dev4,
                    fp32_bit_equal=fp32_same, fp32_differing=fp32_diff,
+                   fp32_losses=fp32, fp32_seconds=fp32_s,
                    cadence_ok=cadence_ok, expected_saves=SUPERSTEP_SAVES,
                    losses_k1_again=runs["K=1 again"])
         out["superstep"] = sup
         log(f"runtime (d) losses, bf16: K=4 at most {dev4:.3e} from K=1, "
-            f"two K=1 runs at most {spread4:.3e} apart; fp32 (phase 6's "
-            f"layout): K=4 equal to K=1 bit for bit (losses and state): "
+            f"two K=1 runs at most {spread4:.3e} apart; fp32 (phase 7's "
+            f"widths, 4 layers, 6 steps each, {fp32_s:.1f} s for both): "
+            f"K=4 equal to K=1 bit for bit (losses and state): "
             f"{fp32_same}; saves on dispatch boundaries as JAX's: "
             f"{cadence_ok} ({SUPERSTEP_SAVES}); {card}")
         if not (fp32_same and cadence_ok):
@@ -5324,9 +5346,14 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
     launches = dict(_build.LAUNCHES)
     out["launches"] = launches
     log(f"runtime launches (a)-(e): {launches}")
-    kill_root = tempfile.mkdtemp(prefix="pt_runtime_kill_",
-                                 dir=KILL_DIR if os.path.isdir(KILL_DIR)
-                                 else ROOT_OUT)
+    out["checkpoint_bytes_written"] = sum(
+        x.get("bytes", 0) for x in ckpt.writer().saves
+        if not any(x is y for y in saves0))
+    log(f"runtime (a)-(c) checkpoint bytes written: "
+        f"{out['checkpoint_bytes_written']}")
+    kill_root = os.path.join(ROOT_OUT, "runtime_kill")
+    shutil.rmtree(kill_root, ignore_errors=True)
+    os.makedirs(kill_root)
     try:
         kill = kill_leg(torch, dev, kill_root)
     finally:

@@ -19,11 +19,15 @@ every shard and the index are durable (the index last), so a directory at
 JAX arrays are immutable; the port's optimizer updates the
 parameters, masters and moments in place, so an async save cannot read
 them in the background. :func:`save_state_dict` therefore takes the
-snapshot synchronously — each card tensor copied into a reused pinned
-host buffer, one synchronize before it returns — and hands only the
-serialization, the sha256 of each file and the IO to a background writer
-thread. A background failure is re-raised by :func:`wait_until_finished`
-(and by the next save), never dropped.
+snapshot synchronously — each tensor copied into a host buffer that the
+next async save reuses (pinned for a card tensor), one synchronize before
+it returns — and hands only the serialization, the sha256 of each file
+and the IO to a background writer thread. The buffers live until a
+synchronous save (which writes from plain host copies) or
+:meth:`_Writer.release`; a ``CheckpointManager`` releases them when it
+closes, and ``Trainer.fit`` when it ends. A background failure is
+re-raised by :func:`wait_until_finished` (and by the next save), never
+dropped.
 """
 
 from __future__ import annotations
@@ -113,7 +117,7 @@ def _fsync_dir(path: str) -> None:
 
 class _Writer:
     """The background writer: one save in flight at a time, its host
-    snapshot in pinned buffers that the next save reuses."""
+    snapshot in host buffers that the next async save reuses."""
 
     def __init__(self):
         self._thread: Optional[threading.Thread] = None
@@ -131,29 +135,34 @@ class _Writer:
 
     # -- snapshot -----------------------------------------------------------
 
-    def _host_copy(self, key: str, t: torch.Tensor) -> torch.Tensor:
+    def _host_copy(self, key: str, t: torch.Tensor,
+                   reuse: bool) -> torch.Tensor:
         t = t.detach()
-        if t.device.type == "cpu":
-            return t.clone()
+        if not reuse:
+            return t.to("cpu", copy=True)
         buf = self._buffers.get(key)
         if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
-            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf = torch.empty(t.shape, dtype=t.dtype,
+                              pin_memory=t.device.type == "cuda")
             self._buffers[key] = buf
         buf.copy_(t, non_blocking=True)
         return buf
 
-    def snapshot(self, tree) -> Tuple[List[Tuple[str, torch.Tensor, str]],
-                                      float]:
+    def snapshot(self, tree, reuse: bool = False
+                 ) -> Tuple[List[Tuple[str, torch.Tensor, str]], float]:
         """Host copies of every leaf, in tree order: (key, tensor, kind),
-        kind "tensor" or "value" (a non-tensor leaf). Waits for the card's
-        copies before it returns."""
+        kind "tensor" or "value" (a non-tensor leaf). ``reuse`` copies the
+        tensors into the writer's buffers (pinned for a card tensor), kept
+        for the next async save; else each is a plain host copy. Waits for
+        the card's copies before it returns."""
         t0 = time.perf_counter()
         out, devices = [], set()
         for key, leaf in _flatten(tree):
             if isinstance(leaf, torch.Tensor):
                 if leaf.device.type == "cuda":
                     devices.add(leaf.device)
-                out.append((key, self._host_copy(key, leaf), "tensor"))
+                out.append((key, self._host_copy(key, leaf, reuse),
+                            "tensor"))
             else:
                 arr = np.array(leaf)
                 if arr.dtype == object:
@@ -221,7 +230,11 @@ class _Writer:
 
     def save(self, tree, path: str, async_save: bool) -> None:
         self.wait()              # the buffers of the previous save are free
-        leaves, snap_s = self.snapshot(tree)
+        if not async_save:
+            # a synchronous save writes from plain host copies: it has no
+            # use for the async saves' buffers, and frees them
+            self._buffers.clear()
+        leaves, snap_s = self.snapshot(tree, reuse=async_save)
         stats = {"path": path, "async": async_save, "snapshot_s": snap_s}
         self.saves.append(stats)
         self.digests = ("", {})
@@ -236,9 +249,10 @@ class _Writer:
         self._thread.start()
 
     def release(self) -> None:
-        """Free the pinned snapshot buffers (after the last save of a run;
-        the next save allocates them again)."""
-        self.wait()
+        """Free the snapshot buffers once the write in flight (if any) is
+        done; the next async save allocates them again. A failure of that
+        write stays for :meth:`wait` to raise."""
+        self._done.wait()
         self._buffers.clear()
 
     def done(self, timeout: Optional[float] = None) -> bool:

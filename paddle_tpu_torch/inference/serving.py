@@ -417,7 +417,10 @@ class ContinuousBatchingEngine:
         return req.rid
 
     def has_work(self) -> bool:
-        return bool(self._queue) or any(s is not None for s in self._slots)
+        """True while a request is queued or active, or tokens that a
+        cancel's drain committed wait for the next ``step()``."""
+        return (bool(self._queue) or bool(self._carried)
+                or any(s is not None for s in self._slots))
 
     @torch.inference_mode()
     def step(self) -> List[tuple]:

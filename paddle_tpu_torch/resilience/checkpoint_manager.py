@@ -234,7 +234,13 @@ class CheckpointManager:
         return self.finalize(watchdog=watchdog)
 
     def close(self) -> None:
-        self.finalize()
+        """Commit the in-flight save and free the storage layer's snapshot
+        buffers (the host copy of the whole state an async save keeps for
+        the next one)."""
+        try:
+            self.finalize()
+        finally:
+            _ckpt.writer().release()
 
     def _commit(self, step: int, watchdog=None) -> None:
         sdir = self.step_dir(step)

@@ -22,9 +22,9 @@ things:
   4 layers, 26.9 GB); ``donate=True`` with "skip" is refused, as in JAX;
 * a restore copies into the live tensors (``copy_``), creating the
   optimizer state first when it comes before any step;
-* the superstep is K eager steps enqueued back to back over the slices of
-  ``io.stack_batches``, their losses kept in a device vector that the host
-  reads once per drain.
+* the superstep is K eager steps enqueued back to back, one batch each
+  from the iterator, their losses left on the device until the loop's
+  next read; K = 1 is the same loop.
 
 MFU = tokens/s × ``model.flops_per_token(seq_len)`` (PaLM count) ÷ the
 card's peak, from :data:`PEAK_FLOPS`. A device missing from the table
@@ -39,6 +39,7 @@ are B.3.3) raise; the cost observatory's step-cost gauges wait with A.6.
 from __future__ import annotations
 
 import inspect
+import itertools
 import math
 import os
 import time
@@ -49,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import observability as _obs
+from ..checkpoint import writer
 from ..device import device_info
 from ..optimizer.optimizer import Optimizer, place_opt_state
 from ..profiler import RecordEvent
@@ -267,19 +269,21 @@ class Trainer:
         """One optimization step. Returns the loss as a 0-d tensor on the
         device, without waiting for it: callers read ``float()`` only
         when they need the value."""
+        return self._dispatch([batch])[0]
+
+    def _dispatch(self, batches) -> List[torch.Tensor]:
+        """One dispatch: a step over each batch in turn, enqueued back to
+        back with no host read (a superstep when there are several).
+        Returns the steps' losses on the device."""
         self._adopt_offload_flag()
         if self._watchdog is not None:
             self._watchdog.tick()
         t0 = time.perf_counter()
         with RecordEvent("trainer::dispatch"):
-            loss = self._one_step(batch)
+            losses = [self._one_step(b) for b in batches]
         self.dispatch_stats["dispatches"] += 1
         self.dispatch_stats["dispatch_host_s"] += time.perf_counter() - t0
-        return loss
-
-    def _read(self, loss: torch.Tensor) -> float:
-        self.dispatch_stats["loss_reads"] += 1
-        return float(loss)
+        return losses
 
     def apply_plan(self, plan, devices=None):
         raise NotImplementedError(
@@ -340,7 +344,7 @@ class Trainer:
           ``check_every > 1`` (and a non-skip policy) loss verdicts are
           consumed as a batched window — one device read per window;
         * ``steps_per_dispatch=K`` (superstep): K steps enqueued back to
-          back over stacked batches; losses are read at log/anomaly/
+          back, one batch each; losses are read at log/anomaly/
           checkpoint boundaries. Bit-identical to K=1 (the same step).
           Checkpoint/anomaly cadence aligns to dispatch boundaries (first
           boundary at-or-after the configured interval); resume may land
@@ -388,15 +392,16 @@ class Trainer:
                 target = int(steps)
             else:
                 target = self._step + int(steps)
-            it = iter(data)
-            kw = dict(mgr=checkpoint_manager, anomaly=anomaly_guard,
-                      guard=preemption_guard, data=data)
-            if K > 1:
-                return self._fit_superstep(it, target, K, log_every,
-                                           on_metrics, seq_len, [], **kw)
-            return self._fit_loop(it, target, log_every, on_metrics,
-                                  seq_len, [], time.perf_counter(), 0, **kw)
+            return self._fit_loop(iter(data), target, K, log_every,
+                                  on_metrics, seq_len,
+                                  mgr=checkpoint_manager,
+                                  anomaly=anomaly_guard,
+                                  guard=preemption_guard, data=data)
         finally:
+            if checkpoint_manager is not None:
+                # the async saves' host buffers hold a copy of the whole
+                # state; the next fit's first async save allocates them
+                writer().release()
             led.run_end()
             if _obs.enabled():
                 _obs.publish()       # goodput buckets + snapshot -> exporters
@@ -404,159 +409,73 @@ class Trainer:
                 self._watchdog.stop()
                 self._watchdog = None
 
-    def _fit_loop(self, it, target, log_every, on_metrics, seq_len,
-                  history, t_last, tokens_since, mgr=None, anomaly=None,
-                  guard=None, data=None):
-        # anomaly windowing: policy="skip" must read every step's loss (the
-        # undo needs the pre-step copy from BEFORE the next step runs);
-        # rollback/abort verdicts can consume a batched loss window
-        window = []
-        per_step_check = (anomaly is None or anomaly.policy == "skip"
-                          or getattr(anomaly, "check_every", 1) <= 1)
-        keep_prev = anomaly is not None and anomaly.policy == "skip"
-        while self._step < target:
-            if guard is not None and guard.preempted:
-                if window:
-                    it, _ = self._drain_loss_window(window, anomaly, mgr,
-                                                    data, it)
-                self._preempt_exit(mgr, data)
-            try:
-                batch = next(it)
-            except StopIteration:
-                break
-            ids = batch.get("input_ids")
-            prev = self._snapshot_state() if keep_prev else None
-            loss = self.train_step(batch)
-            tokens_since += _ntok(batch)
-            if anomaly is not None:
-                if per_step_check:
-                    v = self._read(loss)
-                    verdict = anomaly.check(v)
-                    if verdict != "ok":
-                        it = self._handle_anomaly(verdict, anomaly, mgr,
-                                                  prev, data, it, v)
-                        continue
-                else:
-                    window.append((self._step, loss))
-                    if len(window) >= anomaly.check_every:
-                        it, rolled = self._drain_loss_window(
-                            window, anomaly, mgr, data, it)
-                        if rolled:
-                            continue
-            del prev
-            if self._step % log_every == 0:
-                loss_v = self._read(loss)   # waits for the device
-                dt = time.perf_counter() - t_last
-                sl = seq_len or (ids.shape[-1] if ids is not None else 1)
-                self._emit(self._metrics(self._step, loss_v, dt, log_every,
-                                         tokens_since, sl,
-                                         self.optimizer.get_lr()),
-                           history, on_metrics)
-                t_last = time.perf_counter()
-                tokens_since = 0
-            if guard is not None and guard.preempted:
-                if window:
-                    it, _ = self._drain_loss_window(window, anomaly, mgr,
-                                                    data, it)
-                self._preempt_exit(mgr, data)
-            if (mgr is not None
-                    and self._step % mgr.save_interval_steps == 0
-                    and self._step < target):
-                if window:
-                    # never checkpoint params the guard has not cleared
-                    it, rolled = self._drain_loss_window(window, anomaly,
-                                                         mgr, data, it)
-                    if rolled:
-                        continue
-                self._save_ckpt(mgr, data)
-        if window:
-            it, rolled = self._drain_loss_window(window, anomaly, mgr,
-                                                 data, it)
-            if rolled and self._step < target:
-                # rollback at the tail re-enters training for the remainder
-                return self._fit_loop(it, target, log_every, on_metrics,
-                                      seq_len, history, time.perf_counter(),
-                                      0, mgr=mgr, anomaly=anomaly,
-                                      guard=guard, data=data)
-        if guard is not None and guard.preempted:
-            self._preempt_exit(mgr, data)
-        if mgr is not None:
-            self._save_ckpt(mgr, data, async_save=False)
-        return history
-
-    # -- superstep loop ------------------------------------------------------
-
-    def _fit_superstep(self, it, target, K, log_every, on_metrics, seq_len,
-                       history, mgr=None, anomaly=None, guard=None,
-                       data=None):
-        """K-steps-per-dispatch loop: stack K batches → K steps enqueued
-        back to back over its slices → append the [K] device loss vector
-        to a small in-flight ring. The host reads losses only at
-        boundaries (ring full / log / anomaly window / checkpoint / end)."""
-        from ..io.dataloader import stack_batches
-        self._adopt_offload_flag()
-        ring = []          # (last_step, [ntok per step], device losses [k])
-        ring_depth = 2
-        state = {"tokens": 0, "steps": 0, "t_last": time.perf_counter(),
-                 "sl": seq_len or 1}
+    def _fit_loop(self, it, target, K, log_every, on_metrics, seq_len,
+                  mgr=None, anomaly=None, guard=None, data=None):
+        """The loop for every ``steps_per_dispatch`` K: a dispatch is
+        ``min(K, target - step)`` eager steps enqueued back to back with no
+        host read, their losses left on the device. At a dispatch boundary
+        the pending losses are read with ONE host read when a log step, the
+        anomaly window, a save or the end needs them; anomaly verdicts and
+        metrics then run in step order. Saves come at the first boundary
+        at or after each multiple of ``save_interval_steps`` (every
+        multiple when K = 1), as in the JAX trainer."""
+        pending = []       # (step, tokens, device loss) not read yet
+        skip = anomaly is not None and anomaly.policy == "skip"
+        if anomaly is None:
+            window = None
+        elif K > 1:
+            # JAX's superstep reads its in-flight ring two dispatches deep
+            window = 2 * K
+        elif skip or getattr(anomaly, "check_every", 1) <= 1:
+            # skip reads every step: the undo needs the pre-step copy
+            # from BEFORE the next step runs
+            window = 1
+        else:
+            window = anomaly.check_every
+        acc = {"steps": 0, "tokens": 0, "t_last": time.perf_counter(),
+               "sl": seq_len or 1}
+        history = []
         last_saved = self._step
         exhausted = False
 
-        def drain(it):
-            """Read every pending loss window with ONE host sync, then run
-            anomaly verdicts + metric emission in step order."""
-            nonlocal exhausted
-            if not ring:
+        def drain(it, prev=None):
+            """Read the pending losses with one host read; run the
+            verdicts and emit the metrics of the log steps among them.
+            Returns ``(iterator, rolled_back)``: a verdict other than
+            "ok" skips or rolls back and drops the rest of the window."""
+            if not pending:
                 return it, False
-            entries = list(ring)
-            ring.clear()
+            entries = list(pending)
+            pending.clear()
             if self._watchdog is not None:
                 self._watchdog.tick()    # the read below waits for the card
             self.dispatch_stats["loss_reads"] += 1
-            flat = torch.cat([e[2] for e in entries]).float().cpu().numpy()
+            vals = torch.stack([l for _, _, l in entries]).float().cpu()
             if self._watchdog is not None:
                 self._watchdog.tick()
-            # amortized timing: every step since the last emission shares
-            # the wall span [t_last, now] equally
-            now = time.perf_counter()
-            new_steps = sum(len(e[1]) for e in entries)
-            span = max(now - state["t_last"], 1e-9)
-            per_step_s = span / max(state["steps"] + new_steps, 1)
-            i = 0
-            for last_step, ntoks, _ in entries:
-                first = last_step - len(ntoks) + 1
-                for j, ntok in enumerate(ntoks):
-                    step = first + j
-                    v = float(flat[i])
-                    i += 1
-                    if anomaly is not None:
-                        verdict = anomaly.check(v)
-                        if verdict != "ok":
-                            # a rollback rewinds a stateful loader to the
-                            # checkpoint cursor — the replay pass may have
-                            # batches even if the old iterator ran dry
-                            exhausted = False
-                            return self._handle_anomaly(
-                                verdict, anomaly, mgr, None, data, it,
-                                v), True
-                    state["tokens"] += ntok
-                    state["steps"] += 1
-                    if step % log_every == 0:
-                        dt = per_step_s * max(state["steps"], 1)
-                        sched = self.optimizer.lr_scheduler
-                        # the host scheduler has already advanced past
-                        # this window — report the LR AT the logged step
-                        lr_at = (sched.lr_of(step) if sched is not None
-                                 else self.optimizer.get_lr())
-                        m = self._metrics(step, v, dt, 1, state["tokens"],
-                                          state["sl"], lr_at)
-                        m.step_time_s = per_step_s
-                        self._emit(m, history, on_metrics)
-                        # advance by the consumed share; the steps after
-                        # the last boundary keep their slice of the span
-                        state["t_last"] += dt
-                        state["tokens"] = 0
-                        state["steps"] = 0
+            # every step since the last emission shares the wall span
+            # [t_last, now] equally
+            per_step_s = (max(time.perf_counter() - acc["t_last"], 1e-9)
+                          / (acc["steps"] + len(entries)))
+            sched = self.optimizer.lr_scheduler
+            for (step, ntok, _), v in zip(entries, vals.tolist()):
+                if anomaly is not None:
+                    verdict = anomaly.check(v)
+                    if verdict != "ok":
+                        return self._handle_anomaly(verdict, anomaly, mgr,
+                                                    prev, data, it, v), True
+                acc["steps"] += 1
+                acc["tokens"] += ntok
+                if step % log_every == 0:
+                    dt = per_step_s * acc["steps"]
+                    # the scheduler has moved past these steps: the LR at
+                    # the logged step
+                    lr = (sched.lr_of(step) if sched is not None
+                          else self.optimizer.get_lr())
+                    m = self._metrics(step, v, dt, acc["steps"],
+                                      acc["tokens"], acc["sl"], lr)
+                    self._emit(m, history, on_metrics)
+                    acc.update(t_last=acc["t_last"] + dt, steps=0, tokens=0)
             return it, False
 
         while True:
@@ -566,56 +485,41 @@ class Trainer:
             if self._step >= target or exhausted:
                 it, rolled = drain(it)
                 if rolled and self._step < target:
-                    # re-anchor the save cadence at the restored step, or
-                    # the whole replay window would go uncheckpointed
+                    # a rollback rewinds a stateful loader to the
+                    # checkpoint's cursor: train the remainder from there
+                    exhausted = False
                     last_saved = self._step
                     continue
                 break
-            k = min(K, target - self._step)
-            batches = []
-            try:
-                while len(batches) < k:
-                    batches.append(next(it))
-            except StopIteration:
-                exhausted = True
-                if not batches:
-                    continue
-                k = len(batches)   # loader tail: smaller final dispatch
-            if self._watchdog is not None:
-                self._watchdog.tick()
+            start = self._step
+            batches = list(itertools.islice(it, min(K, target - start)))
+            exhausted = len(batches) < min(K, target - start)
+            if not batches:
+                continue
             ids = batches[-1].get("input_ids")
             if seq_len is None and ids is not None:
-                state["sl"] = ids.shape[-1]
-            ntoks = [_ntok(b) for b in batches]
-            start = self._step
-            stack = stack_batches(batches)
-            t0 = time.perf_counter()
-            with RecordEvent("trainer::dispatch"):
-                losses = torch.stack([
-                    self._one_step({key: v[i] for key, v in stack.items()})
-                    for i in range(k)])
-            self.dispatch_stats["dispatches"] += 1
-            self.dispatch_stats["dispatch_host_s"] += (time.perf_counter()
-                                                       - t0)
-            ring.append((self._step, ntoks, losses))
-            crossed_log = (self._step // log_every) > (start // log_every)
-            if len(ring) >= ring_depth or crossed_log:
-                it, rolled = drain(it)
+                acc["sl"] = ids.shape[-1]
+            prev = self._snapshot_state() if skip else None
+            losses = self._dispatch(batches)
+            pending.extend((start + i + 1, _ntok(b), l)
+                           for i, (b, l) in enumerate(zip(batches, losses)))
+            interval = mgr.save_interval_steps if mgr is not None else 0
+            save = (interval > 0 and self._step < target
+                    and self._step // interval > last_saved // interval)
+            if (save or self._step // log_every > start // log_every
+                    or (window is not None and len(pending) >= window)):
+                it, rolled = drain(it, prev)
                 if rolled:
-                    last_saved = self._step
+                    if not skip:
+                        exhausted = False
+                        last_saved = self._step
                     continue
-            if (mgr is not None and self._step < target
-                    and (self._step // mgr.save_interval_steps)
-                    > (last_saved // mgr.save_interval_steps)):
-                it, rolled = drain(it)   # validate before checkpointing
+            del prev
+            if save and not (guard is not None and guard.preempted):
+                # the guard has cleared these steps (never checkpoint an
+                # unchecked state); a preemption saves at the loop's head
                 last_saved = self._step
-                if rolled:
-                    continue
-                # async: the snapshot is taken now and the write overlaps
-                # the next dispatches; commit happens at the manager's next
-                # finalize (the following save, a restore, or the sync
-                # end-of-fit save below)
-                self._save_ckpt(mgr, data, async_save=True)
+                self._save_ckpt(mgr, data)
         if guard is not None and guard.preempted:
             self._preempt_exit(mgr, data)
         if mgr is not None:
@@ -633,24 +537,6 @@ class Trainer:
             mgr.save(self._step, self._ckpt_tree(data),
                      async_save=async_save, watchdog=self._watchdog)
         _obs.ledger().note_checkpoint(self._step)
-
-    def _drain_loss_window(self, window, anomaly, mgr, data, it):
-        """Consume a pending (step, device-loss) window with ONE device→host
-        read; returns ``(iterator, rolled_back)``. Verdicts run in step
-        order so budgets/EWMA see the same sequence the per-step path
-        would."""
-        entries = list(window)
-        window.clear()
-        if self._watchdog is not None:
-            self._watchdog.tick()        # the read below waits for the card
-        self.dispatch_stats["loss_reads"] += 1
-        vals = torch.stack([l for _, l in entries]).float().cpu().numpy()
-        for (s, _), v in zip(entries, vals):
-            verdict = anomaly.check(float(v))
-            if verdict != "ok":
-                return self._handle_anomaly(verdict, anomaly, mgr, None,
-                                            data, it, float(v)), True
-        return it, False
 
     def _ckpt_tree(self, data=None):
         """Full training state as one checkpointable tree of the LIVE

@@ -1779,6 +1779,16 @@ def test_async_snapshot_precedes_the_in_place_update_on_the_card(dev,
                                {k: v.cpu() for k, v in tree.items()})
     for k in want:
         assert torch.equal(got[k], want[k])
+    # the async save's host buffers are pinned and kept for the next one;
+    # a synchronous save writes from plain host copies and frees them
+    assert sorted(ckpt.writer()._buffers) == ["b", "w"]
+    assert all(b.is_pinned() for b in ckpt.writer()._buffers.values())
+    ckpt.save_state_dict(tree, str(tmp_path / "t"))
+    assert not ckpt.writer()._buffers
+    got = ckpt.load_state_dict(str(tmp_path / "t"),
+                               {k: v.cpu() for k, v in tree.items()})
+    for k in tree:
+        assert torch.equal(got[k], tree[k].cpu())
 
 
 def test_restore_copies_into_the_live_tensors_on_the_card(dev, tmp_path):

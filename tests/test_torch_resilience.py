@@ -54,6 +54,10 @@ def same(a, b):
     assert int(a["h"]["n"]) == int(b["h"]["n"])
 
 
+def held_bytes(w):
+    """The bytes the checkpoint writer's snapshot buffers hold."""
+    return sum(b.numel() * b.element_size() for b in w._buffers.values())
+
 # -- storage -------------------------------------------------------------------
 
 def test_storage_round_trip_and_digests(tmp_path):
@@ -86,6 +90,28 @@ def test_async_snapshot_is_taken_before_save_returns(tmp_path):
         t["h"]["e"].mul_(5)
     ckpt.wait_until_finished()
     same(ckpt.load_state_dict(path, tree(0.0)), tree(2.0))
+
+
+def test_snapshot_buffers_live_only_between_async_saves(tmp_path):
+    """An async save keeps its host copy of the state for the next async
+    save; a sync save writes from plain host copies and frees them, and
+    so does closing a manager: a closed manager leaves no buffers."""
+    w = ckpt.writer()
+    w.release()
+    t = tree(1.0)
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (t["w"], t["b"], t["h"]["e"]))
+    ckpt.save_state_dict(t, str(tmp_path / "a"), async_save=True)
+    assert held_bytes(w) == nbytes
+    ckpt.save_state_dict(t, str(tmp_path / "s"))
+    assert held_bytes(w) == 0
+    same(ckpt.load_state_dict(str(tmp_path / "s"), tree(0.0)), t)
+    mgr = CheckpointManager(str(tmp_path / "m"), save_interval_steps=1,
+                            async_save=True)
+    mgr.save(1, t)
+    assert held_bytes(w) == nbytes
+    mgr.close()
+    assert held_bytes(w) == 0 and mgr.committed_steps() == [1]
 
 
 def test_storage_refuses_mismatch_and_meshes(tmp_path):

@@ -510,6 +510,43 @@ def test_cancel_keeps_the_other_streams_emissions(models):
         assert seen[r] == got[r].tolist()
 
 
+def test_cancel_drain_that_finishes_every_survivor_still_emits(models):
+    """D13, when the cancel's drain finishes every other request: the
+    engine still has work (the carried tokens), so a caller that steps
+    only while ``has_work()`` emits them in the next ``step()``, and no
+    later request's step emits them for requests already retired."""
+    pm = models["native"][1]
+    prompts = _family()
+    eng = _port_engine(pm, async_depth=2, decode_block=2)
+    rids = [eng.submit(p, max_new_tokens=8) for p in prompts[:2]]
+    rids.append(eng.submit(prompts[2]))
+    seen = {r: [] for r in rids}
+    for _ in range(3):
+        for r, t in eng.step():
+            seen[r].append(t)
+    buf = []
+    with torch.inference_mode():             # a block left in flight
+        assert eng._dispatch_block(buf)
+    for r, t in buf:
+        seen[r].append(t)
+    assert not any(eng._requests[r].done for r in rids[:2])
+    assert eng.cancel(rids[2])
+    assert all(eng._requests[r].done for r in rids[:2])
+    assert not eng._queue and all(s is None for s in eng._slots)
+    assert eng.has_work()
+    got = {}
+    while eng.has_work():
+        for r, t in eng.step():
+            seen[r].append(t)
+        got.update(eng.take_finished())
+    assert sorted(got) == rids[:2]
+    for r in rids[:2]:
+        assert seen[r] == got[r].tolist()
+    late = eng.submit(prompts[3])
+    first = eng.step()
+    assert all(r == late for r, _ in first)
+
+
 def test_replay_prefix_resumes_the_stream(models):
     pm = models["native"][1]
     prompt = _family()[5]

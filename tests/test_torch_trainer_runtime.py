@@ -37,6 +37,7 @@ from paddle_tpu.resilience import PreemptionGuard as JaxPreemption
 from paddle_tpu.resilience import TrainingPreempted as JaxPreempted
 from paddle_tpu.testing import chaos as jchaos
 from paddle_tpu.trainer import Trainer as JaxTrainer
+from paddle_tpu_torch import checkpoint as ckpt
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.convert import opt_state_from_jax, state_dict_from_jax
@@ -295,6 +296,10 @@ def test_fit_argument_checks_match_jax(sd):
                steps_per_dispatch=2)
 
 
+def held_bytes(w):
+    """The bytes the checkpoint writer's snapshot buffers hold."""
+    return sum(b.numel() * b.element_size() for b in w._buffers.values())
+
 # -- the superstep -----------------------------------------------------------------
 
 class _Reg(Layer):
@@ -343,6 +348,8 @@ def test_superstep_bit_exact_with_the_jax_cadence(sd, tmp_path, K):
     assert tr.dispatch_stats["dispatches"] == -(-8 // K)
     if K > 1:
         assert tr.dispatch_stats["loss_reads"] < 8
+    # the async saves' host buffers do not outlive the fit
+    assert held_bytes(ckpt.writer()) == 0
 
 
 # -- optimizer-state offload -------------------------------------------------------
@@ -485,3 +492,28 @@ def test_preemption_telemetry_and_flight_dump(sd, tmp_path):
     finally:
         obs.disable()
         rec.dir = "."
+
+
+def test_fit_frees_the_snapshot_buffers_when_it_raises(sd, tmp_path):
+    """A fit that ends by raising (here a preemption after async saves)
+    leaves none of the async saves' host buffers behind."""
+    tr = ours(sd)
+    guard = PreemptionGuard()
+    mgr = CheckpointManager(str(tmp_path / "c"), save_interval_steps=1,
+                            keep_last_n=10, async_save=True)
+    real_save = mgr.save
+    held = []
+
+    def save(step, tree, **kw):
+        out = real_save(step, tree, **kw)
+        held.append(held_bytes(ckpt.writer()))
+        return out
+    mgr.save = save
+    with pytest.raises(TrainingPreempted):
+        tr.fit(loader(tio), 8, log_every=1, checkpoint_manager=mgr,
+               preemption_guard=guard,
+               on_metrics=lambda m: guard.trigger() if m.step >= 3
+               else None)
+    assert held[:2] == [held[0]] * 2 and held[0] > 0 and held[2] == 0
+    assert mgr.committed_steps() == [1, 2, 3]
+    assert held_bytes(ckpt.writer()) == 0
