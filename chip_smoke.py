@@ -7,8 +7,8 @@ Run from the repository root, with no arguments:
 
 ``python3 chip_smoke.py --parent DIR``, with the parent commit's tree
 unpacked in DIR, also times the parent's int8 (decode and prefill),
-grouped, paged decode, CE, RMSNorm forward and RoPE kernels against this
-tree's in turns after phase 3 (the CE backward's outputs must be equal
+grouped, paged decode, CE, flash backward, RMSNorm forward and RoPE
+kernels against this tree's in turns after phase 3 (the CE backward's outputs must be equal
 bit for bit). ``--sweep`` also times the RMSNorm forward and RoPE under
 other plan constants in phase 3 (``norm_rope_plan_sweep``, each held
 bit for bit to the default plan's output).
@@ -38,7 +38,10 @@ Phases, in order; any failure exits non-zero before the result line:
      TFLOP/s; a K/V tile planted in place of another must break out and
      dq, a Q/dO/lse/delta tile dk and dv); flash also in fp32 at s=1024,
      with segment ids (fully masked rows included), with dropout p=0.1
-     and at a ragged s=1000; the fused vocab-CE kernels
+     and at a ragged s=1000; every bf16 flash backward case, and the
+     training shape at d = 64 and d = 32, run twice: dq, dk and dv equal
+     bit for bit (D14: the dQ adds go in a fixed order); the fused
+     vocab-CE kernels
      (forward, dlog, dh, dW) at 8192 tokens x hidden 4096 x vocabulary
      128256 in bf16 (lse/tgt to 1e-4, dlog, dh and dW per row or column,
      and two planted wrong vocabulary blocks that every check must
@@ -252,12 +255,11 @@ Phases, in order; any failure exits non-zero before the result line:
      synchronous checkpoint ([6]), TrainingPreempted with exit code 75,
      the flight recorder's dump, pt_preemptions_total 1, and a fresh
      trainer resumes it bit for bit and goes on a step; (d)
-     steps_per_dispatch=4 against 1, 2 warm-up and 8 steps each, beside
-     a second K=1 run: step time, the host's loss reads, the idle share
-     of one profiled dispatch, and the K=4 run's largest loss distance
-     from K=1 beside the two K=1 runs' (bf16 backward atomics make each
-     run another sample); at phase 7's widths and depth in fp32
-     (deterministic kernels), 6 steps each, K=4 must equal K=1 bit for
+     steps_per_dispatch=4 against 1, 2 warm-up and 8 steps each: step
+     time, the host's loss reads, the idle share of one profiled
+     dispatch, and the K=4 run's largest loss distance from K=1; at
+     phase 7's widths and depth in bf16 and in fp32 (every kernel
+     deterministic), 6 steps each, K=4 must equal K=1 bit for
      bit, losses and state, and the
      steps saved under save_interval_steps=3 (read by a recorder that
      writes nothing) must be JAX's (SUPERSTEP_SAVES); (e) offload_opt_state=True: one update from the
@@ -271,7 +273,31 @@ Phases, in order; any failure exits non-zero before the result line:
      parameters equal the uninterrupted run's bit for bit, latest_step
      skips the torn step 6 and the manager quarantines it. Every
      checkpoint lives in the output directory (ROOT_OUT) and is removed
-     at the end of its leg.
+     at the end of its leg;
+ 11. the optimizers (writing nothing to disk): (a) SGD, Momentum,
+     Adamax, Adagrad, RMSProp (centered: three slots), Adadelta, Lamb
+     and Rprop (no masters by default: bf16 parameters updated through
+     fp32 copies, D15), each at learning_rate 1e-4, weight decay 0.01
+     where it takes one (Lamb's lamb_weight_decay), global-norm clip
+     1.0, on phase 7's model and batch (one model, its seeded weights
+     copied back in before each), 2 warm-up and 4 timed steps through
+     Trainer.fit: median step, peak memory, losses and whether they fell
+     (reported only); launch counts reset before the first run and read
+     after the last, every training kernel launched in each run, every
+     loss finite; (b) phase 6's fp32 model's first-step gradients of two
+     batches on the card, applied by each optimizer (no clip) on the
+     card and on the CPU from the same fresh state: parameters and slots within
+     UPDATE_RTOL (max |card - cpu| / max |cpu| per tensor); the same
+     layout in bf16 under Rprop without masters within one bf16 step;
+     (c) RMSProp (centered) and Rprop: one update of phase 7's model with
+     the state streamed from pinned host memory equals the update on
+     the card bit for bit; (d) LBFGS(history_size=10, max_iter=10,
+     strong_wolfe) on phase 6's fp32 model and one batch: the loss must
+     fall; closure evaluations, seconds each, the history's bytes; (e)
+     GradScaler over AdamW at phase 6's fp32 layout: a finite scaled step
+     within UPDATE_RTOL of an unscaled one, two chaos.nan_batch steps
+     skipped with the parameters unchanged bit for bit, the scale halved
+     after the second.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -1268,6 +1294,9 @@ def phase_train_kernels(torch, pt):
                     f"{rate['tflops']:.1f} TFLOP/s ({ops[kern]:.4g} "
                     f"operations), library {rate['library_tflops']:.1f} "
                     f"TFLOP/s, {rate['bound_share']:.3f} of the bound")
+        if dt == torch.bfloat16:
+            runs_agree(torch, flash_attention, case, (dq, dk, dv),
+                       (q, k, v, dout, want_lse, delta, *args))
         if timed and dt == torch.bfloat16:
             planted_tile(torch, flash_attention, args, q, k, v, dout,
                          want_lse, delta,
@@ -1276,12 +1305,31 @@ def phase_train_kernels(torch, pt):
                           "flash_bwd/dk_dv": [wdk, wdv]})
         torch.cuda.synchronize()
 
+    def small_heads(case, d):
+        """The training shape's bf16 backward at head dim ``d`` (64 and 32
+        add dq in both warpgroups, ordered): two runs equal to the bit."""
+        q = torch.randn((2, 4096, H, d), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((2, 4096, HKV, d), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        dout = torch.randn_like(q)
+        args = (True, d ** -0.5, None, None, 0.0, 0)
+        out, lse = flash_attention.flash_fwd(q, k, v, *args)
+        delta = (out.float() * dout.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        first = flash_attention.flash_bwd(q, k, v, dout, lse, delta, *args)
+        runs_agree(torch, flash_attention, case, first,
+                   (q, k, v, dout, lse, delta, *args))
+        torch.cuda.synchronize()
+
     flash_case("train_4096", 2, 4096, torch.bfloat16, timed=True)
     torch.cuda.empty_cache()
     flash_case("s1024", 2, 1024, torch.float32, timed=True)
     flash_case("segments_1024", 2, 1024, torch.bfloat16, seg=True)
     flash_case("dropout_1024", 2, 1024, torch.bfloat16, dropout_p=0.1)
     flash_case("ragged_1000", 2, 1000, torch.bfloat16)
+    small_heads("train_4096_d64", 64)
+    small_heads("train_4096_d32", 32)
     del flush
     torch.cuda.empty_cache()
 
@@ -1602,6 +1650,20 @@ def planted_vocab_block(torch, kce, vocab_ce, h, w, labels, g_lse, g_tgt,
                 FAILED_CASES.append(f"{kern}/planted_block_{where}_missed")
         del w2, dlog, dh2, dw2
     RESULTS["planted_vocab_block"] = res
+
+
+def runs_agree(torch, fa, case, first, bwd_args):
+    """D14: the bf16 flash backward run again on the same inputs gives
+    dq, dk and dv equal to ``first`` bit for bit (the dQ adds go in a
+    fixed order); a difference fails the case."""
+    again = fa.flash_bwd(*bwd_args)
+    equal = {n: bool(torch.equal(a, b))
+             for n, a, b in zip(("dq", "dk", "dv"), first, again)}
+    RESULTS.setdefault("flash_bwd_repeat", {})[case] = equal
+    log(f"kernel flash_bwd [{case} bfloat16] a second run equal to the "
+        f"first bit for bit: {equal}")
+    if not all(equal.values()):
+        FAILED_CASES.append(f"flash_bwd/{case}/runs_differ")
 
 
 def planted_tile(torch, fa, args, q, k, v, dout, lse, delta, wants):
@@ -4270,9 +4332,10 @@ def phase_parent_turns(torch, parent):
     and dW at phase 3's DeepSeekMoE-16B shapes, balanced and skewed,
     through this tree's wrappers (their C interface is unchanged;
     with_library); then paged decode and the CE kernels
-    (parent_serving_and_ce_turns), and the RMSNorm forward and RoPE
-    through the parent's own C interface (parent_norm_rope_turns). The
-    two results' largest difference is kept beside the times."""
+    (parent_serving_and_ce_turns), the bf16 flash backward at phase 3's
+    training shape, and the RMSNorm forward and RoPE
+    (parent_norm_rope_turns). The two results' largest difference is kept
+    beside the times."""
     from pathlib import Path
     from paddle_tpu_torch.nn.quantized_linear import weight_quantize
     from paddle_tpu_torch.ops.kernels import _build
@@ -4340,6 +4403,23 @@ def phase_parent_turns(torch, parent):
                 turns(name, with_library(plib, fn), fn)
         del w, xs, gy
         torch.cuda.empty_cache()
+    # the bf16 flash backward at phase 3's training shape, through this
+    # tree's wrapper (the C interface is the parent's; its kernel adds dq
+    # into the front of this tree's larger workspace in its own layout,
+    # so the turns compare dk)
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    q, dout = (torch.randn((2, 4096, 32, 128), generator=g,
+                           device=dev).to(bf) for _ in range(2))
+    k, v = (torch.randn((2, 4096, 8, 128), generator=g, device=dev).to(bf)
+            for _ in range(2))
+    out, lse = kfa.flash_fwd(q, k, v, True, 128 ** -0.5)
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+
+    def this_bwd():
+        return kfa.flash_bwd(q, k, v, dout, lse, delta, True, 128 ** -0.5)[1]
+    turns("flash_bwd/train_4096", with_library(plib, this_bwd), this_bwd)
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
     parent_serving_and_ce_turns(torch, plib, dev, g, flush, turns)
     parent_norm_rope_turns(torch, plib, dev, g, turns)
     RESULTS["parent_turns"] = {"parent": str(root), "rows": rows,
@@ -4351,17 +4431,13 @@ def phase_parent_turns(torch, parent):
 def parent_norm_rope_turns(torch, plib, dev, g, turns):
     """The parent's RMSNorm forward and RoPE kernels against this tree's
     at phase 3's shapes (decode, prefill and training at Llama's widths
-    and training at DeepSeekMoE's), bf16, each through its own tree's C
-    interface: the parent's took a vec8 flag for the norm and no
-    plan for either, so its argtypes are set here and it is called as
-    its own wrapper called it. The decode rows are also profiled as a
-    decode step runs them: 65 (RMSNorm) or 32 (RoPE) launches back to
-    back, no L2 flush, device time from torch.profiler."""
-    import ctypes
+    and training at DeepSeekMoE's), bf16, both through this tree's
+    wrappers (the parent has this tree's C interface and plans;
+    with_library). The decode rows are also profiled as a decode step
+    runs them: 65 (RMSNorm) or 32 (RoPE) launches back to back, no L2
+    flush, device time from torch.profiler."""
     from paddle_tpu_torch.ops import rope as rope_ops
-    from paddle_tpu_torch.ops.kernels import _build, fused_norm, fused_rope
-    P, I, F, LL = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_longlong)
+    from paddle_tpu_torch.ops.kernels import fused_norm, fused_rope
     profiled = {}
 
     def profiled_turns(name, parent_fn, this_fn, n):
@@ -4372,28 +4448,21 @@ def parent_norm_rope_turns(torch, plib, dev, g, turns):
         for fn in (parent_fn, this_fn, this_fn, parent_fn):
             prof = profile_step(torch, dev, lambda fn=fn: [
                 fn() for _ in range(n)], sums={"all": ("",)})
-            per.append(prof["sums"]["all"]["us"] / n)
+            # None: the profiler reported no device time for this window
+            per.append(prof and prof["sums"]["all"]["us"] / n)
         profiled[name] = {"launches": n, "parent_us": [per[0], per[3]],
                           "this_us": [per[1], per[2]]}
         log(f"profiled, {n} launches back to back, {name}: device us a "
-            f"launch: parent {per[0]:.2f}, this {per[1]:.2f}, this "
-            f"{per[2]:.2f}, parent {per[3]:.2f}")
-    plib.pt_rms_norm_fwd.argtypes = [P, P, P, P, I, I, F, I, I, I, P]
-    plib.pt_fused_rope.argtypes = [P] * 7 + [I] * 5 + [LL] * 6 + [I, I, P]
-    stream = _build.stream_ptr(dev)
+            f"launch: parent {per[0]}, this {per[1]}, this {per[2]}, "
+            f"parent {per[3]}")
     for case, R, width in NORM_CASES:
         x = torch.randn((R, width), generator=g, device=dev).to(
             torch.bfloat16)
         w = 1 + 0.1 * torch.randn((width,), generator=g, device=dev)
-        y = torch.empty_like(x)
 
-        def par_norm(x=x, w=w, y=y, R=R, width=width):
-            _build.check(plib.pt_rms_norm_fwd(
-                x.data_ptr(), w.data_ptr(), y.data_ptr(), None, R, width,
-                1e-5, 1, 0, 1, stream), "parent rms_norm")
-            return y
         def this_norm(x=x, w=w):
             return fused_norm.rms_norm_fwd(x, w, 1e-5)[0]
+        par_norm = with_library(plib, this_norm)
         turns(f"rms_norm/{case}", par_norm, this_norm)
         if case == "decode_b8":
             profiled_turns(f"rms_norm/{case}", par_norm, this_norm, 65)
@@ -4404,21 +4473,10 @@ def parent_norm_rope_turns(torch, plib, dev, g, turns):
         q = qkv[..., :h * 128].view(b, s, h, 128)
         k = qkv[..., h * 128:(h + hkv) * 128].view(b, s, hkv, 128)
         pos = rope_positions(torch, g, dev, case, b, s)
-        qo = torch.empty((b, s, h, 128), dtype=q.dtype, device=dev)
-        ko = torch.empty((b, s, hkv, 128), dtype=q.dtype, device=dev)
-
-        def par_rope(q=q, k=k, qo=qo, ko=ko, pos=pos, b=b, s=s, h=h,
-                     hkv=hkv):
-            _build.check(plib.pt_fused_rope(
-                q.data_ptr(), k.data_ptr(), qo.data_ptr(), ko.data_ptr(),
-                cos.data_ptr(), sin.data_ptr(),
-                pos.data_ptr() if pos is not None else None, b, s, h, hkv,
-                128, *q.stride()[:3], *k.stride()[:3], cos.shape[0], 1,
-                stream), "parent fused_rope")
-            return qo
 
         def this_rope(q=q, k=k, pos=pos):
             return fused_rope.fused_rope(q, k, cos, sin, pos)[0]
+        par_rope = with_library(plib, this_rope)
         # the difference is read on the rotated q (k takes the same path)
         turns(f"fused_rope/{case}", par_rope, this_rope)
         if case == "decode_b8":
@@ -5205,19 +5263,12 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
         if not pre_c["ok"]:
             fails.append("preemption")
 
-        # (d) the superstep, K = 4 against K = 1 (timed), and K = 1
-        # again for the two-run spread
+        # (d) the superstep, K = 4 against K = 1 (timed)
         sup, runs = {}, {}
-        for K, timed in ((1, True), (4, True), (1, False)):
+        for K in (1, 4):
             tr = runtime_trainer(torch, pt, dev, cfg, 10)
             it = iter(runtime_loader(dev, tokens, b))
             hist = tr.fit(it, 2, log_every=1, steps_per_dispatch=K)
-            if not timed:
-                hist += tr.fit(it, 8, log_every=1)
-                runs["K=1 again"] = losses_of(hist)
-                del tr
-                empty_cache(torch, dev)
-                continue
             reads0 = tr.dispatch_stats["loss_reads"]
             rec = SaveRecorder(3)
             sync(torch, dev)
@@ -5249,52 +5300,51 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
                 f"{sup[K]['idle_share']}); {card}")
             del tr
             empty_cache(torch, dev)
-        # bf16: the flash backward adds dq with atomics, so each run is
-        # another sample; the K=4 run's largest distance from K=1 is
-        # reported beside the two K=1 runs' (their spread). The superstep
-        # is the same step, so the check is K=4 against K=1 bit for bit
-        # in fp32, whose kernels are deterministic, at phase 7's widths
-        # and depth (4 layers; fp32 parameters have no masters): 6 steps
-        # each (K=4 dispatches 4 then 2), K=1's state kept on the host
-        # while K=4 runs
-        spread4 = max(abs(runs["K=1"][i] - runs["K=1 again"][i])
-                      for i in runs["K=1"])
         dev4 = max(abs(runs["K=4"][i] - runs["K=1"][i]) for i in runs["K=1"])
-        cfg32 = make_cfg(num_hidden_layers=4, dtype="float32")
-        fp32, ce0 = {}, _build.LAUNCHES["vocab_ce_fwd"]
-        t0 = time.perf_counter()
-        for K in (1, 4):
-            tr = runtime_trainer(torch, pt, dev, cfg32, 10)
-            h = tr.fit(runtime_loader(dev, tokens, b), 6, log_every=1,
-                       steps_per_dispatch=K)
-            if K == 1:
-                host1 = {key: t.detach().cpu()
-                         for key, t in tr._live_tensors()}
-            else:
-                fp32_diff = [key for key, t in tr._live_tensors()
-                             if not torch.equal(t.cpu(), host1[key])]
-            fp32[K] = [m.loss for m in h]
-            del tr, h
-            empty_cache(torch, dev)
-        del host1
-        fp32_s = time.perf_counter() - t0
+        # the superstep is the same step: K=4 equals K=1 bit for bit,
+        # losses and state, in bf16 (the flash backward sums dq in a fixed
+        # order) and in fp32, at phase 7's widths and depth, 6 steps each
+        # (K=4 dispatches 4 then 2), K=1's state kept on the host while
+        # K=4 runs
+        gate, ce0 = {}, None
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32":
+                ce0 = _build.LAUNCHES["vocab_ce_fwd"]
+            cfg_g = make_cfg(num_hidden_layers=4, dtype=dtype)
+            losses, t0 = {}, time.perf_counter()
+            for K in (1, 4):
+                tr = runtime_trainer(torch, pt, dev, cfg_g, 10)
+                h = tr.fit(runtime_loader(dev, tokens, b), 6, log_every=1,
+                           steps_per_dispatch=K)
+                if K == 1:
+                    host1 = {key: t.detach().cpu()
+                             for key, t in tr._live_tensors()}
+                else:
+                    differ = [key for key, t in tr._live_tensors()
+                              if not torch.equal(t.cpu(), host1[key])]
+                losses[K] = [m.loss for m in h]
+                del tr, h
+                empty_cache(torch, dev)
+            del host1
+            gate[dtype] = {"bit_equal": not differ
+                           and losses[1] == losses[4],
+                           "differing": differ, "losses": losses,
+                           "seconds": time.perf_counter() - t0}
         fp32_ce += _build.LAUNCHES["vocab_ce_fwd"] - ce0
-        fp32_same = not fp32_diff and fp32[1] == fp32[4]
         cadence_ok = all(sup[K]["saves"] == want
                          for K, want in SUPERSTEP_SAVES.items())
-        sup.update(spread=spread4, k4_distance=dev4,
-                   fp32_bit_equal=fp32_same, fp32_differing=fp32_diff,
-                   fp32_losses=fp32, fp32_seconds=fp32_s,
-                   cadence_ok=cadence_ok, expected_saves=SUPERSTEP_SAVES,
-                   losses_k1_again=runs["K=1 again"])
+        sup.update(k4_distance=dev4, gate=gate, cadence_ok=cadence_ok,
+                   expected_saves=SUPERSTEP_SAVES)
         out["superstep"] = sup
-        log(f"runtime (d) losses, bf16: K=4 at most {dev4:.3e} from K=1, "
-            f"two K=1 runs at most {spread4:.3e} apart; fp32 (phase 7's "
-            f"widths, 4 layers, 6 steps each, {fp32_s:.1f} s for both): "
-            f"K=4 equal to K=1 bit for bit (losses and state): "
-            f"{fp32_same}; saves on dispatch boundaries as JAX's: "
-            f"{cadence_ok} ({SUPERSTEP_SAVES}); {card}")
-        if not (fp32_same and cadence_ok):
+        log(f"runtime (d) losses of the timed runs: K=4 at most {dev4:.3e} "
+            f"from K=1; K=4 equal to K=1 bit for bit (losses and state, "
+            f"phase 7's widths, 4 layers, 6 steps each): bf16 "
+            f"{gate['bfloat16']['bit_equal']} "
+            f"({gate['bfloat16']['seconds']:.1f} s for both), fp32 "
+            f"{gate['float32']['bit_equal']} "
+            f"({gate['float32']['seconds']:.1f} s); saves on dispatch "
+            f"boundaries as JAX's: {cadence_ok} ({SUPERSTEP_SAVES}); {card}")
+        if not (all(v["bit_equal"] for v in gate.values()) and cadence_ok):
             fails.append("superstep")
 
         # (e) optimizer-state offload
@@ -5381,6 +5431,356 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
     return launches
 
 
+# -- phase 11: the remaining optimizers, LBFGS and loss scaling -------------
+
+# (class, arguments beside learning_rate=1e-4 and the global-norm clip):
+# the JAX defaults, weight decay 0.01 where the optimizer takes one;
+# RMSProp centered (three slots); Rprop master-less by default (D15)
+PHASE11_OPTIMIZERS = (
+    ("SGD", {"weight_decay": 0.01}),
+    ("Momentum", {"weight_decay": 0.01}),
+    ("Adamax", {"weight_decay": 0.01}),
+    ("Adagrad", {"weight_decay": 0.01}),
+    ("RMSProp", {"weight_decay": 0.01, "centered": True}),
+    ("Adadelta", {"weight_decay": 0.01}),
+    ("Lamb", {"lamb_weight_decay": 0.01}),
+    ("Rprop", {}),
+)
+# (b): the card's update against the CPU's, max |card - cpu| / max |cpu|
+# per tensor; both run the same fp32 elementwise formulas (Lamb's norms
+# sum in another order). (b) runs without the clip: the global norm sums
+# in another order on each side (the clipped gradients 2e-7 apart), and
+# where the decay nearly cancels a gradient, Adamax's normalised update
+# moves by up to 3.8e-6 of the largest parameter for it (H100 80GB HBM3,
+# 700 W), which says nothing of the update's arithmetic
+UPDATE_RTOL = 1e-6
+
+
+def make_optimizer(name, kw, params, clip=True):
+    from paddle_tpu_torch import optimizer as topt
+    return getattr(topt, name)(
+        learning_rate=1e-4, parameters=params,
+        grad_clip=topt.ClipGradByGlobalNorm(1.0) if clip else None, **kw)
+
+
+def worst_rel(torch, got, want):
+    """(largest max|got - want| / max|want| over the tensors, its key)."""
+    err = {k: float((got[k].float().cpu() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30))
+           for k, w in want.items()}
+    k = max(err, key=err.get)
+    return err[k], k
+
+
+def optimizer_updates(torch, pt, dev, small, card):
+    """(b): one phase-6 fp32 model's first-step gradients of two batches,
+    taken on the card; each optimizer (without the clip: UPDATE_RTOL)
+    applies both on the card and on the CPU from the same fresh state:
+    parameters and slots within UPDATE_RTOL. Then the layout cast to bf16
+    under Rprop without a master (D15): card and CPU within one bf16
+    ulp."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    model = LlamaForCausalLM(small, device=dev, generator=pt.generator(9,
+                                                                       dev))
+    grads = []
+    for seed in (9, 19):
+        model.zero_grad(set_to_none=True)
+        batch = train_batch(torch, small.vocab_size, 2, 256, dev, seed)
+        model(**batch, return_logits=False).backward()
+        grads.append({n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()})
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model
+    res = {}
+    for name, kw in PHASE11_OPTIMIZERS:
+        side = {}
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            params = {n: t.to(d, copy=True) for n, t in p0.items()}
+            opt = make_optimizer(name, kw, None, clip=False)
+            for g in grads:
+                opt.apply_gradients(params, {n: t.to(d, copy=True)
+                                             for n, t in g.items()})
+            slots = {f"{n}/{sk}": t for n, e in opt._state["slots"].items()
+                     for sk, t in e.items()}
+            side[where] = ({n: t.cpu() for n, t in params.items()},
+                           {k: t.cpu() for k, t in slots.items()})
+            del params, opt, slots
+        err_p, at_p = worst_rel(torch, side["card"][0], side["cpu"][0])
+        err_s, at_s = (worst_rel(torch, side["card"][1], side["cpu"][1])
+                       if side["cpu"][1] else (0.0, None))
+        ok = err_p <= UPDATE_RTOL and err_s <= UPDATE_RTOL
+        res[name] = {"params_rel": err_p, "params_at": at_p,
+                     "slots_rel": err_s, "slots_at": at_s, "ok": ok}
+        log(f"optimizers (b) {name}: 2 updates on the card vs the CPU "
+            f"(phase 6's layout, fp32): parameters {err_p:.2e} at {at_p}, "
+            f"slots {err_s:.2e} at {at_s} (max|diff|/max|cpu|, tol "
+            f"{UPDATE_RTOL}: {'ok' if ok else 'FAIL'}); {card}")
+        del side
+    # D15: bf16 parameters and gradients, Rprop without masters
+    side = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        params = {n: t.to(d, torch.bfloat16, copy=True)
+                  for n, t in p0.items()}
+        opt = make_optimizer("Rprop", {}, None, clip=False)
+        for g in grads:
+            opt.apply_gradients(params, {n: t.to(d, torch.bfloat16,
+                                                 copy=True)
+                                         for n, t in g.items()})
+        side[where] = {n: t.float().cpu() for n, t in params.items()}
+        side[where + " masters"] = len(opt._state["master"])
+    masters = side.pop("card masters") + side.pop("cpu masters")
+    ulps = max(float(((side["card"][n] - w).abs()
+                      / (w.abs() * 2.0 ** -7).clamp_min(1e-30)).max())
+               for n, w in side["cpu"].items())
+    moved = sum(int((side["cpu"][n] != p0[n].to(torch.bfloat16).float()
+                     .cpu()).sum()) for n in p0)
+    d15 = {"max_diff_in_bf16_steps": ulps, "elements_moved": moved,
+           "masters": masters, "ok": ulps <= 1.0 and moved > 0
+           and masters == 0}
+    res["rprop_bf16_masterless"] = d15
+    log(f"optimizers (b) Rprop, bf16 parameters without masters (D15): "
+        f"card vs CPU at most {ulps:.3f} bf16 steps (tol 1), "
+        f"{moved} elements moved; {card}")
+    del grads, p0, side
+    empty_cache(torch, dev)
+    return res
+
+
+def offload_equal(torch, pt, dev, cfg, batch, name, kw, card):
+    """(c): one update of phase 7's model from the same gradients with
+    the optimizer's state on the card and streamed from pinned host
+    memory: parameters, masters and slots equal bit for bit, the
+    offloaded state on the host."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.trainer import Trainer
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(10,
+                                                                     dev))
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x = Trainer(model, make_optimizer(name, kw, model))
+    x._loss(batch).backward()
+    grads = {k: p.grad.detach().clone() for k, p in x.params.items()}
+    model.zero_grad(set_to_none=True)
+    x.optimizer.apply_gradients(x.params, {k: g.clone() for k, g in
+                                           grads.items()}, lr=1e-4)
+    after = {k: p.detach().clone() for k, p in x.params.items()}
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(p0[n])
+    del p0
+    o = Trainer(model, make_optimizer(name, kw, model),
+                offload_opt_state=True)
+    t0 = time.perf_counter()
+    o.optimizer.apply_gradients(o.params, grads, lr=1e-4)
+    sync(torch, dev)
+    update_s = time.perf_counter() - t0
+    # the parameters against x's result; masters and slots against x's
+    # state (x's parameters are the shared model's, now o's)
+    live_o = dict(o._live_tensors())
+    same = all(torch.equal(p, after[k]) for k, p in o.params.items()) \
+        and all(torch.equal(live_o[key].to(dev), t)
+                for key, t in x._live_tensors() if key[0] != "params")
+    on_host = all(t.is_pinned() for key, t in live_o.items()
+                  if key[0] != "params")
+    xs = x.optimizer._state
+    slots = sorted(next(iter(xs["slots"].values())))
+    out = {"same_update_bit_for_bit": same, "state_on_host": on_host,
+           "slots": slots, "masters": len(xs["master"]),
+           "offloaded_update_s": update_s}
+    log(f"optimizers (c) {name} offload: one update with the state "
+        f"({len(xs['master'])} masters, slots {slots}) streamed from "
+        f"pinned host memory equal to the update on the card bit for bit: "
+        f"{same}; state on the host: {on_host}; {update_s:.3f} s; {card}")
+    del x, o, model, grads, after, xs, live_o
+    empty_cache(torch, dev)
+    return out
+
+
+def lbfgs_leg(torch, pt, dev, small, card):
+    """(d): LBFGS(history_size=10, max_iter=10, strong_wolfe) on phase 6's
+    fp32 model and one fixed batch: the loss must fall."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import LBFGS
+    model = LlamaForCausalLM(small, device=dev, generator=pt.generator(9,
+                                                                       dev))
+    batch = train_batch(torch, small.vocab_size, 2, 256, dev, 9)
+    opt = LBFGS(learning_rate=1.0, max_iter=10, history_size=10,
+                line_search_fn="strong_wolfe", parameters=model)
+    losses = []
+
+    def closure():
+        model.zero_grad(set_to_none=True)
+        loss = model(**batch, return_logits=False)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        return loss.detach(), {n: p.grad for n, p in
+                               model.named_parameters()}
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    final = float(opt.step(closure))
+    sync(torch, dev)
+    secs = time.perf_counter() - t0
+    out = {"first_loss": losses[0], "final_loss": final,
+           "evaluations": opt._n_evals, "s_per_evaluation":
+               secs / opt._n_evals, "history_pairs": len(opt._s),
+           "history_bytes": opt.history_bytes(), "seconds": secs,
+           "params": sum(p.numel() for p in model.parameters()),
+           "ok": math.isfinite(final) and final < losses[0]}
+    log(f"optimizers (d) LBFGS(history 10, max_iter 10, strong_wolfe), "
+        f"phase 6's layout in fp32, one batch: loss {losses[0]:.6f} -> "
+        f"{final:.6f} ({'fell' if out['ok'] else 'FAIL: did not fall'}); "
+        f"{opt._n_evals} closure evaluations, "
+        f"{out['s_per_evaluation'] * 1e3:.1f} ms each; history "
+        f"{len(opt._s)} pairs, {out['history_bytes']} bytes; {card}")
+    del model, opt
+    empty_cache(torch, dev)
+    return out
+
+
+def scaler_leg(torch, pt, dev, small, card):
+    """(e): GradScaler over AdamW at phase 6's fp32 layout: a finite
+    scaled step equals an unscaled one within UPDATE_RTOL; a NaN batch
+    (chaos.nan_batch over an additive mask) is skipped, the parameters
+    unchanged bit for bit, and the scale halves after the second."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.testing import chaos
+    models = [LlamaForCausalLM(small, device=dev,
+                               generator=pt.generator(9, dev))
+              for _ in range(2)]
+    opts = [make_optimizer("AdamW", {"weight_decay": 0.01}, m)
+            for m in models]
+    batch = train_batch(torch, small.vocab_size, 2, 256, dev, 9)
+    models[0](**batch, return_logits=False).backward()
+    opts[0].step()
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15,
+                            decr_every_n_nan_or_inf=2)
+    scaler.scale(models[1](**batch, return_logits=False)).backward()
+    scaler.step(opts[1])
+    scaler.update()
+    err, at = worst_rel(torch, {n: p.detach()
+                                for n, p in models[1].named_parameters()},
+                        {n: p.detach().cpu()
+                         for n, p in models[0].named_parameters()})
+    mask = torch.zeros((2, 1, 1, 256), device=dev)
+    poison = chaos.nan_batch({**batch, "attn_mask": mask},
+                             fields=["attn_mask"])
+    scales, skipped = [scaler.get_loss_scaling()], []
+    m = models[1]
+    for _ in range(2):
+        pre = {n: p.detach().clone() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        scaler.scale(m(**poison, return_logits=False)).backward()
+        scaler.step(opts[1])
+        skipped.append(scaler._found_inf and all(
+            torch.equal(p, pre[n]) for n, p in m.named_parameters()))
+        scaler.update()
+        scales.append(scaler.get_loss_scaling())
+    out = {"finite_step_rel": err, "finite_step_at": at,
+           "nan_steps_skipped": skipped, "scales": scales,
+           "opt_step": opts[1]._state["step"],
+           "ok": (err <= UPDATE_RTOL and all(skipped)
+                  and scales == [2.0 ** 15, 2.0 ** 15, 2.0 ** 14]
+                  and opts[1]._state["step"] == 1)}
+    log(f"optimizers (e) GradScaler (AdamW, phase 6's layout, fp32, scale "
+        f"2^15): a finite scaled step vs the unscaled one {err:.2e} at {at} "
+        f"(tol {UPDATE_RTOL}); two NaN batches skipped with the parameters "
+        f"unchanged bit for bit: {skipped}; scale {scales} (halved after "
+        f"2 bad steps), optimizer step {out['opt_step']}: "
+        f"{'ok' if out['ok'] else 'FAIL'}; {card}")
+    del models, opts, m
+    empty_cache(torch, dev)
+    return out
+
+
+def phase_optimizers(torch, pt, dev, make_cfg, b=2, s=4096):
+    """Phase 11: (a) each of PHASE11_OPTIMIZERS trains phase 7's model
+    (one model, the seeded weights copied back in before each) 2 warm-up
+    and 4 timed steps through Trainer.fit; launch counts reset before
+    the first and read after the last, every training kernel launched in
+    every run, every loss finite; (b) to (e) as the module docstring
+    says. Writes nothing to disk. Returns (a)'s launches."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.trainer import Trainer
+    card = RESULTS.get("card")
+    out = RESULTS.setdefault("optimizers", {"card": card})
+    cuda = dev.type == "cuda"
+    fails = []
+    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
+    small = make_cfg(num_hidden_layers=2, dtype="float32",
+                     intermediate_size=1024, vocab_size=4096)
+    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(10,
+                                                                     dev))
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    runs = {}
+    _build.reset_launches()
+    for name, kw in PHASE11_OPTIMIZERS:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(p0[n])
+        model.zero_grad(set_to_none=True)
+        before = dict(_build.LAUNCHES)
+        tr = Trainer(model, make_optimizer(name, kw, model))
+        warm = tr.fit(iter([batch] * 2), 2, log_every=1)
+        sync(torch, dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        hist = tr.fit(iter([batch] * 4), 4, log_every=1)
+        sync(torch, dev)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        st = tr.optimizer._state
+        losses = [m.loss for m in warm + hist]
+        times = [m.step_time_s for m in hist]
+        missing = [k for k in TRAINING_KERNELS
+                   if _build.LAUNCHES.get(k, 0) - before.get(k, 0) <= 0]
+        runs[name] = {"kwargs": kw, "losses": losses, "step_times_s": times,
+                      "median_step_s": statistics.median(times),
+                      "peak_memory_bytes": peak,
+                      "masters": len(st["master"]),
+                      "slots": sorted(next(iter(st["slots"].values()))),
+                      "loss_fell": losses[-1] < losses[0],
+                      "missing_kernels": missing}
+        log(f"optimizers (a) {name}({kw}): 4 timed steps of {b} x {s} "
+            f"tokens at llama3_8b widths, 4 layers, bf16: median step "
+            f"{runs[name]['median_step_s']:.4f} s, peak memory {peak} bytes "
+            f"({(peak or 0) / 1e9:.2f} GB), {len(st['master'])} masters, "
+            f"slots {runs[name]['slots']}; losses {losses}; loss fell: "
+            f"{runs[name]['loss_fell']}; {card}")
+        if missing or not all(math.isfinite(x) for x in losses):
+            fails.append(f"{name}: missing {missing}, losses {losses}")
+        del tr, st
+        model.zero_grad(set_to_none=True)
+        empty_cache(torch, dev)
+    launches = dict(_build.LAUNCHES)
+    out["train"] = runs
+    out["launches"] = launches
+    log(f"optimizers (a) launches over the 8 runs: {launches}")
+    del model, p0
+    empty_cache(torch, dev)
+    out["updates"] = optimizer_updates(torch, pt, dev, small, card)
+    fails += [f"update {k}" for k, v in out["updates"].items()
+              if not v["ok"]]
+    out["offload"] = {name: offload_equal(torch, pt, dev, cfg, batch, name,
+                                          kw, card)
+                      for name, kw in PHASE11_OPTIMIZERS
+                      if name in ("RMSProp", "Rprop")}
+    fails += [f"offload {k}" for k, v in out["offload"].items()
+              if not (v["same_update_bit_for_bit"] and v["state_on_host"])]
+    out["lbfgs"] = lbfgs_leg(torch, pt, dev, small, card)
+    if not out["lbfgs"]["ok"]:
+        fails.append("lbfgs")
+    out["grad_scaler"] = scaler_leg(torch, pt, dev, small, card)
+    if not out["grad_scaler"]["ok"]:
+        fails.append("grad_scaler")
+    if fails:
+        raise SystemExit(f"optimizer checks failed: {fails}")
+    return launches
+
+
+
 def main() -> int:
     if "--client-process" in sys.argv:
         return client_process()
@@ -5453,6 +5853,9 @@ def main() -> int:
     runtime_launches = phase_trainer_runtime(torch, pt, dev,
                                              LlamaConfig.llama3_8b)
     mark("10 trainer runtime")
+    optimizer_launches = phase_optimizers(torch, pt, dev,
+                                          LlamaConfig.llama3_8b)
+    mark("11 optimizers")
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
@@ -5490,6 +5893,7 @@ def main() -> int:
                    "quantized_serving": quant_launches[name],
                    "moe_training": moe_launches[name],
                    "trainer_runtime": runtime_launches[name],
+                   "optimizers": optimizer_launches.get(name, 0),
                    **{label: counts.get(name, 0)
                       for label, counts in feature_launches.items()}}
         kernels.append({
@@ -5497,7 +5901,8 @@ def main() -> int:
             "replaces": replaces,
             # launches on the main paths: the serving run, the timed
             # training steps, the quantized serving run, the timed MoE
-            # training steps, phase 10's trainer runtime, phase 5c's
+            # training steps, phase 10's trainer runtime, phase 11's
+            # eight optimizers' runs, phase 5c's
             # feature runs, 5d's fabric runs and 5e's front-door window,
             # and each path's own count
             "launches": sum(by_path.values()),

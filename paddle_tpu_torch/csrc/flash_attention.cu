@@ -51,21 +51,46 @@
 //       bf16 in registers is the A operand of P V (V read through the
 //       descriptor's transpose bit); O stays in registers.
 //     bwd: one kernel in place of dq + dk/dv: one block per (batch * KV
-//       head, 128-row key tile) loops over its group's query heads and
-//       the 64-row query tiles that reach the key tile (Q, dO, lse and
-//       delta through a 2-stage ring); S^T = K Q^T and dP^T = V dO^T are
-//       recomputed once (5 products per tile instead of the 7 of two
-//       kernels); dV += P^T dO and dK += dS^T Q stay in `wgmma`
-//       accumulators; dS^T goes to shared memory for dQ = dS K, which
-//       each warpgroup adds for its half of d (d = 128) or of the key
-//       tile into an fp32 workspace with atomic adds of two floats
-//       (`red.global.add`); the wrapper casts it to bf16.
+//       head, 128-row key tile) loops over the 64-row query tiles that
+//       reach the key tile, last tile first, and over its group's query
+//       heads within each (Q, dO, lse and delta through a 2-stage ring);
+//       S^T = K Q^T and dP^T = V dO^T are recomputed once (5 products per
+//       tile instead of the 7 of two kernels); dV += P^T dO and dK +=
+//       dS^T Q stay in `wgmma` accumulators; dS^T goes to shared memory
+//       for dQ = dS K: each warpgroup's 64 x 64 fp32 dQ tile (its half of
+//       d at d = 128, its half of the key tile at d <= 64) goes to a
+//       staging tile in shared memory, and the dQ writer, one thread of
+//       the producer warpgroup, adds it into an fp32 workspace with one
+//       bulk reduce-add (`cp.reduce.async.bulk .add.f32`). The workspace
+//       holds each (batch, head, query tile, panel) as a contiguous
+//       64 x 64 block; the wrapper permutes it to [b, sq, h, d] and casts
+//       it to bf16.
+//     The dQ adds go in a fixed order, so dq is the same in every run
+//       (FlashAttention-3's deterministic backward, with its dQ writer
+//       warp): one int32 counter per (batch, head, 64-row query tile),
+//       after the workspace and zeroed with it, counts the blocks that
+//       have added into that tile. The key tiles that reach a query tile
+//       are 0 .. n (the causal first query tile grows with the key
+//       tile), so key tile y's turn is y: the writer spins
+//       (`ld.acquire`) until the counter reaches y, issues the reduce
+//       (at d <= 64 warpgroup 0's, waits for it, then warpgroup 1's on
+//       the same elements), waits for completion and releases one
+//       (`red.release`, as CUTLASS's GenericBarrier). dq is thus the sum
+//       over ascending key tiles. The consumers never wait on the
+//       order: they wait only for their staging tile to be free.
+//       Deadlock freedom rests on in-order dispatch: a block waits only
+//       on blocks of the same blockIdx.x and lower blockIdx.y, which
+//       have a lower linear index and so are resident or done when it
+//       is. Each block's (query tile, head) list is a prefix of the list
+//       of the block before it (last query tile first), so block y lags
+//       block y - 1 by one add, not by a tile's whole work. A wait longer
+//       than DQ_TURN_LIMIT_NS traps: a broken order fails the launch
+//       instead of hanging the card.
 //     Per element, the mask and the dropout are compiled in only for the
 //     tiles that need them (ragged edges, causal diagonals, segment ids,
 //     dropout); the other tiles run the bare softmax.
-//     The order of those atomic adds changes from run to run, so the bf16
-//     dq differs in its last bits between runs (dk, dv and the fp32 route
-//     are deterministic).
+//     Every route is deterministic: dq, dk and dv are the same bits in
+//     every run, as the fp32 route's and the JAX kernels' are.
 // TMA needs 16-byte aligned rows and strides; the wrapper checks them and
 // raises. Ragged sq and sk are masked inside, so every length is taken.
 
@@ -1090,6 +1115,41 @@ __device__ __forceinline__ void bwd_probs(const Args& a, float (&sT)[BQB / 2],
   }
 }
 
+// The ordered dQ adds (file header): the dQ writer waits for its turn on
+// a query tile's counter and, after its adds have landed, passes the turn
+// on. A wait longer than DQ_TURN_LIMIT_NS means the order is broken (a
+// dependency never ran): trap rather than hang.
+constexpr unsigned long long DQ_TURN_LIMIT_NS = 10000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void dq_turn_wait(const int* turn, int target) {
+  if (load_acquire(turn) >= target) return;
+  const unsigned long long t0 = global_ns();
+  while (load_acquire(turn) < target)
+    if (global_ns() - t0 > DQ_TURN_LIMIT_NS) __trap();
+}
+
+__device__ __forceinline__ void dq_turn_pass(int* turn) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n"
+               :
+               : "l"(turn)
+               : "memory");
+}
+
 // lse and delta rows are read from the 16-byte boundary at or before
 // their first value (TMA reads boxes from 16-byte aligned addresses), so
 // a box holds RB = BQB + 4 values
@@ -1109,8 +1169,10 @@ struct BwdSmem {
   static constexpr int DS = DO + STAGES * QT;  // two, alternating
   static constexpr int LSE = DS + 2 * DST;    // a slot of LSLOT bytes a stage
   static constexpr int DELTA = LSE + STAGES * LSLOT;
-  static constexpr int BAR = DELTA + STAGES * LSLOT;
-  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+  static constexpr int DQT = BQB * Geo<HD>::PW * 4;  // a staged fp32 dQ tile
+  static constexpr int DQ = DELTA + STAGES * LSLOT;  // one a warpgroup
+  static constexpr int BAR = DQ + 2 * DQT;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES + 4) + 1024;
 };
 
 template <int HD>
@@ -1129,6 +1191,8 @@ __global__ void __launch_bounds__(NTH, 1)
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + STAGES;
+  uint64_t* dq_full = empty + STAGES;  // a warpgroup's staged dQ is in
+  uint64_t* dq_empty = dq_full + 2;    // the writer has added it
 
   const int b = blockIdx.x / a.HK, hk = blockIdx.x % a.HK;
   const int k0 = blockIdx.y * HB;
@@ -1150,22 +1214,60 @@ __global__ void __launch_bounds__(NTH, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
     }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&dq_full[w], 128);
+      mbar_init(&dq_empty[w], 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // producer: K and V once, then Q, dO, lse, delta of every iteration
+    // producer: K and V once, then Q, dO, lse, delta of every iteration;
+    // and the dQ writer
     setmaxnreg_dec<24>();
+    if (threadIdx.x == 256 + 32) {
+      // the dQ writer: each iteration's staged tiles, added in this key
+      // tile's turn into the tile-contiguous workspace
+      float* ws = static_cast<float*>(a.dq);
+      int* turns = reinterpret_cast<int*>(
+          ws + static_cast<long long>(a.B) * a.H * nq * BQB * HD);
+      for (int it = 0; it < n_it; ++it) {
+        const int h = hk * group + it % group;
+        const int qt = nq - 1 - it / group;
+        const long long tile =
+            (static_cast<long long>(b) * a.H + h) * nq + qt;
+        int* turn = turns + tile;
+        float* dst = ws + tile * (BQB * HD);
+        for (int w = 0; w < 2; ++w) mbar_wait(&dq_full[w], it & 1);
+        dq_turn_wait(turn, static_cast<int>(blockIdx.y));
+        // the earlier key tiles' adds, acquired, before this tile's
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        for (int w = 0; w < 2; ++w) {
+          // d = 128: warpgroup w's panel; d <= 64: both warpgroups'
+          // partial sums of the one tile, warpgroup 0's landed first
+          bulk_reduce_add(dst + (G::NP == 2 ? w * BQB * G::PW : 0),
+                          sm + L::DQ + w * L::DQT, L::DQT);
+          bulk_commit();
+          if (G::NP == 1 && w == 0) bulk_wait<0, false>();
+        }
+        bulk_wait<0, false>();
+        mbar_arrive(&dq_empty[0]);
+        mbar_arrive(&dq_empty[1]);
+        // the adds landed (async proxy) before the release
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        dq_turn_pass(turn);
+      }
+    }
     if (threadIdx.x == 256) {
       mbar_expect_tx(kv_full, 2 * L::KT);
       tma_tile<HD>(sm + L::K, &tk, kv_full, HB, k0, hk, b);
       tma_tile<HD>(sm + L::V, &tv, kv_full, HB, k0, hk, b);
       for (int it = 0; it < n_it; ++it) {
         const int s = it % STAGES;
-        const int h = hk * group + it / per;
-        const int q0 = (first + it % per) * BQB;
+        const int h = hk * group + it % group;
+        const int q0 = (nq - 1 - it / group) * BQB;
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * L::QT + 2 * RB * 4);
         tma_tile<HD>(sm + L::Q + s * L::QT, &tq, &full[s], BQB, q0, h, b);
@@ -1200,13 +1302,13 @@ __global__ void __launch_bounds__(NTH, 1)
     constexpr int DQ_STEPS = G::NP == 2 ? HB / 16 : 64 / 16;
     const int dq_panel = G::NP == 2 ? wg : 0;
     const int dq_key0 = G::NP == 2 ? 0 : wg * 64;
-    float* ws = static_cast<float*>(a.dq);
+    float* stage = reinterpret_cast<float*>(sm + L::DQ + wg * L::DQT);
 
     mbar_wait(kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
       const int st = it % STAGES, ph = (it / STAGES) & 1;
-      const int h = hk * group + it / per;
-      const int q0 = (first + it % per) * BQB;
+      const int h = hk * group + it % group;
+      const int q0 = (nq - 1 - it / group) * BQB;
       const unsigned char* qt = sm + L::Q + st * L::QT;
       const unsigned char* dot = sm + L::DO + st * L::QT;
       const int lsh = ((b * a.H + h) * a.SQ + q0) & 3;  // see RB
@@ -1325,20 +1427,18 @@ __global__ void __launch_bounds__(NTH, 1)
       keep(dsT);
       mbar_arrive(&empty[st]);
 
-      // dQ into the fp32 workspace [b, sq, h, d]
+      // dQ into this warpgroup's staging tile [64 queries][PW] once the
+      // writer has added the last one; the writer adds it in order
+      mbar_wait(&dq_empty[wg], (it & 1) ^ 1);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int qpos = q0 + r_lo + 8 * i;
-        if (qpos >= a.SQ) continue;
-        float* row = ws +
-                     ((static_cast<long long>(b) * a.SQ + qpos) * a.H + h) *
-                         HD +
-                     dq_panel * G::PW + cq;
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int c = 0; c < G::PW / 8; ++c)  // two columns an add
-          atomicAdd(reinterpret_cast<float2*>(row + 8 * c),
-                    make_float2(dq[4 * c + 2 * i], dq[4 * c + 2 * i + 1]));
-      }
+        for (int c = 0; c < G::PW / 8; ++c)
+          *reinterpret_cast<float2*>(stage + (r_lo + 8 * i) * G::PW + 8 * c +
+                                     cq) =
+              make_float2(dq[4 * c + 2 * i], dq[4 * c + 2 * i + 1]);
+      fence_async_shared();
+      mbar_arrive(&dq_full[wg]);
     }
 
     // dK, dV of this warpgroup's keys, bf16 [b, sk, hk, d]
@@ -1558,7 +1658,9 @@ int dispatch(int which, const void* q, const void* k, const void* v,
 // The entry points share one argument list (pointers a kernel does not use
 // may be null). pt_flash_fwd takes fp32 and bf16; pt_flash_bwd_dq and
 // pt_flash_bwd_dkv are the fp32 backward, pt_flash_bwd the bf16 one (dq is
-// then the zeroed fp32 workspace [b, sq, h, d] that it adds into).
+// then the zeroed fp32 workspace that it adds into, [b, h, ceil(sq / 64),
+// d / PW, 64, PW] with PW = 64 (32 at d = 32), followed by
+// b * h * ceil(sq / 64) zeroed int32 counters of the ordered adds).
 extern "C" int pt_flash_fwd(PT_FLASH_PARAMS) {
   return dispatch(0, PT_FLASH_ARGS);
 }

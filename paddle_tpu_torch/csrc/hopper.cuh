@@ -152,6 +152,18 @@ __device__ __forceinline__ void tma_store3(const CUtensorMap* map,
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+// adds `bytes` contiguous fp32 values' bytes (a multiple of 16; both
+// addresses 16-byte aligned) of shared memory into device memory, in the
+// bulk group of this thread (the add is done at the L2, element by
+// element)
+__device__ __forceinline__ void bulk_reduce_add(float* dst, const void* src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp.auto_cast import maybe_cast_inputs
 from ..ops import attention as attn_ops
 
 
@@ -36,7 +37,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """[batch, seq, heads, head_dim] attention through the flash kernels
     (``ops.attention.flash_attention``); dropout only when ``training``.
     ``segment_ids`` ([b, s] ints or a (q_seg, kv_seg) pair) restricts
-    attention to equal ids."""
+    attention to equal ids. Inside an ``amp.auto_cast`` region the
+    floating inputs are cast to its dtype ("attention" is white-listed)."""
+    query, key, value = maybe_cast_inputs("attention", query, key, value)
     return attn_ops.flash_attention(
         query, key, value, attn_mask=attn_mask,
         dropout_p=dropout_p if training else 0.0, causal=is_causal,

@@ -15,9 +15,12 @@ only the last dimension must be contiguous. Outputs are contiguous.
 bf16 goes to the Hopper kernels, which read q, k, v and dout by TMA:
 their base addresses and strides must be multiples of 16 bytes, and the
 wrappers raise where they are not (they never copy). The bf16 backward
-is one kernel that adds dq into a zeroed fp32 workspace with atomics,
-then cast to bf16: its last bits vary from run to run. fp32 goes to the
-deterministic FMA kernels (the backward as two launches, dq and dk/dv).
+is one kernel that adds dq into a zeroed fp32 workspace of contiguous
+64-row query tiles (:func:`dq_workspace`), then permuted and cast to
+bf16; the adds into each query tile go in ascending key tiles, ordered
+by a counter per tile that follows the workspace, so dq is the same
+bits in every run. fp32 goes to the FMA kernels (the backward as two
+launches, dq and dk/dv). Every route is deterministic.
 """
 
 from __future__ import annotations
@@ -148,6 +151,31 @@ def _check_bwd(q, dout, lse, delta):
                              f"{sq}] on {q.device}")
 
 
+def dq_workspace(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 backward's zeroed buffer: the fp32 dq workspace, one
+    contiguous [64, PW] block per (batch, head, 64-row query tile, panel
+    of PW = 64 columns, 32 at d = 32), then one int32 counter per (batch,
+    head, query tile) that orders the adds. Returns (the buffer, the
+    workspace viewed as [b, query tile, 64, h, panel, PW], which is dq's
+    [b, sq, h, d] order up to the pad rows past sq)."""
+    b, sq, h, d = q.shape
+    nq, pw = -(-sq // 64), min(d, 64)
+    tiles = b * h * nq
+    buf = torch.zeros(tiles * 64 * d + tiles, dtype=torch.float32,
+                      device=q.device)
+    ws = buf[:tiles * 64 * d].view(b, h, nq, d // pw, 64, pw).permute(
+        0, 2, 4, 1, 3, 5)                      # [b, nq, 64, h, panel, pw]
+    return buf, ws
+
+
+def _dq_from_workspace(ws: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    b, sq, h, d = q.shape
+    nq = ws.shape[1]
+    dq = torch.empty((b, nq * 64, h, d), dtype=q.dtype, device=q.device)
+    dq.view(ws.shape).copy_(ws)
+    return dq if nq * 64 == sq else dq[:, :sq].contiguous()
+
+
 def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
               q_seg=None, kv_seg=None, dropout_p: float = 0.0,
               seed: int = 0
@@ -155,7 +183,8 @@ def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
     """``(dq [b, sq, h, d], dk, dv [b, sk, hk, d])`` in q's dtype from the
     forward's ``lse`` and ``delta = rowsum(out * dout)`` [b, h, sq] fp32;
     dk and dv summed over each KV head's group of query heads inside the
-    kernel. bf16: one launch, dq through an fp32 workspace; fp32: the dq
+    kernel. bf16: one launch, dq through an fp32 workspace summed in a
+    fixed order (the same bits every run); fp32: the dq
     and dk/dv kernels. Counted as one ``flash_bwd`` launch either way."""
     _check(q, k, v, causal, q_seg, kv_seg)
     _check_bwd(q, dout, lse, delta)
@@ -163,7 +192,7 @@ def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     args = (causal, scale, dropout_p, seed)
     if q.dtype == torch.bfloat16:
-        ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        buf, ws = dq_workspace(q)
         if ws.numel() and dk.numel():
             _check_tma(dout=dout)
             if lse.data_ptr() % 16 or delta.data_ptr() % 16:
@@ -171,12 +200,12 @@ def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
                                  "by TMA: their addresses must be "
                                  "multiples of 16 bytes")
             _launch("pt_flash_bwd", q, k, v, dout, q_seg, kv_seg, lse, delta,
-                    (None, None, ws, dk, dv), *args)
+                    (None, None, buf, dk, dv), *args)
             _build.count_launch("flash_bwd")
         else:
             dk.zero_()
             dv.zero_()
-        return ws.to(q.dtype), dk, dv
+        return _dq_from_workspace(ws, q), dk, dv
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -188,5 +217,5 @@ def flash_bwd(q, k, v, dout, lse, delta, causal: bool, scale: float,
     return dq, dk, dv
 
 
-__all__ = ["flash_fwd", "flash_bwd",
+__all__ = ["flash_fwd", "flash_bwd", "dq_workspace",
            "dropout_threshold", "SOURCE", "REPLACES", "HEAD_DIMS"]

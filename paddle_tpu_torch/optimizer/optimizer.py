@@ -1,14 +1,20 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``): the
-``Optimizer`` base and ``Adam`` / ``AdamW``; the other optimizers come
-with a later slice.
+``Optimizer`` base and SGD, Momentum, Adam, AdamW, Adamax, Adagrad,
+RMSProp, Adadelta, Lamb and Rprop (LBFGS is in ``lbfgs.py``).
 
 The JAX package defines each optimizer by two pure functions over dicts
 of arrays (``init_state``, ``apply_gradients``). The port keeps the same
 state layout — ``{"step", "master", "slots"}``, fp32 masters for bf16
-and fp16 parameters only, fp32 moments — but updates the parameters, the
-masters and the moments IN PLACE under ``torch.no_grad()``, which saves a
-copy of the optimizer state on the card. A bf16 parameter is then the
-cast of its updated master, as there.
+and fp16 parameters only, fp32 slots under the JAX slot names — but
+updates the parameters, the masters and the slots IN PLACE under
+``torch.no_grad()``, which saves a copy of the optimizer state on the
+card. A bf16 parameter is then the cast of its updated master, as there.
+A bf16 or fp16 parameter without a master (``multi_precision=False``,
+Rprop's default) is updated as JAX updates it: an fp32 copy goes through
+the update and is rounded back into the parameter once.
+
+Each ``_update_`` keeps the JAX expression's operations and their order
+in fp32 (a Python scalar multiplies in fp32 on both sides).
 
 ``step()`` reads each bound parameter's ``.grad``; ``apply_gradients``
 takes an explicit name → gradient dict. Gradient clipping runs before
@@ -195,29 +201,23 @@ class Optimizer:
                 continue
             master = state["master"].get(k)
             slots = state["slots"][k]
-            p32 = master if master is not None else p
-            if p32.dtype != torch.float32:
-                raise TypeError(f"{k}: {p.dtype} parameter without an fp32 "
-                                f"master (multi_precision=False)")
+            # offloaded state: this parameter's master and slots up,
+            # updated, and back into the same pinned tensors; stream order
+            # keeps the copies and the update in sequence
             host = [t for t in ([master] if master is not None else [])
                     + list(slots.values()) if _is_on_host(t, p)]
-            if host:
-                # offloaded: this parameter's state up, updated, and back
-                # into the same pinned tensors; stream order keeps the
-                # copies and the update in sequence
-                up = {id(t): t.to(p.device, non_blocking=True)
-                      for t in host}
-                p32 = up.get(id(p32), p32)
-                dslots = {sk: up.get(id(sv), sv) for sk, sv in slots.items()}
-                self._update_(k, p32, g.float(), dslots, lr, state["step"])
-                if master is not None:
-                    p.copy_(p32)
-                for t in host:
-                    t.copy_(up[id(t)], non_blocking=True)
-                continue
-            self._update_(k, p32, g.float(), slots, lr, state["step"])
-            if master is not None:
-                p.copy_(master)
+            up = {id(t): t.to(p.device, non_blocking=True) for t in host}
+            # no master: an fp32 parameter is updated in place, a bf16 or
+            # fp16 one through an fp32 copy rounded back once (as JAX's
+            # ``p.astype(float32)`` ... ``.astype(p.dtype)``)
+            p32 = up.get(id(master), master) if master is not None \
+                else p.float()
+            dslots = {sk: up.get(id(sv), sv) for sk, sv in slots.items()}
+            self._update_(k, p32, g.float(), dslots, lr, state["step"])
+            if p32 is not p:
+                p.copy_(p32)
+            for t in host:
+                t.copy_(up[id(t)], non_blocking=True)
 
     def step(self) -> None:
         """Apply an update to the bound parameters from their ``.grad``."""
@@ -248,6 +248,54 @@ class Optimizer:
             self._lr.set_state_dict(sd["lr_scheduler"])
 
 
+def _slot(p: torch.Tensor, device, fill: float = 0.0) -> torch.Tensor:
+    """An fp32 slot shaped as ``p`` on ``device`` (default ``p``'s),
+    filled with ``fill``."""
+    return torch.full(p.shape, fill, dtype=torch.float32,
+                      device=p.device if device is None else device)
+
+
+def _bias_correction(beta: float, step: int) -> float:
+    """``1 - beta ** t`` in fp32 from the step counter, as
+    ``step.astype(float32)`` and ``beta ** t`` are in JAX (exact as a
+    Python float)."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    return float(1 - torch.pow(torch.tensor(beta, dtype=torch.float32), t))
+
+
+class SGD(Optimizer):
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """p = p - lr * g (the decay folded into g)."""
+        if self._weight_decay and self._decayed(name):
+            g32 = g32 + self._weight_decay * p32
+        p32.sub_(g32 * lr)
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 parameters=None, use_nesterov: bool = False,
+                 weight_decay=0.0, grad_clip=None, multi_precision=True):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self.momentum = momentum
+        self.use_nesterov = use_nesterov
+
+    def _init_slots(self, p, device=None):
+        return {"velocity": _slot(p, device)}
+
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """v = mu v + g;  p = p - lr * v, or with Nesterov
+        p = p - lr * (g + mu v)."""
+        if self._weight_decay and self._decayed(name):
+            g32 = g32 + self._weight_decay * p32
+        v = slots["velocity"]
+        v.mul_(self.momentum).add_(g32)
+        if self.use_nesterov:
+            p32.sub_((g32 + self.momentum * v).mul_(lr))
+        else:
+            p32.sub_(v * lr)
+
+
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
@@ -258,11 +306,7 @@ class Adam(Optimizer):
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
 
     def _init_slots(self, p, device=None):
-        device = p.device if device is None else device
-        return {"m": torch.zeros(p.shape, dtype=torch.float32,
-                                 device=device),
-                "v": torch.zeros(p.shape, dtype=torch.float32,
-                                 device=device)}
+        return {"m": _slot(p, device), "v": _slot(p, device)}
 
     def _decoupled(self) -> bool:
         return False
@@ -280,13 +324,8 @@ class Adam(Optimizer):
         m, v = slots["m"], slots["v"]
         m.mul_(self.beta1).add_(g32 * (1 - self.beta1))
         v.mul_(self.beta2).add_(torch.square(g32).mul_(1 - self.beta2))
-        # bias corrections in fp32 from the step counter, as
-        # ``step.astype(float32)`` and ``beta ** t`` are in JAX
-        t = torch.tensor(float(step), dtype=torch.float32)
-        bc1 = float(1 - torch.pow(torch.tensor(self.beta1,
-                                               dtype=torch.float32), t))
-        bc2 = float(1 - torch.pow(torch.tensor(self.beta2,
-                                               dtype=torch.float32), t))
+        bc1 = _bias_correction(self.beta1, step)
+        bc2 = _bias_correction(self.beta2, step)
         upd = (m / bc1).div_((v / bc2).sqrt_().add_(self.epsilon))
         if decay and self._decoupled():
             upd.add_(self._weight_decay * p32)
@@ -311,4 +350,189 @@ class AdamW(Adam):
         return True
 
 
-__all__ = ["Optimizer", "Adam", "AdamW", "place_opt_state"]
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.0,
+                 grad_clip=None, multi_precision=True):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def _init_slots(self, p, device=None):
+        return {"m": _slot(p, device), "u": _slot(p, device)}
+
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """m = b1 m + (1 - b1) g;  u = max(b2 u, |g|);
+        p = p - lr / (1 - b1^t) * m / (u + eps)."""
+        if self._weight_decay and self._decayed(name):
+            g32 = g32 + self._weight_decay * p32
+        m, u = slots["m"], slots["u"]
+        m.mul_(self.beta1).add_(g32 * (1 - self.beta1))
+        torch.maximum(u.mul_(self.beta2), g32.abs(), out=u)
+        lr32 = float(torch.tensor(lr, dtype=torch.float32))
+        coef = lr32 / _bias_correction(self.beta1, step)
+        p32.sub_((m * coef).div_(u + self.epsilon))
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon: float = 1e-6,
+                 parameters=None, weight_decay=0.0, grad_clip=None,
+                 multi_precision=True,
+                 initial_accumulator_value: float = 0.0):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self.epsilon = epsilon
+        self.init_acc = initial_accumulator_value
+
+    def _init_slots(self, p, device=None):
+        return {"acc": _slot(p, device, self.init_acc)}
+
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """acc = acc + g^2;  p = p - lr * g / (sqrt(acc) + eps)."""
+        if self._weight_decay and self._decayed(name):
+            g32 = g32 + self._weight_decay * p32
+        acc = slots["acc"]
+        acc.add_(torch.square(g32))
+        p32.sub_((g32 * lr).div_(acc.sqrt().add_(self.epsilon)))
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate=0.001, rho: float = 0.95,
+                 epsilon: float = 1e-6, momentum: float = 0.0,
+                 centered: bool = False, parameters=None, weight_decay=0.0,
+                 grad_clip=None, multi_precision=True):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self.rho, self.epsilon = rho, epsilon
+        self.momentum, self.centered = momentum, centered
+
+    def _init_slots(self, p, device=None):
+        s = {"ms": _slot(p, device), "mom": _slot(p, device)}
+        if self.centered:
+            s["mg"] = _slot(p, device)
+        return s
+
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """ms = rho ms + (1 - rho) g^2;  centered: mg = rho mg + (1 - rho)
+        g, denom = sqrt(ms - mg^2 + eps), else sqrt(ms + eps);
+        mom = mu mom + lr * g / denom;  p = p - mom."""
+        if self._weight_decay and self._decayed(name):
+            g32 = g32 + self._weight_decay * p32
+        ms, mom = slots["ms"], slots["mom"]
+        ms.mul_(self.rho).add_(torch.square(g32).mul_(1 - self.rho))
+        if self.centered:
+            mg = slots["mg"]
+            mg.mul_(self.rho).add_(g32 * (1 - self.rho))
+            denom = (ms - torch.square(mg)).add_(self.epsilon).sqrt_()
+        else:
+            denom = (ms + self.epsilon).sqrt_()
+        mom.mul_(self.momentum).add_((g32 * lr).div_(denom))
+        p32.sub_(mom)
+
+
+class Adadelta(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon: float = 1e-6,
+                 rho: float = 0.95, parameters=None, weight_decay=0.0,
+                 grad_clip=None, multi_precision=True):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision)
+        self.epsilon, self.rho = epsilon, rho
+
+    def _init_slots(self, p, device=None):
+        return {"avg_sq_grad": _slot(p, device),
+                "avg_sq_update": _slot(p, device)}
+
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """asg = rho asg + (1 - rho) g^2;
+        upd = sqrt(asu + eps) / sqrt(asg + eps) * g (the old asu);
+        asu = rho asu + (1 - rho) upd^2;  p = p - lr * upd."""
+        if self._weight_decay and self._decayed(name):
+            g32 = g32 + self._weight_decay * p32
+        asg, asu = slots["avg_sq_grad"], slots["avg_sq_update"]
+        asg.mul_(self.rho).add_(torch.square(g32).mul_(1 - self.rho))
+        upd = (asu + self.epsilon).sqrt_().div_(
+            (asg + self.epsilon).sqrt_()).mul_(g32)
+        asu.mul_(self.rho).add_(torch.square(upd).mul_(1 - self.rho))
+        p32.sub_(upd.mul_(lr))
+
+
+class Lamb(Optimizer):
+    """Adam's update rescaled by the trust ratio ||p|| / ||update|| of
+    whole-tensor norms; ``lamb_weight_decay`` is decoupled and taken off
+    the parameters ``exclude_from_weight_decay_fn(name)`` names."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay: float = 0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=True):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, multi_precision)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_slots(self, p, device=None):
+        return {"m": _slot(p, device), "v": _slot(p, device)}
+
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """m, v as Adam; r = mhat / (sqrt(vhat) + eps) + wd p;
+        trust = ||p|| / ||r|| where both are > 0, else 1;
+        p = p - lr * trust * r. The trust ratio stays on the device."""
+        m, v = slots["m"], slots["v"]
+        m.mul_(self.beta1).add_(g32 * (1 - self.beta1))
+        v.mul_(self.beta2).add_(torch.square(g32).mul_(1 - self.beta2))
+        bc1 = _bias_correction(self.beta1, step)
+        bc2 = _bias_correction(self.beta2, step)
+        r = (m / bc1).div_((v / bc2).sqrt_().add_(self.epsilon))
+        wd = self._weight_decay
+        if self.exclude_fn is not None and self.exclude_fn(name):
+            wd = 0.0
+        r.add_(wd * p32)
+        p_norm = torch.square(p32).sum().sqrt()
+        r_norm = torch.square(r).sum().sqrt()
+        trust = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm,
+                            torch.ones_like(p_norm))
+        p32.sub_(r.mul_(trust.mul_(lr)))
+
+
+class Rprop(Optimizer):
+    """Resilient backprop: sign-based step sizes per element, grown by
+    ``etas[1]`` where the gradient keeps its sign, shrunk by ``etas[0]``
+    where it flips (and that element's update skipped), clipped to
+    ``learning_rate_range``; the step sizes start at ``learning_rate``.
+    A full-batch method. ``multi_precision=False`` by default, so a bf16
+    parameter is updated through an fp32 copy (module docstring)."""
+
+    def __init__(self, learning_rate: float = 0.001,
+                 learning_rate_range=(1e-5, 50.0), parameters=None,
+                 etas=(0.5, 1.2), grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate=learning_rate, parameters=parameters,
+                         grad_clip=grad_clip,
+                         multi_precision=multi_precision)
+        self._lr_min, self._lr_max = learning_rate_range
+        self._eta_neg, self._eta_pos = etas
+        self._init_lr = learning_rate
+
+    def _init_slots(self, p, device=None):
+        return {"step_size": _slot(p, device, self._init_lr),
+                "prev_grad": _slot(p, device)}
+
+    def _update_(self, name, p32, g32, slots, lr, step):
+        """sign = sign(g * prev); size = clip(size * eta+ where sign > 0,
+        size * eta- where < 0, else size); where the sign flipped the
+        gradient counts as 0 (no step, and prev = 0);
+        p = p - sign(g_eff) * size."""
+        size, prev = slots["step_size"], slots["prev_grad"]
+        sign = torch.sign(g32 * prev)
+        grow, flip = sign > 0, sign < 0
+        size.copy_(torch.where(grow, size * self._eta_pos,
+                               torch.where(flip, size * self._eta_neg, size)
+                               ).clamp_(self._lr_min, self._lr_max))
+        g_eff = torch.where(flip, torch.zeros_like(g32), g32)
+        prev.copy_(g_eff)
+        p32.sub_(torch.sign(g_eff).mul_(size))
+
+
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
+           "Adagrad", "RMSProp", "Adadelta", "Lamb", "Rprop",
+           "place_opt_state"]

@@ -422,19 +422,55 @@ def _flash_inputs(dev, b, s, h, hk, d, seed):
 
 
 def test_bf16_flash_bwd_runs_agree(dev):
-    """Two bf16 backward runs on the same inputs: dk and dv are equal to
-    the bit (each block sums its own keys in a fixed order); dq, summed
-    by atomics in an order that varies, agrees within the bf16 tolerance
-    elementwise and per row."""
+    """Two bf16 backward runs on the same inputs are equal to the bit: dk
+    and dv (each block sums its own keys in a fixed order) and dq (the key
+    tiles add into each query tile in ascending order, ordered by the
+    tile's counter), at the training layout's GQA group of 4."""
     q, k, v, dout = _flash_inputs(dev, 2, 1024, 8, 2, 128, 11)
     args = (True, 128 ** -0.5, None, None, 0.0, 0)
     out, lse = flash_attention.flash_fwd(q, k, v, *args)
     delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
     a = flash_attention.flash_bwd(q, k, v, dout, lse, delta, *args)
     b = flash_attention.flash_bwd(q, k, v, dout, lse, delta, *args)
-    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
-    _close(a[0], b[0], "bfloat16")
-    _rows_close(a[0], b[0], "bfloat16")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# (b, s, h, hk, d, causal, segment ids, dropout p): every route of the
+# bf16 backward's ordered dq adds (d <= 64 orders its two warpgroups too)
+DQ_RUNS = {
+    "d32-causal": (2, 777, 8, 2, 32, True, False, 0.0),
+    "d64-causal": (2, 1024, 8, 2, 64, True, False, 0.0),
+    "d64-full": (1, 1000, 4, 4, 64, False, False, 0.0),
+    "d128-full": (2, 640, 8, 1, 128, False, False, 0.0),
+    "d128-segments": (2, 900, 8, 2, 128, True, True, 0.0),
+    "d64-dropout": (1, 768, 8, 2, 64, True, False, 0.1),
+}
+
+
+@pytest.mark.parametrize("case", list(DQ_RUNS))
+def test_bf16_flash_bwd_dq_is_the_same_every_run(dev, case):
+    """Three bf16 backward runs per route give dq, dk and dv equal to the
+    bit, and dq still agrees with the plain version."""
+    b, s, h, hk, d, causal, seg, p = DQ_RUNS[case]
+    q, k, v, dout = _flash_inputs(dev, b, s, h, hk, d, 13)
+    q_seg = kv_seg = None
+    if seg:
+        q_seg = (torch.arange(s, device=dev) // 70).to(torch.int32)
+        q_seg = q_seg.expand(b, s).contiguous()
+        kv_seg = q_seg.clone()
+    args = (causal, d ** -0.5, q_seg, kv_seg, p, 5)
+    out, lse = flash_attention.flash_fwd(q, k, v, *args)
+    delta = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [flash_attention.flash_bwd(q, k, v, dout, lse, delta, *args)
+            for _ in range(3)]
+    for later in runs[1:]:
+        for x, y in zip(runs[0], later):
+            assert torch.equal(x, y)
+    want = attn_ops._flash_bwd_plain(q, k, v, dout, lse, delta, *args)
+    for got, w in zip(runs[0], want):
+        _close(got, w, "bfloat16")
+        _rows_close(got, w, "bfloat16")
 
 
 def test_flash_wrappers_refuse_unaligned_bf16_views(dev):
@@ -1738,16 +1774,19 @@ def test_front_door_round_trip_on_the_card(dev):
 
 # -- the trainer runtime on the card ------------------------------------------
 
-def _runtime_trainer(dev, seed, dtype="float32", **kw):
+def _runtime_trainer(dev, seed, dtype="float32", opt=None, **kw):
+    """A tiny Llama's Trainer; ``opt`` (class name, arguments) in place of
+    AdamW(1e-3, weight_decay 0.01)."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
     from paddle_tpu_torch.trainer import Trainer
     m = LlamaForCausalLM(LlamaConfig.tiny(dtype=dtype), device=dev,
                          generator=pt.generator(seed, dev))
-    return Trainer(m, AdamW(learning_rate=1e-3, parameters=m,
-                            weight_decay=0.01,
-                            grad_clip=ClipGradByGlobalNorm(1.0)), **kw)
+    name, args = opt or ("AdamW", {"weight_decay": 0.01})
+    return Trainer(m, getattr(topt, name)(
+        learning_rate=1e-3, parameters=m,
+        grad_clip=topt.ClipGradByGlobalNorm(1.0), **args), **kw)
 
 
 def _runtime_loader(dev, n=12):
@@ -1816,13 +1855,17 @@ def test_restore_copies_into_the_live_tensors_on_the_card(dev, tmp_path):
         assert live[key].device == t.device and torch.equal(live[key], t)
 
 
-def test_offloaded_update_equals_the_update_on_the_card(dev):
+@pytest.mark.parametrize("opt", [None, ("RMSProp", {"centered": True}),
+                                 ("Rprop", {})],
+                         ids=["AdamW", "RMSProp-centered", "Rprop"])
+def test_offloaded_update_equals_the_update_on_the_card(dev, opt):
     """One update from the same gradients with the optimizer state in
     pinned host memory (streamed a parameter at a time) and on the card:
-    the same parameters, masters and moments bit for bit; the offloaded
-    state stays on the host."""
-    a = _runtime_trainer(dev, 0, "bfloat16")
-    b = _runtime_trainer(dev, 0, "bfloat16", offload_opt_state=True)
+    the same parameters, masters and slots bit for bit; the offloaded
+    state stays on the host. RMSProp (centered) streams three slots a
+    parameter; Rprop's bf16 parameters have no masters (D15)."""
+    a = _runtime_trainer(dev, 0, "bfloat16", opt)
+    b = _runtime_trainer(dev, 0, "bfloat16", opt, offload_opt_state=True)
     batch = next(iter(_runtime_loader(dev)))
     for _ in range(2):
         for tr in (a, b):

@@ -33,8 +33,9 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
     assert r.returncode == 0, r.stderr[-3000:]
     assert "LOADED" in r.stdout
     assert len(mods) >= 15
-    # the trainer runtime's modules are among them
+    # the trainer runtime's modules and the training API's are among them
     assert set(RUNTIME_MODULES) <= set(mods)
+    assert set(TRAINING_API_MODULES) <= set(mods)
 
 
 RUNTIME_MODULES = (
@@ -48,6 +49,16 @@ RUNTIME_MODULES = (
     "paddle_tpu_torch.distributed.watchdog",
     "paddle_tpu_torch.testing.chaos", "paddle_tpu_torch.testing._chaos_train",
     "paddle_tpu_torch.trainer.trainer")
+
+
+TRAINING_API_MODULES = (
+    "paddle_tpu_torch.optimizer.optimizer", "paddle_tpu_torch.optimizer.lbfgs",
+    "paddle_tpu_torch.regularizer", "paddle_tpu_torch.amp",
+    "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
+    "paddle_tpu_torch.amp.debugging", "paddle_tpu_torch.nn.clip",
+    "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.extras",
+    "paddle_tpu_torch.incubate.optimizer",
+    "paddle_tpu_torch.incubate.optimizer.functional")
 
 
 def _imports(path):

@@ -182,6 +182,32 @@ def test_flash_function_matches_autograd_of_plain(case):
         _close(g, w)
 
 
+@pytest.mark.parametrize("sq,d", [(128, 128), (100, 64), (70, 32)])
+def test_flash_dq_workspace_layout_round_trips(sq, d):
+    """The bf16 backward's dq workspace: a value the kernel adds for
+    (batch, head, 64-row query tile, panel, row, column) lands, after the
+    wrapper's permute, at dq[batch, tile * 64 + row, head, panel * PW +
+    column]; the pad rows past sq are dropped and the counters follow
+    the workspace."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as kfa
+    b, h = 2, 3
+    q = torch.zeros((b, sq, h, d), dtype=torch.bfloat16)
+    buf, ws = kfa.dq_workspace(q)
+    nq, pw = -(-sq // 64), min(d, 64)
+    assert buf.numel() == b * h * nq * (64 * d + 1)
+    want = torch.randn((b, nq * 64, h, d))
+    flat = buf[:b * h * nq * 64 * d].view(b, h, nq, d // pw, 64, pw)
+    for bi in range(b):
+        for hi in range(h):
+            for t in range(nq):
+                for p in range(d // pw):
+                    flat[bi, hi, t, p] = want[bi, t * 64:(t + 1) * 64, hi,
+                                              p * pw:(p + 1) * pw]
+    got = kfa._dq_from_workspace(ws, q)
+    assert got.shape == q.shape and got.is_contiguous()
+    assert torch.equal(got, want[:, :sq].to(torch.bfloat16))
+
+
 def test_flash_attention_refuses_what_it_does_not_take():
     """Causal attention with sq > sk (``_sdpa_xla`` gives rows of NaN
     there) and dropout without a seed stay refused, with a dense mask
