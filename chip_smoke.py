@@ -297,7 +297,27 @@ Phases, in order; any failure exits non-zero before the result line:
      GradScaler over AdamW at phase 6's fp32 layout: a finite scaled step
      within UPDATE_RTOL of an unscaled one, two chaos.nan_batch steps
      skipped with the parameters unchanged bit for bit, the scale halved
-     after the second.
+     after the second;
+ 12. the device mesh (writing nothing to disk; one card, so NCCL runs
+     one rank and the multi-rank algorithms run over virtual ranks):
+     (a) init_parallel_env brings up NCCL at world size 1 and fleet.init
+     a mesh with every axis 1; phase 7's model and batch (seed 10, 4
+     layers, bf16, fused head, AdamW with clip 1.0), sequence_parallel
+     on, through shard_layer, group_sharded_parallel("p_g_os", FSDP2 at
+     fsdp 1), fleet.distributed_model and distributed_optimizer, 2 + 4
+     steps; the losses and final parameters must equal the plain path's
+     (the same 2 + 4 steps without the mesh) bit for bit, every training
+     kernel launched in the timed steps; step time and peak memory of
+     both; (b) the ring (parallel.ring_attention's step and merge
+     functions) over 4 virtual ranks, b 1, s 16384, 32/8 heads, d 128,
+     bf16, causal: out, lse, dq, dk, dv within 2e-2 of flash over the
+     whole sequence (per row, as phase 3), with and without four uneven
+     segments; 10 forward and 10 backward launches (6 blocks skipped);
+     rows with no key in a block at lse -1e30 and out 0; the backward
+     twice, bit for bit; the block kernels' summed times against the
+     whole-sequence kernels'; (c) the vocab-parallel CE over 4 virtual
+     shards (N 8192, H 4096, V 128256): nll, dh, dW within 2e-2 of the
+     whole-vocab head, the shards' time against one whole call.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -5780,6 +5800,400 @@ def phase_optimizers(torch, pt, dev, make_cfg, b=2, s=4096):
     return launches
 
 
+# -- phase 12: the device mesh at world size 1, the ring and the vocab
+# shards over virtual ranks ----------------------------------------------
+
+MESH_STEPS = (2, 4)          # warm-up and timed steps of 12(a)
+RING_RANKS, RING_S = 4, 16384
+CE_SHARDS = 4
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_leg(torch, pt, dev, cfg, batch, mesh=None):
+    """2 warm-up and 4 timed steps of phase 7's model (seed 10, AdamW
+    1e-4, weight decay 0.01, clip 1.0) through Trainer.fit, plain or
+    (``mesh``) through shard_layer, group_sharded_parallel("p_g_os"),
+    fleet.distributed_model and distributed_optimizer. Launch counts
+    reset before the timed steps and read after. Returns the run's
+    numbers and its final parameters (whole, on the card)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(10,
+                                                                     dev))
+    opt = AdamW(learning_rate=1e-4, parameters=model, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    if mesh is not None:
+        from paddle_tpu_torch.distributed import fleet
+        from paddle_tpu_torch.distributed.sharding import \
+            group_sharded_parallel
+        from paddle_tpu_torch.parallel.api import shard_layer
+        shard_layer(model, mesh)
+        model, opt, _ = group_sharded_parallel(model, opt, level="p_g_os")
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+    trainer = Trainer(model, opt)
+    warm = trainer.fit(iter([batch] * MESH_STEPS[0]), MESH_STEPS[0],
+                       log_every=1)
+    sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    hist = trainer.fit(iter([batch] * MESH_STEPS[1]), MESH_STEPS[1],
+                       log_every=1)
+    sync(torch, dev)
+    launches = dict(_build.LAUNCHES)
+    times = [m.step_time_s for m in hist]
+    info = {"losses": [m.loss for m in warm + hist], "step_times_s": times,
+            "median_step_s": statistics.median(times),
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            "launches": launches}
+    if mesh is not None:
+        from paddle_tpu_torch.parallel.api import full_state_dict
+        params = full_state_dict(model)
+    else:
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del trainer, model, opt
+    empty_cache(torch, dev)
+    return info, params
+
+
+def mesh_world1(torch, pt, dev, make_cfg, b, s):
+    """(a): phase 7's model and batch through the mesh path at world size
+    1 under NCCL (every axis 1, sequence_parallel on) against the plain
+    path: losses and final parameters bit for bit."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
+    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
+    plain, want = mesh_leg(torch, pt, dev, cfg, batch)
+    t0 = time.perf_counter()
+    init_parallel_env(backend="nccl",
+                      init_method=f"tcp://localhost:{free_port()}",
+                      world_size=1, rank=0, device="cuda")
+    init_s = time.perf_counter() - t0
+    from paddle_tpu_torch.parallel.mesh import current_mesh
+    fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+    try:
+        hm = current_mesh()
+        mesh, got = mesh_leg(torch, pt, dev, make_cfg(
+            num_hidden_layers=4, dtype="bfloat16", sequence_parallel=True),
+            batch, mesh=hm)
+    finally:
+        fleet.stop()
+        dist.destroy_process_group()
+    diff = sorted(n for n in want if not torch.equal(got[n], want[n]))
+    out = {"plain": plain, "mesh": mesh, "nccl_init_s": init_s,
+           "mesh_shape": hm.shape, "params": len(want),
+           "params_differing": diff,
+           "losses_equal": plain["losses"] == mesh["losses"],
+           "card": RESULTS.get("card")}
+    out["ok"] = out["losses_equal"] and not diff and all(
+        mesh["launches"][k] > 0 for k in TRAINING_KERNELS)
+    log(f"mesh (a) world size 1, NCCL ({init_s:.2f} s to start), mesh "
+        f"{hm.shape}: shard_layer + group_sharded_parallel(p_g_os, FSDP2) "
+        f"+ fleet, sequence_parallel on; {MESH_STEPS[0]} + {MESH_STEPS[1]} "
+        f"steps of {b} x {s} tokens at llama3_8b widths, 4 layers, bf16: "
+        f"losses equal to the plain path's: {out['losses_equal']} "
+        f"({mesh['losses']}); parameters differing: {diff or 'none'} of "
+        f"{len(want)}; median step {mesh['median_step_s']:.4f} s against "
+        f"{plain['median_step_s']:.4f} s plain; peak memory "
+        f"{mesh['peak_memory_bytes']} against {plain['peak_memory_bytes']} "
+        f"bytes; launches of the timed steps {mesh['launches']}; "
+        f"{card_line()}")
+    del want, got
+    empty_cache(torch, dev)
+    return out
+
+
+def virtual_ring(torch, q, k, v, scale, causal, n, seg=None, dout=None):
+    """The ring of ``parallel.ring_attention`` over ``n`` virtual ranks in
+    one process: rank r's queries are block r, and at step t it holds
+    the K/V block of rank (r - t) mod n (the exchange is indexing). The
+    same module-level step and merge functions as the distributed ring;
+    dk and dv summed per block in step order, as they ride the ring.
+    Returns (out, lse) or, with ``dout``, (out, lse, dq, dk, dv), each
+    whole along the sequence."""
+    from paddle_tpu_torch.ops.attention import NEG_INF
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    sl = q.shape[1] // n
+    blk = (lambda t, i: None if t is None else
+           t[:, i * sl:(i + 1) * sl])
+    outs, lses = [], []
+    for r in range(n):
+        b, _, h, d = q.shape
+        out = torch.zeros((b, sl, h, d), dtype=torch.float32,
+                          device=q.device)
+        lse = torch.full((b, h, sl), NEG_INF, dtype=torch.float32,
+                         device=q.device)
+        for t in range(n):
+            src = (r - t) % n
+            res = ra.ring_fwd_step(r, t, n, causal, scale, blk(q, r),
+                                   blk(k, src), blk(v, src), blk(seg, r),
+                                   blk(seg, src))
+            if res is not None:
+                out, lse = ra.merge_norm(out, lse, *res)
+        outs.append(out.to(q.dtype))
+        lses.append(lse)
+    if dout is None:
+        return torch.cat(outs, 1), torch.cat(lses, 2)
+    dq = [torch.zeros_like(outs[0], dtype=torch.float32) for _ in range(n)]
+    dk = [torch.zeros_like(blk(k, 0), dtype=torch.float32)
+          for _ in range(n)]
+    dv = [torch.zeros_like(blk(v, 0), dtype=torch.float32)
+          for _ in range(n)]
+    deltas = [(outs[r].float() * blk(dout, r).float()).sum(-1).transpose(
+        1, 2).contiguous() for r in range(n)]
+    for t in range(n):
+        for r in range(n):
+            src = (r - t) % n
+            res = ra.ring_bwd_step(r, t, n, causal, scale, blk(q, r),
+                                   blk(k, src), blk(v, src), outs[r],
+                                   lses[r], blk(dout, r), blk(seg, r),
+                                   blk(seg, src), deltas[r])
+            if res is not None:
+                dq[r] += res[0].float()
+                dk[src] += res[1].float()
+                dv[src] += res[2].float()
+    return (torch.cat(outs, 1), torch.cat(lses, 2),
+            torch.cat(dq, 1).to(q.dtype), torch.cat(dk, 1).to(k.dtype),
+            torch.cat(dv, 1).to(v.dtype))
+
+
+def ring_block_ms(torch, q, k, v, dout, outs, scale, n, flush):
+    """The causal ring's block kernels one by one (every launch the ring
+    makes, each timed alone): (forward ms summed, backward ms summed).
+    As the distributed ring, each rank's delta = rowsum(out * dout) and
+    its contiguous lse block are made once, outside the timed calls."""
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    sl = q.shape[1] // n
+    blk = lambda t, i: t[:, i * sl:(i + 1) * sl].contiguous()
+    o, lse = outs
+    lses = [lse[:, :, r * sl:(r + 1) * sl].contiguous() for r in range(n)]
+    deltas = [(blk(o, r).float() * blk(dout, r).float()).sum(-1).transpose(
+        1, 2).contiguous() for r in range(n)]
+    fwd = bwd = 0.0
+    for r in range(n):
+        for t in range(n):
+            src = (r - t) % n
+            if ra.ring_case(r, t, n, True) == "skip":
+                continue
+            qb, kb, vb = blk(q, r), blk(k, src), blk(v, src)
+            ob, db = blk(o, r), blk(dout, r)
+            fwd += timed_ms(torch, lambda: ra.ring_fwd_step(
+                r, t, n, True, scale, qb, kb, vb), flush, reps=5, warmup=1)
+            bwd += timed_ms(torch, lambda: ra.ring_bwd_step(
+                r, t, n, True, scale, qb, kb, vb, ob, lses[r], db,
+                delta=deltas[r]), flush, reps=5, warmup=1)
+    return fwd, bwd
+
+
+def ring_virtual(torch, dev):
+    """(b): the causal ring over 4 virtual ranks at b = 1, s = 16384 (4
+    blocks of 4096), 32 / 8 heads, d = 128, bf16, against flash over the
+    whole sequence: out and lse, then dq, dk and dv from a seeded dout,
+    without and with four uneven packed segments across the blocks; the
+    launches (4 diagonal and 6 full blocks a direction, none for the 6
+    skipped); rows whose segment has no key in a block come back at lse
+    = -1e30 and out 0; two backward runs equal bit for bit; the block
+    kernels' summed times beside the whole-sequence kernel's."""
+    from paddle_tpu_torch.ops.attention import NEG_INF
+    from paddle_tpu_torch.ops.kernels import _build, flash_attention as fa
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    n, S, H, HKV, D = RING_RANKS, RING_S, 32, 8, 128
+    scale = 1.0 / math.sqrt(D)
+    mk = lambda h: torch.randn((1, S, h, D), generator=g,
+                               device=dev).to(torch.bfloat16)
+    q, k, v, dout = mk(H), mk(HKV), mk(HKV), mk(H)
+    lens = (3000, 5000, 2500, S - 10500)
+    seg = torch.repeat_interleave(
+        torch.arange(4, device=dev, dtype=torch.int32),
+        torch.tensor(lens, device=dev))[None].contiguous()
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    out = {"shape": [1, S, H, HKV, D], "ranks": n,
+           "bytes": {"q": q.numel() * 2, "k": k.numel() * 2,
+                     "v": v.numel() * 2, "fp32_state": q.numel() * 4},
+           "card": RESULTS.get("card")}
+    ok = True
+    for name, sg in (("causal", None), ("causal_segments", seg)):
+        _build.reset_launches()
+        got = virtual_ring(torch, q, k, v, scale, True, n, sg, dout)
+        sync(torch, dev)
+        launches = {kk: _build.LAUNCHES[kk] for kk in ("flash_fwd",
+                                                       "flash_bwd")}
+        w_o, w_l = fa.flash_fwd(q, k, v, True, scale, sg, sg)
+        delta = (w_o.float() * dout.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        w_dq, w_dk, w_dv = fa.flash_bwd(q, k, v, dout, w_l, delta, True,
+                                        scale, sg, sg)
+        res = flash_compare(torch, [(got[0], w_o), (got[2], w_dq),
+                                    (got[3], w_dk), (got[4], w_dv)],
+                            "bfloat16")
+        lse_err = float((got[1] - w_l).abs().max())
+        again = virtual_ring(torch, q, k, v, scale, True, n, sg, dout)
+        same = all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
+        case = {"max_abs_err": res[0], "row_err": res[3],
+                "lse_max_abs_err": lse_err, "launches": launches,
+                "backward_bit_for_bit": same,
+                "ok": (res[2] and lse_err <= ROW_TOL and same
+                       and launches == {"flash_fwd": 10, "flash_bwd": 10})}
+        if sg is not None:
+            # rank 1 at step 1 holds block 0 (segments 0 and 1): its rows
+            # of segment 2 (positions 8000 .. 8191) have no key there
+            sl = S // n
+            o1, l1 = ra.ring_fwd_step(1, 1, n, True, scale,
+                                      q[:, sl:2 * sl], k[:, :sl], v[:, :sl],
+                                      seg[:, sl:2 * sl], seg[:, :sl])
+            rows = slice(8000 - sl, sl)
+            case["masked_rows"] = int(l1[:, :, rows].numel() // H)
+            case["masked_rows_ok"] = bool(
+                (l1[:, :, rows] == NEG_INF).all()
+                and (o1[:, rows] == 0).all())
+            case["ok"] = case["ok"] and case["masked_rows_ok"]
+        out[name] = case
+        ok = ok and case["ok"]
+        log(f"mesh (b) ring over {n} virtual ranks ({name}), b=1, s={S}, "
+            f"{H}/{HKV} heads, d={D}, bf16: out/dq/dk/dv vs whole-sequence "
+            f"flash max abs {res[0]:.3e}, row err {res[3]:.3e} (tol "
+            f"{ROW_TOL}), lse max abs {lse_err:.3e}; launches {launches} "
+            f"(want 10 + 10); backward bit for bit: {same}"
+            + (f"; {case['masked_rows']} rows with no key in a block at "
+               f"lse -1e30, out 0: {case['masked_rows_ok']}"
+               if sg is not None else "") + f"; {card_line()}")
+        del got, again, w_o, w_dq, w_dk, w_dv
+    o, lse = virtual_ring(torch, q, k, v, scale, True, n)
+    fwd, bwd = ring_block_ms(torch, q, k, v, dout, (o, lse), scale, n, flush)
+    w_o, w_l = fa.flash_fwd(q, k, v, True, scale)
+    delta = (w_o.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    full_f = timed_ms(torch, lambda: fa.flash_fwd(q, k, v, True, scale),
+                      flush, reps=5, warmup=1)
+    full_b = timed_ms(torch, lambda: fa.flash_bwd(q, k, v, dout, w_l, delta,
+                                                  True, scale),
+                      flush, reps=5, warmup=1)
+    out["ms"] = {"blocks_fwd": fwd, "blocks_bwd": bwd, "whole_fwd": full_f,
+                 "whole_bwd": full_b}
+    log(f"mesh (b) the ring's 10 forward block kernels {fwd:.3f} ms and 10 "
+        f"backward {bwd:.3f} ms (summed, each timed alone) against one "
+        f"whole-sequence flash forward {full_f:.3f} ms and backward "
+        f"{full_b:.3f} ms; bytes {out['bytes']}; {card_line()}")
+    out["ok"] = ok
+    del q, k, v, dout, o, lse, w_o, w_l, delta
+    empty_cache(torch, dev)
+    return out
+
+
+def vocab_shards(torch, dev):
+    """(c): the vocab-parallel CE head over 4 virtual shards (N = 8192, H
+    = 4096, V = 128256: 32064 columns a shard) against the whole-vocab
+    fused head: per-shard lse_and_target kernels with the labels shifted
+    by the shard's offset, merged as the distributed head merges them
+    (``mp_layers.merge_shard_stats``); nll, dh and dW (the shards'
+    concatenated) within 2e-2; ignored rows and labels in every shard;
+    the four shards' time beside one whole-vocab call."""
+    from paddle_tpu_torch.ops import vocab_ce
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.parallel.mp_layers import merge_shard_stats
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    N, H, V, n = 8192, 4096, 128256, CE_SHARDS
+    per = V // n
+    h0 = torch.randn((N, H), generator=g, device=dev).to(torch.bfloat16)
+    w0 = (0.02 * torch.randn((H, V), generator=g, device=dev)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=g, device=dev)
+    labels[::61] = -100
+    valid = labels != -100
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+
+    def whole():
+        h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+        nll = vocab_ce.fused_linear_cross_entropy(h, w, labels,
+                                                  reduction="none")
+        nll.sum().backward()
+        return nll.detach(), h.grad, w.grad
+
+    def sharded():
+        h = h0.clone().requires_grad_()
+        ws = [w0[:, s * per:(s + 1) * per].clone().requires_grad_()
+              for s in range(n)]
+        stats = [vocab_ce.lse_and_target(
+            h, ws[s], (torch.where(valid, labels, -1) - s * per).to(
+                torch.int32)) for s in range(n)]
+        nll = merge_shard_stats([a for a, _ in stats], [b for _, b in stats],
+                                valid)
+        nll.sum().backward()
+        return nll.detach(), h.grad, torch.cat([w.grad for w in ws], 1)
+    _build.reset_launches()
+    got = sharded()
+    sync(torch, dev)
+    launches = {k: _build.LAUNCHES[k] for k in CE_KERNELS}
+    want = whole()
+    nll_err = float((got[0] - want[0]).abs().max())
+    dh_err = row_err(torch, got[1], want[1])
+    dw_err = row_err(torch, got[2].t(), want[2].t())
+    shards_hit = sorted(set((labels[valid] // per).tolist()))
+    out = {"N": N, "H": H, "V": V, "shards": n, "per_shard": per,
+           "nll_max_abs_err": nll_err, "dh_row_err": dh_err,
+           "dw_col_err": dw_err, "ignored_rows": int((~valid).sum()),
+           "shards_with_labels": shards_hit, "launches": launches,
+           "card": RESULTS.get("card")}
+    out["ok"] = (nll_err <= ROW_TOL and dh_err <= ROW_TOL
+                 and dw_err <= ROW_TOL and shards_hit == list(range(n))
+                 and launches["vocab_ce_fwd"] == n)
+    del got, want
+    with torch.no_grad():
+        lab32 = [(torch.where(valid, labels, -1) - s * per).to(torch.int32)
+                 for s in range(n)]
+        wsc = [w0[:, s * per:(s + 1) * per].contiguous() for s in range(n)]
+        shard_f = timed_ms(torch, lambda: [vocab_ce.lse_and_target(
+            h0, wsc[s], lab32[s]) for s in range(n)], flush, reps=5,
+            warmup=1)
+        whole_f = timed_ms(torch, lambda: vocab_ce.lse_and_target(
+            h0, w0, torch.where(valid, labels, -1).to(torch.int32)), flush,
+            reps=5, warmup=1)
+    shard_fb = timed_ms(torch, sharded, flush, reps=3, warmup=1)
+    whole_fb = timed_ms(torch, whole, flush, reps=3, warmup=1)
+    out["ms"] = {"shards_fwd": shard_f, "whole_fwd": whole_f,
+                 "shards_fwd_bwd": shard_fb, "whole_fwd_bwd": whole_fb}
+    log(f"mesh (c) vocab-parallel CE over {n} virtual shards, N={N}, H={H}, "
+        f"V={V} ({per} columns a shard), bf16: nll max abs {nll_err:.3e}, "
+        f"dh row err {dh_err:.3e}, dW column err {dw_err:.3e} (tol "
+        f"{ROW_TOL}); {out['ignored_rows']} ignored rows, labels in shards "
+        f"{shards_hit}; launches {launches}; forward {shard_f:.3f} ms for the "
+        f"{n} shards against {whole_f:.3f} ms whole, forward + backward "
+        f"{shard_fb:.3f} against {whole_fb:.3f} ms (the shards' include "
+        f"their W copies); {'ok' if out['ok'] else 'FAIL'}; {card_line()}")
+    del h0, w0, wsc
+    empty_cache(torch, dev)
+    return out
+
+
+def phase_mesh(torch, pt, dev, make_cfg, b=2, s=4096):
+    """Phase 12 (see the module docstring): (a) the mesh path at world
+    size 1, (b) the ring over virtual ranks, (c) the vocab-parallel CE
+    head over virtual shards. Writes nothing to disk. Returns (a)'s
+    launches."""
+    out = RESULTS.setdefault("mesh", {})
+    out["world1"] = mesh_world1(torch, pt, dev, make_cfg, b, s)
+    out["ring"] = ring_virtual(torch, dev)
+    out["vocab_shards"] = vocab_shards(torch, dev)
+    fails = [k for k in ("world1", "ring", "vocab_shards")
+             if not out[k]["ok"]]
+    if fails:
+        raise SystemExit(f"mesh checks failed: {fails}")
+    return out["world1"]["mesh"]["launches"]
+
 
 def main() -> int:
     if "--client-process" in sys.argv:
@@ -5856,6 +6270,13 @@ def main() -> int:
     optimizer_launches = phase_optimizers(torch, pt, dev,
                                           LlamaConfig.llama3_8b)
     mark("11 optimizers")
+    mesh_launches = phase_mesh(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("12 mesh")
+    mesh_paths = {"mesh": mesh_launches,
+                  "ring_blocks": RESULTS["mesh"]["ring"]["causal"][
+                      "launches"],
+                  "vocab_shards": RESULTS["mesh"]["vocab_shards"][
+                      "launches"]}
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
@@ -5895,7 +6316,9 @@ def main() -> int:
                    "trainer_runtime": runtime_launches[name],
                    "optimizers": optimizer_launches.get(name, 0),
                    **{label: counts.get(name, 0)
-                      for label, counts in feature_launches.items()}}
+                      for label, counts in feature_launches.items()},
+                   **{label: counts.get(name, 0)
+                      for label, counts in mesh_paths.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -5904,6 +6327,7 @@ def main() -> int:
             # training steps, phase 10's trainer runtime, phase 11's
             # eight optimizers' runs, phase 5c's
             # feature runs, 5d's fabric runs and 5e's front-door window,
+            # phase 12's mesh steps, virtual ring and vocabulary shards,
             # and each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -284,11 +284,30 @@ def save_state_dict(state_dict: Dict[str, Any], path: str,
     """Save a (nested) dict of tensors and arrays to ``path``. The host
     snapshot is taken before this returns; with ``async_save`` the files
     are written by the background thread (see :func:`wait_until_finished`).
-    ``overwrite=False`` refuses an existing checkpoint."""
+    ``overwrite=False`` refuses an existing checkpoint. A sharded state
+    (a DTensor in it: FSDP2's parameters, gradients or optimizer state)
+    raises: its save needs the sharding plan (ROADMAP.md A.5)."""
+    _refuse_sharded(state_dict)
     path = _abs(path)
     if not overwrite and os.path.exists(path):
         raise FileExistsError(path)
     _WRITER.save(state_dict, path, bool(async_save))
+
+
+def _refuse_sharded(tree) -> None:
+    from torch.distributed.tensor import DTensor
+    stack = [tree]
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, DTensor):
+            raise NotImplementedError(
+                "saving a sharded state (DTensor shards) waits for the "
+                "plan-aware save (ROADMAP.md A.5); gather it with "
+                "parallel.api.full_state_dict first")
 
 
 def file_digests(path: str) -> Optional[Dict[str, Dict[str, Any]]]:

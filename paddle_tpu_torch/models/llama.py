@@ -28,10 +28,22 @@ with an fp32 ``<name>_scale`` ``[n]`` and goes through the int8 matrix
 product kernel (:func:`_proj`); int8 page pools carry one fp32 scale per
 page and K/V side, and decode reads them through the int8 paged kernel.
 Such a model serves only: ``forward(labels=...)`` raises.
+
+On a device mesh (``parallel.api.shard_layer``, which records a
+``MeshPlan`` on every module) the same modules run each rank's shards:
+tensor parallelism Megatron-style (the input copied into each
+attention and MLP block, their outputs all-reduced, the vocabulary of
+the embedding and of the head split, the loss through the vocab-
+parallel heads of ``parallel.mp_layers``), sequence parallelism over
+``sep`` through the ring or Ulysses (``cfg.sp_mode``), and the loss as
+the GLOBAL token mean (the sum of each rank's nll over the all-reduced
+count of counted labels; its value is the same on every rank, its
+gradient each rank's own part).
 """
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -61,10 +73,10 @@ class LlamaConfig:
     """The inference and training fields of
     ``paddle_tpu.models.llama.LlamaConfig`` with the same defaults, checks
     and presets (whose fields a keyword may override, e.g.
-    ``llama3_8b(num_hidden_layers=2)``). Of the training fields,
-    ``sequence_parallel`` is accepted but raises NotImplementedError
-    where it would act, and ``sp_mode`` other than "ring" is refused:
-    their machinery comes with the torch.distributed slice."""
+    ``llama3_8b(num_hidden_layers=2)``). ``sequence_parallel`` acts
+    only on a model sharded over a mesh with a ``sep`` axis above 1
+    (``sp_mode`` "ring" or "ulysses"); elsewhere it changes nothing, as
+    in JAX."""
     vocab_size: int = 32000
     hidden_size: int = 4096
     intermediate_size: int = 11008
@@ -99,10 +111,6 @@ class LlamaConfig:
         if self.sp_mode not in ("ring", "ulysses"):
             raise ValueError(f"sp_mode must be 'ring'|'ulysses', "
                              f"got {self.sp_mode!r}")
-        if self.sp_mode != "ring":
-            raise NotImplementedError(
-                f"sp_mode={self.sp_mode!r} selects a sequence-parallel "
-                f"attention, which arrives with the torch.distributed slice")
         if self.loss_impl not in ("fused", "naive"):
             raise ValueError(f"loss_impl must be 'fused'|'naive', "
                              f"got {self.loss_impl!r}")
@@ -181,6 +189,35 @@ def parameter_shapes(cfg: LlamaConfig):
         proj(p + "mlp.gate_up_proj", d, 2 * m)
         proj(p + "mlp.down_proj", m, d)
     out["model.norm.weight"] = ((d,), "norm")
+    return out
+
+
+def sharding_annotations(cfg: LlamaConfig):
+    """{state_dict name: (spec, blocks)}: ``spec`` is the JAX model's
+    ``sharding=`` annotation of the parameter (a tuple of mesh axes per
+    dimension, or None: replicated); ``blocks`` lists the (units, unit
+    width) runs of the tensor-parallel dimension of a fused projection
+    ([q | k | v] heads, [gate | up] columns), each split over ``tp`` on
+    its own so that a rank holds its own heads of each part (None: one
+    even split). Float projections only: an int8 model serves only."""
+    d, m = cfg.hidden_size, cfg.intermediate_size
+    n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim)
+    col, row = ("fsdp", "tp"), ("tp", "fsdp")
+    out = {}
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = (col, None)
+    out["model.embed_tokens"] = (row, None)
+    for i in range(cfg.num_hidden_layers):
+        p = f"model.layers.{i}."
+        out[p + "input_layernorm.weight"] = (None, None)
+        out[p + "self_attn.qkv_proj"] = (col, [(n_h, hd), (n_kv, hd),
+                                               (n_kv, hd)])
+        out[p + "self_attn.o_proj"] = (row, [(n_h, hd)])
+        out[p + "post_attention_layernorm.weight"] = (None, None)
+        out[p + "mlp.gate_up_proj"] = (col, [(m, 1), (m, 1)])
+        out[p + "mlp.down_proj"] = (row, None)
+    out["model.norm.weight"] = (None, None)
     return out
 
 
@@ -263,8 +300,8 @@ def fused_causal_lm_loss(hidden: torch.Tensor, w: torch.Tensor,
                          ignore_index: int = -100) -> torch.Tensor:
     """Token-weighted mean CE(hidden @ w, labels) with the [b, s, vocab]
     logits never materialised: the fused vocab-CE head
-    (``ops.vocab_ce``), the dense path of ``paddle_tpu``'s function (the
-    port has no tensor-parallel mesh)."""
+    (``ops.vocab_ce``), the dense path of ``paddle_tpu``'s function (a
+    model sharded over a mesh takes :func:`_mesh_loss`)."""
     nll = fused_linear_cross_entropy(hidden, w, labels,
                                      ignore_index=ignore_index,
                                      reduction="none")
@@ -274,10 +311,39 @@ def fused_causal_lm_loss(hidden: torch.Tensor, w: torch.Tensor,
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
                    ignore_index: int = -100) -> torch.Tensor:
     """Token-weighted mean cross entropy of the causal-LM head over fp32
-    logits (the dense path of ``paddle_tpu``'s ``causal_lm_loss``; the
-    port has no tensor-parallel mesh)."""
+    logits (the dense path of ``paddle_tpu``'s ``causal_lm_loss``; a
+    model sharded over a mesh takes :func:`_mesh_loss`)."""
     return ptF.cross_entropy(logits.float(), labels,
                              ignore_index=ignore_index)
+
+
+def _mesh_loss(plan, hidden: torch.Tensor, w: Optional[torch.Tensor],
+               logits: Optional[torch.Tensor], labels: torch.Tensor,
+               ignore_index: int = -100) -> torch.Tensor:
+    """The loss of a model on a mesh: per-token nll from the fused head
+    (``w`` given: this rank's [H, V/tp] shard) or from this rank's
+    logits, vocab-parallel over ``tp`` when it is above 1 (JAX's branch
+    in ``causal_lm_loss`` / ``fused_causal_lm_loss``), then JAX's GLOBAL
+    token mean: this rank's nll sum over the count of counted labels
+    all-reduced over the data axes, all-reduced in the forward only, so
+    that each rank's gradient is its own part."""
+    from ..distributed.communication import all_reduce, reduce_from_group
+    from ..parallel.mp_layers import (parallel_cross_entropy,
+                                      parallel_fused_linear_cross_entropy)
+    mesh = plan.mesh
+    if w is not None:
+        nll = parallel_fused_linear_cross_entropy(
+            hidden, w, labels, mesh=mesh, ignore_index=ignore_index)
+    elif plan.tp_size > 1:
+        nll = parallel_cross_entropy(logits, labels, mesh=mesh,
+                                     ignore_index=ignore_index)
+    else:
+        nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                              labels.reshape(-1), ignore_index=ignore_index,
+                              reduction="none")
+    cnt = all_reduce((labels != ignore_index).sum().float(),
+                     group=plan.data)
+    return reduce_from_group(nll.sum() / cnt.clamp_min(1.0), plan.data)
 
 
 # -- int8 paged-KV helpers ----------------------------------------------
@@ -384,7 +450,15 @@ def _kv_gather_ctx(kv: Pool, tables: torch.Tensor
     return one(kv[0]), one(kv[1])
 
 
+def _tp_group(plan):
+    """The tensor-parallel group of a model's mesh plan, or None."""
+    return plan.tp if plan is not None and plan.tp_size > 1 else None
+
+
 class LlamaAttention(nn.Module):
+    # parallel.api.MeshPlan of a model sharded over a mesh
+    _mesh_plan = None
+
     def __init__(self, cfg: LlamaConfig, init: _Init):
         super().__init__()
         self.cfg = cfg
@@ -393,6 +467,15 @@ class LlamaAttention(nn.Module):
         init.proj(self, "qkv_proj", d, (n_h + 2 * n_kv) * hd)
         init.proj(self, "o_proj", n_h * hd, d)
 
+    def _heads(self) -> Tuple[int, int]:
+        """(query heads, KV heads) of this rank: a tensor-parallel rank
+        holds n_h / tp query heads and n_kv / tp KV heads, or one KV head
+        shared with the other ranks of its group when tp > n_kv."""
+        cfg = self.cfg
+        n_h, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+        tp = self._mesh_plan.tp_size if self._mesh_plan is not None else 1
+        return n_h // tp, max(n_kv // tp, 1)
+
     def _qkv_rope(self, x, cos, sin, position_ids=None, neg_sin=None):
         """Fused QKV projection + head split + rotary embedding. q, k and
         v are views of the one projection output; the RoPE kernel reads
@@ -400,8 +483,8 @@ class LlamaAttention(nn.Module):
         table (the model's buffer)."""
         cfg = self.cfg
         b, s, _ = x.shape
-        n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                         cfg.head_dim)
+        n_h, n_kv = self._heads()
+        hd = cfg.head_dim
         qkv = _proj(self, x, "qkv_proj")
         q, k, v = torch.split(qkv, [n_h * hd, n_kv * hd, n_kv * hd], dim=-1)
         q = q.view(b, s, n_h, hd)
@@ -422,16 +505,55 @@ class LlamaAttention(nn.Module):
         as the JAX model chooses between flash and ``_sdpa_xla``. A dense
         ``attn_mask`` (boolean or additive, broadcast to [b, h, s, s])
         takes ``sdpa_plain`` on either branch, as the JAX dispatch sends
-        it to ``_sdpa_xla``."""
+        it to ``_sdpa_xla``. On a mesh: the block is tensor-parallel
+        over ``tp`` (input copied in, output all-reduced) and, with
+        sequence parallelism, attends through :meth:`_sp_attention`."""
+        from ..distributed.communication import (copy_to_group,
+                                                 reduce_from_group)
+        tp = _tp_group(self._mesh_plan)
+        if tp is not None:
+            x = copy_to_group(x, tp)
         q, k, v = self._qkv_rope(x, cos, sin, position_ids, neg_sin)
-        if self.cfg.use_flash_attention:
+        out = self._sp_attention(q, k, v, attn_mask, segment_ids)
+        if out is None and self.cfg.use_flash_attention:
             out = ptF.scaled_dot_product_attention(
                 q, k, v, attn_mask=attn_mask, is_causal=True,
                 training=self.training, segment_ids=segment_ids)
-        else:
+        elif out is None:
             out = sdpa_plain(q, k, v, causal=True, segment_ids=segment_ids,
                              attn_mask=attn_mask)
-        return self._out(out, x)
+        out = self._out(out, x)
+        return out if tp is None else reduce_from_group(out, tp)
+
+    def _sp_attention(self, q, k, v, attn_mask, segment_ids=None):
+        """Attention over the ``sep`` axis (JAX's ``_sp_attention``): None
+        without sequence parallelism or with a ``sep`` axis of 1. Packed
+        sequences (``segment_ids``) take the ring, whose KV segment ids
+        rotate with their blocks; ``sp_mode="ulysses"`` with them raises,
+        as in JAX. Ulysses runs where it splits this rank's heads, the
+        ring otherwise."""
+        cfg, plan = self.cfg, self._mesh_plan
+        if not cfg.sequence_parallel or plan is None or plan.sep_size <= 1:
+            return None
+        if attn_mask is not None:
+            raise NotImplementedError(
+                "a dense attn_mask under sequence parallelism: the ring "
+                "and Ulysses take causal attention with segment ids")
+        if cfg.sp_mode == "ulysses":
+            if segment_ids is not None:
+                raise NotImplementedError(
+                    "segment_ids (packed sequences) with sp_mode='ulysses' "
+                    "is not supported: use sp_mode='ring' (the ring "
+                    "rotates segment ids with their K/V blocks) or unpack "
+                    "the batch.")
+            from ..parallel.ulysses import (ulysses_attention,
+                                            ulysses_supported)
+            if ulysses_supported(q.shape[2], k.shape[2], plan.sep_size):
+                return ulysses_attention(q, k, v, causal=True,
+                                         mesh=plan.mesh)
+        from ..parallel.ring_attention import ring_attention
+        return ring_attention(q, k, v, causal=True, mesh=plan.mesh,
+                              segment_ids=segment_ids)
 
     def prefill_paged(self, x, cos, sin, kv: Pool, tables: torch.Tensor):
         """Prompt pass writing K/V into head-major page pools
@@ -555,6 +677,8 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
+    _mesh_plan = None
+
     def __init__(self, cfg: LlamaConfig, init: _Init):
         super().__init__()
         d, m = cfg.hidden_size, cfg.intermediate_size
@@ -562,8 +686,16 @@ class LlamaMLP(nn.Module):
         init.proj(self, "down_proj", m, d)
 
     def forward(self, x):
+        """SwiGLU; tensor-parallel on a mesh (this rank's [gate | up]
+        columns and down rows, the output all-reduced)."""
+        from ..distributed.communication import (copy_to_group,
+                                                 reduce_from_group)
+        tp = _tp_group(self._mesh_plan)
+        if tp is not None:
+            x = copy_to_group(x, tp)
         g, u = _proj(self, x, "gate_up_proj").chunk(2, dim=-1)
-        return _proj(self, F.silu(g) * u, "down_proj")
+        y = _proj(self, F.silu(g) * u, "down_proj")
+        return y if tp is None else reduce_from_group(y, tp)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -617,22 +749,43 @@ class LlamaModel(nn.Module):
         sequences). With ``cfg.recompute`` "full" (nothing kept) or
         "selective" (the projections' products kept) and a gradient
         recorded, each layer runs under activation recompute, as the JAX
-        model wraps it in ``jax.checkpoint``."""
-        cfg = self.cfg
-        if cfg.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel needs a 'sep' device mesh, which "
-                "arrives with the torch.distributed slice")
+        model wraps it in ``jax.checkpoint``.
+
+        On a mesh the inputs are this rank's: under sequence parallelism
+        its block of the sequence (rank r of ``sep`` block r, the default
+        positions offset to match), as the Trainer slices the batch
+        (``MeshPlan.local_batch``); JAX's ``_seq_shard`` constraint has
+        nothing to do here."""
+        cfg, plan = self.cfg, self._mesh_plan
         remat = cfg.recompute != "none" and torch.is_grad_enabled()
         policy = ("dots_with_no_batch_dims_saveable"
                   if cfg.recompute == "selective" else "full")
-        x = F.embedding(input_ids, self.embed_tokens)
+        x = self._embed(input_ids)
+        if plan is not None and plan.seq and position_ids is None:
+            b, s = input_ids.shape
+            position_ids = (torch.arange(s, device=input_ids.device)
+                            + plan.sep_rank * s).expand(b, s)
         for layer in self.layers:
             args = (x, self.rope_cos, self.rope_sin, position_ids,
                     attn_mask, segment_ids, self.rope_neg_sin)
             x = (run_recomputed(layer, *args, policy=policy) if remat
                  else layer(*args))
         return self.norm(x)
+
+    _mesh_plan = None
+
+    def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embedding; vocab-parallel over ``tp`` on a mesh (this
+        rank's rows; ids outside them give 0, then a sum over tp)."""
+        tp = _tp_group(self._mesh_plan)
+        if tp is None:
+            return F.embedding(input_ids, self.embed_tokens)
+        from ..distributed.communication import reduce_from_group
+        w = self.embed_tokens
+        lo = self._mesh_plan.tp_rank * w.shape[0]
+        inside = (input_ids >= lo) & (input_ids < lo + w.shape[0])
+        out = F.embedding(torch.where(inside, input_ids - lo, 0), w)
+        return reduce_from_group(out * inside[..., None].to(out.dtype), tp)
 
     # -- paged-KV (vLLM-style) inference paths ------------------------------
 
@@ -721,10 +874,34 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = None
         self.model = LlamaModel(cfg, init=init)
 
+    _mesh_plan = None
+    # on a mesh the loss is the global token mean (``_mesh_loss``), as
+    # the gradient sums over the data axes assume (``parallel.api``)
+    _global_mean_loss = True
+
+    @property
+    def _sharding_annotations(self):
+        """The parameters' sharding table (:func:`sharding_annotations`),
+        which ``parallel.api.shard_layer`` reads."""
+        return sharding_annotations(self.cfg)
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Vocabulary projection: the tied embedding's dense product, or
         the ``lm_head`` through :func:`_proj` (int8 in a quantized
-        model)."""
+        model). Tensor-parallel on a mesh: every rank's vocabulary
+        columns gathered."""
+        from ..distributed.communication import gather_from_group
+        tp = _tp_group(self._mesh_plan)
+        out = self._local_logits(hidden)
+        return out if tp is None else gather_from_group(out, tp, dim=-1)
+
+    def _local_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """This rank's vocabulary columns of the logits (all of them off
+        a tensor-parallel mesh)."""
+        from ..distributed.communication import copy_to_group
+        tp = _tp_group(self._mesh_plan)
+        if tp is not None:
+            hidden = copy_to_group(hidden, tp)
         if self.cfg.tie_word_embeddings:
             return torch.matmul(hidden,
                                 self.model.embed_tokens.t().to(hidden.dtype))
@@ -755,10 +932,20 @@ class LlamaForCausalLM(nn.Module):
         if labels is None:
             return self.logits(hidden)
         logits = None
+        plan = self._mesh_plan
+        on_mesh = plan is not None and (plan.tp_size > 1
+                                        or plan.data_size > 1)
         if fused_loss_enabled(self.cfg):
             w = (self.model.embed_tokens.t() if self.cfg.tie_word_embeddings
                  else self.lm_head)
-            loss = fused_causal_lm_loss(hidden, w.to(hidden.dtype), labels)
+            loss = (_mesh_loss(plan, hidden, w.to(hidden.dtype), None,
+                               labels) if on_mesh else
+                    fused_causal_lm_loss(hidden, w.to(hidden.dtype), labels))
+        elif on_mesh:
+            local = self._local_logits(hidden)
+            loss = _mesh_loss(plan, hidden, None, local, labels)
+            if plan.tp_size == 1:
+                logits = local
         else:
             logits = self.logits(hidden)
             loss = causal_lm_loss(logits, labels)
@@ -769,6 +956,12 @@ class LlamaForCausalLM(nn.Module):
     # -- size accounting (MFU calculator input) ------------------------------
 
     def num_params(self) -> int:
+        """The parameters of the whole model (on a mesh, of every rank's
+        shards together)."""
+        plan = self._mesh_plan
+        if plan is not None:
+            return sum(math.prod(sh.full_shape)
+                       for sh in plan.shards.values())
         return sum(p.numel() for p in self.parameters())
 
     def flops_per_token(self, seq_len: int, causal: bool = False) -> float:

@@ -350,6 +350,52 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+def flash_fwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool,
+                    q_seg: Optional[torch.Tensor] = None,
+                    kv_seg: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One (query block, key block) pair of flash attention: ``(out [b,
+    sq, h, d] in q's dtype, lse [b, h, sq] fp32)`` (counterpart of
+    ``flash_fwd_block`` in ``paddle_tpu/ops/pallas/flash_attention.py``,
+    the ring's building block). ``q_seg`` [b, sq] / ``kv_seg`` [b, sk]
+    restrict attention to equal ids; a row with no allowed key in this
+    block comes back with out = 0 and lse = -1e30 (NEG_INF), which the
+    ring's merge weighs as zero. The kernel on CUDA tensors, the plain
+    version on CPU tensors; no gradient is recorded."""
+    q_seg, kv_seg = _segments((q_seg, kv_seg) if q_seg is not None
+                              else None)
+    if q.device.type == "cpu":
+        return _flash_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
+    return flash_fwd(q, k, v, causal, scale, q_seg, kv_seg)
+
+
+def flash_bwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    out: torch.Tensor, lse: torch.Tensor,
+                    dout: torch.Tensor, scale: float, causal: bool,
+                    q_seg: Optional[torch.Tensor] = None,
+                    kv_seg: Optional[torch.Tensor] = None,
+                    delta: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of one block pair given the GLOBAL ``out`` and
+    ``lse`` of the whole attention (counterpart of JAX's
+    ``flash_bwd_block``): ``delta = rowsum(out * dout)`` [b, h, sq] is
+    taken in fp32 here, as there (a caller that has it passes
+    ``delta``), then the backward kernel, or its plain version on CPU
+    tensors."""
+    q_seg, kv_seg = _segments((q_seg, kv_seg) if q_seg is not None
+                              else None)
+    dout = dout.contiguous()
+    if delta is None:
+        delta = (out.float() * dout.float()).sum(-1).transpose(
+            1, 2).contiguous()
+    lse = lse.contiguous()
+    if q.device.type == "cpu":
+        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
+                                q_seg, kv_seg)
+    return flash_bwd(q, k, v, dout, lse, delta, causal, scale, q_seg, kv_seg)
+
+
 def _segments(segment_ids):
     """[b, s] ids or a (q_seg, kv_seg) pair → two int32 tensors or
     (None, None)."""
@@ -405,4 +451,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 __all__ = ["sdpa_plain", "paged_decode_plain", "paged_decode_attention",
            "paged_decode_dense", "force_decode_impl", "forced_decode_impl",
-           "paged_decode_crossover", "flash_attention", "dropout_keep_plain"]
+           "paged_decode_crossover", "flash_attention", "dropout_keep_plain",
+           "flash_fwd_block", "flash_bwd_block"]

@@ -109,6 +109,10 @@ class Optimizer:
         # set by a sharding helper in the JAX package; a Trainer built
         # without offload_opt_state= inherits it
         self._offload_opt_state = False
+        # the model's parallel.api.MeshPlan on a device mesh (set by the
+        # Trainer, fleet.distributed_optimizer or group_sharded_parallel):
+        # the clip then takes global norms, and step() syncs gradients
+        self._mesh_plan = None
 
     # -- lr ------------------------------------------------------------------
 
@@ -192,7 +196,8 @@ class Optimizer:
         if lr is None:
             lr = self.get_lr()
         if self.grad_clip is not None:
-            grads = self.grad_clip(grads)
+            grads = (self.grad_clip(grads) if self._mesh_plan is None
+                     else self.grad_clip(grads, plan=self._mesh_plan))
         state = self._state
         state["step"] += 1
         for k, p in params.items():
@@ -220,9 +225,16 @@ class Optimizer:
                 t.copy_(up[id(t)], non_blocking=True)
 
     def step(self) -> None:
-        """Apply an update to the bound parameters from their ``.grad``."""
+        """Apply an update to the bound parameters from their ``.grad``.
+        On a device mesh (``_mesh_plan``) the local gradients are summed
+        over the ranks that replicate each parameter first and the
+        update runs on the local shards."""
         if not self._bound_params:
             raise RuntimeError("optimizer has no trainable parameters bound")
+        if self._mesh_plan is not None:
+            self._mesh_plan.sync_grads(self._bound_params)
+            self._mesh_plan.apply(self, self._bound_params)
+            return
         grads = {k: p.grad for k, p in self._bound_params.items()
                  if p.grad is not None}
         self.apply_gradients(self._bound_params, grads)

@@ -22,9 +22,9 @@ are ``index_select``/``index_copy``.
 
 Not ported: the expert-parallel paths (an ``ep`` mesh axis with
 all-to-all dispatch, and the sharding constraint on the expert layout),
-which need the device mesh of ROADMAP.md A.4 — the port has no mesh, so
-:class:`MoELayer` never reaches them, as the JAX layer does not without
-one; and ``publish_moe_metrics``, which waits for the observability
+which come with ROADMAP.md A.4b (the mesh itself is A.4a's; ``ep`` > 1
+is refused there), so :class:`MoELayer` never reaches them, as the JAX
+layer does not without an ``ep`` axis; and ``publish_moe_metrics``, which waits for the observability
 plane (A.6).
 """
 
@@ -253,13 +253,13 @@ class MoELayer(nn.Module):
 
     def _forward_capacity_ep(self, flat, mesh, ep: int):
         raise NotImplementedError(
-            "expert-parallel capacity routing needs a device mesh "
-            "(ROADMAP.md A.4)")
+            "expert-parallel capacity routing (ep > 1) comes with "
+            "ROADMAP.md A.4b")
 
     def _forward_dropless_ep(self, flat, mesh, ep: int):
         raise NotImplementedError(
-            "expert-parallel dropless routing needs a device mesh "
-            "(ROADMAP.md A.4)")
+            "expert-parallel dropless routing (ep > 1) comes with "
+            "ROADMAP.md A.4b")
 
     def _forward_dropless(self, flat: torch.Tensor, logits: torch.Tensor):
         """The experts as two grouped products over the exact per-expert

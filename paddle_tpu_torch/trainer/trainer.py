@@ -31,6 +31,16 @@ card's peak, from :data:`PEAK_FLOPS`. A device missing from the table
 (the CPU among them) reports MFU as NaN rather than against a made-up
 peak.
 
+Over a device mesh (a model through ``parallel.api.shard_layer``,
+``group_sharded_parallel`` or ``fleet.distributed_model``; one process
+per rank, each with its Trainer) the batches are GLOBAL, as the JAX
+trainer's are: each rank takes its slice (``MeshPlan.local_batch``),
+the model's loss is the global token mean, each gradient is summed over
+the ranks that replicate its parameter, the global-norm clip counts
+every element once, and the update runs on the local shards. Metrics
+are global (tokens/s over every rank) and rank 0 publishes them. A
+checkpoint of a sharded state raises (ROADMAP.md A.5).
+
 Not here: ``apply_plan`` (sharding plans, ROADMAP.md A.5) and
 ``precompile`` (an eager step has nothing to compile ahead; CUDA graphs
 are B.3.3) raise; the cost observatory's step-cost gauges wait with A.6.
@@ -92,7 +102,8 @@ def _ntok(batch) -> int:
 
 
 class Trainer:
-    """One-card trainer over an ``nn.Module`` whose forward takes the
+    """Trainer (one card, or one rank of a mesh) over an ``nn.Module``
+    whose forward takes the
     batch's keys (``input_ids``, ``labels``, ...) and returns the loss,
     or ``(loss, ...)``; a forward that takes ``return_logits`` is called
     with ``return_logits=False``, for the loss alone.
@@ -128,6 +139,15 @@ class Trainer:
         self.optimizer = optimizer
         self.params: Dict[str, torch.Tensor] = {
             n: p for n, p in model.named_parameters() if p.requires_grad}
+        from ..parallel.api import mesh_plan_of
+        #: the model's parallel.api.MeshPlan when it is sharded over a
+        #: device mesh: batches are then global and each rank takes its
+        #: slice, gradients are summed over the ranks replicating them
+        self._plan = mesh_plan_of(model)
+        self._world = 1
+        if self._plan is not None:
+            optimizer._mesh_plan = self._plan
+            self._world = self._plan.mesh.nproc
         self.accumulate_steps = max(1, int(accumulate_steps))
         self._donate = bool(donate)
         self._step = 0
@@ -157,7 +177,10 @@ class Trainer:
         self._offload = True
         opt = self.optimizer
         if opt._state is None:
-            opt._state = opt.init_state(self.params, "pinned_host")
+            # on a mesh the state is made for the local shards (or chunks)
+            opt._state = opt.init_state(
+                self.params if self._plan is None
+                else self._plan.opt_views(self.params)[0], "pinned_host")
         else:
             opt._state = place_opt_state(opt._state, self.params,
                                          "pinned_host")
@@ -240,6 +263,9 @@ class Trainer:
         for p in self.params.values():
             p.grad = None
         A = self.accumulate_steps
+        plan = self._plan
+        if plan is not None:
+            batch = plan.local_batch(batch, lead=int(A > 1))
         if A == 1:
             loss = self._loss(batch)
             loss.backward()
@@ -255,9 +281,13 @@ class Trainer:
                 for p in self.params.values():
                     if p.grad is not None:
                         p.grad.div_(A)
-        grads = {k: p.grad for k, p in self.params.items()
-                 if p.grad is not None}
-        self.optimizer.apply_gradients(self.params, grads, lr=lr)
+        if plan is not None:
+            plan.sync_grads(self.params)
+            plan.apply(self.optimizer, self.params, lr=lr)
+        else:
+            grads = {k: p.grad for k, p in self.params.items()
+                     if p.grad is not None}
+            self.optimizer.apply_gradients(self.params, grads, lr=lr)
         self._step += 1
         self.dispatch_stats["steps"] += 1
         sched = self.optimizer.lr_scheduler
@@ -300,17 +330,22 @@ class Trainer:
     # -- full loop with metrics ---------------------------------------------
 
     def _metrics(self, step, loss_v, dt, log_every, tokens, sl, lr):
+        # on a mesh the batch is global: tokens/s over every rank, the
+        # loss the global mean, MFU against every card's peak
         tps = tokens / dt if dt > 0 else 0.0
         fpt = (self.model.flops_per_token(sl)
                if hasattr(self.model, "flops_per_token") else 0.0)
-        mfu = (tps * fpt / self.peak_flops
+        mfu = (tps * fpt / (self.peak_flops * self._world)
                if fpt and self.peak_flops else math.nan)
         return TrainMetrics(step=step, loss=loss_v,
                             step_time_s=dt / log_every, tokens_per_sec=tps,
-                            tokens_per_sec_per_chip=tps, mfu=mfu, lr=lr)
+                            tokens_per_sec_per_chip=tps / self._world,
+                            mfu=mfu, lr=lr)
 
     def _emit(self, m: TrainMetrics, history, on_metrics) -> None:
         history.append(m)
+        if self._plan is not None and self._plan.mesh.rank != 0:
+            return      # rank 0 publishes the (global) metrics
         _obs.observe_train_metrics(m)
         # SLO sentry: rules evaluate at the same log boundary the gauges
         # above were refreshed at (a load + branch when none is installed)
@@ -358,6 +393,10 @@ class Trainer:
             self._watchdog = watchdog_from_env()
         if resume and checkpoint_manager is None:
             raise ValueError("resume requires a checkpoint_manager")
+        if checkpoint_manager is not None and self._plan is not None:
+            raise NotImplementedError(
+                "checkpoints of a model sharded over a mesh wait for the "
+                "plan-aware save (ROADMAP.md A.5)")
         if (anomaly_guard is not None and anomaly_guard.policy == "skip"
                 and self._donate):
             raise ValueError(

@@ -1883,3 +1883,124 @@ def test_offloaded_update_equals_the_update_on_the_card(dev, opt):
         assert torch.equal(live[key].to(dev), t), key
         if key[0] != "params":
             assert live[key].device.type == "cpu" and live[key].is_pinned()
+
+
+# -- the device mesh slice: the flash block entries, the vocab-parallel
+# merge over virtual shards, a world-size-1 NCCL mesh ------------------------
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_block_entries_match_plain(dev, dtype, d):
+    """flash_fwd_block / flash_bwd_block (the ring's entries) against
+    their plain versions on the same card tensors: a block whose key
+    segments start at 1, so the first 64 query rows (segment 0) have no
+    key in it and come back at lse = -1e30 and out = 0; the backward
+    from a global (out, lse) merged with a second block."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(70 + d)
+    dt = getattr(torch, dtype)
+    b, s, h, hk = 2, 256, 8, 2
+    mk = lambda n: torch.randn((b, s, n, d), generator=g, device=dev).to(dt)
+    q, k, v, dout, k2, v2 = mk(h), mk(hk), mk(hk), mk(h), mk(hk), mk(hk)
+    qs = (torch.arange(s, device=dev) // 64).to(torch.int32)[None].repeat(
+        b, 1).contiguous()
+    ks = (qs + 1).contiguous()
+    scale = d ** -0.5
+    for causal in (False, True):
+        o, l = attn_ops.flash_fwd_block(q, k, v, scale, causal, qs, ks)
+        wo, wl = attn_ops._flash_fwd_plain(q, k, v, causal, scale, qs, ks)
+        _close(o, wo, dtype)
+        _rows_close(o, wo, dtype)
+        torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+        assert bool((l[:, :, :64] == -1e30).all())
+        assert bool((o[:, :64] == 0).all())
+        o2, l2 = attn_ops.flash_fwd_block(q, k2, v2, scale, False)
+        lse = torch.logaddexp(l, l2)
+        out = (o.float() * torch.exp(l - lse).transpose(1, 2)[..., None]
+               + o2.float() * torch.exp(l2 - lse).transpose(1, 2)[..., None]
+               ).to(dt)
+        got = attn_ops.flash_bwd_block(q, k, v, out, lse, dout, scale,
+                                       causal, qs, ks)
+        delta = (out.float() * dout.float()).sum(-1).transpose(
+            1, 2).contiguous()
+        want = attn_ops._flash_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                         scale, qs, ks)
+        for a, w in zip(got, want):
+            _close(a, w, dtype)
+            _rows_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vocab_parallel_merge_at_two_virtual_shards(dev, dtype):
+    """The vocab-parallel CE's per-shard lse_and_target kernels (labels
+    shifted by each shard's offset, ignored rows below every shard) and
+    the merge (``mp_layers.merge_shard_stats``) against the whole-vocab
+    kernels: nll, dh and dW."""
+    from paddle_tpu_torch.parallel.mp_layers import merge_shard_stats
+    g = torch.Generator(device=dev)
+    g.manual_seed(71)
+    dt = getattr(torch, dtype)
+    N, H, V, n = 300, 320, 1024, 2
+    per = V // n
+    h0 = torch.randn((N, H), generator=g, device=dev).to(dt)
+    w0 = (0.05 * torch.randn((H, V), generator=g, device=dev)).to(dt)
+    lab = torch.randint(0, V, (N,), generator=g, device=dev)
+    lab[::7] = -100
+    valid = lab != -100
+    h = h0.clone().requires_grad_()
+    ws = [w0[:, i * per:(i + 1) * per].clone().requires_grad_()
+          for i in range(n)]
+    st = [vocab_ce.lse_and_target(h, ws[i], (torch.where(
+        valid, lab, -1) - i * per).to(torch.int32)) for i in range(n)]
+    nll = merge_shard_stats([a for a, _ in st], [b for _, b in st], valid)
+    nll.sum().backward()
+    h2, w2 = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+    want = vocab_ce.fused_linear_cross_entropy(h2, w2, lab,
+                                               reduction="none")
+    want.sum().backward()
+    torch.testing.assert_close(nll, want, rtol=1e-4, atol=1e-4)
+    dw = torch.cat([w.grad for w in ws], 1)
+    _close(h.grad, h2.grad, dtype)
+    _rows_close(h.grad, h2.grad, dtype)
+    _close(dw, w2.grad, dtype)
+    _rows_close(dw.t(), w2.grad.t(), dtype)
+
+
+def test_world_size_one_nccl_mesh_collectives_are_identities(dev):
+    """init_parallel_env brings up NCCL with one rank on the card; the
+    mesh has every axis 1 and its collectives, plain and differentiable,
+    return their inputs (in a child process: the process group is
+    global)."""
+    import subprocess
+    import sys
+    code = """
+import socket, torch, torch.distributed as dist
+from paddle_tpu_torch.distributed import communication as c
+from paddle_tpu_torch.parallel.mesh import init_parallel_env
+s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+s.close()
+hm = init_parallel_env(init_method=f"tcp://localhost:{port}", world_size=1,
+                       rank=0)
+assert dist.get_backend() == "nccl"
+assert all(v == 1 for v in hm.shape.values()) and hm.group("tp") is None
+x = torch.randn(64, 32, device="cuda")
+assert torch.equal(c.all_reduce(x.clone()), x)
+assert torch.equal(c.reduce_scatter(None, x.clone()), x)
+assert torch.equal(torch.cat(c.all_gather(None, x)), x)
+xr = x.clone().requires_grad_()
+with hm:
+    y = c.reduce_from_group(c.copy_to_group(xr, "tp"), "tp")
+y.sum().backward()
+assert torch.equal(y, x) and torch.equal(xr.grad, torch.ones_like(x))
+w = x.clone()
+dist.all_reduce(w)
+assert torch.equal(w, x)
+dist.destroy_process_group()
+print("IDENTITIES OK")
+"""
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "IDENTITIES OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-3000:]

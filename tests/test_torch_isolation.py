@@ -107,3 +107,54 @@ def test_runtime_entry_points_default_to_the_card(tmp_path):
         DataLoader(ds, prefetch_to_device=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _chaos_train.main(["--ckpt-dir", str(tmp_path), "--steps", "1"])
+
+
+DISTRIBUTED_MODULES = (
+    "paddle_tpu_torch.distributed.communication",
+    "paddle_tpu_torch.distributed.collective",
+    "paddle_tpu_torch.distributed.parallel",
+    "paddle_tpu_torch.distributed.topology",
+    "paddle_tpu_torch.distributed.sharding",
+    "paddle_tpu_torch.distributed.strategy",
+    "paddle_tpu_torch.distributed.fleet",
+    "paddle_tpu_torch.distributed.fleet.base.topology",
+    "paddle_tpu_torch.distributed.fleet.utils.sequence_parallel_utils",
+    "paddle_tpu_torch.distributed.fleet.meta_parallel",
+    "paddle_tpu_torch.distributed.fleet.meta_parallel.wrappers",
+    "paddle_tpu_torch.parallel.mesh", "paddle_tpu_torch.parallel.api",
+    "paddle_tpu_torch.parallel.reshard", "paddle_tpu_torch.parallel.mp_layers",
+    "paddle_tpu_torch.parallel.ring_attention",
+    "paddle_tpu_torch.parallel.ulysses")
+
+
+@pytest.mark.parametrize("mod", DISTRIBUTED_MODULES)
+def test_distributed_modules_import_alone_without_jax(mod):
+    """Each module of the mesh slice imports on its own (no import cycle
+    through the lazily loaded ``distributed`` package) and loads neither
+    JAX nor the JAX package."""
+    code = (f"import importlib, sys\nimportlib.import_module({mod!r})\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'paddle_tpu')]\nassert not bad, bad\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_parallel_env_defaults_to_nccl_on_the_card():
+    """init_parallel_env asks for NCCL on the card unless told otherwise;
+    without a card it raises rather than falling back to gloo."""
+    import inspect
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    sig = inspect.signature(init_parallel_env).parameters
+    assert sig["backend"].default == "nccl"
+    assert sig["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    code = ("from paddle_tpu_torch.parallel.mesh import init_parallel_env\n"
+            "import torch.distributed as dist\n"
+            "try:\n    init_parallel_env()\nexcept Exception as e:\n"
+            "    assert not dist.is_initialized(), 'fell back'\n"
+            "    print('REFUSED', type(e).__name__)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "REFUSED" in r.stdout, r.stderr[-3000:]

@@ -547,26 +547,40 @@ def test_trainer_four_steps_match_jax_trainer(tiny_pair):
 
 
 def test_training_fields_raise_until_ported():
-    """What stays refused: sequence parallelism, a non-ring sp_mode and a
-    Trainer seed; sharding plans (apply_plan, A.5) and ahead-of-time
-    steps (precompile, B.3.3) raise naming their ROADMAP items. The
+    """What stays refused: a Trainer seed; sharding plans (apply_plan,
+    A.5) and ahead-of-time steps (precompile, B.3.3) raise naming their
+    ROADMAP items. ``sequence_parallel=True`` without a mesh trains as
+    the plain model does (as JAX's: it acts only over a sep axis), under
+    either ``sp_mode``, now accepted; an unknown sp_mode is refused. The
     default head and recompute train; the trainer runtime's arguments of
-    fit and offload_opt_state are accepted (tests/test_torch_trainer_runtime.py)."""
+    fit and offload_opt_state are accepted
+    (tests/test_torch_trainer_runtime.py)."""
     cfg = LlamaConfig.tiny(num_hidden_layers=1)
     m = LlamaForCausalLM(cfg, device="cpu")
     ids = torch.zeros((1, 4), dtype=torch.int64)
     assert torch.isfinite(m(ids, labels=ids, return_logits=False))
-    mk = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1,
-                                           sequence_parallel=True),
-                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        mk(ids, labels=ids)
+    rs = np.random.RandomState(17)
+    batch = {"input_ids": _t(rs.randint(0, cfg.vocab_size, (2, 16))),
+             "labels": _t(rs.randint(0, cfg.vocab_size, (2, 16)))}
+    runs = []
+    for kw in ({}, {"sequence_parallel": True},
+               {"sequence_parallel": True, "sp_mode": "ulysses"}):
+        mk = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1, **kw),
+                              device="cpu")
+        mk.load_state_dict(m.state_dict())
+        tr = Trainer(mk, AdamW(learning_rate=1e-3, parameters=mk))
+        runs.append(([float(tr.train_step(batch)) for _ in range(2)],
+                     mk.state_dict()))
+    for losses, sd in runs[1:]:
+        assert losses == runs[0][0]
+        for k, v in sd.items():
+            assert torch.equal(v, runs[0][1][k]), k
     with pytest.raises(ValueError):
         LlamaConfig.tiny(recompute="offload")
     with pytest.raises(ValueError):
         LlamaConfig.tiny(loss_impl="blockwise")
-    with pytest.raises(NotImplementedError):
-        LlamaConfig.tiny(sp_mode="ulysses")
+    with pytest.raises(ValueError):
+        LlamaConfig.tiny(sp_mode="context")
     with pytest.raises(NotImplementedError):
         Trainer(m, AdamW(parameters=m), seed=1)
     tr = Trainer(m, AdamW(parameters=m), offload_opt_state=True)

@@ -1,0 +1,512 @@
+"""Rank workers of the multi-rank CPU tests (gloo, one process per rank).
+
+:func:`run_ranks` starts ``world`` processes of this module (``python
+torch_dist_workers.py``), each joining a gloo group on a ``file://``
+store under the test's tmp directory, so concurrent test workers never
+race for a port. The parent writes the inputs as one ``.npz``; each rank
+runs the listed scenarios in order and writes ``rank<r>.npz`` with each
+scenario's outputs under ``<key>/<name>``. This module imports only
+numpy, torch and paddle_tpu_torch: the JAX references run in the parent.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import subprocess
+import sys
+from typing import Dict, List
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+RANK_TIMEOUT_S = 240
+
+
+def run_ranks(world: int, scenarios: List[dict], inputs: Dict[str, np.ndarray],
+              tmp) -> List[Dict[str, np.ndarray]]:
+    """Run ``scenarios`` ([{"fn", "key", "args"}]) on ``world`` gloo
+    ranks; returns each rank's outputs."""
+    tmp = pathlib.Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    np.savez(tmp / "inputs.npz", **inputs)
+    (tmp / "scenarios.json").write_text(json.dumps(scenarios))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT), str(ROOT / "tests"),
+                    os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__)), str(tmp), str(r),
+         str(world)], env=env, cwd=str(tmp), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            logs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError(f"ranks failed {bad}:\n" + "\n".join(
+            f"--- rank {r}\n{logs[r][-4000:]}" for r, _ in bad))
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(world)]
+
+
+# -- helpers the scenarios share ------------------------------------------------
+
+def _t(a, dtype=None):
+    import torch
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _mesh(args):
+    from paddle_tpu_torch.parallel.mesh import HybridMesh
+    return HybridMesh.build(devices="cpu", **args.get("mesh", {}))
+
+
+def _model(inp, args):
+    """The port's tiny Llama of ``args["cfg"]`` on the CPU with the
+    parent's (JAX's) weights."""
+    from paddle_tpu_torch.convert import state_dict_from_jax
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(**args.get("cfg", {}))
+    pre = args.get("sd", "sd") + "/"
+    sd = {k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)}
+    m = LlamaForCausalLM(cfg, device="cpu")
+    m.load_state_dict(state_dict_from_jax(sd, cfg, device="cpu"))
+    return m
+
+
+def _batch(inp, prefix="batch/"):
+    return {k[len(prefix):]: _t(v) for k, v in inp.items()
+            if k.startswith(prefix)}
+
+
+def _optimizer(args, model):
+    from paddle_tpu_torch.optimizer import SGD, AdamW, ClipGradByGlobalNorm
+    clip = ClipGradByGlobalNorm(args.get("clip", 1.0))
+    if args.get("opt", "adamw") == "sgd":
+        return SGD(learning_rate=args.get("lr", 0.1), parameters=model,
+                   grad_clip=clip)
+    return AdamW(learning_rate=args.get("lr", 1e-3), parameters=model,
+                 weight_decay=0.01, grad_clip=clip)
+
+
+def _full_grads(model) -> Dict[str, np.ndarray]:
+    """Every synced gradient whole (FSDP2 shards gathered, then the
+    tensor shards), as full_state_dict gathers the parameters."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from paddle_tpu_torch.distributed import communication as comm
+    from paddle_tpu_torch.parallel.api import mesh_plan_of, tp_unslice
+    plan = mesh_plan_of(model)
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad
+        sh = plan.shards[name]
+        if sh.tp_dim is not None:
+            parts = comm.all_gather(None, g.contiguous(), group=plan.tp)
+            g = tp_unslice(parts, sh.tp_dim, sh.blocks,
+                           sh.full_shape[sh.tp_dim])
+        out["grad." + name] = _np(g)
+    return out
+
+
+# -- scenarios ------------------------------------------------------------------
+
+def sc_train(inp, args):
+    """One Trainer step of the tiny Llama sharded as ``args`` says (mesh
+    degrees; "level": a group_sharded_parallel level; "fleet": the fleet
+    facade with those degrees): the loss, the synced global gradients
+    (``grads``), the global gradient norm, and every parameter after the
+    step, whole."""
+    import torch
+    from paddle_tpu_torch.parallel.api import (full_state_dict, mesh_plan_of,
+                                               shard_layer)
+    from paddle_tpu_torch.trainer import Trainer
+    model = _model(inp, args)
+    if args.get("fleet"):
+        from paddle_tpu_torch.distributed import fleet
+        st = fleet.DistributedStrategy()
+        st.hybrid_configs = args["fleet"]
+        if args.get("sp_mode"):
+            st.extras["sp_mode"] = args["sp_mode"]
+        fleet.init(is_collective=True, strategy=st, devices="cpu")
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(_optimizer(args, model))
+        assert fleet.worker_num() == torch.distributed.get_world_size()
+        hcg = fleet.get_hybrid_communicate_group()
+        assert hcg.get_model_parallel_world_size() == \
+            args["fleet"].get("mp_degree", 1)
+    else:
+        hm = _mesh(args)
+        hm.__enter__()
+        shard_layer(model, hm)
+        opt = _optimizer(args, model)
+        if args.get("level"):
+            from paddle_tpu_torch.distributed.sharding import (
+                group_sharded_parallel)
+            model, opt, _ = group_sharded_parallel(model, opt,
+                                                   level=args["level"])
+    tr = Trainer(model, opt, offload_opt_state=args.get("offload"))
+    plan = mesh_plan_of(model)
+    out = {}
+    if args.get("grads", True) and plan.level != "os_g":
+        # the synced gradients and their global norm, before any update
+        batch = plan.local_batch(_batch(inp, args.get("batch", "batch/")))
+        model.zero_grad(set_to_none=True)
+        loss = model(**batch, return_logits=False)
+        loss.backward()
+        plan.sync_grads(tr.params)
+        _, gv = plan.opt_views(tr.params)
+        out["gnorm"] = np.asarray(float(torch.sqrt(plan.global_sq(gv))))
+        out.update(_full_grads(model))
+        out["loss0"] = np.asarray(float(loss))
+    model.zero_grad(set_to_none=True)
+    losses = [float(tr.train_step(_batch(inp, args.get(
+        "batch", f"batch{i}/")))) for i in range(args.get("steps", 1))]
+    out["losses"] = np.asarray(losses)
+    for k, v in full_state_dict(model).items():
+        out["param." + k] = _np(v)
+    if args.get("fleet"):
+        from paddle_tpu_torch.distributed import fleet
+        fleet.stop()
+    else:
+        hm.__exit__(None, None, None)
+    return out
+
+
+def sc_shards(inp, args):
+    """This rank's tensor-parallel shards of the tiny Llama and the whole
+    state gathered back (``full_state_dict``)."""
+    import torch
+    from paddle_tpu_torch.parallel.api import (full_state_dict, shard_layer,
+                                               shard_optimizer_state)
+    model = _model(inp, args)
+    full = {n: p.detach().clone() for n, p in model.named_parameters()}
+    hm = _mesh(args)
+    shard_layer(model, hm)
+    out = {"local." + n: _np(p) for n, p in model.named_parameters()}
+    # a full optimizer state (each slot a copy of its parameter) is cut
+    # as the parameters are
+    st = shard_optimizer_state({"step": 1, "master": {}, "slots": {
+        n: {"m": t} for n, t in full.items()}}, model)
+    out["opt_state_like_params"] = np.asarray(all(
+        torch.equal(st["slots"][n]["m"], p.detach())
+        for n, p in model.named_parameters()))
+    out.update({"full." + k: _np(v)
+                for k, v in full_state_dict(model).items()})
+    return out
+
+
+def sc_specs(inp, args):
+    """param_spec_tree of the tiny Llama on each mesh of ``args["meshes"]``
+    (JSON text), and HybridMesh / HCG / topology answers."""
+    from paddle_tpu_torch.distributed.topology import HybridCommunicateGroup
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.parallel.api import param_spec_tree
+    from paddle_tpu_torch.parallel.mesh import HybridMesh
+    model = LlamaForCausalLM(LlamaConfig.tiny(num_hidden_layers=1),
+                             device="cpu")
+    out = {}
+    for i, deg in enumerate(args["meshes"]):
+        hm = HybridMesh.build(devices="cpu", **deg)
+        hcg = HybridCommunicateGroup(hm)
+        topo = hcg.topology()
+        ans = {"axes": list(hm.axes), "shape": [hm.shape[a] for a in hm.axes],
+               "dp": hcg.get_data_parallel_world_size(),
+               "mp": hcg.get_model_parallel_world_size(),
+               "pp": hcg.get_pipe_parallel_world_size(),
+               "sharding": hcg.get_sharding_parallel_world_size(),
+               "sep": hcg.get_sep_parallel_world_size(),
+               "ep": hm.get_expert_parallel_world_size(),
+               "nproc": hm.nproc,
+               "topo_dims": [topo.get_dim(n) for n in
+                             topo.get_hybrid_group_names()],
+               "comm_model": topo.get_comm_list("model"),
+               "comm_data": topo.get_comm_list("data"),
+               "group_tp": hm.group_ranks("tp"),
+               "group_data": hm.group_ranks(("dp", "fsdp")),
+               "specs": {} if deg.get("ep", 1) > 1 else {
+                   k: [list(e) if isinstance(e, tuple) else e for e in v]
+                   for k, v in param_spec_tree(model, hm).items()}}
+        out[f"mesh{i}"] = np.asarray(json.dumps(ans))
+    return out
+
+
+def sc_collectives(inp, args):
+    """Every collective of ``communication`` on this rank's slice of the
+    rank-major inputs (a mesh of one dp axis over the world)."""
+    import torch
+    from paddle_tpu_torch.distributed import communication as c
+    hm = _mesh(args)
+    r, n = hm.rank, hm.nproc
+    g = c.Group("dp", hm)
+    x = _t(inp["x"][r])
+    out = {}
+    for op in ("sum", "max", "min", "avg"):
+        out["all_reduce_" + op] = _np(c.all_reduce(x.clone(), op, g))
+    out["all_gather"] = _np(torch.stack(c.all_gather(None, x, g)))
+    out["reduce_scatter"] = _np(c.reduce_scatter(None, x.clone(), group=g))
+    out["alltoall"] = _np(torch.cat(c.alltoall(x.clone(), group=g)))
+    out["broadcast"] = _np(c.broadcast(x.clone(), src=1, group=g))
+    out["reduce"] = _np(c.reduce(x.clone(), dst=2, group=g))
+    payload = _t(inp["payload"][r])
+    out["scatter"] = _np(c.scatter(torch.empty_like(payload[0]), payload,
+                                   src=1, group=g))
+    got = c.gather(x.clone(), dst=0, group=g)
+    out["gather"] = _np(torch.stack(got)) if r == 0 else np.zeros(0)
+    out["send_to"] = _np(c.send_to(x.clone(), dst=3, src=1, group=g))
+    out["ppermute_ring"] = _np(c.ppermute(
+        x, [(i, (i + 1) % n) for i in range(n)], g))
+    out["ppermute_pairs"] = _np(c.ppermute(x, [(0, 2), (2, 0)], g))
+    out["send_recv"] = _np(c.send_recv(x, 1, g))
+    # P2P through Paddle's batch_isend_irecv with P2POps
+    recv = torch.empty_like(x)
+    ws = c.batch_isend_irecv([
+        c.P2POp(torch.distributed.isend, x.clone(), g.ranks[(r + 1) % n]),
+        c.P2POp(torch.distributed.irecv, recv, g.ranks[(r - 1) % n])])
+    for w in ws:
+        w.wait()
+    out["batch_isend_irecv"] = _np(recv)
+    # the differentiable forms: values and gradients of sum(w * f(x))
+    w = _t(inp["w"][r])
+    for name, fn in (("copy", lambda t: c.copy_to_group(t, g)),
+                     ("reduce", lambda t: c.reduce_from_group(t, g)),
+                     ("gather", lambda t: c.gather_from_group(t, g, 0)),
+                     ("scatter", lambda t: c.scatter_to_group(t, g, 0)),
+                     ("rs", lambda t: c.reduce_scatter_to_group(t, g, 0)),
+                     ("a2a", lambda t: c.all_to_all(t, g, 0, 0)),
+                     ("shift", lambda t: c.ring_shift(t, g, 1))):
+        xi = x.clone().requires_grad_(True)
+        y = fn(xi)
+        ww = w[:y.shape[0]] if y.shape[0] <= w.shape[0] else w.repeat(
+            y.shape[0] // w.shape[0], 1)
+        (y * ww).sum().backward()
+        out[f"diff_{name}_y"] = _np(y)
+        out[f"diff_{name}_g"] = _np(xi.grad)
+    return out
+
+
+def sc_reshard(inp, args):
+    """reshard_with_registry over every registered pair on a dp x tp mesh
+    (the pairs act over tp): this rank's local result."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from paddle_tpu_torch.parallel.reshard import reshard_with_registry
+    hm = _mesh(args)
+    x = _t(inp["xr"])
+    names = {"R": Replicate(), "P": Partial(), "S0": Shard(0),
+             "S1": Shard(1)}
+    out = {}
+    for src, dst in args["pairs"]:
+        sp = [Replicate()] * len(hm.axes)
+        dp_ = list(sp)
+        sp[hm.axes.index("tp")] = names[src]
+        dp_[hm.axes.index("tp")] = names[dst]
+        local = x
+        if src.startswith("S"):
+            local = x.chunk(hm.axis_size("tp"), dim=int(src[1]))[
+                hm.coordinate("tp")].contiguous()
+        out[f"{src}->{dst}"] = _np(reshard_with_registry(local, hm, sp, dp_))
+    return out
+
+
+def sc_tp_layers(inp, args):
+    """Column/Row/VocabParallel layers at this tp: output and the full
+    input gradient; weight gradients gathered whole."""
+    import torch
+    from paddle_tpu_torch.distributed import communication as c
+    from paddle_tpu_torch.parallel import mp_layers as mp
+    hm = _mesh(args)
+    tp = c.Group("tp", hm)
+    x = _t(inp["x"])
+    out = {}
+    col = mp.ColumnParallelLinear(16, 24, has_bias=True, mesh=hm)
+    col.load_full(_t(inp["w_col"]), _t(inp["b_col"]))
+    row = mp.RowParallelLinear(24, 8, has_bias=True, mesh=hm)
+    row.load_full(_t(inp["w_row"]), _t(inp["b_row"]))
+    xi = x.clone().requires_grad_(True)
+    y = row(col(xi))
+    (y * _t(inp["dy"])).sum().backward()
+    out["mlp_y"] = _np(y)
+    out["mlp_dx"] = _np(xi.grad)
+    out["w_col_grad"] = _np(torch.cat(c.all_gather(None, col.weight.grad,
+                                                   tp), 1))
+    out["w_row_grad"] = _np(torch.cat(c.all_gather(None, row.weight.grad,
+                                                   tp), 0))
+    out["b_row_grad"] = _np(row.bias.grad)
+    gat = mp.ColumnParallelLinear(16, 24, has_bias=False,
+                                  gather_output=True, mesh=hm)
+    gat.load_full(_t(inp["w_col"]))
+    out["gathered"] = _np(gat(x))
+    emb = mp.VocabParallelEmbedding(32, 16, mesh=hm)
+    emb.load_full(_t(inp["table"]))
+    e = emb(_t(inp["ids"]))
+    (e * _t(inp["de"])).sum().backward()
+    out["emb"] = _np(e)
+    out["emb_grad"] = _np(torch.cat(c.all_gather(None, emb.weight.grad, tp)))
+    # the vocab-parallel CEs over this rank's vocabulary shard
+    logits = _t(inp["logits"])
+    lab = _t(inp["labels"])
+    r, n = hm.coordinate("tp"), hm.axis_size("tp")
+    ll = logits.chunk(n, -1)[r].clone().requires_grad_(True)
+    nll = mp.parallel_cross_entropy(ll, lab, mesh=hm)
+    nll.sum().backward()
+    out["pce"] = _np(nll)
+    out["pce_grad"] = _np(torch.cat(c.all_gather(None, ll.grad, tp), -1))
+    h = _t(inp["h"]).requires_grad_(True)
+    wv = _t(inp["wv"]).chunk(n, -1)[r].clone().requires_grad_(True)
+    nll = mp.parallel_fused_linear_cross_entropy(h, wv, lab, mesh=hm)
+    nll.sum().backward()
+    out["pfce"] = _np(nll)
+    out["pfce_dh"] = _np(h.grad)
+    out["pfce_dw"] = _np(torch.cat(c.all_gather(None, wv.grad, tp), -1))
+    return out
+
+
+def sc_sp_attention(inp, args):
+    """ring_attention or ulysses_attention on this rank's sequence block:
+    the output and the q/k/v gradients of sum(out * dout), every rank's
+    block gathered."""
+    import torch
+    from paddle_tpu_torch.distributed import communication as c
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    from paddle_tpu_torch.parallel.ulysses import ulysses_attention
+    hm = _mesh(args)
+    sep = c.Group("sep", hm)
+    n, r = hm.axis_size("sep"), hm.coordinate("sep")
+
+    def mine(a):
+        return _t(a).chunk(n, dim=1)[r].contiguous()
+    out = {}
+    for case in args["cases"]:
+        q, k, v = (mine(inp[t]).requires_grad_(True) for t in "qkv")
+        seg = mine(inp["seg"]) if case.get("seg") else None
+        if case["fn"] == "ring":
+            o = ring_attention(q, k, v, causal=case["causal"], mesh=hm,
+                               segment_ids=seg)
+        else:
+            o = ulysses_attention(q, k, v, causal=case["causal"], mesh=hm)
+        (o * mine(inp["dout"])).sum().backward()
+        key = case["key"]
+        for name, t in (("out", o), ("dq", q.grad), ("dk", k.grad),
+                        ("dv", v.grad)):
+            out[f"{key}.{name}"] = _np(torch.cat(c.all_gather(
+                None, t.detach().contiguous(), sep), dim=1))
+    return out
+
+
+def sc_sharded_save(inp, args):
+    """A sharded state's save raises naming A.5: FSDP2 parameters through
+    ``save_state_dict``, a Trainer with a checkpoint manager, and
+    ``save_group_sharded_model``."""
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.distributed.sharding import (
+        group_sharded_parallel, save_group_sharded_model)
+    from paddle_tpu_torch.resilience import CheckpointManager
+    from paddle_tpu_torch.trainer import Trainer
+    model = _model(inp, args)
+    hm = _mesh(args)
+    with hm:
+        model, opt, _ = group_sharded_parallel(model, _optimizer(args, model))
+        msgs = []
+        for fn in (lambda: checkpoint.save_state_dict(
+                       model.state_dict(), os.path.join(os.getcwd(), "ck")),
+                   lambda: Trainer(model, opt).fit(
+                       [_batch(inp)], 1, checkpoint_manager=CheckpointManager(
+                           os.path.join(os.getcwd(), "mgr"))),
+                   lambda: save_group_sharded_model(model, "x")):
+            try:
+                fn()
+                msgs.append("no error")
+            except NotImplementedError as e:
+                msgs.append(str(e))
+    return {"msgs": np.asarray(json.dumps(msgs))}
+
+
+def sc_refused(inp, args):
+    """A model that lacks a sharding table or a global-mean loss (the
+    tiny MoE LM; a bare Linear) through ``shard_layer`` on ``args``'s
+    mesh, ``group_sharded_parallel`` and ``fleet.distributed_model`` at
+    dp 2 x mp 2: each error message, and whether the MoE's parameters
+    stayed whole."""
+    from torch import nn
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel.api import shard_layer
+
+    def attempt(fn):
+        try:
+            fn()
+            return "no error"
+        except NotImplementedError as e:
+            return str(e)
+    moe = MoEForCausalLM(MoEConfig.tiny(), device="cpu")
+    shapes = {n: tuple(p.shape) for n, p in moe.named_parameters()}
+    lin = nn.Linear(4, 4)
+    msgs = []
+    hm = _mesh(args)
+    with hm:
+        for m in (moe, lin):
+            msgs.append(attempt(lambda: shard_layer(m, hm)))
+            msgs.append(attempt(lambda: group_sharded_parallel(
+                m, SGD(learning_rate=0.1, parameters=m), level="os_g")))
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+    fleet.init(is_collective=True, strategy=st, devices="cpu")
+    msgs.append(attempt(lambda: fleet.distributed_model(moe)))
+    fleet.stop()
+    whole = all(tuple(p.shape) == shapes[n]
+                for n, p in moe.named_parameters())
+    return {"msgs": np.asarray(json.dumps(msgs)),
+            "moe_whole": np.asarray(whole)}
+
+
+def sc_mesh_check(inp, args):
+    """``tools.mesh_check.run`` on this rank: its results as JSON text."""
+    import torch
+    from paddle_tpu_torch.tools.mesh_check import run
+    return {"results": np.asarray(json.dumps(run(
+        args["layouts"], args["preset"], args["seq"], torch.device("cpu"))))}
+
+
+SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
+             "collectives": sc_collectives, "reshard": sc_reshard,
+             "tp_layers": sc_tp_layers, "sp_attention": sc_sp_attention,
+             "sharded_save": sc_sharded_save, "refused": sc_refused,
+             "mesh_check": sc_mesh_check}
+
+
+def main(tmp: str, rank: int, world: int) -> None:
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    torch.set_num_threads(1)
+    tmp = pathlib.Path(tmp)
+    init_parallel_env(dp=world, backend="gloo", device="cpu",
+                      init_method=f"file://{tmp / 'store'}",
+                      world_size=world, rank=rank)
+    inp = dict(np.load(tmp / "inputs.npz"))
+    out = {}
+    for sc in json.loads((tmp / "scenarios.json").read_text()):
+        res = SCENARIOS[sc["fn"]](inp, sc.get("args", {}))
+        out.update({f"{sc['key']}/{k}": v for k, v in res.items()})
+        dist.barrier()
+    np.savez(tmp / f"rank{rank}.npz", **out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
