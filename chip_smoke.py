@@ -317,7 +317,21 @@ Phases, in order; any failure exits non-zero before the result line:
      twice, bit for bit; the block kernels' summed times against the
      whole-sequence kernels'; (c) the vocab-parallel CE over 4 virtual
      shards (N 8192, H 4096, V 128256): nll, dh, dW within 2e-2 of the
-     whole-vocab head, the shards' time against one whole call.
+     whole-vocab head, the shards' time against one whole call;
+ 13. pipeline and expert parallelism over virtual stages and ranks
+     (writing nothing to disk): (a) ``LlamaForCausalLMPipe`` at
+     Llama-3-8B widths, 4 layers, 4 virtual stages, 4 microbatches,
+     batch 4 x 4096, bf16, fused head, loaded from the unpipelined
+     Llama of phase 7's seed: its first fused 1F1B step's loss within
+     1e-2 of the unpipelined model's on the same batch and every
+     gradient within ROW_TOL per row; then 2 + 4 Trainer steps (AdamW,
+     clip 1.0) each of the 1F1B pipe (every training kernel launched),
+     the GPipe pipe and the plain path, with step times and peak memory;
+     (b) one dropless MoE layer at DeepSeekMoE-16B widths over 8192
+     tokens split among 4 virtual ep ranks (``forward_virtual_ep``)
+     against the layer on the whole batch: outputs, input and weight
+     gradients per row, the aux loss; every grouped launch on the wgmma
+     route; the host syncs of its forward and backward counted.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -4053,12 +4067,16 @@ def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False,
                 if dev.type == "cuda" else None)
     # the step's peak falls in the optimizer update (fp32 temporaries of
     # the largest parameters), where no activation is alive; one more
-    # forward and backward alone shows the activations' footprint
+    # forward and backward alone (a 1F1B pipeline's fused step, as the
+    # Trainer takes it) shows the activations' footprint
     fwd_bwd_peak = None
     if dev.type == "cuda":
         model.zero_grad(set_to_none=True)
         torch.cuda.reset_peak_memory_stats(dev)
-        model(**batch, return_logits=False).backward()
+        if getattr(model, "pp_schedule", None) == "1f1b":
+            model.loss_and_grads(**batch)
+        else:
+            model(**batch, return_logits=False).backward()
         sync(torch, dev)
         fwd_bwd_peak = torch.cuda.max_memory_allocated(dev)
         model.zero_grad(set_to_none=True)
@@ -6195,6 +6213,233 @@ def phase_mesh(torch, pt, dev, make_cfg, b=2, s=4096):
     return out["world1"]["mesh"]["launches"]
 
 
+PIPE_STAGES, PIPE_MICRO = 4, 4      # phase 13(a): virtual stages, microbatches
+EP_RANKS, EP_TOKENS = 4, 8192       # phase 13(b): virtual ep ranks, tokens
+
+
+def pipe_from(plain, schedule):
+    """``LlamaForCausalLMPipe`` of PIPE_STAGES virtual stages and
+    PIPE_MICRO microbatches with the weights of the Llama ``plain``."""
+    from paddle_tpu_torch.models import LlamaForCausalLMPipe
+    dev = next(plain.parameters()).device
+    pipe = LlamaForCausalLMPipe(plain.cfg, num_stages=PIPE_STAGES,
+                                num_microbatches=PIPE_MICRO,
+                                pp_schedule=schedule, device=dev)
+    pipe.load_from_unpipelined(plain)
+    return pipe
+
+
+def pipe_model(schedule):
+    """A model factory for ``train_run``: :func:`pipe_from` the
+    unpipelined Llama that the same seed draws."""
+    def make(cfg, device, generator):
+        from paddle_tpu_torch.models import LlamaForCausalLM
+        return pipe_from(LlamaForCausalLM(cfg, device=device,
+                                          generator=generator), schedule)
+    return make
+
+
+def grad_row_err(torch, got, want) -> float:
+    """row_err, a 1-D tensor (a norm weight) taken as one row."""
+    if got.dim() == 1:
+        got, want = got[None], want[None]
+    return row_err(torch, got, want)
+
+
+def pipe_first_step(torch, pt, dev, cfg, batch):
+    """13(a)'s gate: the unpipelined Llama's first forward + backward and
+    the 1F1B pipe's fused step from its weights on the same batch: the
+    loss (rtol BF16_LOSS_RTOL) and every gradient per row (ROW_TOL)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import pipe_name
+    plain = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(10, dev))
+    pipe = pipe_from(plain, "1f1b")
+    loss_p = plain(**batch, return_logits=False)
+    loss_p.backward()
+    want = {pipe_name(n): p.grad for n, p in plain.named_parameters()}
+    lp = float(loss_p.detach())
+    del plain, loss_p
+    t0 = time.perf_counter()
+    loss_q, _ = pipe.loss_and_grads(**batch)
+    lq = float(loss_q)
+    fused_s = time.perf_counter() - t0
+    errs = {n: grad_row_err(torch, p.grad, want[n])
+            for n, p in pipe.named_parameters()}
+    worst = max(errs, key=errs.get)
+    out = {"loss_plain": lp, "loss_pipe": lq, "grad_row_err": errs,
+           "worst": worst, "first_step_s": fused_s,
+           "stats": dict(pipe.pipe_stats)}
+    out["ok"] = (abs(lq - lp) <= BF16_LOSS_RTOL * abs(lp)
+                 and errs[worst] <= ROW_TOL and len(errs) == len(want))
+    del pipe, want
+    empty_cache(torch, dev)
+    return out
+
+
+def pipeline_virtual(torch, pt, dev, make_cfg, b, s):
+    """13(a): the gate (:func:`pipe_first_step`), then 2 + 4 Trainer
+    steps each of the 1F1B pipe, the GPipe pipe and the plain path on
+    phase 7's widths (``train_run``: AdamW, clip 1.0, launches counted in
+    the timed steps)."""
+    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
+    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 13)
+    out = {"first_step": pipe_first_step(torch, pt, dev, cfg, batch)}
+    for name, cls in (("1f1b", pipe_model("1f1b")),
+                      ("gpipe", pipe_model("gpipe")), ("plain", None)):
+        out[name] = train_run(torch, pt, dev, cfg, batch, *MESH_STEPS,
+                              model_cls=cls)
+    first, run = out["first_step"], out["1f1b"]
+    missing = [k for k in TRAINING_KERNELS if run["launches"][k] <= 0]
+    finite = all(math.isfinite(x) for x in run["losses"])
+    out["ok"] = first["ok"] and not missing and finite
+    log(f"pipeline (a) {PIPE_STAGES} virtual stages, {PIPE_MICRO} "
+        f"microbatches, llama3_8b widths, 4 layers, bf16, {b} x {s} tokens: "
+        f"first 1F1B step from the unpipelined weights: loss "
+        f"{first['loss_pipe']} against {first['loss_plain']} (rtol "
+        f"{BF16_LOSS_RTOL}), worst gradient row error "
+        f"{first['grad_row_err'][first['worst']]:.2e} at {first['worst']} "
+        f"(tol {ROW_TOL}), microbatches held per stage at the peak "
+        f"{first['stats'].get('peak_live')}: "
+        f"{'ok' if first['ok'] else 'FAIL'}; median step 1F1B "
+        f"{run['median_step_s']:.4f} s, GPipe "
+        f"{out['gpipe']['median_step_s']:.4f} s, plain "
+        f"{out['plain']['median_step_s']:.4f} s; peak memory 1F1B "
+        f"{run['peak_memory_bytes']}, GPipe "
+        f"{out['gpipe']['peak_memory_bytes']}, plain "
+        f"{out['plain']['peak_memory_bytes']} bytes (forward + backward "
+        f"alone {run['fwd_bwd_peak_memory_bytes']}, "
+        f"{out['gpipe']['fwd_bwd_peak_memory_bytes']}, "
+        f"{out['plain']['fwd_bwd_peak_memory_bytes']}); 1F1B losses "
+        f"{run['losses']}; launches not made: {missing or 'none'}; "
+        f"{card_line()}")
+    return out
+
+
+def ep_virtual(torch, pt, dev, d=2048, f=1408, e=64, k=6,
+               tokens=EP_TOKENS):
+    """13(b): one dropless MoELayer at DeepSeekMoE-16B widths (hidden
+    2048, 64 experts of 1408, top 6, bf16) over EP_TOKENS tokens split
+    among EP_RANKS virtual ep ranks (``forward_virtual_ep``) against the
+    same layer on the whole batch: outputs, input gradients and weight
+    gradients per row (ROW_TOL) and the aux loss; every grouped launch
+    of the ep pass on the wgmma route; the host syncs of its forward and
+    backward counted (``set_sync_debug_mode("warn")``) beside the split
+    reads; both passes timed."""
+    import warnings
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.parallel.moe import EP_HOST_READS, MoELayer
+    layer = MoELayer(d, f, e, top_k=k, capacity_factor=None,
+                     dtype="bfloat16", device=dev,
+                     generator=pt.generator(14, dev))
+    g = pt.generator(15, dev)
+    x = torch.randn((EP_RANKS, tokens // EP_RANKS, d), device=dev,
+                    dtype=torch.bfloat16, generator=g)
+    dout = torch.randn(x.shape, device=dev, dtype=torch.bfloat16,
+                       generator=g)
+
+    def whole():
+        xi = x.detach().clone().requires_grad_(True)
+        out, aux = layer(xi.reshape(1, tokens, d))
+        ((out.float() * dout.reshape(out.shape).float()).sum()
+         + aux).backward()
+        return out.reshape(x.shape), aux, xi.grad
+
+    def lanes():
+        xs = [t.detach().clone().requires_grad_(True)
+              for t in x.unbind(0)]
+        outs, aux = layer.forward_virtual_ep(
+            [t[None] for t in xs], EP_RANKS)
+        (sum((o[0].float() * d.float()).sum()
+             for o, d in zip(outs, dout.unbind(0))) + aux).backward()
+        return (torch.stack([o[0] for o in outs]), aux,
+                torch.stack([t.grad for t in xs]))
+
+    def run(fn):
+        layer.zero_grad(set_to_none=True)
+        res = fn()
+        grads = {n: p.grad for n, p in layer.named_parameters()}
+        return res, grads
+    (want, aux_w, dx_w), gw = run(whole)
+    run(lanes)                                         # warm-up
+    sync(torch, dev)
+    _build.reset_launches()
+    reads = EP_HOST_READS[0]
+    cuda = dev.type == "cuda"
+    mode = torch.cuda.get_sync_debug_mode() if cuda else None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            (got, aux_g, dx_g), gg = run(lanes)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(mode)
+    sync(torch, dev)
+    reads = EP_HOST_READS[0] - reads
+    launches = dict(_build.LAUNCHES)
+    # where each sync was asked for (the warning's Python line)
+    sites = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    syncs = len(sites)
+    errs = {"out": row_err(torch, got, want), "dx": row_err(torch, dx_g,
+                                                            dx_w)}
+    errs.update({n: grad_row_err(torch, gg[n], gw[n]) for n in gw})
+    aux_err = abs(float(aux_g) - float(aux_w)) / abs(float(aux_w))
+
+    def timed(fn):
+        if not cuda:
+            return None
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ts = []
+        for _ in range(3):
+            sync(torch, dev)
+            ev[0].record()
+            run(fn)
+            ev[1].record()
+            sync(torch, dev)
+            ts.append(ev[0].elapsed_time(ev[1]))
+        return statistics.median(ts)
+    ms = {"ep_virtual": timed(lanes), "whole": timed(whole)}
+    wgmma = all(launches.get(k, 0) > 0
+                and launches.get(k + "_wgmma", 0) == launches[k]
+                for k in ("grouped_matmul", "grouped_matmul_dw"))
+    out = {"row_err": errs, "aux_rel_err": aux_err, "launches": {
+        k: launches.get(k, 0) for k in ("grouped_matmul",
+                                         "grouped_matmul_dw")},
+        "launches_all": launches, "split_reads": reads,
+        "host_syncs": syncs, "sync_sites": sites, "ms": ms,
+        "card": RESULTS.get("card")}
+    out["ok"] = (max(errs.values()) <= ROW_TOL and aux_err <= 1e-3
+                 and wgmma)
+    log(f"pipeline (b) dropless ep over {EP_RANKS} virtual ranks, "
+        f"hidden {d}, {e} experts of {f}, top {k}, {tokens} "
+        f"tokens, bf16: worst row error {max(errs.values()):.2e} (tol "
+        f"{ROW_TOL}; {errs}), aux relative error {aux_err:.2e}; grouped "
+        f"launches {out['launches']}, all on wgmma: {wgmma}; host syncs in "
+        f"forward + backward {syncs} at {sites} (split-size reads "
+        f"{out['split_reads']})"
+        f"; fwd + bwd {ms['ep_virtual']} ms over the ranks against "
+        f"{ms['whole']} ms whole: {'ok' if out['ok'] else 'FAIL'}; "
+        f"{card_line()}")
+    del layer, x, dout, want, got, gw, gg
+    empty_cache(torch, dev)
+    return out
+
+
+def phase_pipeline(torch, pt, dev, make_cfg, b=4, s=4096):
+    """Phase 13 (see the module docstring): (a) the pipelined Llama over
+    virtual stages, (b) dropless expert parallelism over virtual ranks.
+    Writes nothing to disk."""
+    out = RESULTS.setdefault("pipeline", {})
+    out["pipe"] = pipeline_virtual(torch, pt, dev, make_cfg, b, s)
+    out["ep"] = ep_virtual(torch, pt, dev)
+    fails = [k for k in ("pipe", "ep") if not out[k]["ok"]]
+    if fails:
+        raise SystemExit(f"pipeline checks failed: {fails}")
+    return out["pipe"]["1f1b"]["launches"], out["ep"]["launches"]
+
+
 def main() -> int:
     if "--client-process" in sys.argv:
         return client_process()
@@ -6272,11 +6517,15 @@ def main() -> int:
     mark("11 optimizers")
     mesh_launches = phase_mesh(torch, pt, dev, LlamaConfig.llama3_8b)
     mark("12 mesh")
+    pipe_launches, ep_launches = phase_pipeline(torch, pt, dev,
+                                                LlamaConfig.llama3_8b)
+    mark("13 pipeline")
     mesh_paths = {"mesh": mesh_launches,
                   "ring_blocks": RESULTS["mesh"]["ring"]["causal"][
                       "launches"],
                   "vocab_shards": RESULTS["mesh"]["vocab_shards"][
-                      "launches"]}
+                      "launches"],
+                  "pipeline": pipe_launches, "ep_virtual": ep_launches}
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
@@ -6328,6 +6577,7 @@ def main() -> int:
             # eight optimizers' runs, phase 5c's
             # feature runs, 5d's fabric runs and 5e's front-door window,
             # phase 12's mesh steps, virtual ring and vocabulary shards,
+            # phase 13's 1F1B pipeline steps and virtual ep pass,
             # and each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -17,7 +17,9 @@ from .communication import (Group, P2POp, ReduceOp, all_gather, all_reduce,
                             gather, get_rank, get_world_size, irecv, isend,
                             new_group, ppermute, reduce, reduce_scatter,
                             scatter, send_recv, send_to, stream)
-from .recompute import recompute, recompute_wrapper, resolve_policy  # noqa: F401
+from .recompute import (recompute, recompute_hybrid,  # noqa: F401
+                        recompute_sequential, recompute_wrapper,
+                        resolve_policy)
 
 _LAZY = {
     "HybridMesh": "..parallel.mesh", "current_mesh": "..parallel.mesh",
@@ -38,21 +40,22 @@ _SUBMODULES = ("fleet", "sharding", "strategy", "topology", "collective",
                "parallel", "communication", "recompute", "watchdog")
 
 
+# the JAX package's modules that wait for ROADMAP.md A.4c (the
+# launcher, the overlap and compat layers, rpc, the auto-tuner, the
+# distributed io and utils): reaching one raises naming it
+LATER = ("launch", "overlap", "compat", "rpc", "auto_tuner", "io", "utils")
+
+
 def __getattr__(name):
     if name in _LAZY:
         return getattr(importlib.import_module(_LAZY[name], __name__), name)
     if name in _SUBMODULES:
         return importlib.import_module("." + name, __name__)
+    if name in LATER:
+        raise NotImplementedError(
+            f"paddle_tpu_torch.distributed.{name} is not ported yet: it "
+            f"comes with ROADMAP.md A.4c")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def recompute_sequential(*args, **kwargs):
-    raise NotImplementedError("recompute_sequential comes with ROADMAP.md "
-                              "A.4b")
-
-
-def recompute_hybrid(*args, **kwargs):
-    raise NotImplementedError("recompute_hybrid comes with ROADMAP.md A.4b")
 
 
 __all__ = ["Group", "P2POp", "ReduceOp", "all_gather", "all_reduce",

@@ -11,8 +11,11 @@ and enters it. ``distributed_model`` shards the model over it
 shards parameters over fsdp). ``distributed_optimizer`` binds the
 optimizer to the sharded parameters: its ``step()`` then sums each
 gradient over the ranks replicating it and clips by the global norm.
-Pipeline and expert parallelism (``pp_degree``, ``ep_degree`` > 1)
-raise naming ROADMAP.md A.4b.
+``pp_degree`` > 1 builds a mesh with a ``pp`` axis (a pipeline model,
+``LlamaForCausalLMPipe``, keeps its stage on each rank; train it
+through ``Trainer`` or ``meta_parallel.PipelineParallel``);
+``ep_degree`` > 1 carves an expert axis out of the data ranks (the MoE
+LM's experts split over it).
 """
 
 from __future__ import annotations
@@ -47,9 +50,6 @@ def init(is_collective: bool = True,
             "parameter-server mode is not ported; use collective")
     strategy = strategy or DistributedStrategy()
     hc = strategy.hybrid_configs
-    if hc.pp_degree > 1:
-        raise NotImplementedError("pp_degree > 1: pipeline parallelism "
-                                  "comes with ROADMAP.md A.4b")
     degrees = dict(dp=hc.dp_degree, fsdp=hc.sharding_degree,
                    tp=hc.mp_degree, pp=hc.pp_degree, sep=hc.sep_degree,
                    ep=hc.ep_degree)

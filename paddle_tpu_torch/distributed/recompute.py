@@ -27,7 +27,7 @@ the recompute reads back what the forward computed.
 from __future__ import annotations
 
 import functools
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -90,4 +90,35 @@ def recompute_wrapper(function: Callable, policy=None) -> Callable:
     return wrapped
 
 
-__all__ = ["recompute", "recompute_wrapper", "resolve_policy"]
+def recompute_sequential(ctx: Optional[dict], functions, *args):
+    """Reference: recompute_sequential. The single-input chain
+    ``functions`` (a Sequential or any iterable of callables) in
+    ``ctx["segments"]`` chunks (1 by default), each chunk recomputed as
+    one unit; returns the chain's output."""
+    if len(args) != 1:
+        raise ValueError("recompute_sequential chains single-input "
+                         "functions")
+    segments = (ctx or {}).get("segments", 1)
+    fns = list(functions)
+    x = args[0]
+    per = max(1, (len(fns) + segments - 1) // segments)
+    for i in range(0, len(fns), per):
+        def run_chunk(xx, _chunk=tuple(fns[i:i + per])):
+            for f in _chunk:
+                xx = f(xx)
+            return xx
+        x = recompute(run_chunk, x)
+    return x
+
+
+def recompute_hybrid(ctx: Optional[dict], function: Callable, *args,
+                     **kwargs):
+    """Reference: recompute_hybrid.py (recompute with the hybrid-parallel
+    random-state sync). The port's layers draw no global random stream,
+    so this is :func:`recompute` under ``ctx["policy"]``."""
+    return recompute(function, *args, policy=(ctx or {}).get("policy"),
+                     **kwargs)
+
+
+__all__ = ["recompute", "recompute_wrapper", "resolve_policy",
+           "recompute_sequential", "recompute_hybrid"]

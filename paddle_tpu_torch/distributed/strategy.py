@@ -3,8 +3,8 @@
 Paddle's ``distributed_strategy.proto``). Unknown fields land in
 ``extras`` so recipes port without edits. ``hybrid_configs`` carries the
 degrees ``fleet.init`` builds the mesh from: ``dp_degree``,
-``mp_degree``, ``sharding_degree``, ``sep_degree`` (``pp_degree`` and
-``ep_degree`` above 1 wait for ROADMAP.md A.4b)."""
+``mp_degree``, ``sharding_degree``, ``sep_degree``, ``pp_degree`` and
+``ep_degree`` (carved out of the data ranks)."""
 
 from __future__ import annotations
 

@@ -8,7 +8,9 @@ from ..extras import LookAhead, ModelAverage  # noqa: F401
 from . import functional  # noqa: F401
 
 _REPLACED = {
-    "PipelineOptimizer": "the 1F1B pipeline schedules (A.4b)",
+    "PipelineOptimizer": "parallel.pipeline and parallel.schedules (GPipe, "
+                         "1F1B, interleaved) under Trainer or "
+                         "fleet.meta_parallel.PipelineParallel",
     "GradientMergeOptimizer": "Trainer(accumulate_steps=N)",
     "RecomputeOptimizer": "paddle_tpu_torch.distributed.recompute policies",
     "DistributedFusedLamb": "optimizer.Lamb",

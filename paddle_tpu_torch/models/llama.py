@@ -328,19 +328,9 @@ def _mesh_loss(plan, hidden: torch.Tensor, w: Optional[torch.Tensor],
     all-reduced over the data axes, all-reduced in the forward only, so
     that each rank's gradient is its own part."""
     from ..distributed.communication import all_reduce, reduce_from_group
-    from ..parallel.mp_layers import (parallel_cross_entropy,
-                                      parallel_fused_linear_cross_entropy)
-    mesh = plan.mesh
-    if w is not None:
-        nll = parallel_fused_linear_cross_entropy(
-            hidden, w, labels, mesh=mesh, ignore_index=ignore_index)
-    elif plan.tp_size > 1:
-        nll = parallel_cross_entropy(logits, labels, mesh=mesh,
-                                     ignore_index=ignore_index)
-    else:
-        nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                              labels.reshape(-1), ignore_index=ignore_index,
-                              reduction="none")
+    nll = (token_nll(plan, hidden, w, labels, True, ignore_index)
+           if w is not None else _logits_nll(plan, logits, labels,
+                                             ignore_index))
     cnt = all_reduce((labels != ignore_index).sum().float(),
                      group=plan.data)
     return reduce_from_group(nll.sum() / cnt.clamp_min(1.0), plan.data)
@@ -453,6 +443,54 @@ def _kv_gather_ctx(kv: Pool, tables: torch.Tensor
 def _tp_group(plan):
     """The tensor-parallel group of a model's mesh plan, or None."""
     return plan.tp if plan is not None and plan.tp_size > 1 else None
+
+
+def vocab_embed(plan, w: torch.Tensor, input_ids: torch.Tensor
+                ) -> torch.Tensor:
+    """Token embedding; vocab-parallel over ``tp`` on a mesh (this
+    rank's rows of ``w``; ids outside them give 0, then a sum over
+    tp)."""
+    tp = _tp_group(plan)
+    if tp is None:
+        return F.embedding(input_ids, w)
+    from ..distributed.communication import reduce_from_group
+    lo = plan.tp_rank * w.shape[0]
+    inside = (input_ids >= lo) & (input_ids < lo + w.shape[0])
+    out = F.embedding(torch.where(inside, input_ids - lo, 0), w)
+    return reduce_from_group(out * inside[..., None].to(out.dtype), tp)
+
+
+def _logits_nll(plan, logits: torch.Tensor, labels: torch.Tensor,
+                ignore_index: int = -100) -> torch.Tensor:
+    """Per-token nll of this rank's logits (its vocabulary columns on a
+    tensor-parallel mesh)."""
+    from ..parallel.mp_layers import parallel_cross_entropy
+    if _tp_group(plan) is not None:
+        return parallel_cross_entropy(logits, labels, mesh=plan.mesh,
+                                      ignore_index=ignore_index)
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1), ignore_index=ignore_index,
+                           reduction="none")
+
+
+def token_nll(plan, hidden: torch.Tensor, w: torch.Tensor,
+              labels: torch.Tensor, fused: bool,
+              ignore_index: int = -100) -> torch.Tensor:
+    """Per-token nll (0 at ignored labels) of the head ``hidden @ w``:
+    the fused vocab-CE head or materialised logits, vocab-parallel over
+    ``tp`` on a mesh (``w`` this rank's [H, V/tp] columns)."""
+    from ..distributed.communication import copy_to_group
+    from ..parallel.mp_layers import parallel_fused_linear_cross_entropy
+    tp = _tp_group(plan)
+    if fused and tp is not None:
+        return parallel_fused_linear_cross_entropy(
+            hidden, w, labels, mesh=plan.mesh, ignore_index=ignore_index)
+    if fused:
+        return fused_linear_cross_entropy(hidden, w, labels,
+                                          ignore_index=ignore_index,
+                                          reduction="none")
+    h = hidden if tp is None else copy_to_group(hidden, tp)
+    return _logits_nll(plan, torch.matmul(h, w), labels, ignore_index)
 
 
 class LlamaAttention(nn.Module):
@@ -775,17 +813,7 @@ class LlamaModel(nn.Module):
     _mesh_plan = None
 
     def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Token embedding; vocab-parallel over ``tp`` on a mesh (this
-        rank's rows; ids outside them give 0, then a sum over tp)."""
-        tp = _tp_group(self._mesh_plan)
-        if tp is None:
-            return F.embedding(input_ids, self.embed_tokens)
-        from ..distributed.communication import reduce_from_group
-        w = self.embed_tokens
-        lo = self._mesh_plan.tp_rank * w.shape[0]
-        inside = (input_ids >= lo) & (input_ids < lo + w.shape[0])
-        out = F.embedding(torch.where(inside, input_ids - lo, 0), w)
-        return reduce_from_group(out * inside[..., None].to(out.dtype), tp)
+        return vocab_embed(self._mesh_plan, self.embed_tokens, input_ids)
 
     # -- paged-KV (vLLM-style) inference paths ------------------------------
 
@@ -980,6 +1008,341 @@ class LlamaForCausalLM(nn.Module):
         return 6 * n + attn
 
 
+def pipe_name(name: str) -> str:
+    """The pipelined model's name of ``LlamaForCausalLM`` parameter
+    ``name`` (``model.layers.<i>.`` -> ``decoder.layers.<i>.``,
+    ``model.embed_tokens`` -> ``embed_tokens``, ``model.norm.weight`` ->
+    ``norm.weight``)."""
+    if name.startswith("model.layers."):
+        return "decoder." + name[len("model."):]
+    return name[len("model."):] if name.startswith("model.") else name
+
+
+class LlamaForCausalLMPipe(nn.Module):
+    """Pipeline-parallel Llama (counterpart of JAX's
+    ``LlamaForCausalLMPipe``; reference: PaddleNLP's model of that name
+    on fleet's PipelineLayer and 1F1B runtime). The decoder is a
+    ``parallel.pipeline.PipelineStack`` of ``num_stages`` stages (chunks
+    of ``num_chunks`` for ``pp_schedule="interleaved"``) over
+    ``num_microbatches`` microbatches; the embedding runs on stage 0,
+    the final norm and the head on stage S - 1.
+
+    Parameters: ``embed_tokens``, ``decoder.layers.<i>.<leaf>`` (one
+    module a layer where JAX stacks ``decoder.stack__<leaf>``; see
+    :meth:`load_jax_state_dict` / :meth:`jax_state_dict`),
+    ``norm.weight`` and ``lm_head``, in the JAX layouts.
+
+    Training: ``forward(input_ids, labels)`` gives the loss through
+    autograd with every stage in this process (JAX differentiates its
+    forward with ``jax.grad``); :meth:`loss_and_grads` is the fused
+    step (1F1B for ``pp_schedule="1f1b"``, FThenB otherwise), which the
+    Trainer takes for "1f1b" and on a ``pp`` mesh. Sharded by
+    ``parallel.api.shard_layer`` over a mesh whose ``pp`` axis is
+    ``num_stages``, each rank keeps its stage's parameters; activations
+    and cotangents cross ranks by point-to-point exchange."""
+
+    _mesh_plan = None
+    _global_mean_loss = True
+
+    def __init__(self, cfg: LlamaConfig, num_stages: int = 1,
+                 num_microbatches: int = 1, pp_schedule: str = "gpipe",
+                 num_chunks: int = 1, device=None, dtype=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        from ..parallel.pipeline import PipelineStack
+        if pp_schedule not in PipelineStack.SCHEDULES:
+            raise ValueError(f"pp_schedule must be one of "
+                             f"{PipelineStack.SCHEDULES}, got {pp_schedule!r}")
+        if cfg.weight_dtype != "native":
+            raise ValueError("LlamaForCausalLMPipe trains: weight_dtype must "
+                             "be 'native'")
+        init = _Init(cfg, device, dtype, generator)
+        self.cfg = cfg
+        self.num_stages = num_stages
+        self.num_microbatches = num_microbatches
+        self.pp_schedule = pp_schedule
+        self._dtype = init.dtype
+        self.embed_tokens = init.weight(cfg.vocab_size, cfg.hidden_size)
+        self.decoder = PipelineStack(
+            lambda: LlamaDecoderLayer(cfg, init),
+            num_layers=cfg.num_hidden_layers, num_stages=num_stages,
+            num_microbatches=num_microbatches,
+            remat=cfg.recompute == "full",
+            schedule="interleaved" if pp_schedule == "interleaved"
+            else "gpipe", num_chunks=num_chunks)
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps,
+                            device=init.device, dtype="float32")
+        if not cfg.tie_word_embeddings:
+            init.proj(self, "lm_head", cfg.hidden_size, cfg.vocab_size)
+        else:
+            self.lm_head = None
+        cos, sin = rope_ops.rope_freqs(cfg.head_dim,
+                                       cfg.max_position_embeddings,
+                                       cfg.rope_theta, device=init.device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+        self.register_buffer("rope_neg_sin", -sin, persistent=False)
+        #: the last fused step's schedule counts (peak microbatches held
+        #: per stage, ticks)
+        self.pipe_stats: dict = {}
+
+    # -- placement -------------------------------------------------------------
+
+    @property
+    def _sharding_annotations(self):
+        return {pipe_name(k): v for k, v in sharding_annotations(
+            self.cfg).items()}
+
+    def param_stage(self, name: str) -> int:
+        """The pipeline stage that holds parameter ``name`` (a tied
+        embedding: stage 0, which counts it; stage S - 1 holds a copy)."""
+        if name.startswith("decoder.layers."):
+            return self.decoder.stage_of(int(name.split(".")[2]))
+        return 0 if name == "embed_tokens" else self.num_stages - 1
+
+    def full_shapes(self):
+        """{name: (shape, dtype)} of every parameter of the whole model,
+        in the order of its sharding table."""
+        return {pipe_name(k): (shape, torch.float32 if kind == "norm"
+                               else self._dtype)
+                for k, (shape, kind) in parameter_shapes(self.cfg).items()}
+
+    def _keep_stage(self, hm) -> None:
+        """``shard_layer``'s hook on a ``pp`` mesh: keep this rank's
+        stage and run the schedules over its pp neighbours."""
+        from ..parallel.schedules import MeshRuntime
+        S, s = hm.axis_size("pp"), hm.coordinate("pp")
+        if S != self.num_stages:
+            raise ValueError(f"the mesh's pp axis is {S}, the model has "
+                             f"num_stages={self.num_stages}")
+        self.decoder.keep_stage(s, MeshRuntime(s, hm.group_ranks("pp"),
+                                               hm.group("pp")))
+        tied = self.cfg.tie_word_embeddings
+        if s != 0 and not (tied and s == S - 1):
+            self.embed_tokens = None
+        if s != S - 1:
+            self.norm = None
+            self.lm_head = None
+
+    def _stages(self):
+        """(holds stage 0, holds stage S - 1, pp mesh plan or None)."""
+        rt = self.decoder.runtime
+        plan = self._mesh_plan
+        pp = plan if plan is not None and plan.pp_size > 1 else None
+        return rt.local(0), rt.local(self.num_stages - 1), pp
+
+    def _head_weight(self, dtype) -> torch.Tensor:
+        w = (self.embed_tokens.t() if self.cfg.tie_word_embeddings
+             else self.lm_head)
+        return w.to(dtype)
+
+    def _extras(self):
+        return (self.rope_cos, self.rope_sin, None, None, None,
+                self.rope_neg_sin)
+
+    def _act(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Stage 0's embedded input; elsewhere an empty tensor of its
+        shape and dtype (the schedules read them only)."""
+        if self.decoder.runtime.local(0):
+            return vocab_embed(self._mesh_plan, self.embed_tokens, input_ids)
+        b, s = input_ids.shape
+        return torch.empty((b, s, self.cfg.hidden_size), dtype=self._dtype,
+                           device=input_ids.device)
+
+    # -- forward ---------------------------------------------------------------
+
+    def forward(self, input_ids: torch.Tensor,
+                labels: Optional[torch.Tensor] = None,
+                return_logits: Optional[bool] = None):
+        """input_ids [b, s] → logits [b, s, vocab]; with ``labels``
+        (-100 = ignored) ``(loss, logits)``, or the loss alone when
+        ``return_logits`` is False. The loss is the token mean over every
+        microbatch (and data rank on a mesh). On a ``pp`` mesh this runs
+        without a gradient (train through :meth:`loss_and_grads`); the
+        last stage's result is broadcast over pp."""
+        from ..distributed.communication import reduce_from_group
+        _, last, pp = self._stages()
+        plan = self._mesh_plan
+        h = self.decoder(self._act(input_ids), *self._extras())
+        loss = logits = None
+        want_logits = labels is None or return_logits is not False
+        if last:
+            hidden = self.norm(h)
+            w = self._head_weight(hidden.dtype)
+            if labels is not None:
+                nll = token_nll(plan, hidden, w, labels,
+                                fused_loss_enabled(self.cfg))
+                loss = nll.sum() / self._count(labels).clamp_min(1.0)
+                if pp is None and plan is not None and plan.data_size > 1:
+                    loss = reduce_from_group(loss, plan.data)
+            if want_logits:
+                logits = self._logits(hidden, w)
+        if pp is not None:
+            if labels is not None:
+                loss = self._from_last(pp, loss, input_ids, False)
+            if want_logits:
+                logits = self._from_last(pp, logits, input_ids, True)
+        if labels is None:
+            return logits
+        return loss if return_logits is False else (loss, logits)
+
+    def _logits(self, hidden, w):
+        from ..distributed.communication import (copy_to_group,
+                                                 gather_from_group)
+        tp = _tp_group(self._mesh_plan)
+        if tp is None:
+            return torch.matmul(hidden, w)
+        return gather_from_group(torch.matmul(copy_to_group(hidden, tp), w),
+                                 tp, dim=-1)
+
+    def _count(self, labels: torch.Tensor) -> torch.Tensor:
+        """The count of counted labels over every data rank (a 0-d fp32
+        tensor on labels' device); on a mesh the loss's value is then
+        summed over the data ranks in the forward only."""
+        from ..distributed.communication import all_reduce
+        cnt = (labels != -100).sum().float()
+        plan = self._mesh_plan
+        if plan is not None and plan.data_size > 1:
+            all_reduce(cnt, group=plan.data)
+        return cnt
+
+    def _from_last(self, pp, out, input_ids, logits: bool):
+        """Stage S - 1's loss (summed over the data ranks) or logits,
+        broadcast over the pp group."""
+        from ..distributed.communication import all_reduce, broadcast
+        S = self.num_stages
+        if logits:
+            b, s = input_ids.shape
+            buf = (out.contiguous() if out is not None else torch.empty(
+                (b, s, self.cfg.vocab_size), dtype=self._dtype,
+                device=input_ids.device))
+        else:
+            buf = (out.detach().float().reshape(()) if out is not None
+                   else torch.zeros((), device=input_ids.device))
+            if pp.data_size > 1 and out is not None:
+                all_reduce(buf, group=pp.data)
+        return broadcast(buf, src=S - 1, group=pp.pp)
+
+    # -- the fused step ----------------------------------------------------------
+
+    def loss_and_grads(self, input_ids: torch.Tensor, labels: torch.Tensor):
+        """One fused forward+backward over the pipeline (JAX's
+        ``loss_and_grads``; reference pipeline_parallel.py:440): 1F1B
+        for ``pp_schedule="1f1b"`` (a stage holds at most 2S - 1
+        microbatches), FThenB for "gpipe" and "interleaved". The
+        embedding runs on stage 0, the final norm and the head (the
+        fused vocab-CE head when ``fused_loss_enabled``) on stage S - 1,
+        each microbatch's summed nll divided by the GLOBAL count of
+        counted labels (every microbatch and, on a mesh, every data
+        rank), so uneven padding gives the unpipelined token mean. With
+        ``tie_word_embeddings`` on a pp mesh the embedding's gradient is
+        summed between the first and the last stage.
+
+        Gradients accumulate into ``.grad``. Returns (loss, grads): the
+        loss as a detached 0-d tensor (on a pp mesh the last stage's,
+        summed over the data ranks and broadcast over pp, so that every
+        rank logs and judges the same value) and {name: gradient} of
+        the parameters held here."""
+        from ..parallel import schedules
+        from ..parallel.pipeline import microbatch, unmicrobatch
+        cfg = self.cfg
+        M, S = self.num_microbatches, self.num_stages
+        first, last, pp = self._stages()
+        x = self._act(input_ids)
+        x_mb = microbatch(x.detach(), M)
+        t_mb = microbatch(labels, M)
+        cnt = self._count(labels)
+        fused = fused_loss_enabled(cfg)
+        plan = self._mesh_plan
+
+        def head(h, tgt):
+            hidden = self.norm(h)
+            nll = token_nll(plan, hidden, self._head_weight(hidden.dtype),
+                            tgt, fused)
+            return nll.sum(), None
+        kw = dict(num_stages=S, remat=self.decoder.remat, return_dx=True,
+                  weighted_loss=True, total_weight=cnt,
+                  runtime=self.decoder.runtime, stats=self.pipe_stats)
+        fn = self.decoder.stage_fn(*self._extras())
+        if self.pp_schedule == "1f1b":
+            loss, dx = schedules.pipeline_1f1b(fn, x_mb, t_mb, head, **kw)
+        else:
+            loss, dx = schedules.pipeline_fthenb(
+                fn, x_mb, t_mb, head, num_chunks=self.decoder.num_chunks,
+                **kw)
+        if first:
+            x.backward(unmicrobatch(dx).to(x.dtype))
+        if pp is not None:
+            if cfg.tie_word_embeddings and pp.tied is not None:
+                from ..distributed.communication import all_reduce
+                all_reduce(self.embed_tokens.grad, group=pp.tied)
+            loss = self._from_last(pp, loss if last else None, input_ids,
+                                   False)
+        elif plan is not None and plan.data_size > 1:
+            from ..distributed.communication import all_reduce
+            loss = all_reduce(loss.detach().clone(), group=plan.data)
+        grads = {n: p.grad for n, p in self.named_parameters()
+                 if p.grad is not None}
+        return loss.detach(), grads
+
+    # -- weights ---------------------------------------------------------------
+
+    @torch.no_grad()
+    def load_from_unpipelined(self, model: "LlamaForCausalLM") -> None:
+        """Copy a ``LlamaForCausalLM``'s weights into the parameters held
+        here (JAX's Pipe-partition converter; reference:
+        fleet/utils/pp_parallel_adaptor.py)."""
+        own = dict(self.named_parameters())
+        for name, p in model.named_parameters():
+            mine = own.get(pipe_name(name))
+            if mine is not None:
+                mine.copy_(p)
+
+    @torch.no_grad()
+    def load_jax_state_dict(self, sd) -> None:
+        """Load the JAX pipe model's state dict (``embed_tokens``,
+        ``decoder.stack__<leaf>`` stacked ``[L, ...]`` or ``[V, S, k,
+        ...]``, ``norm.weight``, ``lm_head``; numpy or tensors) into the
+        parameters held here."""
+        own = dict(self.named_parameters())
+        for name in ("embed_tokens", "norm.weight", "lm_head"):
+            if own.get(name) is not None and name in sd:
+                own[name].copy_(torch.as_tensor(sd[name]).to(own[name].dtype))
+        pre = "decoder."
+        self.decoder.load_stacked({k[len(pre):]: v for k, v in sd.items()
+                                   if k.startswith(pre + "stack__")})
+
+    def jax_state_dict(self, grads: bool = False):
+        """The parameters (or their gradients), every stage in this
+        process, under the JAX pipe model's names and layouts."""
+        out = {"decoder." + k: v for k, v in
+               self.decoder.stacked_tree(grads=grads).items()}
+        for name, p in self.named_parameters():
+            if not name.startswith("decoder."):
+                t = p.grad if grads else p
+                out[name] = None if t is None else t.detach()
+        return out
+
+    # -- size accounting (MFU calculator input) ------------------------------
+
+    def num_params(self) -> int:
+        """The whole model's parameters, wherever its stages are."""
+        return sum(math.prod(shape) for shape, _ in
+                   parameter_shapes(self.cfg).values())
+
+    def flops_per_token(self, seq_len: int, causal: bool = False) -> float:
+        """As ``LlamaForCausalLM.flops_per_token``."""
+        cfg = self.cfg
+        n = self.num_params()
+        if not cfg.tie_word_embeddings:
+            n -= cfg.vocab_size * cfg.hidden_size
+        attn = 12 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
+        if causal:
+            attn *= (seq_len + 1) / (2 * seq_len)
+        return 6 * n + attn
+
+
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM", "parameter_shapes",
-           "causal_lm_loss", "fused_causal_lm_loss", "fused_loss_enabled"]
+           "LlamaModel", "LlamaForCausalLM", "LlamaForCausalLMPipe",
+           "parameter_shapes", "causal_lm_loss", "fused_causal_lm_loss",
+           "fused_loss_enabled"]

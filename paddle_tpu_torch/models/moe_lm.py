@@ -15,6 +15,16 @@ prefix): ``embed_tokens``, ``lm_head``, ``norm.weight``,
 ``layers.{i}.moe.gate_weight``, ``layers.{i}.moe.experts.w_gate_up``
 [e, d, 2f], ``layers.{i}.moe.experts.w_down`` [e, f, d],
 ``layers.{i}.shared_experts.{gate_up_proj,down_proj,gate}``.
+
+On a device mesh (``parallel.api.shard_layer``, which reads
+:func:`sharding_annotations`, JAX's annotations) the model runs each
+rank's shards as the Llama does: attention, the dense MLP and the shared
+experts tensor-parallel over ``tp``, the vocabulary of the embedding and
+of the head split, the experts' FFN width split over tp and their
+expert dimension over ``ep`` (``parallel.moe``), and the loss the
+GLOBAL token mean plus ``aux_loss_weight`` × the layers' global aux
+losses (its value the same on every rank, its gradient each rank's
+part).
 """
 
 from __future__ import annotations
@@ -31,8 +41,10 @@ from ..distributed.recompute import recompute as run_recomputed
 from ..nn import RMSNorm
 from ..ops import rope as rope_ops
 from ..parallel.moe import MoELayer
-from .llama import (LlamaAttention, LlamaConfig, LlamaMLP, _Init,
-                    causal_lm_loss, fused_causal_lm_loss, fused_loss_enabled)
+from .llama import (LlamaAttention, LlamaConfig, LlamaMLP, _Init, _mesh_loss,
+                    _tp_group, causal_lm_loss, fused_causal_lm_loss,
+                    fused_loss_enabled, sharding_annotations as _llama_ann,
+                    vocab_embed)
 
 
 @dataclass
@@ -145,6 +157,41 @@ def parameter_shapes(cfg: MoEConfig):
     return out
 
 
+def sharding_annotations(cfg: MoEConfig):
+    """{state_dict name: (spec, blocks)} of ``MoEForCausalLM(cfg)``: the
+    JAX model's ``sharding=`` annotations (the experts' dimension over
+    ("ep", "dp", "fsdp"), their FFN width over tp; attention and the
+    dense MLP as Llama's), with each fused projection's runs (see
+    ``llama.sharding_annotations``)."""
+    f = cfg.moe_intermediate_size
+    width = cfg.num_shared_experts * f
+    col, row = ("fsdp", "tp"), ("tp", "fsdp")
+    lla = _llama_ann(cfg._as_llama())
+    out = {"embed_tokens": (row, None), "lm_head": (col, None)}
+    experts = ("ep", "dp", "fsdp")
+    for i in range(cfg.num_hidden_layers):
+        p, q = f"layers.{i}.", f"model.layers.{i}."
+        for leaf in ("input_layernorm.weight", "self_attn.qkv_proj",
+                     "self_attn.o_proj", "post_attention_layernorm.weight"):
+            out[p + leaf] = lla[q + leaf]
+        if i < cfg.first_k_dense_replace:
+            out[p + "mlp.gate_up_proj"] = lla[q + "mlp.gate_up_proj"]
+            out[p + "mlp.down_proj"] = lla[q + "mlp.down_proj"]
+            continue
+        out[p + "moe.gate_weight"] = (None, None)
+        out[p + "moe.experts.w_gate_up"] = ((experts, None, "tp"),
+                                            [(f, 1), (f, 1)])
+        out[p + "moe.experts.w_down"] = ((experts, "tp", None), None)
+        if cfg.num_shared_experts > 0:
+            out[p + "shared_experts.gate_up_proj"] = (col, [(width, 1),
+                                                           (width, 1)])
+            out[p + "shared_experts.down_proj"] = (row, None)
+            if cfg.shared_expert_gate:
+                out[p + "shared_experts.gate"] = (None, None)
+    out["norm.weight"] = (None, None)
+    return out
+
+
 class SharedExpertMLP(nn.Module):
     """DeepSeekMoE's always-on shared expert(s): one SwiGLU MLP of width
     num_shared * moe_ffn; Qwen2-MoE multiplies its output by a sigmoid
@@ -161,9 +208,20 @@ class SharedExpertMLP(nn.Module):
                                               init.device, init.generator))
                      if cfg.shared_expert_gate else None)
 
+    _mesh_plan = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g, u = torch.matmul(x, self.gate_up_proj.to(x.dtype)).chunk(2, -1)
+        """SwiGLU; tensor-parallel on a mesh (this rank's [gate | up]
+        columns and down rows, the output summed over tp before the
+        gate)."""
+        from ..distributed.communication import (copy_to_group,
+                                                 reduce_from_group)
+        tp = _tp_group(self._mesh_plan)
+        h = x if tp is None else copy_to_group(x, tp)
+        g, u = torch.matmul(h, self.gate_up_proj.to(x.dtype)).chunk(2, -1)
         out = torch.matmul(F.silu(g) * u, self.down_proj.to(x.dtype))
+        if tp is not None:
+            out = reduce_from_group(out, tp)
         if self.gate is not None:
             gate = torch.sigmoid(torch.matmul(x.float(), self.gate))
             out = out * gate.to(out.dtype)
@@ -214,6 +272,11 @@ class MoEForCausalLM(nn.Module):
     parameters are drawn from ``generator`` (a generator seeded with 0 on
     ``device`` when None)."""
 
+    _mesh_plan = None
+    # on a mesh the loss is the global token mean plus the global aux
+    # losses, as the gradient sums over the data axes assume
+    _global_mean_loss = True
+
     def __init__(self, cfg: MoEConfig, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -246,7 +309,8 @@ class MoEForCausalLM(nn.Module):
         returned logits are computed only for the caller (a training loop
         asks for the loss alone)."""
         cfg = self.cfg
-        x = F.embedding(input_ids, self.embed_tokens)
+        plan = self._mesh_plan
+        x = vocab_embed(plan, self.embed_tokens, input_ids)
         aux_total = torch.zeros((), device=x.device)
         remat = cfg.recompute == "full" and torch.is_grad_enabled()
         for layer in self.layers:
@@ -258,9 +322,18 @@ class MoEForCausalLM(nn.Module):
         if labels is None:
             return self.logits(hidden)
         logits = None
+        on_mesh = plan is not None and (plan.tp_size > 1
+                                        or plan.data_size > 1)
+        w = self.lm_head.to(hidden.dtype)
         if fused_loss_enabled(cfg):
-            ce = fused_causal_lm_loss(hidden, self.lm_head.to(hidden.dtype),
-                                      labels)
+            ce = (_mesh_loss(plan, hidden, w, None, labels) if on_mesh
+                  else fused_causal_lm_loss(hidden, w, labels))
+        elif on_mesh:
+            from ..distributed.communication import copy_to_group
+            tp = _tp_group(plan)
+            local = torch.matmul(hidden if tp is None
+                                 else copy_to_group(hidden, tp), w)
+            ce = _mesh_loss(plan, hidden, None, local, labels)
         else:
             logits = self.logits(hidden)
             ce = causal_lm_loss(logits, labels)
@@ -269,12 +342,33 @@ class MoEForCausalLM(nn.Module):
             return loss
         return loss, (logits if logits is not None else self.logits(hidden))
 
+    @property
+    def _sharding_annotations(self):
+        """The parameters' sharding table (:func:`sharding_annotations`),
+        which ``parallel.api.shard_layer`` reads."""
+        return sharding_annotations(self.cfg)
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(hidden, self.lm_head.to(hidden.dtype))
+        """Vocabulary projection; on a tensor-parallel mesh every rank's
+        columns gathered."""
+        from ..distributed.communication import (copy_to_group,
+                                                 gather_from_group)
+        tp = _tp_group(self._mesh_plan)
+        if tp is None:
+            return torch.matmul(hidden, self.lm_head.to(hidden.dtype))
+        out = torch.matmul(copy_to_group(hidden, tp),
+                           self.lm_head.to(hidden.dtype))
+        return gather_from_group(out, tp, dim=-1)
 
     # -- size accounting (MFU calculator input) ------------------------------
 
     def num_params(self) -> int:
+        """The parameters of the whole model (on a mesh, of every rank's
+        shards together)."""
+        plan = self._mesh_plan
+        if plan is not None:
+            return sum(math.prod(sh.full_shape)
+                       for sh in plan.shards.values())
         return sum(p.numel() for p in self.parameters())
 
     def num_activated_params(self) -> int:
@@ -298,4 +392,4 @@ class MoEForCausalLM(nn.Module):
 
 
 __all__ = ["MoEConfig", "SharedExpertMLP", "MoEDecoderLayer",
-           "MoEForCausalLM", "parameter_shapes"]
+           "MoEForCausalLM", "parameter_shapes", "sharding_annotations"]

@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import (DTensor, Partial, Placement,
                                       Replicate, Shard, distribute_tensor)
@@ -168,11 +169,17 @@ class ParamShard:
     """One parameter's place on the mesh: its cleaned spec, the
     dimension split over ``tp`` (None: replicated there) and its fused
     runs, the local columns held by several ranks (each range with its
-    rank group and whether this rank leads it) and the full shape."""
+    rank group and whether this rank leads it), the full shape, the
+    dimension split over ``ep`` (an expert weight's expert dimension;
+    None for a dense parameter) and whether this rank counts it toward
+    a norm at all (not the copy of a tied embedding on the last pipeline
+    stage)."""
 
-    def __init__(self, name, spec, blocks, full_shape, tp_dim, reps):
+    def __init__(self, name, spec, blocks, full_shape, tp_dim, reps,
+                 ep_dim=None, counted=True):
         self.name, self.spec, self.blocks = name, spec, blocks
         self.full_shape, self.tp_dim, self.reps = full_shape, tp_dim, reps
+        self.ep_dim, self.counted = ep_dim, counted
         self._mask = None
 
     def owned_mask(self, shape, device) -> Optional[torch.Tensor]:
@@ -208,12 +215,21 @@ class MeshPlan:
         self.seq = seq
         self.tp = comm.Group("tp", mesh)
         self.sep = comm.Group("sep", mesh)
+        self.pp = comm.Group("pp", mesh)
+        self.ep = comm.Group("ep", mesh)
         self.data = comm.Group(mesh.data_axes, mesh)
         self.tp_size, self.tp_rank = mesh.axis_size("tp"), \
             mesh.coordinate("tp")
         self.sep_size, self.sep_rank = mesh.axis_size("sep"), \
             mesh.coordinate("sep")
+        self.pp_size, self.pp_rank = mesh.axis_size("pp"), \
+            mesh.coordinate("pp")
+        self.ep_size, self.ep_rank = mesh.axis_size("ep"), \
+            mesh.coordinate("ep")
         self.data_size = mesh.group_size(mesh.data_axes)
+        #: the first and last pipeline stages' group (a tied embedding's
+        #: gradient is summed over it), None without a pp axis
+        self.tied = mesh.stage_ends_group()
         self._grad_chunks: Dict[str, torch.Tensor] = {}
         # name -> the model's parameter (FSDP2 replaces them: refreshed)
         self.params: Dict[str, torch.Tensor] = {}
@@ -256,12 +272,16 @@ class MeshPlan:
         """Sum each local gradient over the ranks that hold the same
         values of its parameter: the replicated columns' tensor groups,
         then dp, ep and sep, and fsdp unless FSDP2 has reduce-scattered
-        over it ("os_g": reduce-scatter into this rank's chunk)."""
+        over it ("os_g": reduce-scatter into this rank's chunk). An
+        expert weight is split over ep, so its gradient (the all-to-all's
+        backward has brought it every ep rank's tokens) is summed over
+        the other axes only."""
         hm = self.mesh
         level = self.level
         rest = (("dp", "ep", "sep") if level in ("fsdp2", "os_g")
                 else hm.data_axes)
-        group = comm.Group(rest, hm)
+        dense = comm.Group(rest, hm)
+        expert = comm.Group(tuple(a for a in rest if a != "ep"), hm)
         fsdp = comm.Group("fsdp", hm)
         self._grad_chunks = {}
         for name, p in params.items():
@@ -275,7 +295,8 @@ class MeshPlan:
                     buf = cols.contiguous()
                     comm.all_reduce(buf, group=grp)
                     cols.copy_(buf)
-            comm.all_reduce(g, group=group)
+            comm.all_reduce(g, group=expert if sh is not None
+                            and sh.ep_dim is not None else dense)
             if level == "os_g":
                 n = g.numel()
                 lo, hi, c = self._chunk(n)
@@ -341,7 +362,11 @@ class MeshPlan:
         on one rank), or None when it counts none of them."""
         hm = self.mesh
         sh = self.shards.get(name)
+        if sh is not None and not sh.counted:
+            return None
         if (sh is None or sh.tp_dim is None) and hm.coordinate("tp") != 0:
+            return None
+        if (sh is None or sh.ep_dim is None) and hm.coordinate("ep") != 0:
             return None
         if self.level == "none" and hm.coordinate("fsdp") != 0:
             return None
@@ -360,12 +385,14 @@ class MeshPlan:
         return torch.sum(sq)
 
     def _norm_sum(self, local: torch.Tensor) -> torch.Tensor:
-        comm.all_reduce(local, group=comm.Group(("fsdp", "tp"), self.mesh))
+        comm.all_reduce(local, group=comm.Group(("pp", "ep", "fsdp", "tp"),
+                                                self.mesh))
         return local
 
     def global_sq(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The fp32 sum of squares of the global gradients: each rank's
-        owned elements summed in order, then over fsdp and tp."""
+        owned elements summed in order, then over the pipeline stages,
+        the expert shards, fsdp and tp."""
         parts = [s for s in (self._owned_sq(n, g) for n, g in grads.items())
                  if s is not None]
         local = (sum(parts) if parts else torch.zeros(
@@ -403,18 +430,22 @@ def shard_layer(layer: nn.Module, mesh=None, shard_fn=None, input_fn=None,
     The ``fsdp`` axis is not split here: ``group_sharded_parallel``
     hands it to FSDP2; without it a parameter stays whole over fsdp and
     its gradient is summed there as over dp. A ``sep`` axis over 1 asks
-    for ``cfg.sequence_parallel``. The layer carries its sharding table
-    (``_sharding_annotations``) and declares ``_global_mean_loss``: its
-    loss on a mesh is the global token mean, which the gradient sums
-    over the data axes assume; any other layer raises."""
+    for ``cfg.sequence_parallel``. A ``pp`` axis over 1 needs a pipeline
+    model (one with ``_keep_stage``, e.g. ``LlamaForCausalLMPipe``):
+    each rank keeps its stage's parameters. An ``ep`` axis splits the
+    expert dimension of the parameters annotated with it (the MoE
+    layers' experts): rank r of ep keeps experts [r e/ep, (r+1) e/ep).
+    The layer carries its sharding table (``_sharding_annotations``) and
+    declares ``_global_mean_loss``: its loss on a mesh is the global
+    token mean, which the gradient sums over the data axes assume; any
+    other layer raises."""
     if not (hasattr(layer, "_sharding_annotations")
             and getattr(layer, "_global_mean_loss", False)):
         raise NotImplementedError(
             f"shard_layer: {type(layer).__name__} lacks a sharding table "
             f"(`_sharding_annotations`) or a loss that takes the global "
             f"token mean over the mesh (`_global_mean_loss`), which the "
-            f"gradient sums over the data axes assume; the MoE model's come "
-            f"with ROADMAP.md A.4b")
+            f"gradient sums over the data axes assume")
     hm = _resolve_mesh(mesh)
     if mesh_plan_of(layer) is not None:
         raise RuntimeError("shard_layer: the layer is already sharded")
@@ -423,11 +454,13 @@ def shard_layer(layer: nn.Module, mesh=None, shard_fn=None, input_fn=None,
         raise ValueError("shard_layer: an int8 model serves only; shard the "
                          "float model")
     if hm.axis_size("pp") > 1:
-        raise NotImplementedError("pipeline parallelism (pp > 1) comes with "
-                                  "ROADMAP.md A.4b")
-    if hm.axis_size("ep") > 1 or hm.ep_degree > 1:
-        raise NotImplementedError("expert parallelism (ep > 1) comes with "
-                                  "ROADMAP.md A.4b")
+        keep = getattr(layer, "_keep_stage", None)
+        if keep is None:
+            raise ValueError(
+                f"shard_layer: a pp axis of {hm.axis_size('pp')} needs a "
+                f"pipeline model (LlamaForCausalLMPipe); "
+                f"{type(layer).__name__} is not one")
+        keep(hm)
     seq = bool(getattr(cfg, "sequence_parallel", False))
     if hm.axis_size("sep") > 1 and not seq:
         raise ValueError("a sep axis > 1 shards the sequence: set "
@@ -435,6 +468,8 @@ def shard_layer(layer: nn.Module, mesh=None, shard_fn=None, input_fn=None,
                          "model does)")
     ann = annotations(layer)
     tp, r = hm.axis_size("tp"), hm.coordinate("tp")
+    ep, r_ep = hm.axis_size("ep"), hm.coordinate("ep")
+    stage_of = getattr(layer, "param_stage", None)
     shards = {}
     with torch.no_grad():
         for name, p in layer.named_parameters():
@@ -445,7 +480,17 @@ def shard_layer(layer: nn.Module, mesh=None, shard_fn=None, input_fn=None,
             tp_dim = next((d for d, e in enumerate(spec)
                            if e == "tp" or (isinstance(e, tuple)
                                             and "tp" in e)), None)
+            ep_dim = next((d for d, e in enumerate(spec)
+                           if e == "ep" or (isinstance(e, tuple)
+                                            and "ep" in e)), None)
             full_shape = tuple(p.shape)
+            if ep_dim is not None:
+                n = full_shape[ep_dim]
+                if n % ep:
+                    raise ValueError(f"{name}: {n} experts do not split "
+                                     f"over ep={ep}")
+                p.data = p.data.narrow(ep_dim, r_ep * (n // ep),
+                                       n // ep).contiguous()
             reps = []
             if tp_dim is not None:
                 p.data = tp_slice(p.data, tp_dim, blocks, tp, r)
@@ -455,8 +500,10 @@ def shard_layer(layer: nn.Module, mesh=None, shard_fn=None, input_fn=None,
                             f"{name}: replicated heads on a row dimension")
                     grp = hm.subgroup("tp", n)
                     reps.append((lo, hi, grp, r % n == 0))
+            counted = (stage_of is None or hm.axis_size("pp") == 1
+                       or stage_of(name) == hm.coordinate("pp"))
             shards[name] = ParamShard(name, spec, blocks, full_shape, tp_dim,
-                                      reps)
+                                      reps, ep_dim, counted)
     plan = MeshPlan(hm, shards, seq and hm.axis_size("sep") > 1)
     plan.params = dict(layer.named_parameters())
     for mod in layer.modules():
@@ -475,6 +522,9 @@ def _param_local(plan: MeshPlan, name: str, full: torch.Tensor):
     parameter: its tensor shard, then its FSDP2 rows or its os chunk."""
     sh = plan.shards[name]
     hm = plan.mesh
+    if sh.ep_dim is not None:
+        n = full.shape[sh.ep_dim] // hm.axis_size("ep")
+        full = full.narrow(sh.ep_dim, hm.coordinate("ep") * n, n)
     t = (tp_slice(full, sh.tp_dim, sh.blocks, hm.axis_size("tp"),
                   hm.coordinate("tp")) if sh.tp_dim is not None else full)
     if plan.level == "fsdp2" and hm.axis_size("fsdp") > 1:
@@ -508,21 +558,42 @@ def shard_optimizer_state(state: Dict, layer: nn.Module, mesh=None) -> Dict:
 
 
 @torch.no_grad()
-def full_state_dict(layer: nn.Module) -> Dict[str, torch.Tensor]:
-    """Every parameter whole, in the JAX layout, on every rank: FSDP2's
-    shards gathered over fsdp, then the tensor shards over tp (fused
-    projections put back part by part). Collective over the mesh."""
+def full_state_dict(layer: nn.Module,
+                    grads: bool = False) -> Dict[str, torch.Tensor]:
+    """Every parameter (or, with ``grads``, every parameter's gradient)
+    whole, in the JAX layout, on every rank: FSDP2's shards gathered over
+    fsdp, then the tensor shards over tp (fused projections put back
+    part by part), the expert shards over ep, and on a pp mesh each
+    stage's parameters broadcast from it (in the order of the model's
+    sharding table). Collective over the mesh."""
     plan = mesh_plan_of(layer)
     out = {}
     for name, p in layer.named_parameters():
+        if grads:
+            p = p.grad
         t = p.full_tensor() if isinstance(p, DTensor) else p.detach()
         sh = plan.shards.get(name) if plan is not None else None
         if sh is not None and sh.tp_dim is not None:
             parts = comm.all_gather(None, t.contiguous(), group=plan.tp)
             t = tp_unslice(parts, sh.tp_dim, sh.blocks,
                            sh.full_shape[sh.tp_dim])
+        if sh is not None and sh.ep_dim is not None:
+            t = torch.cat(comm.all_gather(None, t.contiguous(),
+                                          group=plan.ep), dim=sh.ep_dim)
         out[name] = t.clone()
-    return out
+    if plan is None or plan.pp_size == 1:
+        return out
+    # the other stages' parameters: each from the stage that counts it
+    dev = next(iter(out.values())).device
+    ranks = plan.mesh.group_ranks("pp")
+    full = {}
+    for name, (shape, dtype) in layer.full_shapes().items():
+        src = layer.param_stage(name)
+        t = (out[name].contiguous() if src == plan.pp_rank
+             else torch.empty(shape, dtype=dtype, device=dev))
+        dist.broadcast(t, src=ranks[src], group=plan.pp.process_group)
+        full[name] = t
+    return full
 
 
 __all__ = ["Placement", "Replicate", "Shard", "Partial", "shard_tensor",

@@ -98,11 +98,16 @@ class HybridMesh:
                               mesh_dim_names=axes)
         hm = HybridMesh(dm, axes, sizes, ep)
         # every multi-axis group the port uses, made here in one order on
-        # every rank (new_group is collective over the world)
+        # every rank (new_group is collective over the world): the data
+        # axes with and without ep (expert gradients skip it), the
+        # global norm's axes, and the pipeline's first and last stages
         for group_axes in (hm.data_axes, ("dp", "ep", "sep"),
                            ("dp", "ep", "fsdp"), ("dp", "fsdp"),
-                           ("fsdp", "tp"), hm.axes):
+                           ("dp", "fsdp", "sep"), ("dp", "sep"),
+                           ("fsdp", "tp"), ("pp", "ep", "fsdp", "tp"),
+                           hm.axes):
             hm.group(group_axes)
+        hm.stage_ends_group()
         return hm
 
     # -- topology queries (HybridCommunicateGroup) ---------------------------
@@ -207,6 +212,26 @@ class HybridMesh:
                             mine = g
             self._subgroups[key] = mine
         return self._subgroups[key]
+
+    def stage_ends_group(self):
+        """The group of this rank's first and last ``pp`` stage (the
+        ranks that hold a tied embedding), None without a pp axis; the
+        pp group itself when it has two stages. Made on every rank at
+        :meth:`build`."""
+        n = self.axis_size("pp")
+        if n < 2:
+            return None
+        if n == 2:
+            return self.group("pp")
+        if "stage_ends" not in self._subgroups:
+            mine = None
+            for row in self._slices(("pp",)):
+                ranks = [int(row[0]), int(row[-1])]
+                g = dist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = g
+            self._subgroups["stage_ends"] = mine
+        return self._subgroups["stage_ends"]
 
     def group_size(self, axes) -> int:
         axes = self._axes(axes)

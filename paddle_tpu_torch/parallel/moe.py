@@ -20,11 +20,36 @@ device: counts are ``scatter_add_`` into fixed-size tensors
 (``bincount`` sizes its output on the host), and gathers and the unsort
 are ``index_select``/``index_copy``.
 
-Not ported: the expert-parallel paths (an ``ep`` mesh axis with
-all-to-all dispatch, and the sharding constraint on the expert layout),
-which come with ROADMAP.md A.4b (the mesh itself is A.4a's; ``ep`` > 1
-is refused there), so :class:`MoELayer` never reaches them, as the JAX
-layer does not without an ``ep`` axis; and ``publish_moe_metrics``, which waits for the observability
+Expert parallelism (an ``ep`` mesh axis; JAX's shard_map'd paths). Rank
+r of ep holds experts [r e/ep, (r+1) e/ep) (``parallel.api.shard_layer``
+cuts them) and routes its own tokens; an exchange carries each token
+row to the rank of its expert and the results back:
+
+- dropless (:meth:`MoELayer._forward_dropless_ep`): JAX scatters into a
+  static ``[e, t_local, d]`` buffer because its jax has no ragged
+  all-to-all; the port sends EXACT splits. The per-expert counts go
+  first (an all-to-all of [e] vectors), the host reads the split sizes
+  once a layer (:data:`EP_HOST_READS` counts these reads: the one sync
+  of the path), the rows go by ``all_to_all_single`` with those splits,
+  each rank runs the grouped matmul over the exact counts of its local
+  experts, and the reverse exchange and the unsort restore token order;
+- capacity (:meth:`MoELayer._forward_capacity_ep`): each rank routes
+  its local tokens into the full ``[e, c_local, d]`` slot layout with
+  c_local = ceil(t_local k / e cf) (JAX :398: not the unsharded
+  capacity), equal splits carry each expert block to its rank, the
+  local experts run one batched SwiGLU over [e/ep, ep c_local, d], and
+  the reverse exchange feeds the local combine.
+
+The exchange is handed to the layer: on a mesh :class:`MeshExchange`
+(NCCL or gloo all-to-all over the ep group, differentiable), for
+virtual ranks in one process :class:`VirtualExchange` (a permutation of
+tensors, :meth:`MoELayer.forward_virtual_ep`). The aux loss takes the
+two token means over every data rank before their product (JAX's
+``_aux_loss_ep`` pmeans them), so it is the global estimator. On a
+tensor-parallel mesh the experts' FFN width is split over tp: the
+expert input is copied into the group and the output summed.
+
+Not ported: ``publish_moe_metrics``, which waits for the observability
 plane (A.6).
 """
 
@@ -37,9 +62,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import torch.distributed as dist
+
 from ..device import dtype_of, resolve_device
 from ..nn.initializer import Normal
 from ..ops.grouped_matmul import grouped_matmul_act
+
+#: host reads of the exchange split sizes on the dropless ep path (one a
+#: layer forward); the card tests and chip_smoke read it
+EP_HOST_READS = [0]
 
 
 def _counts(ids: torch.Tensor, e: int) -> torch.Tensor:
@@ -56,6 +87,95 @@ def _aux_loss(probs: torch.Tensor, e: int) -> torch.Tensor:
     me = probs.mean(dim=0)
     ce = _counts(top1, e).float() / probs.shape[0]
     return (me * ce).sum() * e
+
+
+def _aux_of(probs: torch.Tensor, e: int, plan=None) -> torch.Tensor:
+    """The aux loss of one rank's tokens: GShard's (:func:`_aux_loss`)
+    alone, on a data mesh with both token means taken over every data
+    rank before the product (the value is global on every rank, the
+    gradient each rank's share)."""
+    if plan is None or plan.data_size == 1:
+        return _aux_loss(probs, e)
+    from ..distributed.communication import all_reduce, reduce_from_group
+    n = plan.data_size
+    me = reduce_from_group(probs.mean(dim=0) / n, plan.data)
+    ce = all_reduce(_counts(torch.argmax(probs, dim=-1), e).float()
+                    / (probs.shape[0] * n), group=plan.data)
+    return (me * ce).sum() * e
+
+
+def _aux_lanes(probs: list, e: int) -> torch.Tensor:
+    """The aux loss over virtual ranks of equal token counts: the means
+    of their token means, then the product."""
+    me = sum(p.mean(dim=0) for p in probs) / len(probs)
+    ce = sum(_counts(torch.argmax(p, dim=-1), e).float() / p.shape[0]
+             for p in probs) / len(probs)
+    return (me * ce).sum() * e
+
+
+class VirtualExchange:
+    """The ep exchange between ``ep`` virtual ranks held in one process:
+    every lane's tensors are at hand, so an all-to-all is a permutation
+    of them (autograd sees cats and splits)."""
+
+    def __init__(self, ep: int):
+        self.ep = ep
+
+    def counts(self, counts):
+        """[e] per lane -> [ep, e/ep] per lane: row j holds lane j's
+        counts of this lane's experts."""
+        el = counts[0].shape[0] // self.ep
+        return [torch.stack([c[r * el:(r + 1) * el] for c in counts])
+                for r in range(self.ep)]
+
+    def rows(self, xs, send, recv):
+        """Lane r's rows split by ``send[r]`` (one block a destination);
+        returns each lane's received blocks concatenated in source
+        order."""
+        parts = [x.split(s) for x, s in zip(xs, send)]
+        return [torch.cat([parts[j][r] for j in range(self.ep)])
+                for r in range(self.ep)]
+
+
+class _AllToAllV(torch.autograd.Function):
+    """all_to_all_single with split sizes; the backward runs the reverse
+    exchange."""
+
+    @staticmethod
+    def forward(ctx, x, send, recv, pg):
+        ctx.args = (send, recv, pg)
+        out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), recv, send, group=pg)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        send, recv, pg = ctx.args
+        gx = g.new_empty((sum(send),) + tuple(g.shape[1:]))
+        dist.all_to_all_single(gx, g.contiguous(), send, recv, group=pg)
+        return gx, None, None, None
+
+
+class MeshExchange:
+    """The ep exchange of this rank over the mesh's ep group (one lane:
+    this rank's)."""
+
+    def __init__(self, plan):
+        self.ep = plan.ep_size
+        self.pg = plan.ep.process_group
+
+    def counts(self, counts):
+        c = counts[0].contiguous()
+        out = torch.empty_like(c)
+        dist.all_to_all_single(out, c, group=self.pg)
+        return [out.reshape(self.ep, -1)]
+
+    def rows(self, xs, send, recv):
+        return [_AllToAllV.apply(xs[0], send[0], recv[0], self.pg)]
+
+
+def _tp_group(plan):
+    return plan.tp if plan is not None and plan.tp_size > 1 else None
 
 
 def routing_stats(gate_logits: torch.Tensor, k: int):
@@ -201,9 +321,16 @@ class MoEMLP(nn.Module):
             (num_experts, ffn_size, hidden_size), dt, dev, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gu = torch.bmm(x, self.w_gate_up.to(x.dtype))
-        g, u = gu.chunk(2, dim=-1)
-        return torch.bmm(F.silu(g) * u, self.w_down.to(x.dtype))
+        return _expert_ffn(x, self.w_gate_up, self.w_down)
+
+
+def _expert_ffn(x: torch.Tensor, w_gu: torch.Tensor,
+                w_dn: torch.Tensor) -> torch.Tensor:
+    """The per-expert SwiGLU on a dense [e, c, d] layout (MoEMLP's math on
+    given weights: a rank's expert shard)."""
+    gu = torch.bmm(x, w_gu.to(x.dtype))
+    g, u = gu.chunk(2, dim=-1)
+    return torch.bmm(F.silu(g) * u, w_dn.to(x.dtype))
 
 
 class MoELayer(nn.Module):
@@ -236,30 +363,178 @@ class MoELayer(nn.Module):
         flat = x.reshape(-1, x.shape[-1])
         return routing_stats(self._logits(flat), self.top_k)[2]
 
+    _mesh_plan = None
+
     def forward(self, x: torch.Tensor):
         b, s, d = x.shape
         t = b * s
         e = self.num_experts
         flat = x.reshape(t, d)
+        plan = self._mesh_plan
+        if plan is not None and plan.ep_size > 1:
+            run = (self._forward_dropless_ep if self.capacity_factor is None
+                   else self._forward_capacity_ep)
+            outs, aux = run([flat], MeshExchange(plan))
+            return outs[0].reshape(b, s, d), aux
         logits = self._logits(flat)
         if self.capacity_factor is None:
             out, aux = self._forward_dropless(flat, logits)
             return out.reshape(b, s, d), aux
         capacity = int(math.ceil(t * self.top_k / e * self.capacity_factor))
-        slot, gates, aux = top_k_routing(logits, self.top_k, capacity)
-        ye = self.experts(dispatch_tokens(flat, slot, e, capacity))
+        slot, gates, _ = top_k_routing(logits, self.top_k, capacity)
+        xe = dispatch_tokens(flat, slot, e, capacity)
+        ye = self._experts_tp(self.experts, xe)
         out = combine_tokens(ye, slot, gates, renormalize=self.top_k > 1)
-        return out.reshape(b, s, d), aux
+        return out.reshape(b, s, d), _aux_of(torch.softmax(logits, -1), e,
+                                             plan)
 
-    def _forward_capacity_ep(self, flat, mesh, ep: int):
-        raise NotImplementedError(
-            "expert-parallel capacity routing (ep > 1) comes with "
-            "ROADMAP.md A.4b")
+    def _experts_tp(self, fn, x):
+        """``fn(x)``, the experts' FFN; on a tensor-parallel mesh over this
+        rank's FFN columns, the input copied into tp and the output
+        summed over it."""
+        from ..distributed.communication import (copy_to_group,
+                                                 reduce_from_group)
+        tp = _tp_group(self._mesh_plan)
+        if tp is None:
+            return fn(x)
+        return reduce_from_group(fn(copy_to_group(x, tp)), tp)
 
-    def _forward_dropless_ep(self, flat, mesh, ep: int):
-        raise NotImplementedError(
-            "expert-parallel dropless routing (ep > 1) comes with "
-            "ROADMAP.md A.4b")
+    def _grouped_ffn(self, xs, w_gu, w_dn, group_sizes):
+        """Two grouped products (SwiGLU between) over runs of
+        ``group_sizes`` rows, in xs's dtype."""
+        def fn(z):
+            g, u = grouped_matmul_act(z, w_gu.to(z.dtype),
+                                      group_sizes).chunk(2, dim=-1)
+            return grouped_matmul_act(F.silu(g) * u, w_dn.to(z.dtype),
+                                      group_sizes)
+        return self._experts_tp(fn, xs)
+
+    def forward_virtual_ep(self, xs: list, ep: int):
+        """The expert-parallel layer over ``ep`` virtual ranks in this
+        process: ``xs`` holds each rank's tokens ([b, s, d], equal
+        counts), rank r computes with experts [r e/ep, (r+1) e/ep) of
+        this layer's weights, and the exchange is a permutation
+        (:class:`VirtualExchange`). Returns (each rank's output, the
+        aux loss over every rank's tokens); the gradients reach the
+        whole weights."""
+        if self.num_experts % ep:
+            raise ValueError(f"{self.num_experts} experts do not split over "
+                             f"ep={ep}")
+        shape = xs[0].shape
+        flats = [x.reshape(-1, shape[-1]) for x in xs]
+        run = (self._forward_dropless_ep if self.capacity_factor is None
+               else self._forward_capacity_ep)
+        outs, aux = run(flats, VirtualExchange(ep),
+                        list(self.experts.w_gate_up.chunk(ep)),
+                        list(self.experts.w_down.chunk(ep)))
+        return [o.reshape(x.shape) for o, x in zip(outs, xs)], aux
+
+    def _route_lanes(self, flats):
+        """Each lane's (probs, top-k gates, expert ids)."""
+        out = []
+        for flat in flats:
+            probs = torch.softmax(self._logits(flat), dim=-1)
+            out.append((probs,) + tuple(torch.topk(probs, self.top_k,
+                                                   dim=-1)))
+        return out
+
+    def _ep_aux(self, probs, exchange):
+        if isinstance(exchange, VirtualExchange):
+            return _aux_lanes(probs, self.num_experts)
+        return _aux_of(probs[0], self.num_experts, self._mesh_plan)
+
+    def _lanes_weights(self, exchange, w_gu, w_dn):
+        """The lanes' expert weights (default: this layer's, one lane);
+        an exchange is required: the ep paths run on a mesh's ep group or
+        over virtual ranks, never alone."""
+        if exchange is None:
+            raise ValueError(
+                "the expert-parallel paths need an exchange: a mesh with an "
+                "ep axis (MeshExchange) or virtual ranks (VirtualExchange, "
+                "MoELayer.forward_virtual_ep)")
+        if w_gu is None:
+            w_gu, w_dn = [self.experts.w_gate_up], [self.experts.w_down]
+        return w_gu, w_dn
+
+    def _forward_dropless_ep(self, flats, exchange, w_gu=None, w_dn=None):
+        """Dropless expert parallelism over lanes (this rank, or every
+        virtual rank) with EXACT split sizes (module docstring): the
+        per-expert counts exchanged, one host read of the splits, the
+        rows exchanged, the grouped matmul over the local experts'
+        exact counts (expert-major: each expert's rows from rank 0, 1,
+        ...), the reverse exchange and the unsort."""
+        w_gu, w_dn = self._lanes_weights(exchange, w_gu, w_dn)
+        e, k, ep = self.num_experts, self.top_k, exchange.ep
+        el = e // ep
+        routed = self._route_lanes(flats)
+        sorts = [_sort_assignments(ids) for _, _, ids in routed]
+        counts = [_counts(se, e) for _, se in sorts]               # [e]
+        recv_c = exchange.counts(counts)                     # [ep, el]
+        send_c = [c.reshape(ep, el).sum(1) for c in counts]
+        # the one host read: every lane's send and receive split sizes
+        sizes = torch.cat(send_c + [c.sum(1) for c in recv_c]).tolist()
+        EP_HOST_READS[0] += 1
+        n = len(flats)
+        send = [sizes[i * ep:(i + 1) * ep] for i in range(n)]
+        recv = [sizes[(n + i) * ep:(n + i + 1) * ep] for i in range(n)]
+        xs = [f.index_select(0, order % f.shape[0])
+              for f, (order, _) in zip(flats, sorts)]
+        got = exchange.rows(xs, send, recv)
+        ys = []
+        for r, (x, c) in enumerate(zip(got, recv_c)):
+            # source-major [ep, el] blocks -> expert-major rows
+            keys = (torch.arange(el, device=x.device) * ep
+                    + torch.arange(ep, device=x.device)[:, None])
+            key = torch.repeat_interleave(keys.reshape(-1), c.reshape(-1),
+                                          output_size=x.shape[0])
+            perm = torch.argsort(key, stable=True)
+            y = self._grouped_ffn(x.index_select(0, perm), w_gu[r],
+                                  w_dn[r], c.sum(0).to(torch.int32))
+            ys.append(torch.zeros_like(y).index_copy(0, perm, y))
+        back = exchange.rows(ys, recv, send)
+        outs = []
+        for f, (_, gates, _), (order, _), y in zip(flats, routed, sorts,
+                                                    back):
+            t, d = f.shape
+            y_cm = torch.zeros_like(y).index_copy(0, order, y).reshape(
+                k, t, d)
+            g_km = _combine_weights(gates, k > 1).t()
+            outs.append((g_km[..., None].to(y.dtype) * y_cm).sum(dim=0))
+        return outs, self._ep_aux([p for p, _, _ in routed], exchange)
+
+    def _forward_capacity_ep(self, flats, exchange, w_gu=None, w_dn=None):
+        """Capacity routing with expert parallelism over lanes: each lane
+        routes its tokens into [e, c, d] with c = ceil(t_local k / e cf)
+        (JAX :398), equal splits carry expert block j to lane j, which
+        runs its experts over [e/ep, ep c, d] (slots source-major, JAX's
+        tiled all-to-all), and the reverse exchange feeds the local
+        combine."""
+        w_gu, w_dn = self._lanes_weights(exchange, w_gu, w_dn)
+        e, k, ep = self.num_experts, self.top_k, exchange.ep
+        el = e // ep
+        d = flats[0].shape[1]
+        cap = int(math.ceil(flats[0].shape[0] * k / e
+                            * self.capacity_factor))
+        logits = [self._logits(f) for f in flats]
+        routed = [top_k_routing(lg, k, cap) for lg in logits]
+        xe = [dispatch_tokens(f, slot, e, cap).reshape(e * cap, d)
+              for f, (slot, _, _) in zip(flats, routed)]
+        split = [[el * cap] * ep for _ in flats]
+        got = exchange.rows(xe, split, split)
+        ys = []
+        for r, x in enumerate(got):
+            blocks = x.reshape(ep, el, cap, d).transpose(0, 1).reshape(
+                el, ep * cap, d)
+            y = self._experts_tp(lambda z, r=r: _expert_ffn(z, w_gu[r],
+                                                           w_dn[r]), blocks)
+            ys.append(y.reshape(el, ep, cap, d).transpose(0, 1).reshape(
+                e * cap, d))
+        back = exchange.rows(ys, split, split)
+        outs = [combine_tokens(y.reshape(e, cap, d), slot, gates,
+                               renormalize=k > 1)
+                for y, (slot, gates, _) in zip(back, routed)]
+        probs = [torch.softmax(lg, dim=-1) for lg in logits]
+        return outs, self._ep_aux(probs, exchange)
 
     def _forward_dropless(self, flat: torch.Tensor, logits: torch.Tensor):
         """The experts as two grouped products over the exact per-expert
@@ -271,16 +546,15 @@ class MoELayer(nn.Module):
         order, sorted_e = _sort_assignments(ids)
         group_sizes = _counts(sorted_e, e).to(torch.int32)
         xs = flat.index_select(0, order % t)                      # [k t, d]
-        w_gu = self.experts.w_gate_up.to(flat.dtype)              # [e, d, 2f]
-        w_dn = self.experts.w_down.to(flat.dtype)                 # [e, f, d]
-        g, u = grouped_matmul_act(xs, w_gu, group_sizes).chunk(2, dim=-1)
-        ys = grouped_matmul_act(F.silu(g) * u, w_dn, group_sizes)
+        ys = self._grouped_ffn(xs, self.experts.w_gate_up,
+                               self.experts.w_down, group_sizes)
         # unsort to choice-major, weight, reduce over k
         y_cm = torch.zeros_like(ys).index_copy(0, order, ys).reshape(k, t, d)
         g_km = _combine_weights(gates, k > 1).t()                 # [k, t]
         out = (g_km[..., None].to(ys.dtype) * y_cm).sum(dim=0)
-        return out, _aux_loss(probs, e)
+        return out, _aux_of(probs, e, self._mesh_plan)
 
 
 __all__ = ["MoELayer", "MoEMLP", "top_k_routing", "dispatch_tokens",
-           "combine_tokens", "top_k_gating", "routing_stats"]
+           "combine_tokens", "top_k_gating", "routing_stats",
+           "VirtualExchange", "MeshExchange", "EP_HOST_READS"]

@@ -39,7 +39,11 @@ the model's loss is the global token mean, each gradient is summed over
 the ranks that replicate its parameter, the global-norm clip counts
 every element once, and the update runs on the local shards. Metrics
 are global (tokens/s over every rank) and rank 0 publishes them. A
-checkpoint of a sharded state raises (ROADMAP.md A.5).
+checkpoint of a sharded state raises (ROADMAP.md A.5). A pipeline model
+(``LlamaForCausalLMPipe``) trains through its fused ``loss_and_grads``
+under the 1F1B schedule, as the JAX trainer does, and under any
+schedule on a ``pp`` mesh; the loss it returns there is the last
+stage's, broadcast, so every rank logs and judges the same value.
 
 Not here: ``apply_plan`` (sharding plans, ROADMAP.md A.5) and
 ``precompile`` (an eager step has nothing to compile ahead; CUDA graphs
@@ -148,6 +152,13 @@ class Trainer:
         if self._plan is not None:
             optimizer._mesh_plan = self._plan
             self._world = self._plan.mesh.nproc
+        #: the model's fused forward+backward (a pipeline's
+        #: loss_and_grads): taken for the 1F1B schedule, as the JAX
+        #: trainer does, and for any schedule on a pp mesh, where
+        #: autograd cannot reach across the stages' ranks
+        on_pp = self._plan is not None and self._plan.pp_size > 1
+        self._fused = hasattr(model, "loss_and_grads") and (
+            getattr(model, "pp_schedule", None) == "1f1b" or on_pp)
         self.accumulate_steps = max(1, int(accumulate_steps))
         self._donate = bool(donate)
         self._step = 0
@@ -258,6 +269,18 @@ class Trainer:
         out = self.model(**batch)
         return out[0] if isinstance(out, tuple) else out
 
+    def _loss_backward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The batch's loss (detached) with its gradients accumulated
+        into ``.grad``: the fused step, or the loss and its backward. On
+        a pp mesh the fused step returns the last stage's loss on every
+        rank, so that every rank logs and judges (the anomaly guard) the
+        same value."""
+        if self._fused:
+            return self.model.loss_and_grads(**batch)[0]
+        loss = self._loss(batch)
+        loss.backward()
+        return loss.detach()
+
     def _one_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         lr = self._lr()
         for p in self.params.values():
@@ -267,15 +290,12 @@ class Trainer:
         if plan is not None:
             batch = plan.local_batch(batch, lead=int(A > 1))
         if A == 1:
-            loss = self._loss(batch)
-            loss.backward()
-            loss = loss.detach()
+            loss = self._loss_backward(batch)
         else:
             loss = None
             for i in range(A):
-                li = self._loss({k: v[i] for k, v in batch.items()})
-                li.backward()
-                loss = li.detach() if loss is None else loss + li.detach()
+                li = self._loss_backward({k: v[i] for k, v in batch.items()})
+                loss = li if loss is None else loss + li
             loss = loss / A
             with torch.no_grad():
                 for p in self.params.values():

@@ -265,21 +265,28 @@ def test_pod_bootstrap_env_reads_torchrun_then_paddle(monkeypatch):
 
 
 def test_pipeline_paths_raise_naming_a4b():
-    """Pipeline parallelism, its optimizer and the hybrid recomputes
-    raise naming A.4b where their APIs are reached."""
+    """A.4b is ported: the paths it leaves for later (the launcher, the
+    overlap / compat / rpc / auto-tuner / io / utils modules, the
+    parallel scale and projection modules) raise naming A.4c where they
+    are reached; PipelineParallel refuses a model that is no pipeline
+    with TypeError, as JAX's does; PipelineOptimizer names its
+    replacement."""
+    from torch import nn
     import paddle_tpu_torch.incubate.optimizer as inc
-    from paddle_tpu_torch import distributed
-    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch import distributed, parallel
     from paddle_tpu_torch.distributed.fleet.meta_parallel import \
         PipelineParallel
-    st = fleet.DistributedStrategy()
-    st.hybrid_configs = {"pp_degree": 2}
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        fleet.init(is_collective=True, strategy=st)
-    with pytest.raises(NotImplementedError, match="A.4b"):
-        PipelineParallel(None)
-    for fn in (distributed.recompute_sequential, distributed.recompute_hybrid):
-        with pytest.raises(NotImplementedError, match="A.4b"):
-            fn()
-    with pytest.raises(Exception, match="A.4b"):
+    for pkg, names in ((distributed, distributed.LATER),
+                       (parallel, parallel.LATER)):
+        for name in names:
+            with pytest.raises(NotImplementedError, match="A.4c"):
+                getattr(pkg, name)
+    with pytest.raises(NotImplementedError, match="A.4c"):
+        from paddle_tpu_torch.distributed import launch  # noqa: F401
+    assert set(distributed.LATER) == {"launch", "overlap", "compat", "rpc",
+                                      "auto_tuner", "io", "utils"}
+    assert set(parallel.LATER) == {"scale", "projection"}
+    with pytest.raises(TypeError, match="PipelineLayer"):
+        PipelineParallel(nn.Linear(4, 4))
+    with pytest.raises(AttributeError, match="parallel.schedules"):
         inc.PipelineOptimizer

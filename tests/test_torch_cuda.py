@@ -2004,3 +2004,156 @@ print("IDENTITIES OK")
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "IDENTITIES OK" in r.stdout, \
         r.stdout[-2000:] + r.stderr[-3000:]
+
+
+# -- pipeline and expert parallelism over virtual stages and ranks ---------
+
+@pytest.mark.parametrize("sched", ["1f1b", "gpipe", "interleaved"])
+def test_pipe_fused_step_on_card_matches_cpu(dev, sched):
+    """The tiny Llama (4 layers, fp32) as LlamaForCausalLMPipe over 2
+    virtual stages and 4 microbatches, unevenly padded: the fused step's
+    loss and every gradient on the card within 1e-5 of each tensor's
+    largest against the same step on the CPU; every training kernel
+    launches (1F1B holds at most 2S - 1 = 3 microbatches a stage)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.llama import (LlamaConfig,
+                                               LlamaForCausalLMPipe)
+    cfg = LlamaConfig.tiny(num_hidden_layers=4)
+    rs = np.random.RandomState(6)
+    ids = rs.randint(0, cfg.vocab_size, (8, 65))
+    labels = ids[:, 1:].copy()
+    labels[0, :50] = -100
+    labels[5, :] = -100
+    side = []
+    for device in ("cpu", dev):
+        m = LlamaForCausalLMPipe(cfg, num_stages=2, num_microbatches=4,
+                                 pp_schedule=sched, num_chunks=2,
+                                 device="cpu",
+                                 generator=pt.generator(0, "cpu")).to(device)
+        _build.reset_launches()
+        loss, grads = m.loss_and_grads(
+            torch.tensor(ids[:, :-1], device=device),
+            torch.tensor(labels, device=device))
+        side.append((float(loss), {n: g.detach().float().cpu()
+                                   for n, g in grads.items()},
+                     dict(m.pipe_stats)))
+    (lc, gc, _), (lg, gg, stats) = side
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    assert set(gg) == set(gc)
+    for n, want in gc.items():
+        assert float((gg[n] - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()), n
+    for k in ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
+              "flash_bwd", "vocab_ce_fwd", "vocab_ce_dh", "vocab_ce_dw"):
+        assert _build.LAUNCHES[k] > 0, k
+    if sched == "1f1b":
+        assert max(stats["peak_live"]) <= 3
+
+
+def test_virtual_ep_on_card_matches_the_whole_layer(dev):
+    """A bf16 dropless MoELayer (256 wide, 16 experts of 128, top 4) over
+    4 virtual ep ranks on the card against the layer on the whole batch:
+    outputs, input and weight gradients per row within ROW_TOL; every
+    grouped launch on the wgmma route; the forward and backward make
+    one host sync (the split sizes' read)."""
+    import warnings
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel.moe import EP_HOST_READS, MoELayer
+    layer = MoELayer(256, 128, 16, top_k=4, capacity_factor=None,
+                     dtype="bfloat16", device=dev,
+                     generator=pt.generator(3, dev))
+    g = pt.generator(4, dev)
+    x = torch.randn((4, 96, 256), device=dev, dtype=torch.bfloat16,
+                    generator=g)
+    r = torch.randn(x.shape, device=dev, generator=g)
+
+    def run(lanes):
+        layer.zero_grad(set_to_none=True)
+        xs = [t.clone().requires_grad_(True) for t in x.unbind(0)]
+        if lanes:
+            outs, aux = layer.forward_virtual_ep([t[None] for t in xs], 4)
+            out = torch.cat(outs)
+        else:
+            out, aux = layer(torch.stack(xs))
+        ((out.float() * r).sum() + aux).backward()
+        return out, torch.stack([t.grad for t in xs]), {
+            n: p.grad for n, p in layer.named_parameters()}
+    want = run(False)
+    run(True)                              # builds and loads the kernels
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    reads = EP_HOST_READS[0]
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = run(True)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    assert EP_HOST_READS[0] - reads == 1
+    assert sum("synchroniz" in str(w.message) for w in caught) == 1
+    for k in ("grouped_matmul", "grouped_matmul_dw"):
+        assert _build.LAUNCHES[k] > 0
+        assert _build.LAUNCHES[k + "_wgmma"] == _build.LAUNCHES[k], k
+    _rows_close(got[0], want[0], "bfloat16")
+    _rows_close(got[1], want[1], "bfloat16")
+    for n, w in want[2].items():
+        gn = got[2][n]
+        _rows_close(gn if gn.dim() > 1 else gn[None],
+                    w if w.dim() > 1 else w[None], "bfloat16")
+
+
+def test_one_rank_pipe_and_ep_mesh_on_the_card():
+    """init_parallel_env brings up NCCL with one rank; the pipe model at
+    pp 1 and the MoE LM at ep 1 shard over the one-rank mesh and take a
+    Trainer step each equal to the same step without the mesh (in a
+    child process: the process group is global)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pathlib
+    import subprocess
+    import sys
+    code = """
+import socket, torch
+import torch.distributed as dist
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLMPipe,
+                                     MoEConfig, MoEForCausalLM)
+from paddle_tpu_torch.optimizer import SGD, ClipGradByGlobalNorm
+from paddle_tpu_torch.parallel.api import shard_layer
+from paddle_tpu_torch.parallel.mesh import init_parallel_env
+from paddle_tpu_torch.trainer import Trainer
+s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+s.close()
+hm = init_parallel_env(init_method=f"tcp://localhost:{port}", world_size=1,
+                       rank=0)
+dev = torch.device("cuda")
+ids = torch.randint(0, 256, (4, 33), device=dev,
+                    generator=pt.generator(1, dev))
+batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+makers = (lambda: LlamaForCausalLMPipe(
+              LlamaConfig.tiny(num_hidden_layers=2), num_stages=1,
+              num_microbatches=2, pp_schedule="1f1b", device=dev,
+              generator=pt.generator(0, dev)),
+          lambda: MoEForCausalLM(MoEConfig.tiny(capacity_factor=None),
+                                 device=dev, generator=pt.generator(0, dev)))
+for make in makers:
+    losses = []
+    for mesh in (None, hm):
+        m = make()
+        if mesh is not None:
+            shard_layer(m, mesh)
+        tr = Trainer(m, SGD(learning_rate=0.1, parameters=m,
+                            grad_clip=ClipGradByGlobalNorm(0.5)))
+        losses.append([float(tr.train_step(batch)) for _ in range(2)])
+    assert losses[0] == losses[1], losses
+dist.destroy_process_group()
+print("ONE RANK OK")
+"""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "ONE RANK OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-3000:]

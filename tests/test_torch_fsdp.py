@@ -6,8 +6,8 @@ unsharded step (1e-4 in fp32); FSDP2 summing the gradients (its divide
 factor at 1: the loss is already the global mean) and the clip counting
 every element once, both read off the synced gradients and the global
 norm; a sharded save raising naming A.5; a model without a sharding
-table or a global-mean loss (the MoE LM) refused at dp 2; the
-mesh-check tool's layouts within its tolerance."""
+table or a global-mean loss (a bare Linear) refused at dp 2 and the MoE
+LM taken; the mesh-check tool's layouts within its tolerance."""
 
 import json
 
@@ -106,16 +106,16 @@ def test_mesh_check_tool_on_four_gloo_ranks(tmp_path):
 
 
 def test_model_without_table_or_global_mean_loss_is_refused(run):
-    """The tiny MoE LM (its loss is the local token mean, and it has no
-    sharding table) and a bare Linear are refused by ``shard_layer``,
-    ``group_sharded_parallel`` (on a dp 2 x tp 2 mesh) and
-    ``fleet.distributed_model`` (dp 2, mp 2), the MoE naming A.4b,
-    before any parameter is cut."""
+    """A bare Linear (no sharding table, no global-mean loss) is refused
+    by ``shard_layer``, ``group_sharded_parallel`` (on a dp 2 x tp 2
+    mesh) and ``fleet.distributed_model`` (dp 2, mp 2) before any
+    parameter is cut; the tiny MoE LM, which now carries both, is taken
+    by ``shard_layer`` and ``fleet.distributed_model`` and cut over tp."""
     _, outs = run
     for o in outs:
         msgs = json.loads(str(o["refused/msgs"]))
-        assert len(msgs) == 5 and all("_global_mean_loss" in m
-                                      for m in msgs), msgs
-        assert all("A.4b" in m for m in msgs)
-        assert "MoEForCausalLM" in msgs[0] and "Linear" in msgs[2]
-        assert bool(o["refused/moe_whole"])
+        assert len(msgs) == 5, msgs
+        assert all("_global_mean_loss" in m and "Linear" in m
+                   for m in msgs[:3]), msgs
+        assert msgs[3:] == ["no error", "no error"], msgs
+        assert bool(o["refused/moe_cut"])

@@ -234,10 +234,17 @@ def test_moe_layer_forward_and_grads_match_jax(capacity_factor):
 
 
 def test_expert_parallel_paths_refuse_without_a_mesh():
+    """The ep paths are ported (tests/test_torch_moe_ep.py holds them to
+    JAX's); without an exchange (a mesh's ep group or virtual ranks)
+    they refuse, and a layer outside a mesh never takes them."""
     layer = moe.MoELayer(16, 8, 4, device="cpu")
     for fn in (layer._forward_capacity_ep, layer._forward_dropless_ep):
-        with pytest.raises(NotImplementedError, match="A.4"):
-            fn(torch.zeros(4, 16), None, 2)
+        with pytest.raises(ValueError, match="exchange"):
+            fn([torch.zeros(4, 16)], None)
+    reads = moe.EP_HOST_READS[0]
+    layer.capacity_factor = None
+    layer(torch.zeros(1, 4, 16))
+    assert moe.EP_HOST_READS[0] == reads
 
 
 # -- the model ----------------------------------------------------------------

@@ -25,9 +25,10 @@ RANK_TIMEOUT_S = 240
 
 
 def run_ranks(world: int, scenarios: List[dict], inputs: Dict[str, np.ndarray],
-              tmp) -> List[Dict[str, np.ndarray]]:
+              tmp, during=None) -> List[Dict[str, np.ndarray]]:
     """Run ``scenarios`` ([{"fn", "key", "args"}]) on ``world`` gloo
-    ranks; returns each rank's outputs."""
+    ranks; returns each rank's outputs. ``during()`` (the parent's JAX
+    references, say) runs while the ranks do."""
     tmp = pathlib.Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     np.savez(tmp / "inputs.npz", **inputs)
@@ -42,6 +43,8 @@ def run_ranks(world: int, scenarios: List[dict], inputs: Dict[str, np.ndarray],
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
+        if during is not None:
+            during()
         for p in procs:
             out, _ = p.communicate(timeout=RANK_TIMEOUT_S)
             logs.append(out)
@@ -74,14 +77,16 @@ def _mesh(args):
 
 
 def _model(inp, args):
-    """The port's tiny Llama of ``args["cfg"]`` on the CPU with the
-    parent's (JAX's) weights."""
+    """The port's tiny Llama (``args["family"]`` "moe": MoE LM) of
+    ``args["cfg"]`` on the CPU with the parent's (JAX's) weights."""
     from paddle_tpu_torch.convert import state_dict_from_jax
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    cfg = LlamaConfig.tiny(**args.get("cfg", {}))
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+    moe = args.get("family") == "moe"
+    cfg = (MoEConfig if moe else LlamaConfig).tiny(**args.get("cfg", {}))
     pre = args.get("sd", "sd") + "/"
     sd = {k[len(pre):]: v for k, v in inp.items() if k.startswith(pre)}
-    m = LlamaForCausalLM(cfg, device="cpu")
+    m = (MoEForCausalLM if moe else LlamaForCausalLM)(cfg, device="cpu")
     m.load_state_dict(state_dict_from_jax(sd, cfg, device="cpu"))
     return m
 
@@ -101,24 +106,13 @@ def _optimizer(args, model):
                  weight_decay=0.01, grad_clip=clip)
 
 
-def _full_grads(model) -> Dict[str, np.ndarray]:
+def _full_grads(model, names=None) -> Dict[str, np.ndarray]:
     """Every synced gradient whole (FSDP2 shards gathered, then the
-    tensor shards), as full_state_dict gathers the parameters."""
-    import torch
-    from torch.distributed.tensor import DTensor
-    from paddle_tpu_torch.distributed import communication as comm
-    from paddle_tpu_torch.parallel.api import mesh_plan_of, tp_unslice
-    plan = mesh_plan_of(model)
-    out = {}
-    for name, p in model.named_parameters():
-        g = p.grad.full_tensor() if isinstance(p.grad, DTensor) else p.grad
-        sh = plan.shards[name]
-        if sh.tp_dim is not None:
-            parts = comm.all_gather(None, g.contiguous(), group=plan.tp)
-            g = tp_unslice(parts, sh.tp_dim, sh.blocks,
-                           sh.full_shape[sh.tp_dim])
-        out["grad." + name] = _np(g)
-    return out
+    tensor, expert and stage shards), as full_state_dict gathers the
+    parameters; ``names`` renames them."""
+    from paddle_tpu_torch.parallel.api import full_state_dict
+    return {"grad." + (names or {}).get(n, n): _np(g)
+            for n, g in full_state_dict(model, grads=True).items()}
 
 
 # -- scenarios ------------------------------------------------------------------
@@ -434,11 +428,12 @@ def sc_sharded_save(inp, args):
 
 
 def sc_refused(inp, args):
-    """A model that lacks a sharding table or a global-mean loss (the
-    tiny MoE LM; a bare Linear) through ``shard_layer`` on ``args``'s
-    mesh, ``group_sharded_parallel`` and ``fleet.distributed_model`` at
-    dp 2 x mp 2: each error message, and whether the MoE's parameters
-    stayed whole."""
+    """A model without a sharding table or a global-mean loss (a bare
+    Linear) through ``shard_layer`` on ``args``'s mesh,
+    ``group_sharded_parallel`` and ``fleet.distributed_model`` at dp 2 x
+    mp 2, and the tiny MoE LM (which has both) through ``shard_layer``
+    and ``fleet.distributed_model``: each error message ("no error" when
+    taken), and whether tp cut the MoE's attention."""
     from torch import nn
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
@@ -453,24 +448,144 @@ def sc_refused(inp, args):
         except NotImplementedError as e:
             return str(e)
     moe = MoEForCausalLM(MoEConfig.tiny(), device="cpu")
-    shapes = {n: tuple(p.shape) for n, p in moe.named_parameters()}
+    moe2 = MoEForCausalLM(MoEConfig.tiny(), device="cpu")
+    qkv = "layers.0.self_attn.qkv_proj"
+    shape = tuple(moe.get_parameter(qkv).shape)
     lin = nn.Linear(4, 4)
     msgs = []
     hm = _mesh(args)
     with hm:
-        for m in (moe, lin):
-            msgs.append(attempt(lambda: shard_layer(m, hm)))
-            msgs.append(attempt(lambda: group_sharded_parallel(
-                m, SGD(learning_rate=0.1, parameters=m), level="os_g")))
+        msgs.append(attempt(lambda: shard_layer(lin, hm)))
+        msgs.append(attempt(lambda: group_sharded_parallel(
+            lin, SGD(learning_rate=0.1, parameters=lin), level="os_g")))
     st = fleet.DistributedStrategy()
     st.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
     fleet.init(is_collective=True, strategy=st, devices="cpu")
-    msgs.append(attempt(lambda: fleet.distributed_model(moe)))
+    msgs.append(attempt(lambda: fleet.distributed_model(lin)))
     fleet.stop()
-    whole = all(tuple(p.shape) == shapes[n]
-                for n, p in moe.named_parameters())
+    with hm:
+        msgs.append(attempt(lambda: shard_layer(moe, hm)))
+    fleet.init(is_collective=True, strategy=st, devices="cpu")
+    msgs.append(attempt(lambda: fleet.distributed_model(moe2)))
+    fleet.stop()
+    cut = all(tuple(m.get_parameter(qkv).shape) == (shape[0], shape[1] // 2)
+              for m in (moe, moe2))
     return {"msgs": np.asarray(json.dumps(msgs)),
-            "moe_whole": np.asarray(whole)}
+            "moe_cut": np.asarray(cut)}
+
+
+def sc_pipe_train(inp, args):
+    """The tiny Llama (JAX's weights) as ``LlamaForCausalLMPipe`` on
+    ``args["mesh"]`` (pp stages, ``args["sched"]``, 2 microbatches a
+    data rank): with ``wrapper``, PipelineParallel.train_batch steps;
+    otherwise the fused step's synced gradients, their global norm and
+    the stages' peak held microbatches, then Trainer steps. Outputs under
+    the unpipelined model's names, gathered whole."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaForCausalLMPipe, pipe_name
+    from paddle_tpu_torch.parallel.api import (full_state_dict, mesh_plan_of,
+                                               shard_layer)
+    from paddle_tpu_torch.trainer import Trainer
+    base = _model(inp, args)
+    names = {pipe_name(n): n for n in base.state_dict()}
+    hm = _mesh(args)
+    out = {}
+    with hm:
+        pipe = LlamaForCausalLMPipe(
+            base.cfg, num_stages=hm.axis_size("pp"),
+            num_microbatches=args.get("micro", 2),
+            pp_schedule=args.get("sched", "1f1b"), device="cpu")
+        pipe.load_from_unpipelined(base)
+        shard_layer(pipe, hm)
+        opt = _optimizer(args, pipe)
+        plan = mesh_plan_of(pipe)
+        steps = args.get("steps", 1)
+        if args.get("wrapper"):
+            from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+                PipelineParallel
+            pp = PipelineParallel(pipe)
+            losses = []
+            for i in range(steps):
+                b = _batch(inp, f"batch{i}/")
+                losses.append(float(pp.train_batch(
+                    (b["input_ids"], b["labels"]), opt)))
+            ev = pp.eval_batch((b["input_ids"], b["labels"]),
+                               compute_loss=True)
+            out["eval_loss"] = np.asarray(float(ev))
+        else:
+            loss, _ = pipe.loss_and_grads(**plan.local_batch(_batch(inp)))
+            params = dict(pipe.named_parameters())
+            plan.sync_grads(params)
+            _, gv = plan.opt_views(params)
+            out["gnorm"] = np.asarray(float(torch.sqrt(plan.global_sq(gv))))
+            out.update(_full_grads(pipe, names))
+            out["loss0"] = np.asarray(float(loss))
+            out["peak_live"] = np.asarray(pipe.pipe_stats["peak_live"])
+            pipe.zero_grad(set_to_none=True)
+            tr = Trainer(pipe, opt)
+            losses = [float(tr.train_step(_batch(inp, f"batch{i}/")))
+                      for i in range(steps)]
+        out["losses"] = np.asarray(losses)
+        for k, v in full_state_dict(pipe).items():
+            out["param." + names[k]] = _np(v)
+    return out
+
+
+def sc_moe_layer(inp, args):
+    """One MoELayer (JAX's weights, ``args["cf"]``; None: dropless) on
+    ``args["mesh"]``: this rank's block of the global tokens, the loss
+    sum(out * dout) + aux backward, the gradients synced; the outputs,
+    input gradients, aux and gradients gathered whole. Rank 0 also runs
+    the layer over ``ep`` virtual ranks (``forward_virtual_ep``) on its
+    ep group's tokens."""
+    import torch
+    from paddle_tpu_torch.distributed import communication as c
+    from paddle_tpu_torch.parallel.api import full_state_dict, shard_layer
+    from paddle_tpu_torch.parallel.moe import EP_HOST_READS, MoELayer
+    hm = _mesh(args)
+    cf = args.get("cf")
+    x, dout = _t(inp["moe_x"]), _t(inp["moe_dout"])
+    e, d = inp["moe/gate_weight"].shape[1], x.shape[-1]
+    f = inp["moe/experts.w_down"].shape[1]
+
+    def layer():
+        lay = MoELayer(d, f, e, top_k=2, capacity_factor=cf, device="cpu")
+        lay.load_state_dict({k[4:]: _t(v) for k, v in inp.items()
+                             if k.startswith("moe/")})
+        return lay
+    out = {}
+    n, r = hm.group_size(("dp", "ep")), hm.group_rank(("dp", "ep"))
+    ep = hm.axis_size("ep")
+    if hm.rank == 0:
+        # the ep group of rank 0 holds the first ep blocks of tokens
+        virt = layer()
+        xs = [t.clone().requires_grad_(True) for t in x.chunk(n)[:ep]]
+        outs, aux = virt.forward_virtual_ep(xs, ep)
+        (sum((o * g).sum() for o, g in zip(outs, dout.chunk(n)))
+         + aux).backward()
+        out["virtual_out"] = _np(torch.cat(outs))
+        out["virtual_aux"] = np.asarray(float(aux))
+        out["virtual_dx"] = _np(torch.cat([t.grad for t in xs]))
+    lay = layer()
+    lay._sharding_annotations = {
+        "experts.w_gate_up": ((("ep", "dp", "fsdp"), None, "tp"),
+                              [(f, 1), (f, 1)]),
+        "experts.w_down": ((("ep", "dp", "fsdp"), "tp", None), None)}
+    lay._global_mean_loss = True
+    with hm:
+        shard_layer(lay, hm)
+        reads = EP_HOST_READS[0]
+        xl = x.chunk(n)[r].clone().requires_grad_(True)
+        o, aux = lay(xl)
+        ((o * dout.chunk(n)[r]).sum() + aux).backward()
+        out["host_reads"] = np.asarray(EP_HOST_READS[0] - reads)
+        lay._mesh_plan.sync_grads(dict(lay.named_parameters()))
+        data = c.Group(("dp", "ep"), hm)
+        out["out"] = _np(torch.cat(c.all_gather(None, o.detach(), data)))
+        out["dx"] = _np(torch.cat(c.all_gather(None, xl.grad, data)))
+        out["aux"] = np.asarray(float(aux))
+        out.update(_full_grads(lay))
+    return out
 
 
 def sc_mesh_check(inp, args):
@@ -485,7 +600,8 @@ SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "collectives": sc_collectives, "reshard": sc_reshard,
              "tp_layers": sc_tp_layers, "sp_attention": sc_sp_attention,
              "sharded_save": sc_sharded_save, "refused": sc_refused,
-             "mesh_check": sc_mesh_check}
+             "mesh_check": sc_mesh_check, "pipe_train": sc_pipe_train,
+             "moe_layer": sc_moe_layer}
 
 
 def main(tmp: str, rank: int, world: int) -> None:

@@ -12,6 +12,8 @@ import numpy as np
 import paddle_tpu as pt
 from paddle_tpu.models.llama import LlamaConfig as JaxConfig
 from paddle_tpu.models.llama import LlamaForCausalLM as JaxLlama
+from paddle_tpu.models.moe_lm import MoEConfig as JaxMoEConfig
+from paddle_tpu.models.moe_lm import MoEForCausalLM as JaxMoE
 from paddle_tpu.optimizer import SGD as JaxSGD
 from paddle_tpu.optimizer import AdamW as JaxAdamW
 from paddle_tpu.optimizer import clip as jclip
@@ -20,11 +22,18 @@ from paddle_tpu.trainer import Trainer as JaxTrainer
 TOL = 1e-4
 
 
-def tiny_state(seed=5, **cfg_kw):
-    """The JAX tiny Llama's weights (numpy) for ``LlamaConfig.tiny(
-    **cfg_kw)``."""
+def _family(family):
+    """(model class, config class) of "llama" or "moe" (the MoE LM)."""
+    return ((JaxMoE, JaxMoEConfig) if family == "moe"
+            else (JaxLlama, JaxConfig))
+
+
+def tiny_state(seed=5, family="llama", **cfg_kw):
+    """The JAX tiny Llama's (or MoE LM's) weights (numpy) for
+    ``LlamaConfig.tiny(**cfg_kw)`` (``MoEConfig.tiny``)."""
+    model_cls, cfg_cls = _family(family)
     pt.seed(seed)
-    jm = JaxLlama(JaxConfig.tiny(**cfg_kw))
+    jm = model_cls(cfg_cls.tiny(**cfg_kw))
     return {k: np.asarray(v) for k, v in jm.state_dict().items()}
 
 
@@ -41,16 +50,24 @@ def uneven_batch(seed=0, b=4, s=32, vocab=512):
     return {"input_ids": ids[:, :-1], "labels": labels}
 
 
-def jax_step(sd, batches, opt="adamw", lr=1e-3, clip=1.0, **cfg_kw):
+def jax_step(sd, batches, opt="adamw", lr=1e-3, clip=1.0, family="llama",
+             **cfg_kw):
     """The unsharded JAX step on ``batches[0]`` (loss, gradients and their
     global norm), then a JAX Trainer step on each batch in turn: the
-    losses and the final parameters."""
-    jm = JaxLlama(JaxConfig.tiny(**cfg_kw))
+    losses and the final parameters. ``family`` "moe": the MoE LM."""
+    model_cls, cfg_cls = _family(family)
+    jm = model_cls(cfg_cls.tiny(**cfg_kw))
     jm.set_state_dict({k: jnp.asarray(v) for k, v in sd.items()})
     params = dict(jm.raw_parameters())
     jb = {k: jnp.asarray(v) for k, v in batches[0].items()}
-    loss, grads = jax.value_and_grad(
-        lambda p: jm.functional_call(p, return_logits=False, **jb))(params)
+
+    def loss_of(p):
+        if family == "moe":
+            return jm.functional_call(p, **jb)[0]
+        return jm.functional_call(p, return_logits=False, **jb)
+    vg = jax.value_and_grad(loss_of)
+    # the MoE LM's eager autodiff takes tens of seconds: compile it
+    loss, grads = (jax.jit(vg) if family == "moe" else vg)(params)
     gnorm = float(jnp.sqrt(sum(jnp.sum(jnp.square(g.astype(jnp.float32)))
                                for g in grads.values())))
     c = jclip.ClipGradByGlobalNorm(clip)
