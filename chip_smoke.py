@@ -332,6 +332,25 @@ Phases, in order; any failure exits non-zero before the result line:
      against the layer on the whole batch: outputs, input and weight
      gradients per row, the aux loss; every grouped launch on the wgmma
      route; the host syncs of its forward and backward counted.
+ 14. the launcher, DistModel and the projection's inputs (writing only
+     launcher logs, under ``chiprun_out/launch_logs``): (a) the port's
+     launcher (``distributed.launch``, ``--devices`` this process's
+     own card, ``max_restarts`` 1) starts a 1-rank pod of this script
+     (``--launch-worker``) whose first start exits 3 (a planted
+     failure, relaunched once), second exits 75 (resumable: relaunched
+     without spending the restart budget) and third takes phase 7's 2 +
+     4 steps at 2 layers; the launch must return 0 after 3 starts, the
+     worker's card (its UUID) be this process's, and the losses equal
+     the same steps run in this process bit for bit,
+     every training kernel launched in the worker's timed steps; (b)
+     ``distributed.compat.DistModel`` trains phase 7's model (4 layers)
+     for 2 + 4 steps: its losses equal the Trainer's bit for bit; (c)
+     ``tools/bench_8b_layer.py`` at b 1, s 8192, bf16: one Llama-3-8B
+     layer forward and backward, with and without recompute, the fused
+     CE head a token and its linearity, the embedding (the projection's
+     ``measured``), every training kernel launched; then
+     ``parallel.scale.train_state_bytes`` of phase 7's configuration
+     beside phase 7's measured peak memory, as a ratio.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -2702,8 +2721,8 @@ def perturbed(torch, run, model, rel=2e-6):
     proj = llama._proj
     g = torch.Generator().manual_seed(0)
 
-    def noisy(module, x, name):
-        y = proj(module, x, name)
+    def noisy(module, x, name, tp=None):
+        y = proj(module, x, name, tp)
         return y * (1 + rel * torch.randn(y.shape, generator=g))
     llama._proj = noisy
     try:
@@ -6440,9 +6459,194 @@ def phase_pipeline(torch, pt, dev, make_cfg, b=4, s=4096):
     return out["pipe"]["1f1b"]["launches"], out["ep"]["launches"]
 
 
+# -- phase 14: the launcher, DistModel, the projection's inputs ------------
+
+LAUNCH_LAYERS = 2            # 14(a)'s model depth
+LAUNCH_STEPS = (2, 4)        # warm-up and timed steps of 14(a) and (b)
+# the worker's exits on its first starts: a planted failure, then a
+# resumable exit (preemption); the third start trains
+LAUNCH_EXITS = (3, 75)
+
+
+def launch_steps(torch, pt, dev, layers, runner="trainer"):
+    """Phase 7's model (Llama-3-8B widths, ``layers`` layers, bf16,
+    seed 10, AdamW(1e-4, weight_decay=0.01), clip 1.0) and batch (2 x
+    4096, seed 10): 2 + 4 steps through the Trainer or, with ``runner``
+    "distmodel", ``distributed.compat.DistModel``. Returns the losses
+    and the launch counts of the timed steps."""
+    from paddle_tpu_torch.distributed.compat import to_static
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.trainer import Trainer
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=layers, dtype="bfloat16")
+    batch = train_batch(torch, cfg.vocab_size, 2, 4096, dev, 10)
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=pt.generator(10, dev))
+    opt = AdamW(learning_rate=1e-4, parameters=model, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    if runner == "distmodel":
+        dm = to_static(model, optimizer=opt)
+        dm.train()
+
+        def step():
+            return dm(batch["input_ids"], batch["labels"])
+    else:
+        tr = Trainer(model, opt)
+
+        def step():
+            return tr.train_step(batch)
+    warm, n = LAUNCH_STEPS
+    losses = [float(step()) for _ in range(warm)]
+    sync(torch, dev)
+    _build.reset_launches()
+    losses += [float(step()) for _ in range(n)]
+    sync(torch, dev)
+    launches = dict(_build.LAUNCHES)
+    del model, opt
+    empty_cache(torch, dev)
+    return losses, launches
+
+
+def launch_worker() -> int:
+    """``--launch-worker OUT --starts FILE``: one rank of phase 14(a)'s
+    pod. Counts its starts in FILE; exits with LAUNCH_EXITS on the first
+    ones, then takes the steps of :func:`launch_steps` on the card the
+    launcher names and writes the losses, launches and environment to
+    OUT."""
+    out = sys.argv[sys.argv.index("--launch-worker") + 1]
+    starts = sys.argv[sys.argv.index("--starts") + 1]
+    n = int(open(starts).read()) if os.path.exists(starts) else 0
+    with open(starts, "w") as f:
+        f.write(str(n + 1))
+    if n < len(LAUNCH_EXITS):
+        return LAUNCH_EXITS[n]
+    import torch
+    if not torch.cuda.is_available():
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.parallel.mesh import local_card, pod_bootstrap_env
+    dev = torch.device("cuda", local_card(int(os.environ["LOCAL_RANK"])))
+    torch.cuda.set_device(dev)
+    _build.lib()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    losses, launches = launch_steps(torch, pt, dev, LAUNCH_LAYERS)
+    env = {k: os.environ.get(k) for k in (
+        "RANK", "WORLD_SIZE", "LOCAL_RANK", "PADDLE_TRAINER_ID",
+        "PADDLE_TRAINERS_NUM", "CUDA_VISIBLE_DEVICES",
+        "FLAGS_selected_gpus")}
+    with open(out, "w") as f:
+        json.dump({"losses": losses, "launches": launches, "env": env,
+                   "bootstrap": pod_bootstrap_env(), "device": str(dev),
+                   "uuid": card_uuid(torch, dev), "card": pt.device_info()},
+                  f)
+    return 0
+
+
+def card_uuid(torch, dev) -> str:
+    """The card's UUID, which names it whatever a process sees of the
+    machine's cards."""
+    return str(torch.cuda.get_device_properties(dev).uuid)
+
+
+def visible_entry(torch, dev) -> str:
+    """This process's card as the launcher's ``--devices`` takes it: its
+    entry in CUDA_VISIBLE_DEVICES (an index or a UUID), else its
+    index."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return vis.split(",")[i].strip() if vis else str(i)
+
+
+def phase_launcher(torch, pt, dev, make_cfg):
+    """Phase 14 (see the module docstring). Returns the launch counts of
+    the launched worker's timed steps, DistModel's and the bench's."""
+    from paddle_tpu_torch.distributed.launch import LaunchConfig, launch
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.parallel.scale import train_state_bytes
+    from paddle_tpu_torch.tools.bench_8b_layer import measure
+    out = RESULTS.setdefault("launcher", {})
+    fails = []
+    # (a) the launcher: a planted failure, a resumable exit, the steps
+    logdir = os.path.join(ROOT_OUT, "launch_logs")
+    os.makedirs(logdir, exist_ok=True)
+    starts = os.path.join(logdir, "starts")
+    result = os.path.join(logdir, "worker.json")
+    for f in (starts, result):
+        if os.path.exists(f):
+            os.remove(f)
+    # the worker is shown this process's card alone
+    cfg = LaunchConfig(nproc_per_node=1, log_dir=logdir, max_restarts=1,
+                       devices=visible_entry(torch, dev))
+    t0 = time.perf_counter()
+    code = launch(cfg, os.path.abspath(__file__),
+                  ["--launch-worker", result, "--starts", starts])
+    secs = time.perf_counter() - t0
+    worker = (json.load(open(result)) if os.path.exists(result)
+              else {"losses": [], "launches": {}})
+    n_starts = int(open(starts).read())
+    ref, _ = launch_steps(torch, pt, dev, LAUNCH_LAYERS)
+    missing = [k for k in TRAINING_KERNELS
+               if worker["launches"].get(k, 0) <= 0]
+    mine = card_uuid(torch, dev)
+    a = {"exit_code": code, "starts": n_starts, "seconds": secs,
+         "losses": worker["losses"], "in_process_losses": ref,
+         "equal": worker["losses"] == ref, "env": worker.get("env"),
+         "card_uuid": mine, "worker_card_uuid": worker.get("uuid"),
+         "same_card": worker.get("uuid") == mine,
+         "missing_kernels": missing}
+    out["launch"] = a
+    log(f"launcher: exit {code} after {n_starts} starts (3, 75, then the "
+        f"steps) in {secs:.1f} s; worker env {worker.get('env')}, card "
+        f"{worker.get('uuid')} (this process's {mine}); losses "
+        f"{worker['losses']} vs in-process {ref}: equal {a['equal']}")
+    if code != 0 or n_starts != len(LAUNCH_EXITS) + 1 or not a["equal"] \
+            or not a["same_card"] or missing:
+        fails.append("launch")
+    # (b) DistModel against the Trainer
+    dm, dm_launches = launch_steps(torch, pt, dev, 4, "distmodel")
+    tr, _ = launch_steps(torch, pt, dev, 4)
+    out["dist_model"] = {"losses": dm, "trainer_losses": tr,
+                         "equal": dm == tr}
+    log(f"DistModel: losses {dm} vs Trainer {tr}: equal {dm == tr}")
+    if dm != tr:
+        fails.append("dist_model")
+    # (c) the projection's inputs, and the memory model against phase 7
+    m = measure()
+    out["bench_8b_layer"] = m
+    log(f"bench_8b_layer (b 1, s 8192, bf16, {m['device']}): layer "
+        f"{m['layer_us']:.1f} us ({m.get('layer_tflops')} TFLOP/s), "
+        f"recompute {m['layer_remat_us']:.1f} us, head "
+        f"{m['head_us_per_token']:.4f} us/token (linearity "
+        f"{m['head_linearity']:.4f}), embedding {m['embed_us']:.1f} us")
+    missing = [k for k in TRAINING_KERNELS if m["launches"].get(k, 0) <= 0]
+    if missing:
+        fails.append(f"bench_8b_layer missing {missing}")
+    cfg7 = make_cfg(num_hidden_layers=4, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg7, device="meta")
+    est = train_state_bytes(model, {}, seq_len=4096, microbatch_size=2,
+                            recompute="none")
+    peak = RESULTS.get("training", {}).get("peak_memory_bytes")
+    out["scale"] = {"estimate": est, "measured_peak_bytes": peak,
+                    "ratio": est["total"] / peak if peak else None}
+    log(f"scale.train_state_bytes, phase 7's configuration: "
+        f"{est['total']:.0f} bytes (params {est['params']:.0f}, "
+        f"optimizer {est['optimizer']:.0f}, activations "
+        f"{est['activations']:.0f}) against phase 7's measured peak "
+        f"{peak}: ratio {out['scale']['ratio']}")
+    if fails:
+        raise SystemExit(f"phase 14 checks failed: {fails}")
+    return worker["launches"], dm_launches, m["launches"]
+
+
 def main() -> int:
     if "--client-process" in sys.argv:
         return client_process()
+    if "--launch-worker" in sys.argv:
+        return launch_worker()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6520,12 +6724,17 @@ def main() -> int:
     pipe_launches, ep_launches = phase_pipeline(torch, pt, dev,
                                                 LlamaConfig.llama3_8b)
     mark("13 pipeline")
+    launcher_launches, dm_launches, bench_launches = phase_launcher(
+        torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("14 launcher")
     mesh_paths = {"mesh": mesh_launches,
                   "ring_blocks": RESULTS["mesh"]["ring"]["causal"][
                       "launches"],
                   "vocab_shards": RESULTS["mesh"]["vocab_shards"][
                       "launches"],
-                  "pipeline": pipe_launches, "ep_virtual": ep_launches}
+                  "pipeline": pipe_launches, "ep_virtual": ep_launches,
+                  "launcher": launcher_launches, "dist_model": dm_launches,
+                  "bench_8b_layer": bench_launches}
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
@@ -6577,7 +6786,8 @@ def main() -> int:
             # eight optimizers' runs, phase 5c's
             # feature runs, 5d's fabric runs and 5e's front-door window,
             # phase 12's mesh steps, virtual ring and vocabulary shards,
-            # phase 13's 1F1B pipeline steps and virtual ep pass,
+            # phase 13's 1F1B pipeline steps and virtual ep pass, phase
+            # 14's launched worker, DistModel and bench_8b_layer runs,
             # and each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,

@@ -3,7 +3,11 @@
 over ``torch.distributed`` — the process-group bootstrap and the device
 mesh, the per-rank collectives, the semi-auto API (``shard_tensor``,
 ``shard_layer``), the hybrid topology, ``DistributedStrategy``,
-``fleet``, ``group_sharded_parallel`` — and activation recompute.
+``fleet``, ``group_sharded_parallel``, activation recompute, the
+launcher (``launch``), ``rpc``, the comm/compute ``overlap``, the
+``compat`` surface (ProcessMesh, DistModel, object collectives,
+``spawn``, ...), the ``auto_tuner`` and the distributed ``io`` and
+``utils``.
 
 The collectives and recompute load with the package; the rest on first
 use, so that the modules they build on (``parallel.api`` among them) may
@@ -35,15 +39,24 @@ _LAZY = {
     "DistributedStrategy": ".strategy",
     "group_sharded_parallel": ".sharding",
     "save_group_sharded_model": ".sharding",
+    "save_state_dict": "..checkpoint", "load_state_dict": "..checkpoint",
 }
+# the compat surface (JAX's distributed/__init__ imports it by name)
+_COMPAT = ("ProcessMesh", "DistAttr", "ReduceType", "dtensor_from_fn",
+           "unshard_dtensor", "shard_optimizer", "Strategy", "DistModel",
+           "to_static", "ParallelEnv", "ParallelMode", "is_available",
+           "is_initialized", "destroy_process_group", "get_backend",
+           "get_group", "wait", "send", "recv", "alltoall_single",
+           "all_gather_object", "broadcast_object_list",
+           "scatter_object_list", "gloo_init_parallel_env", "gloo_barrier",
+           "gloo_release", "spawn", "split", "InMemoryDataset",
+           "QueueDataset", "CountFilterEntry", "ProbabilityEntry",
+           "ShowClickEntry")
+_LAZY.update({n: ".compat" for n in _COMPAT})
 _SUBMODULES = ("fleet", "sharding", "strategy", "topology", "collective",
-               "parallel", "communication", "recompute", "watchdog")
-
-
-# the JAX package's modules that wait for ROADMAP.md A.4c (the
-# launcher, the overlap and compat layers, rpc, the auto-tuner, the
-# distributed io and utils): reaching one raises naming it
-LATER = ("launch", "overlap", "compat", "rpc", "auto_tuner", "io", "utils")
+               "parallel", "communication", "recompute", "watchdog",
+               "launch", "overlap", "compat", "rpc", "auto_tuner", "io",
+               "utils")
 
 
 def __getattr__(name):
@@ -51,10 +64,6 @@ def __getattr__(name):
         return getattr(importlib.import_module(_LAZY[name], __name__), name)
     if name in _SUBMODULES:
         return importlib.import_module("." + name, __name__)
-    if name in LATER:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.{name} is not ported yet: it "
-            f"comes with ROADMAP.md A.4c")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -156,19 +156,45 @@ def _is_gloo(pg) -> bool:
 
 # -- per-rank collectives -----------------------------------------------------
 
+class Task:
+    """The handle of a collective started with ``sync_op=False``
+    (Paddle's task): :meth:`wait` waits for it (on the card the current
+    stream waits for NCCL's; the host does not) and completes its result
+    in place."""
+
+    def __init__(self, work=None, finish=None):
+        self._work, self._finish = work, finish
+
+    def wait(self) -> bool:
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._finish is not None:
+            self._finish()
+            self._finish = None
+        return True
+
+    def is_completed(self) -> bool:
+        return self._work is None and self._finish is None
+
+
 def all_reduce(tensor: torch.Tensor, op: str = ReduceOp.SUM, group=None,
-               sync_op: bool = True) -> torch.Tensor:
+               sync_op: bool = True):
     """Reduce ``tensor`` over the group IN PLACE (SUM, MAX, MIN, PROD or
-    AVG) and return it."""
+    AVG) and return it; with ``sync_op=False`` start it and return its
+    :class:`Task`."""
     pg, n, _, _ = _pg(group)
     if op not in _TORCH_OP and op != ReduceOp.AVG:
         raise NotImplementedError(f"all_reduce op {op!r}")
     if n == 1:
-        return tensor
-    if op == ReduceOp.AVG:
-        dist.all_reduce(tensor, dist.ReduceOp.SUM, group=pg)
-        return tensor.div_(n)
-    dist.all_reduce(tensor, _TORCH_OP[op], group=pg)
+        return tensor if sync_op else Task()
+    finish = (lambda: tensor.div_(n)) if op == ReduceOp.AVG else None
+    work = dist.all_reduce(tensor, _TORCH_OP.get(op, dist.ReduceOp.SUM),
+                           group=pg, async_op=not sync_op)
+    if not sync_op:
+        return Task(work, finish)
+    if finish is not None:
+        finish()
     return tensor
 
 
@@ -203,24 +229,35 @@ def _chunks(x: Union[torch.Tensor, Sequence[torch.Tensor]], n: int):
 
 def reduce_scatter(tensor: Optional[torch.Tensor], tensor_list,
                    op: str = ReduceOp.SUM, group=None,
-                   sync_op: bool = True) -> torch.Tensor:
+                   sync_op: bool = True):
     """``tensor_list`` (n tensors, or one tensor split along dim 0) is
     summed elementwise over the group; rank ``i`` receives chunk ``i``,
-    into ``tensor`` when given."""
+    into ``tensor`` when given, and it is returned; with
+    ``sync_op=False`` the :class:`Task` is (``tensor`` holds the chunk
+    after its ``wait()``)."""
     if op != ReduceOp.SUM:
         raise NotImplementedError("reduce_scatter supports SUM")
     pg, n, me, _ = _pg(group)
     parts = _chunks(tensor_list, n)
     out = tensor if tensor is not None else torch.empty_like(parts[me])
+    work = finish = None
     if n == 1:
-        return out.copy_(parts[0])
-    if _is_gloo(pg):
+        out.copy_(parts[0])
+    elif _is_gloo(pg):
         full = torch.cat([p.reshape(-1) for p in parts])
-        dist.all_reduce(full, group=pg)
+        work = dist.all_reduce(full, group=pg, async_op=not sync_op)
         size = parts[me].numel()
         off = sum(p.numel() for p in parts[:me])
-        return out.copy_(full[off:off + size].view(parts[me].shape))
-    dist.reduce_scatter(out, [p.contiguous() for p in parts], group=pg)
+
+        def finish():
+            out.copy_(full[off:off + size].view(parts[me].shape))
+    else:
+        work = dist.reduce_scatter(out, [p.contiguous() for p in parts],
+                                   group=pg, async_op=not sync_op)
+    if not sync_op:
+        return Task(work, finish)
+    if finish is not None:
+        finish()
     return out
 
 
@@ -585,9 +622,10 @@ def all_reduce_max_(x: torch.Tensor, group=None) -> torch.Tensor:
     return x
 
 
-__all__ = ["ReduceOp", "Group", "new_group", "get_rank", "get_world_size",
-           "barrier", "all_reduce", "all_gather", "reduce_scatter",
-           "alltoall", "broadcast", "reduce", "scatter", "gather", "P2POp",
+__all__ = ["ReduceOp", "Group", "Task", "new_group", "get_rank",
+           "get_world_size", "barrier", "all_reduce", "all_gather",
+           "reduce_scatter", "alltoall", "broadcast", "reduce", "scatter",
+           "gather", "P2POp",
            "isend", "irecv", "batch_isend_irecv", "ppermute", "send_recv",
            "send_to", "stream", "copy_to_group", "reduce_from_group",
            "gather_from_group", "scatter_to_group",

@@ -15,7 +15,9 @@ gradient over the ranks replicating it and clips by the global norm.
 ``LlamaForCausalLMPipe``, keeps its stage on each rank; train it
 through ``Trainer`` or ``meta_parallel.PipelineParallel``);
 ``ep_degree`` > 1 carves an expert axis out of the data ranks (the MoE
-LM's experts split over it).
+LM's experts split over it). The strategy's overlap knobs
+(``mp_async_allreduce``, ``sharding.comm_overlap``) select nothing: every
+mesh step overlaps its collectives (``distributed.overlap``).
 """
 
 from __future__ import annotations

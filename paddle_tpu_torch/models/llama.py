@@ -225,15 +225,17 @@ class _Init:
     """Where, in what type and from which generator a model's parameters
     are drawn: one object threaded through every constructor. With
     ``draw=False`` float weights are left uninitialised (``torch.empty``)
-    for a caller that loads a state dict next."""
+    for a caller that loads a state dict next; on the meta device (shapes
+    and dtypes alone, ``parallel.scale``) nothing is drawn."""
 
     def __init__(self, cfg: LlamaConfig, device, dtype, generator,
                  draw: bool = True):
         self.device = resolve_device(device)
         self.dtype = dtype_of(dtype if dtype is not None else cfg.dtype)
         self.int8 = cfg.weight_dtype == "int8"
-        self.draw = draw
-        self.generator = (generator if generator is not None or not draw
+        self.draw = draw and self.device.type != "meta"
+        self.generator = (generator if generator is not None
+                          or not self.draw
                           else make_generator(0, self.device))
         self.normal = Normal(0.0, cfg.initializer_range)
 
@@ -263,16 +265,22 @@ class _Init:
             requires_grad=False))
 
 
-def _proj(module: nn.Module, x: torch.Tensor, name: str) -> torch.Tensor:
+def _proj(module: nn.Module, x: torch.Tensor, name: str,
+          tp=None) -> torch.Tensor:
     """The one weight product every Llama linear goes through, as in the
     JAX model: a native weight is a dense ``x @ w`` in x's dtype; an int8
     weight (it has a ``<name>_scale`` twin) goes through
     ``ops.quant.quantized_matmul`` — the int8 matrix product kernel on
-    the card."""
+    the card. ``tp``: the input enters a tensor-parallel region here
+    (``distributed.overlap.copy_matmul``: copied in, its gradient
+    all-reduced over tp, overlapped with dW's product)."""
     w = getattr(module, name)
     scale = getattr(module, name + "_scale", None)
     if scale is not None:
         return quantized_matmul(x, w, scale)
+    if tp is not None:
+        from ..distributed.overlap import copy_matmul
+        return copy_matmul(x, w.to(x.dtype), tp)
     return torch.matmul(x, w.to(x.dtype))
 
 
@@ -514,16 +522,18 @@ class LlamaAttention(nn.Module):
         tp = self._mesh_plan.tp_size if self._mesh_plan is not None else 1
         return n_h // tp, max(n_kv // tp, 1)
 
-    def _qkv_rope(self, x, cos, sin, position_ids=None, neg_sin=None):
+    def _qkv_rope(self, x, cos, sin, position_ids=None, neg_sin=None,
+                  tp=None):
         """Fused QKV projection + head split + rotary embedding. q, k and
         v are views of the one projection output; the RoPE kernel reads
         q and k through their strides. ``neg_sin`` is the backward's
-        table (the model's buffer)."""
+        table (the model's buffer); ``tp`` the tensor-parallel group the
+        input enters (:func:`_proj`)."""
         cfg = self.cfg
         b, s, _ = x.shape
         n_h, n_kv = self._heads()
         hd = cfg.head_dim
-        qkv = _proj(self, x, "qkv_proj")
+        qkv = _proj(self, x, "qkv_proj", tp)
         q, k, v = torch.split(qkv, [n_h * hd, n_kv * hd, n_kv * hd], dim=-1)
         q = q.view(b, s, n_h, hd)
         k = k.view(b, s, n_kv, hd)
@@ -546,12 +556,9 @@ class LlamaAttention(nn.Module):
         it to ``_sdpa_xla``. On a mesh: the block is tensor-parallel
         over ``tp`` (input copied in, output all-reduced) and, with
         sequence parallelism, attends through :meth:`_sp_attention`."""
-        from ..distributed.communication import (copy_to_group,
-                                                 reduce_from_group)
+        from ..distributed.communication import reduce_from_group
         tp = _tp_group(self._mesh_plan)
-        if tp is not None:
-            x = copy_to_group(x, tp)
-        q, k, v = self._qkv_rope(x, cos, sin, position_ids, neg_sin)
+        q, k, v = self._qkv_rope(x, cos, sin, position_ids, neg_sin, tp)
         out = self._sp_attention(q, k, v, attn_mask, segment_ids)
         if out is None and self.cfg.use_flash_attention:
             out = ptF.scaled_dot_product_attention(
@@ -726,12 +733,9 @@ class LlamaMLP(nn.Module):
     def forward(self, x):
         """SwiGLU; tensor-parallel on a mesh (this rank's [gate | up]
         columns and down rows, the output all-reduced)."""
-        from ..distributed.communication import (copy_to_group,
-                                                 reduce_from_group)
+        from ..distributed.communication import reduce_from_group
         tp = _tp_group(self._mesh_plan)
-        if tp is not None:
-            x = copy_to_group(x, tp)
-        g, u = _proj(self, x, "gate_up_proj").chunk(2, dim=-1)
+        g, u = _proj(self, x, "gate_up_proj", tp).chunk(2, dim=-1)
         y = _proj(self, F.silu(g) * u, "down_proj")
         return y if tp is None else reduce_from_group(y, tp)
 

@@ -233,6 +233,17 @@ class MeshPlan:
         self._grad_chunks: Dict[str, torch.Tensor] = {}
         # name -> the model's parameter (FSDP2 replaces them: refreshed)
         self.params: Dict[str, torch.Tensor] = {}
+        # comm overlap (distributed.overlap "sharding_comm_overlap"):
+        # whether the hooks start the gradient sums in this backward, the
+        # division they apply first, the groups, the sums started (name
+        # -> task), the parameters hooked, and the count of sums started
+        # (for the tests)
+        self._armed = False
+        self._divide = 1
+        self._groups = None
+        self._pending: Dict[str, comm.Task] = {}
+        self._hooked: set = set()
+        self.sync_issues = 0
 
     # -- the batch -------------------------------------------------------------
 
@@ -267,6 +278,93 @@ class MeshPlan:
         lo = min(self.mesh.coordinate("fsdp") * c, n)
         return lo, min(lo + c, n), c
 
+    def _sync_groups(self):
+        """(dense, expert, fsdp): the groups a gradient is summed over."""
+        hm = self.mesh
+        rest = (("dp", "ep", "sep") if self.level in ("fsdp2", "os_g")
+                else hm.data_axes)
+        return (comm.Group(rest, hm),
+                comm.Group(tuple(a for a in rest if a != "ep"), hm),
+                comm.Group("fsdp", hm))
+
+    def _sync_one(self, name: str, g: torch.Tensor, groups,
+                  sync_op: bool = True):
+        """Parameter ``name``'s sums of its local gradient ``g``
+        (:meth:`sync_grads`); with ``sync_op=False`` the last one's
+        :class:`~paddle_tpu_torch.distributed.communication.Task` (an os_g
+        reduce-scatter behind a dense sum waits for that sum first: on
+        the card a stream wait, not a host sync)."""
+        dense, expert, fsdp = groups
+        sh = self.shards.get(name)
+        for lo, hi, grp, _ in (sh.reps if sh else ()):
+            cols = g.narrow(sh.tp_dim, lo, hi - lo)
+            if grp is not None:
+                buf = cols.contiguous()
+                comm.all_reduce(buf, group=grp)
+                cols.copy_(buf)
+        task = comm.all_reduce(g, group=expert if sh is not None
+                               and sh.ep_dim is not None else dense,
+                               sync_op=sync_op)
+        if self.level != "os_g":
+            return task
+        if not sync_op:
+            task.wait()
+        n = g.numel()
+        lo, hi, c = self._chunk(n)
+        flat = torch.zeros(c * self.mesh.axis_size("fsdp"), dtype=g.dtype,
+                           device=g.device)
+        flat[:n] = g.reshape(-1)
+        out = torch.empty(c, dtype=g.dtype, device=g.device)
+        # this rank's chunk: read after the sum (sync_grads waits first)
+        self._grad_chunks[name] = out[:hi - lo]
+        return comm.reduce_scatter(out, flat, group=fsdp, sync_op=sync_op)
+
+    # -- overlap --------------------------------------------------------------
+
+    def arm_grad_sync(self, params: Dict[str, torch.Tensor],
+                      divide: int = 1) -> bool:
+        """Before the step's last backward: each gradient's sums start
+        from a post-accumulate-grad hook as soon as it is final
+        (``distributed.overlap``, "sharding_comm_overlap"), ``divide``
+        (the microbatches) applied first as the step would;
+        :meth:`sync_grads` then waits for them. Not for FSDP2 ("fsdp2",
+        whose own hooks reduce-scatter and overlap), nor under
+        ``overlap.serial_reference``. Returns whether armed."""
+        from ..distributed.overlap import overlapped
+        if not overlapped() or self.level == "fsdp2":
+            return False
+        for name, p in params.items():
+            if name not in self._hooked:
+                p.register_post_accumulate_grad_hook(
+                    lambda p, name=name: self._on_grad(name, p))
+                self._hooked.add(name)
+        self._armed, self._divide, self._pending = True, int(divide), {}
+        self._grad_chunks = {}
+        self._groups = self._sync_groups()
+        return True
+
+    def sync_started(self, name: str) -> bool:
+        """Whether parameter ``name``'s sums started in the backward."""
+        return name in self._pending
+
+    @torch.no_grad()
+    def _on_grad(self, name: str, p: torch.Tensor) -> None:
+        if not self._armed:
+            return
+        if name in self._pending:
+            raise RuntimeError(
+                f"{name}: its gradient was accumulated again after its sum "
+                f"started (a parameter used in two backward passes of one "
+                f"step is not supported on a mesh; take one backward a "
+                f"microbatch)")
+        g = _local(p.grad)
+        if self._divide > 1:
+            g.div_(self._divide)
+        with torch.profiler.record_function("overlap::grad_sync"):
+            self._pending[name] = self._sync_one(name, g, self._groups,
+                                                 sync_op=False)
+        self.sync_issues += 1
+
     @torch.no_grad()
     def sync_grads(self, params: Dict[str, torch.Tensor]) -> None:
         """Sum each local gradient over the ranks that hold the same
@@ -275,37 +373,17 @@ class MeshPlan:
         over it ("os_g": reduce-scatter into this rank's chunk). An
         expert weight is split over ep, so its gradient (the all-to-all's
         backward has brought it every ep rank's tokens) is summed over
-        the other axes only."""
-        hm = self.mesh
-        level = self.level
-        rest = (("dp", "ep", "sep") if level in ("fsdp2", "os_g")
-                else hm.data_axes)
-        dense = comm.Group(rest, hm)
-        expert = comm.Group(tuple(a for a in rest if a != "ep"), hm)
-        fsdp = comm.Group("fsdp", hm)
-        self._grad_chunks = {}
+        the other axes only. The sums the backward started
+        (:meth:`arm_grad_sync`) are waited for here, in order."""
+        pending, self._pending, self._armed = self._pending, {}, False
+        if not pending:
+            self._grad_chunks = {}
+        groups = self._sync_groups()
         for name, p in params.items():
-            if p.grad is None:
-                continue
-            g = _local(p.grad)
-            sh = self.shards.get(name)
-            for lo, hi, grp, _ in (sh.reps if sh else ()):
-                cols = g.narrow(sh.tp_dim, lo, hi - lo)
-                if grp is not None:
-                    buf = cols.contiguous()
-                    comm.all_reduce(buf, group=grp)
-                    cols.copy_(buf)
-            comm.all_reduce(g, group=expert if sh is not None
-                            and sh.ep_dim is not None else dense)
-            if level == "os_g":
-                n = g.numel()
-                lo, hi, c = self._chunk(n)
-                flat = torch.zeros(c * hm.axis_size("fsdp"), dtype=g.dtype,
-                                   device=g.device)
-                flat[:n] = g.reshape(-1)
-                out = torch.empty(c, dtype=g.dtype, device=g.device)
-                comm.reduce_scatter(out, flat, group=fsdp)
-                self._grad_chunks[name] = out[:hi - lo]
+            if name in pending:
+                pending[name].wait()
+            elif p.grad is not None:
+                self._sync_one(name, _local(p.grad), groups)
 
     def opt_views(self, params: Dict[str, torch.Tensor]):
         """(params, grads): the tensors the optimizer updates in place,

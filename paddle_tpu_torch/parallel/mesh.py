@@ -291,6 +291,15 @@ def pod_bootstrap_env() -> Optional[dict]:
     return None
 
 
+def local_card(local_rank: int) -> int:
+    """The index of the card a rank takes among those it sees: its local
+    rank modulo their count, so a rank shown one card (the launcher's
+    ``--devices``) takes card 0. Read from the rendezvous alone:
+    ``FLAGS_selected_gpus`` and the like, which a Paddle user may have
+    exported, choose nothing."""
+    return int(local_rank) % max(torch.cuda.device_count(), 1)
+
+
 def init_parallel_env(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1,
                       sep: int = 1, ep: int = 1, backend: str = "nccl",
                       init_method: Optional[str] = None,
@@ -305,17 +314,17 @@ def init_parallel_env(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1,
     when given (a ``file://`` path or ``tcp://host:port``), else
     :func:`pod_bootstrap_env`, else a group of one on a private
     ``file://`` store beside the process. ``backend`` defaults to NCCL
-    and ``device`` to the card, whose index is the local rank; the CPU
-    runs ask for ``backend="gloo", device="cpu"``. There is no
-    fallback: a backend that fails to start raises. An initialised
-    group is reused."""
+    and ``device`` to the card :func:`local_card` names; the CPU runs
+    ask for ``backend="gloo", device="cpu"``. There is no fallback: a
+    backend that fails to start raises. An initialised group is
+    reused."""
     if not dist.is_initialized():
         env = pod_bootstrap_env()
         local = 0
         if init_method is None and env is not None:
             init_method, world_size, rank = (env["init_method"],
                                              env["world_size"], env["rank"])
-            local = env["local_rank"]
+            local = local_card(env["local_rank"])
         elif init_method is None:
             import tempfile
             init_method = "file://" + os.path.join(
@@ -335,4 +344,5 @@ def init_parallel_env(dp: int = 1, fsdp: int = 1, tp: int = 1, pp: int = 1,
 
 
 __all__ = ["AXES_ORDER", "AXES_ORDER_EP", "DATA_AXES", "HybridMesh",
-           "current_mesh", "pod_bootstrap_env", "init_parallel_env"]
+           "current_mesh", "pod_bootstrap_env", "local_card",
+           "init_parallel_env"]

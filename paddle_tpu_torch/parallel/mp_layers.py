@@ -8,7 +8,8 @@ parallel linear copies its input into the tensor region (the gradient
 all-reduced over ``tp``) and leaves its output sharded; a row-parallel
 linear all-reduces its partial output (the gradient passed as it is).
 A layer is built at its FULL sizes and keeps this rank's part: pass the
-full weight to :meth:`load_full` to cut it.
+full weight to :meth:`load_full` to cut it. Without a tp axis over 1 a
+layer is the plain one and calls no collective.
 
 The vocab-parallel cross entropies merge per-shard statistics: a MAX
 all-reduce that is not differentiated (JAX's ``stop_gradient`` of the
@@ -28,6 +29,7 @@ from ..distributed.communication import (Group, all_reduce_max_,
                                          copy_to_group, gather_from_group,
                                          reduce_from_group,
                                          reduce_scatter_to_group)
+from ..distributed.overlap import copy_matmul
 from ..nn.initializer import Normal
 from .mesh import current_mesh
 
@@ -82,7 +84,8 @@ class VocabParallelEmbedding(_TPLayer):
         local = torch.where(inside, ids - lo, 0)
         out = F.embedding(local, self.weight) * inside[..., None].to(
             self.weight.dtype)
-        return reduce_from_group(out, self._group)
+        return (out if self._group is None
+                else reduce_from_group(out, self._group))
 
 
 class ColumnParallelLinear(_TPLayer):
@@ -111,12 +114,11 @@ class ColumnParallelLinear(_TPLayer):
                 self.bias.copy_(self._part(b, 0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = copy_to_group(x, self._group)
-        y = torch.matmul(x, self.weight.to(x.dtype))
+        y = copy_matmul(x, self.weight.to(x.dtype), self._group)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return (gather_from_group(y, self._group, dim=-1)
-                if self.gather_output else y)
+                if self.gather_output and self._group is not None else y)
 
 
 class RowParallelLinear(_TPLayer):
@@ -147,12 +149,14 @@ class RowParallelLinear(_TPLayer):
 
     def _partial(self, x: torch.Tensor) -> torch.Tensor:
         if not self.input_is_parallel:
-            x = copy_to_group(x, self._group)
-            x = x.chunk(self.tp, dim=-1)[self.tp_rank]
+            return copy_matmul(x, self.weight.to(x.dtype), self._group,
+                               chunk=True)
         return torch.matmul(x, self.weight.to(x.dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = reduce_from_group(self._partial(x), self._group)
+        y = self._partial(x)
+        if self._group is not None:
+            y = reduce_from_group(y, self._group)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y

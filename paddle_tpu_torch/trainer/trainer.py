@@ -62,10 +62,14 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import observability as _obs
 from ..checkpoint import writer
 from ..device import device_info
+# the span around each microbatch's forward and backward, in which
+# distributed.overlap's collectives_in_loop counts the sums started
+from ..distributed.overlap import MICROBATCH_SPAN
 from ..optimizer.optimizer import Optimizer, place_opt_state
 from ..profiler import RecordEvent
 
@@ -281,6 +285,13 @@ class Trainer:
         loss.backward()
         return loss.detach()
 
+    def _arm(self, A: int) -> None:
+        """Before the step's last backward on a mesh: let the plan start
+        each gradient's sums as soon as it is final (the comm overlap;
+        not a pipeline's fused step)."""
+        if self._plan is not None and not self._fused:
+            self._plan.arm_grad_sync(self.params, divide=A)
+
     def _one_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         lr = self._lr()
         for p in self.params.values():
@@ -290,16 +301,23 @@ class Trainer:
         if plan is not None:
             batch = plan.local_batch(batch, lead=int(A > 1))
         if A == 1:
-            loss = self._loss_backward(batch)
+            self._arm(A)
+            with record_function(MICROBATCH_SPAN):
+                loss = self._loss_backward(batch)
         else:
             loss = None
             for i in range(A):
-                li = self._loss_backward({k: v[i] for k, v in batch.items()})
+                if i == A - 1:
+                    self._arm(A)
+                with record_function(MICROBATCH_SPAN):
+                    li = self._loss_backward({k: v[i]
+                                              for k, v in batch.items()})
                 loss = li if loss is None else loss + li
             loss = loss / A
             with torch.no_grad():
-                for p in self.params.values():
-                    if p.grad is not None:
+                for n, p in self.params.items():
+                    if p.grad is not None and not (
+                            plan is not None and plan.sync_started(n)):
                         p.grad.div_(A)
         if plan is not None:
             plan.sync_grads(self.params)

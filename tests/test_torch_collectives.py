@@ -265,27 +265,50 @@ def test_pod_bootstrap_env_reads_torchrun_then_paddle(monkeypatch):
 
 
 def test_pipeline_paths_raise_naming_a4b():
-    """A.4b is ported: the paths it leaves for later (the launcher, the
-    overlap / compat / rpc / auto-tuner / io / utils modules, the
-    parallel scale and projection modules) raise naming A.4c where they
-    are reached; PipelineParallel refuses a model that is no pipeline
-    with TypeError, as JAX's does; PipelineOptimizer names its
+    """A.4c is ported: every module it brought imports and exposes the
+    JAX module's public names (less the XLA-flag vetting of
+    ``overlap`` and the TPU constants of ``projection``, whose
+    projections take the hardware as an argument); the A.5 paths still
+    raise naming A.5; PipelineParallel refuses a model that is no
+    pipeline with TypeError, as JAX's does; PipelineOptimizer names its
     replacement."""
+    import importlib
+    import tempfile
     from torch import nn
     import paddle_tpu_torch.incubate.optimizer as inc
-    from paddle_tpu_torch import distributed, parallel
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.checkpoint import load_state_dict
     from paddle_tpu_torch.distributed.fleet.meta_parallel import \
         PipelineParallel
-    for pkg, names in ((distributed, distributed.LATER),
-                       (parallel, parallel.LATER)):
-        for name in names:
-            with pytest.raises(NotImplementedError, match="A.4c"):
-                getattr(pkg, name)
-    with pytest.raises(NotImplementedError, match="A.4c"):
-        from paddle_tpu_torch.distributed import launch  # noqa: F401
-    assert set(distributed.LATER) == {"launch", "overlap", "compat", "rpc",
-                                      "auto_tuner", "io", "utils"}
-    assert set(parallel.LATER) == {"scale", "projection"}
+    from paddle_tpu_torch.resilience.reshard import write_plan
+    assert not hasattr(distributed, "LATER")
+    # JAX name -> the port's, where the port renames or leaves one out
+    renamed = {"project_llama3_8b_v5p64": "project_llama3_8b",
+               "project_llama3_70b_v5p64": "project_llama3_70b"}
+    left_out = {"OVERLAP_XLA_FLAGS", "apply_overlap_flags",
+                "validate_xla_flags", "PEAK_BF16", "HBM_BW", "ICI_AGG"}
+    for mod in ("distributed.launch", "distributed.launch.master",
+                "distributed.overlap", "distributed.compat",
+                "distributed.rpc", "distributed.auto_tuner",
+                "distributed.io", "distributed.utils", "parallel.scale",
+                "parallel.projection"):
+        jmod = importlib.import_module("paddle_tpu." + mod)
+        mine = importlib.import_module("paddle_tpu_torch." + mod)
+        names = getattr(jmod, "__all__", None) or [
+            n for n, v in vars(jmod).items() if not n.startswith("_")
+            and getattr(v, "__module__", None) == jmod.__name__]
+        assert names, mod
+        for n in set(names) - left_out:
+            assert hasattr(mine, renamed.get(n, n)), (mod, n)
+        assert not set(getattr(mine, "__all__", ())) & left_out, mod
+    for name in ("launch", "overlap", "compat", "rpc", "auto_tuner", "io",
+                 "utils"):
+        assert getattr(distributed, name).__name__.endswith(name)
+    assert distributed.DistModel is distributed.compat.DistModel
+    with pytest.raises(NotImplementedError, match="A.5"):
+        load_state_dict(tempfile.gettempdir(), {}, mesh=object())
+    with pytest.raises(NotImplementedError, match="A.5"):
+        write_plan(tempfile.gettempdir(), object(), 0)
     with pytest.raises(TypeError, match="PipelineLayer"):
         PipelineParallel(nn.Linear(4, 4))
     with pytest.raises(AttributeError, match="parallel.schedules"):

@@ -2157,3 +2157,83 @@ print("ONE RANK OK")
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "ONE RANK OK" in r.stdout, \
         r.stdout[-2000:] + r.stderr[-3000:]
+
+
+# -- the comm/compute overlap's tensor-parallel Function ----------------------
+
+@pytest.mark.parametrize("chunk", [False, True])
+def test_overlapped_column_parallel_function_at_world_size_one(dev, chunk):
+    """``distributed.overlap``'s overlapped Function with no group (world
+    size 1, no all-reduce) at Llama-3-8B's qkv widths, bf16: output and
+    gradients equal the plain product's autograd bit for bit, and its
+    backward syncs nothing (set_sync_debug_mode("error"))."""
+    from paddle_tpu_torch.distributed import overlap
+    g = torch.Generator(device=dev).manual_seed(0)
+    k = 8192 if chunk else 4096
+    x = torch.randn(2, 512, k, device=dev, generator=g).bfloat16()
+    w = (torch.randn(4096, 6144, device=dev, generator=g) * 0.02).bfloat16()
+    dy = torch.randn(2, 512, 6144, device=dev, generator=g).bfloat16()
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ya = overlap._CopyMatmul.apply(xa, wa, None, 2 if chunk else 1, 1,
+                                   chunk)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ya.backward(dy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yb = torch.matmul(xb.chunk(2, dim=-1)[1] if chunk else xb, wb)
+    yb.backward(dy)
+    for a, b in ((ya, yb), (xa.grad, xb.grad), (wa.grad, wb.grad)):
+        assert torch.equal(a, b)
+
+
+def test_overlapped_function_on_a_one_rank_nccl_group():
+    """The same Function over a one-rank NCCL group: dx's all-reduce is
+    started asynchronously, dW computed, then the handle waited on (the
+    recorded order); the gradients equal the plain path's bit for bit
+    and the backward syncs nothing (in a child process: the process
+    group is global)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pathlib
+    import subprocess
+    import sys
+    code = """
+import socket, torch, torch.distributed as dist
+from paddle_tpu_torch.distributed import overlap
+from paddle_tpu_torch.parallel.mesh import init_parallel_env
+s = socket.socket(); s.bind(("localhost", 0)); port = s.getsockname()[1]
+s.close()
+init_parallel_env(init_method=f"tcp://localhost:{port}", world_size=1,
+                  rank=0)
+g = torch.Generator(device="cuda").manual_seed(1)
+x = torch.randn(1024, 4096, device="cuda", generator=g).bfloat16()
+w = (torch.randn(4096, 28672, device="cuda", generator=g) * 0.02).bfloat16()
+dy = torch.randn(1024, 28672, device="cuda", generator=g).bfloat16()
+pg = dist.group.WORLD
+warm = torch.ones(8, device="cuda")
+dist.all_reduce(warm)
+torch.cuda.synchronize()
+xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+ya = overlap._CopyMatmul.apply(xa, wa, pg, 1, 0, False)
+torch.cuda.synchronize()
+with overlap.record_order() as ev:
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ya.backward(dy)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+assert [e[0] for e in ev] == ["issue", "dw", "wait"], ev
+xb, wb = x.clone().requires_grad_(), w.clone().requires_grad_()
+torch.matmul(xb, wb).backward(dy)
+assert torch.equal(xa.grad, xb.grad) and torch.equal(wa.grad, wb.grad)
+dist.destroy_process_group()
+print("OVERLAP OK")
+"""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], cwd=root,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "OVERLAP OK" in r.stdout, \
+        r.stdout[-2000:] + r.stderr[-3000:]

@@ -25,10 +25,14 @@ RANK_TIMEOUT_S = 240
 
 
 def run_ranks(world: int, scenarios: List[dict], inputs: Dict[str, np.ndarray],
-              tmp, during=None) -> List[Dict[str, np.ndarray]]:
+              tmp, during=None,
+              launcher: bool = False) -> List[Dict[str, np.ndarray]]:
     """Run ``scenarios`` ([{"fn", "key", "args"}]) on ``world`` gloo
     ranks; returns each rank's outputs. ``during()`` (the parent's JAX
-    references, say) runs while the ranks do."""
+    references, say) runs while the ranks do. ``launcher``: the port's
+    launcher (``python -m paddle_tpu_torch.distributed.launch``) starts
+    the ranks, which join through its environment (a TCP store on rank
+    0), and their output is in ``tmp/log``."""
     tmp = pathlib.Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     np.savez(tmp / "inputs.npz", **inputs)
@@ -37,10 +41,18 @@ def run_ranks(world: int, scenarios: List[dict], inputs: Dict[str, np.ndarray],
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT), str(ROOT / "tests"),
                     os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen(
-        [sys.executable, str(pathlib.Path(__file__)), str(tmp), str(r),
-         str(world)], env=env, cwd=str(tmp), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    if launcher:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", str(world), "--log_dir", str(tmp / "log"),
+             str(pathlib.Path(__file__)), str(tmp), "env"], env=env,
+            cwd=str(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)]
+    else:
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__)), str(tmp), str(r),
+             str(world)], env=env, cwd=str(tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
     logs = []
     try:
         if during is not None:
@@ -53,6 +65,10 @@ def run_ranks(world: int, scenarios: List[dict], inputs: Dict[str, np.ndarray],
             if p.poll() is None:
                 p.kill()
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad and launcher:
+        logs = [(tmp / "log" / f"workerlog.{r}").read_text()
+                for r in range(world)]
+        bad = [(r, procs[0].returncode) for r in range(world)]
     if bad:
         raise AssertionError(f"ranks failed {bad}:\n" + "\n".join(
             f"--- rank {r}\n{logs[r][-4000:]}" for r, _ in bad))
@@ -151,7 +167,9 @@ def sc_train(inp, args):
                 group_sharded_parallel)
             model, opt, _ = group_sharded_parallel(model, opt,
                                                    level=args["level"])
-    tr = Trainer(model, opt, offload_opt_state=args.get("offload"))
+    A = args.get("accumulate", 1)
+    tr = Trainer(model, opt, offload_opt_state=args.get("offload"),
+                 accumulate_steps=A)
     plan = mesh_plan_of(model)
     out = {}
     if args.get("grads", True) and plan.level != "os_g":
@@ -166,9 +184,32 @@ def sc_train(inp, args):
         out.update(_full_grads(model))
         out["loss0"] = np.asarray(float(loss))
     model.zero_grad(set_to_none=True)
-    losses = [float(tr.train_step(_batch(inp, args.get(
-        "batch", f"batch{i}/")))) for i in range(args.get("steps", 1))]
+    losses, issues = [], []
+    for i in range(args.get("steps", 1)):
+        batch = _batch(inp, args.get("batch", f"batch{i}/"))
+        if A > 1:
+            batch = {k: v.reshape(A, -1, *v.shape[1:])
+                     for k, v in batch.items()}
+        n0 = plan.sync_issues
+        if args.get("trace") and i == 0:
+            # the first step under torch.profiler: its chrome trace
+            from paddle_tpu_torch.distributed.overlap import \
+                collectives_in_loop
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                losses.append(float(tr.train_step(batch)))
+            path = f"trace{torch.distributed.get_rank()}.json"
+            prof.export_chrome_trace(path)
+            total, per = collectives_in_loop(path)
+            out["trace_total"] = np.asarray(total)
+            out["trace_per_microbatch"] = np.asarray(per)
+        else:
+            losses.append(float(tr.train_step(batch)))
+        issues.append(plan.sync_issues - n0)
     out["losses"] = np.asarray(losses)
+    out["sync_issues"] = np.asarray(issues)
+    out["n_grads"] = np.asarray(sum(p.grad is not None
+                                    for p in tr.params.values()))
     for k, v in full_state_dict(model).items():
         out["param." + k] = _np(v)
     if args.get("fleet"):
@@ -588,6 +629,55 @@ def sc_moe_layer(inp, args):
     return out
 
 
+def sc_overlap(inp, args):
+    """:func:`sc_train` (no gradient probe) in the serial schedule
+    (``distributed.overlap.serial_reference``), then as the port runs
+    it, overlapped: each run's outputs under "off/" and "on/", and the
+    overlapped run's order of the tensor-parallel backward's events
+    (issue, dw, wait) as rows of (kind, call)."""
+    import contextlib
+    from paddle_tpu_torch.distributed import overlap
+    out = {}
+    kinds = {"issue": 0, "dw": 1, "wait": 2}
+    for tag in ("off", "on"):
+        scope = (overlap.serial_reference() if tag == "off"
+                 else contextlib.nullcontext())
+        with scope, overlap.record_order() as ev:
+            res = sc_train(inp, {**args, "grads": False})
+        out.update({f"{tag}/{k}": v for k, v in res.items()})
+        if tag == "on":
+            out["order"] = np.asarray([(kinds[k], i) for k, i in ev],
+                                      dtype=np.int64).reshape(-1, 2)
+    return out
+
+
+def sc_fleet_overlap(inp, args):
+    """``fleet.init`` with the strategy's overlap knobs on, then with
+    none: after each, whether a tensor-parallel product's backward
+    overlapped dx's all-reduce (its events recorded) and whether
+    ``apply_strategy_overlap`` reports the overlap enabled."""
+    import torch
+    from paddle_tpu_torch.distributed import fleet, overlap
+    from paddle_tpu_torch.distributed.communication import Group
+    from paddle_tpu_torch.parallel.mesh import current_mesh
+    out = {}
+    for tag, on in (("on", True), ("off", False)):
+        st = fleet.DistributedStrategy()
+        st.hybrid_configs = {"dp_degree": 2, "mp_degree": 2}
+        st.tensor_parallel.mp_async_allreduce = on
+        st.sharding.comm_overlap = on
+        fleet.init(is_collective=True, strategy=st, devices="cpu")
+        x = torch.ones(2, 4, requires_grad=True)
+        w = torch.ones(4, 3, requires_grad=True)
+        with overlap.record_order() as ev:
+            overlap.copy_matmul(x, w, Group("tp", current_mesh())).sum(
+                ).backward()
+        out[tag] = np.asarray([[k for k, _ in ev] == ["issue", "dw", "wait"],
+                               overlap.apply_strategy_overlap(st)["enabled"]])
+        fleet.stop()
+    return out
+
+
 def sc_mesh_check(inp, args):
     """``tools.mesh_check.run`` on this rank: its results as JSON text."""
     import torch
@@ -596,23 +686,92 @@ def sc_mesh_check(inp, args):
         args["layouts"], args["preset"], args["seq"], torch.device("cpu"))))}
 
 
+# -- rpc: what a spawned process calls (this module imports no JAX) -----------
+
+def rpc_add(a, b):
+    return a + b
+
+
+def rpc_boom():
+    raise ValueError("remote failure")
+
+
+def rpc_child(master_port, q):
+    """Worker "w1" of a 2-process rpc job: calls back into "w0"."""
+    from paddle_tpu_torch.distributed import rpc
+    rpc.init_rpc("w1", rank=1, world_size=2,
+                 master_endpoint=f"127.0.0.1:{master_port}")
+    q.put(rpc.rpc_sync("w0", rpc_add, args=(7, 8)))
+    rpc.shutdown()
+
+
+# -- compat.spawn: what each spawned rank runs --------------------------------
+
+def compat_rank(out_dir):
+    """One rank of a 2-process ``compat.spawn`` job (gloo through the
+    environment spawn sets): the object collectives, point to point, an
+    uneven ``alltoall_single``, the env and backend queries. Writes its
+    results as JSON to ``out_dir/rank<r>.json``."""
+    import torch
+    from paddle_tpu_torch.distributed import compat
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    init_parallel_env(dp=2, backend="gloo", device="cpu")
+    r = torch.distributed.get_rank()
+    out = {"initialized": compat.is_initialized(),
+           "backend": compat.get_backend(), "env_rank":
+           compat.ParallelEnv().rank, "env_world": compat.ParallelEnv().nranks}
+    gathered = []
+    compat.all_gather_object(gathered, {"rank": r, "sq": r * r})
+    out["gathered"] = gathered
+    objs = [f"from{r}", r] if r == 1 else [None, None]
+    compat.broadcast_object_list(objs, src=1)
+    out["broadcast"] = objs
+    mine = []
+    compat.scatter_object_list(mine, [["a"], ["b"]] if r == 0 else None)
+    out["scattered"] = mine
+    t = torch.full((3,), float(r + 1))
+    if r == 0:
+        compat.send(t, dst=1)
+    else:
+        compat.recv(t, src=0)
+    out["p2p"] = t.tolist()
+    # rank r sends rows [0, 1 + r) to rank 0 and the rest to rank 1
+    x = torch.arange(4, dtype=torch.float32) + 10 * r
+    ins = [1 + r, 3 - r]
+    outs = [[1, 2], [3, 2]][r]
+    y = compat.alltoall_single(x, in_split_sizes=ins, out_split_sizes=outs)
+    out["alltoall"] = y.tolist()
+    compat.gloo_barrier()
+    with open(os.path.join(out_dir, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+    compat.destroy_process_group()
+
+
 SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "collectives": sc_collectives, "reshard": sc_reshard,
              "tp_layers": sc_tp_layers, "sp_attention": sc_sp_attention,
              "sharded_save": sc_sharded_save, "refused": sc_refused,
              "mesh_check": sc_mesh_check, "pipe_train": sc_pipe_train,
-             "moe_layer": sc_moe_layer}
+             "moe_layer": sc_moe_layer, "overlap": sc_overlap,
+             "fleet_overlap": sc_fleet_overlap}
 
 
-def main(tmp: str, rank: int, world: int) -> None:
+def main(tmp: str, rank, world) -> None:
+    """One rank: ``rank`` and ``world`` given, or None to take them from
+    the launcher's environment."""
     import torch
     import torch.distributed as dist
     from paddle_tpu_torch.parallel.mesh import init_parallel_env
     torch.set_num_threads(1)
     tmp = pathlib.Path(tmp)
-    init_parallel_env(dp=world, backend="gloo", device="cpu",
-                      init_method=f"file://{tmp / 'store'}",
-                      world_size=world, rank=rank)
+    if rank is None:
+        world = int(os.environ["WORLD_SIZE"])
+        init_parallel_env(dp=world, backend="gloo", device="cpu")
+        rank = dist.get_rank()
+    else:
+        init_parallel_env(dp=world, backend="gloo", device="cpu",
+                          init_method=f"file://{tmp / 'store'}",
+                          world_size=world, rank=rank)
     inp = dict(np.load(tmp / "inputs.npz"))
     out = {}
     for sc in json.loads((tmp / "scenarios.json").read_text()):
@@ -625,4 +784,7 @@ def main(tmp: str, rank: int, world: int) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    if sys.argv[2] == "env":
+        main(sys.argv[1], None, None)
+    else:
+        main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
