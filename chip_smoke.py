@@ -351,6 +351,27 @@ Phases, in order; any failure exits non-zero before the result line:
      ``measured``), every training kernel launched; then
      ``parallel.scale.train_state_bytes`` of phase 7's configuration
      beside phase 7's measured peak memory, as a ratio.
+ 15. the sharding planner, the plan-aware checkpoint and its resharded
+     read (writing one 2.5 GB checkpoint under ``chiprun_out/plan_ckpt``,
+     removed after): (a) ``auto_parallel.plan`` for Llama-3-8B (32
+     layers, published widths, bf16, fused head, recompute "full") on 4
+     and on 8 H100s at a global batch of 8 x 8192: the ranked table's
+     top 5, the count pruned by the memory model (capacity from the
+     card), the choice and each plan's seconds; at least one feasible
+     config, every ranked estimate within the card's memory, a non-zero
+     collective census for every config of more than one rank, and no
+     memory allocated on the card by the pricing; (b) ``Trainer.
+     apply_plan`` of ``plan(n_devices=1)``'s choice under NCCL at world
+     size 1 on phase 7's model and batch (4 layers, bf16, AdamW, clip
+     1.0), 2 + 4 steps: losses and final parameters equal the plain
+     path's bit for bit, every training kernel launched; step time, peak
+     memory and ``estimate_hbm`` over the measured peak; (c) phase 7's
+     configuration at 1 layer (bf16 parameters, ≈2.5 GB) saved through
+     the sharded save under the world-size-1 plan, then read onto the
+     card by ``load_resharded(coords=)`` as every rank's slice under
+     tp2, tp4, dp2_tp2 and fsdp4: each slice equal to ``shard_layer``'s
+     cut of the same full tensor (``tp_slice``, FSDP2's row chunk) bit
+     for bit; the read's seconds and GB/s.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -6642,6 +6663,268 @@ def phase_launcher(torch, pt, dev, make_cfg):
     return worker["launches"], dm_launches, m["launches"]
 
 
+PLAN_DEVICES = (4, 8)        # 15(a): the meshes planned
+PLAN_BATCH, PLAN_SEQ = 8, 8192   # 15(a): global batch and sequence
+RESHARD_TARGETS = ("tp2", "tp4", "dp2_tp2", "fsdp4")     # 15(c)
+
+
+def plan_meshes(torch, dev, make_cfg):
+    """15(a): the planner for Llama-3-8B on PLAN_DEVICES cards. Returns
+    (results, failures)."""
+    from paddle_tpu_torch.distributed.auto_parallel import (hbm_capacity,
+                                                            plan)
+    from paddle_tpu_torch.observability.costs import device_spec
+    from paddle_tpu_torch.observability.costs.device_db import H100_LINK_BW
+    cfg = make_cfg(dtype="bfloat16", recompute="full")
+    cap = hbm_capacity() if dev.type == "cuda" else None
+    spec = device_spec(link_bw=H100_LINK_BW)
+    before = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+              else 0)
+    out, fails = {}, []
+
+    def one(n):
+        t0 = time.perf_counter()
+        report = plan(cfg, n_devices=n, global_batch=PLAN_BATCH,
+                      seq_len=PLAN_SEQ, drift="ignore", spec=spec,
+                      model_name="llama3_8b")
+        return report, time.perf_counter() - t0
+    # each plan's census runs in a child process of its own: side by side
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(PLAN_DEVICES)) as ex:
+        done = list(ex.map(one, PLAN_DEVICES))
+    for n, (report, secs) in zip(PLAN_DEVICES, done):
+        ranked = report.ranked
+        mem_pruned = [str(pc.config) for pc in report.pruned
+                      if pc.reason.startswith("HBM infeasible")]
+        r = {"seconds": secs, "capacity_bytes": cap,
+             "chosen": str(report.chosen.config) if ranked else None,
+             "top": [pc.as_dict() for pc in ranked[:5]],
+             "ranked": len(ranked), "pruned_by_memory": len(mem_pruned),
+             "pruned": {str(pc.config): pc.reason for pc in report.pruned},
+             "over_capacity": [str(pc.config) for pc in ranked
+                               if cap and pc.hbm_high_water_bytes > cap],
+             "no_census": [str(pc.config) for pc in ranked
+                           if pc.config.size > 1
+                           and not sum(pc.graph.census_counts.values())],
+             "census_failed": [str(pc.config) for pc in report.pruned
+                               if pc.reason.startswith("census failed")],
+             "pipelines": {str(pc.config): [pc.predicted_step_s,
+                                            pc.predicted_mfu]
+                           for pc in ranked if pc.config.pp > 1}}
+        out[f"n{n}"] = r
+        log(f"plan 15(a): Llama-3-8B, 32 layers, bf16, recompute full, "
+            f"batch {PLAN_BATCH} x {PLAN_SEQ} on {n} cards ({spec.kind}, "
+            f"link {spec.link_bw:.4g} B/s): {secs:.1f} s, {len(ranked)} "
+            f"ranked, {len(mem_pruned)} pruned by the memory model "
+            f"(capacity {cap} bytes), chosen {r['chosen']} (predicted "
+            f"step, a prediction, not a measurement); the pipelines' "
+            f"predicted step (s) and MFU {r['pipelines']}\n"
+            f"{report.table(top=5)}")
+        if (not ranked or r["over_capacity"] or r["no_census"]
+                or r["census_failed"]):
+            fails.append(f"plan n{n}")
+    after = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+             else 0)
+    out["card_memory_before_after"] = [before, after]
+    if after != before:
+        fails.append("the pricing allocated card memory")
+    return out, fails
+
+
+def plan_leg(torch, pt, dev, cfg, batch, plan_):
+    """15(b): phase 7's model (seed 10, AdamW 1e-4, weight decay 0.01,
+    clip 1.0) through ``Trainer.apply_plan(plan_)``, 2 + 4 steps, launch
+    counts of the timed steps. Returns (numbers, final parameters)."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.parallel.api import full_state_dict
+    from paddle_tpu_torch.trainer import Trainer
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=pt.generator(10, dev))
+    trainer = Trainer(model, AdamW(learning_rate=1e-4, parameters=model,
+                                   weight_decay=0.01,
+                                   grad_clip=ClipGradByGlobalNorm(1.0)))
+    hm = trainer.apply_plan(plan_, devices=dev.type)
+    with hm:
+        warm = trainer.fit(iter([batch] * MESH_STEPS[0]), MESH_STEPS[0],
+                           log_every=1)
+        sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        hist = trainer.fit(iter([batch] * MESH_STEPS[1]), MESH_STEPS[1],
+                           log_every=1)
+        sync(torch, dev)
+        launches = dict(_build.LAUNCHES)
+        params = full_state_dict(model)
+    times = [m.step_time_s for m in hist]
+    info = {"losses": [m.loss for m in warm + hist], "step_times_s": times,
+            "median_step_s": statistics.median(times),
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            "launches": launches, "mesh_shape": hm.shape}
+    del trainer, model
+    empty_cache(torch, dev)
+    return info, params
+
+
+def plan_world1(torch, pt, dev, make_cfg, b, s):
+    """15(b) (see the module docstring)."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed.auto_parallel import (
+        ParallelConfig, estimate_hbm, plan)
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
+    batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
+    plain, want = mesh_leg(torch, pt, dev, cfg, batch)
+    report = plan(cfg, n_devices=1, global_batch=b, seq_len=s,
+                  drift="ignore")
+    chosen = report.chosen
+    init_parallel_env(backend="nccl" if dev.type == "cuda" else "gloo",
+                      init_method=f"tcp://localhost:{free_port()}",
+                      world_size=1, rank=0, device=dev.type)
+    try:
+        mine, got = plan_leg(torch, pt, dev, cfg, batch, chosen.plan)
+    finally:
+        dist.destroy_process_group()
+    diff = sorted(n for n in want if not torch.equal(got[n], want[n]))
+    est = estimate_hbm(cfg, ParallelConfig.parse(str(chosen.config)),
+                       global_batch=b, seq_len=s)
+    peak = mine["peak_memory_bytes"]
+    out = {"plain": plain, "apply_plan": mine,
+           "chosen": str(chosen.config),
+           "predicted_step_s": chosen.predicted_step_s,
+           "estimate_hbm_bytes": est.total_bytes,
+           "estimate_over_measured_peak": (est.total_bytes / peak
+                                           if peak else None),
+           "params_differing": diff,
+           "losses_equal": plain["losses"] == mine["losses"],
+           "card": RESULTS.get("card")}
+    out["ok"] = out["losses_equal"] and not diff and all(
+        mine["launches"].get(k, 0) > 0 for k in TRAINING_KERNELS)
+    log(f"plan 15(b): apply_plan({chosen.config}) at world size 1 on phase "
+        f"7's model ({MESH_STEPS[0]} + {MESH_STEPS[1]} steps of {b} x {s}, "
+        f"4 layers, bf16): losses equal to the plain path's: "
+        f"{out['losses_equal']} ({mine['losses']}); parameters differing: "
+        f"{diff or 'none'}; median step {mine['median_step_s']:.4f} s "
+        f"(plain {plain['median_step_s']:.4f} s; predicted "
+        f"{chosen.predicted_step_s:.4f} s, a prediction); peak memory "
+        f"{peak} bytes, estimate_hbm {est.total_bytes:.0f} bytes, ratio "
+        f"{out['estimate_over_measured_peak']}; launches "
+        f"{mine['launches']}; {card_line()}")
+    del want, got
+    empty_cache(torch, dev)
+    return out
+
+
+def expected_slice(torch, full, spec, blocks, axes, coords):
+    """``shard_layer``'s cut of ``full`` for the rank at ``coords``:
+    ``tp_slice`` over the tensor dimension, then FSDP2's row chunk."""
+    from paddle_tpu_torch.parallel.api import tp_slice
+    tp_dim = next((d for d, e in enumerate(spec or ())
+                   if e == "tp" or (isinstance(e, (tuple, list))
+                                    and "tp" in e)), None)
+    t = full
+    if tp_dim is not None and axes.get("tp", 1) > 1:
+        t = tp_slice(t, tp_dim, blocks, axes["tp"], coords.get("tp", 0))
+    f = axes.get("fsdp", 1)
+    if f > 1:
+        parts = t.chunk(f)
+        i = coords.get("fsdp", 0)
+        t = parts[i] if i < len(parts) else t[:0]
+    return t
+
+
+def reshard_reads(torch, pt, dev, make_cfg):
+    """15(c) (see the module docstring)."""
+    import shutil
+    import torch.distributed as dist
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.distributed.auto_parallel import (ParallelConfig,
+                                                            plan_for_config)
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models.llama import sharding_annotations
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    from paddle_tpu_torch.resilience.reshard import load_resharded
+    cfg = make_cfg(num_hidden_layers=1, dtype="bfloat16")
+    root = os.path.join(ROOT_OUT, "plan_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    model = LlamaForCausalLM(cfg, device=dev,
+                             generator=pt.generator(10, dev))
+    full = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ann = sharding_annotations(cfg)
+    src = plan_for_config(cfg, ParallelConfig())
+    init_parallel_env(backend="nccl" if dev.type == "cuda" else "gloo",
+                      init_method=f"tcp://localhost:{free_port()}",
+                      world_size=1, rank=0, device=dev.type)
+    try:
+        with src.apply(model, devices=dev.type):
+            t0 = time.perf_counter()
+            checkpoint.save_state_dict(
+                {"params": dict(model.named_parameters())}, root,
+                layout=model)
+            save_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    nbytes = sum(t.numel() * t.element_size() for t in full.values())
+    like = {"params": {n: t for n, t in full.items()}}
+    out = {"save_s": save_s, "bytes": nbytes, "targets": {}}
+    fails = []
+    for text in RESHARD_TARGETS:
+        tgt = plan_for_config(cfg, ParallelConfig.parse(text))
+        axes = tgt.axes
+        read_s, read_bytes, bad = 0.0, 0, []
+        for r in range(tgt.size):
+            coords = checkpoint.mesh_coords(axes, r)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            got = load_resharded(root, like, tgt, coords=coords)
+            sync(torch, dev)
+            read_s += time.perf_counter() - t0
+            for n, t in got["params"].items():
+                read_bytes += t.numel() * t.element_size()
+                want = expected_slice(torch, full[n], tgt.param_specs[n],
+                                      ann[n][1], axes, coords)
+                if t.device != full[n].device or not torch.equal(t, want):
+                    bad.append((r, n))
+            del got
+        out["targets"][text] = {"ranks": tgt.size, "read_s": read_s,
+                                "bytes": read_bytes,
+                                "GB_per_s": read_bytes / read_s / 1e9,
+                                "differing": bad[:8]}
+        log(f"plan 15(c): {text}: {tgt.size} ranks' slices of the "
+            f"world-size-1 checkpoint ({nbytes / 1e9:.3f} GB saved in "
+            f"{save_s:.2f} s) read onto {dev} in {read_s:.2f} s "
+            f"({read_bytes / read_s / 1e9:.3f} GB/s, warm page cache); "
+            f"slices differing from shard_layer's cut: {bad[:8] or 'none'}; "
+            f"{card_line()}")
+        if bad:
+            fails.append(f"reshard {text}")
+    shutil.rmtree(root, ignore_errors=True)
+    del model, full, like
+    empty_cache(torch, dev)
+    return out, fails
+
+
+def phase_plan(torch, pt, dev, make_cfg, b=2, s=4096):
+    """Phase 15 (see the module docstring). Returns (b)'s launches."""
+    out = RESULTS.setdefault("plan", {})
+    t0 = time.perf_counter()
+    out["planner"], fails = plan_meshes(torch, dev, make_cfg)
+    mark("15a planner")
+    out["world1"] = plan_world1(torch, pt, dev, make_cfg, b, s)
+    if not out["world1"]["ok"]:
+        fails.append("apply_plan")
+    mark("15b apply_plan")
+    out["reshard"], more = reshard_reads(torch, pt, dev, make_cfg)
+    fails += more
+    out["seconds"] = time.perf_counter() - t0
+    if fails:
+        raise SystemExit(f"phase 15 checks failed: {fails}")
+    return out["world1"]["apply_plan"]["launches"]
+
+
 def main() -> int:
     if "--client-process" in sys.argv:
         return client_process()
@@ -6727,6 +7010,8 @@ def main() -> int:
     launcher_launches, dm_launches, bench_launches = phase_launcher(
         torch, pt, dev, LlamaConfig.llama3_8b)
     mark("14 launcher")
+    plan_launches = phase_plan(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("15 plan")
     mesh_paths = {"mesh": mesh_launches,
                   "ring_blocks": RESULTS["mesh"]["ring"]["causal"][
                       "launches"],
@@ -6734,7 +7019,8 @@ def main() -> int:
                       "launches"],
                   "pipeline": pipe_launches, "ep_virtual": ep_launches,
                   "launcher": launcher_launches, "dist_model": dm_launches,
-                  "bench_8b_layer": bench_launches}
+                  "bench_8b_layer": bench_launches,
+                  "apply_plan": plan_launches}
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
@@ -6788,7 +7074,7 @@ def main() -> int:
             # phase 12's mesh steps, virtual ring and vocabulary shards,
             # phase 13's 1F1B pipeline steps and virtual ep pass, phase
             # 14's launched worker, DistModel and bench_8b_layer runs,
-            # and each path's own count
+            # phase 15's apply_plan steps, and each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases

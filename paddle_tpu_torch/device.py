@@ -22,6 +22,13 @@ def default_device() -> str:
     return "cuda"
 
 
+def plain_route(t: torch.Tensor) -> bool:
+    """Whether a kernel's wrapper takes the kernel's plain version for
+    ``t``: on the CPU, and on the meta device (shapes only: the
+    planner's census). A CUDA tensor takes the kernel."""
+    return t.device.type in ("cpu", "meta")
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` as given, or :func:`default_device` when None."""
     return torch.device(default_device() if device is None else device)

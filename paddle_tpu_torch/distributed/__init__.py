@@ -6,8 +6,9 @@ mesh, the per-rank collectives, the semi-auto API (``shard_tensor``,
 ``fleet``, ``group_sharded_parallel``, activation recompute, the
 launcher (``launch``), ``rpc``, the comm/compute ``overlap``, the
 ``compat`` surface (ProcessMesh, DistModel, object collectives,
-``spawn``, ...), the ``auto_tuner`` and the distributed ``io`` and
-``utils``.
+``spawn``, ...), the ``auto_tuner``, the distributed ``io`` and
+``utils``, the sharding planner (``auto_parallel``) and the elastic
+manager (``elastic``).
 
 The collectives and recompute load with the package; the rest on first
 use, so that the modules they build on (``parallel.api`` among them) may
@@ -56,7 +57,7 @@ _LAZY.update({n: ".compat" for n in _COMPAT})
 _SUBMODULES = ("fleet", "sharding", "strategy", "topology", "collective",
                "parallel", "communication", "recompute", "watchdog",
                "launch", "overlap", "compat", "rpc", "auto_tuner", "io",
-               "utils")
+               "utils", "auto_parallel", "elastic")
 
 
 def __getattr__(name):

@@ -111,10 +111,26 @@ def bind_optimizer(optimizer, model: nn.Module) -> None:
 
 
 def save_group_sharded_model(model, output, optimizer=None) -> None:
-    """A sharded state needs the plan-aware save (ROADMAP.md A.5)."""
-    raise NotImplementedError(
-        "saving a sharded model waits for the plan-aware save (ROADMAP.md "
-        "A.5); gather it with parallel.api.full_state_dict first")
+    """Save a sharded model (and its optimizer's state) through the
+    plan-aware sharded save (reference: sharding/group_sharded.py
+    save_group_sharded_model): every rank calls it and writes its own
+    shards of ``{"params", "opt_state"}`` to the checkpoint directory
+    ``output``; ``checkpoint.load_state_dict(output, like, mesh=model)``
+    reads each rank's slice back, on this mesh or another, and without
+    ``mesh`` the whole state."""
+    from .. import checkpoint
+    from ..parallel.api import mesh_plan_of
+    plan = mesh_plan_of(model)
+    if plan is None:
+        raise ValueError("save_group_sharded_model: the model is not "
+                         "sharded (group_sharded_parallel or shard_layer)")
+    tree = {"params": {n: p for n, p in model.named_parameters()
+                       if p.requires_grad}}
+    st = getattr(optimizer, "_state", None) if optimizer is not None \
+        else None
+    if st is not None:
+        tree["opt_state"] = {"master": st["master"], "slots": st["slots"]}
+    checkpoint.save_state_dict(tree, output, layout=plan)
 
 
 __all__ = ["group_sharded_parallel", "save_group_sharded_model"]

@@ -17,9 +17,11 @@ memory, then sent with ``non_blocking=True`` on a copy stream of its own;
 an event recorded there orders the consumer's stream after the copy, and
 ``record_stream`` tells the allocator the consumer's stream uses it.
 
-Not ported: ``sharding`` (a per-host sharded global batch needs a mesh,
-ROADMAP.md A.5) and ``use_shared_memory=True`` with workers (the JAX
-package's native shared-memory ring, ROADMAP.md A.6).
+``sharding`` (a ``ShardingPlan`` or a ``MeshPlan``) hands each rank its
+slice of every global batch, cut before the device copy.
+
+Not ported: ``use_shared_memory=True`` with workers (the JAX package's
+native shared-memory ring, ROADMAP.md A.6).
 """
 
 from __future__ import annotations
@@ -179,13 +181,27 @@ class _PrefetchIterator:
         return fut.result() if hasattr(fut, "result") else fut
 
 
+class LocalBatch(dict):
+    """A batch already cut to this rank's slice of the global batch
+    (``DataLoader(sharding=)``): the Trainer on a mesh takes it as it
+    is."""
+
+    is_local = True
+
+
 class DataLoader:
     """Reference-shaped DataLoader (paddle.io.DataLoader).
 
     Args mirror the reference: dataset, batch_size, shuffle, drop_last,
     collate_fn, num_workers, prefetch_factor, batch_sampler. Additions:
     ``prefetch_to_device`` (send finished batches to ``device`` ahead of
-    use; ``device`` defaults to the card and is only read when prefetching).
+    use; ``device`` defaults to the card and is only read when prefetching)
+    and ``sharding`` (a ``ShardingPlan``, or the live ``MeshPlan`` of a
+    sharded model): the dataset's batches are GLOBAL and each rank gets
+    its slice (``MeshPlan.local_batch``'s cut: rows over the data axes,
+    with sequence parallelism the sequence over sep), cut on the host
+    before the device copy, as a :class:`LocalBatch` the Trainer takes
+    as already sliced.
     """
 
     def __init__(self, dataset: Dataset, batch_size: Optional[int] = 1,
@@ -197,10 +213,11 @@ class DataLoader:
                  multiprocessing_context: Optional[str] = None,
                  prefetch_to_device: bool = False, sharding=None,
                  return_list: bool = True, device=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DataLoader(sharding=...) places a per-host shard of a "
-                "global batch on a mesh, which comes with ROADMAP.md A.5")
+        if sharding is not None and not (hasattr(sharding, "local_batch")
+                                         or hasattr(sharding, "shard_batch")):
+            raise TypeError("DataLoader(sharding=) takes a ShardingPlan or "
+                            "a MeshPlan")
+        self.sharding = sharding
         self.num_workers = max(0, int(num_workers))
         if use_shared_memory and self.num_workers > 0:
             raise NotImplementedError(
@@ -386,11 +403,19 @@ class DataLoader:
                 n += 1
                 if n <= skip:
                     continue   # fast-forward host-side: no device transfer
-                yield b
+                yield self._local(b) if self.sharding is not None else b
 
         for batch in self._iter_all(host_skipped()):
             self._batches_served += 1
-            yield batch
+            yield LocalBatch(batch) if self.sharding is not None else batch
+
+    def _local(self, batch):
+        """This rank's slice of a global batch (host side)."""
+        batch = _map_tree(_to_torch, batch)
+        sh = self.sharding
+        if hasattr(sh, "local_batch"):
+            return sh.local_batch(batch)
+        return sh.shard_batch(batch)
 
     def _iter_all(self, host):
         if not self.prefetch_to_device:

@@ -15,6 +15,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..analysis.collectives import kernel as _census
+from ..device import plain_route as _plain
+
 from .kernels.flash_attention import dropout_threshold, flash_bwd, flash_fwd
 from .hash32 import M32, mul32
 from .kernels.paged_attention import paged_decode
@@ -129,7 +132,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
     """One-token decode attention over paged pools, native or int8 with
     per-page scales: the CUDA kernel on a CUDA tensor, the plain version
     on a CPU tensor."""
-    if q.device.type == "cpu":
+    if _plain(q):
         return paged_decode_plain(q, k_pages, v_pages, block_tables,
                                   seq_lens, scale, k_scales, v_scales)
     return paged_decode(q, k_pages, v_pages, block_tables, seq_lens, scale,
@@ -315,6 +318,23 @@ def _flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool, scale: float,
     return dq, dk, dv
 
 
+def _flash_cost(q, k, causal: bool, backward: bool):
+    """(flops, bytes) of one flash launch on q [b, sq, h, d] and
+    k [b, sk, hk, d]: 2 products forward and 5 backward, 2d each a
+    (query, key) pair attended; q, k, v, out (and dout, dq, dk, dv) and
+    the fp32 lse (and delta) rows once each."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    pairs = (b * h * sq * (sq + 1) // 2 if causal and sq == sk
+             else b * h * sq * sk)
+    qb, kvb = b * sq * h * d * q.element_size(), b * sk * hk * d * \
+        k.element_size()
+    rowb = b * h * sq * 4
+    if backward:
+        return 10 * d * pairs, 3 * qb + 4 * kvb + 2 * rowb
+    return 4 * d * pairs, 2 * qb + 2 * kvb + rowb
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its kernel backward: the forward saves
     (q, k, v, out, lse); the backward takes delta = rowsum(out * dout) in
@@ -325,12 +345,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, dropout_p,
                 seed):
-        if q.device.type == "cpu":
-            out, lse = _flash_fwd_plain(q, k, v, causal, scale, q_seg,
-                                        kv_seg, dropout_p, seed)
-        else:
-            out, lse = flash_fwd(q, k, v, causal, scale, q_seg, kv_seg,
-                                 dropout_p, seed)
+        with _census("flash_fwd", _flash_cost, q, k, causal, False):
+            if _plain(q):
+                out, lse = _flash_fwd_plain(q, k, v, causal, scale, q_seg,
+                                            kv_seg, dropout_p, seed)
+            else:
+                out, lse = flash_fwd(q, k, v, causal, scale, q_seg, kv_seg,
+                                     dropout_p, seed)
         ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
         ctx.args = (causal, scale, dropout_p, seed)
         return out
@@ -343,10 +364,12 @@ class _FlashAttention(torch.autograd.Function):
         delta = (out.float() * dout.float()).sum(-1).transpose(
             1, 2).contiguous()                                  # [b, h, sq]
         args = (causal, scale, q_seg, kv_seg, dropout_p, seed)
-        if q.device.type == "cpu":
-            dq, dk, dv = _flash_bwd_plain(q, k, v, dout, lse, delta, *args)
-        else:
-            dq, dk, dv = flash_bwd(q, k, v, dout, lse, delta, *args)
+        with _census("flash_bwd", _flash_cost, q, k, causal, True):
+            if _plain(q):
+                dq, dk, dv = _flash_bwd_plain(q, k, v, dout, lse, delta,
+                                              *args)
+            else:
+                dq, dk, dv = flash_bwd(q, k, v, dout, lse, delta, *args)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -365,9 +388,10 @@ def flash_fwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version on CPU tensors; no gradient is recorded."""
     q_seg, kv_seg = _segments((q_seg, kv_seg) if q_seg is not None
                               else None)
-    if q.device.type == "cpu":
-        return _flash_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
-    return flash_fwd(q, k, v, causal, scale, q_seg, kv_seg)
+    with _census("flash_fwd", _flash_cost, q, k, causal, False):
+        if _plain(q):
+            return _flash_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
+        return flash_fwd(q, k, v, causal, scale, q_seg, kv_seg)
 
 
 def flash_bwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -390,10 +414,12 @@ def flash_bwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         delta = (out.float() * dout.float()).sum(-1).transpose(
             1, 2).contiguous()
     lse = lse.contiguous()
-    if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, dout, lse, delta, causal, scale,
-                                q_seg, kv_seg)
-    return flash_bwd(q, k, v, dout, lse, delta, causal, scale, q_seg, kv_seg)
+    with _census("flash_bwd", _flash_cost, q, k, causal, True):
+        if _plain(q):
+            return _flash_bwd_plain(q, k, v, dout, lse, delta, causal,
+                                    scale, q_seg, kv_seg)
+        return flash_bwd(q, k, v, dout, lse, delta, causal, scale, q_seg,
+                         kv_seg)
 
 
 def _segments(segment_ids):

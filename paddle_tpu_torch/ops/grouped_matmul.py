@@ -5,7 +5,7 @@ The rows of ``xs [m, k]`` split into ``g`` contiguous runs by
 ``group_sizes [g]``; run i multiplies ``w[i] [k, n]``; the result is fp32
 ``[m, n]``, as ``xla_grouped_matmul`` returns it. :func:`grouped_matmul`
 is the public op: an autograd Function whose forward is the CUDA kernel
-on CUDA tensors and :func:`grouped_matmul_plain` on CPU tensors, and
+on CUDA tensors and :func:`grouped_matmul_plain` on CPU (and meta) tensors, and
 whose backward is exact (the vjp of ``ragged_dot``, as the JAX package's
 ``_gmm_bwd``): the fp32 cotangent stays fp32, so dx and dw are fp32
 products over operands widened to fp32, each cast to its operand's
@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.collectives import kernel as _census
+from ..device import plain_route as _plain
 from .kernels import grouped_matmul as kgm
 
 
@@ -39,22 +41,25 @@ def grouped_matmul_plain(xs: torch.Tensor, w: torch.Tensor,
     """fp32 y[m, n]: a loop over the runs, each ``xs[run] @ w[i]`` with
     both operands widened to fp32 (bf16 products are exact there, so the
     sum is fp32). Rows past the last run are 0. ``w`` may be a strided
-    view (the backward passes ``w.transpose(1, 2)``)."""
+    view (the backward passes ``w.transpose(1, 2)``). On the meta device
+    (the planner's census: no counts to read) the result is its shape."""
     y = torch.zeros((xs.shape[0], w.shape[2]), dtype=torch.float32,
                     device=xs.device)
-    for i, s, e in _runs(group_sizes, xs.shape[0]):
-        y[s:e] = xs[s:e].float() @ w[i].float()
+    if not y.is_meta:
+        for i, s, e in _runs(group_sizes, xs.shape[0]):
+            y[s:e] = xs[s:e].float() @ w[i].float()
     return y
 
 
 def grouped_matmul_dw_plain(xs: torch.Tensor, gy: torch.Tensor,
                             group_sizes: torch.Tensor) -> torch.Tensor:
     """fp32 dw[g, k, n] = ``xs[run i]^T @ gy[run i]`` per run, 0 for an
-    empty run."""
+    empty run; on the meta device its shape, as above."""
     dw = torch.zeros((group_sizes.shape[0], xs.shape[1], gy.shape[1]),
                      dtype=torch.float32, device=xs.device)
-    for i, s, e in _runs(group_sizes, xs.shape[0]):
-        dw[i] = xs[s:e].float().t() @ gy[s:e].float()
+    if not dw.is_meta:
+        for i, s, e in _runs(group_sizes, xs.shape[0]):
+            dw[i] = xs[s:e].float().t() @ gy[s:e].float()
     return dw
 
 
@@ -82,6 +87,22 @@ def _backward(xs, w, group_sizes, ends, gy, needs):
     return dx, dw
 
 
+def _fwd_cost(xs, w, out_dtype):
+    m, k = xs.shape
+    g, _, n = w.shape
+    return 2 * m * k * n, (m * k * xs.element_size()
+                           + g * k * n * w.element_size()
+                           + m * n * out_dtype.itemsize)
+
+
+def _bwd_cost(xs, w, gy):
+    m, k = xs.shape
+    g, _, n = w.shape
+    e = gy.element_size()
+    return 4 * m * k * n, (m * n * e + g * k * n * e + m * k * e    # dx
+                           + m * (k + n) * e + g * k * n * e)       # dw
+
+
 class _GroupedMatmul(torch.autograd.Function):
     """``cast`` False: the fp32 product, whose fp32 cotangent the
     backward keeps; True: the product cast to the operands' dtype."""
@@ -89,20 +110,22 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs, w, group_sizes, cast):
         out_dtype = xs.dtype if cast else torch.float32
-        if xs.device.type == "cpu":
-            ends = None
-            y = grouped_matmul_plain(xs, w, group_sizes).to(out_dtype)
-        else:
-            ends = kgm.group_ends(group_sizes)
-            y = kgm.grouped_matmul(xs, w, ends, out_dtype=out_dtype)
+        with _census("grouped_matmul", _fwd_cost, xs, w, out_dtype):
+            if _plain(xs):
+                ends = None
+                y = grouped_matmul_plain(xs, w, group_sizes).to(out_dtype)
+            else:
+                ends = kgm.group_ends(group_sizes)
+                y = kgm.grouped_matmul(xs, w, ends, out_dtype=out_dtype)
         ctx.save_for_backward(xs, w, group_sizes, ends)
         return y
 
     @staticmethod
     def backward(ctx, gy):
         xs, w, group_sizes, ends = ctx.saved_tensors
-        dx, dw = _backward(xs, w, group_sizes, ends, gy,
-                           ctx.needs_input_grad)
+        with _census("grouped_matmul_bwd", _bwd_cost, xs, w, gy):
+            dx, dw = _backward(xs, w, group_sizes, ends, gy,
+                               ctx.needs_input_grad)
         return dx, dw, None, None
 
 

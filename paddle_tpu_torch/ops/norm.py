@@ -14,7 +14,23 @@ from typing import Tuple
 
 import torch
 
+from ..analysis.collectives import kernel as _census
+from ..device import plain_route as _plain
 from .kernels.fused_norm import rms_norm_bwd, rms_norm_fwd
+
+
+def _fwd_cost(x, weight):
+    D = x.shape[-1]
+    R = x.numel() // max(D, 1)
+    return (4 * R * D, 2 * R * D * x.element_size()
+            + D * weight.element_size() + R * 4)
+
+
+def _bwd_cost(x, weight):
+    D = x.shape[-1]
+    R = x.numel() // max(D, 1)
+    return (9 * R * D, 3 * R * D * x.element_size() + R * 4
+            + 2 * D * weight.element_size())
 
 
 def _rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -57,21 +73,23 @@ class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, epsilon):
-        if x.device.type == "cpu":
-            y, rstd = _rms_norm_fwd_plain(x, weight, epsilon)
-        else:
-            x = x.contiguous()
-            y, rstd = rms_norm_fwd(x, weight, epsilon, return_rstd=True)
+        with _census("rms_norm", _fwd_cost, x, weight):
+            if _plain(x):
+                y, rstd = _rms_norm_fwd_plain(x, weight, epsilon)
+            else:
+                x = x.contiguous()
+                y, rstd = rms_norm_fwd(x, weight, epsilon, return_rstd=True)
         ctx.save_for_backward(x, weight, rstd)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, weight, rstd = ctx.saved_tensors
-        if x.device.type == "cpu":
-            dx, dw = _rms_norm_bwd_plain(x, weight, rstd, dy)
-        else:
-            dx, dw = rms_norm_bwd(x, weight, rstd, dy.contiguous())
+        with _census("rms_norm_bwd", _bwd_cost, x, weight):
+            if _plain(x):
+                dx, dw = _rms_norm_bwd_plain(x, weight, rstd, dy)
+            else:
+                dx, dw = rms_norm_bwd(x, weight, rstd, dy.contiguous())
         return dx, dw, None
 
 
@@ -82,9 +100,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     through :class:`_RMSNorm`; otherwise straight to the forward."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _RMSNorm.apply(x, weight, epsilon)
-    if x.device.type == "cpu":
-        return _rms_norm_plain(x, weight, epsilon)
-    return rms_norm_fwd(x.contiguous(), weight, epsilon)[0]
+    with _census("rms_norm", _fwd_cost, x, weight):
+        if _plain(x):
+            return _rms_norm_plain(x, weight, epsilon)
+        return rms_norm_fwd(x.contiguous(), weight, epsilon)[0]
 
 
 __all__ = ["rms_norm"]

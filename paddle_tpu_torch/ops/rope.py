@@ -13,6 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..analysis.collectives import kernel as _census
+from ..device import plain_route as _plain
 from .kernels.fused_rope import fused_rope
 
 
@@ -53,12 +55,21 @@ def _rope_plain(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     return rot(q), rot(k)
 
 
+def _cost(q, k):
+    b, s, h, d = q.shape
+    hk = k.shape[2]
+    return 3 * b * s * (h + hk) * d, (2 * b * s * (h + hk) * d
+                                      * q.element_size() + 2 * b * s * d * 4)
+
+
 def _rope(q, k, cos, sin, position_ids):
     """The forward rotation: the kernel on CUDA, the plain version on the
-    CPU. ``position_ids`` is int64 [b, s] or None."""
-    if q.device.type == "cpu":
-        return _rope_plain(q, k, cos, sin, position_ids)
-    return fused_rope(q, k, cos, sin, position_ids)
+    CPU (and on the meta device). ``position_ids`` is int64 [b, s] or
+    None."""
+    with _census("fused_rope", _cost, q, k):
+        if _plain(q):
+            return _rope_plain(q, k, cos, sin, position_ids)
+        return fused_rope(q, k, cos, sin, position_ids)
 
 
 class _Rope(torch.autograd.Function):

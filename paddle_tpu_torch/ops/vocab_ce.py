@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..analysis.collectives import kernel as _census
+from ..device import plain_route as _plain
 from .kernels.fused_vocab_ce import vocab_ce_bwd, vocab_ce_fwd
 
 NEG_INF = -1e30
@@ -93,6 +95,18 @@ def _bwd_plain(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     return dh.to(h.dtype), torch.cat(dws, dim=1)
 
 
+def _fwd_cost(h, w):
+    N, H = h.shape
+    V, e = w.shape[1], h.element_size()
+    return 2 * N * H * V, N * H * e + H * V * e + 3 * N * 4
+
+
+def _bwd_cost(h, w):
+    N, H = h.shape
+    V, e = w.shape[1], h.element_size()
+    return 6 * N * H * V, 2 * N * H * e + 2 * H * V * e + 4 * N * 4
+
+
 class _LseAndTarget(torch.autograd.Function):
     """(lse, tgt) with the recompute backward. On CUDA the forward takes
     contiguous h and W (a tied head's transposed embedding is copied once
@@ -100,12 +114,13 @@ class _LseAndTarget(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, labels, block_v):
-        if h.device.type == "cpu":
-            lse, tgt = _fwd_plain(h, w, labels, block_v)
-        else:
-            h, w = h.contiguous(), w.contiguous()
-            labels = labels.to(torch.int32).contiguous()
-            lse, tgt = vocab_ce_fwd(h, w, labels)
+        with _census("vocab_ce_fwd", _fwd_cost, h, w):
+            if _plain(h):
+                lse, tgt = _fwd_plain(h, w, labels, block_v)
+            else:
+                h, w = h.contiguous(), w.contiguous()
+                labels = labels.to(torch.int32).contiguous()
+                lse, tgt = vocab_ce_fwd(h, w, labels)
         ctx.save_for_backward(h, w, labels, lse)
         ctx.block_v = block_v
         return lse, tgt
@@ -114,12 +129,13 @@ class _LseAndTarget(torch.autograd.Function):
     def backward(ctx, g_lse, g_tgt):
         h, w, labels, lse = ctx.saved_tensors
         g_lse, g_tgt = g_lse.float().contiguous(), g_tgt.float().contiguous()
-        if h.device.type == "cpu":
-            dh, dw = _bwd_plain(h, w, labels, lse, g_lse, g_tgt,
-                                ctx.block_v)
-        else:
-            dh, dw = vocab_ce_bwd(h, w, labels, lse, g_lse, g_tgt,
-                                  *ctx.needs_input_grad[:2])
+        with _census("vocab_ce_bwd", _bwd_cost, h, w):
+            if _plain(h):
+                dh, dw = _bwd_plain(h, w, labels, lse, g_lse, g_tgt,
+                                    ctx.block_v)
+            else:
+                dh, dw = vocab_ce_bwd(h, w, labels, lse, g_lse, g_tgt,
+                                      *ctx.needs_input_grad[:2])
         return dh, dw, None, None
 
 

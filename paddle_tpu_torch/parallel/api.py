@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
@@ -110,25 +111,11 @@ def _runs(size: int, blocks) -> List[Tuple[int, int]]:
 
 def tp_slice(full: torch.Tensor, dim: int, blocks, tp: int,
              r: int) -> torch.Tensor:
-    """Rank ``r``'s shard of ``full`` along ``dim``: each (units, width)
-    run split into ``tp`` parts, or, with fewer units than ranks, unit
-    ``r // (tp / units)`` (a replicated head)."""
-    pieces, off = [], 0
-    for units, width in _runs(full.shape[dim], blocks):
-        run = full.narrow(dim, off, units * width)
-        if units >= tp:
-            if units % tp:
-                raise ValueError(f"{units} units do not split over tp={tp}")
-            per = units // tp
-            pieces.append(run.narrow(dim, r * per * width, per * width))
-        else:
-            if tp % units:
-                raise ValueError(f"{units} units cannot be replicated "
-                                 f"evenly over tp={tp}")
-            pieces.append(run.narrow(dim, (r // (tp // units)) * width,
-                                     width))
-        off += units * width
-    return torch.cat(pieces, dim=dim).contiguous()
+    """Rank ``r``'s shard of ``full`` along ``dim``: the runs of
+    :func:`tp_runs`, concatenated."""
+    return torch.cat([full.narrow(dim, start, n) for start, n in
+                      tp_runs(full.shape[dim], blocks, tp, r)],
+                     dim=dim).contiguous()
 
 
 def tp_unslice(shards: List[torch.Tensor], dim: int, blocks,
@@ -146,6 +133,100 @@ def tp_unslice(shards: List[torch.Tensor], dim: int, blocks,
                     for u in range(units)]
         off += size
     return torch.cat(out, dim=dim)
+
+
+def tp_runs(size: int, blocks, tp: int, r: int) -> List[Tuple[int, int]]:
+    """The (start, length) runs of the full dimension that rank ``r``'s
+    :func:`tp_slice` holds, in order, one a fused part: each (units,
+    width) run split into ``tp`` parts, or, with fewer units than ranks,
+    unit ``r // (tp / units)`` (a replicated head)."""
+    out, off = [], 0
+    for units, width in _runs(size, blocks):
+        if units >= tp:
+            if units % tp:
+                raise ValueError(f"{units} units do not split over tp={tp}")
+            per = units // tp
+            out.append((off + r * per * width, per * width))
+        else:
+            if tp % units:
+                raise ValueError(f"{units} units cannot be replicated "
+                                 f"evenly over tp={tp}")
+            out.append((off + (r // (tp // units)) * width, width))
+        off += units * width
+    return out
+
+
+def sub_runs(runs: List[Tuple[int, int]], lo: int,
+             hi: int) -> List[Tuple[int, int]]:
+    """The runs of positions ``[lo, hi)`` of the concatenation of
+    ``runs``."""
+    out, pos = [], 0
+    for start, n in runs:
+        a, b = max(lo, pos), min(hi, pos + n)
+        if a < b:
+            out.append((start + a - pos, b - a))
+        pos += n
+    return out
+
+
+def flat_chunk(n: int, f: int, i: int) -> Tuple[int, int]:
+    """Rank ``i`` of ``f``'s flat chunk ``[lo, hi)`` of ``n`` elements
+    (the ``os`` / ``os_g`` optimizer view)."""
+    c = -(-n // f)
+    lo = min(i * c, n)
+    return lo, min(lo + c, n)
+
+
+def shard_layout(full_shape, spec, blocks, axes: Dict[str, int],
+                 coords: Dict[str, int], level: str = "none",
+                 view: bool = False) -> Dict:
+    """Where one rank's local tensor of a parameter sits in the full
+    (JAX-layout) tensor, without being that rank: ``{"runs": per
+    dimension the (start, length) runs whose concatenation the local
+    tensor holds, "flat": [lo, hi] or None}``. The maps are
+    :func:`shard_layer`'s: the expert dimension over ep, the tensor
+    dimension's fused runs over tp (:func:`tp_runs`), then FSDP2's row
+    chunk of the tensor shard (``level`` "fsdp2"); ``view`` asks for the
+    optimizer's view, a flat chunk of the local tensor under "os" /
+    "os_g". ``axes`` are the mesh's sizes and ``coords`` the rank's
+    coordinates (absent axes: 1 and 0)."""
+    runs = [[(0, int(n))] for n in full_shape]
+    spec = tuple(spec or ())
+
+    def dim_of(axis):
+        return next((d for d, e in enumerate(spec)
+                     if e == axis or (isinstance(e, tuple) and axis in e)),
+                    None)
+    ep, tp = int(axes.get("ep", 1)), int(axes.get("tp", 1))
+    ep_dim, tp_dim = dim_of("ep"), dim_of("tp")
+    if ep_dim is not None and ep > 1:
+        n = full_shape[ep_dim]
+        if n % ep:
+            raise ValueError(f"{n} experts do not split over ep={ep}")
+        runs[ep_dim] = [(int(coords.get("ep", 0)) * (n // ep), n // ep)]
+    if tp_dim is not None and tp > 1:
+        runs[tp_dim] = tp_runs(full_shape[tp_dim], blocks, tp,
+                               int(coords.get("tp", 0)))
+    f, i = int(axes.get("fsdp", 1)), int(coords.get("fsdp", 0))
+    if level == "fsdp2" and f > 1 and runs:
+        lo, hi = flat_chunk(sum(n for _, n in runs[0]), f, i)
+        runs[0] = sub_runs(runs[0], lo, hi)
+    flat = None
+    if view and level in ("os", "os_g") and f > 1:
+        numel = int(np.prod([sum(n for _, n in r) for r in runs]))
+        flat = list(flat_chunk(numel, f, i))
+    return {"runs": [[list(x) for x in r] for r in runs], "flat": flat}
+
+
+def plan_layout(plan: "MeshPlan", name: str, view: bool = False,
+                coords: Optional[Dict[str, int]] = None) -> Dict:
+    """:func:`shard_layout` of parameter ``name`` under ``plan`` at this
+    rank's coordinates, or at ``coords``."""
+    sh = plan.shards[name]
+    hm = plan.mesh
+    return shard_layout(sh.full_shape, sh.spec, sh.blocks, hm.shape,
+                        hm._coord if coords is None else coords,
+                        plan.level, view)
 
 
 def _rep_ranges(size: int, blocks, tp: int) -> List[Tuple[int, int, int]]:
@@ -677,4 +758,5 @@ def full_state_dict(layer: nn.Module,
 __all__ = ["Placement", "Replicate", "Shard", "Partial", "shard_tensor",
            "reshard", "param_spec_tree", "annotations", "shard_layer",
            "shard_optimizer_state", "full_state_dict", "mesh_plan_of",
-           "MeshPlan", "ParamShard", "tp_slice", "tp_unslice"]
+           "MeshPlan", "ParamShard", "tp_slice", "tp_unslice", "tp_runs",
+           "sub_runs", "flat_chunk", "shard_layout", "plan_layout"]

@@ -10,9 +10,10 @@
   skip / rollback-to-checkpoint / abort policies with bounded budgets.
 
 ``Trainer.fit(..., checkpoint_manager=..., resume="auto")`` wires all three
-into the step loop. Resharding on restore (``load_resharded``,
-``check_feasible``) comes with ROADMAP.md A.5; the plan sidecar's
-``read_plan`` / ``write_plan`` are here.
+into the step loop; on a mesh the manager saves each rank's shards under
+the mesh's ShardingPlan and restores them resharded (:mod:`reshard`:
+``load_resharded``, ``check_feasible``, the plan sidecar's
+``read_plan`` / ``write_plan``).
 
 Preemption and anomaly are stdlib-only; :class:`CheckpointManager` (which
 pulls torch through the storage layer) loads lazily.
@@ -24,9 +25,12 @@ from .preemption import (RESUMABLE_EXIT_CODE, PreemptionGuard,
 
 __all__ = ["CheckpointManager", "CheckpointCorruption", "PreemptionGuard",
            "TrainingPreempted", "RESUMABLE_EXIT_CODE", "exit_resumable",
-           "AnomalyGuard", "DivergenceError", "read_plan", "PLAN_NAME"]
+           "AnomalyGuard", "DivergenceError", "read_plan", "PLAN_NAME",
+           "ReshardError", "load_resharded", "check_feasible"]
 
-_RESHARD_NAMES = ("read_plan", "write_plan", "effective_axes", "PLAN_NAME")
+_RESHARD_NAMES = ("read_plan", "write_plan", "effective_axes", "PLAN_NAME",
+                  "ReshardError", "load_resharded", "check_feasible",
+                  "plans_equivalent", "place_tree")
 
 
 def __getattr__(name):

@@ -26,10 +26,19 @@ Single-writer assumption: one manager instance owns ``root``.
 What differs from the JAX manager: the manifest takes each file's sha256
 from the storage layer, which hashed the bytes as its writer thread wrote
 them (``checkpoint.file_digests``), so a commit re-reads nothing it wrote
-itself; :meth:`verify` hashes a step's files on several threads. Sharding
-plans (``mesh``, ``spec_tree``, ``plan``) and the reshard on restore come
-with ROADMAP.md A.5 and are refused until then; every save records the
-implicit single-device plan.
+itself; :meth:`verify` hashes a step's files on several threads.
+
+On a mesh (``mesh=`` the model's ``parallel.api.MeshPlan``, the sharded
+model, or a ``HybridMesh``; ``plan=`` the ``ShardingPlan`` recorded as
+``_PLAN.json``) every rank runs its own manager over the SAME root, and
+the manager is collective over the world: each rank writes its own
+shards (``checkpoint``'s sharded save); rank 0 alone sweeps, writes the
+``.PENDING`` sidecar, verifies, quarantines, commits (the plan sidecar,
+the manifest over every rank's files, the marker) and collects garbage,
+after every rank's files are durable; a restore takes the step rank 0
+verified, and each rank reads its own slice, resharded when the saved
+plan's axes differ. A collective save is not retried (a retry on one
+rank alone would desynchronize the world).
 """
 
 from __future__ import annotations
@@ -125,16 +134,64 @@ class CheckpointManager:
         self.max_retries = max(0, int(max_retries))
         self.backoff_base_s = float(backoff_base_s)
         self.backoff_max_s = float(backoff_max_s)
-        if mesh is not None or spec_tree is not None or plan is not None:
-            raise NotImplementedError(
-                "CheckpointManager(mesh=, spec_tree=, plan=): sharding plans "
-                "come with the elastic and resharding slice (ROADMAP.md, A.5)")
-        self.mesh = self.spec_tree = self.plan = None
+        self.mesh = mesh
+        self.spec_tree = spec_tree
+        # active ShardingPlan: recorded as _PLAN.json in every save; on
+        # restore, a saved plan with DIFFERENT axes triggers the reshard
+        # path (resilience/reshard.py). None = implicit single-device plan.
+        self.plan = plan
         self.last_restored_plan = None
         self._pending: Optional[int] = None
         self._rng = random.Random()
-        os.makedirs(self.root, exist_ok=True)
-        self._sweep_stale()
+        if self._rank() == 0:
+            os.makedirs(self.root, exist_ok=True)
+            self._sweep_stale()
+        self._barrier()
+
+    # -- the world -----------------------------------------------------------
+
+    @staticmethod
+    def _world() -> int:
+        import torch.distributed as dist
+        return dist.get_world_size() if dist.is_initialized() else 1
+
+    def _collective(self) -> bool:
+        """Whether saves and restores are collective over the world: a
+        mesh or a plan is set and the world has more than one rank."""
+        return (self.mesh is not None or self.plan is not None) and \
+            self._world() > 1
+
+    def _rank(self) -> int:
+        """This process's rank where the manager is collective (or may
+        become so: a process group of more than one rank is up and a
+        mesh or plan is set), else 0: every rank of a world that keeps
+        its own manager acts alone."""
+        import torch.distributed as dist
+        if not self._collective():
+            return 0
+        return dist.get_rank()
+
+    def _barrier(self) -> None:
+        if self._collective():
+            import torch.distributed as dist
+            dist.barrier()
+
+    def _bcast(self, obj):
+        """Rank 0's ``obj`` on every rank."""
+        if not self._collective():
+            return obj
+        import torch.distributed as dist
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _layout(self):
+        """The MeshPlan the sharded save cuts by, or None."""
+        from ..checkpoint import _plan_of
+        m = self.mesh
+        if m is None or hasattr(m, "device_mesh"):
+            return None
+        return _plan_of(m)
 
     # -- paths -------------------------------------------------------------
 
@@ -183,21 +240,35 @@ class CheckpointManager:
         # the background write itself never owns the step loop's clock)
         with _ledger().span("checkpoint_save"):
             self.finalize(watchdog=watchdog)    # previous async save first
-            if not force and os.path.isfile(
-                    os.path.join(self.step_dir(step), COMMIT_MARKER)):
+            done = self._bcast(not force and os.path.isfile(
+                os.path.join(self.step_dir(step), COMMIT_MARKER)))
+            if done:
                 return False
             use_async = (self.async_save if async_save is None
                          else bool(async_save))
             sdir = self.step_dir(step)
-            if os.path.isdir(sdir):     # failed earlier attempt: clear it
-                shutil.rmtree(sdir, ignore_errors=True)
-            _atomic_write(
-                self._pending_path(step),
-                json.dumps({"step": step, "ts": time.time()}).encode())
-            self._with_retries(
-                lambda: _ckpt.save_state_dict(tree, sdir,
-                                              async_save=use_async),
-                what=f"save step_{step}")
+            if self._rank() == 0:
+                if os.path.isdir(sdir):  # failed earlier attempt: clear it
+                    shutil.rmtree(sdir, ignore_errors=True)
+                _atomic_write(
+                    self._pending_path(step),
+                    json.dumps({"step": step, "ts": time.time()}).encode())
+            layout = self._layout()
+            if self._collective():
+                if layout is None:
+                    raise ValueError(
+                        "CheckpointManager: a save over a world of several "
+                        "ranks needs mesh= the model's MeshPlan (or the "
+                        "sharded model), which says where each rank's "
+                        "shards sit")
+                # every rank's shards, the index once all are durable
+                _ckpt.writer().save_sharded(tree, sdir, layout, use_async)
+            else:
+                self._with_retries(
+                    lambda: _ckpt.save_state_dict(tree, sdir,
+                                                  async_save=use_async,
+                                                  layout=layout),
+                    what=f"save step_{step}")
             if use_async:
                 self._pending = step
             else:
@@ -224,7 +295,8 @@ class CheckpointManager:
             try:
                 _ckpt.wait_until_finished(watchdog=watchdog)
             except Exception:
-                self._quarantine(step, "async-save-failed")
+                if self._rank() == 0:
+                    self._quarantine(step, "async-save-failed")
                 raise
             self._commit(step, watchdog=watchdog)
         return step
@@ -243,6 +315,13 @@ class CheckpointManager:
             _ckpt.writer().release()
 
     def _commit(self, step: int, watchdog=None) -> None:
+        """Rank 0 commits (every rank's files are durable by now); the
+        others wait for it."""
+        if self._rank() == 0:
+            self._commit_files(step, watchdog)
+        self._barrier()
+
+    def _commit_files(self, step: int, watchdog=None) -> None:
         sdir = self.step_dir(step)
         # record the active plan BEFORE the manifest walk so _PLAN.json is
         # hashed + verified like every other payload file
@@ -431,31 +510,53 @@ class CheckpointManager:
                 mesh=None, spec_tree=None, watchdog=None, plan=None):
         """Load the newest committed checkpoint (or ``step``) into the
         structure of ``like_tree`` (CPU tensors; see
-        ``checkpoint.load_state_dict``). A step failing manifest
-        verification is quarantined and the previous committed step is
-        tried — resume after corruption degrades, it does not crash. A
-        step saved under a plan with real axes raises (A.5), as do
-        ``mesh``, ``spec_tree`` and ``plan``. Returns ``(step, tree)`` or
-        ``None`` when nothing valid exists."""
-        if mesh is not None or spec_tree is not None or plan is not None:
-            raise NotImplementedError(
-                "restore(mesh=, spec_tree=, plan=) reshards, which comes "
-                "with the elastic and resharding slice (ROADMAP.md, A.5)")
+        ``checkpoint.load_state_dict``; on a mesh, each rank's slice on
+        its leaves' devices). A step failing manifest verification is
+        quarantined and the previous committed step is tried — resume
+        after corruption degrades, it does not crash. When the step's
+        recorded ``_PLAN.json`` differs from the target plan (``plan`` or
+        ``self.plan``), the load goes through the reshard path
+        (resilience/reshard.py); the saved plan is surfaced as
+        ``self.last_restored_plan``. A ReshardError (infeasible target
+        mesh) is permanent and raises — an older step cannot fix an
+        indivisible axis. Collective on a mesh: rank 0 verifies and
+        chooses the step. Returns ``(step, tree)`` or ``None`` when
+        nothing valid exists."""
         self.finalize(watchdog=watchdog)
+        mesh = mesh if mesh is not None else self.mesh
+        spec_tree = spec_tree if spec_tree is not None else self.spec_tree
+        target_plan = plan if plan is not None else self.plan
+        layout = self._layout() if mesh is self.mesh else mesh
         candidates = ([int(step)] if step is not None
                       else list(reversed(self.committed_steps())))
         t0 = time.perf_counter()
         with _ledger().span("restore"):
-            for s in candidates:
-                if not self.verify(s, watchdog=watchdog):
+            chosen = None
+            if self._rank() == 0:
+                for s in candidates:
+                    if self.verify(s, watchdog=watchdog):
+                        chosen = s
+                        break
                     self._quarantine(s, "corrupt")
-                    continue
+            chosen = self._bcast(chosen)
+            for s in ([] if chosen is None else [chosen]):
                 saved_plan = _reshard.read_plan(self.step_dir(s))
-                tree = self._with_retries(
-                    lambda s=s: _ckpt.load_state_dict(self.step_dir(s),
-                                                      like_tree),
-                    what=f"restore step_{s}",
-                    no_retry=(ValueError, NotImplementedError))
+                permanent = (ValueError, NotImplementedError,
+                             _reshard.ReshardError)
+                if (target_plan is not None and not _reshard.plans_equivalent(
+                        saved_plan, target_plan)):
+                    tree = self._with_retries(
+                        lambda s=s, sp=saved_plan: _reshard.load_resharded(
+                            self.step_dir(s), like_tree, target_plan,
+                            mesh=layout, source_plan=sp),
+                        what=f"reshard step_{s}", no_retry=permanent)
+                else:
+                    target = layout if layout is not None else mesh
+                    tree = self._with_retries(
+                        lambda s=s: _ckpt.load_state_dict(
+                            self.step_dir(s), like_tree, mesh=target,
+                            spec_tree=spec_tree),
+                        what=f"restore step_{s}", no_retry=permanent)
                 self.last_restored_plan = saved_plan
                 if _REG.enabled:
                     _REG.counter("pt_checkpoint_restores_total",
@@ -469,6 +570,8 @@ class CheckpointManager:
     # -- retention ----------------------------------------------------------
 
     def _gc(self) -> None:
+        if self._rank() != 0:
+            return
         steps = self.committed_steps()
         keep = set(steps[-self.keep_last_n:])
         if self.keep_every_m:

@@ -10,11 +10,10 @@
   current process at a chosen step (preemption mid-fit);
 * :func:`spawn_trainer` — run ``paddle_tpu_torch.testing._chaos_train`` in
   a subprocess for the real kill -9 / exit-status tests;
+* :func:`spawn_elastic` — run ``paddle_tpu_torch.testing._elastic_train``
+  (a pod of ranks through the port's launcher) for the scale-in tests;
 * :func:`kill_replica` / :func:`hang_replica` / :func:`unhang_replica` —
   serving-fabric faults through a transport's hooks.
-
-``spawn_elastic`` (a resume on fewer devices) comes with the elastic and
-resharding slice (ROADMAP.md, A.5).
 """
 
 from __future__ import annotations
@@ -28,8 +27,9 @@ from typing import Iterable, Iterator, Optional, Sequence
 import numpy as np
 
 __all__ = ["kill_mid_save", "corrupt_checkpoint", "nan_batch",
-           "nan_injector", "kill_at_step", "spawn_trainer", "kill_replica",
-           "hang_replica", "unhang_replica"]
+           "nan_injector", "kill_at_step", "spawn_trainer",
+           "spawn_elastic", "kill_replica", "hang_replica",
+           "unhang_replica"]
 
 
 def kill_mid_save(manager, step: int, tree) -> str:
@@ -147,6 +147,34 @@ def spawn_trainer(ckpt_dir: str, *, steps: int, extra_args: Sequence[str] = (),
     full_env["PYTHONPATH"] = os.pathsep.join(
         [root] + [p for p in full_env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
+    if env:
+        full_env.update(env)
+    return subprocess.Popen(cmd, env=full_env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+
+def spawn_elastic(ckpt_dir: str, *, steps: int, virtual_devices: int,
+                  extra_args: Sequence[str] = (),
+                  env: Optional[dict] = None) -> subprocess.Popen:
+    """Launch the elastic training script: ``python -m
+    paddle_tpu_torch.testing._elastic_train``, whose parent process starts
+    a pod of ``virtual_devices`` ranks through the port's launcher (gloo ranks
+    when ``extra_args`` holds ``--device cpu``, a card a rank otherwise);
+    a resume with fewer ranks IS the scenario. The caller kills/waits on
+    the returned Popen (SIGKILL shape: pass ``--hard-exit-at K`` and
+    assert exit code 137)."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.testing._elastic_train",
+           "--ckpt-dir", ckpt_dir, "--steps", str(steps),
+           "--virtual-devices", str(virtual_devices), *extra_args]
+    full_env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    full_env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in full_env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        full_env.pop(k, None)
     if env:
         full_env.update(env)
     return subprocess.Popen(cmd, env=full_env, stdout=subprocess.PIPE,

@@ -39,15 +39,18 @@ the model's loss is the global token mean, each gradient is summed over
 the ranks that replicate its parameter, the global-norm clip counts
 every element once, and the update runs on the local shards. Metrics
 are global (tokens/s over every rank) and rank 0 publishes them. A
-checkpoint of a sharded state raises (ROADMAP.md A.5). A pipeline model
+checkpoint manager on a mesh saves each rank's shards under the mesh's
+``ShardingPlan`` and restores, resharded when the saved plan's axes
+differ, each rank's slice (``resilience.CheckpointManager``;
+:meth:`Trainer.apply_plan` adopts a planner's plan). A pipeline model
 (``LlamaForCausalLMPipe``) trains through its fused ``loss_and_grads``
 under the 1F1B schedule, as the JAX trainer does, and under any
 schedule on a ``pp`` mesh; the loss it returns there is the last
 stage's, broadcast, so every rank logs and judges the same value.
 
-Not here: ``apply_plan`` (sharding plans, ROADMAP.md A.5) and
-``precompile`` (an eager step has nothing to compile ahead; CUDA graphs
-are B.3.3) raise; the cost observatory's step-cost gauges wait with A.6.
+Not here: ``precompile`` (an eager step has nothing to compile ahead;
+CUDA graphs are B.3.3) raises; the cost observatory's step-cost gauges
+wait with A.6.
 """
 
 from __future__ import annotations
@@ -200,6 +203,13 @@ class Trainer:
             opt._state = place_opt_state(opt._state, self.params,
                                          "pinned_host")
 
+    def _opt_params(self) -> Dict[str, torch.Tensor]:
+        """The tensors the optimizer's state is made for: the parameters,
+        or on a mesh their local shards (chunks under os / os_g)."""
+        if self._plan is None:
+            return self.params
+        return self._plan.opt_views(self.params)[0]
+
     def _adopt_offload_flag(self) -> None:
         """An optimizer flag set after this Trainer was built is honoured
         from here on, unless offload_opt_state was passed explicitly."""
@@ -298,7 +308,7 @@ class Trainer:
             p.grad = None
         A = self.accumulate_steps
         plan = self._plan
-        if plan is not None:
+        if plan is not None and not getattr(batch, "is_local", False):
             batch = plan.local_batch(batch, lead=int(A > 1))
         if A == 1:
             self._arm(A)
@@ -354,9 +364,59 @@ class Trainer:
         return losses
 
     def apply_plan(self, plan, devices=None):
-        raise NotImplementedError(
-            "Trainer.apply_plan: sharding plans come with the elastic and "
-            "resharding slice (ROADMAP.md, A.5)")
+        """Adopt a sharding-planner plan: shard the model (each rank
+        holding the same full weights) as the ``ShardingPlan`` says
+        (``plan.apply``: ``shard_layer``, FSDP2 over an fsdp axis), re-bind
+        the optimizer to the sharded parameters, cut an optimizer state
+        made before into this rank's shards, and return the mesh to train
+        under. Collective over the live world, whose size must be the
+        plan's. Usage (every rank)::
+
+            report = auto_parallel.plan(cfg, n_devices=world)
+            hm = trainer.apply_plan(report.chosen.plan)
+            with hm:
+                trainer.fit(loader, steps=...)
+        """
+        from ..distributed.sharding import bind_optimizer
+        from ..parallel.api import mesh_plan_of, shard_optimizer_state
+        self._sync_host_state()
+        st = self.optimizer._state
+        hm = plan.apply(self.model, devices=devices)
+        bind_optimizer(self.optimizer, self.model)
+        self._plan = mesh_plan_of(self.model)
+        self.params = {n: p for n, p in self.model.named_parameters()
+                       if p.requires_grad}
+        self._world = self._plan.mesh.nproc
+        on_pp = self._plan.pp_size > 1
+        self._fused = hasattr(self.model, "loss_and_grads") and (
+            getattr(self.model, "pp_schedule", None) == "1f1b" or on_pp)
+        if st is not None:
+            cut = shard_optimizer_state(
+                {"step": st["step"], "master": st["master"],
+                 "slots": st["slots"]}, self.model)
+            self.optimizer._state = place_opt_state(
+                cut, self.params, "pinned_host" if self._offload
+                else "device")
+        # remembered so fit() can hand the plan to the checkpoint manager
+        # (saves record it as _PLAN.json; restores on a different mesh
+        # reshard against it) without extra caller wiring
+        self._active_plan = plan
+        self._active_mesh = hm
+        return hm
+
+    def _mesh_sharding_plan(self):
+        """The ShardingPlan of the mesh the model is sharded over: the one
+        applied, else emitted from the mesh."""
+        if getattr(self, "_active_plan", None) is not None:
+            return self._active_plan
+        from ..distributed.auto_parallel import ParallelConfig, emit_plan
+        hm = self._plan.mesh
+        cfg = ParallelConfig(
+            dp=hm.axis_size("dp") * hm.axis_size("ep"),
+            fsdp=hm.axis_size("fsdp"), tp=hm.axis_size("tp"),
+            pp=hm.axis_size("pp"), sep=hm.axis_size("sep"),
+            ep=hm.axis_size("ep"))
+        return emit_plan(self.model, hm, cfg)
 
     def precompile(self, sample_batch, steps_per_dispatch: int = 1,
                    cache_dir: Optional[str] = None):
@@ -432,9 +492,13 @@ class Trainer:
         if resume and checkpoint_manager is None:
             raise ValueError("resume requires a checkpoint_manager")
         if checkpoint_manager is not None and self._plan is not None:
-            raise NotImplementedError(
-                "checkpoints of a model sharded over a mesh wait for the "
-                "plan-aware save (ROADMAP.md A.5)")
+            # hand the mesh and its ShardingPlan to the manager: saves
+            # write each rank's shards and record the plan as _PLAN.json,
+            # and a restore whose saved plan has different axes reshards
+            if checkpoint_manager.plan is None:
+                checkpoint_manager.plan = self._mesh_sharding_plan()
+            if checkpoint_manager._layout() is None:
+                checkpoint_manager.mesh = self._plan
         if (anomaly_guard is not None and anomaly_guard.policy == "skip"
                 and self._donate):
             raise ValueError(
@@ -631,7 +695,7 @@ class Trainer:
         else:
             cursor = self._step    # 1 batch per step for stateless iterables
         st = self.optimizer.ensure_state(
-            self.params, "pinned_host" if self._offload else "device")
+            self._opt_params(), "pinned_host" if self._offload else "device")
         return {
             "step": np.asarray(self._step, np.int64),
             "params": dict(self.params),
@@ -653,11 +717,12 @@ class Trainer:
         parameters, the optimizer's masters and slots share storage, so
         nothing is rebound); returns the data cursor."""
         st = self.optimizer.ensure_state(
-            self.params, "pinned_host" if self._offload else "device")
+            self._opt_params(), "pinned_host" if self._offload else "device")
         self._sync_host_state()
+        from ..parallel.api import _local
         with torch.no_grad():
             for k, p in self.params.items():
-                p.copy_(tree["params"][k])
+                _local(p).copy_(tree["params"][k])
             for k, t in st["master"].items():
                 t.copy_(tree["opt_state"]["master"][k])
             for k, slots in st["slots"].items():

@@ -7,6 +7,7 @@ each rank's own tensor: rank r's result here is slice r of JAX's. The
 ranks run once per module (``tests/torch_dist_workers.py``)."""
 
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -268,10 +269,11 @@ def test_pipeline_paths_raise_naming_a4b():
     """A.4c is ported: every module it brought imports and exposes the
     JAX module's public names (less the XLA-flag vetting of
     ``overlap`` and the TPU constants of ``projection``, whose
-    projections take the hardware as an argument); the A.5 paths still
-    raise naming A.5; PipelineParallel refuses a model that is no
-    pipeline with TypeError, as JAX's does; PipelineOptimizer names its
-    replacement."""
+    projections take the hardware as an argument); the paths that
+    raised naming A.5 now work: a load onto a mesh's sizes and a spec
+    table gives a rank's slice, and a real plan's sidecar round-trips;
+    PipelineParallel refuses a model that is no pipeline with TypeError,
+    as JAX's does; PipelineOptimizer names its replacement."""
     import importlib
     import tempfile
     from torch import nn
@@ -305,10 +307,23 @@ def test_pipeline_paths_raise_naming_a4b():
                  "utils"):
         assert getattr(distributed, name).__name__.endswith(name)
     assert distributed.DistModel is distributed.compat.DistModel
-    with pytest.raises(NotImplementedError, match="A.5"):
-        load_state_dict(tempfile.gettempdir(), {}, mesh=object())
-    with pytest.raises(NotImplementedError, match="A.5"):
-        write_plan(tempfile.gettempdir(), object(), 0)
+    import torch
+    from paddle_tpu_torch.checkpoint import save_state_dict
+    from paddle_tpu_torch.distributed.auto_parallel import (ParallelConfig,
+                                                            plan_for_config)
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.resilience.reshard import read_plan
+    with tempfile.TemporaryDirectory() as d:
+        w = torch.arange(24.0).reshape(4, 6)
+        save_state_dict({"w": w}, os.path.join(d, "ck"))
+        got = load_state_dict(os.path.join(d, "ck"), {"w": w},
+                              mesh={"dp": 2, "tp": 1},
+                              spec_tree={"w": (None, None)},
+                              coords={"dp": 1})
+        assert torch.equal(got["w"], w)
+        plan = plan_for_config(LlamaConfig.tiny(), ParallelConfig(dp=2, tp=2))
+        write_plan(d, plan, 0)
+        assert read_plan(d).as_dict() == plan.as_dict()
     with pytest.raises(TypeError, match="PipelineLayer"):
         PipelineParallel(nn.Linear(4, 4))
     with pytest.raises(AttributeError, match="parallel.schedules"):

@@ -2237,3 +2237,45 @@ print("OVERLAP OK")
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0 and "OVERLAP OK" in r.stdout, \
         r.stdout[-2000:] + r.stderr[-3000:]
+
+
+def _census_of_wrapped_ops(device):
+    """(name, flops, bytes) of each kernel the census records for RMSNorm,
+    RoPE, flash attention and the vocab-CE head, forward and backward,
+    on ``device`` (fp32, seeded inputs made on the CPU)."""
+    from paddle_tpu_torch.analysis.collectives import StepCensus
+    b, s, h, hk, d, V = 2, 64, 4, 2, 64, 256
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g).to(device).requires_grad_()
+    x, w = t(b * s, h * d), t(h * d)
+    q, k, v = t(b, s, h, d), t(b, s, hk, d), t(b, s, hk, d)
+    cos, sin = rope_ops.rope_freqs(d, 128, device=device)
+    hw = t(h * d, V)
+    labels = torch.randint(0, V, (b * s,), generator=g).to(device)
+    with StepCensus() as c:
+        y = norm_ops.rms_norm(x, w)
+        torch.autograd.grad(y.sum(), (x, w))
+        qr, kr = rope_ops.apply_rotary_pos_emb(q, k, cos, sin)
+        o = attn_ops.flash_attention(qr, kr, v, causal=True)
+        torch.autograd.grad(o.sum(), (q, k, v))
+        lse, tgt = vocab_ce.lse_and_target(x, hw, labels)
+        torch.autograd.grad((lse - tgt).sum(), (x, hw))
+    return [(o.name, o.flops, o.bytes) for o in c.ops if o.kernel]
+
+
+def test_census_counts_wrapped_kernels_on_card_as_on_cpu(dev):
+    """The planner's census prices a wrapped op by its kernel's counts:
+    the same records (and the same kernels) on the card, where the
+    kernels launch, as on the CPU, where their plain versions run."""
+    _build.reset_launches()
+    got = _census_of_wrapped_ops(dev)
+    torch.cuda.synchronize(dev)
+    assert got == _census_of_wrapped_ops(torch.device("cpu"))
+    assert [n for n, *_ in got] == [
+        "rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd", "flash_bwd",
+        "fused_rope", "vocab_ce_fwd", "vocab_ce_bwd"]
+    for name in ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
+                 "flash_bwd", "vocab_ce_fwd"):
+        assert _build.LAUNCHES[name] > 0, name

@@ -220,8 +220,26 @@ def test_worker_info_and_collate():
 def test_loader_refusals_and_default_device():
     with pytest.raises(NotImplementedError, match="A.6"):
         tio.DataLoader(Squares(4), num_workers=2, use_shared_memory=True)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    # sharding= takes a plan: each batch comes as this rank's slice (a
+    # stand-in MeshPlan keeping the second half of the rows here), marked
+    # as already local for the Trainer
+    with pytest.raises(TypeError, match="ShardingPlan"):
         tio.DataLoader(Squares(4), sharding=object())
+
+    class SecondHalf:
+        def local_batch(self, batch):
+            return {k: v.chunk(2)[1] for k, v in batch.items()}
+
+    class Rows(Squares):
+        def __getitem__(self, i):
+            return {"x": super().__getitem__(i)}
+    whole = list(tio.DataLoader(Rows(4), batch_size=4))
+    local = list(tio.DataLoader(Rows(4), batch_size=4,
+                                sharding=SecondHalf()))
+    assert len(local) == 1 and getattr(local[0], "is_local", False)
+    assert not getattr(whole[0], "is_local", False)
+    for k in whole[0]:
+        assert torch.equal(local[0][k], whole[0][k][2:])
     # shared memory without workers is accepted, as in JAX
     assert len(list(tio.DataLoader(Squares(4), use_shared_memory=True))) == 4
     if torch.cuda.is_available():

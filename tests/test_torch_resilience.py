@@ -123,10 +123,23 @@ def test_storage_refuses_mismatch_and_meshes(tmp_path):
         ckpt.load_state_dict(path, bad)
     with pytest.raises(ValueError, match="missing"):
         ckpt.load_state_dict(path, {**tree(0.0), "x": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ckpt.load_state_dict(path, tree(0.0), mesh=object())
-    with pytest.raises(NotImplementedError, match="A.5"):
-        CheckpointManager(str(tmp_path / "r"), plan=object())
+    # a load onto a mesh's sizes reads the slice the spec table gives
+    # the rank at coords (a replicated leaf: whole); a manager under a
+    # real plan records it in every save
+    from paddle_tpu_torch.distributed.auto_parallel import (ParallelConfig,
+                                                            plan_for_config)
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    got = ckpt.load_state_dict(path, tree(0.0), mesh={"dp": 2},
+                               spec_tree={"w": (None, None)},
+                               coords={"dp": 1})
+    for k, v in tree(1.0).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(got[k], v), k
+    plan = plan_for_config(LlamaConfig.tiny(), ParallelConfig(dp=2))
+    mgr = CheckpointManager(str(tmp_path / "r"), plan=plan)
+    mgr.save(1, tree(1.0))
+    assert reshard.read_plan(mgr.step_dir(1)).as_dict() == plan.as_dict()
+    assert mgr.restore(tree(0.0))[0] == 1
 
 
 def test_async_write_failure_reraised_at_wait(tmp_path, monkeypatch):
@@ -307,15 +320,25 @@ def test_wait_ticks_watchdog_then_goes_silent_on_a_hang():
 
 
 def test_plan_sidecar_refuses_real_axes(tmp_path):
+    """The sidecar, which refused a plan with real axes, round-trips one:
+    the implicit single-device plan reads back as None, a dp2_tp2 plan
+    as itself, its effective axes those of size > 1."""
+    from paddle_tpu_torch.distributed.auto_parallel import (ParallelConfig,
+                                                            plan_for_config)
+    from paddle_tpu_torch.models.llama import LlamaConfig
     d = str(tmp_path)
     reshard.write_plan(d, None, 3)
     assert reshard.read_plan(d) is None
-    with open(os.path.join(d, reshard.PLAN_NAME), "w") as f:
-        json.dump({"plan": {"axes": {"dp": 1, "tp": 2}}}, f)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        reshard.read_plan(d)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        reshard.write_plan(d, object(), 3)
+    plan = plan_for_config(LlamaConfig.tiny(), ParallelConfig(dp=2, tp=2))
+    reshard.write_plan(d, plan, 3)
+    with open(os.path.join(d, reshard.PLAN_NAME)) as f:
+        payload = json.load(f)
+    assert payload["step"] == 3 and not payload["implicit_single_device"]
+    back = reshard.read_plan(d)
+    assert back.as_dict() == plan.as_dict()
+    assert reshard.effective_axes(back) == {"dp": 2, "tp": 2}
+    assert reshard.plans_equivalent(back, plan)
+    assert not reshard.plans_equivalent(back, None)
 
 
 # -- AnomalyGuard: the same verdicts as JAX's on the same loss streams --------

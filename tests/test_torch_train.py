@@ -584,8 +584,22 @@ def test_training_fields_raise_until_ported():
     with pytest.raises(NotImplementedError):
         Trainer(m, AdamW(parameters=m), seed=1)
     tr = Trainer(m, AdamW(parameters=m), offload_opt_state=True)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tr.apply_plan(object())
+    # apply_plan adopts a planner's plan over the live world (a gloo world
+    # of one here) and returns its mesh
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed.auto_parallel import (ParallelConfig,
+                                                            plan_for_config)
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    ma = LlamaForCausalLM(m.cfg, device="cpu")
+    ta = Trainer(ma, AdamW(parameters=ma), offload_opt_state=True)
+    init_parallel_env(backend="gloo", device="cpu")
+    try:
+        hm = ta.apply_plan(plan_for_config(ma.cfg, ParallelConfig()),
+                           devices="cpu")
+        assert hm.nproc == 1 and ta._plan is not None
+        assert ta._plan.mesh is hm and ta.opt_state["slots"]
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(NotImplementedError, match="B.3.3"):
         tr.precompile({"input_ids": ids, "labels": ids})
     assert tr.fit([{"input_ids": ids, "labels": ids}], 1, log_every=1,

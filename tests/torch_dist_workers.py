@@ -441,31 +441,67 @@ def sc_sp_attention(inp, args):
 
 
 def sc_sharded_save(inp, args):
-    """A sharded state's save raises naming A.5: FSDP2 parameters through
-    ``save_state_dict``, a Trainer with a checkpoint manager, and
-    ``save_group_sharded_model``."""
+    """A sharded state saves through the plan-aware sharded save: FSDP2
+    parameters through ``save_state_dict(layout=)``, read back whole
+    equal to ``full_state_dict``; a Trainer with a checkpoint manager on
+    the mesh (a committed step whose recorded plan has the mesh's axes,
+    restored into the live state); and ``save_group_sharded_model``,
+    read back into this rank's slices. Each leg's error ("no error" when
+    it works), and whether each check held."""
+    import torch
     from paddle_tpu_torch import checkpoint
     from paddle_tpu_torch.distributed.sharding import (
         group_sharded_parallel, save_group_sharded_model)
-    from paddle_tpu_torch.resilience import CheckpointManager
+    from paddle_tpu_torch.parallel.api import _local, full_state_dict
+    from paddle_tpu_torch.resilience import CheckpointManager, read_plan
     from paddle_tpu_torch.trainer import Trainer
     model = _model(inp, args)
     hm = _mesh(args)
+    cwd = os.getcwd()
     with hm:
         model, opt, _ = group_sharded_parallel(model, _optimizer(args, model))
-        msgs = []
-        for fn in (lambda: checkpoint.save_state_dict(
-                       model.state_dict(), os.path.join(os.getcwd(), "ck")),
-                   lambda: Trainer(model, opt).fit(
-                       [_batch(inp)], 1, checkpoint_manager=CheckpointManager(
-                           os.path.join(os.getcwd(), "mgr"))),
-                   lambda: save_group_sharded_model(model, "x")):
+        full = full_state_dict(model)
+        msgs, checks = [], []
+
+        def save_params():
+            path = os.path.join(cwd, "ck")
+            checkpoint.save_state_dict(dict(model.named_parameters()), path,
+                                       layout=model)
+            back = checkpoint.load_flat(path)
+            checks.append(all(torch.equal(back[k], v)
+                              for k, v in full.items()))
+
+        def fit_and_restore():
+            mgr = CheckpointManager(os.path.join(cwd, "mgr"))
+            tr = Trainer(model, opt)
+            tr.fit([_batch(inp)], 1, checkpoint_manager=mgr)
+            plan = read_plan(mgr.step_dir(1))
+            checks.append(mgr.committed_steps() == [1]
+                          and plan.axes["fsdp"] == 4)
+            step, tree = mgr.restore(tr._ckpt_tree())
+            checks.append(step == 1 and all(
+                torch.equal(_local(p).detach(), tree["params"][n])
+                for n, p in tr.params.items()))
+            mgr.close()
+
+        def group_sharded():
+            path = os.path.join(cwd, "gs")
+            save_group_sharded_model(model, path, opt)
+            like = {"params": dict(model.named_parameters()),
+                    "opt_state": {"master": opt._state["master"],
+                                  "slots": opt._state["slots"]}}
+            back = checkpoint.load_state_dict(path, like, mesh=model)
+            checks.append(all(
+                torch.equal(back["params"][n], _local(p).detach())
+                for n, p in model.named_parameters()))
+        for fn in (save_params, fit_and_restore, group_sharded):
             try:
                 fn()
                 msgs.append("no error")
-            except NotImplementedError as e:
-                msgs.append(str(e))
-    return {"msgs": np.asarray(json.dumps(msgs))}
+            except Exception as e:  # noqa: BLE001 — reported to the test
+                msgs.append(f"{type(e).__name__}: {e}")
+    return {"msgs": np.asarray(json.dumps(msgs)),
+            "checks": np.asarray(json.dumps(checks))}
 
 
 def sc_refused(inp, args):
@@ -747,13 +783,156 @@ def compat_rank(out_dir):
     compat.destroy_process_group()
 
 
+def sc_plan_state(inp, args):
+    """The tiny Llama (the parent's weights) under ``args["config"]``'s
+    ShardingPlan through ``Trainer.apply_plan`` (or, with "level", under
+    ``shard_layer`` and ``group_sharded_parallel`` at that level on
+    ``args["mesh"]``), ``args["steps"]`` AdamW steps on the batch, then:
+    "restore" — the newest good step of that root restored (resharded
+    when its plan differs) into the live state, and whether every local
+    parameter and slot equals ``shard_layer``'s cut of the checkpoint's
+    whole state; "save" — the state saved at each of ``save_steps``
+    under a CheckpointManager on the mesh; "loader" — whether
+    ``DataLoader(sharding=)`` with the plan and with the MeshPlan yields
+    ``MeshPlan.local_batch``; "losses" — the losses of 2 more steps."""
+    import torch
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.distributed.auto_parallel import (
+        ParallelConfig, plan_for_config)
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.parallel.api import (_local, _param_local,
+                                               mesh_plan_of, shard_layer)
+    from paddle_tpu_torch.resilience import CheckpointManager
+    from paddle_tpu_torch.trainer import Trainer
+    model = _model(inp, args)
+    cfg = LlamaConfig.tiny(**args.get("cfg", {}))
+    opt = _optimizer(args, model)
+    if args.get("level"):
+        from paddle_tpu_torch.distributed.sharding import \
+            group_sharded_parallel
+        hm = _mesh(args)
+        hm.__enter__()
+        shard_layer(model, hm)
+        model, opt, _ = group_sharded_parallel(model, opt,
+                                               level=args["level"])
+        tr = Trainer(model, opt)
+        plan = tr._mesh_sharding_plan()
+    else:
+        plan = plan_for_config(cfg, ParallelConfig.parse(args["config"]))
+        tr = Trainer(model, opt)
+        hm = tr.apply_plan(plan, devices="cpu")
+        hm.__enter__()
+    mp = mesh_plan_of(model)
+    out = {"config": np.asarray(plan.config_str)}
+    batch = _batch(inp)
+    for _ in range(args.get("steps", 0)):
+        tr.train_step(batch)
+    root = args.get("root", os.path.join(os.getcwd(), "ckpt"))
+    if args.get("restore"):
+        mgr = CheckpointManager(os.path.join(root, args["restore"]),
+                                mesh=mp, plan=plan)
+        step, tree = mgr.restore(tr._ckpt_tree())
+        tr._apply_restored(tree)
+        out["restored_step"] = np.asarray(step)
+        out["quarantined"] = np.asarray(json.dumps(mgr.quarantined()))
+        flat = checkpoint.load_flat(mgr.step_dir(step))
+        same = True
+        st = tr.optimizer._state
+        for n, p in tr.params.items():
+            if mp.level not in ("os", "os_g"):
+                same &= torch.equal(_local(p).detach(), _param_local(
+                    mp, n, flat[f"params/{n}"]))
+            for sk, t in st["slots"][n].items():
+                same &= torch.equal(t, _param_local(
+                    mp, n, flat[f"opt_state/slots/{n}/{sk}"]))
+        out["equal_shard_layer"] = np.asarray(bool(same))
+        mgr.close()
+    if args.get("save"):
+        mgr = CheckpointManager(os.path.join(root, args["save"]),
+                                save_interval_steps=1, keep_last_n=4,
+                                mesh=mp, plan=plan)
+        for s_ in args.get("save_steps", [4]):
+            mgr.save(s_, tr._ckpt_tree())
+        mgr.close()
+    if args.get("loader"):
+        from paddle_tpu_torch.io import DataLoader, Dataset
+
+        class Rows(Dataset):
+            def __len__(self):
+                return batch["input_ids"].shape[0]
+
+            def __getitem__(self, i):
+                return {k: v[i].numpy() for k, v in batch.items()}
+        want = mp.local_batch(batch)
+        ok = True
+        for sh in (plan, mp):
+            got = next(iter(DataLoader(Rows(), batch_size=len(Rows()),
+                                       sharding=sh)))
+            ok &= bool(getattr(got, "is_local", False)) and all(
+                torch.equal(got[k], want[k]) for k in want)
+        out["loader_local"] = np.asarray(ok)
+    if args.get("losses"):
+        out["losses"] = np.asarray([float(tr.train_step(b)) for b in (
+            _batch(inp, "batch0/"), _batch(inp, "batch1/"))])
+        from paddle_tpu_torch.parallel.api import full_state_dict
+        for k, v in full_state_dict(model).items():
+            out["param." + k] = _np(v)
+    hm.__exit__(None, None, None)
+    return out
+
+
 SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "collectives": sc_collectives, "reshard": sc_reshard,
              "tp_layers": sc_tp_layers, "sp_attention": sc_sp_attention,
              "sharded_save": sc_sharded_save, "refused": sc_refused,
              "mesh_check": sc_mesh_check, "pipe_train": sc_pipe_train,
              "moe_layer": sc_moe_layer, "overlap": sc_overlap,
-             "fleet_overlap": sc_fleet_overlap}
+             "fleet_overlap": sc_fleet_overlap, "plan_state": sc_plan_state}
+
+
+def torn_save(tmp: str, rank: int) -> None:
+    """One of 2 gloo ranks of the torn-save check: the tiny Llama under the
+    dp2 plan, step 4 saved and committed, then an async save of step 8
+    from which rank 1 dies before its files are durable. Rank 0's commit
+    must fail (the index waits for every rank's files), no step_8 may
+    appear, and a fresh manager's startup sweep quarantines the torn
+    directory; rank 0 writes what it saw to ``torn.json``."""
+    import datetime
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed.auto_parallel import (ParallelConfig,
+                                                            plan_for_config)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import CheckpointManager
+    from paddle_tpu_torch.trainer import Trainer
+    tmp = pathlib.Path(tmp)
+    dist.init_process_group("gloo", init_method=f"file://{tmp / 'store'}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    cfg = LlamaConfig.tiny(num_hidden_layers=1)
+    model = LlamaForCausalLM(cfg, device="cpu")
+    tr = Trainer(model, AdamW(learning_rate=1e-3, parameters=model))
+    plan = plan_for_config(cfg, ParallelConfig(dp=2))
+    hm = tr.apply_plan(plan, devices="cpu")
+    root = str(tmp / "ckpt")
+    mgr = CheckpointManager(root, mesh=tr._plan, plan=plan)
+    with hm:
+        mgr.save(4, tr._ckpt_tree())
+        mgr.save(8, tr._ckpt_tree(), async_save=True)
+    if rank == 1:
+        os._exit(0)                 # dies before its writer is durable
+    out = {}
+    try:
+        mgr.finalize()
+        out["finalize"] = "committed"
+    except Exception as e:  # noqa: BLE001 — what the commit did is the result
+        out["finalize"] = type(e).__name__
+    out["step_8_exists"] = os.path.isdir(os.path.join(root, "step_8"))
+    fresh = CheckpointManager(root)
+    out["committed"] = fresh.committed_steps()
+    out["quarantined"] = fresh.quarantined()
+    (tmp / "torn.json").write_text(json.dumps(out))
+    os._exit(0)
 
 
 def main(tmp: str, rank, world) -> None:
@@ -784,7 +963,9 @@ def main(tmp: str, rank, world) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[2] == "env":
+    if sys.argv[2] == "torn":
+        torn_save(sys.argv[1], int(sys.argv[3]))
+    elif sys.argv[2] == "env":
         main(sys.argv[1], None, None)
     else:
         main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
