@@ -128,6 +128,17 @@ Phases, in order; any failure exits non-zero before the result line:
      exactly and the probe readmits it; a deadline miss and an overload
      are refused typed with retry_after_ms; an int8 replica pair serves
      three prompts equal to 4d's single int8 engine;
+  4f. generation equality: phase 4's model (fp32, 2 layers, seed 7, TF32
+     off) and its CPU copy; 2 prompts of 120 tokens with 16 new (the
+     decode crosses the page edge at 128) and 1 prompt of 128 with 8
+     new: ``generate``, ``generate_scan`` and ``generate_paged(page_size=
+     128)`` on the card give equal tokens for every row, equal to
+     ``plain_greedy`` on the CPU copy; ``generate_scan`` with row 0's
+     first greedy token as EOS and pad -7 equals the same call on the
+     CPU; a sampled ``generate_scan`` (temperature 0.8, top-k 50, top-p
+     0.9, seed 3) gives the same tokens twice and equals ``generate``;
+     after a warm call ``generate_scan`` and ``generate_paged`` run
+     under torch.cuda.set_sync_debug_mode("error");
   5. the serving run: Llama-3-8B widths, all 32 layers, bf16, seeded
      random weights built on the card; 16 requests (prompts 128-1536
      tokens, 64 new tokens, every 4th sampled) through
@@ -169,6 +180,20 @@ Phases, in order; any failure exits non-zero before the result line:
      served by the "both" replica, readmission once released, greedy
      streams equal 5d's (or, for a long prompt served cold, one engine
      serving it cold);
+  5f. one-shot generation, on phase 5's model after 5e (and on the int8
+     model after 5d's int8 arm): 8 prompts of 512 tokens (seed 12), 64
+     new, page 128, through ``generate``, ``generate_scan`` and
+     ``generate_paged``, each a warm call then a timed one: wall time,
+     tokens/s (8 x 64 / wall) and the prefill's device span inside the
+     timed call (CUDA events around the model's prefill), beside the card's
+     name and power limit; ``generate`` must equal ``generate_scan``
+     token for token, and one ``generate_paged`` call must launch
+     RMSNorm 64 x 65, RoPE 64 x 32 and the paged decode kernel (its int8
+     half on the int8 model) 63 x 32 times, the int8 product 64 x 129
+     times (128 on its wgmma route: the prefill's projections, the rest
+     on its decode route); reported only: the dense-vs-paged token
+     agreement and the device idle share of one ``generate_scan`` call
+     (torch.profiler, the device's activity alone: ``profile_step``);
   5b. the quantized serving run: the same model quantized on the card
      (int8 weights and KV, the native model then freed) through the same
      run, side by side with phase 5: tokens/s, TTFT, ITL, one decode
@@ -527,37 +552,62 @@ class DeviceSpan:
             self.e = torch.cuda.Event(enable_timing=True)
             self.s.record()
 
-    def end(self) -> float:
+    def stop(self) -> "DeviceSpan":
+        """Mark the end without waiting for the device."""
+        self.t1 = time.perf_counter()
+        if self.cuda:
+            self.e.record()
+        return self
+
+    def ms(self) -> float:
+        """The span's milliseconds, once its end is reached."""
         if not self.cuda:
-            return (time.perf_counter() - self.t0) * 1e3
-        self.e.record()
+            return (self.t1 - self.t0) * 1e3
         self.e.synchronize()
         return self.s.elapsed_time(self.e)
 
+    def end(self) -> float:
+        return self.stop().ms()
+
 
 def profile_step(torch, dev, step, top=8, sums=None):
-    """Device busy time of one call of ``step`` by kernel name, from
-    torch.profiler (CUPTI); None where it reports no device time.
-    ``sums`` {label: name fragments}: also the summed device us and
-    launches of the kernels whose names hold a fragment."""
+    """The device's activity over one call of ``step``, from a
+    torch.profiler (CUPTI) trace of the device alone: no CPU op is
+    recorded, so the host runs near its own pace, and the kineto events
+    are read as they come, without the profiler's event tree (which
+    takes minutes over a call of ~10^5 launches). Busy ms is the union
+    of the kernels' and copies' intervals; by kernel name, the device ms
+    and launches. ``sums`` {label: name fragments}: also the summed
+    device us and launches of the kernels whose names hold a fragment.
+    None off the card or where no device time is reported."""
     if dev.type != "cuda":
         return None
     from torch.profiler import ProfilerActivity, profile
     sync(torch, dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         sync(torch, dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    if not rows:
+    events = [(e.name(), e.start_ns(), e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and e.duration_ns() > 0]
+    if not events:
         return None
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
+    per = {}
+    for name, _, ns in events:
+        ms, n = per.get(name, (0.0, 0))
+        per[name] = (ms + ns / 1e6, n + 1)
+    rows = sorted(((k, ms, n) for k, (ms, n) in per.items()),
+                  key=lambda r: -r[1])
+    spans = sorted((t, t + ns) for _, t, ns in events)
+    busy, (lo, hi) = 0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e6
     summed = {label: {"us": sum(r[1] for r in rows if any(
         f in r[0] for f in frags)) * 1e3, "launches": sum(
         r[2] for r in rows if any(f in r[0] for f in frags))}
@@ -566,7 +616,7 @@ def profile_step(torch, dev, step, top=8, sums=None):
             "sums": summed,
             "device_idle_share": 1.0 - busy / wall_ms,
             "kernels": len(rows),
-            "launches": sum(r[2] for r in rows),
+            "launches": len(events),
             "top": [{"name": k[:90], "ms": ms, "count": n}
                     for k, ms, n in rows[:top]]}   # top=None: every kernel
 
@@ -1840,6 +1890,92 @@ def phase_engine_equality(torch, pt, dev, make_cfg):
     if not all(same):
         raise SystemExit("engine tokens differ from the plain path: "
                          f"{RESULTS['engine_equality']}")
+
+
+GEN_CASES = ((2, 120, 16), (1, 128, 8))   # rows, prompt tokens, new
+GEN_PAGE = 128
+
+
+def phase_generation_equality(torch, pt, dev, make_cfg):
+    """Phase 4f: one-shot generation on the card against the plain path
+    on the CPU (module docstring)."""
+    from paddle_tpu_torch.inference import generation as gen
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = make_cfg(num_hidden_layers=2, dtype="float32")
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(7, dev))
+    ref = copy.deepcopy(model).to("cpu")
+    rs = np.random.RandomState(7)
+    generators = {"generate": {}, "generate_scan": {},
+               "generate_paged": {"page_size": GEN_PAGE}}
+    info, bad = {"cases": []}, []
+    for b, L, n in GEN_CASES:
+        ids = rs.randint(0, cfg.vocab_size, (b, L))
+        ids_dev = torch.as_tensor(ids, device=dev)
+        greedy = gen.GenerationConfig(max_new_tokens=n)
+        got = {name: getattr(gen, name)(model, ids_dev, greedy,
+                                        **kw)[:, L:].cpu().numpy()
+               for name, kw in generators.items()}
+        with torch.inference_mode():
+            plain = np.stack([plain_greedy(torch, ref, ids[r], n, GEN_PAGE)
+                              for r in range(b)])
+        equal = {name: bool(np.array_equal(g, plain))
+                 for name, g in got.items()}
+        info["cases"].append({"rows": b, "prompt": L, "new": n,
+                              "equal": equal, "plain": plain.tolist()})
+        if not all(equal.values()):
+            bad.append(f"greedy rows {b} x {L} + {n}: {equal}")
+    # EOS and pad, and the sampled replay, on the first case's prompts
+    b, L, n = GEN_CASES[0]
+    ids = np.random.RandomState(7).randint(0, cfg.vocab_size, (b, L))
+    ids_dev = torch.as_tensor(ids, device=dev)
+    eos = gen.GenerationConfig(max_new_tokens=n, pad_token_id=-7,
+                               eos_token_id=info["cases"][0]["plain"][0][0])
+    card_eos = gen.generate_scan(model, ids_dev, eos).cpu().numpy()
+    cpu_eos = gen.generate_scan(ref, torch.as_tensor(ids), eos).numpy()
+    info["eos_equal"] = bool(np.array_equal(card_eos, cpu_eos)
+                             and card_eos[0, -1] == -7)
+    if not info["eos_equal"]:
+        bad.append(f"EOS: card {card_eos[:, L:].tolist()} cpu "
+                   f"{cpu_eos[:, L:].tolist()}")
+    sampled = gen.GenerationConfig(max_new_tokens=n, do_sample=True,
+                                   temperature=0.8, top_k=50, top_p=0.9,
+                                   seed=3)
+    s1 = gen.generate_scan(model, ids_dev, sampled)
+    s2 = gen.generate_scan(model, ids_dev, sampled)
+    s3 = gen.generate(model, ids_dev, sampled)
+    info["sampled_replay"] = bool(torch.equal(s1, s2))
+    info["sampled_equals_generate"] = bool(torch.equal(s1, s3))
+    if not (info["sampled_replay"] and info["sampled_equals_generate"]):
+        bad.append(f"sampled: replay {info['sampled_replay']}, equals "
+                   f"generate {info['sampled_equals_generate']}")
+    greedy = gen.GenerationConfig(max_new_tokens=n)
+    gen.generate_paged(model, ids_dev, greedy, page_size=GEN_PAGE)
+    info["sync_free"] = None          # off the card: nothing to sync
+    if dev.type == "cuda":
+        sync(torch, dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            gen.generate_scan(model, ids_dev, sampled)
+            gen.generate_paged(model, ids_dev, greedy, page_size=GEN_PAGE)
+            info["sync_free"] = True
+        except RuntimeError as e:
+            info["sync_free"] = False
+            bad.append(f"a generator synced the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    log(f"generation equality (llama3_8b widths, 2 layers, fp32): "
+        f"{[c['equal'] for c in info['cases']]}; EOS equal "
+        f"{info['eos_equal']}; sampled replay {info['sampled_replay']}, "
+        f"equals generate {info['sampled_equals_generate']}; sync-free "
+        f"{info['sync_free']}; {time.perf_counter() - t0:.1f} s")
+    RESULTS["generation_equality"] = info
+    del model, ref
+    empty_cache(torch, dev)
+    if bad:
+        raise SystemExit(f"generation differs: {bad}")
 
 
 def fabric_prompts(V):
@@ -3794,6 +3930,112 @@ def ctx_attention_profile(torch, dev, model, kind):
             / pt_["device_busy_ms"]}
 
 
+GEN_TRAFFIC = dict(rows=8, prompt=512, new=64, page=128, seed=12)
+
+
+def generation_launches_expected(cfg, int8: bool) -> dict:
+    """The launches of one ``generate_paged`` call of GEN_TRAFFIC: a
+    prefill and new - 1 decode steps, each pass 2 L + 1 RMSNorms and L
+    RoPEs, each decode step L paged decodes, and on an int8 model 4 L +
+    1 int8 products a pass (the prefill's 4 L projections on the wgmma
+    route, its head at m = rows and every decode step's on the decode
+    route)."""
+    n, L = GEN_TRAFFIC["new"], cfg.num_hidden_layers
+    want = {"rms_norm": n * (2 * L + 1), "fused_rope": n * L,
+            ("paged_decode_int8" if int8 else "paged_decode"): (n - 1) * L}
+    if int8:
+        want.update(int8_matmul=n * (4 * L + 1), int8_matmul_wgmma=4 * L,
+                    int8_matmul_decode=1 + (n - 1) * (4 * L + 1))
+    return want
+
+
+def generation_run(torch, dev, model, label):
+    """Phase 5f (module docstring) over ``model``; returns the launches
+    of its three timed calls together."""
+    from paddle_tpu_torch.inference import generation as gen
+    from paddle_tpu_torch.ops.kernels import _build
+    T, cfg = GEN_TRAFFIC, model.cfg
+    core = model.model
+    ids = torch.as_tensor(np.random.RandomState(T["seed"]).randint(
+        0, cfg.vocab_size, (T["rows"], T["prompt"])), device=dev)
+    g = gen.GenerationConfig(max_new_tokens=T["new"])
+    calls = {"generate": lambda: gen.generate(model, ids, g),
+             "generate_scan": lambda: gen.generate_scan(model, ids, g),
+             "generate_paged": lambda: gen.generate_paged(
+                 model, ids, g, page_size=T["page"])}
+    spans = []
+
+    def spanned(prefill):
+        """``prefill`` with a DeviceSpan around it (no sync)."""
+        def run(*args, **kw):
+            span = DeviceSpan(torch, dev)
+            out = prefill(*args, **kw)
+            spans.append(span.stop())
+            return out
+        return run
+    info, toks, total = {"calls": {}}, {}, {}
+    for name, fn in calls.items():
+        kind = "paged" if name == "generate_paged" else "dense"
+        fn()
+        sync(torch, dev)
+        _build.reset_launches()
+        spans.clear()
+        core.prefill = spanned(core.prefill)
+        core.prefill_paged = spanned(core.prefill_paged)
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+        finally:
+            del core.prefill, core.prefill_paged
+        launches = dict(_build.LAUNCHES)
+        pre_s = spans[0].ms() / 1e3
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        toks[name] = out[:, T["prompt"]:].cpu().numpy()
+        rate = T["rows"] * T["new"] / wall
+        info["calls"][name] = {"wall_s": wall, "tokens_per_s": rate,
+                               "prefill_s": pre_s, "launches": launches}
+        log(f"{label} {name}: {T['rows']} x ({T['prompt']} + {T['new']}) "
+            f"tokens in {wall:.3f} s = {rate:.1f} tokens/s; prefill "
+            f"({kind} caches, device span in the timed call) "
+            f"{pre_s * 1e3:.1f} ms {card_line()}")
+    int8 = cfg.weight_dtype == "int8"
+    want = generation_launches_expected(cfg, int8)
+    got = info["calls"]["generate_paged"]["launches"]
+    info["launches_expected"] = want
+    info["dense_paged_agreement"] = float(np.mean(
+        toks["generate_scan"] == toks["generate_paged"]))
+    info["generate_equals_scan"] = bool(np.array_equal(
+        toks["generate"], toks["generate_scan"]))
+    prof = profile_step(torch, dev, calls["generate_scan"])
+    info["generate_scan_profile"] = prof
+    log(f"{label}: generate equals generate_scan "
+        f"{info['generate_equals_scan']}; dense vs paged token agreement "
+        f"{info['dense_paged_agreement']:.4f} (reported only); "
+        f"generate_paged launches "
+        f"{ {k: got.get(k, 0) for k in want} } (expected {want}); "
+        f"generate_scan "
+        + (f"device busy {prof['device_busy_ms']:.1f} ms of "
+           f"{prof['wall_ms_under_profiler']:.1f} ms under the profiler "
+           f"(device activity only), idle share "
+           f"{prof['device_idle_share']:.4f}"
+           if prof else "profile: no device time reported")
+        + f" {card_line()}")
+    RESULTS[label] = info
+    mark("5f " + label)
+    empty_cache(torch, dev)
+    if not info["generate_equals_scan"]:
+        raise SystemExit(f"{label}: generate and generate_scan differ")
+    wrong = {k: (got.get(k, 0), v) for k, v in want.items()
+             if got.get(k, 0) != v}
+    if wrong:
+        raise SystemExit(f"{label}: generate_paged launches (got, "
+                         f"expected): {wrong}")
+    return total
+
+
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return f"[{RESULTS.get('card', 'no card')}]"
@@ -3848,6 +4090,7 @@ def phase_serving(torch, pt, dev, make_cfg):
     features["frontdoor"] = frontdoor_run(torch, dev, model, "frontdoor",
                                           SERVING_KERNELS, "fabric")
     mark("5e front door")
+    features["generation"] = generation_run(torch, dev, model, "generation")
     profile_ctx(torch, dev, model, "serving_features")
     t0 = time.perf_counter()
     qmodel = quantize_model(model, kv_dtype="int8")
@@ -3868,6 +4111,8 @@ def phase_serving(torch, pt, dev, make_cfg):
                                          QUANT_SERVING_KERNELS,
                                          "quantized_serving", n_req=8)
     mark("5d fabric, int8")
+    features["generation_int8"] = generation_run(torch, dev, qmodel,
+                                                 "generation_int8")
     # greedy requests only (every 4th samples): the share of positions
     # where the quantized stream equals the native one (reported only:
     # random weights have near-ties)
@@ -6982,6 +7227,8 @@ def main() -> int:
     mark("4d fabric equality")
     phase_frontdoor_equality(torch, pt, dev, LlamaConfig.llama3_8b)
     mark("4e front-door equality")
+    phase_generation_equality(torch, pt, dev, LlamaConfig.llama3_8b)
+    mark("4f generation equality")
     serve_launches, quant_launches, feature_launches = phase_serving(
         torch, pt, dev, LlamaConfig.llama3_8b)
     ref = phase_train_equality(torch, pt, dev, LlamaConfig.llama3_8b,
@@ -7071,6 +7318,7 @@ def main() -> int:
             # training steps, phase 10's trainer runtime, phase 11's
             # eight optimizers' runs, phase 5c's
             # feature runs, 5d's fabric runs and 5e's front-door window,
+            # 5f's generation calls (native and int8),
             # phase 12's mesh steps, virtual ring and vocabulary shards,
             # phase 13's 1F1B pipeline steps and virtual ep pass, phase
             # 14's launched worker, DistModel and bench_8b_layer runs,

@@ -57,7 +57,7 @@ _LAZY.update({n: ".compat" for n in _COMPAT})
 _SUBMODULES = ("fleet", "sharding", "strategy", "topology", "collective",
                "parallel", "communication", "recompute", "watchdog",
                "launch", "overlap", "compat", "rpc", "auto_tuner", "io",
-               "utils", "auto_parallel", "elastic")
+               "utils", "auto_parallel", "elastic", "models", "passes")
 
 
 def __getattr__(name):

@@ -136,6 +136,7 @@ def is_first_worker() -> bool:
 
 from . import base          # noqa: E402
 from . import meta_parallel  # noqa: E402
+from . import recompute     # noqa: E402
 from . import utils         # noqa: E402
 
 __all__ = ["init", "stop", "get_hybrid_communicate_group",

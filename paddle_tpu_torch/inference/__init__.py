@@ -2,7 +2,8 @@
 
 from .admission import (AdmissionPolicy, SLOAdmissionPolicy,  # noqa: F401
                         VictimInfo)
-from .generation import GenerationConfig  # noqa: F401
+from . import generation  # noqa: F401
+from .generation import GenerationConfig, generate  # noqa: F401
 from .prefix_cache import PrefixLock, RadixPrefixCache  # noqa: F401
 from .serving import ContinuousBatchingEngine  # noqa: F401
 from .speculative import DraftProvider, NgramDraftProvider  # noqa: F401

@@ -1,10 +1,25 @@
-"""Sampling for the serving engine (counterpart of the per-row half of
-``paddle_tpu/inference/generation.py``).
+"""Generation (counterpart of ``paddle_tpu/inference/generation.py``).
 
-Every knob is a per-row tensor, so one decode block serves any mix of
-greedy and sampled requests. Sampled streams are replay-exact: a row's
-random numbers are a pure function of (engine seed, request seed, token
-index), independent of batching, pipelining depth and preemption.
+One-shot generation over the model's KV caches: :func:`generate` (an
+eager loop over the dense cache, stopping once every row has emitted
+``eos_token_id``), :func:`generate_scan` (the same loop with no host
+sync between the prefill and the returned tensor: EOS and pad decided
+on the device, finished rows emitting pad, the last decode, whose
+logits nobody reads, skipped) and :func:`generate_paged` (that loop
+over the page pools, through the paged decode kernel on the card).
+JAX compiles its scan loops into cached executables; the port runs
+them eagerly, so there is no executable cache to keep.
+
+Sampling: :func:`sample_logits_per_slot` and :func:`sample_logits_batched`
+take per-row knob tensors, so one decode block serves any mix of greedy
+and sampled requests; the one-shot generators take scalar knobs from a
+:class:`GenerationConfig`. Sampled tokens are a Gumbel-max over
+:func:`row_uniforms`, a counter-based hash of (seed, row seed, token
+index) whose bits are the same on the CPU and on the card. It stands in
+for JAX's ``fold_sampling_keys`` and its per-step ``jax.random.split``
+(threefry keys): the streams are replay-exact in the same way but are
+not the JAX package's streams. Greedy is an argmax (ties to the first
+index), the same tokens as JAX's.
 """
 
 from __future__ import annotations
@@ -12,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.hash32 import M32, mul32
@@ -114,5 +130,134 @@ def decode_stop_update(tok: torch.Tensor, active: torch.Tensor,
     return active & ~stop, budget
 
 
-__all__ = ["GenerationConfig", "mask_logits_rowwise", "row_uniforms",
-           "sample_logits_per_slot", "decode_stop_update"]
+def _knobs(cfg: GenerationConfig, b: int, dev) -> Tuple[torch.Tensor, ...]:
+    """``cfg``'s scalar knobs as the per-row tensors of
+    :func:`sample_logits_per_slot`: (temperature, top_k, top_p,
+    do_sample), each [b]. A scalar knob is a knob broadcast to every row,
+    as JAX's ``_mask_logits_rowwise`` documents."""
+    def full(v, dtype):
+        return torch.full((b,), v, dtype=dtype, device=dev)
+    return (full(cfg.temperature, torch.float32),
+            full(cfg.top_k, torch.int64), full(cfg.top_p, torch.float32),
+            full(cfg.do_sample, torch.bool))
+
+
+def _sample_logits(logits: torch.Tensor, cfg: GenerationConfig,
+                   step: int) -> torch.Tensor:
+    """[b, vocab] fp32 logits → [b] int64 next tokens of one-shot
+    generation step ``step``: the argmax (ties to the first index), or
+    with ``cfg.do_sample`` :func:`sample_logits_batched` over ``cfg``'s
+    knobs."""
+    if not cfg.do_sample:
+        return torch.argmax(logits, dim=-1)
+    knobs = _knobs(cfg, logits.shape[0], logits.device)
+    return sample_logits_batched(logits, *knobs, cfg.seed, step)
+
+
+def sample_logits_batched(logits: torch.Tensor, temperature, top_k, top_p,
+                          do_sample, seed: int, step: int) -> torch.Tensor:
+    """Per-row knobs (as :func:`sample_logits_per_slot`) with one draw
+    per step: row i takes the uniforms of (seed, i, step), where JAX's
+    version draws every row from one key. Returns [b] int64."""
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    return sample_logits_per_slot(logits, temperature, top_k, top_p,
+                                  do_sample, seed, rows,
+                                  torch.full_like(rows, step))
+
+
+def _on_device(input_ids, dev: torch.device) -> torch.Tensor:
+    """The prompt ids as a tensor on ``dev``; a host tensor goes up
+    through pinned memory, without a host sync."""
+    ids = (input_ids if isinstance(input_ids, torch.Tensor)
+           else torch.from_numpy(np.array(input_ids)))
+    if ids.device != dev and dev.type == "cuda":
+        return ids.pin_memory().to(dev, non_blocking=True)
+    return ids.to(dev)
+
+
+def _generate(model, input_ids, cfg: GenerationConfig, kind: str,
+              page_size: int, early_exit: bool) -> torch.Tensor:
+    """The one-shot loop of every generator: the prompt's prefill over
+    ``kind``'s caches ("dense" or "paged"), then a token a step and a
+    decode for every token but the last. With ``eos_token_id`` a row
+    emits ``pad_token_id`` after its EOS; ``early_exit`` stops (one host
+    read a step) once every row has. Returns [b, prompt +
+    max_new_tokens] in the input's dtype on the model's device."""
+    core = getattr(model, "model", model)
+    head = model.logits if hasattr(model, "logits") else (lambda h: h)
+    dev, vocab = core.embed_tokens.device, core.embed_tokens.shape[0]
+    eos, pad = cfg.eos_token_id, cfg.pad_token_id
+    with torch.inference_mode():
+        ids = _on_device(input_ids, dev)
+        b, s = ids.shape
+        n = cfg.max_new_tokens
+        prompt = ids.long()
+        if kind == "paged":
+            pools, tables = core.alloc_paged_caches(b, s + n, page_size)
+            hidden, caches = core.prefill_paged(prompt, pools, tables)
+
+            def decode(tok, pos, c):
+                return core.decode_step_paged(tok, pos, c, tables)
+        else:
+            hidden, caches = core.prefill(prompt, s + n)
+            decode = core.decode_step
+        logits = head(hidden[:, -1, :])
+        finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+        out = [prompt]
+        for i in range(n):
+            tok = _sample_logits(logits.float(), cfg, i)
+            if eos is not None:
+                tok = tok.masked_fill(finished, pad)
+                finished = finished | (tok == eos)
+            out.append(tok[:, None])
+            if early_exit and eos is not None and bool(finished.all()):
+                if n - i - 1:
+                    out.append(tok.new_full((b, n - i - 1), pad))
+                break
+            if i < n - 1:
+                pos = torch.full((b,), s + i, dtype=torch.int64,
+                                 device=dev)
+                # a finished row feeds its pad back: a negative id reads
+                # the row it wraps to, as JAX's take does
+                h, caches = decode(tok.remainder(vocab), pos, caches)
+                logits = head(h[:, 0, :])
+        return torch.cat(out, dim=1).to(ids.dtype)
+
+
+def generate(model, input_ids, generation_config: GenerationConfig = None,
+             **kwargs) -> torch.Tensor:
+    """Autoregressive generation for a model exposing
+    ``model.model.prefill(ids, max_len)`` / ``decode_step(tok, pos,
+    caches)`` and a ``logits(hidden)`` head (``LlamaForCausalLM``):
+    [b, prompt + max_new_tokens] token ids, the prompt included. Stops
+    early once every row has emitted ``eos_token_id`` (the rest pad).
+    Runs on the model's device under ``torch.inference_mode``."""
+    cfg = generation_config or GenerationConfig(**kwargs)
+    return _generate(model, input_ids, cfg, "dense", 0, early_exit=True)
+
+
+def generate_scan(model, input_ids,
+                  generation_config: GenerationConfig = None,
+                  **kwargs) -> torch.Tensor:
+    """:func:`generate` with no host sync from the prefill to the
+    returned tensor: finished rows keep emitting pad and the loop runs
+    every step. The same tokens as :func:`generate`."""
+    cfg = generation_config or GenerationConfig(**kwargs)
+    return _generate(model, input_ids, cfg, "dense", 0, early_exit=False)
+
+
+def generate_paged(model, input_ids,
+                   generation_config: GenerationConfig = None,
+                   page_size: int = 128, **kwargs) -> torch.Tensor:
+    """:func:`generate_scan` over paged KV caches (``alloc_paged_caches``,
+    ``prefill_paged``, ``decode_step_paged``): each decode step writes
+    one page slot and attends through the paged decode kernel on the
+    card (its int8 half for ``kv_dtype="int8"`` pools)."""
+    cfg = generation_config or GenerationConfig(**kwargs)
+    return _generate(model, input_ids, cfg, "paged", page_size,
+                     early_exit=False)
+
+
+__all__ = ["GenerationConfig", "generate", "generate_scan", "generate_paged",
+           "sample_logits_batched", "sample_logits_per_slot",
+           "decode_stop_update"]

@@ -11,11 +11,15 @@ Ported here: ``forward`` (logits, or with ``labels`` the loss through
 the fused vocab-CE head by default or the naive head; attention through
 the flash kernels; each layer under activation recompute when
 ``cfg.recompute`` asks), the size accounting ``num_params`` /
-``flops_per_token``, and the paged-KV serving entry points
-``alloc_paged_caches`` / ``prefill_paged`` / ``decode_step_paged`` and
-the serving engine's ``prefill_chunk_paged`` (chunked prefill, prefix
-suffixes) / ``decode_verify_paged`` (speculative verify, the prefix
-cache's one-token re-forward). The last two attend through
+``flops_per_token``, the dense-KV entry points ``prefill`` /
+``decode_step`` (caches preallocated at ``max_len`` and written in
+place; decode attends through ``ops.attention.dense_decode_attention``,
+plain PyTorch as JAX computes it in XLA), the paged-KV serving entry
+points ``alloc_paged_caches`` / ``prefill_paged`` /
+``decode_step_paged`` and the serving engine's
+``prefill_chunk_paged`` (chunked prefill, prefix suffixes) /
+``decode_verify_paged`` (speculative verify, the prefix cache's
+one-token re-forward). The last two attend through
 ``_paged_ctx_attention``: a gather of the whole page table, fp32 scores
 and a masked softmax in plain PyTorch, as the JAX model computes it in
 XLA outside any Pallas kernel. The page pools are updated IN PLACE
@@ -58,8 +62,9 @@ from ..nn import RMSNorm
 from ..nn import functional as ptF
 from ..nn.initializer import Normal
 from ..ops import rope as rope_ops
-from ..ops.attention import (forced_decode_impl, paged_decode_attention,
-                             paged_decode_dense, sdpa_plain)
+from ..ops.attention import (dense_decode_attention, forced_decode_impl,
+                             paged_decode_attention, paged_decode_dense,
+                             sdpa_plain)
 from ..ops.quant import quantized_matmul
 from ..ops.vocab_ce import fused_linear_cross_entropy
 
@@ -600,6 +605,34 @@ class LlamaAttention(nn.Module):
         return ring_attention(q, k, v, causal=True, mesh=plan.mesh,
                               segment_ids=segment_ids)
 
+    def prefill(self, x, cos, sin, max_len: int):
+        """Prompt pass that also builds the dense KV cache: k and v
+        [b, max_len, n_kv, hd] in the activations' dtype, zeros past the
+        prompt, which attends to itself through ``sdpa_plain``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q, k, v = self._qkv_rope(x, cos, sin)
+        out = self._out(sdpa_plain(q, k, v, causal=True), x)
+        shape = (b, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        k_cache, v_cache = k.new_zeros(shape), v.new_zeros(shape)
+        k_cache[:, :s] = k
+        v_cache[:, :s] = v
+        return out, (k_cache, v_cache)
+
+    def decode(self, x, cos, sin, pos: torch.Tensor, kv_cache):
+        """One-token step over the dense cache: x [b, 1, d] at positions
+        ``pos`` [b]; writes the new K/V row at ``pos`` in place (an
+        indexed store: the host never reads ``pos``) and attends rows
+        0..pos through :func:`dense_decode_attention`."""
+        b = x.shape[0]
+        k_cache, v_cache = kv_cache
+        q, k, v = self._qkv_rope(x, cos, sin, pos.view(b, 1))
+        b_idx = torch.arange(b, device=x.device)
+        k_cache[b_idx, pos] = k[:, 0]
+        v_cache[b_idx, pos] = v[:, 0]
+        out = dense_decode_attention(q[:, 0], k_cache, v_cache, pos)
+        return self._out(out.reshape(b, 1, -1), x), kv_cache
+
     def prefill_paged(self, x, cos, sin, kv: Pool, tables: torch.Tensor):
         """Prompt pass writing K/V into head-major page pools
         [H_kv, num_pages, page_size, hd] through ``tables``
@@ -759,6 +792,19 @@ class LlamaDecoderLayer(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
+    def prefill(self, x, cos, sin, max_len: int):
+        a, cache = self.self_attn.prefill(self.input_layernorm(x), cos, sin,
+                                          max_len)
+        h = x + a
+        return h + self.mlp(self.post_attention_layernorm(h)), cache
+
+    def decode(self, x, cos, sin, pos, kv_cache):
+        a, cache = self.self_attn.decode(self.input_layernorm(x), cos, sin,
+                                         pos, kv_cache)
+        h = x + a
+        return h + self.mlp(self.post_attention_layernorm(h)), cache
+
+
 class LlamaModel(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None,
                  generator: Optional[torch.Generator] = None,
@@ -818,6 +864,27 @@ class LlamaModel(nn.Module):
 
     def _embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         return vocab_embed(self._mesh_plan, self.embed_tokens, input_ids)
+
+    # -- dense-KV inference paths ---------------------------------------------
+
+    def prefill(self, input_ids, max_len: int):
+        """Prompt pass: input_ids [b, s] → (hidden [b, s, d], caches), the
+        caches a list of per-layer (k, v) [b, max_len, n_kv, hd]."""
+        x = F.embedding(input_ids, self.embed_tokens)
+        caches = []
+        for layer in self.layers:
+            x, cache = layer.prefill(x, self.rope_cos, self.rope_sin,
+                                     max_len)
+            caches.append(cache)
+        return self.norm(x), caches
+
+    def decode_step(self, token_ids, pos, caches):
+        """token_ids [b], pos [b] int64 → (hidden [b, 1, d], caches), the
+        caches written in place."""
+        x = F.embedding(token_ids[:, None], self.embed_tokens)
+        for layer, cache in zip(self.layers, caches):
+            x, _ = layer.decode(x, self.rope_cos, self.rope_sin, pos, cache)
+        return self.norm(x), caches
 
     # -- paged-KV (vLLM-style) inference paths ------------------------------
 

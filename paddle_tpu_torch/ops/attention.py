@@ -124,6 +124,29 @@ def paged_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out.to(q.dtype)
 
 
+def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention over dense KV caches (the attention of JAX's
+    ``LlamaAttention.decode``, which XLA computes outside every Pallas
+    kernel, so it is plain PyTorch on every device): q [b, h, d] attends
+    the cache rows t <= pos[b] of k/v [b, max_len, h_kv, d] with fp32
+    scores and softmax; query head j reads KV head j // (h / h_kv), as
+    JAX's repeat does, without expanding the cache. Output [b, h, d] in
+    q's dtype."""
+    b, h, d = q.shape
+    T, h_kv = k_cache.shape[1], k_cache.shape[2]
+    qf = q.float().view(b, h_kv, h // h_kv, d)
+    scores = torch.einsum("bgrd,btgd->bgrt", qf, k_cache.float()) * (
+        1.0 / math.sqrt(d))
+    late = (torch.arange(T, device=q.device)[None, :]
+            > pos.to(q.device).long()[:, None])                 # [b, T]
+    p = torch.softmax(scores.masked_fill(late[:, None, None, :],
+                                         float("-inf")), dim=-1)
+    out = torch.einsum("bgrt,btgd->bgrd", p, v_cache.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
                            scale: Optional[float] = None,
                            k_scales: Optional[torch.Tensor] = None,
@@ -475,7 +498,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  int(dropout_seed or 0))
 
 
-__all__ = ["sdpa_plain", "paged_decode_plain", "paged_decode_attention",
+__all__ = ["sdpa_plain", "dense_decode_attention", "paged_decode_plain",
+           "paged_decode_attention",
            "paged_decode_dense", "force_decode_impl", "forced_decode_impl",
            "paged_decode_crossover", "flash_attention", "dropout_keep_plain",
            "flash_fwd_block", "flash_bwd_block"]

@@ -696,14 +696,14 @@ def _param_local(plan: MeshPlan, name: str, full: torch.Tensor):
     return t.contiguous()
 
 
-def shard_optimizer_state(state: Dict, layer: nn.Module, mesh=None) -> Dict:
+def shard_optimizer_state(state: Dict, layer, mesh=None) -> Dict:
     """A full optimizer state (``{"step", "master", "slots"}``, each
     tensor shaped as its parameter, e.g. from
     ``convert.opt_state_from_jax``) cut into this rank's shards as the
-    layer's plan cuts the parameters. Counterpart of JAX's
-    ``shard_optimizer_state``, which places the slots like their
-    parameters."""
-    plan = mesh_plan_of(layer)
+    layer's plan (``layer``: the sharded model or its :class:`MeshPlan`)
+    cuts the parameters. Counterpart of JAX's ``shard_optimizer_state``,
+    which places the slots like their parameters."""
+    plan = layer if isinstance(layer, MeshPlan) else mesh_plan_of(layer)
     if plan is None:
         raise RuntimeError("shard_optimizer_state: shard_layer the model "
                            "first")

@@ -15,6 +15,12 @@ expert's run, and dispatch and combine are gathers.
 Gates are renormalised over the top-k whenever k > 1, in both paths, as
 the JAX package does.
 
+On a data mesh without ep (dp x fsdp over more than one rank) the
+capacity path routes the global batch as JAX's GSPMD step does: the
+capacity counts every rank's tokens and each entry keeps its global
+priority (:func:`_capacity_routing`, one all-gather of [k, e]
+counts).
+
 On the card nothing on the dropless path makes the host wait for the
 device: counts are ``scatter_add_`` into fixed-size tensors
 (``bincount`` sizes its output on the host), and gathers and the unsort
@@ -212,6 +218,30 @@ def _sort_assignments(ids: torch.Tensor):
     return order, flat_e.index_select(0, order)
 
 
+def _capacity_slots(ids: torch.Tensor, e: int, capacity: int,
+                    c: Optional[int] = None,
+                    lead: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """slot [t, k] int64 of the assignments ``ids`` [t, k] in an [e * c]
+    slot space (c defaults to ``capacity``): each assignment's rank at
+    its expert in the choice-major, token-ascending order is its slot
+    there; it is dropped (slot e * c) where its priority position, that
+    rank plus ``lead`` [k, e] at its (choice, expert) when given (the
+    entries of other ranks ahead of it), reaches ``capacity``."""
+    t, k = ids.shape
+    c = capacity if c is None else c
+    order, sorted_e = _sort_assignments(ids)
+    starts = torch.searchsorted(
+        sorted_e, torch.arange(e, device=ids.device))
+    pos = torch.arange(k * t, device=ids.device) - starts.index_select(
+        0, sorted_e)
+    prio = pos if lead is None else pos + lead.reshape(-1).index_select(
+        0, (order // t) * e + sorted_e)
+    slot_sorted = torch.where(prio < capacity, sorted_e * c + pos, e * c)
+    slot_cm = torch.zeros_like(slot_sorted).index_copy_(0, order,
+                                                        slot_sorted)
+    return slot_cm.reshape(k, t).t()
+
+
 def top_k_routing(gate_logits: torch.Tensor, k: int, capacity: int,
                   jitter_eps: float = 0.0,
                   generator: Optional[torch.Generator] = None):
@@ -220,19 +250,57 @@ def top_k_routing(gate_logits: torch.Tensor, k: int, capacity: int,
     position of token i's j-th assignment in the [e * capacity] slot
     space, or e * capacity when it was dropped (its expert full).
     Priority is choice-major, token-ascending."""
-    t, e = gate_logits.shape
+    e = gate_logits.shape[1]
     probs = torch.softmax(_jitter(gate_logits, jitter_eps, generator), -1)
     gates, ids = torch.topk(probs, k, dim=-1)
-    order, sorted_e = _sort_assignments(ids)
-    starts = torch.searchsorted(
-        sorted_e, torch.arange(e, device=ids.device))
-    pos = torch.arange(k * t, device=ids.device) - starts.index_select(
-        0, sorted_e)
-    slot_sorted = torch.where(pos < capacity, sorted_e * capacity + pos,
-                              e * capacity)
-    slot_cm = torch.zeros_like(slot_sorted).index_copy_(0, order,
-                                                        slot_sorted)
-    return slot_cm.reshape(k, t).t(), gates, _aux_loss(probs, e)
+    return _capacity_slots(ids, e, capacity), gates, _aux_loss(probs, e)
+
+
+def _batch_group(plan):
+    """(group, ranks, rank) of the batch axes (dp x fsdp) of a mesh
+    plan when they hold more than one rank, else None."""
+    if plan is None:
+        return None
+    from ..distributed.communication import Group
+    axes = ("dp", "fsdp")
+    n = plan.mesh.group_size(axes)
+    if n == 1:
+        return None
+    return Group(axes, plan.mesh), n, plan.mesh.group_rank(axes)
+
+
+def _capacity_routing(gate_logits: torch.Tensor, k: int, cf: float,
+                      data=None):
+    """:func:`top_k_routing` of this rank's tokens against the GLOBAL
+    batch's capacity, as the unsharded layer routes (JAX's GSPMD step):
+    ``data`` is (group, n, rank) of the batch axes, which split the
+    global batch rank-major, or None for one rank. The capacity counts
+    all n t tokens; an entry's priority position at its expert is the
+    count of global entries before it, choice-major and token-ascending:
+    every lower choice on every rank, the same choice on lower ranks,
+    then its local position. Those come from an all-gather of each
+    rank's [k, e] choice counts (no host read). Returns (slot [t, k],
+    gates [t, k], c): slots in this rank's [e, c] layout, c =
+    min(capacity, t), enough for every kept entry (a rank's kept entries
+    at one expert are a prefix of its local order, at most t of them)."""
+    group, n, rank = data if data is not None else (None, 1, 0)
+    t, e = gate_logits.shape
+    capacity = int(math.ceil(n * t * k / e * cf))
+    probs = torch.softmax(gate_logits, -1)
+    gates, ids = torch.topk(probs, k, dim=-1)
+    lead = None
+    if data is not None:
+        from ..distributed.communication import all_gather
+        local = torch.zeros((k, e), dtype=torch.int64, device=ids.device)
+        local.scatter_add_(1, ids.t(), torch.ones_like(ids.t()))
+        counts = torch.stack(all_gather(None, local, group))   # [n, k, e]
+        total = counts.sum(0)
+        # lower choices on every rank beyond this rank's own (its local
+        # rank counts those), then the same choice on lower ranks
+        lead = (total.cumsum(0) - total - (local.cumsum(0) - local)
+                + counts[:rank].sum(0))
+    c = min(capacity, t)
+    return _capacity_slots(ids, e, capacity, c, lead), gates, c
 
 
 def dispatch_tokens(flat: torch.Tensor, slot: torch.Tensor,
@@ -380,9 +448,9 @@ class MoELayer(nn.Module):
         if self.capacity_factor is None:
             out, aux = self._forward_dropless(flat, logits)
             return out.reshape(b, s, d), aux
-        capacity = int(math.ceil(t * self.top_k / e * self.capacity_factor))
-        slot, gates, _ = top_k_routing(logits, self.top_k, capacity)
-        xe = dispatch_tokens(flat, slot, e, capacity)
+        slot, gates, c = _capacity_routing(
+            logits, self.top_k, self.capacity_factor, _batch_group(plan))
+        xe = dispatch_tokens(flat, slot, e, c)
         ye = self._experts_tp(self.experts, xe)
         out = combine_tokens(ye, slot, gates, renormalize=self.top_k > 1)
         return out.reshape(b, s, d), _aux_of(torch.softmax(logits, -1), e,

@@ -2279,3 +2279,55 @@ def test_census_counts_wrapped_kernels_on_card_as_on_cpu(dev):
     for name in ("rms_norm", "rms_norm_bwd", "fused_rope", "flash_fwd",
                  "flash_bwd", "vocab_ce_fwd"):
         assert _build.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_generation_on_card_matches_cpu(dev, quant):
+    """One-shot generation: ``generate``, ``generate_scan`` and
+    ``generate_paged`` (page 8, the decode crossing pages) of the same
+    seeded fp32 model (and its int8 twin, int8 pools) give the CPU's
+    greedy tokens on the card, EOS and pad included; a sampled
+    ``generate_scan`` equals ``generate`` there; the paged decode kernel
+    (its int8 half) ran; after a warm call, ``generate_scan`` and
+    ``generate_paged`` run under set_sync_debug_mode("error")."""
+    from paddle_tpu_torch.inference import generation as gen
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization import quantize_model
+    cfg = LlamaConfig.tiny(hidden_size=256, num_attention_heads=4,
+                           num_key_value_heads=2)          # head_dim 64
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    if quant:
+        cpu = quantize_model(cpu, kv_dtype="int8")
+    card = copy.deepcopy(cpu).to(dev)
+    ids = torch.as_tensor(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 13)))
+    greedy = gen.GenerationConfig(max_new_tokens=9)
+    _build.reset_launches()
+    for name in ("generate", "generate_scan", "generate_paged"):
+        kw = {"page_size": 8} if name == "generate_paged" else {}
+        fn = getattr(gen, name)
+        want = fn(cpu, ids, greedy, **kw)
+        got = fn(card, ids.to(dev), greedy, **kw)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), name
+    decode = "paged_decode_int8" if quant else "paged_decode"
+    assert _build.LAUNCHES[decode] == 8 * cfg.num_hidden_layers
+    eos = gen.GenerationConfig(max_new_tokens=9, pad_token_id=-7,
+                               eos_token_id=int(want[0, 13]))
+    assert torch.equal(gen.generate_scan(card, ids, eos).cpu(),
+                       gen.generate_scan(cpu, ids, eos))
+    sampled = gen.GenerationConfig(max_new_tokens=9, do_sample=True,
+                                   temperature=0.8, top_k=50, top_p=0.9,
+                                   seed=3)
+    a = gen.generate_scan(card, ids.to(dev), sampled)
+    assert torch.equal(a, gen.generate_scan(card, ids.to(dev), sampled))
+    assert torch.equal(a, gen.generate(card, ids.to(dev), sampled))
+    ids_dev = ids.to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gen.generate_scan(card, ids_dev, sampled)
+        gen.generate_paged(card, ids_dev, greedy, page_size=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -16,7 +16,12 @@
   synced gradients, global norm, every parameter; 1e-4 in fp32) with
   uneven ignored labels; the capacity cases at a capacity factor (2 =
   experts / top-k) at which no token is dropped on either side, since
-  a rank's capacity counts its own tokens only."""
+  a rank's capacity counts its own tokens only.
+* Capacity routing on a data mesh without ep (dp 4 for one layer, dp 2
+  x tp 2 for the MoE LM) at the default capacity factor 1.25, where
+  tokens are dropped: the port routes the global batch against the
+  global capacity, so the layer (outputs, dx, aux, gradients) and the
+  step equal JAX's UNSHARDED layer and step."""
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +51,28 @@ TRAIN = {
     "tp2ep2_dropless": ({"dp": 2, "ep": 2, "tp": 2}, None, "sgd"),
     "ep4_capacity": ({"dp": 4, "ep": 4}, 2.0, "sgd"),
     "dp2tp2_capacity": ({"dp": 2, "tp": 2}, 2.0, "sgd"),
+    "dp2tp2_capacity_125": ({"dp": 2, "tp": 2}, 1.25, "sgd"),
 }
+# key: (mesh, capacity factor) of the layer on a data mesh without ep,
+# held to JAX's unsharded layer
+LAYER_DP = {"dp4_capacity": ({"dp": 4}, 1.25)}
+
+
+def _skewed(x):
+    """``x`` plus one seeded direction for every token: the router then
+    prefers some experts, and capacity 1.25 drops tokens."""
+    return x + np.random.RandomState(3).randn(x.shape[-1]).astype(
+        np.float32)
+
+
+def _drops(gate_logits, k, cf):
+    """The (token, choice) entries the unsharded capacity routing drops."""
+    import torch
+    from paddle_tpu_torch.parallel.moe import top_k_routing
+    t, e = gate_logits.shape
+    cap = int(np.ceil(t * k / e * cf))
+    slot, _, _ = top_k_routing(torch.as_tensor(gate_logits), k, cap)
+    return int((slot == e * cap).sum())
 
 
 def _layer(cf):
@@ -80,6 +106,20 @@ def _layer_ref(mesh, cf, x, dout):
             **{"grad." + k: np.asarray(v) for k, v in gp.items()}}
 
 
+def _check_layer(o, k, ref):
+    """Outputs, dx and aux within 2e-5 (the JAX ep test's tolerance),
+    every gathered, synced gradient within 1e-5 of ``ref``'s."""
+    np.testing.assert_allclose(o[f"{k}/out"].reshape(ref["out"].shape),
+                               ref["out"], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(o[f"{k}/dx"].reshape(ref["dx"].shape),
+                               ref["dx"], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(float(o[f"{k}/aux"]), ref["aux"], rtol=1e-5)
+    for name in ("gate_weight", "experts.w_gate_up", "experts.w_down"):
+        np.testing.assert_allclose(o[f"{k}/grad.{name}"],
+                                   ref["grad." + name], rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """The inputs, then the ranks, with the JAX references computed while
@@ -87,11 +127,14 @@ def run(tmp_path_factory):
     rs = np.random.RandomState(2)
     x = rs.randn(8, 4, 16).astype(np.float32)
     dout = rs.randn(8, 4, 16).astype(np.float32)
-    inputs = {"moe_x": x, "moe_dout": dout}
+    inputs = {"moe_x": x, "moe_dout": dout, "moe_x_skew": _skewed(x)}
     inputs.update({"moe/" + k: v for k, v in _layer(None)[1].items()})
     scen = [{"fn": "moe_layer", "key": "layer_" + key,
              "args": {"mesh": mesh, "cf": cf}}
             for key, (mesh, cf) in LAYER.items()]
+    scen += [{"fn": "moe_layer", "key": "layer_" + key,
+              "args": {"mesh": mesh, "cf": cf, "x": "moe_x_skew"}}
+             for key, (mesh, cf) in LAYER_DP.items()]
     batch = uneven_batch(seed=4)
     states = {}
     for key, (mesh, cf, opt) in TRAIN.items():
@@ -111,6 +154,8 @@ def run(tmp_path_factory):
             refs["layer_" + key] = _layer_ref(mesh, cf, x, dout)
         # the unsharded capacity layer drops other tokens than the ep path
         refs["layer_capacity_unsharded"] = _layer_ref(None, 1.25, x, dout)
+        for key, (_, cf) in LAYER_DP.items():
+            refs["layer_" + key] = _layer_ref(None, cf, _skewed(x), dout)
         memo = {}
         for key, (_, cf, opt) in TRAIN.items():
             if (cf, opt) not in memo:
@@ -129,18 +174,8 @@ def test_ep_layer_matches_jax_ep_path(run, key):
     """Outputs, dx and aux within 2e-5 (the JAX ep test's tolerance),
     every gathered, synced gradient within 1e-5 of JAX's."""
     refs, outs = run
-    ref, k = refs["layer_" + key], "layer_" + key
     for o in outs:
-        np.testing.assert_allclose(o[f"{k}/out"].reshape(ref["out"].shape),
-                                   ref["out"], rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(o[f"{k}/dx"].reshape(ref["dx"].shape),
-                                   ref["dx"], rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(float(o[f"{k}/aux"]), ref["aux"],
-                                   rtol=1e-5)
-        for name in ("gate_weight", "experts.w_gate_up", "experts.w_down"):
-            np.testing.assert_allclose(o[f"{k}/grad.{name}"],
-                                       ref["grad." + name], rtol=1e-5,
-                                       atol=1e-5, err_msg=name)
+        _check_layer(o, "layer_" + key, refs["layer_" + key])
 
 
 def test_capacity_ep_counts_local_tokens(run):
@@ -184,3 +219,43 @@ def test_dropless_ep_reads_split_sizes_once_and_virtual_equals_gloo(run):
 def test_moe_lm_step_matches_jax_unsharded_step(run, key):
     refs, outs = run
     check_step(outs, key, refs[key])
+
+
+@pytest.mark.parametrize("key", sorted(LAYER_DP))
+def test_dp_capacity_layer_matches_jax_unsharded_layer(run, key):
+    """On a data mesh without ep the capacity comes from the global
+    token count and every (token, choice) keeps its global priority:
+    each rank's outputs, dx, aux and gradients equal JAX's unsharded
+    layer, at a capacity factor where that layer drops tokens."""
+    refs, outs = run
+    _, w = _layer(None)
+    x = _skewed(np.random.RandomState(2).randn(8, 4, 16).astype(np.float32))
+    logits = x.reshape(-1, 16) @ w["gate_weight"]
+    assert _drops(logits, 2, LAYER_DP[key][1]) > 0
+    for o in outs:
+        _check_layer(o, "layer_" + key, refs["layer_" + key])
+
+
+def test_dp_capacity_step_drops_tokens():
+    """The MoE LM case at capacity 1.25 is not vacuous: its unsharded
+    forward drops (token, choice) entries of the global batch."""
+    import torch
+    from paddle_tpu_torch.convert import state_dict_from_jax
+    from paddle_tpu_torch.models.moe_lm import MoEConfig, MoEForCausalLM
+    from paddle_tpu_torch.parallel.moe import MoELayer
+    cf = TRAIN["dp2tp2_capacity_125"][1]
+    cfg = MoEConfig.tiny(capacity_factor=cf)
+    m = MoEForCausalLM(cfg, device="cpu")
+    m.load_state_dict(state_dict_from_jax(
+        tiny_state(seed=8, family="moe", capacity_factor=cf), cfg,
+        device="cpu"))
+    seen = []
+    for mod in m.modules():
+        if isinstance(mod, MoELayer):
+            mod.register_forward_hook(
+                lambda mod, a, o: seen.append(mod._logits(
+                    a[0].reshape(-1, a[0].shape[-1])).detach().numpy()))
+    with torch.no_grad():
+        m(torch.as_tensor(uneven_batch(seed=4)["input_ids"]))
+    assert seen and sum(_drops(lg, cfg.num_experts_per_tok, cf)
+                        for lg in seen) > 0

@@ -612,16 +612,17 @@ def sc_moe_layer(inp, args):
     """One MoELayer (JAX's weights, ``args["cf"]``; None: dropless) on
     ``args["mesh"]``: this rank's block of the global tokens, the loss
     sum(out * dout) + aux backward, the gradients synced; the outputs,
-    input gradients, aux and gradients gathered whole. Rank 0 also runs
-    the layer over ``ep`` virtual ranks (``forward_virtual_ep``) on its
-    ep group's tokens."""
+    input gradients, aux and gradients gathered whole; ``args["x"]``
+    names the input (default ``moe_x``). On a mesh with ep, rank 0 also
+    runs the layer over ``ep`` virtual ranks (``forward_virtual_ep``) on
+    its ep group's tokens."""
     import torch
     from paddle_tpu_torch.distributed import communication as c
     from paddle_tpu_torch.parallel.api import full_state_dict, shard_layer
     from paddle_tpu_torch.parallel.moe import EP_HOST_READS, MoELayer
     hm = _mesh(args)
     cf = args.get("cf")
-    x, dout = _t(inp["moe_x"]), _t(inp["moe_dout"])
+    x, dout = _t(inp[args.get("x", "moe_x")]), _t(inp["moe_dout"])
     e, d = inp["moe/gate_weight"].shape[1], x.shape[-1]
     f = inp["moe/experts.w_down"].shape[1]
 
@@ -633,7 +634,7 @@ def sc_moe_layer(inp, args):
     out = {}
     n, r = hm.group_size(("dp", "ep")), hm.group_rank(("dp", "ep"))
     ep = hm.axis_size("ep")
-    if hm.rank == 0:
+    if hm.rank == 0 and ep > 1:
         # the ep group of rank 0 holds the first ep blocks of tokens
         virt = layer()
         xs = [t.clone().requires_grad_(True) for t in x.chunk(n)[:ep]]
@@ -881,13 +882,55 @@ def sc_plan_state(inp, args):
     return out
 
 
+def sc_zero1(inp, args):
+    """The tiny Llama on ``args["mesh"]`` (an fsdp axis) under
+    ``DygraphShardingOptimizer`` (ZeRO-1) over a Momentum optimizer with
+    a global-norm clip, bound to the model's plan, whose zero state was
+    made before wrapping (so the wrapper cuts it): ``args["steps"]``
+    steps on the global batch, each rank on its rows. Returns this
+    rank's parameters (its own copies, and in the JAX layout), the
+    element count of each state tensor on this rank, the plan's level
+    and what ``reduce_gradients`` returned."""
+    from paddle_tpu_torch.distributed.fleet.meta_optimizers import \
+        DygraphShardingOptimizer
+    from paddle_tpu_torch.distributed.sharding import bind_optimizer
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, Momentum
+    from paddle_tpu_torch.parallel.api import full_state_dict, shard_layer
+    model = _model(inp, args)
+    hm = _mesh(args)
+    opt = Momentum(learning_rate=0.1, momentum=0.9, parameters=model,
+                   grad_clip=ClipGradByGlobalNorm(1.0))
+    out = {}
+    with hm:
+        shard_layer(model, hm)
+        bind_optimizer(opt, model)
+        opt.ensure_state(opt._bound_params)
+        zopt = DygraphShardingOptimizer(opt)
+        plan = model._mesh_plan
+        batch = plan.local_batch(_batch(inp))
+        for _ in range(args.get("steps", 3)):
+            model(**batch, return_logits=False).backward()
+            zopt.step()
+            zopt.clear_grad()
+        out["level"] = np.asarray(plan.level)
+        out["reduce_gradients"] = np.asarray(zopt.reduce_gradients() is None)
+        for k, slots in opt._state["slots"].items():
+            out["numel." + k] = np.asarray(slots["velocity"].numel())
+        for k, v in full_state_dict(model).items():
+            out["jax." + k] = _np(v)
+    for k, p in model.named_parameters():
+        out["param." + k] = _np(p)
+    return out
+
+
 SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "collectives": sc_collectives, "reshard": sc_reshard,
              "tp_layers": sc_tp_layers, "sp_attention": sc_sp_attention,
              "sharded_save": sc_sharded_save, "refused": sc_refused,
              "mesh_check": sc_mesh_check, "pipe_train": sc_pipe_train,
              "moe_layer": sc_moe_layer, "overlap": sc_overlap,
-             "fleet_overlap": sc_fleet_overlap, "plan_state": sc_plan_state}
+             "fleet_overlap": sc_fleet_overlap, "plan_state": sc_plan_state,
+             "zero1": sc_zero1}
 
 
 def torn_save(tmp: str, rank: int) -> None:

@@ -16,6 +16,7 @@ from paddle_tpu.models.moe_lm import MoEConfig as JaxMoEConfig
 from paddle_tpu.models.moe_lm import MoEForCausalLM as JaxMoE
 from paddle_tpu.optimizer import SGD as JaxSGD
 from paddle_tpu.optimizer import AdamW as JaxAdamW
+from paddle_tpu.optimizer import Momentum as JaxMomentum
 from paddle_tpu.optimizer import clip as jclip
 from paddle_tpu.trainer import Trainer as JaxTrainer
 
@@ -54,7 +55,8 @@ def jax_step(sd, batches, opt="adamw", lr=1e-3, clip=1.0, family="llama",
              **cfg_kw):
     """The unsharded JAX step on ``batches[0]`` (loss, gradients and their
     global norm), then a JAX Trainer step on each batch in turn: the
-    losses and the final parameters. ``family`` "moe": the MoE LM."""
+    losses and the final parameters. ``opt``: "adamw", "sgd" or
+    "momentum" (0.9). ``family`` "moe": the MoE LM."""
     model_cls, cfg_cls = _family(family)
     jm = model_cls(cfg_cls.tiny(**cfg_kw))
     jm.set_state_dict({k: jnp.asarray(v) for k, v in sd.items()})
@@ -71,10 +73,14 @@ def jax_step(sd, batches, opt="adamw", lr=1e-3, clip=1.0, family="llama",
     gnorm = float(jnp.sqrt(sum(jnp.sum(jnp.square(g.astype(jnp.float32)))
                                for g in grads.values())))
     c = jclip.ClipGradByGlobalNorm(clip)
-    o = (JaxSGD(learning_rate=lr, parameters=jm, grad_clip=c)
-         if opt == "sgd" else
-         JaxAdamW(learning_rate=lr, parameters=jm, weight_decay=0.01,
-                  grad_clip=c))
+    if opt == "sgd":
+        o = JaxSGD(learning_rate=lr, parameters=jm, grad_clip=c)
+    elif opt == "momentum":
+        o = JaxMomentum(learning_rate=lr, momentum=0.9, parameters=jm,
+                        grad_clip=c)
+    else:
+        o = JaxAdamW(learning_rate=lr, parameters=jm, weight_decay=0.01,
+                     grad_clip=c)
     tr = JaxTrainer(jm, o, donate=False)
     losses = [float(tr.train_step({k: jnp.asarray(v) for k, v in
                                    b.items()})) for b in batches]
