@@ -138,7 +138,8 @@ Phases, in order; any failure exits non-zero before the result line:
      CPU; a sampled ``generate_scan`` (temperature 0.8, top-k 50, top-p
      0.9, seed 3) gives the same tokens twice and equals ``generate``;
      after a warm call ``generate_scan`` and ``generate_paged`` run
-     under torch.cuda.set_sync_debug_mode("error");
+     under torch.cuda.set_sync_debug_mode("error"); 4f on a mesh runs
+     after phase 12 (below);
   5. the serving run: Llama-3-8B widths, all 32 layers, bf16, seeded
      random weights built on the card; 16 requests (prompts 128-1536
      tokens, 64 new tokens, every 4th sampled) through
@@ -152,7 +153,10 @@ Phases, in order; any failure exits non-zero before the result line:
      contexts 128 to 8192 under the paged kernel and the dense route
      (CUDA events, median of 10), and one layer's attention alone under
      each (median of 25, L2 flushed); prints both and the crossover they
-     imply beside the port's default paged_decode_crossover();
+     imply beside the port's default paged_decode_crossover(); writes
+     that crossover into a user TuneDB (``chiprun_out/tune_db.json``
+     through PT_TUNE_DB) and fails unless paged_decode_crossover() reads
+     it back;
   5d. the fabric run, on phase 5's model after 5c's native runs (and on
      5b's): phase 5's 16 requests through ServingFabric(InProcTransport(
      build_replicas(model, 2, roles=["prefill", "both"], **phase 5's
@@ -234,7 +238,12 @@ Phases, in order; any failure exits non-zero before the result line:
      the loss must be finite and fall. Then 2 + 4 steps each of the
      naive head and of recompute "full" and "selective" on the same
      batch (step time, peak memory); the default run's peak memory must
-     lie below the naive head's;
+     lie below the naive head's. The cost leg, after the default run's
+     timed steps: one more step with the metrics registry on (its census,
+     ``observability.costs.CostWatch``), then the gauges published for
+     the timed steps' median: the census MFU beside the PaLM MFU and
+     their ratio, and the breakdown's buckets must sum to the step
+     within 1e-9 relative;
   8. MoE equality: one dropless MoELayer at DeepSeekMoE-16B widths,
      forward and backward, under torch.cuda.set_sync_debug_mode("error");
      then DeepSeekMoE-16B's layout at 2 layers (dense MLP 1024,
@@ -343,6 +352,11 @@ Phases, in order; any failure exits non-zero before the result line:
      whole-sequence kernels'; (c) the vocab-parallel CE over 4 virtual
      shards (N 8192, H 4096, V 128256): nll, dh, dW within 2e-2 of the
      whole-vocab head, the shards' time against one whole call;
+     then 4f on a mesh: 4f's model again, NCCL at world size 1,
+     ``shard_layer`` of a copy, ``generate_scan`` and ``generate_paged``
+     on 4f's first case: tokens equal to the unsharded model's bit for
+     bit, and the sharded calls' RMSNorm, RoPE and paged decode launches
+     counted (``launches_by_path["generation_mesh"]``);
  13. pipeline and expert parallelism over virtual stages and ranks
      (writing nothing to disk): (a) ``LlamaForCausalLMPipe`` at
      Llama-3-8B widths, 4 layers, 4 virtual stages, 4 microbatches,
@@ -385,7 +399,14 @@ Phases, in order; any failure exits non-zero before the result line:
      card), the choice and each plan's seconds; at least one feasible
      config, every ranked estimate within the card's memory, a non-zero
      collective census for every config of more than one rank, and no
-     memory allocated on the card by the pricing; (b) ``Trainer.
+     memory allocated on the card by the pricing; then
+     ``tools/op_cost_probe --calibrate`` on this card (the micro
+     training step and its three dominant matmuls, into
+     ``chiprun_out/op_cost_db.json``) and dp4 and tp4 of the rank-order
+     model (Llama-3-8B widths, 2 layers, 4 x 4096) priced from one census
+     each without and with that OpCostDB, beside the steps measured for
+     it on four cards by ``tools/elastic_check.py``'s rank-order pod
+     (≈135 and ≈77 ms, PERF.md); (b) ``Trainer.
      apply_plan`` of ``plan(n_devices=1)``'s choice under NCCL at world
      size 1 on phase 7's model and batch (4 layers, bf16, AdamW, clip
      1.0), 2 + 4 steps: losses and final parameters equal the plain
@@ -397,6 +418,16 @@ Phases, in order; any failure exits non-zero before the result line:
      tp2, tp4, dp2_tp2 and fsdp4: each slice equal to ``shard_layer``'s
      cut of the same full tensor (``tp_slice``, FSDP2's row chunk) bit
      for bit; the read's seconds and GB/s.
+ 16. the native host runtime (``paddle_tpu_torch.native``, built with
+     g++ from ``paddle_tpu_torch/csrc/pt_native.cc``; writing nothing to
+     disk but /dev/shm's ring): 512 of phase 7's batches (2 x 4096
+     tokens, seeded numpy rows) through ``DataLoader(num_workers=2,
+     use_shared_memory=True)`` equal the ``num_workers=0`` batches and
+     all came over the ShmRing (the loader's transport count); batches/s
+     of both from the first batch's arrival (the seconds to it, the
+     workers' spawn, apart); a spawned process answers through a TCPStore and pushes
+     into a ShmRing (one round trip each); HostPool stats, a freed
+     buffer reused.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -538,6 +569,56 @@ def sync(torch, dev):
 def empty_cache(torch, dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+# objects whose presence among collected garbage names the leg that left it
+CYCLE_OWNERS = ("Trainer", "ContinuousBatchingEngine", "ServingFabric",
+                "FrontDoor", "LlamaForCausalLM", "MoEForCausalLM")
+# the card memory a full collection may free before the leg fails: more
+# means an earlier phase left a model, an engine's pool or a trainer in
+# a reference cycle (a relayed error's traceback once pinned 5e's
+# engines and their model: 19 GiB)
+CYCLE_BOUND_BYTES = 1 << 30
+
+
+def collect_cycles(torch, dev, where):
+    """A full collection before a leg that needs the card to itself, and
+    the check that earlier phases left nothing on the card in reference
+    cycles (a frame pinned through a traceback, a closure), which only
+    the collector's next full pass would free, at a time that depends on
+    every object the process made. Returns, and logs, the card memory it
+    freed and the owners (CYCLE_OWNERS, and frames by function) among
+    the freed objects; fails when it freed more than CYCLE_BOUND_BYTES."""
+    import gc
+    cuda = dev.type == "cuda"
+    before = torch.cuda.memory_allocated(dev) if cuda else 0
+    owners: dict = {}
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        for o in gc.garbage:
+            name = type(o).__name__
+            if name == "frame":
+                name = f"frame {o.f_code.co_name}"
+            elif name not in CYCLE_OWNERS:
+                continue
+            owners[name] = owners.get(name, 0) + 1
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    gc.collect()
+    empty_cache(torch, dev)
+    freed = before - (torch.cuda.memory_allocated(dev) if cuda else 0)
+    top = dict(sorted(owners.items(), key=lambda kv: -kv[1])[:12])
+    log(f"{where}: a full collection freed {freed / 2**30:.3f} GiB of card "
+        f"memory held by reference cycles (bound "
+        f"{CYCLE_BOUND_BYTES / 2**30:.3f} GiB); owners among the freed "
+        f"objects {top}")
+    if freed > CYCLE_BOUND_BYTES:
+        raise SystemExit(f"{where}: earlier phases left "
+                         f"{freed / 2**30:.3f} GiB of card memory in "
+                         f"reference cycles (owners {top})")
+    return {"freed_bytes": freed, "owners": top}
 
 
 class DeviceSpan:
@@ -1978,6 +2059,75 @@ def phase_generation_equality(torch, pt, dev, make_cfg):
         raise SystemExit(f"generation differs: {bad}")
 
 
+def phase_generation_mesh(torch, pt, dev, make_cfg):
+    """4f on a mesh, run after phase 12 (module docstring): 4f's model
+    again (seed 7, 2 layers, fp32) on 4f's first case. It runs beside
+    the other world-size-1 NCCL legs, so that no communicator comes up
+    before the single-card phases 5-11. Returns the sharded calls'
+    launches."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    cfg = make_cfg(num_hidden_layers=2, dtype="float32")
+    model = LlamaForCausalLM(cfg, device=dev, generator=pt.generator(7, dev))
+    b, L, n = GEN_CASES[0]
+    ids = np.random.RandomState(7).randint(0, cfg.vocab_size, (b, L))
+    out = generation_mesh(torch, dev, model,
+                          torch.as_tensor(ids, device=dev), n)
+    RESULTS.setdefault("generation_equality", {})["mesh"] = out
+    del model
+    empty_cache(torch, dev)
+    if not out["ok"]:
+        raise SystemExit(f"generation on a mesh differs: {out['equal']}, "
+                         f"launches {out['launches']}")
+    return out["launches"]
+
+
+def generation_mesh(torch, dev, model, ids, n):
+    """4f on a mesh: the process group at world size 1 (NCCL on the
+    card, as phase 12(a); gloo on the CPU), ``shard_layer`` of a copy of
+    ``model``, then ``generate_scan`` and ``generate_paged``: the greedy
+    tokens must equal the unsharded model's bit for bit, and the sharded
+    calls' RMSNorm, RoPE and paged decode launches (counts reset just
+    before, read just after) must be non-zero on the card."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.inference import generation as gen
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.parallel.api import shard_layer
+    from paddle_tpu_torch.parallel.mesh import init_parallel_env
+    greedy = gen.GenerationConfig(max_new_tokens=n)
+    calls = {"generate_scan": {}, "generate_paged": {"page_size": GEN_PAGE}}
+    t0 = time.perf_counter()
+    want = {c: getattr(gen, c)(model, ids, greedy, **kw)
+            for c, kw in calls.items()}
+    sharded = copy.deepcopy(model)
+    cuda = dev.type == "cuda"
+    hm = init_parallel_env(backend="nccl" if cuda else "gloo",
+                           init_method=f"tcp://localhost:{free_port()}",
+                           world_size=1, rank=0, device=dev.type)
+    try:
+        with hm:
+            shard_layer(sharded, hm)
+            _build.reset_launches()
+            got = {c: getattr(gen, c)(sharded, ids, greedy, **kw)
+                   for c, kw in calls.items()}
+            sync(torch, dev)
+            launches = dict(_build.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    equal = {c: bool(torch.equal(got[c], want[c])) for c in calls}
+    counted = {k: launches.get(k, 0) for k in SERVING_KERNELS}
+    out = {"mesh_shape": hm.shape, "equal": equal, "launches": launches,
+           "seconds": time.perf_counter() - t0,
+           "ok": all(equal.values()) and (
+               not cuda or all(v > 0 for v in counted.values()))}
+    log(f"generation on a mesh (4f): world size 1 "
+        f"({'NCCL' if cuda else 'gloo'}), mesh {hm.shape}, shard_layer, "
+        f"{ids.shape[0]} x {ids.shape[1]} + {n}: tokens equal to the "
+        f"unsharded model's {equal}; launches of the sharded calls "
+        f"{counted}; {out['seconds']:.1f} s {card_line()}")
+    del sharded, want, got
+    return out
+
+
 def fabric_prompts(V):
     """Phase 4's four prompts (numpy seed 7) and two longer ones (seed 9)."""
     rs = np.random.RandomState(7)
@@ -1993,8 +2143,11 @@ def recording_transport(replicas):
     destination (phase 4d holds them to the destination's pages)."""
     from paddle_tpu_torch.serving_fabric import InProcTransport
 
+    # the replicas go in through the constructor: a class made here
+    # lives in a reference cycle of its own, and a closure over them
+    # would hold their engines on the card until a full collection
     class Recording(InProcTransport):
-        def __init__(self):
+        def __init__(self, replicas):
             super().__init__(replicas)
             self.adopted = []
 
@@ -2002,7 +2155,7 @@ def recording_transport(replicas):
             n = super().adopt(name, payload)
             self.adopted.append((name, payload))
             return n
-    return Recording()
+    return Recording(replicas)
 
 
 def adopted_equal(torch, tr):
@@ -2436,8 +2589,10 @@ def timed_transport(replicas):
     (``hang_after = (replica, n)``: after the n-th adopt in all)."""
     from paddle_tpu_torch.serving_fabric import InProcTransport
 
+    # the replicas go in through the constructor (see
+    # recording_transport)
     class Timed(InProcTransport):
-        def __init__(self):
+        def __init__(self, replicas):
             super().__init__(replicas)
             self.op_s: dict = {}
             self.adopts: list = []
@@ -2474,7 +2629,7 @@ def timed_transport(replicas):
         def longest(self, ops=("poll", "submit", "extract", "adopt")):
             return max((s for op in ops for _, s in self.op_s.get(op, ())),
                        default=0.0)
-    return Timed()
+    return Timed(replicas)
 
 
 def frontdoor_stack(model, names, roles, threshold, policy, door_kw=None,
@@ -3372,13 +3527,51 @@ def crossover_sweep(torch, dev, model, label):
         f"paged_decode_crossover() = {default}; the host-bound whole step "
         f"was faster dense at {step_dense} of {len(rows)} contexts "
         f"(reported only) {card_line()}")
+    tuned = tune_crossover(crossover)
+    log(f"{label}: the crossover {crossover} written to a user TuneDB "
+        f"({tuned['path']}, key {tuned['key']}): paged_decode_crossover() "
+        f"read back {tuned['read_back']}")
     RESULTS[label + "_crossover"] = {"rows": rows, "crossover": crossover,
                                      "default": default,
-                                     "step_dense_faster": step_dense}
+                                     "step_dense_faster": step_dense,
+                                     "tune_db": tuned}
     if crossover != default:
         raise SystemExit(f"{label}: the measured crossover {crossover} is "
                          f"not the port's default {default}")
+    if tuned["read_back"] != crossover:
+        raise SystemExit(f"{label}: paged_decode_crossover() read "
+                         f"{tuned['read_back']} from the TuneDB holding "
+                         f"{crossover}")
     return crossover
+
+
+def tune_crossover(crossover: int) -> dict:
+    """3c's result into a user TuneDB (``chiprun_out/tune_db.json``
+    through ``PT_TUNE_DB``, the JAX package's key for this card), read
+    back through ``paged_decode_crossover()``; the environment and the
+    process's TuneDB are restored after."""
+    from paddle_tpu_torch.observability.costs import current_device_kind
+    from paddle_tpu_torch.ops.attention import paged_decode_crossover
+    from paddle_tpu_torch.ops.kernels import autotune
+    os.makedirs(ROOT_OUT, exist_ok=True)
+    path = os.path.join(ROOT_OUT, "tune_db.json")
+    key = autotune.TuneDB.key("paged_decode_crossover",
+                              current_device_kind(), "any")
+    old = os.environ.get("PT_TUNE_DB")
+    os.environ["PT_TUNE_DB"] = path
+    try:
+        db = autotune.TuneDB(user_path=path)
+        db.record(key, {"ctx": int(crossover)})
+        db.save()
+        autotune.get_db().reload()
+        got = paged_decode_crossover()
+    finally:
+        if old is None:
+            os.environ.pop("PT_TUNE_DB", None)
+        else:
+            os.environ["PT_TUNE_DB"] = old
+        autotune.get_db().reload()
+    return {"path": path, "key": key, "read_back": got}
 
 
 SAMPLED_KNOBS = {"do_sample": True, "temperature": 0.8, "top_k": 40,
@@ -3584,8 +3777,9 @@ def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
     through FrontDoor(ServingFabric(BreakerTransport(InProcTransport(
     build_replicas(model, 2, roles=["prefill", "both"], **SERVE_KW))),
     policy="affinity", disagg_threshold_tokens=FABRIC_THRESHOLD)), after
-    a warm-up stack of its own (as 5d's), with the metrics registry on,
-    the SLO sentry installed (serving, fabric and front-door packs at
+    a warm-up stack of its own (as 5d's), with the metrics registry on
+    (its engines built with ``cost_census=False``: no decode block of the
+    window runs under a cost census), the SLO sentry installed (serving, fabric and front-door packs at
     their defaults, ``min_interval_s=1.0``) and the window inside
     ``profiler.serving_trace``; launch counts reset just before and read
     just after. Prints tokens/s, TTFT and ITL at the client (stamped when
@@ -3632,9 +3826,9 @@ def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
                  "knobs": SAMPLED_KNOBS if i % 4 == 3 else None}
                 for i in range(n)]
 
-    def stack():
+    def stack(**extra):
         return frontdoor_stack(model, names, roles, FABRIC_THRESHOLD,
-                               "affinity", **kw)
+                               "affinity", **kw, **extra)
 
     def failed(results):
         return [r["id"] for r in results
@@ -3653,7 +3847,9 @@ def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
             door.stop()
             del door, fab, br, tr
             empty_cache(torch, dev)
-            door, fab, br, tr = stack()
+            # no cost census: a census traces a whole decode block, a
+            # stall that would land in the window's latencies
+            door, fab, br, tr = stack(cost_census=False)
             rules = (sn.serving_rules() + sn.fabric_rules(replicas=names)
                      + sn.frontdoor_rules(replicas=names))
             sentry = timed_sentry(sn, rules, min_interval_s=1.0)
@@ -4321,13 +4517,14 @@ def phase_recompute_equality(torch, pt, dev, make_cfg, ref):
 
 
 def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False,
-              model_cls=None):
+              model_cls=None, cost_leg=False):
     """Build ``model_cls(cfg)`` (LlamaForCausalLM by default) and its
     trainer (AdamW(1e-4, weight_decay=0.01), global-norm clip 1.0, seed
     10) on ``dev``, take ``warm_steps`` and then ``steps`` timed steps of
     ``batch`` through Trainer.fit, with the launch counts reset just
-    before the timed steps and read just after. Returns the run's
-    numbers."""
+    before the timed steps and read just after. ``cost_leg``: then the
+    cost gauges of the timed steps (:func:`cost_gauges`). Returns the
+    run's numbers."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
@@ -4345,9 +4542,12 @@ def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
+    ds0 = dict(trainer.dispatch_stats)
     hist = trainer.fit(iter([batch] * steps), steps, log_every=1)
     sync(torch, dev)
     launches = dict(_build.LAUNCHES)
+    host_s = ((trainer.dispatch_stats["dispatch_host_s"]
+               - ds0["dispatch_host_s"]) / max(len(hist), 1))
     peak_mem = (torch.cuda.max_memory_allocated(dev)
                 if dev.type == "cuda" else None)
     # the step's peak falls in the optimizer update (fp32 temporaries of
@@ -4382,13 +4582,99 @@ def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False,
             "fwd_bwd_peak_memory_bytes": fwd_bwd_peak, "launches": launches,
             "launches_per_step": {k: v / len(hist)
                                   for k, v in launches.items()},
+            "dispatch_host_s_per_step": host_s,
             "card": trainer.card}
     if profile:
         info["profile_step"] = profile_step(
             torch, dev, lambda: float(trainer.train_step(batch)), top=None)
+    if cost_leg:
+        info["cost_gauges"] = cost_gauges(torch, dev, trainer, batch, info)
     del trainer, model
     empty_cache(torch, dev)
     return info
+
+
+COST_SUM_RTOL = 1e-9       # the breakdown's buckets against the step
+
+
+COST_STEPS = 4             # the cost leg's published steps
+
+
+def cost_gauges(torch, dev, trainer, batch, info):
+    """Phase 7's cost leg, after its timed steps (which ran with the
+    registry off, as before): with the registry on, one step (the first
+    of its shape under the registry: the step census, timed; its window
+    publishes nothing), then COST_STEPS steps at log_every=1 whose log
+    boundaries publish the gauges (``Trainer._emit``). Reads what the
+    trainer published after the last of them: the breakdown against that
+    step's measured time, the census MFU beside the same step's PaLM MFU
+    and phase 7's, their ratio, and the drift verdict the planner reads
+    (``check_drift``). Fails unless the breakdown sums to the step within
+    COST_SUM_RTOL, the census window published nothing, and the drift
+    lies inside the planner's band."""
+    from paddle_tpu_torch.distributed.auto_parallel import planner
+    from paddle_tpu_torch.observability import REGISTRY
+
+    def rows():
+        return {(r["name"], r["labels"].get("bucket")): r["value"]
+                for r in REGISTRY.collect()
+                if r["labels"].get("component") == "train"
+                and "value" in r and r["name"].startswith("pt_")}
+
+    REGISTRY.reset()
+    REGISTRY.enable()
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(iter([batch]), 1, log_every=1)
+        sync(torch, dev)
+        census_s = time.perf_counter() - t0
+        after_census = rows()
+        hist = trainer.fit(iter([batch] * COST_STEPS), COST_STEPS,
+                           log_every=1)
+        sync(torch, dev)
+        got = rows()
+        drift = planner.check_drift()
+    finally:
+        REGISTRY.reset()
+        REGISTRY.disable()
+    watch = trainer._cost_watch
+    buckets = {b: v for (n, b), v in got.items()
+               if n == "pt_step_time_breakdown"}
+    mfu = got[("pt_model_flops_utilization", None)]
+    step_s = hist[-1].step_time_s
+    total = sum(buckets.values())
+    census_published = sorted({n for (n, _) in after_census
+                               if n != "pt_cost_census_seconds_total"})
+    out = {"breakdown": buckets, "step_s": step_s,
+           "step_times_s": [m.step_time_s for m in hist],
+           "sum_rel_err": abs(total - step_s) / step_s,
+           "mfu_gauge": mfu, "mfu_palm_step": hist[-1].mfu,
+           "mfu_ratio": mfu / hist[-1].mfu,
+           "mfu_palm_phase7": info["mfu_palm"],
+           "hbm_bw_utilization": got[("pt_hbm_bw_utilization", None)],
+           "predicted_over_measured": got[
+               ("pt_step_time_predicted_over_measured", None)],
+           "drift": {"status": drift["status"], "ratios": drift["ratios"],
+                     "band": list(planner.DRIFT_BAND)},
+           "census_flops": watch.report.total_flops,
+           "census_bytes": watch.report.total_bytes,
+           "census_step_s": census_s, "census_s": watch.census_s,
+           "census_window_published": census_published}
+    out["ok"] = (len(buckets) == 5 and not census_published
+                 and out["sum_rel_err"] <= COST_SUM_RTOL
+                 and drift["status"] == "ok")
+    log(f"training cost gauges (published by the trainer at the last of "
+        f"{COST_STEPS} steps, step {step_s:.4f} s; phase 7's median "
+        f"{info['median_step_s']:.4f} s): breakdown {buckets} (sum off by "
+        f"{out['sum_rel_err']:.3g} relative); census MFU {mfu:.4f} against "
+        f"the same step's PaLM MFU {hist[-1].mfu:.4f} (ratio "
+        f"{out['mfu_ratio']:.4f}; phase 7's PaLM MFU {info['mfu_palm']}); "
+        f"bandwidth {out['hbm_bw_utilization']:.4f}; predicted/measured "
+        f"{out['predicted_over_measured']:.4f}, check_drift "
+        f"{drift['status']!r}; the census step {census_s:.2f} s, its "
+        f"window published {census_published or 'nothing'} "
+        f"{card_line()}")
+    return out
 
 
 def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
@@ -4401,7 +4687,8 @@ def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
     head's."""
     cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
     batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
-    info = train_run(torch, pt, dev, cfg, batch, 2, 8, profile=True)
+    info = train_run(torch, pt, dev, cfg, batch, 2, 8, profile=True,
+                     cost_leg=True)
     launches, losses = info["launches"], info["losses"]
     RESULTS["training"] = info
     log(f"training model: llama3_8b widths, {cfg.num_hidden_layers} layers, "
@@ -4436,6 +4723,8 @@ def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
     if missing:
         raise SystemExit(f"kernels not launched on the training path: "
                          f"{missing}")
+    if not info["cost_gauges"]["ok"]:
+        raise SystemExit(f"the cost gauges failed: {info['cost_gauges']}")
     if launches["vocab_ce_fwd_wgmma"] != launches["vocab_ce_fwd"]:
         raise SystemExit(f"CE forward launches off the wgmma route: "
                          f"{launches['vocab_ce_fwd_wgmma']} of "
@@ -5433,6 +5722,7 @@ def phase_trainer_runtime(torch, pt, dev, make_cfg, b=2, s=4096):
     small_tokens = RuntimeTokens(small.vocab_size, 64, 256)
     gb = 1e9
     saves0 = list(ckpt.writer().saves)
+    out["cycles_collected"] = collect_cycles(torch, dev, "phase 10")
     _build.reset_launches()
     try:
         # (b, skip) first: its pre-step copy needs the card to itself
@@ -7152,11 +7442,88 @@ def reshard_reads(torch, pt, dev, make_cfg):
     return out, fails
 
 
+# 15(a)'s calibration leg: the rank-order model of tools/elastic_check.py
+# (Llama-3-8B widths, 2 layers, 4 x 4096 tokens, dp4 and tp4 on 4 cards)
+# and the steps tools/elastic_check.py's rank-order pod measured for it on
+# four H100 80GB HBM3 at 700 W (PERF.md)
+CALIBRATED_LAYERS = 2
+CALIBRATED_BATCH = (4, 4096)
+CALIBRATED_MEASURED_MS = {"dp4": 135.0, "tp4": 77.0}
+
+
+def plan_calibrated(torch, dev, make_cfg):
+    """15(a), measured floors: ``tools/op_cost_probe --calibrate`` on this
+    card into ``chiprun_out/op_cost_db.json``, then dp4 and tp4 of the
+    rank-order model priced from one census each, without an OpCostDB
+    and with the calibrated one; both predictions printed beside the
+    steps measured for it on four cards (CALIBRATED_MEASURED_MS). Returns
+    (results, failures)."""
+    from paddle_tpu_torch.distributed.auto_parallel import ParallelConfig
+    from paddle_tpu_torch.distributed.auto_parallel.planner import (
+        census_configs, price_config)
+    from paddle_tpu_torch.observability.costs import OpCostDB, device_spec
+    from paddle_tpu_torch.observability.costs.device_db import H100_LINK_BW
+    from paddle_tpu_torch.tools import op_cost_probe
+    os.makedirs(ROOT_OUT, exist_ok=True)
+    path = os.path.join(ROOT_OUT, "op_cost_db.json")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    probe = op_cost_probe.main(["--calibrate", "--db", path,
+                                "--device", dev.type])
+    probe_s = time.perf_counter() - t0
+    cfg = make_cfg(num_hidden_layers=CALIBRATED_LAYERS, dtype="bfloat16")
+    spec = device_spec(link_bw=H100_LINK_BW)
+    configs = [ParallelConfig(dp=4), ParallelConfig(tp=4)]
+    b, seq = CALIBRATED_BATCH
+    t1 = time.perf_counter()
+    records = census_configs(cfg, configs, 4, global_batch=b, seq_len=seq)
+    census_s = time.perf_counter() - t1
+    dbs = {"analytical": OpCostDB(user_path=os.path.join(
+               ROOT_OUT, "op_cost_db_absent.json")),
+           "calibrated": OpCostDB(user_path=path)}
+    out = {"probe": probe, "probe_s": probe_s, "census_s": census_s,
+           "configs": {}}
+    fails = []
+    for c in configs:
+        name = "tp4" if c.tp == 4 else "dp4"
+        row = {"measured_ms_four_cards": CALIBRATED_MEASURED_MS[name]}
+        for label, db in dbs.items():
+            pc = price_config(c, cfg, global_batch=b, seq_len=seq,
+                              spec=spec, db=db, check_memory=False,
+                              record=records[str(c)])
+            if not pc.feasible or pc.graph is None:
+                fails.append(f"15(a) calibrated: {c} {label}: {pc.reason}")
+                continue
+            row[label] = {"predicted_ms": pc.predicted_step_s * 1e3,
+                          "dispatch_ms": pc.graph.dispatch_s * 1e3,
+                          "dot_adjust_ms": pc.graph.dot_adjust_s * 1e3}
+        out["configs"][name] = row
+    floor = probe["graphs"]["train_step_k1"]["dispatch_floor_s"]
+    log(f"plan 15(a) calibrated: op_cost_probe --calibrate on "
+        f"{probe['device_kind']} in {probe_s:.1f} s (train_step_k1 "
+        f"{probe['graphs']['train_step_k1']['t_s'] * 1e3:.3f} ms, dispatch "
+        f"floor {floor * 1e3:.3f} ms, {len(probe['recorded'])} keys); "
+        f"Llama-3-8B widths, {CALIBRATED_LAYERS} layers, bf16, {b} x {seq} "
+        f"tokens on 4 cards, predicted step without / with the OpCostDB "
+        f"against the measured on four cards: " + "; ".join(
+            f"{n} {r.get('analytical', {}).get('predicted_ms', 0):.3f} / "
+            f"{r.get('calibrated', {}).get('predicted_ms', 0):.3f} ms vs "
+            f"{r['measured_ms_four_cards']:.0f} ms" for n, r in
+            out["configs"].items()) + f" {card_line()}")
+    if not probe["recorded"][0].startswith("graph:train_step_k1|"):
+        fails.append(f"15(a) calibrated: the probe recorded "
+                     f"{probe['recorded']}")
+    return out, fails
+
+
 def phase_plan(torch, pt, dev, make_cfg, b=2, s=4096):
     """Phase 15 (see the module docstring). Returns (b)'s launches."""
     out = RESULTS.setdefault("plan", {})
     t0 = time.perf_counter()
     out["planner"], fails = plan_meshes(torch, dev, make_cfg)
+    out["calibrated"], more = plan_calibrated(torch, dev, make_cfg)
+    fails += more
     mark("15a planner")
     out["world1"] = plan_world1(torch, pt, dev, make_cfg, b, s)
     if not out["world1"]["ok"]:
@@ -7168,6 +7535,141 @@ def phase_plan(torch, pt, dev, make_cfg, b=2, s=4096):
     if fails:
         raise SystemExit(f"phase 15 checks failed: {fails}")
     return out["world1"]["apply_plan"]["launches"]
+
+
+# -- 16: the native host runtime -------------------------------------------
+
+NATIVE_BATCHES = 512         # phase 7's batches the shm loader carries
+NATIVE_WORKERS = 2
+NATIVE_WAIT_S = 120.0        # the child's bounded waits
+
+
+class TokenRows:
+    """Phase 7's token batches as a map dataset: sample i is a row of
+    4096 tokens and its next-token labels (numpy, seed 10 + i, phase 7's
+    vocabulary), so batches of 2 are phase 7's shape."""
+
+    def __init__(self, n, vocab, s=4096):
+        self.n, self.vocab, self.s = n, vocab, s
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        ids = np.random.RandomState(10 + i).randint(0, self.vocab,
+                                                    (self.s + 1,))
+        return {"input_ids": ids[:-1], "labels": ids[1:]}
+
+
+def native_child(port, ring_name):
+    """The other process of 16's round trip: read the parent's key from
+    the TCPStore, answer through it, and push a message into the
+    parent's ShmRing."""
+    from paddle_tpu_torch import native
+    store = native.TCPStore(port=port, timeout=NATIVE_WAIT_S)
+    ring = native.ShmRing.open(ring_name)
+    try:
+        v = store.get("ping", timeout=NATIVE_WAIT_S)
+        store.set("pong", v[::-1])
+        ring.push(v + b"|ring", timeout=NATIVE_WAIT_S)
+    finally:
+        ring._h = None        # an opener never unlinks; the parent owns it
+        store.close()
+
+
+def phase_native(torch, pt, dev, make_cfg):
+    """Phase 16 (see the module docstring). Returns (results, failures)."""
+    import multiprocessing as mp
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.io import DataLoader
+    out, fails = {}, []
+    t0 = time.perf_counter()
+    out["available"] = native.is_available()
+    out["library"] = str(native.library_path())
+    out["build_s"] = time.perf_counter() - t0
+    if not out["available"]:
+        raise SystemExit(f"the native library did not build: "
+                         f"{native.build_error()}")
+    vocab = make_cfg().vocab_size
+    data = TokenRows(2 * NATIVE_BATCHES, vocab)
+    loaders = {"main": DataLoader(data, batch_size=2),
+               "shm_ring": DataLoader(data, batch_size=2,
+                                      num_workers=NATIVE_WORKERS,
+                                      use_shared_memory=True)}
+    got = {}
+    for name, dl in loaders.items():
+        # the rate runs from the first batch's arrival: before it, the
+        # ring's workers start (spawned, each importing torch)
+        t = time.perf_counter()
+        it = iter(dl)
+        got[name] = [next(it)]
+        t1 = time.perf_counter()
+        got[name] += list(it)
+        secs = time.perf_counter() - t1
+        out[name] = {"batches": len(got[name]), "first_batch_s": t1 - t,
+                     "seconds_after_first": secs,
+                     "batches_per_s": (len(got[name]) - 1) / secs,
+                     "transport": dict(dl.transport)}
+    equal = len(got["main"]) == len(got["shm_ring"]) == NATIVE_BATCHES \
+        and all(torch.equal(a[k], b[k]) for a, b in zip(got["main"],
+                                                        got["shm_ring"])
+                for k in a)
+    ring_ran = out["shm_ring"]["transport"]["shm_ring"] == NATIVE_BATCHES
+    out["batches_equal"], out["ring_ran"] = equal, ring_ran
+    if not (equal and ring_ran):
+        fails.append(f"16: shm batches equal {equal}, the ring ran "
+                     f"{out['shm_ring']['transport']}")
+    # two processes: the store and the ring, one round trip each
+    store = native.TCPStore(is_master=True, timeout=NATIVE_WAIT_S)
+    ring = native.ShmRing(capacity=1 << 20)
+    proc = mp.get_context("spawn").Process(
+        target=native_child, args=(store.port, ring.name))
+    try:
+        t = time.perf_counter()
+        proc.start()
+        store.set("ping", b"chip_smoke")
+        pong = store.get("pong", timeout=NATIVE_WAIT_S)
+        msg = ring.pop(timeout=NATIVE_WAIT_S)
+        rt = time.perf_counter() - t
+        proc.join(timeout=NATIVE_WAIT_S)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+        ring.destroy()
+        store.close()
+    out["round_trip"] = {"store": pong == b"ekoms_pihc",
+                         "ring": msg == b"chip_smoke|ring",
+                         "child_exit": proc.exitcode,
+                         "seconds_with_spawn": rt}
+    if not (out["round_trip"]["store"] and out["round_trip"]["ring"]
+            and proc.exitcode == 0):
+        fails.append(f"16: the two-process round trip {out['round_trip']}")
+    pool = native.HostPool()
+    arrs = [pool.alloc((2, 4096), np.int64) for _ in range(4)]
+    peak = pool.stats()
+    for a in arrs:
+        pool.free(a)
+    again = pool.alloc((2, 4096), np.int64)
+    reused = pool.stats()
+    pool.free(again)
+    pool.trim()
+    out["host_pool"] = {"peak": peak, "after_reuse": reused,
+                        "after_trim": pool.stats()}
+    if reused["reserved"] != peak["reserved"]:
+        fails.append(f"16: the host pool did not reuse {out['host_pool']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"native (16): {native.version()} built from "
+        f"paddle_tpu_torch/csrc/pt_native.cc ({out['build_s']:.2f} s to "
+        f"load); {NATIVE_BATCHES} of phase 7's batches (2 x 4096) through "
+        f"DataLoader(num_workers={NATIVE_WORKERS}, use_shared_memory=True):"
+        f" equal to num_workers=0 {equal}, transport "
+        f"{out['shm_ring']['transport']}, {out['shm_ring']['batches_per_s']:.1f}"
+        f" batches/s after the first batch (which took "
+        f"{out['shm_ring']['first_batch_s']:.2f} s: the workers' spawn) "
+        f"against {out['main']['batches_per_s']:.1f} in the main process; the "
+        f"two-process TCPStore and ShmRing round trip {out['round_trip']};"
+        f" HostPool {out['host_pool']}; {out['seconds']:.1f} s")
+    return out, fails
 
 
 def main() -> int:
@@ -7251,6 +7753,9 @@ def main() -> int:
     mark("11 optimizers")
     mesh_launches = phase_mesh(torch, pt, dev, LlamaConfig.llama3_8b)
     mark("12 mesh")
+    generation_mesh_launches = phase_generation_mesh(torch, pt, dev,
+                                                     LlamaConfig.llama3_8b)
+    mark("4f generation on a mesh")
     pipe_launches, ep_launches = phase_pipeline(torch, pt, dev,
                                                 LlamaConfig.llama3_8b)
     mark("13 pipeline")
@@ -7259,6 +7764,11 @@ def main() -> int:
     mark("14 launcher")
     plan_launches = phase_plan(torch, pt, dev, LlamaConfig.llama3_8b)
     mark("15 plan")
+    RESULTS["native"], native_fails = phase_native(torch, pt, dev,
+                                                   LlamaConfig.llama3_8b)
+    if native_fails:
+        raise SystemExit(f"phase 16 checks failed: {native_fails}")
+    mark("16 native")
     mesh_paths = {"mesh": mesh_launches,
                   "ring_blocks": RESULTS["mesh"]["ring"]["causal"][
                       "launches"],
@@ -7267,7 +7777,8 @@ def main() -> int:
                   "pipeline": pipe_launches, "ep_virtual": ep_launches,
                   "launcher": launcher_launches, "dist_model": dm_launches,
                   "bench_8b_layer": bench_launches,
-                  "apply_plan": plan_launches}
+                  "apply_plan": plan_launches,
+                  "generation_mesh": generation_mesh_launches}
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 

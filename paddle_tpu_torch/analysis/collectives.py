@@ -14,7 +14,11 @@ no HLO, so it records the op stream the step dispatches, under a
   bytes through :func:`kernel` (the counts ``PERF.md``'s bound column
   uses) and the census skips the ops beneath it, so the plain route on
   the CPU or the ``meta`` device prices the work the kernel does on the
-  card.
+  card;
+* each matrix product's shape (``mm``, ``addmm``, ``bmm``: m, k, n and
+  dtype, a batch folded into m), the JAX report's ``dots``, which the
+  calibration probe times and the planner's measured-dot correction
+  reads.
 
 :func:`collective_census` classifies each collective by the mesh axis
 whose group it ran over and summarises it in the JAX census's keys.
@@ -23,6 +27,8 @@ whose group it ran over and summarises it in the JAX census's keys.
 from __future__ import annotations
 
 import contextlib
+import importlib
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -55,6 +61,8 @@ _C10D = {
     "reduce_": "all-reduce", "gather_": "all-gather",
     "scatter_": "collective-broadcast",
 }
+# matrix products -> the index of their left operand
+_DOTS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}
 # aten ops that move no bytes of their own
 _FREE = ("empty", "empty_like", "empty_strided", "new_empty",
          "new_empty_strided", "lift_fresh", "_local_scalar_dense", "set_",
@@ -79,11 +87,30 @@ class CollectiveInstr:
 
 
 _ACTIVE: List["StepCensus"] = []
+_FLOPS: list = []
 
 
-def active() -> Optional["StepCensus"]:
-    """The census being taken, or None."""
-    return _ACTIVE[-1] if _ACTIVE else None
+def _import_all(names):
+    for name in names:
+        importlib.import_module(name)
+
+
+def _flop_registry():
+    """``torch.utils.flop_counter``'s formulas, imported once together
+    with ``torch._dynamo`` (which a dispatch mode's first op imports).
+    Importing ``torch._dynamo`` leaves an exception's traceback in a
+    reference cycle; through each frame's ``f_back`` that cycle pins the
+    whole importing stack (a trainer or an engine with its model) until
+    the next full collection. So the imports run on a thread of their
+    own, whose frames pin nothing of the caller's."""
+    if not _FLOPS:
+        t = threading.Thread(target=_import_all, args=(
+            ("torch._dynamo", "torch.utils.flop_counter"),))
+        t.start()
+        t.join()
+        from torch.utils.flop_counter import flop_registry
+        _FLOPS.append(flop_registry)
+    return _FLOPS[0]
 
 
 class _Kernel:
@@ -148,12 +175,15 @@ def _group_ranks(args) -> Tuple[int, ...]:
 class StepCensus(TorchDispatchMode):
     """Records every aten op (:class:`OpCost`) and collective
     (:class:`CollectiveInstr`) dispatched while entered; ``ops`` also
-    holds the kernels reported through :func:`kernel`."""
+    holds the kernels reported through :func:`kernel`, ``dots`` the
+    count of each matrix product's (m, k, n, dtype)."""
 
     def __init__(self):
         super().__init__()
+        self._flops = _flop_registry()
         self.ops: List[OpCost] = []
         self.collectives: List[CollectiveInstr] = []
+        self.dots: Dict[Tuple[int, int, int, str], int] = {}
         self._suppress = 0
 
     def __enter__(self):
@@ -185,13 +215,18 @@ class StepCensus(TorchDispatchMode):
             return out
         if ns != "aten" or func.is_view or name in _FREE:
             return out
-        from torch.utils.flop_counter import flop_registry
         fl = 0.0
-        f = flop_registry.get(func._overloadpacket)
+        f = self._flops.get(func._overloadpacket)
         if f is not None:
             fl = float(f(*args, **kwargs, out_val=out))
         self.ops.append(OpCost(f"aten.{name}", fl,
                                float(_nbytes(list(args)) + _nbytes(out))))
+        if name in _DOTS:
+            a, b = args[_DOTS[name]], args[_DOTS[name] + 1]
+            m = a.shape[-2] * (a.shape[0] if a.dim() == 3 else 1)
+            key = (int(m), int(a.shape[-1]), int(b.shape[-1]),
+                   str(a.dtype).replace("torch.", ""))
+            self.dots[key] = self.dots.get(key, 0) + 1
         return out
 
 

@@ -72,6 +72,7 @@ def census_one(model_cfg, config, global_batch: int, seq_len: int):
         agg[k] = agg.get(k, 0) + 1
     rec = {"config": str(config),
            "ops": [[n, f, b, k, cnt] for (n, f, b, k), cnt in agg.items()],
+           "dots": [[*key, cnt] for key, cnt in c.dots.items()],
            "collectives": [{"opcode": x.opcode, "bytes": x.bytes,
                             "ranks": list(x.ranks), "axis": x.axis,
                             "op_name": x.op_name} for x in coll["table"]],
@@ -134,7 +135,8 @@ def main() -> int:
                 finally:
                     _join(0, n)
                 rec["pipeline"]["last_stage"] = {
-                    "ops": last["ops"], "collectives": last["collectives"]}
+                    "ops": last["ops"], "collectives": last["collectives"],
+                    "dots": last["dots"]}
         except Exception as e:  # noqa: BLE001 — reported per config
             rec = {"config": str(config),
                    "error": f"{type(e).__name__}: {str(e)[:400]}"}

@@ -26,14 +26,18 @@
 
 The formula is JAX's: Σ over ops of max(flops ÷ peak, bytes ÷ memory
 bandwidth) + the per-axis priced comm + the collective floor × count +
-the dispatch floor. ``dispatch_floor_s`` is an argument: the TuneDB
-behind JAX's measured default is ROADMAP.md A.6.2 (``db`` stays None).
+the dispatch floor. The measured terms come from the
+:class:`~paddle_tpu_torch.ops.kernels.autotune.OpCostDB` under the JAX
+package's keys (``python -m paddle_tpu_torch.tools.op_cost_probe
+--calibrate`` writes them): the train step's per-dispatch host floor
+(``graph:train_step_k1``) and each census matmul shape the probe has
+timed (``dot``), which replaces that shape's analytical time.
 
 The cost model watches itself: :func:`plan` consults the
-``pt_step_time_predicted_over_measured`` drift gauge — ``drift="warn"``
-annotates the report, ``drift="refuse"`` raises
-:class:`StaleCostModelError`. Nothing publishes that gauge until
-CostWatch (A.6.3).
+``pt_step_time_predicted_over_measured`` drift gauge (the trainer's
+and the serving engine's ``observability.costs.CostWatch`` publish it)
+and the OpCostDB calibration's age — ``drift="warn"`` annotates the
+report, ``drift="refuse"`` raises :class:`StaleCostModelError`.
 
 Prediction convention: serialized upper bound. The acceptance bar is
 RANK ORDER against measured step times (:func:`validate_rank_order`,
@@ -73,6 +77,9 @@ COLLECTIVE_FLOOR_S = {"cpu": 2e-6, "default": 1e-6}
 #: on overlap-heavy or dispatch-heavy programs; outside
 #: it the cost tables themselves are suspect
 DRIFT_BAND = (0.2, 5.0)
+
+#: OpCostDB graph records older than this are stale for drift purposes
+CALIBRATION_MAX_AGE_S = 30 * 86400.0
 
 
 class StaleCostModelError(RuntimeError):
@@ -315,7 +322,7 @@ class PricedGraph:
     comm_s: float                 # priced census bytes ÷ per-axis bw
     collective_floor_s: float     # n_collectives × per-tier launch floor
     dispatch_s: float             # measured per-dispatch host floor
-    dot_adjust_s: float           # measured-dot correction (A.6)
+    dot_adjust_s: float           # measured-dot correction (OpCostDB)
     predicted_step_s: float
     census_counts: Dict[str, int]
     census_bytes: int
@@ -336,6 +343,38 @@ class PricedGraph:
 def _collective_floor(kind: str) -> float:
     return COLLECTIVE_FLOOR_S["cpu" if "cpu" in kind.lower()
                               else "default"]
+
+
+def _db_dispatch_floor(db, kind: str) -> Tuple[float, List[str]]:
+    """Measured per-dispatch host floor: the train step's floor from the
+    calibration probe, when this device kind has been calibrated."""
+    notes: List[str] = []
+    if db is None:
+        return 0.0, notes
+    from ...ops.kernels.autotune import OpCostDB
+    rec = db.lookup(OpCostDB.graph_key("train_step_k1", kind))
+    if not rec:
+        notes.append(f"OpCostDB has no graph calibration for "
+                     f"'{kind}' — dispatch floor 0, analytical only "
+                     f"(run python -m paddle_tpu_torch.tools.op_cost_probe "
+                     f"--calibrate)")
+        return 0.0, notes
+    return float(rec.get("dispatch_floor_s", 0.0)), notes
+
+
+def _dot_adjust(db, dots, spec) -> float:
+    """Measured-dot correction: each matmul shape the calibration probe
+    timed on this device kind replaces its analytical 2mkn ÷ peak."""
+    if db is None:
+        return 0.0
+    from ...ops.kernels.autotune import OpCostDB
+    adjust = 0.0
+    for m_dim, k, n, dtype, count in dots:
+        rec = db.lookup(OpCostDB.dot_key(m_dim, k, n, dtype, spec.kind))
+        if rec and rec.get("t_s"):
+            analytical = 2.0 * m_dim * k * n / spec.peak_flops
+            adjust += (float(rec["t_s"]) - analytical) * count
+    return adjust
 
 
 def _record_census(record: Dict):
@@ -360,8 +399,10 @@ def _record_census(record: Dict):
 
 
 class _Ops:
-    def __init__(self, ops):
+    def __init__(self, ops, dots=()):
         self.ops = ops
+        self.dots = {(int(m), int(k), int(n), dt): int(c)
+                     for m, k, n, dt, c in dots}
 
 
 #: mesh axes whose collectives run once a step, after a pipeline drains
@@ -385,9 +426,10 @@ def price_compiled(census, mesh=None, *, spec=None,
 
     ``bandwidths`` maps mesh-axis name → bytes/s for the census pricing
     (axes it doesn't name fall back to ``spec.link_bw``); a synthetic
-    table therefore yields EXACT arithmetic. ``db`` (the TuneDB of
-    ROADMAP.md A.6.2) is not ported: its measured floors stay 0 and
-    ``dispatch_floor_s`` is the caller's.
+    table therefore yields EXACT arithmetic. ``db`` (an ``OpCostDB``)
+    supplies the measured dispatch floor when ``dispatch_floor_s`` is
+    None, and the measured-dot correction of the census's matmul shapes
+    (as JAX's; the sum is floored at 0 before comm is added).
 
     A pipeline record (``pp`` > 1) holds the census of the first and of
     the last stage, each over its M microbatches. A stage's tick is its
@@ -401,27 +443,28 @@ def price_compiled(census, mesh=None, *, spec=None,
                                         price_census)
     spec = spec or device_spec()
     notes: List[str] = []
-    if db is not None:
-        notes.append("the TuneDB's measured floors are not ported "
-                     "(ROADMAP.md A.6.2): analytical only")
     if dispatch_floor_s is None:
-        dispatch_floor_s = 0.0
+        dispatch_floor_s, db_notes = _db_dispatch_floor(db, spec.kind)
+        notes += db_notes
     if collective_floor_s is None:
         collective_floor_s = _collective_floor(spec.kind)
     stages, scale = [], 1.0
     if isinstance(census, dict):
-        stages.append(_record_census(census))
+        stages.append(_record_census(census) + (census.get("dots", []),))
         pipe = census.get("pipeline")
         if pipe:
             S, M = int(pipe["stages"]), int(pipe["microbatches"])
             scale = (M + S - 1) / M
-            stages.append(_record_census(pipe["last_stage"]))
+            last = pipe["last_stage"]
+            stages.append(_record_census(last) + (last.get("dots", []),))
     else:
-        stages.append((census.ops, collective_census(census, mesh=mesh)))
+        stages.append((census.ops, collective_census(census, mesh=mesh),
+                       [(*k, c) for k, c in census.dots.items()]))
     best = None
-    for i, (ops, coll) in enumerate(stages):
-        report = attribute_costs(_Ops(ops), spec=spec)
+    for i, (ops, coll, dots) in enumerate(stages):
+        report = attribute_costs(_Ops(ops, dots), spec=spec)
         priced = price_census(coll, bandwidths=bandwidths, spec=spec)
+        dot_adjust = _dot_adjust(db, report.dots, spec) * scale
         compute_s = report.compute_s
         comm_s = priced["total_comm_s"]
         floor_s = coll["total_collectives"] * collective_floor_s
@@ -435,18 +478,19 @@ def price_compiled(census, mesh=None, *, spec=None,
                 * collective_floor_s
         # compute/memory roofline WITHOUT the comm term — comm is priced
         # per axis by the census
-        total = max(compute_s, 0.0) + comm_s + floor_s
+        total = max(compute_s + dot_adjust, 0.0) + comm_s + floor_s
         if best is None or total > best[0]:
             best = (total, i, compute_s, comm_s, floor_s, report, coll,
-                    priced)
-    total, i, compute_s, comm_s, floor_s, report, coll, priced = best
+                    priced, dot_adjust)
+    (total, i, compute_s, comm_s, floor_s, report, coll, priced,
+     dot_adjust) = best
     if scale != 1.0:
         notes.append(f"pipeline: {S} stages, {M} microbatches: "
                      f"{M + S - 1} ticks of the "
                      f"{'last' if i else 'first'} stage")
     return PricedGraph(
         compute_s=compute_s, comm_s=comm_s, collective_floor_s=floor_s,
-        dispatch_s=dispatch_floor_s, dot_adjust_s=0.0,
+        dispatch_s=dispatch_floor_s, dot_adjust_s=dot_adjust,
         predicted_step_s=total + dispatch_floor_s,
         census_counts=dict(coll["counts"]),
         census_bytes=int(coll["total_collective_bytes"]),
@@ -654,13 +698,20 @@ def check_drift(band: Tuple[float, float] = DRIFT_BAND,
                 db=None, now: Optional[float] = None) -> Dict:
     """Is the cost model currently trustworthy?
 
-    The live ``pt_step_time_predicted_over_measured`` gauge — any
-    published component outside ``band`` means the roofline is actively
-    disagreeing with the wall clock ("stale", refusal-grade). Nothing
-    publishes it until CostWatch (ROADMAP.md A.6.3); ``db`` (the TuneDB's
-    calibration age, A.6.2) and ``now`` are accepted and unused.
+    Two signals, both advisory by design (``plan(drift=...)`` decides
+    what to do with them):
 
-    Returns ``{"status": "ok"|"stale", "ratios": {...}, "notes": [...]}``.
+    * the live ``pt_step_time_predicted_over_measured`` gauge (the
+      trainer's and the serving engine's ``CostWatch`` publish it) —
+      any published component outside ``band`` means the roofline is
+      actively disagreeing with the wall clock;
+    * OpCostDB calibration age — graph records older than
+      ``CALIBRATION_MAX_AGE_S`` (or absent for this device kind) can't
+      anchor measured floors.
+
+    Returns ``{"status": "ok"|"stale"|"uncalibrated", "ratios": {...},
+    "notes": [...]}`` — "stale" is the refusal-grade verdict, absence of
+    evidence ("uncalibrated") only warns.
     """
     from ...observability.metrics import REGISTRY
     ratios: Dict[str, float] = {}
@@ -682,6 +733,26 @@ def check_drift(band: Tuple[float, float] = DRIFT_BAND,
                     f"before trusting this plan")
     except Exception:
         pass
+    if status == "ok" and db is not None:
+        from ...observability.costs import device_spec
+        from ...ops.kernels.autotune import OpCostDB
+        rec = db.lookup(OpCostDB.graph_key("train_step_k1",
+                                           device_spec().kind))
+        if rec is None:
+            status = "uncalibrated"
+            notes.append("no OpCostDB calibration for this device kind; "
+                         "pricing is analytical-only")
+        else:
+            try:
+                cap = time.mktime(time.strptime(rec["captured_at"],
+                                                "%Y-%m-%dT%H:%M:%S"))
+                age = (now if now is not None else time.time()) - cap
+                if age > CALIBRATION_MAX_AGE_S:
+                    status = "uncalibrated"
+                    notes.append(f"OpCostDB calibration is "
+                                 f"{age / 86400:.0f} days old")
+            except (KeyError, ValueError):
+                pass
     return {"status": status, "ratios": ratios, "notes": notes}
 
 
@@ -769,13 +840,15 @@ def plan(model_cfg, *, n_devices: Optional[int] = None, devices=None,
     the drift gauge is out of band), or "ignore". Raises
     :class:`InfeasibleMeshError` when the mesh can't host any legal
     config, or declares more devices than ``devices`` holds."""
-    from ...observability.costs import device_spec
+    from ...observability.costs import device_spec, get_op_cost_db
     from .memory_model import estimate_hbm
 
     if drift not in ("warn", "refuse", "ignore"):
         raise ValueError(f"drift must be warn|refuse|ignore, got "
                          f"{drift!r}")
     spec = spec or device_spec()
+    if db is None:
+        db = get_op_cost_db()
     if n_devices:
         n = int(n_devices)
     elif devices is not None:

@@ -185,7 +185,8 @@ def _generate(model, input_ids, cfg: GenerationConfig, kind: str,
     max_new_tokens] in the input's dtype on the model's device."""
     core = getattr(model, "model", model)
     head = model.logits if hasattr(model, "logits") else (lambda h: h)
-    dev, vocab = core.embed_tokens.device, core.embed_tokens.shape[0]
+    # the whole vocabulary: a vocab-parallel embedding holds V / tp rows
+    dev, vocab = core.embed_tokens.device, core.cfg.vocab_size
     eos, pad = cfg.eos_token_id, cfg.pad_token_id
     with torch.inference_mode():
         ids = _on_device(input_ids, dev)

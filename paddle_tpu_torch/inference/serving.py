@@ -79,7 +79,16 @@ Serving-engine features, each off by default:
   percentiles at ``publish_metrics()`` (labelled ``engine=<name>`` when
   named) and ticks the installed SLO sentry after each (``step`` and
   ``run``); ``submit(trace=)`` stitches replica spans under a caller's
-  trace context. ``profiler.RecordEvent`` spans mark admission
+  trace context. The cost gauges (``observability.costs.CostWatch``,
+  component "serving"): the first decode block of each shape (K, the
+  sampling mix, the attention route, spec) dispatched with the registry
+  on runs under a census (a stall of one traced block, counted in
+  ``pt_cost_census_seconds_total``; ``cost_census=False`` takes none, so
+  a timed window stays clean, and publishes against censuses taken
+  before), and ``publish_metrics()`` publishes the breakdown, MFU,
+  bandwidth and drift gauges against the median-filtered drain-to-drain
+  gap, the measured seconds a block (the gap ending at a censused
+  block's drain left out). ``profiler.RecordEvent`` spans mark admission
   (``serving::admit``), each prefill (``serving::prefill``), each decode
   block's dispatch (``serving::dispatch``) and each block's drain
   (``serving::drain``): host time, a global load and a branch when no
@@ -103,6 +112,7 @@ from __future__ import annotations
 import hashlib
 import itertools
 import time
+import contextlib
 from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional, Tuple
@@ -239,7 +249,7 @@ class ContinuousBatchingEngine:
                  prefix_cache: bool = False,
                  attn_crossover: Optional[int] = None,
                  admission: Optional[AdmissionPolicy] = None,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None, cost_census: bool = True):
         self.model = model
         # N engines in one process (the in-process serving fabric) keep
         # their registry series apart by an engine=<name> label
@@ -327,6 +337,13 @@ class ContinuousBatchingEngine:
         self.preemptions = 0
         self.pool_dry_drains = 0
         self.decode_blocks = 0
+        # cost observatory: the decode block's census per block shape and
+        # the drain times whose gaps are the measured seconds a block
+        self._cost_watch = None
+        self.cost_census = bool(cost_census)
+        self._census_pending = False    # a census ran in this dispatch
+        self._census_block = None       # ... and this in-flight block
+        self._drain_stamps: Deque[float] = deque(maxlen=256)
         self._latencies = deque(maxlen=10_000)  # (ttft_s, total_s, n_tok)
         self._itl_gaps = deque(maxlen=100_000)
         # lifetime counters publish_metrics mirrors into the registry as
@@ -586,6 +603,37 @@ class ContinuousBatchingEngine:
         """Drop the retired-request latency window (e.g. after a warm-up)."""
         self._latencies.clear()
         self._itl_gaps.clear()
+        self._drain_stamps.clear()
+
+    def _block_census(self, key):
+        """The census scope of a decode block of shape ``key``: the first
+        such block dispatched while the registry is on and
+        ``cost_census`` is set; else a no-op."""
+        if not _REG.enabled:
+            return contextlib.nullcontext()
+        if self._cost_watch is None:
+            from ..observability.costs import CostWatch
+            self._cost_watch = CostWatch("serving")
+        if self._cost_watch.observe(key) or not self.cost_census:
+            return contextlib.nullcontext()
+        self._census_pending = True
+        return self._cost_watch.census(key)
+
+    def _publish_cost_metrics(self) -> None:
+        """Breakdown/MFU gauges for the serving tick: measured seconds
+        per decode block from drain-to-drain gaps (median-filtered so
+        idle gaps between runs don't pollute the estimate), attributed
+        against the last dispatched block shape's census."""
+        watch = self._cost_watch
+        if watch is None or not watch.attached:
+            return
+        stamps = list(self._drain_stamps)
+        gaps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+        if not gaps:
+            return
+        med = gaps[len(gaps) // 2]
+        kept = [g for g in gaps if g <= 10 * med] or [med]
+        watch.publish(sum(kept) / len(kept))
 
     # -- KV-page handoff (the serving fabric's prefill -> decode transfer) --
 
@@ -805,6 +853,7 @@ class ContinuousBatchingEngine:
         _REG.gauge("pt_serving_window_requests",
                    "retired requests in the latency window").set(
             lat.get("requests", 0), **lb)
+        self._publish_cost_metrics()
         self._tick_gauges()
         return lat
 
@@ -1410,7 +1459,8 @@ class ContinuousBatchingEngine:
             if self.spec_k:
                 # the verify forward has its own context attention: no
                 # fork
-                toks, kept = self._spec_tick(any_sample)
+                with self._block_census(("spec", self.spec_k, any_sample)):
+                    toks, kept = self._spec_tick(any_sample)
             else:
                 # the route from the batch's largest context after this
                 # block
@@ -1418,7 +1468,8 @@ class ContinuousBatchingEngine:
                 attn_impl = ("dense" if ctx_len <= self.attn_crossover
                              else "paged")
                 self.attn_path_ticks[attn_impl] += 1
-                with force_decode_impl(attn_impl):
+                with force_decode_impl(attn_impl), self._block_census(
+                        ("decode", K, any_sample, attn_impl)):
                     toks, kept = self._decode_block(K, any_sample)
         self.decode_blocks += 1
         if self.kv_quant:
@@ -1433,8 +1484,11 @@ class ContinuousBatchingEngine:
                 stride[s] = steps
             self._proj_gen[s] += steps
             self._proj_pos[s] += steps
-        self._inflight.append(self._start_drain(toks, kept, parts, K,
-                                                stride))
+        blk = self._start_drain(toks, kept, parts, K, stride)
+        if self._census_pending:
+            self._census_pending = False
+            self._census_block = blk
+        self._inflight.append(blk)
         return True
 
     def _start_drain(self, toks, kept, parts, K, steps) -> _InflightBlock:
@@ -1479,6 +1533,15 @@ class ContinuousBatchingEngine:
             active_after = blk.active.numpy()
         emitted: List[tuple] = []
         now = time.perf_counter()
+        if _REG.enabled:
+            # cost observatory: drain-to-drain gaps are the measured
+            # seconds a block its breakdown divides; the gap that ends at
+            # a censused block's drain holds the census, so the series
+            # restarts there
+            if blk is self._census_block:
+                self._census_block = None
+                self._drain_stamps.clear()
+            self._drain_stamps.append(now)
         for slot, req in blk.participants:
             if self._slots[slot] is not req or req.done:
                 continue      # retired or preempted since dispatch

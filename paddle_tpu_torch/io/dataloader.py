@@ -20,8 +20,12 @@ an event recorded there orders the consumer's stream after the copy, and
 ``sharding`` (a ``ShardingPlan`` or a ``MeshPlan``) hands each rank its
 slice of every global batch, cut before the device copy.
 
-Not ported: ``use_shared_memory=True`` with workers (the JAX package's
-native shared-memory ring, ROADMAP.md A.6).
+``use_shared_memory=True`` with workers takes the JAX package's transport
+when the native library is available (``paddle_tpu_torch.native``, built
+with g++ at first use): worker processes push pickled batches through a
+``ShmRing`` and the loader re-orders them by sequence number; otherwise
+the worker pool, exactly as JAX chooses. ``DataLoader.transport`` counts
+the batches each transport delivered.
 """
 
 from __future__ import annotations
@@ -154,6 +158,30 @@ def _worker_fetch(indices):
                       _WORKER_STATE["collate_fn"])
 
 
+def _shm_worker_loop(ring_name, index_queue, dataset, collate_fn):
+    """Worker-process loop for the native shared-memory transport: pop
+    (seq, indices) work items, fetch+collate, push pickled batches into the
+    ShmRing (reference: the mmap-allocator path of dataloader_iter.py:358)."""
+    import pickle
+    from ..native import ShmRing
+    ring = ShmRing.open(ring_name)
+    try:
+        while True:
+            item = index_queue.get()
+            if item is None:
+                ring.push(pickle.dumps(("__worker_done__", None)), timeout=600)
+                return
+            seq, indices = item
+            try:
+                batch = _fetch_map(dataset, indices, collate_fn)
+                payload = pickle.dumps((seq, batch), protocol=4)
+            except BaseException as e:  # surface in the parent
+                payload = pickle.dumps((seq, e), protocol=4)
+            ring.push(payload, timeout=600)
+    finally:
+        ring._h = None  # opener must never shm_unlink; the parent owns it
+
+
 class _PrefetchIterator:
     """Pulls batches from an executor pipeline with bounded depth."""
 
@@ -219,12 +247,6 @@ class DataLoader:
                             "a MeshPlan")
         self.sharding = sharding
         self.num_workers = max(0, int(num_workers))
-        if use_shared_memory and self.num_workers > 0:
-            raise NotImplementedError(
-                "DataLoader(use_shared_memory=True, num_workers > 0) runs "
-                "the JAX package's native shared-memory ring, which comes "
-                "with the port of native/ (ROADMAP.md, A.6); leave "
-                "use_shared_memory=False")
         self.dataset = dataset
         self.collate_fn = collate_fn or default_collate_fn
         self.use_shared_memory = use_shared_memory
@@ -254,6 +276,10 @@ class DataLoader:
                                               drop_last=drop_last)
         self._batches_served = 0
         self._skip_batches = 0
+        #: host batches each transport delivered: the main process
+        #: ("main"), the worker pool ("workers") or the native
+        #: shared-memory ring ("shm_ring")
+        self.transport = {"main": 0, "workers": 0, "shm_ring": 0}
 
     # -- iteration cursor (resilience: resume/rollback positions the loader)
 
@@ -345,8 +371,16 @@ class DataLoader:
             return
         if self.num_workers == 0:
             for indices in self.batch_sampler:
+                self.transport["main"] += 1
                 yield _fetch_map(self.dataset, indices, self.collate_fn)
             return
+        if self.use_shared_memory:
+            from .. import native
+            if native.is_available():
+                for b in self._iter_batches_shm():
+                    self.transport["shm_ring"] += 1
+                    yield b
+                return
         # worker pool: submit index lists, consume in order with prefetch
         if self.multiprocessing_context is not None:
             import multiprocessing as mp
@@ -372,10 +406,93 @@ class DataLoader:
         try:
             submits = (pool.submit(fetch, *submit_args(idx))
                        for idx in self.batch_sampler)
-            yield from _PrefetchIterator(
-                submits, self.num_workers * self.prefetch_factor)
+            for b in _PrefetchIterator(
+                    submits, self.num_workers * self.prefetch_factor):
+                self.transport["workers"] += 1
+                yield b
         finally:
             pool.shutdown(wait=False, cancel_futures=True)
+
+    def _iter_batches_shm(self):
+        """Multi-process fetch over the native shared-memory ring (the
+        JAX package's transport): workers pickle batches straight into a
+        process-shared ring buffer instead of the multiprocessing pipe,
+        and the parent re-orders by sequence number."""
+        import pickle
+        import multiprocessing as mp
+        from ..native import ShmRing
+
+        ctx = mp.get_context(self.multiprocessing_context or "spawn")
+        ring = ShmRing(capacity=128 << 20)
+        index_queue = ctx.Queue()
+        procs = [ctx.Process(target=_shm_worker_loop,
+                             args=(ring.name, index_queue, self.dataset,
+                                   self.collate_fn), daemon=True)
+                 for _ in range(self.num_workers)]
+        for p in procs:
+            p.start()
+        try:
+            total = 0
+            depth = self.num_workers * self.prefetch_factor
+            sampler_it = iter(self.batch_sampler)
+            in_flight = 0
+            for _ in range(depth):
+                try:
+                    index_queue.put((total, next(sampler_it)))
+                    total += 1
+                    in_flight += 1
+                except StopIteration:
+                    break
+            next_seq = 0
+            stash = {}
+            while in_flight > 0 or stash:
+                while next_seq in stash:
+                    item = stash.pop(next_seq)
+                    next_seq += 1
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+                if in_flight == 0:
+                    continue
+                payload = None
+                while payload is None:
+                    try:
+                        payload = ring.pop(timeout=5)
+                        if payload is None:  # ring closed & drained
+                            raise RuntimeError(
+                                "DataLoader shared-memory ring closed with "
+                                f"{in_flight} batches still pending")
+                    except TimeoutError:
+                        # a worker that crashed (unclean exit) takes its
+                        # in-flight batch with it — even one such death means
+                        # the missing seq will never arrive
+                        dead = [p for p in procs
+                                if not p.is_alive() and p.exitcode not in (0, None)]
+                        if dead or not any(p.is_alive() for p in procs):
+                            codes = [p.exitcode for p in procs]
+                            raise RuntimeError(
+                                "DataLoader shared-memory worker(s) died "
+                                f"unexpectedly (exit codes {codes}) with "
+                                f"{in_flight} batches still pending") from None
+                seq, item = pickle.loads(payload)
+                if seq == "__worker_done__":
+                    continue
+                in_flight -= 1
+                stash[seq] = item
+                try:
+                    index_queue.put((total, next(sampler_it)))
+                    total += 1
+                    in_flight += 1
+                except StopIteration:
+                    pass
+        finally:
+            for _ in procs:
+                index_queue.put(None)
+            for p in procs:
+                p.join(timeout=5)
+                if p.is_alive():
+                    p.terminate()
+            ring.destroy()
 
     def __call__(self):
         """Legacy idiom parity: ``for batch in loader():`` — the reference

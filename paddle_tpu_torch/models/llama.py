@@ -548,8 +548,13 @@ class LlamaAttention(nn.Module):
         return q, k, v
 
     def _out(self, attn: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """The output projection of this rank's heads, all-reduced over
+        ``tp`` on a mesh (every training and inference path)."""
+        from ..distributed.communication import reduce_from_group
+        tp = _tp_group(self._mesh_plan)
         b, s = attn.shape[:2]
-        return _proj(self, attn.reshape(b, s, -1).to(x.dtype), "o_proj")
+        out = _proj(self, attn.reshape(b, s, -1).to(x.dtype), "o_proj")
+        return out if tp is None else reduce_from_group(out, tp)
 
     def forward(self, x, cos, sin, position_ids=None, attn_mask=None,
                 segment_ids=None, neg_sin=None):
@@ -561,7 +566,6 @@ class LlamaAttention(nn.Module):
         it to ``_sdpa_xla``. On a mesh: the block is tensor-parallel
         over ``tp`` (input copied in, output all-reduced) and, with
         sequence parallelism, attends through :meth:`_sp_attention`."""
-        from ..distributed.communication import reduce_from_group
         tp = _tp_group(self._mesh_plan)
         q, k, v = self._qkv_rope(x, cos, sin, position_ids, neg_sin, tp)
         out = self._sp_attention(q, k, v, attn_mask, segment_ids)
@@ -572,8 +576,7 @@ class LlamaAttention(nn.Module):
         elif out is None:
             out = sdpa_plain(q, k, v, causal=True, segment_ids=segment_ids,
                              attn_mask=attn_mask)
-        out = self._out(out, x)
-        return out if tp is None else reduce_from_group(out, tp)
+        return self._out(out, x)
 
     def _sp_attention(self, q, k, v, attn_mask, segment_ids=None):
         """Attention over the ``sep`` axis (JAX's ``_sp_attention``): None
@@ -607,13 +610,13 @@ class LlamaAttention(nn.Module):
 
     def prefill(self, x, cos, sin, max_len: int):
         """Prompt pass that also builds the dense KV cache: k and v
-        [b, max_len, n_kv, hd] in the activations' dtype, zeros past the
-        prompt, which attends to itself through ``sdpa_plain``."""
-        cfg = self.cfg
+        [b, max_len, n_kv, hd] in the activations' dtype (n_kv this
+        rank's KV heads, :meth:`_heads`), zeros past the prompt, which
+        attends to itself through ``sdpa_plain``."""
         b, s, _ = x.shape
         q, k, v = self._qkv_rope(x, cos, sin)
         out = self._out(sdpa_plain(q, k, v, causal=True), x)
-        shape = (b, max_len, cfg.num_key_value_heads, cfg.head_dim)
+        shape = (b, max_len, self._heads()[1], self.cfg.head_dim)
         k_cache, v_cache = k.new_zeros(shape), v.new_zeros(shape)
         k_cache[:, :s] = k
         v_cache[:, :s] = v
@@ -640,10 +643,10 @@ class LlamaAttention(nn.Module):
         (:data:`Pool`). The prompt attends to its own float K/V; the pool
         gets them quantized. The prompt is padded up to a page multiple
         inside the pool; padded slots lie beyond seq_len and are
-        overwritten by decode before anything attends to them."""
-        cfg = self.cfg
+        overwritten by decode before anything attends to them. On a
+        tensor-parallel mesh the pools hold this rank's KV heads."""
         b, s, _ = x.shape
-        n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
+        n_kv, hd = self._heads()[1], self.cfg.head_dim
         page = kv[0].shape[2]
         q, k, v = self._qkv_rope(x, cos, sin)
         out = self._out(sdpa_plain(q, k, v, causal=True), x)
@@ -694,10 +697,8 @@ class LlamaAttention(nn.Module):
         table (max_pages * page keys) in fp32, masked by key index <=
         position per row. The query heads of one KV head are grouped
         against it, so the gathered K/V are never expanded to n_h heads.
-        Returns [b, C, n_h * hd] fp32."""
-        cfg = self.cfg
-        n_h, n_kv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                         cfg.head_dim)
+        Returns [b, C, n_h * hd] fp32 (this rank's heads on a mesh)."""
+        (n_h, n_kv), hd = self._heads(), self.cfg.head_dim
         b, C = positions.shape
         k_ctx, v_ctx = _kv_gather_ctx(kv, tables)   # [b, n_kv, S, hd]
         S = k_ctx.shape[2]
@@ -717,9 +718,8 @@ class LlamaAttention(nn.Module):
         history plus itself. ``offset`` (an int or a 0-d tensor) is
         page-aligned and C a page multiple; the engine enforces both.
         Tiles past the table go to the garbage page 0 explicitly."""
-        cfg = self.cfg
         b, C, _ = x.shape
-        n_kv, hd = cfg.num_key_value_heads, cfg.head_dim
+        n_kv, hd = self._heads()[1], self.cfg.head_dim
         page = kv[0].shape[2]
         positions = (torch.arange(C, device=x.device) + offset).expand(b, C)
         q, k, v = self._qkv_rope(x, cos, sin, positions)
@@ -869,8 +869,11 @@ class LlamaModel(nn.Module):
 
     def prefill(self, input_ids, max_len: int):
         """Prompt pass: input_ids [b, s] → (hidden [b, s, d], caches), the
-        caches a list of per-layer (k, v) [b, max_len, n_kv, hd]."""
-        x = F.embedding(input_ids, self.embed_tokens)
+        caches a list of per-layer (k, v) [b, max_len, n_kv, hd]. On a
+        tensor-parallel mesh each rank holds its heads' caches, the
+        embedding is vocab-parallel and each block's output is summed
+        over tp, as in training."""
+        x = self._embed(input_ids)
         caches = []
         for layer in self.layers:
             x, cache = layer.prefill(x, self.rope_cos, self.rope_sin,
@@ -881,7 +884,7 @@ class LlamaModel(nn.Module):
     def decode_step(self, token_ids, pos, caches):
         """token_ids [b], pos [b] int64 → (hidden [b, 1, d], caches), the
         caches written in place."""
-        x = F.embedding(token_ids[:, None], self.embed_tokens)
+        x = self._embed(token_ids[:, None])
         for layer, cache in zip(self.layers, caches):
             x, _ = layer.decode(x, self.rope_cos, self.rope_sin, pos, cache)
         return self.norm(x), caches
@@ -895,11 +898,13 @@ class LlamaModel(nn.Module):
         gives each sequence its pages contiguously. ``cfg.kv_dtype="int8"``
         pools are 4-tuples: int8 pages and one fp32 scale per page and
         K/V side, starting at 0 (a page that holds nothing, read as the
-        zeros a native pool starts with)."""
+        zeros a native pool starts with). On a tensor-parallel mesh the
+        pools are [n_kv / tp (at least 1), pages, page, hd]: this rank's
+        KV heads."""
         cfg = self.cfg
         pages_per_seq = -(-max_len // page_size)
         num_pages = batch * pages_per_seq
-        shape = (cfg.num_key_value_heads, num_pages, page_size,
+        shape = (self.layers[0].self_attn._heads()[1], num_pages, page_size,
                  cfg.head_dim)
         dev, dt = self.embed_tokens.device, self.embed_tokens.dtype
         if cfg.kv_dtype == "int8":
@@ -921,7 +926,7 @@ class LlamaModel(nn.Module):
         """Embed ``input_ids`` [b, s] and run every layer with its
         attention's paged ``method`` (called as ``method(x, cos, sin,
         *lead, kv, tables)``), which updates the layer's pools in place."""
-        x = F.embedding(input_ids, self.embed_tokens)
+        x = self._embed(input_ids)
         for layer, kv in zip(self.layers, pools):
             a, _ = getattr(layer.self_attn, method)(
                 layer.input_layernorm(x), self.rope_cos, self.rope_sin,

@@ -7,8 +7,10 @@ system doing* — one process-wide registry where the goodput ledger,
 serving and fabric latency percentiles and counters land, with exporters
 (JSONL time-series, Prometheus text, console), a crash flight recorder
 and the SLO sentry consuming it, and the request tracer beside it. The
-cost observatory and the tracer's critical-path gauges are not ported
-(ROADMAP.md, A.6).
+cost observatory (``observability.costs``: the step census's roofline,
+the OpCostDB and the live step-cost gauges) is imported on its own, as
+in JAX; the tracer's critical-path gauges wait for the HLO-based
+``analysis/`` tools (ROADMAP.md, A.6.4).
 
 Zero-cost contract (same discipline as RecordEvent): every instrumented
 call site guards on one registry flag; until :func:`enable` (or an

@@ -16,7 +16,7 @@ Quickstart::
 The bench half of the JAX package's sentry (``baselines.py``:
 ``BenchDiff``, ``RATIO_METRICS``, with ``tools/bench_diff.py``) is not
 here: it diffs the checked-in round files of a benchmark, and the port
-has no benchmark file of its own yet (ROADMAP.md, A.6).
+has no benchmark file of its own yet (ROADMAP.md, A.6.5).
 """
 
 from __future__ import annotations

@@ -233,19 +233,23 @@ def forced_decode_impl():
 
 def paged_decode_crossover() -> int:
     """Context length (tokens) at or below which the serving engine
-    decodes through the dense route, the paged kernel above it. 0: the
-    paged kernel at every context. Measured by ``chip_smoke.py``'s phase
-    3c on an NVIDIA H100 80GB HBM3 at a 700.00 W limit, at Llama-3-8B
-    widths, B = 8, contexts 128 to 8192, native and int8 pools: the two
-    routes differ only in the attention, and one layer's attention on
-    the device was faster through the paged kernel at every context
-    (native 13.1 against 79.0 µs at 128, 123.4 against 1889.7 µs at
-    8192; int8 13.7 against 95.4 and 93.3 against 2300.7 µs). The whole
-    decode step is host-bound there, so its times do not decide it. The
-    dense route runs only where a caller asks for it
-    (``attn_crossover=``). The JAX package's TuneDB lookup is not
-    ported."""
-    return 0
+    decodes through the dense route, the paged kernel above it: the
+    TuneDB's value for this card (``ops.kernels.autotune``, key
+    ``paged_decode_crossover``, config ``{"ctx": n}``, as the JAX
+    package looks it up), else 0: the paged kernel at every context.
+    That default was measured by ``chip_smoke.py``'s phase 3c on an
+    NVIDIA H100 80GB HBM3 at a 700.00 W limit, at Llama-3-8B widths,
+    B = 8, contexts 128 to 8192, native and int8 pools: the two routes
+    differ only in the attention, and one layer's attention on the
+    device was faster through the paged kernel at every context (native
+    13.1 against 79.0 µs at 128, 123.4 against 1889.7 µs at 8192; int8
+    13.7 against 95.4 and 93.3 against 2300.7 µs). The whole decode step
+    is host-bound there, so its times do not decide it. Phase 3c writes
+    its sweep's result into a user TuneDB and reads it back here. The
+    dense route runs only where a caller or the TuneDB asks for it
+    (``attn_crossover=``)."""
+    from .kernels.autotune import paged_decode_crossover as lookup
+    return lookup(default=0)
 
 
 # -- flash attention ---------------------------------------------------------

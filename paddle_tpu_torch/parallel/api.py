@@ -610,8 +610,9 @@ def shard_layer(layer: nn.Module, mesh=None, shard_fn=None, input_fn=None,
         raise RuntimeError("shard_layer: the layer is already sharded")
     cfg = getattr(layer, "cfg", None)
     if getattr(cfg, "weight_dtype", "native") != "native":
-        raise ValueError("shard_layer: an int8 model serves only; shard the "
-                         "float model")
+        raise ValueError("shard_layer: an int8 model serves only, and "
+                         "serving or generating on a mesh with int8 weights "
+                         "is ROADMAP.md A.10c; shard the float model")
     if hm.axis_size("pp") > 1:
         keep = getattr(layer, "_keep_stage", None)
         if keep is None:

@@ -55,8 +55,9 @@ two token means over every data rank before their product (JAX's
 tensor-parallel mesh the experts' FFN width is split over tp: the
 expert input is copied into the group and the output summed.
 
-Not ported: ``publish_moe_metrics``, which waits for the observability
-plane (A.6).
+:func:`publish_moe_metrics` publishes a logged step's routing health
+(:func:`routing_stats`) through the metrics registry under the JAX
+package's ``pt_moe_*`` names.
 """
 
 from __future__ import annotations
@@ -194,6 +195,54 @@ def routing_stats(gate_logits: torch.Tensor, k: int):
     counts = _counts(ids, e).to(torch.int32)
     z = (torch.logsumexp(logits, dim=-1) ** 2).mean()
     return _aux_loss(probs, e), z, counts
+
+
+def _host(v):
+    """A 0-d or 1-d tensor or array-like as a float numpy array (one
+    host read for a tensor on the card)."""
+    import numpy as np
+    if isinstance(v, torch.Tensor):
+        v = v.detach().float().cpu().numpy()
+    return np.asarray(v, dtype=float)
+
+
+def publish_moe_metrics(aux_loss=None, router_z=None, expert_counts=None):
+    """Publish MoE routing health through the metrics registry (the JAX
+    package's vocabulary): ``pt_moe_*`` counters for routed token
+    assignments per expert plus gauges for the aux loss, router z-loss
+    and the load-balance factor (``e × max expert share``; 1.0 =
+    balanced — the statistic the planner's ep pricing uses,
+    ``planner.ep_imbalance``).
+
+    Host-side: each given value is read to the host (a wait for the
+    card), so call it at a log step with that step's
+    :func:`routing_stats`, never inside the step. Nothing happens while
+    the registry is off."""
+    from ..observability.metrics import REGISTRY
+    if not REGISTRY.enabled:
+        return
+    if aux_loss is not None:
+        REGISTRY.gauge("pt_moe_aux_loss",
+                       "GShard load-balance aux loss").set(
+            float(_host(aux_loss)))
+    if router_z is not None:
+        REGISTRY.gauge("pt_moe_router_z",
+                       "router z-loss mean(logsumexp^2)").set(
+            float(_host(router_z)))
+    if expert_counts is not None:
+        c = _host(expert_counts).ravel()
+        tot = float(c.sum())
+        ctr = REGISTRY.counter("pt_moe_expert_tokens_total",
+                               "routed token assignments per expert")
+        for i, v in enumerate(c):
+            ctr.inc(float(v), expert=str(i))
+        REGISTRY.counter("pt_moe_dispatch_total",
+                         "MoE routing batches published").inc()
+        if tot > 0:
+            REGISTRY.gauge(
+                "pt_moe_load_imbalance",
+                "e * max expert share (1.0 = perfectly balanced)").set(
+                float(c.max() * c.size / tot))
 
 
 def _jitter(gate_logits: torch.Tensor, jitter_eps: float,
@@ -625,4 +674,5 @@ class MoELayer(nn.Module):
 
 __all__ = ["MoELayer", "MoEMLP", "top_k_routing", "dispatch_tokens",
            "combine_tokens", "top_k_gating", "routing_stats",
+           "publish_moe_metrics",
            "VirtualExchange", "MeshExchange", "EP_HOST_READS"]

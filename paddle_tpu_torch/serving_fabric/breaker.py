@@ -146,38 +146,54 @@ class BreakerTransport(FabricTransport):
         lock = self._lock(name)
         box: dict = {}
         done = threading.Event()
+        gate = threading.Lock()
+
+        def relay(**result):
+            # once the caller has given up the result is dropped: a late
+            # error's traceback leads back (through its frames' f_back)
+            # to the worker's frame and ``box``, a cycle that would pin
+            # the replica and its engine until a full collection
+            with gate:
+                if not box.get("abandoned"):
+                    box.update(result)
+                done.set()
 
         def work():
             # bounded wait for the lock: if a stuck op holds it past
             # our own budget, give up WITHOUT touching the replica —
             # a late fire against a recovered engine would race it
             if not lock.acquire(timeout=timeout * 2):
-                box["e"] = ReplicaDown(
-                    name, f"{op}: queued behind a stuck op")
-                done.set()
+                relay(e=ReplicaDown(name, f"{op}: queued behind a stuck op"))
                 return
             try:
-                box["r"] = fn()
+                relay(r=fn())
             except BaseException as e:       # noqa: BLE001 — relayed
-                box["e"] = e
+                relay(e=e)
             finally:
                 lock.release()
-                done.set()
 
         t = threading.Thread(target=work, daemon=True,
                              name=f"breaker-{name}-{op}")
         t.start()
-        done.wait(timeout)
-        if not done.is_set():
-            why = f"{op} exceeded {timeout:g}s op budget (hung)"
-            if trip:
-                self._trip(name, why)
-            raise ReplicaDown(name, why)
-        err = box.get("e")
+        if not done.wait(timeout):
+            with gate:
+                hung = not done.is_set()
+                box["abandoned"] = hung
+            if hung:
+                why = f"{op} exceeded {timeout:g}s op budget (hung)"
+                if trip:
+                    self._trip(name, why)
+                raise ReplicaDown(name, why)
+        err = box.pop("e", None)
         if err is not None:
             if isinstance(err, ReplicaDown) and trip:
                 self._trip(name, str(err))
-            raise err
+            try:
+                raise err
+            finally:
+                # the raised error's traceback holds this frame: the
+                # frame must not hold the error back
+                err = None
         return box["r"]
 
     # -- breaker lifecycle ---------------------------------------------------

@@ -16,7 +16,7 @@ Three entry points:
   admitted p99 TTFT stays under the ``frontdoor_rules()`` ceiling.
   The wave runs traced and its stitched traces must carry every hop's
   spans; the JAX tool's critical-path attribution of TTFT to hops
-  (``analysis/critical_path.py``) is not ported (ROADMAP.md, A.6).
+  (``analysis/critical_path.py``) is not ported (ROADMAP.md, A.6.4).
 * ``overload_leg()`` — offered load at a multiple of pool capacity,
   shed ladder on vs off; goodput = deadline-met tokens per second.
   The shed-off leg admits everything and burns slot-time on requests

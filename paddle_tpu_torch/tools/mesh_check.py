@@ -29,6 +29,16 @@ Every rank:
    step must equal bit for bit;
 3. gathers the parameters whole (``parallel.api.full_state_dict``).
 
+The generation legs (:data:`GENERATE`, ``generate_tp2`` and
+``generate_tp4``) shard a Llama over tp 2 (dp = world / 2) or tp 4 and
+run ``generate_scan`` and ``generate_paged`` (page 128): 2 prompts of
+120 tokens, 16 new (the decode crosses a page edge), greedy, fp32 with
+TF32 off, from the tiny Llama and, on the cards, the 2-layer Llama at
+Llama-3-8B widths. Every rank's tokens must equal the unsharded model's
+on its own device, bit for bit (:func:`run_generate`); on the cards the
+legs count the RMSNorm, RoPE and paged decode launches of the sharded
+calls.
+
 Rank 0 prints one JSON line a layout: the loss, the reference's, the
 largest relative L2 distance of a parameter's update from the
 reference's (:func:`update_errors`), and whether both lie within
@@ -98,6 +108,79 @@ LAYOUTS = {
 }
 # microbatches a data rank in the pipeline layouts
 MICROBATCHES = 2
+
+# the generation legs: name -> tensor-parallel degree (dp = world / tp)
+GENERATE = {"generate_tp2": 2, "generate_tp4": 4}
+GEN_SHAPE = (2, 120, 16)       # rows, prompt tokens, new tokens
+GEN_PAGE = 128
+
+
+def _gen_config(name: str):
+    """The generation legs' models: "tiny" or "llama3_8b_2l" (Llama-3-8B
+    widths, 2 layers), fp32."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    if name == "tiny":
+        return LlamaConfig.tiny(dtype="float32")
+    return LlamaConfig.llama3_8b(num_hidden_layers=2, dtype="float32")
+
+
+def run_generate(names, device, models=None):
+    """Each generation leg's result (the dicts rank 0 prints) for each
+    model of ``models`` (default: "tiny" and, on the cards,
+    "llama3_8b_2l"): the sharded greedy tokens against the unsharded
+    model's on this device."""
+    import copy
+    from paddle_tpu_torch.device import generator
+    from paddle_tpu_torch.inference import generation as gen
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.parallel.api import shard_layer
+    from paddle_tpu_torch.parallel.mesh import HybridMesh
+    if models is None:
+        models = (("tiny", "llama3_8b_2l") if device.type == "cuda"
+                  else ("tiny",))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = dist.get_world_size()
+    b, L, n = GEN_SHAPE
+    greedy = gen.GenerationConfig(max_new_tokens=n)
+    calls = {"generate_scan": {}, "generate_paged": {"page_size": GEN_PAGE}}
+    results = []
+    for name in names:
+        tp = GENERATE[name]
+        for mname in models:
+            cfg = _gen_config(mname)
+            model = LlamaForCausalLM(cfg, device=device,
+                                     generator=generator(3, device))
+            ids = torch.tensor(np.random.RandomState(5).randint(
+                0, cfg.vocab_size, (b, L)), device=device)
+            want = {c: getattr(gen, c)(model, ids, greedy, **kw)
+                    for c, kw in calls.items()}
+            sharded = copy.deepcopy(model)
+            del model
+            t0 = time.perf_counter()
+            with HybridMesh.build(dp=world // tp, tp=tp) as hm:
+                shard_layer(sharded, hm)
+                _build.reset_launches()
+                got = {c: getattr(gen, c)(sharded, ids, greedy, **kw)
+                       for c, kw in calls.items()}
+                launches = dict(_build.LAUNCHES)
+            equal = {c: bool(torch.equal(got[c], want[c])) for c in calls}
+            on_card = device.type == "cuda"
+            counted = {k: launches.get(k, 0) for k in
+                       ("rms_norm", "fused_rope", "paged_decode")}
+            results.append({
+                "layout": name, "model": mname, "world": world,
+                "mesh": {"dp": world // tp, "tp": tp},
+                "backend": dist.get_backend(), "shape": list(GEN_SHAPE),
+                "equal": equal, "launches": counted,
+                "seconds": time.perf_counter() - t0,
+                "tokens": want["generate_scan"][:, L:].tolist(),
+                "ok": all(equal.values()) and (
+                    not on_card or all(v > 0 for v in counted.values()))})
+            del sharded, want, got
+            if on_card:
+                torch.cuda.empty_cache()
+    return results
 
 
 def _kind(layout: str) -> str:
@@ -390,10 +473,13 @@ def main(argv=None) -> int:
     device = (torch.device("cuda", torch.cuda.current_device())
               if args.device == "cuda" else torch.device("cpu"))
     rank = dist.get_rank()
-    layouts = (args.layouts or ",".join(LAYOUTS)).split(",")
+    layouts = (args.layouts or ",".join([*LAYOUTS, *GENERATE])).split(",")
     extra = []
     try:
-        results = run(layouts, "small", 256, device)
+        results = run([x for x in layouts if x not in GENERATE], "small",
+                      256, device)
+        results += run_generate([x for x in layouts if x in GENERATE],
+                                device)
         if rank == 0:
             for r in results:
                 print(json.dumps(r), flush=True)

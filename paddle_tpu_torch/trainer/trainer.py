@@ -48,13 +48,21 @@ under the 1F1B schedule, as the JAX trainer does, and under any
 schedule on a ``pp`` mesh; the loss it returns there is the last
 stage's, broadcast, so every rank logs and judges the same value.
 
+The cost gauges (``observability.costs.CostWatch``, component
+"train"): with the registry on, the first dispatch of each step shape
+runs under a census of its ops (rank 0 on a mesh), and each later log
+boundary publishes the step-time breakdown, the census's MFU, its
+bandwidth share and the predicted-over-measured drift that the planner's
+``check_drift`` reads (the window that holds the census publishes
+none: its time is the census's).
+
 Not here: ``precompile`` (an eager step has nothing to compile ahead;
-CUDA graphs are B.3.3) raises; the cost observatory's step-cost gauges
-wait with A.6.
+CUDA graphs are B.3.3) raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import itertools
 import math
@@ -186,6 +194,14 @@ class Trainer:
         #: and the host's reads of a loss from the device
         self.dispatch_stats = {"steps": 0, "dispatches": 0,
                                "dispatch_host_s": 0.0, "loss_reads": 0}
+        # cost observatory: the watch, the last dispatch's step shape and
+        # steps, and the dispatch stats at the last publication
+        self._cost_watch = None
+        self._cost_key, self._cost_k = None, 1
+        self._cost_disp_mark = None
+        #: a census ran since the last log boundary: that window's time
+        #: holds the census's dispatch mode, so it publishes no costs
+        self._census_in_window = False
 
     # -- state ----------------------------------------------------------------
 
@@ -357,11 +373,58 @@ class Trainer:
         if self._watchdog is not None:
             self._watchdog.tick()
         t0 = time.perf_counter()
-        with RecordEvent("trainer::dispatch"):
+        with RecordEvent("trainer::dispatch"), self._step_census(batches):
             losses = [self._one_step(b) for b in batches]
         self.dispatch_stats["dispatches"] += 1
         self.dispatch_stats["dispatch_host_s"] += time.perf_counter() - t0
         return losses
+
+    def _step_census(self, batches):
+        """The census scope of a dispatch: the first of its step shape
+        (the batch's shapes and dtypes, and the steps it holds) while the
+        registry is on, on the rank that publishes; else a no-op."""
+        K = len(batches)
+        key = ("superstep" if K > 1 else "step", K, tuple(
+            (k, tuple(v.shape), str(v.dtype)) for k, v in
+            sorted(batches[0].items()) if isinstance(v, torch.Tensor)))
+        self._cost_key, self._cost_k = key, K
+        if not _obs.REGISTRY.enabled or (
+                self._plan is not None and self._plan.mesh.rank != 0):
+            return contextlib.nullcontext()
+        if self._cost_watch is None:
+            from ..observability.costs import CostWatch
+            self._cost_watch = CostWatch("train")
+        if self._cost_watch.observe(key):
+            return contextlib.nullcontext()
+        self._census_in_window = True
+        return self._cost_watch.census(
+            key, mesh=self._plan.mesh if self._plan is not None else None)
+
+    def _publish_step_costs(self, m: TrainMetrics) -> None:
+        """The cost gauges at a log boundary (the JAX trainer's): the
+        measured step time split into compute / comm / host / stall,
+        the census's MFU and bandwidth share, and the predicted-over-
+        measured drift, for the step shape last dispatched. The host
+        bucket is this window's enqueue seconds a step. A window that
+        took a census publishes nothing: its wall and enqueue seconds
+        hold the census's dispatch mode, not the step."""
+        watch = self._cost_watch
+        if watch is None or not watch.observe(self._cost_key):
+            return
+        # per-WINDOW host overhead: a lifetime average would carry the
+        # first dispatch's allocations forever
+        ds = self.dispatch_stats
+        mark = self._cost_disp_mark or (0, 0.0)
+        dsteps = ds["steps"] - mark[0]
+        dhost = ds["dispatch_host_s"] - mark[1]
+        self._cost_disp_mark = (ds["steps"], ds["dispatch_host_s"])
+        if self._census_in_window:
+            self._census_in_window = False
+            return
+        if dsteps <= 0 or dhost < 0:      # stats were reset externally
+            dsteps, dhost = max(ds["steps"], 1), ds["dispatch_host_s"]
+        watch.publish(m.step_time_s, host_s=dhost / max(dsteps, 1),
+                      steps_per_exec=self._cost_k)
 
     def apply_plan(self, plan, devices=None):
         """Adopt a sharding-planner plan: shard the model (each rank
@@ -445,6 +508,8 @@ class Trainer:
         if self._plan is not None and self._plan.mesh.rank != 0:
             return      # rank 0 publishes the (global) metrics
         _obs.observe_train_metrics(m)
+        if _obs.REGISTRY.enabled:
+            self._publish_step_costs(m)
         # SLO sentry: rules evaluate at the same log boundary the gauges
         # above were refreshed at (a load + branch when none is installed)
         _obs.sentry.maybe_tick()

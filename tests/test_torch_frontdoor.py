@@ -487,6 +487,49 @@ def test_probe_failure_reopens():
     assert br.state("s0") == "closed"
 
 
+def _breaker_pins(breaker_cls, base, down_cls, late):
+    """Whether the transport a breaker wraps outlives the breaker, with
+    the collector off, after one relayed error: raised at once, or
+    (``late``) by an op that answered after the caller gave up."""
+    import gc as collector
+    import weakref
+
+    class Failing(_stub_cls(base)):
+        def poll(self, name):
+            if late:
+                time.sleep(0.3)
+            raise down_cls(name, "injected")
+
+    tr = Failing()
+    ref = weakref.ref(tr)
+    br = breaker_cls(tr, op_timeouts={"poll": 0.05})
+    was_on = collector.isenabled()
+    collector.disable()
+    try:
+        try:
+            br.poll("s0")
+        except down_cls:
+            pass
+        else:
+            pytest.fail("the breaker relayed no error")
+        time.sleep(0.5)           # the late op answers and its thread ends
+        del tr, br
+        return ref() is not None
+    finally:
+        if was_on:
+            collector.enable()
+
+
+@pytest.mark.parametrize("late", [False, True])
+def test_breaker_errors_pin_no_transport(late):
+    """A relayed error leaves no reference cycle (error -> traceback ->
+    the worker's or the caller's frame -> error) that would keep the
+    wrapped transport, and so its engines and their model on the card,
+    alive until a full collection."""
+    assert not _breaker_pins(BreakerTransport, FabricTransport, ReplicaDown,
+                             late)
+
+
 def test_hang_trips_breaker_replays_exact_and_readmits(model):
     gc = GenerationConfig(max_new_tokens=10, do_sample=True, seed=9)
     reps = build_replicas(model, 2, page_size=PAGE, max_len=96,

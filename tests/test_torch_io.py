@@ -218,8 +218,10 @@ def test_worker_info_and_collate():
 
 
 def test_loader_refusals_and_default_device():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tio.DataLoader(Squares(4), num_workers=2, use_shared_memory=True)
+    # shared memory with workers is the native ring's transport now
+    # (test_torch_native.py iterates it): built, nothing delivered yet
+    shm = tio.DataLoader(Squares(4), num_workers=2, use_shared_memory=True)
+    assert shm.transport == {"main": 0, "workers": 0, "shm_ring": 0}
     # sharding= takes a plan: each batch comes as this rank's slice (a
     # stand-in MeshPlan keeping the second half of the rows here), marked
     # as already local for the Trainer

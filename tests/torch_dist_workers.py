@@ -723,6 +723,15 @@ def sc_mesh_check(inp, args):
         args["layouts"], args["preset"], args["seq"], torch.device("cpu"))))}
 
 
+def sc_mesh_generate(inp, args):
+    """``tools.mesh_check.run_generate`` on this rank (the tiny Llama):
+    its results as JSON text."""
+    import torch
+    from paddle_tpu_torch.tools.mesh_check import run_generate
+    return {"results": np.asarray(json.dumps(run_generate(
+        args["legs"], torch.device("cpu"))))}
+
+
 # -- rpc: what a spawned process calls (this module imports no JAX) -----------
 
 def rpc_add(a, b):
@@ -923,6 +932,49 @@ def sc_zero1(inp, args):
     return out
 
 
+def sc_generate(inp, args):
+    """One-shot generation of the tiny Llama (the parent's weights)
+    sharded over this mesh: the greedy tokens of ``generate``,
+    ``generate_scan`` and ``generate_paged`` (page 8) and the sampled
+    tokens of ``generate_scan``; the sharded pools' KV heads; and the
+    refusal of an int8 model, whose message names its ROADMAP row."""
+    import torch
+    from paddle_tpu_torch.inference import generation as gen
+    from paddle_tpu_torch.parallel.api import shard_layer
+    from paddle_tpu_torch.quantization import quantize_model
+    model = _model(inp, args)
+    q = quantize_model(model, kv_dtype="int8")
+    ids = inp["gen_ids"]
+    greedy = gen.GenerationConfig(max_new_tokens=int(inp["gen_new"]))
+    sampled = gen.GenerationConfig(max_new_tokens=int(inp["gen_new"]),
+                                   **args["sampled"])
+    out = {}
+    with _mesh(args) as hm:
+        shard_layer(model, hm)
+        for name in ("generate", "generate_scan", "generate_paged"):
+            kw = {"page_size": 8} if name == "generate_paged" else {}
+            out[name] = getattr(gen, name)(model, ids, greedy, **kw).numpy()
+        out["sampled_scan"] = gen.generate_scan(model, ids, sampled).numpy()
+        fed = []
+        step = model.model.decode_step
+        model.model.decode_step = lambda t, p, c: (fed.append(t[0].item()),
+                                                   step(t, p, c))[1]
+        out["eos_scan"] = gen.generate_scan(model, ids, gen.GenerationConfig(
+            max_new_tokens=int(inp["gen_new"]),
+            eos_token_id=int(inp["gen_eos"]), pad_token_id=-1)).numpy()
+        model.model.decode_step = step
+        out["fed_pad"] = np.asarray(fed[1])   # fed[0] is the EOS itself
+        pools, _ = model.model.alloc_paged_caches(1, 16, 8)
+        out["pool_heads"] = np.asarray(pools[0][0].shape[0])
+        try:
+            shard_layer(q, hm)
+            out["int8_refused"] = np.asarray("")
+        except ValueError as e:
+            out["int8_refused"] = np.asarray(str(e))
+    assert not torch.is_inference_mode_enabled()
+    return out
+
+
 SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "collectives": sc_collectives, "reshard": sc_reshard,
              "tp_layers": sc_tp_layers, "sp_attention": sc_sp_attention,
@@ -930,7 +982,8 @@ SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "mesh_check": sc_mesh_check, "pipe_train": sc_pipe_train,
              "moe_layer": sc_moe_layer, "overlap": sc_overlap,
              "fleet_overlap": sc_fleet_overlap, "plan_state": sc_plan_state,
-             "zero1": sc_zero1}
+             "zero1": sc_zero1, "generate": sc_generate,
+             "mesh_generate": sc_mesh_generate}
 
 
 def torn_save(tmp: str, rank: int) -> None:

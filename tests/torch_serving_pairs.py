@@ -49,3 +49,31 @@ def keep_jax_fns(engines):
             fn = getattr(e, a, None)
             if fn is not None:
                 _JAX_FN_CACHE.setdefault((id(e.model), e.kv_quant, a), fn)
+
+
+# -- the engine-feature tests' traffic (test_torch_serving_features.py and
+# test_torch_serving_safety.py) ----------------------------------------------
+
+FEATURE_PAGE = 8
+FEATURE_NEW = 9
+
+
+def feature_family(seed=31):
+    """Five prompts sharing a 19-token prefix (two whole pages and three
+    tokens) and one cold prompt."""
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, 512, (2 * FEATURE_PAGE + 3,))
+    fam = [np.concatenate([shared, rs.randint(0, 512, (t,))])
+           for t in (3, 5, 2, 7, 12)]
+    return fam + [rs.randint(0, 512, (11,))]
+
+
+def feature_engine(model, **feats):
+    """The port's engine of the feature tests: 3 slots, page 8, 64
+    positions, 9 new tokens."""
+    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                            GenerationConfig)
+    return ContinuousBatchingEngine(
+        model, max_batch=3, page_size=FEATURE_PAGE, max_len=64,
+        generation_config=GenerationConfig(max_new_tokens=FEATURE_NEW),
+        **feats)
