@@ -428,6 +428,24 @@ Phases, in order; any failure exits non-zero before the result line:
      workers' spawn, apart); a spawned process answers through a TCPStore and pushes
      into a ShmRing (one round trip each); HostPool stats, a freed
      buffer reused.
+ 17. graph contracts (``paddle_tpu_torch.analysis``): (a) every
+     single-process graph of the canonical registry (``analysis.graphs``:
+     the micro Llama's train step K=1 / K=4, serving ticks native, int8
+     and speculative, prefix admit, the fused CE head) on the card with
+     the kernels, against the same budget file as the CPU
+     (``tools/graph_budgets.json`` beside ``graph_lint``); each graph at 0
+     host transfers once more under set_sync_debug_mode("error"); launch
+     counts as the "graph_contracts" path; (b) inside phases 5 and 7, on
+     their models: the census of one decode block of phase 5's 32-layer
+     engine and of one step of phase 7's 4-layer trainer, each under
+     set_sync_debug_mode("error"): no buffer of the vocabulary's width
+     over 8192 rows, no host sync, every parameter, AdamW slot and KV
+     pool written in place; (c) after 5e (whose window runs traced): the
+     per-hop TTFT share (p50) of its stitched front-door traces, each
+     request's share on named hops >= 0.95, and
+     ``load_test.trace_overhead_legs`` over two replicas of 5d's settings
+     (6 requests, 8 new tokens, 3 rounds). Any failure of (a)-(c) fails
+     the run.
 The line before the last is the ``kernels`` JSON object; the last line is
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -3781,8 +3799,10 @@ def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
     (its engines built with ``cost_census=False``: no decode block of the
     window runs under a cost census), the SLO sentry installed (serving, fabric and front-door packs at
     their defaults, ``min_interval_s=1.0``) and the window inside
-    ``profiler.serving_trace``; launch counts reset just before and read
-    just after. Prints tokens/s, TTFT and ITL at the client (stamped when
+    ``profiler.serving_trace`` and traced by the request tracer (its
+    completed traces kept for 17(c), written under
+    ``chiprun_out/frontdoor_trace/requests``); launch counts reset just
+    before and read just after. Prints tokens/s, TTFT and ITL at the client (stamped when
     a token's event reaches it) and at the router, beside phase
     ``base_label``'s of the same call; the sentry's ticks, their mean ms
     and incidents by rule; host ms and count per span name; breaker trips
@@ -3812,6 +3832,7 @@ def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
     from paddle_tpu_torch.inference import GenerationConfig
     from paddle_tpu_torch.observability import REGISTRY
     from paddle_tpu_torch.observability import sentry as sn
+    from paddle_tpu_torch.observability.tracing import TRACER
     from paddle_tpu_torch.ops.kernels import _build
     V = model.cfg.vocab_size
     prompts = [p.tolist() for p in serving_traffic(V)[0]]
@@ -3858,6 +3879,9 @@ def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
             sn.install(sentry)
             sync(torch, dev)
             _build.reset_launches()
+            # the window runs traced: 17(c) attributes its stitched traces
+            TRACER.enable(dir=os.path.join(ROOT_OUT, "frontdoor_trace",
+                                           "requests"))
             with profiler.serving_trace(
                     os.path.join(ROOT_OUT, "frontdoor_trace"),
                     worker_name="frontdoor") as prof:
@@ -3865,6 +3889,8 @@ def frontdoor_run(torch, dev, model, label, kernels, base_label, n_hang=16):
                     "results"]
                 sync(torch, dev)
             launches = dict(_build.LAUNCHES)
+            FRONTDOOR_TRACES[:] = TRACER.take_completed()
+            TRACER.disable()
             ticks, tick_s = sentry.ticks, sentry.tick_s
             with door._flock:
                 lat = fab.publish_metrics()
@@ -4274,6 +4300,8 @@ def phase_serving(torch, pt, dev, make_cfg):
                                        SERVING_KERNELS)
     decode_step_probe(torch, dev, model, "serving")
     mark("5 serving")
+    decode_census(torch, dev, model)
+    mark("17(b) decode census")
     cross = crossover_sweep(torch, dev, model, "serving")
     mark("3c crossover, native")
     features = {label: serve_run(torch, dev, model, label, kernels, feats,
@@ -4286,6 +4314,8 @@ def phase_serving(torch, pt, dev, make_cfg):
     features["frontdoor"] = frontdoor_run(torch, dev, model, "frontdoor",
                                           SERVING_KERNELS, "fabric")
     mark("5e front door")
+    critical_path_leg(torch, dev, model)
+    mark("17(c) critical path")
     features["generation"] = generation_run(torch, dev, model, "generation")
     profile_ctx(torch, dev, model, "serving_features")
     t0 = time.perf_counter()
@@ -4517,14 +4547,15 @@ def phase_recompute_equality(torch, pt, dev, make_cfg, ref):
 
 
 def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False,
-              model_cls=None, cost_leg=False):
+              model_cls=None, cost_leg=False, census_leg=False):
     """Build ``model_cls(cfg)`` (LlamaForCausalLM by default) and its
     trainer (AdamW(1e-4, weight_decay=0.01), global-norm clip 1.0, seed
     10) on ``dev``, take ``warm_steps`` and then ``steps`` timed steps of
     ``batch`` through Trainer.fit, with the launch counts reset just
     before the timed steps and read just after. ``cost_leg``: then the
-    cost gauges of the timed steps (:func:`cost_gauges`). Returns the
-    run's numbers."""
+    cost gauges of the timed steps (:func:`cost_gauges`); ``census_leg``:
+    then 17(b), one more step under the census
+    (:func:`full_width_census`). Returns the run's numbers."""
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
@@ -4589,6 +4620,11 @@ def train_run(torch, pt, dev, cfg, batch, warm_steps, steps, profile=False,
             torch, dev, lambda: float(trainer.train_step(batch)), top=None)
     if cost_leg:
         info["cost_gauges"] = cost_gauges(torch, dev, trainer, batch, info)
+    if census_leg:
+        from paddle_tpu_torch.analysis.graphs import trainer_inputs
+        full_width_census(torch, dev, "train_8b",
+                          lambda: trainer.train_step(batch),
+                          lambda: trainer_inputs(trainer), cfg.vocab_size)
     del trainer, model
     empty_cache(torch, dev)
     return info
@@ -4688,7 +4724,7 @@ def phase_train(torch, pt, dev, make_cfg, b=2, s=4096):
     cfg = make_cfg(num_hidden_layers=4, dtype="bfloat16")
     batch = train_batch(torch, cfg.vocab_size, b, s, dev, 10)
     info = train_run(torch, pt, dev, cfg, batch, 2, 8, profile=True,
-                     cost_leg=True)
+                     cost_leg=True, census_leg=True)
     launches, losses = info["launches"], info["losses"]
     RESULTS["training"] = info
     log(f"training model: llama3_8b widths, {cfg.num_hidden_layers} layers, "
@@ -7672,6 +7708,376 @@ def phase_native(torch, pt, dev, make_cfg):
     return out, fails
 
 
+# -- phase 17: graph contracts ------------------------------------------------
+
+#: the kernels the registry's single-process graphs run on the card (the
+#: grouped matmul's only graph, train_step_moe_ep, needs four cards)
+GRAPH_KERNELS = TRAINING_KERNELS + ("paged_decode", "paged_decode_int8",
+                                    "int8_matmul")
+#: 17(b): no buffer of the vocabulary's width may span this many rows
+LOGITS_ROWS = 8192
+#: 17(c): the trace-overhead legs over replicas of 5d's engine settings
+OVERHEAD_LEGS = dict(rounds=3, n_requests=6, max_new=8)
+#: phase 17's results and failures, filled by the legs inside phases 5
+#: and 7 (on the models they build) and by phase 17 itself
+GRAPHS: dict = {"fails": []}
+#: 5e's completed request traces (the window runs traced)
+FRONTDOOR_TRACES: list = []
+
+
+def sync_error(torch, dev, fn):
+    """Run ``fn`` under torch.cuda.set_sync_debug_mode("error"); returns
+    None, or the error a host sync raised."""
+    sync(torch, dev)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return None
+    except RuntimeError as e:
+        return str(e)[:500]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        sync(torch, dev)
+
+
+def full_width_census(torch, dev, label, call, inputs, vocab, modes=()):
+    """17(b): the census of one ``call`` at full width (named
+    ``inputs``), taken under set_sync_debug_mode("error"); fails (into
+    GRAPHS["fails"]) on a buffer of the vocabulary's width over
+    LOGITS_ROWS rows, a host sync (the census's or the card's), or a
+    named input not updated in place."""
+    import contextlib
+    from paddle_tpu_torch import analysis as A
+    from paddle_tpu_torch.analysis.collectives import StepCensus
+    box = {}
+
+    def run():
+        with contextlib.ExitStack() as st:
+            for m in modes:
+                st.enter_context(m())
+            box["c"] = st.enter_context(StepCensus(inputs=inputs))
+            call()
+    t0 = time.perf_counter()
+    err = sync_error(torch, dev, run)
+    secs = time.perf_counter() - t0
+    c = box["c"]
+    wide = [f"{l} <- {o.name}" for o in c.ops + c.allocs for l in o.outputs
+            if l.dims and l.dims[-1] == vocab
+            and math.prod(l.dims[:-1]) >= LOGITS_ROWS]
+    don = A.donation_report(c)
+    aliased = {a["label"] for a in don["aliased"]}
+    kept = sorted(k for k in c.inputs if k not in aliased)
+    mat = A.materialization_report(c)
+    out = {"ops": len(c.ops), "inputs": len(c.inputs),
+           "in_place": len(aliased), "donated_bytes": don["donated_bytes"],
+           "not_in_place": kept[:8], "host_syncs": [
+               h.describe() for h in c.host_syncs], "sync_error": err,
+           "wide_buffers": wide[:8], "largest": mat["largest_buffers"][:3],
+           "seconds": secs}
+    GRAPHS[label] = out
+    log(f"graph contracts 17(b) {label}: census of {len(c.ops)} ops in "
+        f"{secs:.2f} s under set_sync_debug_mode('error') (error: {err}); "
+        f"host syncs {len(c.host_syncs)}; buffers [>= {LOGITS_ROWS}, "
+        f"{vocab}] {len(wide)}; {len(aliased)} of {len(c.inputs)} named "
+        f"inputs in place ({don['donated_bytes']} bytes); largest "
+        f"{mat['largest_buffers'][:2]} {card_line()}")
+    if err or c.host_syncs or wide or kept or not c.inputs:
+        GRAPHS["fails"].append(f"17(b) {label}: {out}")
+    return out
+
+
+def decode_census(torch, dev, model):
+    """17(b), serving: one decode block of phase 5's 32-layer engine
+    (SERVE_KW, 8 requests admitted and decoding) under the census:
+    every KV pool and scheduler tensor written in place, no host sync,
+    no [>= 8192, V] buffer."""
+    from paddle_tpu_torch.analysis.graphs import engine_inputs
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
+    from paddle_tpu_torch.ops.attention import force_decode_impl
+    eng = ContinuousBatchingEngine(model, **SERVE_KW)
+    prompts, _ = serving_traffic(model.cfg.vocab_size)
+    for p in prompts[:SERVE_KW["max_batch"]]:
+        eng.submit(p, max_new_tokens=SERVE_NEW * 4)
+    for _ in range(4):
+        eng.step()
+    with torch.inference_mode():
+        eng._tables_dev = eng._to_device(eng.tables)
+    full_width_census(
+        torch, dev, "decode_8b",
+        lambda: eng._decode_block(SERVE_KW["decode_block"], False),
+        lambda: engine_inputs(eng), model.cfg.vocab_size,
+        modes=(torch.inference_mode, lambda: force_decode_impl("paged")))
+    del eng
+    empty_cache(torch, dev)
+
+
+def critical_path_leg(torch, dev, model):
+    """17(c): 5e's stitched front-door traces attributed hop by hop
+    (``analysis.critical_path``: the per-hop TTFT share at p50, and each
+    request's share on named hops, which must be at least
+    ``load_test.NAMED_FLOOR``, 0.95), then
+    ``load_test.trace_overhead_legs`` over two replicas of 5d's engine
+    settings (6 requests, 8 new tokens, 3 rounds)."""
+    from paddle_tpu_torch.analysis import critical_path as cp
+    from paddle_tpu_torch.tools.load_test import (NAMED_FLOOR,
+                                                  attributed_shares,
+                                                  trace_overhead_legs)
+    traces = list(FRONTDOOR_TRACES)
+    agg = cp.aggregate(traces) if traces else {}
+    named = attributed_shares(traces)
+    low = {t: f for t, f in named.items() if f < NAMED_FLOOR}
+    t0 = time.perf_counter()
+    legs = trace_overhead_legs(model, **OVERHEAD_LEGS, **SERVE_KW)
+    out = {"traces": len(traces), "with_ttft": len(named),
+           "p50_frac": {h: r["p50_frac"] for h, r in agg.items()},
+           "p50_ms": {h: r["p50_s"] * 1e3 for h, r in agg.items()},
+           "named_min": min(named.values()) if named else None,
+           "below_floor": low, "overhead": legs,
+           "overhead_s": time.perf_counter() - t0}
+    GRAPHS["critical_path"] = out
+    log("graph contracts 17(c): 5e's traces, per-hop TTFT (p50 share, p50 "
+        "ms): " + ", ".join(f"{h} {r['p50_frac']:.3f} / "
+                            f"{r['p50_s'] * 1e3:.1f}" for h, r in sorted(
+                                agg.items(), key=lambda kv:
+                                -kv[1]["p50_frac"]))
+        + f"; {len(named)} of {len(traces)} traces with a TTFT, least share "
+        f"on named hops {out['named_min']}; trace overhead (6 requests, 8 "
+        f"tokens, min of 3): on {legs['wall_on_s']:.4f} s, off "
+        f"{legs['wall_off_s']:.4f} s, ratio {legs['ratio']:.4f} "
+        f"{card_line()}")
+    sent = RESULTS.get("frontdoor", {}).get("requests_sent", 1)
+    if len(named) < sent or low:
+        GRAPHS["fails"].append(f"17(c): {len(named)} traces with a TTFT "
+                               f"for {sent} requests, below the floor "
+                               f"{low}")
+
+
+#: 17(a), the card's micro graphs against the same graphs built on the
+#: CPU from the same seeds, relative L2 a tensor: the AdamW moments (a
+#: sum and a sum of squares of the gradients, phase 6's fp32 gradient
+#: tolerance) and the parameters and masters after AdamW, whose update
+#: divides each moment by the root of the other: where a gradient lies
+#: within its rounding of zero the update's sign is the rounding's, and
+#: such an element moves up to 2 lr apart on the two sides. Every other
+#: float output is held elementwise at TOL["float32"], int8 codes to one
+#: step (a value on a rounding boundary) and integers exactly.
+GRAPH_MOMENT_TOL = 1e-4
+GRAPH_PARAM_TOL = 1e-3
+
+
+def graph_output_errors(torch, name, card, cpu):
+    """(worst reading a check, failures) of one micro graph's outputs on
+    the card against the same graph's on the CPU (``BuiltGraph.outputs``:
+    the censused call's returns and its named inputs after it)."""
+    worst, fails = {}, []
+    for key, want in cpu.items():
+        got = card.get(key)
+        if got is None or got.shape != want.shape or got.dtype != want.dtype:
+            seen = None if got is None else (tuple(got.shape), got.dtype)
+            fails.append(f"{name} {key}: card {seen}, cpu "
+                         f"{(tuple(want.shape), want.dtype)}")
+            continue
+        if want.dtype == torch.int8:
+            kind, err = "int8 codes", float((got.int() - want.int()).abs()
+                                            .max()) if want.numel() else 0.0
+            ok = err <= 1
+        elif not want.is_floating_point():
+            kind, err = "exact", float((got != want).sum())
+            ok = err == 0
+        elif key.startswith(("params[", "opt_state['master']",
+                             "opt_state['slots']")):
+            moment = key.startswith("opt_state['slots']")
+            kind = "moments L2" if moment else "parameters L2"
+            err = float((got.double() - want.double()).norm()
+                        / want.double().norm().clamp_min(1e-30))
+            ok = err <= (GRAPH_MOMENT_TOL if moment else GRAPH_PARAM_TOL)
+        else:
+            kind = "elementwise"
+            err, _, ok = compare(torch, got, want, "float32")
+        if kind not in worst or err > worst[kind][0]:
+            worst[kind] = (err, key)
+        if not ok or not bool(torch.isfinite(got.float()).all()):
+            fails.append(f"{name} {key}: {kind} {err:.3e}")
+    return worst, fails
+
+
+def micro_kernel_cases(torch, dev):
+    """17(a), each kernel the micro graphs launch held against its plain
+    version at their shapes, fp32 (the micro graphs' dtype): hidden 128
+    over 4 query and 2 key/value heads of 32 (rows of 2 x 20 tokens and
+    of a 2-slot decode), vocabulary 320 (and the fused CE graph's 64 x
+    32), pages of 8 over 8 a slot, the int8 products of a 2-row decode.
+    Recorded as "micro_*" kernel cases; returns the ones that failed."""
+    from paddle_tpu_torch.nn.quantized_linear import weight_quantize
+    from paddle_tpu_torch.ops import attention as attn_ops
+    from paddle_tpu_torch.ops import norm as norm_ops
+    from paddle_tpu_torch.ops import quant as quant_ops
+    from paddle_tpu_torch.ops import rope as rope_ops
+    from paddle_tpu_torch.ops import vocab_ce
+    from paddle_tpu_torch.ops.kernels import (flash_attention, fused_norm,
+                                              fused_rope, paged_attention)
+    from paddle_tpu_torch.ops.kernels import fused_vocab_ce as kce
+    from paddle_tpu_torch.ops.kernels import int8_matmul as kmm
+    g = torch.Generator(device=dev)
+    g.manual_seed(1717)
+    f32, i32 = "float32", torch.int32
+    first = len(FAILED_CASES)
+    D, H, HKV, HD, V, eps = 128, 4, 2, 32, 320, 1e-5
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def both(pairs):
+        errs = [compare(torch, a, b, f32) for a, b in pairs]
+        return (max(e[0] for e in errs), max(e[1] for e in errs),
+                all(e[2] for e in errs))
+    for case, rows in (("micro_train_40", 40), ("micro_decode_2", 2)):
+        x, w = randn(rows, D), 1 + 0.1 * randn(D)
+        record("rms_norm", case, f32, norm_err(torch, fused_norm.rms_norm_fwd(
+            x, w, eps, return_rstd=True), norm_ops._rms_norm_fwd_plain(
+                x, w, eps), f32))
+    x, dy, w = randn(40, D), randn(40, D), 1 + 0.1 * randn(D)
+    _, rstd = fused_norm.rms_norm_fwd(x, w, eps, return_rstd=True)
+    record("rms_norm_bwd", "micro_train_40", f32, both(zip(
+        fused_norm.rms_norm_bwd(x, w, rstd, dy),
+        norm_ops._rms_norm_bwd_plain(x, w, rstd, dy))))
+    cos, sin = rope_ops.rope_freqs(HD, 128, 10000.0, device=dev)
+    for case, (b, s), pos in (
+            ("micro_train_2x20", (2, 20), None),
+            ("micro_decode_2", (2, 1),
+             torch.tensor([[5], [19]], device=dev))):
+        qkv = randn(b, s, (H + 2 * HKV) * HD)
+        q = qkv[..., :H * HD].view(b, s, H, HD)
+        k = qkv[..., H * HD:(H + HKV) * HD].view(b, s, HKV, HD)
+        for sn, label in ((sin, ""), (-sin, "_bwd")):
+            record("fused_rope", case + label, f32, both(zip(
+                fused_rope.fused_rope(q, k, cos, sn, pos),
+                rope_ops._rope_plain(q, k, cos, sn, pos))))
+    q, k, v, dout = randn(2, 20, H, HD), randn(2, 20, HKV, HD), \
+        randn(2, 20, HKV, HD), randn(2, 20, H, HD)
+    args = (True, HD ** -0.5, None, None, 0.0, 2024)
+    out, lse = flash_attention.flash_fwd(q, k, v, *args)
+    want_out, want_lse = attn_ops._flash_fwd_plain(q, k, v, *args)
+    record("flash_fwd", "micro_train_2x20", f32, flash_compare(
+        torch, [(out, want_out), (lse, want_lse)], f32))
+    delta = (want_out * dout).sum(-1).transpose(1, 2).contiguous()
+    record("flash_bwd", "micro_train_2x20", f32, flash_compare(
+        torch, list(zip(flash_attention.flash_bwd(q, k, v, dout, want_lse,
+                                                  delta, *args),
+                        attn_ops._flash_bwd_plain(q, k, v, dout, want_lse,
+                                                  delta, *args))), f32))
+    for case, (N, Hd) in (("micro_train_40", (40, D)),
+                          ("micro_fused_ce_64", (64, 32))):
+        h, w = randn(N, Hd), 0.1 * randn(Hd, V)
+        labels = torch.randint(0, V, (N,), generator=g, device=dev).to(i32)
+        labels[::7] = -1                              # ignored rows
+        g_lse, g_tgt = randn(N), randn(N)
+        wl, wt = vocab_ce._fwd_plain(h, w, labels)
+        record("vocab_ce_fwd", case, f32, both(zip(
+            kce.vocab_ce_fwd(h, w, labels), (wl, wt))))
+        dlog = torch.empty((N, V), device=dev)
+        kce.vocab_ce_dlog(h, w, labels, wl, g_lse, g_tgt, 0, V, dlog)
+        record("vocab_ce_dlog", case, f32, compare(
+            torch, dlog, vocab_ce._dlog_plain(h, w, labels.long()[:, None],
+                                              wl, g_lse, g_tgt, 0, V)[0],
+            f32))
+        dh, dw = kce.vocab_ce_bwd(h, w, labels, wl, g_lse, g_tgt)
+        wdh, wdw = vocab_ce._bwd_plain(h, w, labels, wl, g_lse, g_tgt)
+        record("vocab_ce_dh", case, f32, compare(torch, dh, wdh, f32))
+        record("vocab_ce_dw", case, f32, compare(torch, dw, wdw, f32))
+    page, mp, B = 8, 8, 2
+    num_pages = B * mp + 1
+    qd = randn(B, H, HD)
+    tables = (torch.randperm(num_pages - 1, generator=g, device=dev)
+              + 1).view(B, mp).to(i32).contiguous()
+    lens = torch.tensor([19, 4], device=dev)
+    kp, vp = randn(HKV, num_pages, page, HD), randn(HKV, num_pages, page, HD)
+    record("paged_decode", "micro_decode_2", f32, flash_compare(torch, [(
+        paged_attention.paged_decode(qd, kp, vp, tables, lens),
+        attn_ops.paged_decode_plain(qd, kp, vp, tables, lens))], f32))
+    kq, ks = quant_pages(torch, g, dev, HKV, num_pages, page, HD)
+    vq, vs = quant_pages(torch, g, dev, HKV, num_pages, page, HD)
+    sc = dict(k_scales=ks, v_scales=vs)
+    record("paged_decode_int8", "micro_decode_2", f32, flash_compare(
+        torch, [(paged_attention.paged_decode(qd, kq, vq, tables, lens, **sc),
+                 attn_ops.paged_decode_plain(qd, kq, vq, tables, lens,
+                                             **sc))], f32))
+    for proj, (n, kk) in {"qkv": ((H + 2 * HKV) * HD, D), "o": (D, H * HD),
+                          "gate_up": (384, D), "down": (D, 192),
+                          "lm_head": (V, D)}.items():
+        wq, scale = weight_quantize(0.02 * randn(kk, n))
+        xm = randn(2, kk)
+        record("int8_matmul", f"micro_decode_{proj}", f32, int8_compare(
+            torch, kmm.int8_matmul(xm, wq, scale),
+            quant_ops.weight_only_plain(xm, wq, scale), f32))
+    sync(torch, dev)
+    return FAILED_CASES[first:]
+
+
+def phase_graph_contracts(torch, dev):
+    """Phase 17(a): every single-process graph of ``analysis.graphs`` on
+    the card at the micro size, with the kernels, checked against the
+    same budget file as the CPU (``graph_lint.check``); each graph with
+    0 host transfers runs once more under set_sync_debug_mode("error").
+    Launch counts reset just before and read just after (the
+    "graph_contracts" path). Then every failure of 17(a)-(c) fails the
+    run. Returns the launches."""
+    from paddle_tpu_torch import analysis as A
+    from paddle_tpu_torch.analysis.graphs import SHARDED
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.tools import graph_lint
+    names = [n for n in A.graph_names() if n not in SHARDED]
+    budgets = A.load_budgets(graph_lint.DEFAULT_BUDGETS)
+    sync(torch, dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    viol, snaps, skipped, reps = graph_lint.check(names, dev, budgets,
+                                                  log=lambda m: None)
+    sync_free = {name: sync_error(torch, dev, g.call)
+                 for name, (g, rep) in reps.items()
+                 if rep.transfers["host_transfer_count"] == 0}
+    launches = dict(_build.LAUNCHES)
+    missing = [k for k in GRAPH_KERNELS if launches.get(k, 0) <= 0]
+    # the same graphs built on the CPU (the plain versions) from the same
+    # seeds: each censused call's outputs held against the card's
+    outputs, out_fails = {}, []
+    for name, (g, _) in reps.items():
+        worst, fails = graph_output_errors(
+            torch, name, g.outputs, A.build_graph(name, "cpu").outputs)
+        outputs[name] = worst
+        out_fails += fails
+    case_fails = micro_kernel_cases(torch, dev)
+    GRAPHS["micro"] = {"snapshots": snaps, "violations":
+                       [v.render() for v in viol], "skipped": skipped,
+                       "sync_free": sync_free, "launches": launches,
+                       "outputs_vs_cpu": outputs,
+                       "seconds": time.perf_counter() - t0}
+    log(f"graph contracts 17(a): {len(reps)} graphs on the card against "
+        f"the CPU's budgets: violations {len(viol)} "
+        f"{[v.rule for v in viol]}; rerun under set_sync_debug_mode"
+        f"('error'): {sync_free}; launches "
+        f"{ {k: launches.get(k, 0) for k in GRAPH_KERNELS} }; outputs "
+        f"against the CPU's (worst a check): {outputs}, failures "
+        f"{out_fails}; micro kernel cases failed: {case_fails} "
+        f"{card_line()}")
+    GRAPHS["fails"] += ([v.render() for v in viol] + [
+        f"17(a) {n}: a host sync: {e}" for n, e in sync_free.items() if e]
+        + [f"17(a): kernels not launched: {missing}"] * bool(missing)
+        + [f"17(a) outputs against the CPU: {f}" for f in out_fails]
+        + [f"17(a) kernel case {c}" for c in case_fails])
+    for need in ("train_8b", "decode_8b", "critical_path"):
+        if need not in GRAPHS:
+            GRAPHS["fails"].append(f"phase 17: the {need} leg did not run")
+    RESULTS["graph_contracts"] = GRAPHS
+    if GRAPHS["fails"]:
+        os.makedirs(ROOT_OUT, exist_ok=True)
+        with open(os.path.join(ROOT_OUT, "chip_smoke.json"), "w") as f:
+            json.dump(RESULTS, f, indent=1, default=str)
+        raise SystemExit(f"graph contracts failed: {GRAPHS['fails']}")
+    return launches
+
+
 def main() -> int:
     if "--client-process" in sys.argv:
         return client_process()
@@ -7769,6 +8175,8 @@ def main() -> int:
     if native_fails:
         raise SystemExit(f"phase 16 checks failed: {native_fails}")
     mark("16 native")
+    graph_launches = phase_graph_contracts(torch, dev)
+    mark("17 graph contracts")
     mesh_paths = {"mesh": mesh_launches,
                   "ring_blocks": RESULTS["mesh"]["ring"]["causal"][
                       "launches"],
@@ -7778,7 +8186,8 @@ def main() -> int:
                   "launcher": launcher_launches, "dist_model": dm_launches,
                   "bench_8b_layer": bench_launches,
                   "apply_plan": plan_launches,
-                  "generation_mesh": generation_mesh_launches}
+                  "generation_mesh": generation_mesh_launches,
+                  "graph_contracts": graph_launches}
     norm_rope_gaps()
     cases = RESULTS["kernel_cases"]
 
@@ -7833,7 +8242,8 @@ def main() -> int:
             # phase 12's mesh steps, virtual ring and vocabulary shards,
             # phase 13's 1F1B pipeline steps and virtual ep pass, phase
             # 14's launched worker, DistModel and bench_8b_layer runs,
-            # phase 15's apply_plan steps, and each path's own count
+            # phase 15's apply_plan steps, phase 17's micro graphs, and
+            # each path's own count
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": max(x["max_abs_err"] for x in cases

@@ -362,6 +362,18 @@ def _db_dispatch_floor(db, kind: str) -> Tuple[float, List[str]]:
     return float(rec.get("dispatch_floor_s", 0.0)), notes
 
 
+def _db_dispatch_per_op(db, kind: str) -> Optional[float]:
+    """The eager port's host floor per dispatched op (the probe's
+    enqueue seconds of its micro step over that step's census op
+    count), when the calibration recorded one."""
+    if db is None:
+        return None
+    from ...ops.kernels.autotune import OpCostDB
+    rec = db.lookup(OpCostDB.graph_key("train_step_k1", kind)) or {}
+    per_op = rec.get("dispatch_floor_per_op_s")
+    return None if per_op is None else float(per_op)
+
+
 def _dot_adjust(db, dots, spec) -> float:
     """Measured-dot correction: each matmul shape the calibration probe
     timed on this device kind replaces its analytical 2mkn ÷ peak."""
@@ -429,7 +441,11 @@ def price_compiled(census, mesh=None, *, spec=None,
     table therefore yields EXACT arithmetic. ``db`` (an ``OpCostDB``)
     supplies the measured dispatch floor when ``dispatch_floor_s`` is
     None, and the measured-dot correction of the census's matmul shapes
-    (as JAX's; the sum is floored at 0 before comm is added).
+    (as JAX's; the sum is floored at 0 before comm is added). An eager
+    step enqueues each op from the host, so where the calibration holds
+    a floor per dispatched op, the floor is that times the priced
+    stage's op count (its ticks included); else the micro step's floor,
+    as JAX adds its one dispatch.
 
     A pipeline record (``pp`` > 1) holds the census of the first and of
     the last stage, each over its M microbatches. A stage's tick is its
@@ -443,9 +459,11 @@ def price_compiled(census, mesh=None, *, spec=None,
                                         price_census)
     spec = spec or device_spec()
     notes: List[str] = []
+    per_op = None
     if dispatch_floor_s is None:
         dispatch_floor_s, db_notes = _db_dispatch_floor(db, spec.kind)
         notes += db_notes
+        per_op = _db_dispatch_per_op(db, spec.kind)
     if collective_floor_s is None:
         collective_floor_s = _collective_floor(spec.kind)
     stages, scale = [], 1.0
@@ -488,6 +506,10 @@ def price_compiled(census, mesh=None, *, spec=None,
         notes.append(f"pipeline: {S} stages, {M} microbatches: "
                      f"{M + S - 1} ticks of the "
                      f"{'last' if i else 'first'} stage")
+    if per_op is not None:
+        dispatch_floor_s = per_op * len(report.ops) * scale
+        notes.append(f"dispatch floor: {per_op:.3e} s an op x "
+                     f"{len(report.ops)} ops")
     return PricedGraph(
         compute_s=compute_s, comm_s=comm_s, collective_floor_s=floor_s,
         dispatch_s=dispatch_floor_s, dot_adjust_s=dot_adjust,

@@ -36,6 +36,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ..analysis.collectives import async_issued, async_waited
 from ..parallel.mesh import HybridMesh, current_mesh
 
 
@@ -164,11 +165,14 @@ class Task:
 
     def __init__(self, work=None, finish=None):
         self._work, self._finish = work, finish
+        # the step census pairs the collective just issued with its wait
+        self._census = async_issued() if work is not None else None
 
     def wait(self) -> bool:
         if self._work is not None:
             self._work.wait()
             self._work = None
+            async_waited(self._census)
         if self._finish is not None:
             self._finish()
             self._finish = None

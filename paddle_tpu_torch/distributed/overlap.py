@@ -53,6 +53,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..analysis.collectives import async_issued, async_waited
+
 KNOBS = ("mp_async_allreduce", "sharding_comm_overlap")
 # set inside serial_reference(): the checks' plain schedule
 _SERIAL = [False]
@@ -159,10 +161,13 @@ class _Work:
 
     def __init__(self, work, i: int):
         self.work, self.i = work, i
+        # the step census pairs the collective just issued with its wait
+        self._census = async_issued() if work is not None else None
 
     def wait(self) -> None:
         if self.work is not None:
             self.work.wait()
+            async_waited(self._census)
         _note("wait", self.i)
 
 

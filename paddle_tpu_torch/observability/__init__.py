@@ -9,8 +9,8 @@ serving and fabric latency percentiles and counters land, with exporters
 and the SLO sentry consuming it, and the request tracer beside it. The
 cost observatory (``observability.costs``: the step census's roofline,
 the OpCostDB and the live step-cost gauges) is imported on its own, as
-in JAX; the tracer's critical-path gauges wait for the HLO-based
-``analysis/`` tools (ROADMAP.md, A.6.4).
+in JAX; the tracer publishes each completed trace's critical path as
+``pt_trace_ttft_frac{hop=...}`` (``analysis.critical_path``).
 
 Zero-cost contract (same discipline as RecordEvent): every instrumented
 call site guards on one registry flag; until :func:`enable` (or an

@@ -13,8 +13,9 @@
    ``pt_hbm_bw_utilization`` / ``pt_step_time_predicted_over_measured``
    through the metrics registry.
 
-The HLO-based tools of ``analysis/`` (critical path, graphs, contracts)
-are ROADMAP.md A.6.4.
+The graph contracts of ``analysis/`` (``contracts``, ``graphs``) price
+their budgets' ``analytical_flops`` with :func:`attribute_costs`, and the
+probe times the registry's graphs (``analysis.graphs``).
 """
 
 from ...analysis.collectives import OpCost

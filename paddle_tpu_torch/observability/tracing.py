@@ -22,7 +22,10 @@ replicas in other processes behind the TCP transport.
 
 Timestamps are ``time.time()`` (wall clock), so spans from processes on
 one host share an axis. Completed traces land in a bounded ring
-(:data:`TRACE_RING`) and, with ``dir``, one JSON line per trace.
+(:data:`TRACE_RING`), with ``dir`` one JSON line per trace, and, while
+the metrics plane is on, as ``pt_trace_ttft_frac{hop=...}`` gauges
+(``analysis.critical_path``'s share of each hop) that the sentry's
+``tracing_rules`` breach on.
 """
 
 from __future__ import annotations
@@ -285,6 +288,25 @@ class Tracer:
                     f.flush()
             except OSError:
                 pass                      # tracing must never kill serving
+        self._publish_gauges(trace)
+
+    def _publish_gauges(self, trace: dict) -> None:
+        """``pt_trace_ttft_frac{hop=...}``: each hop's share of this
+        trace's TTFT (``analysis.critical_path``), which the sentry's
+        ``tracing_rules`` read; only while the metrics plane is on."""
+        from .metrics import REGISTRY as _REG
+        if not _REG.enabled or trace["summary"]["ttft_s"] is None:
+            return
+        from ..analysis.critical_path import attribute_trace
+        try:
+            att = attribute_trace(trace)
+        except (KeyError, TypeError, ValueError):
+            return                        # attribution is advisory
+        g = _REG.gauge("pt_trace_ttft_frac",
+                       "fraction of the last traced request's TTFT "
+                       "attributed to each hop (critical path)")
+        for hop, frac in att.get("ttft_frac", {}).items():
+            g.set(float(frac), hop=str(hop))
 
     # -- consumers -----------------------------------------------------------
 

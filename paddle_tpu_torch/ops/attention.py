@@ -155,11 +155,24 @@ def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens,
     """One-token decode attention over paged pools, native or int8 with
     per-page scales: the CUDA kernel on a CUDA tensor, the plain version
     on a CPU tensor."""
-    if _plain(q):
-        return paged_decode_plain(q, k_pages, v_pages, block_tables,
-                                  seq_lens, scale, k_scales, v_scales)
-    return paged_decode(q, k_pages, v_pages, block_tables, seq_lens, scale,
-                        k_scales, v_scales)
+    name = "paged_decode" if k_scales is None else "paged_decode_int8"
+    with _census(name, _paged_cost, q, k_pages, block_tables) as kern:
+        if _plain(q):
+            return kern.out(paged_decode_plain(
+                q, k_pages, v_pages, block_tables, seq_lens, scale,
+                k_scales, v_scales))
+        return kern.out(paged_decode(q, k_pages, v_pages, block_tables,
+                                     seq_lens, scale, k_scales, v_scales))
+
+
+def _paged_cost(q, k_pages, block_tables):
+    """Flops and bytes of one decode over the tables' capacity (the
+    lengths are on the device: reading them would sync)."""
+    b, h, d = q.shape
+    hk, _, page, _ = k_pages.shape
+    t = block_tables.shape[1] * page
+    kv = 2 * b * hk * t * d * k_pages.element_size()
+    return 4 * b * h * t * d, kv + 2 * q.numel() * q.element_size()
 
 
 # -- the dense decode route and the dense/paged crossover --------------------
@@ -321,7 +334,10 @@ def _flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool, scale: float,
     with dropout p_drop / dp kept and scaled by 1/(1 - dropout_p),
     ds = p * (dp - delta) * scale; dq = ds (cast to k's dtype) . K,
     dv = p_drop^T (cast to dO's dtype) . dO and dk = ds^T (cast to q's
-    dtype) . Q, summed in fp32 over each KV head's query-head group."""
+    dtype) . Q, summed in fp32 over each KV head's query-head group.
+    dq comes back contiguous, as the kernel writes it: the ops after the
+    census's kernel scope (the RoPE backward's ``contiguous``) are then
+    the card's on the CPU too."""
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     s = _masked_scores(q, k, causal, scale, q_seg, kv_seg)
@@ -342,7 +358,7 @@ def _flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool, scale: float,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
     dk = dk.reshape(b, sk, hk, h // hk, d).sum(3).to(k.dtype)
     dv = dv.reshape(b, sk, hk, h // hk, d).sum(3).to(v.dtype)
-    return dq, dk, dv
+    return dq.contiguous(), dk, dv
 
 
 def _flash_cost(q, k, causal: bool, backward: bool):
@@ -372,13 +388,14 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, dropout_p,
                 seed):
-        with _census("flash_fwd", _flash_cost, q, k, causal, False):
+        with _census("flash_fwd", _flash_cost, q, k, causal, False) as kern:
             if _plain(q):
                 out, lse = _flash_fwd_plain(q, k, v, causal, scale, q_seg,
                                             kv_seg, dropout_p, seed)
             else:
                 out, lse = flash_fwd(q, k, v, causal, scale, q_seg, kv_seg,
                                      dropout_p, seed)
+            kern.out(out, lse)
         ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
         ctx.args = (causal, scale, dropout_p, seed)
         return out
@@ -391,12 +408,13 @@ class _FlashAttention(torch.autograd.Function):
         delta = (out.float() * dout.float()).sum(-1).transpose(
             1, 2).contiguous()                                  # [b, h, sq]
         args = (causal, scale, q_seg, kv_seg, dropout_p, seed)
-        with _census("flash_bwd", _flash_cost, q, k, causal, True):
+        with _census("flash_bwd", _flash_cost, q, k, causal, True) as kern:
             if _plain(q):
                 dq, dk, dv = _flash_bwd_plain(q, k, v, dout, lse, delta,
                                               *args)
             else:
                 dq, dk, dv = flash_bwd(q, k, v, dout, lse, delta, *args)
+            kern.out(dq, dk, dv)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -415,10 +433,11 @@ def flash_fwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version on CPU tensors; no gradient is recorded."""
     q_seg, kv_seg = _segments((q_seg, kv_seg) if q_seg is not None
                               else None)
-    with _census("flash_fwd", _flash_cost, q, k, causal, False):
+    with _census("flash_fwd", _flash_cost, q, k, causal, False) as kern:
         if _plain(q):
-            return _flash_fwd_plain(q, k, v, causal, scale, q_seg, kv_seg)
-        return flash_fwd(q, k, v, causal, scale, q_seg, kv_seg)
+            return kern.out(*_flash_fwd_plain(q, k, v, causal, scale, q_seg,
+                                              kv_seg))
+        return kern.out(*flash_fwd(q, k, v, causal, scale, q_seg, kv_seg))
 
 
 def flash_bwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -441,12 +460,12 @@ def flash_bwd_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         delta = (out.float() * dout.float()).sum(-1).transpose(
             1, 2).contiguous()
     lse = lse.contiguous()
-    with _census("flash_bwd", _flash_cost, q, k, causal, True):
+    with _census("flash_bwd", _flash_cost, q, k, causal, True) as kern:
         if _plain(q):
-            return _flash_bwd_plain(q, k, v, dout, lse, delta, causal,
-                                    scale, q_seg, kv_seg)
-        return flash_bwd(q, k, v, dout, lse, delta, causal, scale, q_seg,
-                         kv_seg)
+            return kern.out(*_flash_bwd_plain(q, k, v, dout, lse, delta,
+                                              causal, scale, q_seg, kv_seg))
+        return kern.out(*flash_bwd(q, k, v, dout, lse, delta, causal, scale,
+                                   q_seg, kv_seg))
 
 
 def _segments(segment_ids):

@@ -110,22 +110,24 @@ class _GroupedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs, w, group_sizes, cast):
         out_dtype = xs.dtype if cast else torch.float32
-        with _census("grouped_matmul", _fwd_cost, xs, w, out_dtype):
+        with _census("grouped_matmul", _fwd_cost, xs, w, out_dtype) as k:
             if _plain(xs):
                 ends = None
                 y = grouped_matmul_plain(xs, w, group_sizes).to(out_dtype)
             else:
                 ends = kgm.group_ends(group_sizes)
                 y = kgm.grouped_matmul(xs, w, ends, out_dtype=out_dtype)
+            k.out(y)
         ctx.save_for_backward(xs, w, group_sizes, ends)
         return y
 
     @staticmethod
     def backward(ctx, gy):
         xs, w, group_sizes, ends = ctx.saved_tensors
-        with _census("grouped_matmul_bwd", _bwd_cost, xs, w, gy):
+        with _census("grouped_matmul_bwd", _bwd_cost, xs, w, gy) as k:
             dx, dw = _backward(xs, w, group_sizes, ends, gy,
                                ctx.needs_input_grad)
+            k.out(*(t for t in (dx, dw) if t is not None))
         return dx, dw, None, None
 
 

@@ -73,23 +73,25 @@ class _RMSNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, epsilon):
-        with _census("rms_norm", _fwd_cost, x, weight):
+        with _census("rms_norm", _fwd_cost, x, weight) as k:
             if _plain(x):
                 y, rstd = _rms_norm_fwd_plain(x, weight, epsilon)
             else:
                 x = x.contiguous()
                 y, rstd = rms_norm_fwd(x, weight, epsilon, return_rstd=True)
+            k.out(y, rstd)
         ctx.save_for_backward(x, weight, rstd)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         x, weight, rstd = ctx.saved_tensors
-        with _census("rms_norm_bwd", _bwd_cost, x, weight):
+        with _census("rms_norm_bwd", _bwd_cost, x, weight) as k:
             if _plain(x):
                 dx, dw = _rms_norm_bwd_plain(x, weight, rstd, dy)
             else:
                 dx, dw = rms_norm_bwd(x, weight, rstd, dy.contiguous())
+            k.out(dx, dw)
         return dx, dw, None
 
 
@@ -100,10 +102,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     through :class:`_RMSNorm`; otherwise straight to the forward."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _RMSNorm.apply(x, weight, epsilon)
-    with _census("rms_norm", _fwd_cost, x, weight):
+    with _census("rms_norm", _fwd_cost, x, weight) as k:
         if _plain(x):
-            return _rms_norm_plain(x, weight, epsilon)
-        return rms_norm_fwd(x.contiguous(), weight, epsilon)[0]
+            return k.out(_rms_norm_plain(x, weight, epsilon))
+        return k.out(rms_norm_fwd(x.contiguous(), weight, epsilon)[0])
 
 
 __all__ = ["rms_norm"]

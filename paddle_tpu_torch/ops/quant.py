@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.collectives import kernel as _census
 from .kernels.int8_matmul import int8_matmul
 
 
@@ -31,11 +32,18 @@ def quantized_matmul(x: torch.Tensor, wq: torch.Tensor,
     """x float [..., k] · int8 wq [n, k] with per-channel fp32 ``scale``
     [n] → [..., n] in x's dtype. Leading dimensions are flattened to the
     kernel's m (any m, ragged included)."""
-    if x.device.type == "cpu":
-        return weight_only_plain(x, wq, scale)
-    lead, k = x.shape[:-1], x.shape[-1]
-    y = int8_matmul(x.reshape(-1, k).contiguous(), wq, scale)
-    return y.reshape(*lead, wq.shape[0])
+    with _census("int8_matmul", _cost, x, wq) as kern:
+        if x.device.type == "cpu":
+            return kern.out(weight_only_plain(x, wq, scale))
+        lead, k = x.shape[:-1], x.shape[-1]
+        y = int8_matmul(x.reshape(-1, k).contiguous(), wq, scale)
+        return kern.out(y.reshape(*lead, wq.shape[0]))
+
+
+def _cost(x, wq):
+    n, k = wq.shape
+    m = x.numel() // k
+    return 2 * m * n * k, (m * k + m * n) * x.element_size() + n * k + 4 * n
 
 
 __all__ = ["weight_only_plain", "quantized_matmul"]

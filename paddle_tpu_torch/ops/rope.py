@@ -66,10 +66,10 @@ def _rope(q, k, cos, sin, position_ids):
     """The forward rotation: the kernel on CUDA, the plain version on the
     CPU (and on the meta device). ``position_ids`` is int64 [b, s] or
     None."""
-    with _census("fused_rope", _cost, q, k):
+    with _census("fused_rope", _cost, q, k) as kern:
         if _plain(q):
-            return _rope_plain(q, k, cos, sin, position_ids)
-        return fused_rope(q, k, cos, sin, position_ids)
+            return kern.out(*_rope_plain(q, k, cos, sin, position_ids))
+        return kern.out(*fused_rope(q, k, cos, sin, position_ids))
 
 
 class _Rope(torch.autograd.Function):

@@ -114,13 +114,14 @@ class _LseAndTarget(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, w, labels, block_v):
-        with _census("vocab_ce_fwd", _fwd_cost, h, w):
+        with _census("vocab_ce_fwd", _fwd_cost, h, w) as k:
             if _plain(h):
                 lse, tgt = _fwd_plain(h, w, labels, block_v)
             else:
                 h, w = h.contiguous(), w.contiguous()
                 labels = labels.to(torch.int32).contiguous()
                 lse, tgt = vocab_ce_fwd(h, w, labels)
+            k.out(lse, tgt)
         ctx.save_for_backward(h, w, labels, lse)
         ctx.block_v = block_v
         return lse, tgt
@@ -129,13 +130,16 @@ class _LseAndTarget(torch.autograd.Function):
     def backward(ctx, g_lse, g_tgt):
         h, w, labels, lse = ctx.saved_tensors
         g_lse, g_tgt = g_lse.float().contiguous(), g_tgt.float().contiguous()
-        with _census("vocab_ce_bwd", _bwd_cost, h, w):
+        with _census("vocab_ce_bwd", _bwd_cost, h, w) as k:
             if _plain(h):
                 dh, dw = _bwd_plain(h, w, labels, lse, g_lse, g_tgt,
                                     ctx.block_v)
             else:
                 dh, dw = vocab_ce_bwd(h, w, labels, lse, g_lse, g_tgt,
                                       *ctx.needs_input_grad[:2])
+            # what the kernels write: the gradients autograd asked for
+            k.out(*(t for t, need in zip((dh, dw), ctx.needs_input_grad)
+                    if need))
         return dh, dw, None, None
 
 
@@ -148,6 +152,7 @@ def lse_and_target(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     contributing 0 to tgt. ``block_v`` is the plain versions' vocabulary
     block (default :data:`PLAIN_BLOCK_V`); the CUDA kernels choose their
     own tiles."""
+    # trace-lint: waive(host-sync) block_v is a Python int (or None)
     return _LseAndTarget.apply(h, w, labels, int(block_v or PLAIN_BLOCK_V))
 
 
@@ -168,6 +173,7 @@ def fused_linear_cross_entropy(hidden: torch.Tensor, w: torch.Tensor,
     tensors' device chooses kernels or plain versions, so ``block_n``,
     ``impl`` (checked against the JAX package's names) and ``interpret``
     change nothing; ``block_v`` sets the plain versions' block."""
+    # trace-lint: waive(nonstatic-branch) impl is a Python string or None
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     if reduction not in ("mean", "sum", "none"):

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -271,8 +272,7 @@ def _bias_correction(beta: float, step: int) -> float:
     """``1 - beta ** t`` in fp32 from the step counter, as
     ``step.astype(float32)`` and ``beta ** t`` are in JAX (exact as a
     Python float)."""
-    t = torch.tensor(float(step), dtype=torch.float32)
-    return float(1 - torch.pow(torch.tensor(beta, dtype=torch.float32), t))
+    return float(np.float32(1) - np.float32(beta) ** np.float32(step))
 
 
 class SGD(Optimizer):
@@ -381,7 +381,7 @@ class Adamax(Optimizer):
         m, u = slots["m"], slots["u"]
         m.mul_(self.beta1).add_(g32 * (1 - self.beta1))
         torch.maximum(u.mul_(self.beta2), g32.abs(), out=u)
-        lr32 = float(torch.tensor(lr, dtype=torch.float32))
+        lr32 = float(np.float32(lr))
         coef = lr32 / _bias_correction(self.beta1, step)
         p32.sub_((m * coef).div_(u + self.epsilon))
 

@@ -14,9 +14,13 @@ Three entry points:
   stream completes exactly, the slow client is evicted (and its
   capacity reused), the hung replica trips/fails-over/readmits, and
   admitted p99 TTFT stays under the ``frontdoor_rules()`` ceiling.
-  The wave runs traced and its stitched traces must carry every hop's
-  spans; the JAX tool's critical-path attribution of TTFT to hops
-  (``analysis/critical_path.py``) is not ported (ROADMAP.md, A.6.4).
+  The wave runs traced: its stitched traces must carry every hop's
+  spans, and ``analysis.critical_path`` must attribute at least 95% of
+  every traced request's TTFT to named hops (JAX's acceptance bound
+  holds for its best trace; here for each). The per-hop table and the
+  worst trace's span tree go to stderr.
+* ``trace_overhead_legs()`` — wall time of one fabric wave with request
+  tracing on against off, interleaved, the minimum over rounds.
 * ``overload_leg()`` — offered load at a multiple of pool capacity,
   shed ladder on vs off; goodput = deadline-met tokens per second.
   The shed-off leg admits everything and burns slot-time on requests
@@ -318,8 +322,10 @@ def smoke(ttft_ceiling_s: float = 30.0, device=None) -> dict:
 
         # distributed tracing: the wave must leave complete stitched
         # traces — frontdoor accept through replica prefill/decode to
-        # stream drain
+        # stream drain — with >= 95% of each request's TTFT attributed
+        # to NAMED hops
         traces = TRACER.recent_traces()
+        named = attributed_shares(traces)
         if not traces:
             errors.append("tracing produced no complete traces")
         else:
@@ -333,6 +339,12 @@ def smoke(ttft_ceiling_s: float = 30.0, device=None) -> dict:
                          "frontdoor::drain"):
                 if not any(n.startswith(pref) for n in names):
                     errors.append(f"stitched trace missing {pref} spans")
+            low = {t: f for t, f in named.items() if f < NAMED_FLOOR}
+            if not named or low:
+                errors.append(f"TTFT attribution under {NAMED_FLOOR} "
+                              f"named for {len(low)} of {len(named)} "
+                              f"traced requests: {low}")
+            print(trace_table(traces), file=sys.stderr)
 
         summary = {
             "ok": not errors,
@@ -346,6 +358,8 @@ def smoke(ttft_ceiling_s: float = 30.0, device=None) -> dict:
             "ttft_p99_s": round(lat.get("ttft_p99_s", 0.0), 4),
             "ttft_ceiling_s": ttft_ceiling_s,
             "traces": len(traces),
+            "trace_ttft_named_frac_min": (round(min(named.values()), 4)
+                                          if named else None),
             "errors": errors,
         }
     finally:
@@ -353,6 +367,85 @@ def smoke(ttft_ceiling_s: float = 30.0, device=None) -> dict:
         TRACER.disable()
         REGISTRY.enabled = was_enabled
     return summary
+
+
+# -- critical path -----------------------------------------------------------
+
+#: the least share of a traced request's TTFT that named hops must own
+NAMED_FLOOR = 0.95
+
+
+def attributed_shares(traces) -> dict:
+    """trace id -> the share of its TTFT on named hops (1 - untracked),
+    for every trace with a measured TTFT."""
+    from paddle_tpu_torch.analysis import critical_path as cp
+    out = {}
+    for t in traces:
+        att = cp.attribute_trace(t)
+        if att["ttft_s"]:
+            out[att["trace_id"]] = 1.0 - att["ttft_frac"].get(
+                "untracked", 0.0)
+    return out
+
+
+def trace_table(traces) -> str:
+    """The per-hop TTFT table and the worst trace's span tree."""
+    from paddle_tpu_torch.analysis import critical_path as cp
+    worst = max(traces, key=lambda t: t["summary"].get("ttft_s") or 0.0)
+    return (cp.format_table(cp.aggregate(traces)) + "\n\n"
+            + cp.format_span_tree(worst))
+
+
+def trace_overhead_legs(model, *, rounds: int = 3, n_requests: int = 6,
+                        max_new: int = 8, seed: int = 13, **replica_kw
+                        ) -> dict:
+    """Wall time of one fabric wave with request tracing ON vs OFF,
+    interleaved, the minimum of ``rounds`` on the SAME warmed fabric.
+    The ratio prices the span machinery end to end — router queue /
+    route / submit spans, engine queue / resident / prefill / decode
+    spans — against the disabled path's attribute-load-plus-branch
+    contract. ``replica_kw`` overrides the replicas' page size, length
+    and batch (the tiny model's: 8, 96, 2)."""
+    from paddle_tpu_torch.inference.generation import GenerationConfig
+    from paddle_tpu_torch.observability.tracing import TRACER
+    from paddle_tpu_torch.serving_fabric import (InProcTransport,
+                                                 ServingFabric,
+                                                 build_replicas)
+    kw = {"page_size": 8, "max_len": 96, "max_batch": 2, **replica_kw}
+    reps = build_replicas(
+        model, 2, names=["tro0", "tro1"],
+        generation_config=GenerationConfig(max_new_tokens=max_new,
+                                           do_sample=False), **kw)
+    fab = ServingFabric(InProcTransport(reps), policy="round-robin")
+    prompts = _prompts(n_requests, seed=seed)
+
+    def wave():
+        fids = [fab.submit(p, max_new) for p in prompts]
+        got = fab.run()
+        assert all(len(got[f]) == max_new for f in fids)
+
+    was = TRACER.enabled
+    wave()                                    # warm every path once
+    legs = {"off": float("inf"), "on": float("inf")}
+    n_traces = 0
+    try:
+        for _ in range(rounds):
+            TRACER.disable()
+            t0 = time.perf_counter()
+            wave()
+            legs["off"] = min(legs["off"], time.perf_counter() - t0)
+            TRACER.enable()
+            t0 = time.perf_counter()
+            wave()
+            legs["on"] = min(legs["on"], time.perf_counter() - t0)
+            n_traces += len(TRACER.take_completed())
+    finally:
+        TRACER.disable()
+        if was:
+            TRACER.enable()
+    return {"wall_on_s": legs["on"], "wall_off_s": legs["off"],
+            "ratio": legs["on"] / max(legs["off"], 1e-9),
+            "traces": n_traces}
 
 
 # -- load legs ---------------------------------------------------------------

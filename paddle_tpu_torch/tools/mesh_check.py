@@ -39,6 +39,11 @@ on its own device, bit for bit (:func:`run_generate`); on the cards the
 legs count the RMSNorm, RoPE and paged decode launches of the sharded
 calls.
 
+The graph-contract leg (:data:`GRAPHS`, ``graph_contracts``) builds the
+four sharded graphs of ``analysis.graphs`` and checks them against the
+checked-in budgets, whose collective counts were pinned by the gloo
+run on the CPU (:func:`run_graphs`).
+
 Rank 0 prints one JSON line a layout: the loss, the reference's, the
 largest relative L2 distance of a parameter's update from the
 reference's (:func:`update_errors`), and whether both lie within
@@ -347,6 +352,41 @@ def run(layouts, preset: str, s: int, device):
     return results
 
 
+# the graph-contract leg: the four sharded graphs of analysis.graphs
+GRAPHS = "graph_contracts"
+
+
+def run_graphs(device):
+    """The four sharded graphs of ``analysis.graphs`` (``tp_fused_ce``,
+    ``planner``, ``train_step_fsdp``, ``train_step_moe_ep``) on this
+    world of 4 ranks, against the checked-in budgets (pinned from the
+    CPU's gloo run): each contract, each budget (its collective counts
+    exact) and, on the cards, the kernels the graphs launched on this
+    rank."""
+    from paddle_tpu_torch import analysis as A
+    from paddle_tpu_torch.analysis.graphs import SHARDED
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.tools import graph_lint
+    budgets = A.load_budgets(graph_lint.DEFAULT_BUDGETS)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    viol, snaps, skipped, _ = graph_lint.check(SHARDED, device, budgets,
+                                               log=lambda m: None)
+    pinned = {n: budgets["graphs"][n]["budget"]["collective_counts"]
+              for n in SHARDED}
+    return [{"layout": GRAPHS, "world": dist.get_world_size(),
+             "backend": dist.get_backend(),
+             "counts": {n: s["collective_counts"] for n, s in snaps.items()},
+             "equal_gloo_counts": {n: snaps[n]["collective_counts"]
+                                   == pinned[n] for n in snaps},
+             "host_transfers": {n: s["host_transfer_count"]
+                                for n, s in snaps.items()},
+             "violations": [v.render() for v in viol], "skipped": skipped,
+             "launches": {k: v for k, v in _build.LAUNCHES.items() if v},
+             "seconds": time.perf_counter() - t0,
+             "ok": not viol and not skipped and len(snaps) == len(SHARDED)}]
+
+
 # the timed layouts: mesh degrees at Llama-3-8B widths, 2 layers
 TIMED = {"tp4_8b": {"tp": 4}, "dp4_8b": {"dp": 4}}
 TIMED_TOKENS = (4, 4096)       # the global batch: rows x sequence
@@ -473,13 +513,17 @@ def main(argv=None) -> int:
     device = (torch.device("cuda", torch.cuda.current_device())
               if args.device == "cuda" else torch.device("cpu"))
     rank = dist.get_rank()
-    layouts = (args.layouts or ",".join([*LAYOUTS, *GENERATE])).split(",")
+    layouts = (args.layouts or ",".join([*LAYOUTS, *GENERATE, GRAPHS])
+               ).split(",")
     extra = []
     try:
-        results = run([x for x in layouts if x not in GENERATE], "small",
-                      256, device)
+        results = run([x for x in layouts
+                       if x not in GENERATE and x != GRAPHS], "small", 256,
+                      device)
         results += run_generate([x for x in layouts if x in GENERATE],
                                 device)
+        if GRAPHS in layouts:
+            results += run_graphs(device)
         if rank == 0:
             for r in results:
                 print(json.dumps(r), flush=True)

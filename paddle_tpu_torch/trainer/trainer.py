@@ -325,6 +325,7 @@ class Trainer:
         A = self.accumulate_steps
         plan = self._plan
         if plan is not None and not getattr(batch, "is_local", False):
+            # trace-lint: waive(host-sync) A is the Python accumulate count
             batch = plan.local_batch(batch, lead=int(A > 1))
         if A == 1:
             self._arm(A)
@@ -372,10 +373,12 @@ class Trainer:
         self._adopt_offload_flag()
         if self._watchdog is not None:
             self._watchdog.tick()
+        # trace-lint: waive(host-time) dispatch_host_s is the enqueue's time
         t0 = time.perf_counter()
         with RecordEvent("trainer::dispatch"), self._step_census(batches):
             losses = [self._one_step(b) for b in batches]
         self.dispatch_stats["dispatches"] += 1
+        # trace-lint: waive(host-time) dispatch_host_s is the enqueue's time
         self.dispatch_stats["dispatch_host_s"] += time.perf_counter() - t0
         return losses
 

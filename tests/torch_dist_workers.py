@@ -975,6 +975,51 @@ def sc_generate(inp, args):
     return out
 
 
+def sc_graph_contracts(inp, args):
+    """The four sharded graphs of ``analysis.graphs`` on this rank,
+    checked against the checked-in budgets (``graph_lint.check``), and
+    the planted faults: one more tp all-reduce in the vocab-parallel CE
+    head, the planner's step emitted through a drifted (dp4) plan, and
+    the dropless ep step's host reads (D18). Everything as JSON text."""
+    import torch
+    from paddle_tpu_torch import analysis as A
+    from paddle_tpu_torch.analysis import graphs as G
+    from paddle_tpu_torch.distributed.auto_parallel import (
+        ParallelConfig, plan_for_config)
+    from paddle_tpu_torch.models.moe_lm import MoEForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.tools import graph_lint
+    from paddle_tpu_torch.trainer import Trainer
+    budgets = A.load_budgets(graph_lint.DEFAULT_BUDGETS)
+    viol, snaps, skipped, reps = graph_lint.check(
+        G.SHARDED, "cpu", budgets, log=lambda m: None)
+    out = {"violations": [v.render() for v in viol], "snapshots": snaps,
+           "skipped": skipped,
+           "tp_ops": [c.op_name for c in
+                      reps["tp_fused_ce"][1].collectives["table"]]}
+
+    def rules(g):
+        rep = A.analyze(g.census, g.name, g.contract, mesh=g.mesh)
+        return [(v.rule, v.lines) for v in A.check_contract(g.contract,
+                                                             rep)]
+    out["extra_all_reduce"] = rules(G.build_tp_fused_ce(
+        "cpu", extra_all_reduce=True))
+    out["drifted_plan"] = rules(G.build_planner(
+        "cpu", drift_to="dp4_tp1_pp1_sep1"))
+    cfg = G.moe_micro_cfg(capacity_factor=None)
+    model = MoEForCausalLM(cfg, device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    tr = Trainer(model, AdamW(learning_rate=1e-3, parameters=model))
+    hm = tr.apply_plan(plan_for_config(cfg, ParallelConfig(dp=4, ep=2)),
+                       devices="cpu")
+    batch = G._batch(torch.device("cpu"), b=4, s=32)
+    with hm:
+        c, _ = G._census(torch.device("cpu"),
+                         lambda: tr.train_step(batch), None)
+    out["dropless_syncs"] = [h.describe() for h in c.host_syncs]
+    return {"results": np.asarray(json.dumps(out))}
+
+
 SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "collectives": sc_collectives, "reshard": sc_reshard,
              "tp_layers": sc_tp_layers, "sp_attention": sc_sp_attention,
@@ -983,7 +1028,8 @@ SCENARIOS = {"train": sc_train, "shards": sc_shards, "specs": sc_specs,
              "moe_layer": sc_moe_layer, "overlap": sc_overlap,
              "fleet_overlap": sc_fleet_overlap, "plan_state": sc_plan_state,
              "zero1": sc_zero1, "generate": sc_generate,
-             "mesh_generate": sc_mesh_generate}
+             "mesh_generate": sc_mesh_generate,
+             "graph_contracts": sc_graph_contracts}
 
 
 def torn_save(tmp: str, rank: int) -> None:
